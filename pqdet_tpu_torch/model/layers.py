@@ -1,0 +1,180 @@
+"""Functional PyTorch layers for the graph walk (inference).
+
+The port of ``pqdet_tpu/model/layers.py``. Public functions keep the JAX
+package's NHWC layout, so the tests compare like with like; inside, a
+tensor is handed to ``torch.nn.functional`` as an NCHW view with
+``channels_last`` strides (``x.permute(0, 3, 1, 2)`` of an NHWC-contiguous
+tensor), which costs no copy. Conv weights are OIHW, PyTorch's layout
+(the JAX package keeps HWIO; ``bridge.py`` converts).
+
+Initialisation matches torch defaults (kaiming-uniform fan_in for conv and
+linear weights, uniform bound 1/sqrt(fan_in) for biases), drawn from an
+explicit ``torch.Generator``. Train-mode batch norm and dropout come with
+the training slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+BN_EPS = 1e-5       # torch nn.BatchNorm2d default
+
+LATER_TRAINING = 'training comes in a later slice of the port'
+
+
+# ----------------------------------------------------------------- activations
+
+def mish(x):
+    return x * torch.tanh(F.softplus(x))
+
+
+ACTIVATION_FNS = {
+    'logistic': torch.sigmoid,
+    'leaky': lambda x: F.leaky_relu(x, 0.1),
+    'relu': torch.relu,
+    'relu6': lambda x: torch.clamp(x, 0.0, 6.0),
+    'tanh': torch.tanh,
+    'mish': mish,
+    'linear': lambda x: x,
+}
+
+
+def apply_activation(name: str, x):
+    return ACTIVATION_FNS[name](x)
+
+
+# ------------------------------------------------------------- initialisation
+
+def _uniform(gen: torch.Generator, shape, bound: float) -> torch.Tensor:
+    return (torch.rand(shape, generator=gen, dtype=torch.float32) * 2.0 - 1.0) * bound
+
+
+def init_conv(gen: torch.Generator, in_channels: int, out_channels: int,
+              size: int, groups: int = 1, bias: bool = True) -> dict:
+    """Conv kernel in OIHW layout: (out, in/groups, size, size)."""
+    fan_in = (in_channels // groups) * size * size
+    # torch kaiming_uniform_ with a=sqrt(5): gain = sqrt(1/3)
+    bound = math.sqrt(1.0 / 3.0) * math.sqrt(3.0 / fan_in)
+    params = {'w': _uniform(gen, (out_channels, in_channels // groups, size, size), bound)}
+    if bias:
+        params['b'] = _uniform(gen, (out_channels,), 1.0 / math.sqrt(fan_in))
+    return params
+
+
+def init_bn(num_features: int) -> Tuple[dict, dict]:
+    params = {'gamma': torch.ones(num_features), 'beta': torch.zeros(num_features)}
+    state = {'mean': torch.zeros(num_features), 'var': torch.ones(num_features)}
+    return params, state
+
+
+def init_linear(gen: torch.Generator, in_features: int, out_features: int) -> dict:
+    """Linear weights in torch layout (out, in)."""
+    bound = math.sqrt(1.0 / 3.0) * math.sqrt(3.0 / in_features)
+    return {'w': _uniform(gen, (out_features, in_features), bound),
+            'b': _uniform(gen, (out_features,), 1.0 / math.sqrt(in_features))}
+
+
+# ------------------------------------------------------------------ forwards
+
+def _nchw(x):
+    """NHWC tensor -> NCHW view (channels_last strides, no copy)."""
+    return x.permute(0, 3, 1, 2)
+
+
+def _nhwc(x):
+    return x.permute(0, 2, 3, 1)
+
+
+def conv2d(x, w, b=None, stride: int = 1, padding: int = 0, groups: int = 1,
+           compute_dtype: Optional[torch.dtype] = None):
+    """2-D convolution, NHWC x OIHW -> NHWC.
+
+    A grouped conv whose weights are already block-diagonal DENSE (the JAX
+    package's ``densify_grouped_convs`` inference form) runs as one dense
+    conv. Without ``compute_dtype`` the conv runs in f32; with it, inputs
+    and weights are cast and the output stays in that dtype (cuDNN
+    accumulates in f32 internally), the bias added in the output dtype.
+    """
+    if groups > 1 and w.shape[1] == x.shape[-1]:
+        groups = 1
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+        w = w.to(compute_dtype)
+    else:
+        x = x.float()
+        w = w.float()
+    xc = _nchw(x)
+    if not xc.is_contiguous(memory_format=torch.channels_last):
+        xc = xc.contiguous(memory_format=torch.channels_last)
+    out = _nhwc(F.conv2d(xc, w, None, stride, padding, 1, groups))
+    if b is not None:
+        out = out + b.to(out.dtype)
+    return out.contiguous()
+
+
+def batch_norm(x, params, state, train: bool = False):
+    """Eval-mode BatchNorm over NHWC with running statistics; returns
+    (y, state)."""
+    if train:
+        raise NotImplementedError(f'train-mode batch norm: {LATER_TRAINING}')
+    inv = torch.rsqrt(state['var'] + BN_EPS) * params['gamma']
+    y = (x - state['mean'].to(x.dtype)) * inv.to(x.dtype) + params['beta'].to(x.dtype)
+    return y, state
+
+
+def fold_bn_into_conv(conv_params: dict, bn_params: dict, bn_state: dict) -> dict:
+    """Fold inference-mode BN into the OIHW conv weights and bias."""
+    w = conv_params['w']
+    scale = bn_params['gamma'] / torch.sqrt(bn_state['var'] + BN_EPS)
+    new_w = w * scale[:, None, None, None]
+    b = conv_params.get('b')
+    if b is None:
+        b = torch.zeros(w.shape[0], dtype=w.dtype, device=w.device)
+    new_b = (b - bn_state['mean']) * scale + bn_params['beta']
+    return {'w': new_w, 'b': new_b}
+
+
+def max_pool(x, size: int, stride: int, padding: int):
+    """NHWC max pool. Padding uses -inf so padded cells never win (any
+    padding width, unlike ``F.max_pool2d``'s own limit of size/2)."""
+    xc = _nchw(x)
+    if padding:
+        xc = F.pad(xc, (padding,) * 4, value=float('-inf'))
+    return _nhwc(F.max_pool2d(xc, size, stride)).contiguous()
+
+
+def adaptive_avg_pool(x, out_h: int, out_w: int):
+    """AdaptiveAvgPool2d with torch's bucket edges, on NHWC."""
+    n, h, w, c = x.shape
+    if (out_h, out_w) == (1, 1):
+        return x.mean(dim=(1, 2), keepdim=True)
+    if h % out_h == 0 and w % out_w == 0:
+        kh, kw = h // out_h, w // out_w
+        return _nhwc(F.avg_pool2d(_nchw(x), (kh, kw), (kh, kw))).contiguous()
+    ys = [(math.floor(i * h / out_h), math.ceil((i + 1) * h / out_h)) for i in range(out_h)]
+    xs = [(math.floor(j * w / out_w), math.ceil((j + 1) * w / out_w)) for j in range(out_w)]
+    rows = [torch.stack([x[:, y0:y1, x0:x1, :].mean(dim=(1, 2)) for x0, x1 in xs], dim=1)
+            for y0, y1 in ys]
+    return torch.stack(rows, dim=1)
+
+
+def upsample_nearest(x, factor: int):
+    """Nearest-neighbour upsample of NHWC by broadcast and reshape."""
+    n, h, w, c = x.shape
+    x = x[:, :, None, :, None, :].expand(n, h, factor, w, factor, c)
+    return x.reshape(n, h * factor, w * factor, c)
+
+
+def linear(x, params):
+    return F.linear(x, params['w'], params['b'])
+
+
+def dropout(x, rate: float, train: bool = False):
+    """Identity at inference."""
+    if train and rate:
+        raise NotImplementedError(f'train-mode dropout: {LATER_TRAINING}')
+    return x

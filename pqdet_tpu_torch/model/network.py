@@ -1,0 +1,222 @@
+"""Network = Graph + an inference walk over plain parameter dicts.
+
+The port of ``pqdet_tpu/model/network.py`` (inference). Parameters and BN
+statistics are plain dicts of tensors keyed like the JAX pytrees,
+``params[str(i)]`` / ``state[str(i)]`` for graph node ``i``, with conv
+weights in OIHW, so weights cross 1:1 (``bridge.py``). A conv node whose
+params hold no ``'bn'`` entry is BN-folded (the fused inference form).
+
+The walk runs eagerly and drops each cached activation as soon as its
+last consumer has run (graph liveness). With a fused-IR table it replaces
+each [1x1 expand] -> [dw3x3] -> [1x1 project] chain by one CUDA kernel
+launch; every yolo head goes through the Triton decode kernel. On CPU
+tensors both wrappers run their plain versions; ``plain=True`` asks for
+the plain versions on any device (the baseline ``chip_smoke.py`` holds
+the kernels to).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from pqdet_tpu_torch import resolve_device
+from pqdet_tpu_torch.model import layers as L
+from pqdet_tpu_torch.model.decode import decode
+from pqdet_tpu_torch.model.graph import Graph, solve_padding
+from pqdet_tpu_torch.ops.decode_kernel import decode_head
+from pqdet_tpu_torch.ops.fused_ir import fused_ir_conv, fused_ir_reference
+
+# options of the JAX apply that belong to later slices of the port
+LATER_SLICES = {
+    'targets': 'training', 'train': 'training', 'rng': 'training',
+    'remat_segments': 'training', 'tap': 'training',
+    'quant_ctx': 'the int8/QAT slice', 's2d_stem': 'the space-to-depth slice',
+}
+
+
+def _refuse_later(options: dict):
+    for name, value in options.items():
+        if name not in LATER_SLICES:
+            raise TypeError(f'unexpected keyword argument {name!r}')
+        if value:
+            raise NotImplementedError(
+                f'{name}={value!r}: {LATER_SLICES[name]} comes in a later slice '
+                'of the port')
+
+
+class Network(nn.Module):
+    """Graph executor over plain parameter dicts."""
+
+    def __init__(self, graph: Graph):
+        super().__init__()
+        self.graph = graph
+
+    @classmethod
+    def from_cfg(cls, cfg, quant: bool = False) -> 'Network':
+        if quant:
+            raise NotImplementedError('quant graphs: the int8/QAT slice comes '
+                                      'in a later slice of the port')
+        return cls(Graph.from_cfg(cfg))
+
+    def init(self, gen: torch.Generator, device='cuda') -> Tuple[Dict, Dict]:
+        """Random parameters and BN state from ``gen`` (a CPU generator, so
+        the numbers do not depend on the device), placed on ``device``."""
+        dev = resolve_device(device)
+        params: Dict[str, dict] = {}
+        state: Dict[str, dict] = {}
+        for node in self.graph.nodes:
+            if node.kind == 'convolutional':
+                a = node.attrs
+                p = L.init_conv(gen, node.in_channels, a['filters'], a['size'],
+                                groups=a['groups'], bias=not node.has_bn)
+                if node.has_bn:
+                    p['bn'], state[str(node.index)] = L.init_bn(a['filters'])
+                params[str(node.index)] = p
+            elif node.kind == 'fc':
+                a = node.attrs
+                params[str(node.index)] = L.init_linear(gen, a['input'], a['output'])
+        return to_device(params, dev), to_device(state, dev)
+
+    def forward(self, params: Dict, state: Dict, x: torch.Tensor,
+                compute_dtype: Optional[torch.dtype] = None,
+                fused_ir: Optional[Dict] = None, plain: bool = False,
+                **later):
+        """Run the graph on NHWC ``x``. Returns the list of decoded yolo
+        heads, each (B, H, W, A, 5+C) f32, or the final activation when the
+        graph has no yolo head.
+
+        ``compute_dtype`` (e.g. bf16) is the dtype carried between nodes;
+        ``fused_ir`` is the table of ``ops.fused_ir.prepare_fused_ir`` on
+        BN-fused params; ``plain`` runs the kernels' plain versions."""
+        _refuse_later(later)
+        x, outputs = self._walk(params, state, x, compute_dtype, fused_ir, plain)
+        return outputs if outputs else x
+
+    def _walk(self, params, state, x, compute_dtype, fused_ir, plain):
+        cache: Dict[int, torch.Tensor] = {}
+        outputs = []
+        last_use = self.graph.last_use
+        skip = set()
+        fused_fn = fused_ir_reference if plain else fused_ir_conv
+
+        for node in self.graph.nodes:
+            i = node.index
+            kind = node.kind
+            if i in skip:
+                continue
+            if fused_ir is not None and i in fused_ir:
+                f = fused_ir[i]
+                x = fused_fn(x.to(torch.bfloat16).contiguous(), f['we'], f['be'],
+                             f['wdw'], f['bdw'], f['wp'], f['bp'], act_e=f['act_e'],
+                             act_dw=f['act_dw'], act_p=f['act_p'])
+                if compute_dtype is not None and x.dtype != compute_dtype:
+                    x = x.to(compute_dtype)
+                skip.update(f['skip'])
+                end = f['end']
+                if end in last_use:
+                    cache[end] = x
+                for j in [j for j in cache if last_use.get(j, -1) <= end and j != end]:
+                    del cache[j]
+                continue
+            p = params.get(str(i))
+            if kind == 'convolutional':
+                a = node.attrs
+                padding = solve_padding(a['size'], a['padding'], a['pad'])
+                x = L.conv2d(x, p['w'], p.get('b'), stride=a['stride'],
+                             padding=padding, groups=a['groups'],
+                             compute_dtype=compute_dtype)
+                if 'bn' in p:
+                    x, _ = L.batch_norm(x, p['bn'], state[str(i)])
+                x = L.apply_activation(a['activation'], x)
+            elif kind == 'fc':
+                x = L.linear(x.reshape(x.shape[0], -1), p)
+                x = L.apply_activation(node.attrs['activation'], x)
+            elif kind == 'shortcut':
+                x = x + cache[node.refs[0]]
+                x = L.apply_activation(node.attrs['activation'], x)
+            elif kind == 'scale_channels':
+                x = cache[node.refs[0]] * x
+            elif kind == 'route':
+                srcs = [cache[r] for r in node.refs]
+                x = srcs[0] if len(srcs) == 1 else torch.cat(srcs, dim=-1)
+            elif kind == 'maxpool':
+                a = node.attrs
+                padding = solve_padding(a['size'], a['padding'], a['pad'])
+                x = L.max_pool(x, a['size'], a['stride'], padding)
+            elif kind == 'avgpool':
+                x = L.adaptive_avg_pool(x, *node.out_size)
+            elif kind == 'upsample':
+                x = L.upsample_nearest(x, node.attrs['stride'])
+            elif kind == 'yolo':
+                a = node.attrs
+                dec = decode if plain else decode_head
+                x = dec(x, a['classes'], a['stride'], exp_cap=a.get('exp_cap', 0.0))
+                outputs.append(x)
+            elif kind == 'dropout':
+                x = L.dropout(x, node.attrs['probability'])
+            else:
+                raise ValueError(f'unknown layer kind: {kind}')
+
+            # keep inter-layer activations in the compute dtype
+            if compute_dtype is not None and kind != 'yolo' \
+                    and x.dtype != compute_dtype:
+                x = x.to(compute_dtype)
+
+            if i in last_use:
+                cache[i] = x
+            # free activations whose consumers have all run
+            for j in [j for j in cache if last_use.get(j, -1) <= i and j != i]:
+                del cache[j]
+
+        return x, outputs
+
+
+class DetectionNetwork(Network):
+    """Detection graph: decoded heads concatenated to (B, sum HWA, 5+C)."""
+
+    @property
+    def num_classes(self) -> int:
+        return self.graph.yolo_nodes[0].attrs['classes']
+
+    def forward(self, params, state, x, compute_dtype=None, fused_ir=None,
+                plain: bool = False, **later):
+        outputs = super().forward(params, state, x, compute_dtype=compute_dtype,
+                                  fused_ir=fused_ir, plain=plain, **later)
+        flat = [o.reshape(o.shape[0], -1, o.shape[-1]) for o in outputs]
+        return torch.cat(flat, dim=1)
+
+
+def to_device(tree, device):
+    """Move every tensor of a nested dict to ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
+def fuse_params(network: Network, params: Dict, state: Dict) -> Dict:
+    """Fold every conv's BN into its weights -> inference-only params (the
+    walk detects the missing 'bn' entries)."""
+    fused = {}
+    for node in network.graph.nodes:
+        key = str(node.index)
+        if key not in params:
+            continue
+        p = params[key]
+        if node.kind == 'convolutional' and 'bn' in p:
+            fused[key] = L.fold_bn_into_conv(p, p['bn'], state[key])
+        else:
+            fused[key] = p
+    return fused
+
+
+def cast_params(params: Dict, dtype: torch.dtype) -> Dict:
+    """Every floating tensor of ``params`` cast to ``dtype`` once, so a
+    walk in that compute dtype does not cast weights on each call."""
+    if isinstance(params, dict):
+        return {k: cast_params(v, dtype) for k, v in params.items()}
+    if isinstance(params, torch.Tensor) and params.is_floating_point():
+        return params.to(dtype)
+    return params

@@ -1,0 +1,79 @@
+"""pqdet_tpu_torch stands alone: it imports neither JAX nor the JAX package,
+and its entry points run on the card unless the caller asks for the CPU."""
+
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+import torch
+
+from pqdet_tpu_torch import resolve_device
+from pqdet_tpu_torch.bridge import from_jax_params
+from pqdet_tpu_torch.config import Config
+from pqdet_tpu_torch.evaluation.predict import build_predict_pipeline
+from pqdet_tpu_torch.model.network import DetectionNetwork
+from pqdet_tpu_torch.zoo import get_cfg
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def test_port_imports_no_jax():
+    """Every module of the port, imported in a fresh interpreter, leaves
+    no trace of jax or pqdet_tpu in sys.modules."""
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        import pqdet_tpu_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            pqdet_tpu_torch.__path__, 'pqdet_tpu_torch.')]
+        for name in names:
+            importlib.import_module(name)
+        bad = sorted(m for m in sys.modules
+                     if m.split('.')[0] in ('jax', 'jaxlib', 'pqdet_tpu'))
+        print(len(names), bad)
+        sys.exit(1 if bad or len(names) < 15 else 0)
+    """)
+    res = subprocess.run([sys.executable, '-c', code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_port_sources_name_no_jax():
+    """No source line of the port imports jax or pqdet_tpu."""
+    for path in (REPO / 'pqdet_tpu_torch').rglob('*.py'):
+        for line in path.read_text().splitlines():
+            words = line.split()
+            if words[:1] in (['import'], ['from']) and len(words) > 1:
+                top = words[1].split('.')[0]
+                assert top not in ('jax', 'jaxlib', 'pqdet_tpu'), f'{path}: {line}'
+
+
+def _no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+
+
+@pytest.mark.parametrize('entry', ['resolve_device', 'init', 'pipeline', 'bridge'])
+def test_entry_point_without_device_raises(entry, monkeypatch):
+    """Without ``device="cpu"`` and with no card, an entry point raises
+    instead of quietly running on the CPU."""
+    _no_cuda(monkeypatch)
+    net = DetectionNetwork.from_cfg(get_cfg('mobilenetv2-fpn', width_mult=0.25))
+    call = {
+        'resolve_device': lambda: resolve_device(),
+        'init': lambda: net.init(torch.Generator().manual_seed(0)),
+        'pipeline': lambda: build_predict_pipeline(net, Config()),
+        'bridge': lambda: from_jax_params({}, {}, net.graph),
+    }[entry]
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        call()
+
+
+def test_entry_point_with_cpu_runs(monkeypatch):
+    _no_cuda(monkeypatch)
+    net = DetectionNetwork.from_cfg(get_cfg('mobilenetv2-fpn', width_mult=0.25))
+    params, state = net.init(torch.Generator().manual_seed(0), device='cpu')
+    assert all(p['w'].device.type == 'cpu' for p in params.values())
+    with torch.inference_mode():
+        preds = net(params, state, torch.zeros(1, 32, 32, 3))
+    assert preds.shape == (1, (4 * 4 + 2 * 2 + 1) * 3, 25)
