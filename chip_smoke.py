@@ -29,7 +29,29 @@ Builds the CUDA kernels from pqdet_tpu_torch/csrc with nvcc (sm_90a), then:
    kernel per forward, its plain version, and for the fused chains three
    cuDNN convs with bias and activation as the library yardstick; a
    torch.profiler trace of B=4 requests gives the device's busy share and
-   its top kernels.
+   its top kernels;
+6. holds the CUDA int8 kernels to their plain versions on the card, at
+   every conv shape of the int8 mobilenetv2-fpn graph at 512x512 (the 33
+   pointwise shapes, the stem's im2col shape with K = 27, the 13
+   depthwise shapes at strides 1 and 2), at B=1 and B=4, with f32 output
+   and requantised output, with nonzero zero points: s8 codes equal or 1
+   apart on under 0.1 % of the elements, f32 within 1e-5 * max(1, |r|);
+7. serves the int8 path: the quant graph of mobilenetv2-fpn (relu) with
+   seeded weights and BN statistics, calibrated by 4 observer passes
+   (prepare_qat_state + QuantCtx) on seeded uint8 images, converted by
+   convert_to_int8, run by Int8Inference in kernel mode through
+   build_predict_pipeline(apply_fn=...): 16 requests of 4 images. The
+   launch counts are set to 0 just before and read just after; per
+   forward they must be exactly 58 qconv1x1_s8 (57 pointwise + the stem),
+   26 qdwconv3x3_s8 and 3 decode. The kernel path is held to apply(...,
+   plain=True) node by node (the phase 6 bound) and on the preds (scores
+   0.02, boxes 1 px); every detection must be finite. The int8 preds
+   against the bf16 fp path on the same weights are printed, not gated;
+8. times the int8 path: requests at B=1 and B=4, each stage of a B=4
+   request, a profiler trace; and per B=4 forward, each int8 kernel's
+   device time from CUDA graphs, its plain version's, its bound and a
+   library yardstick (torch._int_mm + the epilogue as torch ops; cuDNN's
+   f32 depthwise conv + the epilogue).
 
 It prints one JSON line of kernels, then the nvidia-smi line, and ends with
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
@@ -47,10 +69,12 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
+INT8_OP_PER_S = 1979e12        # H100 SXM dense int8 tensor cores
 SEED = 0
 N_REQUESTS = 16
 BATCH = 4
 SIZE = 512
+N_CALIB = 4
 
 
 def smi() -> str:
@@ -159,6 +183,409 @@ def fused_bound_ms(n, h, cin, e, p, expand):
     return nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
 
 
+def seed_bn(params, state, gen, dev):
+    """Gain 2 on every conv weight and BN statistics as a trained model has
+    them. The init's fan-in bound shrinks each layer's output by about
+    1/sqrt(3), which fades the activations over the depth and leaves every
+    score near 0.25; with the gain they keep their scale. At init the BN
+    statistics fold into zero biases, and the kernels' bias paths would go
+    untested."""
+    import torch
+    for k, p in params.items():
+        p['w'] = p['w'] * 2.0
+        if 'bn' in p:
+            c = p['w'].shape[0]
+            u = lambda: (0.8 + 0.4 * torch.rand(c, generator=gen)).to(dev)  # noqa: E731
+            p['bn'] = {'gamma': u(), 'beta': (0.1 * torch.randn(c, generator=gen)).to(dev)}
+            state[k] = {'mean': (0.1 * torch.randn(c, generator=gen)).to(dev), 'var': u()}
+
+
+def request_times(predict, batch, b, tag, label):
+    """p50/p90 ms of ``predict`` on batches of ``b`` (CUDA events, after
+    warm-up); prints them and returns (p50, p90)."""
+    import torch
+    reqs = [batch(b) for _ in range(5)]
+    for r in reqs[:2]:
+        predict(r)
+    times = []
+    for i in range(20):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        predict(reqs[i % len(reqs)])
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    times.sort()
+    p50, p90 = statistics.median(times), times[int(0.9 * (len(times) - 1))]
+    print(f'{label}: {tag} request B={b}: p50 {p50:.3f} ms, p90 {p90:.3f} ms, '
+          f'{b * 1000.0 / p50:.1f} images/s')
+    return p50, p90
+
+
+def stage_split(fwd, xb, rb, dev, ev, tag, label):
+    """Each stage of one B=4 request alone (CUDA events) and the forward on
+    the device alone (CUDA graph); prints them."""
+    import torch
+    from pqdet_tpu_torch.ops.postprocess import nms_batch, recover_bboxes
+    from pqdet_tpu_torch.ops.preprocess import device_normalize
+    with torch.inference_mode():
+        preds = fwd(xb)
+        in_size = torch.tensor([SIZE, SIZE], dtype=torch.float32, device=dev)
+        hw = rb['shape'].float()
+        rec = recover_bboxes(preds, in_size, hw)
+        res = nms_batch(rec, ev.score_threshold, ev.iou_threshold, ev.max_detections,
+                        ev.pool_factor, ev.nms_method, ev.nms_sigma)
+        stages = {
+            'normalize': lambda: device_normalize(rb['image']),
+            'forward': lambda: fwd(xb),
+            'recover': lambda: recover_bboxes(preds, in_size, hw),
+            'nms': lambda: nms_batch(rec, ev.score_threshold, ev.iou_threshold,
+                                     ev.max_detections, ev.pool_factor,
+                                     ev.nms_method, ev.nms_sigma),
+            'to_host': lambda: [t.cpu().numpy() for t in res],
+        }
+        split = {name: cuda_ms(fn, iters=10) for name, fn in stages.items()}
+        fwd_device = device_ms(stages['forward'], iters=3, replays=3)
+    print(f'{label}: {tag} B={BATCH} request by stage, each alone: '
+          + ', '.join(f'{k} {v:.3f} ms' for k, v in split.items())
+          + f'; forward on the device alone (CUDA graph) {fwd_device:.3f} ms')
+
+
+def profile_requests(predict, r, tag, label):
+    """torch.profiler over 3 requests: wall, device busy, idle share and the
+    top kernels per request."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            predict(r)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 3
+    kern_ev = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
+    busy_ms = sum(ev.self_device_time_total for ev in kern_ev) / 1e3 / 3
+    if busy_ms > 0:
+        print(f'{label}: {tag} profiled B={BATCH} request: wall {wall_ms:.3f} ms, '
+              f'device busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}')
+        for ev in sorted(kern_ev, key=lambda e: -e.self_device_time_total)[:8]:
+            print(f'  {ev.self_device_time_total / 1e3 / 3:9.4f} ms/request '
+                  f'{ev.count // 3:4d} launches  {ev.key[:90]}')
+    else:
+        print(f'{label}: {tag} profiler saw no device time: busy share not measured')
+    # the host side: what a request spends its CPU time on
+    host_ev = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CPU]
+    n_launch = sum(ev.count for ev in host_ev if ev.key == 'cudaLaunchKernel') // 3
+    print(f'{label}: {tag} host per request: {n_launch} kernel launches; top ops by '
+          'self CPU ms: ' + ', '.join(
+              f'{ev.key} {ev.self_cpu_time_total / 1e3 / 3:.3f} ({ev.count // 3})'
+              for ev in sorted(host_ev, key=lambda e: -e.self_cpu_time_total)[:6]))
+
+
+def int8_conv_shapes(net, size):
+    """{(kind, n_h, n_w, cin, cout, stride, act, requant): count} over the
+    convs of the int8 graph at input ``size``, as each kernel sees them:
+    'pw' and 'dw' take the conv's input (H, W, C); 'stem' is the dense 3x3
+    as its im2col patches (H/stride, W/stride, 9*Cin) into the 1x1 kernel.
+    ``requant``: the output edge is quantised (it feeds no yolo head)."""
+    feeders = {n.index - 1 for n in net.graph.nodes if n.kind == 'yolo'}
+    shapes = {}
+    for n in net.graph.nodes:
+        if n.kind != 'convolutional':
+            continue
+        a = n.attrs
+        h = size * a['stride'] // n.stride
+        rq = n.index not in feeders
+        if a['size'] == 1:
+            key = ('pw', h, h, n.in_channels, a['filters'], 1, a['activation'], rq)
+        elif a['groups'] == n.in_channels == a['filters']:
+            key = ('dw', h, h, n.in_channels, n.in_channels, a['stride'], a['activation'], rq)
+        else:
+            ho = h // a['stride']
+            key = ('stem', ho, ho, 9 * n.in_channels, a['filters'], 1, a['activation'], rq)
+        shapes[key] = shapes.get(key, 0) + 1
+    return shapes
+
+
+def int8_inputs(gen, kind, n, h, w, cin, cout, dev):
+    """Seeded recentred s8 input, int8 weights, per-channel scale and bias,
+    and an integer zero point in [1, 254]."""
+    import torch
+    x = torch.randint(-128, 128, (n, h, w, cin), generator=gen, dtype=torch.int8)
+    wshape = (3, 3, cin) if kind == 'dw' else (cin, cout)
+    wq = torch.randint(-127, 128, wshape, generator=gen, dtype=torch.int8)
+    w_scale = torch.rand(cout, generator=gen) * 0.01 + 0.001
+    b = torch.randn(cout, generator=gen) * 0.5
+    colsum = wq.to(torch.int32).sum(0).to(torch.int32) if kind != 'dw' else None
+    x_zp = float(torch.randint(1, 255, (), generator=gen))
+    to = lambda t: None if t is None else t.to(dev).contiguous()  # noqa: E731
+    return to(x), to(wq), to(w_scale), to(b), to(colsum), 0.02, x_zp
+
+
+def edge_of(y):
+    """(scale, zp) of a uint8 edge spanning ``y``, as act_qparams makes it."""
+    mn, mx = min(y.min().item(), 0.0), max(y.max().item(), 0.0)
+    scale = max((mx - mn) / 255.0, 1e-8)
+    return scale, float(min(max(round(-mn / scale), 0), 255))
+
+
+def int8_bound_ms(kind, n, h, w, cin, cout, stride, requant):
+    """(bytes ms, operations ms): each input read once, each output written
+    once, over 3.35 TB/s; int8 operations over 1979 TOP/s."""
+    out_b = 1 if requant else 4
+    if kind == 'dw':
+        ho, wo = h // stride, w // stride
+        nbytes = n * h * w * cin + 9 * cin + 8 * cin + 16 + n * ho * wo * cin * out_b
+        ops = 18 * n * ho * wo * cin
+    else:
+        m = n * h * w
+        nbytes = m * cin + cin * cout + 12 * cout + 16 + m * cout * out_b
+        ops = 2 * m * cin * cout
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OP_PER_S * 1e3
+
+
+def phase6_int8_parity(gen, dev, shapes):
+    """Each int8 kernel against its plain version at every shape, B=1 and
+    B=4, f32 then requantised output. Returns the largest error of each
+    kernel: |f32 err| or s8 code difference."""
+    import torch
+    from pqdet_tpu_torch.ops.qconv import (make_scalars, qconv1x1_reference,
+                                           qconv1x1_s8, qdwconv3x3_reference,
+                                           qdwconv3x3_s8)
+    worst = {'qconv1x1_s8': 0.0, 'qdwconv3x3_s8': 0.0}
+    failures = []
+    n_exact = n_checks = 0
+    for (kind, h, w, cin, cout, stride, act, _), _count in sorted(shapes.items()):
+        for n in (1, BATCH):
+            x, wq, ws, b, cs, x_scale, x_zp = int8_inputs(gen, kind, n, h, w, cin, cout, dev)
+            if kind == 'dw':
+                name = 'qdwconv3x3_s8'
+                kern = lambda sc, rq: qdwconv3x3_s8(  # noqa: E731
+                    x, wq, ws, b, act=act, stride=stride, scalars=sc, requant=rq)
+                ref = lambda sc, rq: qdwconv3x3_reference(  # noqa: E731
+                    x, wq, ws, b, act=act, stride=stride, scalars=sc, requant=rq)
+            else:
+                name = 'qconv1x1_s8'
+                kern = lambda sc, rq: qconv1x1_s8(  # noqa: E731
+                    x, wq, ws, b, cs, act=act, scalars=sc, requant=rq)
+                ref = lambda sc, rq: qconv1x1_reference(  # noqa: E731
+                    x, wq, ws, b, cs, act=act, scalars=sc, requant=rq)
+            sc = make_scalars(x_scale, x_zp, device=dev)
+            got, want = kern(sc, False), ref(sc, False)
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            f32_ok = bool(torch.isfinite(got).all()) and bool(
+                (err <= 1e-5 * want.abs().clamp_min(1.0)).all())
+            o_scale, o_zp = edge_of(want)
+            sc = make_scalars(x_scale, x_zp, o_scale, o_zp, device=dev)
+            q, qref = kern(sc, True), ref(sc, True)
+            torch.cuda.synchronize()
+            d = (q.to(torch.int32) - qref.to(torch.int32)).abs()
+            n_diff = int((d > 0).sum())
+            s8_ok = d.max().item() <= 1 and n_diff < 1e-3 * d.numel()
+            worst[name] = max(worst[name], err.max().item(), float(d.max().item()))
+            n_checks += 2
+            n_exact += int(err.max().item() == 0) + int(n_diff == 0)
+            ok = f32_ok and s8_ok
+            print(f'phase 6: {name} {kind} N={n} H={h} W={w} Cin={cin} Cout={cout} '
+                  f's={stride} {act} x_zp={x_zp:.0f}: f32 max |err| {err.max().item():.3g}, '
+                  f's8 {n_diff} of {d.numel()} codes differ (max {d.max().item()}) '
+                  f'{"ok" if ok else "FAIL"}')
+            if not ok:
+                failures.append((name, kind, n, h, cin, cout, stride))
+    if failures:
+        raise AssertionError(f'int8 kernels disagree with their plain versions on {failures}')
+    print(f'phase 6: {n_exact} of {n_checks} outputs equal to their plain version '
+          f'bit for bit; largest error {worst}')
+    return worst
+
+
+def phase7_int8_path(gen, dev, cfg, batch, tag, qnet, shapes):
+    """Calibrate, convert and serve the int8 quant graph ``qnet`` through the
+    kernel path; check launches, node-by-node parity with the plain path,
+    preds and detections. Returns (inf, qprep, predict, launches)."""
+    import torch
+    from pqdet_tpu_torch.compress.qat import QuantCtx, prepare_qat_state
+    from pqdet_tpu_torch.compress.quantized import Int8Inference, convert_to_int8
+    from pqdet_tpu_torch.evaluation.predict import (build_predict_pipeline,
+                                                    make_batch_predict)
+    from pqdet_tpu_torch.model.network import cast_params, fuse_params
+    from pqdet_tpu_torch.ops.decode_kernel import decode_head
+    from pqdet_tpu_torch.ops.fused_ir import prepare_fused_ir
+    from pqdet_tpu_torch.ops.preprocess import device_normalize
+    from pqdet_tpu_torch.ops.qconv import qconv1x1_s8, qdwconv3x3_s8
+
+    n_pw = sum(c for k, c in shapes.items() if k[0] in ('pw', 'stem'))
+    n_dw = sum(c for k, c in shapes.items() if k[0] == 'dw')
+    params, state = qnet.init(gen, device=dev)
+    seed_bn(params, state, gen, dev)
+    params, state = prepare_qat_state(qnet, params, state)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for _ in range(N_CALIB):
+            ctx = QuantCtx(state['quant'], observing=True)
+            qnet(params, state, device_normalize(batch(BATCH)['image']), quant_ctx=ctx)
+            state = {**state, 'quant': ctx.new_obs}
+        qparams = convert_to_int8(qnet, params, state)
+    inf = Int8Inference(qnet, mode='kernel')
+    qprep = Int8Inference.prepare(qparams)
+    zps = sorted({zp for _, zp in qparams['act'].values()})
+    print(f'phase 7: calibrated {len(qparams["act"])} edges with {N_CALIB} observer '
+          f'passes of B={BATCH} and converted in {time.perf_counter() - t0:.2f} s; '
+          f'zero points {zps[:6]}{"..." if len(zps) > 6 else ""}')
+
+    run = build_predict_pipeline(qnet, cfg, apply_fn=lambda p, images: inf.apply(p, images),
+                                 device=dev)
+    predict = make_batch_predict(run, qprep)
+    requests = [batch(BATCH) for _ in range(N_REQUESTS)]
+    predict(requests[0])                      # warm-up
+    torch.cuda.synchronize()
+    qconv1x1_s8.launches = qdwconv3x3_s8.launches = decode_head.launches = 0
+    dets = [predict(r) for r in requests]
+    torch.cuda.synchronize()
+    launches = {'qconv1x1_s8': qconv1x1_s8.launches,
+                'qdwconv3x3_s8': qdwconv3x3_s8.launches, 'decode': decode_head.launches}
+    want = {'qconv1x1_s8': n_pw * N_REQUESTS, 'qdwconv3x3_s8': n_dw * N_REQUESTS,
+            'decode': 3 * N_REQUESTS}
+    print(f'phase 7: served {N_REQUESTS} int8 requests of {BATCH} images at {SIZE}x{SIZE}; '
+          f'launches {launches} (want {want}: {n_pw} + {n_dw} + 3 per forward)')
+    if (n_pw, n_dw) != (58, 26) or launches != want:
+        raise AssertionError(f'int8 kernel launches {launches} != {want}')
+    nc = qnet.num_classes
+    n_det = 0
+    for r in dets:
+        for d in r:
+            n_det += len(d)
+            if d.shape[1] != 6 or not bool(torch.isfinite(torch.from_numpy(d)).all()):
+                raise AssertionError('an int8 detection is not finite or has the wrong shape')
+            if len(d) and not ((d[:, 5] >= 0) & (d[:, 5] < nc)).all():
+                raise AssertionError('an int8 detection has a class outside the model')
+    print(f'phase 7: {n_det} int8 detections, all finite')
+
+    # node by node: the kernel path against the plain versions on the card
+    act = qparams['act']
+    with torch.inference_mode():
+        x = device_normalize(requests[0]['image'])
+        kern, ik = inf.apply(qprep, x, intermediates=True)
+        plain, ip = inf.apply(qprep, x, intermediates=True, plain=True)
+    nodes = {str(n.index): n for n in qnet.graph.nodes}
+    bad, n_exact = [], 0
+    for key, a in ik.items():
+        b = ip[key]
+        node = nodes[key]
+        if key in act:                                 # s8 edge: in codes
+            d = ((a - b).abs() / act[key][0]).round()
+            ok = d.max().item() <= 1 and (d > 0).float().mean().item() < 1e-3
+        elif node.kind == 'yolo':
+            raw = ip[str(node.index - 1)]
+            ok = bool(((a - b).abs() <= decode_tolerance(raw, nc, node.attrs['stride'], 0.0))
+                      .all())
+        else:                                          # f32 head conv
+            ok = bool(((a - b).abs() <= 1e-5 * b.abs().clamp_min(1.0)).all())
+        n_exact += int(torch.equal(a, b))
+        if not ok:
+            bad.append(key)
+    print(f'phase 7: kernel path vs plain path on the card, {len(ik)} nodes: '
+          f'{n_exact} equal bit for bit, {len(bad)} outside the bound {bad}')
+    rows = sum((SIZE // y.attrs['stride']) ** 2 * 3 for y in qnet.graph.yolo_nodes)
+    if tuple(kern.shape) != (BATCH, rows, 5 + nc) or not bool(torch.isfinite(kern).all()):
+        raise AssertionError(f'int8 preds {tuple(kern.shape)} not finite (B, {rows}, {5 + nc})')
+    ds = (kern[..., 4:] - plain[..., 4:]).abs().max().item()
+    db = (kern[..., :4] - plain[..., :4]).abs().max().item()
+    print(f'phase 7: int8 kernel path vs plain path: scores max |d| {ds:.4g} (<= 0.02), '
+          f'boxes max |d| {db:.4g} px (<= 1)')
+    if bad or not (ds <= 0.02 and db <= 1.0):
+        raise AssertionError('the int8 kernel path disagrees with its plain versions')
+
+    # printed only: int8 against the bf16 fp path of the same weights
+    fused = fuse_params(qnet, params, state)
+    with torch.inference_mode():
+        fp = qnet(cast_params(fused, torch.bfloat16), {}, x, compute_dtype=torch.bfloat16,
+                  fused_ir=prepare_fused_ir(qnet, fused))
+    print(f'phase 7: int8 vs bf16 fp path, same weights (not gated): median |d| '
+          f'scores {(kern[..., 4:] - fp[..., 4:]).abs().median().item():.4g}, boxes '
+          f'{(kern[..., :4] - fp[..., :4]).abs().median().item():.4g} px; max |d| scores '
+          f'{(kern[..., 4:] - fp[..., 4:]).abs().max().item():.4g}')
+    return inf, qprep, predict, launches
+
+
+def phase8_int8_timings(gen, dev, cfg, batch, tag, shapes, inf, qprep, predict):
+    """Int8 request times, stage split and profile; per B=4 forward each int8
+    kernel's device time, plain time, library time and bound. Returns
+    {kernel name: {'ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by'}}."""
+    import torch
+    import torch.nn.functional as F
+    from pqdet_tpu_torch.ops.preprocess import device_normalize
+    from pqdet_tpu_torch.ops.qconv import (_epilogue, make_scalars, qconv1x1_reference,
+                                           qconv1x1_s8, qdwconv3x3_reference,
+                                           qdwconv3x3_s8)
+    for b in (1, BATCH):
+        request_times(predict, batch, b, tag, 'phase 8')
+    rb = batch(BATCH)
+    with torch.inference_mode():
+        xb = device_normalize(rb['image'])
+    stage_split(lambda x: inf.apply(qprep, x), xb, rb, dev, cfg.eval, tag, 'phase 8')
+    profile_requests(predict, batch(BATCH), tag, 'phase 8')
+
+    tot = {k: dict.fromkeys(('ms', 'plain_ms', 'library_ms', 'bound_ms', 'bytes_ms',
+                             'ops_ms'), 0.0) for k in ('qconv1x1_s8', 'qdwconv3x3_s8')}
+    for (kind, h, w, cin, cout, stride, act, rq), count in sorted(shapes.items()):
+        x, wq, ws, b, cs, x_scale, x_zp = int8_inputs(gen, kind, BATCH, h, w, cin, cout, dev)
+        sc = make_scalars(x_scale, x_zp, 0.05 if rq else None, 3.0 if rq else None, dev)
+        s = sc.reshape(-1)
+        if kind == 'dw':
+            name = 'qdwconv3x3_s8'
+            kern = lambda: qdwconv3x3_s8(x, wq, ws, b, act=act, stride=stride,  # noqa: E731
+                                         scalars=sc, requant=rq)
+            plain = lambda: qdwconv3x3_reference(x, wq, ws, b, act=act,  # noqa: E731
+                                                 stride=stride, scalars=sc, requant=rq)
+            wk = wq.float().permute(2, 0, 1).reshape(cin, 1, 3, 3).contiguous()
+            x_off = s[1] - 128.0
+            zero = torch.zeros((), device=dev)
+
+            def library():
+                xf = (x.float() - x_off).permute(0, 3, 1, 2)      # channels_last view
+                acc = F.conv2d(xf, wk, None, stride, 1, 1, cin).permute(0, 2, 3, 1)
+                return _epilogue(acc, s, ws, b, zero, act, rq)
+        else:
+            name = 'qconv1x1_s8'
+            kern = lambda: qconv1x1_s8(x, wq, ws, b, cs, act=act, scalars=sc,  # noqa: E731
+                                       requant=rq)
+            plain = lambda: qconv1x1_reference(x, wq, ws, b, cs, act=act,  # noqa: E731
+                                               scalars=sc, requant=rq)
+            # cuBLASLt s8 x s8 -> s32 through torch._int_mm: K and N padded
+            # with zeros to multiples of 8 (its rule), outside the timing
+            kp, np_ = -(-cin // 8) * 8, -(-cout // 8) * 8
+            a2 = F.pad(x.reshape(-1, cin), (0, kp - cin)).contiguous()
+            b2 = F.pad(wq, (0, np_ - cout, 0, kp - cin)).t().contiguous().t()
+            csf = cs.float()
+
+            def library():
+                acc = torch._int_mm(a2, b2)[:, :cout]
+                return _epilogue(acc.float(), s, ws, b, csf, act, rq)
+        k_ms = device_ms(kern)
+        p_ms = device_ms(plain, iters=5, replays=2)
+        l_ms = device_ms(library)
+        by_ms, op_ms = int8_bound_ms(kind, BATCH, h, w, cin, cout, stride, rq)
+        t = tot[name]
+        t['ms'] += count * k_ms
+        t['plain_ms'] += count * p_ms
+        t['library_ms'] += count * l_ms
+        t['bound_ms'] += count * max(by_ms, op_ms)
+        t['bytes_ms'] += count * by_ms
+        t['ops_ms'] += count * op_ms
+        print(f'phase 8: {tag} {name} {kind} x{count} B={BATCH} H={h} W={w} Cin={cin} '
+              f'Cout={cout} s={stride} {"s8" if rq else "f32"} out: kernel {k_ms:.4f} ms, '
+              f'plain {p_ms:.4f} ms, library {l_ms:.4f} ms, bound '
+              f'{max(by_ms, op_ms):.5f} ms ({"operations" if op_ms > by_ms else "bytes"})')
+    for name, t in tot.items():
+        t['bound_by'] = 'operations' if t.pop('ops_ms') > t.pop('bytes_ms') else 'bytes'
+        print(f'phase 8: {tag} {name} per B={BATCH} forward: kernel {t["ms"]:.4f} ms, '
+              f'plain {t["plain_ms"]:.4f} ms, library {t["library_ms"]:.4f} ms, bound '
+              f'{t["bound_ms"]:.5f} ms ({t["bound_by"]})')
+    return tot
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -180,7 +607,6 @@ def main() -> int:
     from pqdet_tpu_torch.ops.fused_ir import (_apply_act, fused_ir_conv,
                                               fused_ir_reference,
                                               prepare_fused_ir)
-    from pqdet_tpu_torch.ops.postprocess import nms_batch, recover_bboxes
     from pqdet_tpu_torch.ops.preprocess import device_normalize
     from pqdet_tpu_torch.zoo import get_cfg
 
@@ -257,19 +683,7 @@ def main() -> int:
     cfg.eval.input_size = SIZE
     cfg.eval.fused_ir = True
     params, state = net.init(gen, device=dev)
-    # gain 2 on every conv weight: the init's fan-in bound shrinks each
-    # layer's output by about 1/sqrt(3), which fades the activations over
-    # the depth and leaves every score near 0.25; with the gain they keep
-    # their scale, so the comparisons below see real differences. BN
-    # statistics as a trained model has them: at init they fold into zero
-    # biases, and the kernels' bias paths would go untested here
-    for k, p in params.items():
-        p['w'] = p['w'] * 2.0
-        if 'bn' in p:
-            c = p['w'].shape[0]
-            u = lambda: (0.8 + 0.4 * torch.rand(c, generator=gen)).to(dev)  # noqa: E731
-            p['bn'] = {'gamma': u(), 'beta': (0.1 * torch.randn(c, generator=gen)).to(dev)}
-            state[k] = {'mean': (0.1 * torch.randn(c, generator=gen)).to(dev), 'var': u()}
+    seed_bn(params, state, gen, dev)
     fused = fuse_params(net, params, state)
     table = prepare_fused_ir(net, fused)
     if len(table) != 21:
@@ -333,67 +747,14 @@ def main() -> int:
     # ---- phase 5: timings (CUDA events, after warm-up; kernels, their plain
     # versions and cuDNN as device time, from CUDA graphs)
     for b in (1, BATCH):
-        reqs = [batch(b) for _ in range(5)]
-        for r in reqs[:2]:
-            predict(r)
-        times = []
-        for i in range(20):
-            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            s.record()
-            predict(reqs[i % len(reqs)])
-            e.record()
-            e.synchronize()
-            times.append(s.elapsed_time(e))
-        times.sort()
-        p50, p90 = statistics.median(times), times[int(0.9 * (len(times) - 1))]
-        print(f'phase 5: {tag} request B={b}: p50 {p50:.3f} ms, p90 {p90:.3f} ms, '
-              f'{b * 1000.0 / p50:.1f} images/s')
-
-    # where a B=4 request's time goes: each stage alone, and a profiler trace
+        request_times(predict, batch, b, tag, 'phase 5')
     rb = batch(BATCH)
     ev = cfg.eval
     with torch.inference_mode():
         xb = device_normalize(rb['image'])
-        preds = net(fparams, {}, xb, compute_dtype=torch.bfloat16, fused_ir=table)
-        in_size = torch.tensor([SIZE, SIZE], dtype=torch.float32, device=dev)
-        hw = rb['shape'].float()
-        rec = recover_bboxes(preds, in_size, hw)
-        res = nms_batch(rec, ev.score_threshold, ev.iou_threshold, ev.max_detections,
-                        ev.pool_factor, ev.nms_method, ev.nms_sigma)
-        stages = {
-            'normalize': lambda: device_normalize(rb['image']),
-            'forward': lambda: net(fparams, {}, xb, compute_dtype=torch.bfloat16,
-                                   fused_ir=table),
-            'recover': lambda: recover_bboxes(preds, in_size, hw),
-            'nms': lambda: nms_batch(rec, ev.score_threshold, ev.iou_threshold,
-                                     ev.max_detections, ev.pool_factor,
-                                     ev.nms_method, ev.nms_sigma),
-            'to_host': lambda: [t.cpu().numpy() for t in res],
-        }
-        split = {name: cuda_ms(fn, iters=10) for name, fn in stages.items()}
-        fwd_device = device_ms(stages['forward'], iters=3, replays=3)
-    print(f'phase 5: {tag} B={BATCH} request by stage, each alone: '
-          + ', '.join(f'{k} {v:.3f} ms' for k, v in split.items())
-          + f'; forward on the device alone (CUDA graph) {fwd_device:.3f} ms')
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    r = batch(BATCH)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(3):
-            predict(r)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / 3
-    kern_ev = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
-    busy_ms = sum(ev.self_device_time_total for ev in kern_ev) / 1e3 / 3
-    if busy_ms > 0:
-        print(f'phase 5: {tag} profiled B={BATCH} request: wall {wall_ms:.3f} ms, '
-              f'device busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}')
-        for ev in sorted(kern_ev, key=lambda e: -e.self_device_time_total)[:8]:
-            print(f'  {ev.self_device_time_total / 1e3 / 3:9.4f} ms/request '
-                  f'{ev.count // 3:4d} launches  {ev.key[:90]}')
-    else:
-        print(f'phase 5: {tag} profiler saw no device time: busy share not measured')
+    stage_split(lambda x: net(fparams, {}, x, compute_dtype=torch.bfloat16, fused_ir=table),
+                xb, rb, dev, ev, tag, 'phase 5')
+    profile_requests(predict, batch(BATCH), tag, 'phase 5')
 
     # decode: the three heads of one B=4 bf16 forward
     dec = {'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0}
@@ -460,6 +821,13 @@ def main() -> int:
           f'{dec["ms"]:.4f} ms, plain {dec["plain_ms"]:.4f} ms, bound '
           f'{dec["bound_ms"]:.5f} ms')
 
+    # ---- phases 6-8: the int8 serving path
+    qnet = DetectionNetwork.from_cfg(get_cfg('mobilenetv2-fpn'), quant=True)
+    shapes = int8_conv_shapes(qnet, SIZE)
+    int8_err = phase6_int8_parity(gen, dev, shapes)
+    inf, qprep, qpredict, qlaunches = phase7_int8_path(gen, dev, cfg, batch, tag, qnet, shapes)
+    qt = phase8_int8_timings(gen, dev, cfg, batch, tag, shapes, inf, qprep, qpredict)
+
     kernels = [
         {'name': 'decode_head', 'route': 'triton',
          'source': 'pqdet_tpu_torch/ops/decode_kernel.py',
@@ -474,6 +842,16 @@ def main() -> int:
          'ms': fir['ms'], 'plain_ms': fir['plain_ms'], 'bound_ms': fir['bound_ms'],
          'bound_by': 'operations' if flop_ms_sum > byte_ms_sum else 'bytes',
          'library_ms': fir['library_ms']},
+        {'name': 'qconv1x1_s8', 'route': 'cuda',
+         'source': 'pqdet_tpu_torch/csrc/qconv.cu',
+         'replaces': 'pqdet_tpu/ops/pallas_qconv.py:121',
+         'launches': qlaunches['qconv1x1_s8'], 'max_abs_err': int8_err['qconv1x1_s8'],
+         **qt['qconv1x1_s8']},
+        {'name': 'qdwconv3x3_s8', 'route': 'cuda',
+         'source': 'pqdet_tpu_torch/csrc/qconv.cu',
+         'replaces': 'pqdet_tpu/ops/pallas_qconv.py:261',
+         'launches': qlaunches['qdwconv3x3_s8'], 'max_abs_err': int8_err['qdwconv3x3_s8'],
+         **qt['qdwconv3x3_s8']},
     ]
     print(json.dumps({'kernels': kernels}))
     print(card)

@@ -8,6 +8,11 @@ are in ``state``; an fc holds ``w`` (in, out) and ``b``. It returns the
 port's dicts, conv weights in OIHW and fc weights in torch's (out, in),
 keeping its own copy of the HWIO -> OIHW rule of
 ``pqdet_tpu/exporters/torch_convert.py``.
+
+``from_jax_qparams`` carries the output of the JAX package's
+``convert_to_int8`` (int8 HWIO ``wq``, ``w_scale``, ``b``, and the ``act``
+dict of edge (scale, zero point)) and ``from_jax_quant_state`` its QAT
+observers (``state['quant']``: ``min``, ``max``, ``initialized``).
 """
 
 from __future__ import annotations
@@ -54,3 +59,37 @@ def from_jax_params(params: Dict, state: Dict, graph,
             out_p[key] = {'w': _tensor(np.asarray(p['w']).T, dev),
                           'b': _tensor(p['b'], dev)}
     return out_p, out_s
+
+
+def from_jax_qparams(qparams: Dict, graph, device='cuda') -> Dict:
+    """JAX ``convert_to_int8`` output -> the port's int8 qparams on
+    ``device``: conv ``wq`` int8 OIHW, ``w_scale`` and ``b`` f32; the edge
+    qparams as Python floats."""
+    dev = resolve_device(device)
+    layers: Dict[str, dict] = {}
+    for node in graph.nodes:
+        key = str(node.index)
+        p = qparams['layers'].get(key)
+        if p is None:
+            continue
+        if node.kind == 'convolutional':
+            wq = hwio_to_oihw(np.asarray(p['wq'], np.int8))
+            layers[key] = {'wq': torch.from_numpy(wq).to(dev),
+                           'w_scale': _tensor(p['w_scale'], dev),
+                           'b': _tensor(p['b'], dev)}
+        elif node.kind == 'fc':
+            layers[key] = {'w': _tensor(np.asarray(p['w']).T, dev),
+                           'b': _tensor(p['b'], dev)}
+    act = {k: (float(v[0]), float(v[1])) for k, v in qparams['act'].items()}
+    return {'layers': layers, 'act': act}
+
+
+def from_jax_quant_state(state: Dict, device='cuda') -> Dict[str, dict]:
+    """The observers of a JAX state's ``quant`` entry -> the port's
+    ``state['quant']`` dict on ``device`` (0-d f32 ``min``/``max``, 0-d
+    bool ``initialized``)."""
+    dev = resolve_device(device)
+    return {edge: {'min': _tensor(obs['min'], dev), 'max': _tensor(obs['max'], dev),
+                   'initialized': torch.tensor(bool(np.asarray(obs['initialized'])),
+                                               device=dev)}
+            for edge, obs in state['quant'].items()}

@@ -12,7 +12,10 @@ each [1x1 expand] -> [dw3x3] -> [1x1 project] chain by one CUDA kernel
 launch; every yolo head goes through the Triton decode kernel. On CPU
 tensors both wrappers run their plain versions; ``plain=True`` asks for
 the plain versions on any device (the baseline ``chip_smoke.py`` holds
-the kernels to).
+the kernels to). With a ``quant_ctx`` (``compress.qat.QuantCtx``) the walk
+fake-quantises the input, every conv weight and every observed output,
+and ignores the fused-IR table, as the JAX walk does; int8 serving is
+``compress.quantized.Int8Inference``.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ from pqdet_tpu_torch.ops.fused_ir import fused_ir_conv, fused_ir_reference
 LATER_SLICES = {
     'targets': 'training', 'train': 'training', 'rng': 'training',
     'remat_segments': 'training', 'tap': 'training',
-    'quant_ctx': 'the int8/QAT slice', 's2d_stem': 'the space-to-depth slice',
+    's2d_stem': 'the space-to-depth slice',
 }
 
 
@@ -56,10 +59,8 @@ class Network(nn.Module):
 
     @classmethod
     def from_cfg(cls, cfg, quant: bool = False) -> 'Network':
-        if quant:
-            raise NotImplementedError('quant graphs: the int8/QAT slice comes '
-                                      'in a later slice of the port')
-        return cls(Graph.from_cfg(cfg))
+        """``quant``: the QAT/int8 graph, whose activations are plain relu."""
+        return cls(Graph.from_cfg(cfg, quant=quant))
 
     def init(self, gen: torch.Generator, device='cuda') -> Tuple[Dict, Dict]:
         """Random parameters and BN state from ``gen`` (a CPU generator, so
@@ -83,19 +84,25 @@ class Network(nn.Module):
     def forward(self, params: Dict, state: Dict, x: torch.Tensor,
                 compute_dtype: Optional[torch.dtype] = None,
                 fused_ir: Optional[Dict] = None, plain: bool = False,
-                **later):
+                quant_ctx=None, **later):
         """Run the graph on NHWC ``x``. Returns the list of decoded yolo
         heads, each (B, H, W, A, 5+C) f32, or the final activation when the
         graph has no yolo head.
 
         ``compute_dtype`` (e.g. bf16) is the dtype carried between nodes;
         ``fused_ir`` is the table of ``ops.fused_ir.prepare_fused_ir`` on
-        BN-fused params; ``plain`` runs the kernels' plain versions."""
+        BN-fused params; ``plain`` runs the kernels' plain versions;
+        ``quant_ctx`` adds the QAT fake-quant hooks (the observers'
+        updates collect in ``quant_ctx.new_obs``)."""
         _refuse_later(later)
-        x, outputs = self._walk(params, state, x, compute_dtype, fused_ir, plain)
+        if quant_ctx is not None:
+            x = quant_ctx.quantize_input(x)
+            fused_ir = None
+        x, outputs = self._walk(params, state, x, compute_dtype, fused_ir, plain,
+                                quant_ctx)
         return outputs if outputs else x
 
-    def _walk(self, params, state, x, compute_dtype, fused_ir, plain):
+    def _walk(self, params, state, x, compute_dtype, fused_ir, plain, quant_ctx):
         cache: Dict[int, torch.Tensor] = {}
         outputs = []
         last_use = self.graph.last_use
@@ -125,7 +132,8 @@ class Network(nn.Module):
             if kind == 'convolutional':
                 a = node.attrs
                 padding = solve_padding(a['size'], a['padding'], a['pad'])
-                x = L.conv2d(x, p['w'], p.get('b'), stride=a['stride'],
+                w = p['w'] if quant_ctx is None else quant_ctx.fake_weights(str(i), p['w'])
+                x = L.conv2d(x, w, p.get('b'), stride=a['stride'],
                              padding=padding, groups=a['groups'],
                              compute_dtype=compute_dtype)
                 if 'bn' in p:
@@ -160,6 +168,9 @@ class Network(nn.Module):
             else:
                 raise ValueError(f'unknown layer kind: {kind}')
 
+            if quant_ctx is not None and kind != 'yolo':
+                x = quant_ctx.observe_output(str(i), x)
+
             # keep inter-layer activations in the compute dtype
             if compute_dtype is not None and kind != 'yolo' \
                     and x.dtype != compute_dtype:
@@ -182,9 +193,10 @@ class DetectionNetwork(Network):
         return self.graph.yolo_nodes[0].attrs['classes']
 
     def forward(self, params, state, x, compute_dtype=None, fused_ir=None,
-                plain: bool = False, **later):
+                plain: bool = False, quant_ctx=None, **later):
         outputs = super().forward(params, state, x, compute_dtype=compute_dtype,
-                                  fused_ir=fused_ir, plain=plain, **later)
+                                  fused_ir=fused_ir, plain=plain,
+                                  quant_ctx=quant_ctx, **later)
         flat = [o.reshape(o.shape[0], -1, o.shape[-1]) for o in outputs]
         return torch.cat(flat, dim=1)
 

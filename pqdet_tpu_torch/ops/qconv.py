@@ -1,0 +1,206 @@
+"""Int8 convolutions of the quantized serving path: the CUDA kernels'
+wrappers and their plain versions (the port of ``pqdet_tpu/ops/pallas_qconv.py``).
+
+Activations are NHWC int8 in the RECENTRED representation s = q_u8 - 128,
+so the affine correction of the zero point folds into a per-channel bias:
+
+    y_c = act(alpha_c * acc_c + (alpha_c * ((128 - x_zp) * colsum_c) + b_c))
+    alpha_c = x_scale * w_scale_c,  colsum_c = sum_i w_ic
+
+and a requantised output is clip(round(y * (1/out_scale) + out_zp - 128),
+-128, 127) as int8; otherwise y stays f32 (the edges feeding yolo heads).
+The scalars ride in one (1, 4) f32 tensor from ``make_scalars``.
+
+- ``qconv1x1_s8``: pointwise conv, s8 x s8 -> s32 (``csrc/qconv.cu``,
+  WMMA int8 tensor-core tiles);
+- ``qdwconv3x3_s8``: depthwise 3x3, pad 1 with the recentred zero point,
+  stride 1 or 2 (``csrc/qconv.cu``, CUDA cores).
+
+Each wrapper launches its kernel for a CUDA tensor and runs its plain
+version for a CPU tensor; it raises on any other device. The plain
+versions compute the integer sum in float64, which is exact, and then the
+TPU kernels' own f32 epilogue, one torch op per rounded step, in the same
+order.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from pqdet_tpu_torch import resolve_device
+from pqdet_tpu_torch.ops.fused_ir import ACT_CODES, _apply_act
+
+
+def make_scalars(x_scale, x_zp, out_scale=None, out_zp=None, device='cuda'):
+    """The (1, 4) f32 scalar vector (x_scale, x_zp, 1/out_scale, out_zp -
+    128) on ``device``; (x_scale, x_zp, 1, -128) without an output edge.
+    1/out_scale is taken in float64 on the host and then rounded to f32,
+    as the JAX package's host-side ``make_scalars``."""
+    requant = out_scale is not None
+    vec = np.array([[
+        np.float32(x_scale), np.float32(x_zp),
+        np.float32(1.0 / (out_scale if requant else 1.0)),
+        np.float32((out_zp if requant else 0.0) - 128.0),
+    ]], np.float32)
+    return torch.from_numpy(vec).to(resolve_device(device))
+
+
+def _epilogue(acc, s, w_scale, b, colsum, act: str, requant: bool):
+    """The TPU kernels' f32 epilogue on the f32 accumulator ``acc`` (one
+    output channel per last-dim entry)."""
+    alpha = s[0] * w_scale
+    beta = alpha * ((128.0 - s[1]) * colsum) + b
+    y = _apply_act(act, acc * alpha + beta)
+    if requant:
+        return torch.clamp(torch.round(y * s[2] + s[3]), -128, 127).to(torch.int8)
+    return y
+
+
+def qconv1x1_reference(x, w, w_scale, b, colsum, *, act: str, scalars,
+                       requant: bool):
+    """Plain version of ``qconv1x1_s8``: the s8 x s8 sum in float64 (exact),
+    rounded to f32, then the epilogue. Same arguments; returns (N, H, W,
+    Cout) int8 (``requant``) or f32."""
+    n, h, wd, cin = x.shape
+    cout = w.shape[1]
+    acc = (x.reshape(-1, cin).double() @ w.double()).float()
+    y = _epilogue(acc, scalars.reshape(-1).float(), w_scale.float(), b.float(),
+                  colsum.float(), act, requant)
+    return y.reshape(n, h, wd, cout)
+
+
+def _check_stride(name, h, w, stride):
+    if stride not in (1, 2):
+        raise ValueError(f'{name}: stride must be 1 or 2, got {stride}')
+    if stride == 2 and (h % 2 or w % 2):
+        raise ValueError(f'{name}: the stride-2 depthwise kernel needs even H/W, '
+                         f'got {(h, w)}')
+
+
+def qdwconv3x3_reference(x, w, w_scale, b, *, act: str, stride: int, scalars,
+                         requant: bool):
+    """Plain version of ``qdwconv3x3_s8``: pad with round(x_zp) - 128, sum
+    w * (x - (x_zp - 128)) in float64 (exact for an integer zero point),
+    round to f32, then the epilogue with colsum 0. Same arguments; returns
+    (N, H/stride, W/stride, C) int8 or f32."""
+    n, h, wd, c = x.shape
+    _check_stride('qdwconv3x3_reference', h, wd, stride)
+    s = scalars.reshape(-1).float()
+    x_off = (s[1] - 128.0).double()
+    pad = (torch.round(s[1]).to(torch.int32) - 128).to(torch.int8)
+    xp = pad.expand(n, h + 2, wd + 2, c).clone()
+    xp[:, 1:-1, 1:-1] = x
+    k = w.double().permute(2, 0, 1).reshape(c, 1, 3, 3)
+    acc = F.conv2d((xp.double() - x_off).permute(0, 3, 1, 2), k, None, stride, 0, 1, c)
+    acc = acc.permute(0, 2, 3, 1).float()
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _epilogue(acc, s, w_scale.float(), b.float(), zero, act, requant)
+
+
+def _check(fn, name, t, dtype, shape, device):
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or t.device != device \
+            or not t.is_contiguous():
+        raise ValueError(f'{fn}: {name} must be a contiguous {dtype} tensor of '
+                         f'shape {tuple(shape)} on {device}, got {t.dtype} '
+                         f'{tuple(t.shape)} on {t.device} (contiguous={t.is_contiguous()})')
+
+
+def _check_common(fn, x, w_scale, b, scalars, act, cout):
+    if act not in ACT_CODES:
+        raise ValueError(f'{fn}: unsupported activation {act!r}')
+    dev = x.device
+    _check(fn, 'w_scale', w_scale, torch.float32, (cout,), dev)
+    _check(fn, 'b', b, torch.float32, (cout,), dev)
+    _check(fn, 'scalars', scalars, torch.float32, (1, 4), dev)
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    from pqdet_tpu_torch.ops._build import load_library
+    lib = load_library('qconv')
+    lib.qconv1x1_launch.restype = ctypes.c_int
+    lib.qconv1x1_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
+    lib.qdw3x3_launch.restype = ctypes.c_int
+    lib.qdw3x3_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
+        + [ctypes.c_void_p]
+    return lib
+
+
+def qconv1x1_s8(x, w, w_scale, b, colsum, *, act: str, scalars, requant: bool):
+    """Fused quantized 1x1 conv (stride 1, groups 1), NHWC in and out.
+
+    x: (N, H, W, Cin) int8 recentred; w: (Cin, Cout) int8; w_scale, b:
+    (Cout,) f32; colsum: (Cout,) int32, the per-channel sum of w; scalars:
+    (1, 4) f32 from ``make_scalars``. Returns (N, H, W, Cout) int8 when
+    ``requant``, else f32. Launches the CUDA kernel for a CUDA tensor, runs
+    ``qconv1x1_reference`` for a CPU tensor."""
+    if x.device.type == 'cpu':
+        return qconv1x1_reference(x, w, w_scale, b, colsum, act=act,
+                                  scalars=scalars, requant=requant)
+    if x.device.type != 'cuda':
+        raise ValueError(f'qconv1x1_s8: no kernel for device {x.device}')
+    n, h, wd, cin = x.shape
+    cout = w.shape[1]
+    dev = x.device
+    _check('qconv1x1_s8', 'x', x, torch.int8, (n, h, wd, cin), dev)
+    _check('qconv1x1_s8', 'w', w, torch.int8, (cin, cout), dev)
+    _check('qconv1x1_s8', 'colsum', colsum, torch.int32, (cout,), dev)
+    _check_common('qconv1x1_s8', x, w_scale, b, scalars, act, cout)
+    out = torch.empty((n, h, wd, cout), dtype=torch.int8 if requant else torch.float32,
+                      device=dev)
+    if out.numel() == 0:
+        return out
+    rc = _library().qconv1x1_launch(
+        x.data_ptr(), w.data_ptr(), w_scale.data_ptr(), b.data_ptr(),
+        colsum.data_ptr(), scalars.data_ptr(), out.data_ptr(), n * h * wd, cin,
+        cout, ACT_CODES[act], int(requant), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f'qconv1x1_s8: kernel launch failed with CUDA error {rc}')
+    qconv1x1_s8.launches += 1
+    return out
+
+
+qconv1x1_s8.launches = 0
+
+
+def qdwconv3x3_s8(x, w, w_scale, b, *, act: str, stride: int, scalars,
+                  requant: bool):
+    """Fused quantized depthwise 3x3 conv (padding 1), NHWC s8 -> NHWC s8/f32.
+
+    x: (N, H, W, C) int8 recentred; w: (3, 3, C) int8; w_scale, b: (C,)
+    f32; scalars: (1, 4) f32 from ``make_scalars``. Output (N, H, W, C) at
+    stride 1 and (N, H/2, W/2, C) at stride 2, where H and W must be even
+    (ValueError otherwise, as the TPU kernel). Launches the CUDA kernel for
+    a CUDA tensor, runs ``qdwconv3x3_reference`` for a CPU tensor."""
+    n, h, wd, c = x.shape
+    _check_stride('qdwconv3x3_s8', h, wd, stride)
+    if x.device.type == 'cpu':
+        return qdwconv3x3_reference(x, w, w_scale, b, act=act, stride=stride,
+                                    scalars=scalars, requant=requant)
+    if x.device.type != 'cuda':
+        raise ValueError(f'qdwconv3x3_s8: no kernel for device {x.device}')
+    dev = x.device
+    _check('qdwconv3x3_s8', 'x', x, torch.int8, (n, h, wd, c), dev)
+    _check('qdwconv3x3_s8', 'w', w, torch.int8, (3, 3, c), dev)
+    _check_common('qdwconv3x3_s8', x, w_scale, b, scalars, act, c)
+    out = torch.empty((n, h // stride, wd // stride, c),
+                      dtype=torch.int8 if requant else torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    rc = _library().qdw3x3_launch(
+        x.data_ptr(), w.data_ptr(), w_scale.data_ptr(), b.data_ptr(),
+        scalars.data_ptr(), out.data_ptr(), n, h, wd, c, stride, ACT_CODES[act],
+        int(requant), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f'qdwconv3x3_s8: kernel launch failed with CUDA error {rc}')
+    qdwconv3x3_s8.launches += 1
+    return out
+
+
+qdwconv3x3_s8.launches = 0

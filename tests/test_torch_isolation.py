@@ -10,7 +10,9 @@ import pytest
 import torch
 
 from pqdet_tpu_torch import resolve_device
-from pqdet_tpu_torch.bridge import from_jax_params
+from pqdet_tpu_torch.bridge import (from_jax_params, from_jax_qparams,
+                                    from_jax_quant_state)
+from pqdet_tpu_torch.ops.qconv import make_scalars
 from pqdet_tpu_torch.config import Config
 from pqdet_tpu_torch.evaluation.predict import build_predict_pipeline
 from pqdet_tpu_torch.model.network import DetectionNetwork
@@ -31,8 +33,10 @@ def test_port_imports_no_jax():
             importlib.import_module(name)
         bad = sorted(m for m in sys.modules
                      if m.split('.')[0] in ('jax', 'jaxlib', 'pqdet_tpu'))
-        print(len(names), bad)
-        sys.exit(1 if bad or len(names) < 15 else 0)
+        new = {'pqdet_tpu_torch.compress.qat', 'pqdet_tpu_torch.compress.quantized',
+               'pqdet_tpu_torch.ops.qconv'}
+        print(len(names), bad, sorted(new - set(names)))
+        sys.exit(1 if bad or len(names) < 18 or not new <= set(names) else 0)
     """)
     res = subprocess.run([sys.executable, '-c', code], cwd=REPO, capture_output=True,
                          text=True, timeout=300)
@@ -40,8 +44,9 @@ def test_port_imports_no_jax():
 
 
 def test_port_sources_name_no_jax():
-    """No source line of the port imports jax or pqdet_tpu."""
-    for path in (REPO / 'pqdet_tpu_torch').rglob('*.py'):
+    """No source line of the port, and none of chip_smoke.py, imports jax or
+    pqdet_tpu."""
+    for path in [*(REPO / 'pqdet_tpu_torch').rglob('*.py'), REPO / 'chip_smoke.py']:
         for line in path.read_text().splitlines():
             words = line.split()
             if words[:1] in (['import'], ['from']) and len(words) > 1:
@@ -53,7 +58,8 @@ def _no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
 
 
-@pytest.mark.parametrize('entry', ['resolve_device', 'init', 'pipeline', 'bridge'])
+@pytest.mark.parametrize('entry', ['resolve_device', 'init', 'pipeline', 'bridge',
+                                   'bridge_qparams', 'bridge_quant_state', 'scalars'])
 def test_entry_point_without_device_raises(entry, monkeypatch):
     """Without ``device="cpu"`` and with no card, an entry point raises
     instead of quietly running on the CPU."""
@@ -64,6 +70,9 @@ def test_entry_point_without_device_raises(entry, monkeypatch):
         'init': lambda: net.init(torch.Generator().manual_seed(0)),
         'pipeline': lambda: build_predict_pipeline(net, Config()),
         'bridge': lambda: from_jax_params({}, {}, net.graph),
+        'bridge_qparams': lambda: from_jax_qparams({'layers': {}, 'act': {}}, net.graph),
+        'bridge_quant_state': lambda: from_jax_quant_state({'quant': {}}),
+        'scalars': lambda: make_scalars(0.1, 3.0),
     }[entry]
     with pytest.raises(RuntimeError, match='device="cpu"'):
         call()

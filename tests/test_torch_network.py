@@ -191,7 +191,7 @@ def test_predict_pipeline_matches_jax():
 def test_later_slices_raise(model20):
     *_, net, tp, ts = model20
     x = torch.zeros(1, 32, 32, 3)
-    for kw in ({'train': True}, {'quant_ctx': object()}, {'remat_segments': 2},
+    for kw in ({'train': True}, {'remat_segments': 2},
                {'s2d_stem': 2}, {'tap': print}, {'targets': (1,)}):
         with pytest.raises(NotImplementedError, match='later slice'):
             net(tp, ts, x, **kw)
