@@ -344,10 +344,16 @@ def int8_bound_ms(kind, n, h, w, cin, cout, stride, requant):
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OP_PER_S * 1e3
 
 
+# depthwise shapes with C % 4 != 0: the graph's own C are all multiples of
+# 4, so these are the only cases that reach the kernel's one-channel form
+RAGGED_DW_SHAPES = [('dw', 64, 64, c, c, s, 'relu', False) for c in (27, 75) for s in (1, 2)]
+
+
 def phase6_int8_parity(gen, dev, shapes):
-    """Each int8 kernel against its plain version at every shape, B=1 and
-    B=4, f32 then requantised output. Returns the largest error of each
-    kernel: |f32 err| or s8 code difference."""
+    """Each int8 kernel against its plain version at every shape, and the
+    depthwise kernel at ``RAGGED_DW_SHAPES``, B=1 and B=4, f32 then
+    requantised output. Returns the largest error of each kernel: |f32 err|
+    or s8 code difference."""
     import torch
     from pqdet_tpu_torch.ops.qconv import (make_scalars, qconv1x1_reference,
                                            qconv1x1_s8, qdwconv3x3_reference,
@@ -355,7 +361,7 @@ def phase6_int8_parity(gen, dev, shapes):
     worst = {'qconv1x1_s8': 0.0, 'qdwconv3x3_s8': 0.0}
     failures = []
     n_exact = n_checks = 0
-    for (kind, h, w, cin, cout, stride, act, _), _count in sorted(shapes.items()):
+    for kind, h, w, cin, cout, stride, act, _ in sorted(shapes) + RAGGED_DW_SHAPES:
         for n in (1, BATCH):
             x, wq, ws, b, cs, x_scale, x_zp = int8_inputs(gen, kind, n, h, w, cin, cout, dev)
             if kind == 'dw':
@@ -496,6 +502,19 @@ def phase7_int8_path(gen, dev, cfg, batch, tag, qnet, shapes):
           f'boxes max |d| {db:.4g} px (<= 1)')
     if bad or not (ds <= 0.02 and db <= 1.0):
         raise AssertionError('the int8 kernel path disagrees with its plain versions')
+
+    # a conv that neither kernel takes raises on the card: at 63x63 the
+    # stride-2 stem meets odd H and W
+    odd = device_normalize(requests[0]['image'][:, :63, :63].contiguous())
+    try:
+        with torch.inference_mode():
+            inf.apply(qprep, odd)
+    except ValueError as e:
+        if 'fits neither int8 kernel' not in str(e):
+            raise
+        print(f'phase 7: a 63x63 input raises as it should: {e}')
+    else:
+        raise AssertionError('the int8 kernel path ran a conv that neither kernel takes')
 
     # printed only: int8 against the bf16 fp path of the same weights
     fused = fuse_params(qnet, params, state)

@@ -39,10 +39,8 @@ def fake_quant_weight(w: torch.Tensor) -> torch.Tensor:
     return q * scale
 
 
-def observe(obs: Dict, x: torch.Tensor, enabled: bool) -> Dict:
+def observe(obs: Dict, x: torch.Tensor) -> Dict:
     """Moving-average min/max observer update; returns a new dict."""
-    if not enabled:
-        return obs
     x32 = x.detach().float()
     mn, mx = torch.amin(x32), torch.amax(x32)
     m = OBSERVER_MOMENTUM
@@ -131,6 +129,6 @@ class QuantCtx:
             return x
         obs = self.quant_state[key]
         if self.observing:
-            obs = observe(obs, x, True)
+            obs = observe(obs, x)
             self.new_obs[key] = obs
         return fake_quant_act(x, obs)

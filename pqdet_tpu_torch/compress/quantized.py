@@ -155,21 +155,16 @@ class Int8Inference:
     ``mode``: ``'kernel'`` (default), ``'int'`` or ``'dequant'`` (module
     docstring). Run ``Int8Inference.prepare`` on the qparams first: it
     derives the kernels' weight views once.
-
-    ``act``: the edge qparams dict, given at construction, overrides
-    ``qparams['act']``.
     """
 
     MODES = ('kernel', 'int', 'dequant')
 
-    def __init__(self, network: DetectionNetwork, mode: str = 'kernel',
-                 act: Dict = None):
+    def __init__(self, network: DetectionNetwork, mode: str = 'kernel'):
         if mode not in self.MODES:
             raise ValueError(f'mode must be one of {self.MODES}, got {mode!r}')
         self.network = network
         self.graph = network.graph
         self.mode = mode
-        self.act = act
         self._scalars: Dict[tuple, torch.Tensor] = {}
 
     @staticmethod
@@ -220,7 +215,7 @@ class Int8Inference:
         is ``(preds, {node_key: f32 node output})``, the per-layer view the
         kernel path is held to. ``plain`` runs the kernels' plain versions
         on any device."""
-        act = self.act if self.act is not None else qparams['act']
+        act = qparams['act']
         layers = qparams['layers']
         cache: Dict[int, tuple] = {}
         inter: Dict[str, torch.Tensor] = {}
@@ -283,6 +278,14 @@ class Int8Inference:
                     xq, cur_sz = y, out_edge
                     self._keep(i, xq, cur_sz, cache, inter, intermediates, as_fp)
                     continue
+                if kernel and not plain and xq.device.type != 'cpu':
+                    # off the CPU the kernel path runs its kernels or raises;
+                    # the JAX package's bf16 dequant conv stays the CPU's
+                    # and the plain walk's
+                    raise ValueError(
+                        f'Int8Inference kernel mode: conv {key} (size {a["size"]}, '
+                        f'stride {stride}, groups {a["groups"]}, input {tuple(xq.shape)}, '
+                        f'quantised input {cur_sz is not None}) fits neither int8 kernel')
                 if self.mode == 'int':
                     y = int8_conv(xq, cur_sz, p['wq'], p['w_scale'], p['b'],
                                   stride, padding, a['groups'])

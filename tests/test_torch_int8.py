@@ -222,6 +222,43 @@ def test_kernel_mode_plain_flag_and_launches(calibrated):
         Int8Inference(calibrated['net'], mode='pallas')
 
 
+def test_kernel_mode_unadmitted_conv_matches_jax(calibrated):
+    """At 62x62 the first stride-2 depthwise conv meets a 31x31 map, which
+    neither int8 kernel takes (stride 2 needs even H and W): on the CPU both
+    packages run that conv as the bf16 dequant conv, and the preds agree to
+    the whole-net bounds."""
+    jnet, qparams = calibrated['jnet'], calibrated['qparams']
+    x = np.array(jax_normalize(jnp.asarray(_images(4)[:, :62, :62])))
+    qpj = JaxInt8Inference.prepare(qparams, network=jnet)
+    jinf = JaxInt8Inference(jnet, mode='pallas', act=qpj['act'], dw_impl='pallas')
+    ref = np.asarray(jax.jit(jinf.apply)(qpj, x))
+    inf = Int8Inference(calibrated['net'])
+    qp = Int8Inference.prepare(calibrated['qp'])
+    before = qdwconv3x3_s8.launches
+    with torch.inference_mode():
+        out = inf.apply(qp, torch.from_numpy(x)).numpy()
+    assert qdwconv3x3_s8.launches == before
+    assert out.shape == ref.shape and np.isfinite(out).all()
+    np.testing.assert_allclose(out[..., 4:], ref[..., 4:], atol=2e-2, rtol=0)
+    np.testing.assert_allclose(out[..., :4], ref[..., :4], atol=0.5, rtol=0)
+
+
+def test_kernel_mode_unadmitted_conv_raises_off_cpu(calibrated):
+    """Off the CPU the kernel path launches its kernels or raises: a 63x63
+    input leaves the stride-2 stem with odd H and W, so the walk raises at
+    the stem before any weight is read (a meta tensor stands in for the
+    card). ``plain=True`` keeps the dequant conv on any device."""
+    inf = Int8Inference(calibrated['net'])
+    qp = Int8Inference.prepare(calibrated['qp'])
+    x = torch.empty(2, 63, 63, 3, device='meta')
+    with pytest.raises(ValueError, match='conv 0 .*fits neither int8 kernel'):
+        inf.apply(qp, x)
+    with torch.inference_mode():
+        out = inf.apply(qp, torch.from_numpy(np.array(jax_normalize(
+            jnp.asarray(_images(4)[:, :63, :63])))), plain=True)
+    assert out.shape[0] == 2 and np.isfinite(out.numpy()).all()
+
+
 def test_dequant_mode_matches_jax(calibrated):
     """Fake-quant edges and bf16 convs on both sides: bf16 rounds at other
     places in the two frameworks, so the bounds are the whole-net ones."""
