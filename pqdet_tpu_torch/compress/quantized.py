@@ -45,6 +45,14 @@ from pqdet_tpu_torch.ops.qconv import (make_scalars, qconv1x1_reference,
 MAX_DENSE_CIN = 115
 
 
+def im2col_depth(cin: int) -> int:
+    """K of the stem's im2col patches: 9 * Cin rounded up to 16 with zero
+    columns (27 -> 32 for RGB), so each patch row is whole 16-byte copies
+    for the 1x1 kernel. The zero columns meet zero weight rows: the
+    integer sum and colsum are unchanged."""
+    return -(-9 * cin // 16) * 16
+
+
 def quantize_weights(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """OIHW f32 -> (int8 OIHW, per-out-channel f32 scale)."""
     absmax = torch.amax(torch.abs(w), dim=(1, 2, 3), keepdim=True)
@@ -140,13 +148,18 @@ def int8_conv(xq: torch.Tensor, x_scale_zp, wq: torch.Tensor, w_scale, b,
 
 def _stem_im2col(xq, stride: int, pad_val: int):
     """3x3 patches of recentred s8 ``xq`` (padding 1 with ``pad_val``), in
-    (kh, kw, cin) channel order: (N, H/stride, W/stride, 9*Cin) int8."""
+    (kh, kw, cin) channel order, then zero columns up to
+    ``im2col_depth(Cin)``: (N, H/stride, W/stride, im2col_depth(Cin)) int8."""
     n, h, w, c = xq.shape
     xp = torch.full((n, h + 2, w + 2, c), pad_val, dtype=torch.int8, device=xq.device)
     xp[:, 1:-1, 1:-1] = xq
     ho, wo = h // stride, w // stride
-    return torch.cat([xp[:, kh:kh + stride * ho:stride, kw:kw + stride * wo:stride]
-                      for kh in range(3) for kw in range(3)], dim=-1)
+    cols = [xp[:, kh:kh + stride * ho:stride, kw:kw + stride * wo:stride]
+            for kh in range(3) for kw in range(3)]
+    extra = im2col_depth(c) - 9 * c
+    if extra:
+        cols.append(xq.new_zeros((n, ho, wo, extra)))
+    return torch.cat(cols, dim=-1)
 
 
 class Int8Inference:
@@ -173,9 +186,9 @@ class Int8Inference:
         the weights' device:
         - 1x1 conv: ``w2d`` (Cin, Cout) int8 and ``colsum`` (Cout,) int32;
         - depthwise 3x3 (one input channel per group): ``wdw`` (3, 3, C);
-        - dense 3x3 with Cin <= 115: ``wim`` (9*Cin, Cout) in (kh, kw, cin)
-          order and ``wim_colsum``, for the im2col route into the 1x1
-          kernel.
+        - dense 3x3 with Cin <= 115: ``wim`` (im2col_depth(Cin), Cout) in
+          (kh, kw, cin) order with zero rows after the 9*Cin taps, and
+          ``wim_colsum``, for the im2col route into the 1x1 kernel.
         Other modes stage the qparams as they are."""
         layers = {}
         for key, p in qparams['layers'].items():
@@ -189,7 +202,8 @@ class Int8Inference:
                 elif (cin, kh, kw) == (1, 3, 3):
                     p['wdw'] = wq.reshape(cout, 9).t().reshape(3, 3, cout).contiguous()
                 elif (kh, kw) == (3, 3) and cin <= MAX_DENSE_CIN:
-                    p['wim'] = wq.permute(2, 3, 1, 0).reshape(9 * cin, cout).contiguous()
+                    wim = wq.permute(2, 3, 1, 0).reshape(9 * cin, cout)
+                    p['wim'] = F.pad(wim, (0, 0, 0, im2col_depth(cin) - 9 * cin)).contiguous()
                     p['wim_colsum'] = p['wim'].to(torch.int32).sum(0).to(torch.int32)
             layers[key] = {k: v.contiguous() if isinstance(v, torch.Tensor) else v
                            for k, v in p.items()}
@@ -259,7 +273,8 @@ class Int8Inference:
                 pw_ok = ('w2d' in p and stride == 1 and padding == 0
                          and p['w2d'].shape[0] == c)
                 im2col_ok = ('wim' in p and a['size'] == 3 and padding == 1
-                             and stride in (1, 2) and p['wim'].shape[0] == 9 * c and even)
+                             and stride in (1, 2) and p['wim'].shape[0] == im2col_depth(c)
+                             and even)
                 if kernel and cur_sz is not None and (pw_ok or dw_ok or im2col_ok):
                     out_edge = act.get(key)
                     common = dict(act=a['activation'], requant=out_edge is not None,

@@ -30,25 +30,38 @@
 // and does 2*M*Cin*Cout int8 operations, at most ~320 operations per byte
 // at Cin = Cout = 1280 against the 1979 TOP/s / 3.35 TB/s ~ 590 the card
 // needs before the tensor cores are the limit; the depthwise conv does 18
-// operations per output byte. Neither kernel reaches its bound: this is the
-// simple version. qconv1x1 issues WMMA s8 16x16x16 tiles out of shared
-// memory with no overlap of loads and math (one load -> sync -> mma round
-// per 64-deep K step); qdwconv3x3 reads its nine taps from L1/L2 without a
-// shared-memory window. wgmma, TMA and a shared-memory ring come later.
+// operations per output byte. Neither kernel reaches its bound. At 16x16
+// and 32x32 (M = 1024, 4096 at batch 4) qconv1x1 is bound by the latency of
+// each CTA's few steps, at 64x64 and up by its epilogue's instructions
+// (about ten per output, 25 M outputs at 256x256) and the per-tile copies.
+// qdwconv3x3 reads its nine taps from L1/L2 without a shared-memory window.
 //
-// qconv1x1 design:
+// qconv1x1 design (tiles, K step, split-K and stages from the host's plan,
+// ops/qconv.py::plan_qconv1x1, as plain ints):
 // - rows are N*H*W merged (a 1x1 conv is position independent), as the
-//   TPU kernel merges the batch into rows; one block = a 64-row x 64-col
-//   output tile, 4 warps, each a 32 x 32 sub-tile of 2 x 2 WMMA fragments;
-// - K steps of 64 staged in shared memory as 16-byte-wide sub-blocks
-//   ([k/16][row][16] for x, [k/16][n/16][16][16] for w), so every WMMA
-//   fragment pointer is 256-bit aligned and every leading dimension is 16;
-// - ragged K (Cin 24, the stem's 27) and ragged N (the heads' 75) are
-//   zero-filled in shared memory: a zero contributes exactly 0 to the
-//   integer sum, and columns >= Cout are not stored;
-// - the s32 accumulators are staged through shared memory for the
-//   epilogue, which writes s8 or f32 with consecutive threads on
-//   consecutive channels.
+//   TPU kernel merges the batch into rows; a CTA of 8 warps takes a BM x BN
+//   output tile (128 x 32 mostly, 128 x 64 where the tiles would be too
+//   many, 64 x 64/128 below 512 rows), each warp 32 rows x BN/(256/BM);
+// - s8 x s8 -> s32 on mma.sync m16n8k32 from ldmatrix. The instruction
+//   wants both operands k-contiguous and w is [K][N]: each K step's w tile
+//   is transposed in shared memory, 4 x 4 bytes a thread (byte_perm);
+// - K steps of BK = 32/64/128 (32 for K <= 32: the stem's 27 padded to 32
+//   by the port's im2col, Cin 16/24/32) through a ring of 2-3 cp.async
+//   stages of 16 bytes (8 for K or N a multiple of 8 only; four byte loads
+//   a word for the rest); rows or columns outside M, K and N are
+//   zero-filled (source size 0): a zero adds exactly 0 to the integer sum;
+// - split-K where the tiles alone do not fill the card (the 16x16 and
+//   32x32 layers): SPLIT CTAs of a cluster take KPR whole K steps each,
+//   stage their s32 partial tiles in shared memory, and after
+//   cluster.sync() each adds the ranks' partials for 1/SPLIT of the rows
+//   through distributed shared memory (all ranks' loads in flight at once)
+//   and runs the epilogue: an integer sum, exact in any order, one launch;
+// - epilogue: affine/epilogue/requant_code's arithmetic with the scalars
+//   in registers and the activation decoded once. Output rows go out as
+//   16-byte stores; rows that are not 16-byte aligned (Cout 24, 75) are
+//   staged in shared memory and stored with consecutive threads on
+//   consecutive elements. Without split-K and with s8 output the epilogue
+//   runs on the accumulators in registers and stages one byte per output.
 //
 // qdwconv3x3 design: one thread per output pixel and group of 4 channels
 // (char4 loads and stores; 1 channel when C % 4 != 0). Taps outside the
@@ -60,21 +73,15 @@
 // Interface: plain C, loaded with ctypes. Launches go on the caller's
 // stream; each entry point returns a CUDA error code (0 = launched).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-using namespace nvcuda;
-
-constexpr int BM = 64;           // output rows per block
-constexpr int BN = 64;           // output channels per block
-constexpr int BK = 64;           // K step staged in shared memory
-constexpr int KC = BK / 16;      // 16-deep sub-blocks per K step
-constexpr int NC = BN / 16;      // 16-wide column sub-blocks
-constexpr int NT = 128;          // threads per block (4 warps)
-constexpr int LDC = BN + 4;      // int32 row stride of the accumulator tile
+constexpr int NT = 256;          // threads per qconv1x1 CTA (8 warps)
 
 enum Act { ACT_LINEAR = 0, ACT_RELU = 1, ACT_RELU6 = 2, ACT_LEAKY = 3,
            ACT_LOGISTIC = 4 };
@@ -102,119 +109,391 @@ __device__ __forceinline__ float epilogue(float acc, float alpha, float beta,
   return apply_act(act, __fadd_rn(__fmul_rn(acc, alpha), beta));
 }
 
-__device__ __forceinline__ int8_t requant_code(float y, const float* s) {
-  float q = rintf(__fadd_rn(__fmul_rn(y, s[2]), s[3]));
+__device__ __forceinline__ int8_t requant_code(float y, float inv_scale, float zp_off) {
+  float q = rintf(__fadd_rn(__fmul_rn(y, inv_scale), zp_off));
   q = fminf(fmaxf(q, -128.f), 127.f);
   return static_cast<int8_t>(static_cast<int>(q));
 }
 
-__device__ __forceinline__ bool aligned16(const void* p) {
+__device__ __forceinline__ int8_t requant_code(float y, const float* s) {
+  return requant_code(y, s[2], s[3]);
+}
+
+__host__ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-// dst[0:16] = src[0:valid] then zeros; one 16-byte move when allowed
-__device__ __forceinline__ void copy16(int8_t* dst, const int8_t* src,
-                                       int valid, bool vec) {
-  if (vec && valid >= 16) {
-    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 16; ++i) dst[i] = i < valid ? src[i] : int8_t(0);
-  }
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, int>;
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-__global__ void __launch_bounds__(NT) qconv1x1_kernel(
-    const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-    const float* __restrict__ wscale, const float* __restrict__ bias,
-    const int* __restrict__ colsum, const float* __restrict__ s,
-    void* __restrict__ out, int M, int K, int N, int act, int requant) {
-  __shared__ __align__(128) int8_t xs[KC][BM][16];
-  __shared__ __align__(128) int8_t wsm[KC][NC][16][16];
-  __shared__ __align__(128) int cs[BM][LDC];
-  __shared__ float alpha_s[BN], beta_s[BN];
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
 
-  const int t = threadIdx.x;
-  const int warp = t / 32;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int wm = (warp / 2) * 32;   // the warp's 32 x 32 sub-tile
-  const int wn = (warp % 2) * 32;
-  const bool vec_x = (K % 16 == 0) && aligned16(x);
-  const bool vec_w = (N % 16 == 0) && aligned16(w);
+// `bytes` (16 or 8) global -> shared, zeros where !valid (source size 0)
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src, bool valid,
+                                         int bytes) {
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(valid ? 16 : 0)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(valid ? 8 : 0)
+                 : "memory");
+}
 
-  FragC acc[2][2];
+// bytes src[0:min(4, valid)] (zeros after) as one little-endian word: four
+// independent read-only loads, for rows that are not 4-byte aligned
+__device__ __forceinline__ uint32_t load4(const int8_t* src, int valid) {
+  uint32_t v = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (i < valid) v |= static_cast<uint32_t>(static_cast<uint8_t>(__ldg(src + i))) << (8 * i);
+  return v;
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+struct QParams {
+  const int8_t* x;
+  const int8_t* w;
+  const float* wscale;
+  const float* bias;
+  const int* colsum;
+  const float* s;
+  void* out;
+  int M, K, N, act, requant;
+  int bm, bn, split, kpr, stages;
+  // derived by the host from the plan
+  int ldx, slot, off_wt, off_ab, ldc, xcopy, wcopy, vec_out;
+};
+
+// Pointwise conv as an M x K by K x N s8 product, one bm x bn output tile
+// per cluster of `split` CTAs (see the note at the head of the file).
+template <int BK>
+__global__ void __launch_bounds__(NT, 3) qconv1x1_kernel(const QParams p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int m0 = blockIdx.y * p.bm, n0 = (blockIdx.x / p.split) * p.bn;
+  const int wm_n = p.bm / 32, wn_n = (NT / 32) / wm_n;
+  const int wm = warp / wn_n, wn = warp - wm * wn_n;
+  const int wtile = p.bn / wn_n, nt8 = wtile / 8;   // warp tile 32 x wtile
+  const int ksteps = (p.K + BK - 1) / BK;
+  const int kbeg = rank * p.kpr, kend = min(ksteps, kbeg + p.kpr);
+  const int total = max(0, kend - kbeg);
+  const uint32_t sbase = smem_u32(smem);
+  const uint32_t wt = sbase + p.off_wt;   // [bn][ldx]: w transposed, k contiguous
+  float* alpha_s = reinterpret_cast<float*>(smem + p.off_ab);
+  float* beta_s = alpha_s + p.bn;
+  int* ct = reinterpret_cast<int*>(smem);  // [bm][ldc] s32, after the K loop
+  float* stage = reinterpret_cast<float*>(smem + p.bm * p.ldc * 4);   // [bm][bn] outputs
+
+  // one K step: x rows [m0, m0+bm) x [k0, k0+BK) -> [bm][ldx]; w rows
+  // [k0, k0+BK) x [n0, n0+bn) -> [BK][bn], by cp.async of 16 or 8 bytes
+  // (zero-filled outside M, K and N), or byte by byte where K or N is odd
+  auto issue = [&](int step, int slot) {
+    const int k0 = (kbeg + step) * BK;
+    const uint32_t xs = sbase + slot * p.slot;
+    const uint32_t ws = xs + p.bm * p.ldx;
+    if (p.xcopy) {
+      const int per_row = BK / p.xcopy;
+      for (int idx = t; idx < p.bm * per_row; idx += NT) {
+        const int r = idx / per_row, c = (idx - r * per_row) * p.xcopy;
+        const bool ok = m0 + r < p.M && k0 + c < p.K;
+        cp_async(xs + r * p.ldx + c, ok ? p.x + static_cast<size_t>(m0 + r) * p.K + k0 + c : p.x,
+                 ok, p.xcopy);
+      }
+    } else {
+      unsigned char* xg = smem + slot * p.slot;
+      for (int idx = t; idx < p.bm * (BK / 4); idx += NT) {
+        const int r = idx / (BK / 4), c = (idx - r * (BK / 4)) * 4;
+        const int8_t* src = p.x + static_cast<size_t>(m0 + r) * p.K + k0 + c;
+        *reinterpret_cast<uint32_t*>(xg + r * p.ldx + c) =
+            m0 + r < p.M ? load4(src, p.K - k0 - c) : 0u;
+      }
+    }
+    if (p.wcopy) {
+      const int per_row = p.bn / p.wcopy;
+      for (int idx = t; idx < BK * per_row; idx += NT) {
+        const int r = idx / per_row, c = (idx - r * per_row) * p.wcopy;
+        const bool ok = k0 + r < p.K && n0 + c < p.N;
+        cp_async(ws + r * p.bn + c, ok ? p.w + static_cast<size_t>(k0 + r) * p.N + n0 + c : p.w,
+                 ok, p.wcopy);
+      }
+    } else {
+      unsigned char* wg = smem + slot * p.slot + p.bm * p.ldx;
+      const int per_row = p.bn / 4;
+      for (int idx = t; idx < BK * per_row; idx += NT) {
+        const int r = idx / per_row, c = (idx - r * per_row) * 4;
+        const int8_t* src = p.w + static_cast<size_t>(k0 + r) * p.N + n0 + c;
+        *reinterpret_cast<uint32_t*>(wg + r * p.bn + c) =
+            k0 + r < p.K ? load4(src, p.N - n0 - c) : 0u;
+      }
+    }
+  };
+
+  int acc[2][4][4];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0);
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0;
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int idx = t; idx < BM * KC; idx += NT) {
-      const int m = idx / KC, kc = idx % KC;
-      const int gm = m0 + m, gk = k0 + kc * 16;
-      const int valid = gm < M ? max(0, min(16, K - gk)) : 0;
-      copy16(&xs[kc][m][0], valid > 0 ? x + static_cast<size_t>(gm) * K + gk : x,
-             valid, vec_x);
-    }
-    for (int idx = t; idx < BK * NC; idx += NT) {
-      const int k = idx / NC, nc = idx % NC;
-      const int gk = k0 + k, gn = n0 + nc * 16;
-      const int valid = gk < K ? max(0, min(16, N - gn)) : 0;
-      copy16(&wsm[k / 16][nc][k % 16][0],
-             valid > 0 ? w + static_cast<size_t>(gk) * N + gn : w, valid, vec_w);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-      if (k0 + kc * 16 >= K) break;   // all-zero sub-blocks (uniform per block)
-      FragA a[2];
-      FragB b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], reinterpret_cast<const signed char*>(
-                                         &xs[kc][wm + 16 * i][0]), 16);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], reinterpret_cast<const signed char*>(
-                                         &wsm[kc][wn / 16 + j][0][0]), 16);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int s = 0; s < p.stages - 1; ++s) {
+    if (s < total) issue(s, s);
+    cp_commit();
   }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&cs[wm + 16 * i][wn + 16 * j], acc[i][j], LDC,
-                              wmma::mem_row_major);
-  if (t < BN) {
+  // per-channel affine terms, read by the epilogue (after the first copies
+  // are on their way); the scalars stay in registers
+  const float s0 = p.s[0], s1 = p.s[1], s2 = p.s[2], s3 = p.s[3];
+  if (t < p.bn) {
     const int gn = n0 + t;
     float a = 0.f, b = 0.f;
-    if (gn < N) affine(s, wscale[gn], bias[gn], __int2float_rn(colsum[gn]), a, b);
+    if (gn < p.N) {
+      const float sv[2] = {s0, s1};
+      affine(sv, p.wscale[gn], p.bias[gn], __int2float_rn(p.colsum[gn]), a, b);
+    }
     alpha_s[t] = a;
     beta_s[t] = b;
   }
-  __syncthreads();
-
-  for (int idx = t; idx < BM * BN; idx += NT) {
-    const int m = idx / BN, n = idx % BN;
-    const int gm = m0 + m, gn = n0 + n;
-    if (gm >= M || gn >= N) continue;
-    const float y = epilogue(__int2float_rn(cs[m][n]), alpha_s[n], beta_s[n], act);
-    const size_t o = static_cast<size_t>(gm) * N + gn;
-    if (requant)
-      static_cast<int8_t*>(out)[o] = requant_code(y, s);
+  const bool clamp = p.act == ACT_RELU || p.act == ACT_RELU6, leaky = p.act == ACT_LEAKY;
+  const float hi = p.act == ACT_RELU6 ? 6.f : __int_as_float(0x7f800000);
+  for (int step = 0; step < total; ++step) {
+    if (p.stages >= 3)
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
     else
-      static_cast<float*>(out)[o] = y;
+      cp_wait_all();
+    __syncthreads();   // this step's tiles landed; the last step's mma is done
+    const int nxt = step + p.stages - 1;
+    if (nxt < total) issue(nxt, nxt % p.stages);
+    cp_commit();
+    // s8 mma wants both operands k-contiguous: transpose the [BK][bn] w
+    // tile into wt [bn][ldx], 4x4 bytes per thread and round (byte_perm)
+    {
+      const unsigned char* wsrc = smem + (step % p.stages) * p.slot + p.bm * p.ldx;
+      unsigned char* wdst = smem + p.off_wt;
+      const int nb4 = p.bn / 4;
+      for (int idx = t; idx < (BK / 4) * nb4; idx += NT) {
+        const int k = (idx / nb4) * 4, c = (idx - (idx / nb4) * nb4) * 4;
+        const uint32_t r0 = *reinterpret_cast<const uint32_t*>(wsrc + (k + 0) * p.bn + c);
+        const uint32_t r1 = *reinterpret_cast<const uint32_t*>(wsrc + (k + 1) * p.bn + c);
+        const uint32_t r2 = *reinterpret_cast<const uint32_t*>(wsrc + (k + 2) * p.bn + c);
+        const uint32_t r3 = *reinterpret_cast<const uint32_t*>(wsrc + (k + 3) * p.bn + c);
+        const uint32_t t0 = __byte_perm(r0, r1, 0x5140), t1 = __byte_perm(r2, r3, 0x5140);
+        const uint32_t t2 = __byte_perm(r0, r1, 0x7362), t3 = __byte_perm(r2, r3, 0x7362);
+        *reinterpret_cast<uint32_t*>(wdst + (c + 0) * p.ldx + k) = __byte_perm(t0, t1, 0x5410);
+        *reinterpret_cast<uint32_t*>(wdst + (c + 1) * p.ldx + k) = __byte_perm(t0, t1, 0x7632);
+        *reinterpret_cast<uint32_t*>(wdst + (c + 2) * p.ldx + k) = __byte_perm(t2, t3, 0x5410);
+        *reinterpret_cast<uint32_t*>(wdst + (c + 3) * p.ldx + k) = __byte_perm(t2, t3, 0x7632);
+      }
+    }
+    __syncthreads();
+    const uint32_t xs = sbase + (step % p.stages) * p.slot;
+    const uint32_t a_row = xs + (wm * 32 + (lane & 15)) * p.ldx + (lane >> 4) * 16;
+    const uint32_t b_row =
+        wt + (wn * wtile + (lane & 7) + ((lane >> 4) << 3)) * p.ldx + ((lane >> 3) & 1) * 16;
+#pragma unroll
+    for (int kk = 0; kk < BK / 32; ++kk) {
+      uint32_t fa[2][4];
+      ldsm_x4(fa[0], a_row + kk * 32);
+      ldsm_x4(fa[1], a_row + 16 * p.ldx + kk * 32);
+#pragma unroll
+      for (int jp = 0; jp < 2; ++jp) {
+        if (2 * jp >= nt8) break;
+        uint32_t fb[4];
+        ldsm_x4(fb, b_row + jp * 16 * p.ldx + kk * 32);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mma_s8(acc[i][2 * jp], fa[i], fb[0], fb[1]);
+          mma_s8(acc[i][2 * jp + 1], fa[i], fb[2], fb[3]);
+        }
+      }
+    }
   }
+  cp_wait_all();
+  __syncthreads();   // the ring is free: stage the s32 tile there
+
+  if (p.split == 1 && p.requant) {
+    // one CTA holds the whole sum: the epilogue runs on the accumulators
+    // in registers, the s8 codes are staged as bytes [bm][bn] and stored as
+    // 16-byte rows (a quarter of the shared-memory traffic of the s32 tile)
+    unsigned char* codes = smem;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j >= nt8) break;
+      const int c = wn * wtile + j * 8 + (lane & 3) * 2;
+      const float2 al = *reinterpret_cast<const float2*>(alpha_s + c);
+      const float2 bt = *reinterpret_cast<const float2*>(beta_s + c);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = wm * 32 + i * 16 + (lane >> 2) + 8 * h;
+          float u[2] = {__fadd_rn(__fmul_rn(__int2float_rn(acc[i][j][2 * h]), al.x), bt.x),
+                        __fadd_rn(__fmul_rn(__int2float_rn(acc[i][j][2 * h + 1]), al.y), bt.y)};
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            u[q] = clamp ? fminf(fmaxf(u[q], 0.f), hi) : u[q];
+            u[q] = leaky && !(u[q] > 0.f) ? __fmul_rn(0.1f, u[q]) : u[q];
+            if (p.act == ACT_LOGISTIC) u[q] = 1.f / (1.f + expf(-u[q]));
+          }
+          *reinterpret_cast<uint16_t*>(codes + r * p.bn + c) = static_cast<uint16_t>(
+              static_cast<uint8_t>(requant_code(u[0], s2, s3)) |
+              static_cast<uint16_t>(static_cast<uint8_t>(requant_code(u[1], s2, s3))) << 8);
+        }
+    }
+    __syncthreads();
+    const int g16 = p.bn / 16, cols = min(p.bn, p.N - n0);
+    int8_t* out = static_cast<int8_t*>(p.out);
+    if (p.vec_out) {
+      for (int idx = t; idx < p.bm * g16; idx += NT) {
+        const int r = idx / g16, c = (idx - r * g16) * 16;
+        if (m0 + r < p.M && c < cols)
+          *reinterpret_cast<uint4*>(out + static_cast<size_t>(m0 + r) * p.N + n0 + c) =
+              *reinterpret_cast<const uint4*>(codes + r * p.bn + c);
+      }
+    } else {   // rows not 16-byte aligned: consecutive threads, consecutive bytes
+      for (int idx = t; idx < p.bm * cols; idx += NT) {
+        const int r = idx / cols, c = idx - r * cols;
+        if (m0 + r < p.M)
+          out[static_cast<size_t>(m0 + r) * p.N + n0 + c] =
+              static_cast<int8_t>(codes[r * p.bn + c]);
+      }
+    }
+    return;
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j >= nt8) break;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wm * 32 + i * 16 + (lane >> 2) + 8 * h;
+        const int c = wn * wtile + j * 8 + (lane & 3) * 2;
+        *reinterpret_cast<int2*>(ct + r * p.ldc + c) =
+            make_int2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
+    }
+  if (p.split > 1)
+    cluster.sync();   // every rank's partial tile is staged
+  else
+    __syncthreads();
+
+  // rows [r0, r1) of the tile are this rank's: add the ranks' partials
+  // (16 channels at a time, int4 loads, distributed shared memory, all
+  // ranks' loads in flight together), then the epilogue and 16-byte stores
+  // (16 s8 or 4 x 4 f32)
+  const int rpr = (p.bm + p.split - 1) / p.split;
+  const int r0 = rank * rpr, r1 = min(p.bm, r0 + rpr);
+  const int g16 = p.bn / 16;
+  for (int idx = t; idx < (r1 - r0) * g16; idx += NT) {
+    const int r = r0 + idx / g16, c = (idx - (idx / g16) * g16) * 16;
+    const int gm = m0 + r;
+    int v[16];
+#pragma unroll
+    for (int q = 0; q < 16; ++q) v[q] = 0;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      if (q >= p.split) break;
+      const int* part = p.split > 1 ? cluster.map_shared_rank(ct, q) : ct;
+      const int4* src = reinterpret_cast<const int4*>(part + r * p.ldc + c);
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const int4 u = src[g];
+        v[4 * g] += u.x;
+        v[4 * g + 1] += u.y;
+        v[4 * g + 2] += u.z;
+        v[4 * g + 3] += u.w;
+      }
+    }
+    if (gm >= p.M) continue;
+    // the epilogue of affine/epilogue/requant_code, with the scalars and
+    // the activation decoded once: the same rounded operations in order
+    float y[16];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const float4 al = *reinterpret_cast<const float4*>(alpha_s + c + 4 * g);
+      const float4 bt = *reinterpret_cast<const float4*>(beta_s + c + 4 * g);
+      const float av[4] = {al.x, al.y, al.z, al.w}, bv[4] = {bt.x, bt.y, bt.z, bt.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float u = __fadd_rn(__fmul_rn(__int2float_rn(v[4 * g + q]), av[q]), bv[q]);
+        u = clamp ? fminf(fmaxf(u, 0.f), hi) : u;
+        u = leaky && !(u > 0.f) ? __fmul_rn(0.1f, u) : u;
+        if (p.act == ACT_LOGISTIC) u = 1.f / (1.f + expf(-u));
+        y[4 * g + q] = u;
+      }
+    }
+    const int gn = n0 + c;
+    if (!p.vec_out) {
+      // rows not 16-byte aligned (N 75): stage the tile, stored below with
+      // consecutive threads on consecutive elements
+      if (p.requant) {
+#pragma unroll
+        for (int q = 0; q < 16; ++q)
+          reinterpret_cast<int8_t*>(stage)[r * p.bn + c + q] = requant_code(y[q], s2, s3);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 16; ++q) stage[r * p.bn + c + q] = y[q];
+      }
+      continue;
+    }
+    if (gn >= p.N) continue;   // N is a multiple of 16 here: groups are whole or out
+    const size_t o = static_cast<size_t>(gm) * p.N + gn;
+    if (p.requant) {
+      uint32_t w4[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int q = 0; q < 16; ++q)
+        w4[q / 4] |= static_cast<uint32_t>(static_cast<uint8_t>(requant_code(y[q], s2, s3)))
+                     << (8 * (q % 4));
+      *reinterpret_cast<uint4*>(static_cast<int8_t*>(p.out) + o) =
+          make_uint4(w4[0], w4[1], w4[2], w4[3]);
+    } else {
+      float* of = static_cast<float*>(p.out) + o;
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        reinterpret_cast<float4*>(of)[g] =
+            make_float4(y[4 * g], y[4 * g + 1], y[4 * g + 2], y[4 * g + 3]);
+    }
+  }
+  if (!p.vec_out) {
+    __syncthreads();
+    const int cols = min(p.bn, p.N - n0);
+    for (int idx = t; idx < (r1 - r0) * cols; idx += NT) {
+      const int r = r0 + idx / cols, cc = idx - (idx / cols) * cols;
+      if (m0 + r >= p.M) continue;
+      const size_t o = static_cast<size_t>(m0 + r) * p.N + n0 + cc;
+      if (p.requant)
+        static_cast<int8_t*>(p.out)[o] = reinterpret_cast<const int8_t*>(stage)[r * p.bn + cc];
+      else
+        static_cast<float*>(p.out)[o] = stage[r * p.bn + cc];
+    }
+  }
+  if (p.split > 1) cluster.sync();   // no rank exits while a peer reads its tile
 }
 
 template <int V>
@@ -294,18 +573,75 @@ __global__ void __launch_bounds__(256) qdw3x3_kernel(
   }
 }
 
+
+int qlayout(QParams& p, int bk) {
+  const int ksteps = (p.K + bk - 1) / bk;
+  if ((p.bm != 64 && p.bm != 128) || (bk != 32 && bk != 64 && bk != 128) || p.bn < 32 ||
+      p.bn % 32 || p.split < 1 || p.split > 8 || p.kpr < 1 || p.split * p.kpr < ksteps ||
+      (p.split - 1) * p.kpr >= ksteps || p.stages < 2 || p.stages > 3)
+    return -1;
+  const int wtile = p.bn / ((NT / 32) / (p.bm / 32));
+  if (wtile % 16 || wtile > 32) return -1;
+  p.ldx = bk + 16;
+  p.slot = p.bm * p.ldx + bk * p.bn;
+  p.off_wt = p.stages * p.slot;
+  p.ldc = p.bn + 4;
+  // the s32 tile [bm][ldc] and, for rows not 16-byte aligned, the staged
+  // outputs [bm][bn] (4 bytes each) after it, both over the ring
+  const int ring = p.off_wt + p.bn * p.ldx, tile = p.bm * p.ldc * 4 + p.bm * p.bn * 4;
+  p.off_ab = ring > tile ? ring : tile;
+  return p.off_ab + 8 * p.bn;
+}
+
 }  // namespace
 
 extern "C" int qconv1x1_launch(const void* x, const void* w, const void* wscale,
                                const void* bias, const void* colsum,
                                const void* scalars, void* out, int m, int k,
-                               int n, int act, int requant, void* stream) {
-  dim3 grid((m + BM - 1) / BM, (n + BN - 1) / BN);
-  qconv1x1_kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
-      static_cast<const float*>(wscale), static_cast<const float*>(bias),
-      static_cast<const int*>(colsum), static_cast<const float*>(scalars), out,
-      m, k, n, act, requant);
+                               int n, int act, int requant, int bm, int bn, int bk,
+                               int split, int kpr, int stages, int smem, void* stream) {
+  QParams prm{};
+  prm.x = static_cast<const int8_t*>(x);
+  prm.w = static_cast<const int8_t*>(w);
+  prm.wscale = static_cast<const float*>(wscale);
+  prm.bias = static_cast<const float*>(bias);
+  prm.colsum = static_cast<const int*>(colsum);
+  prm.s = static_cast<const float*>(scalars);
+  prm.out = out;
+  prm.M = m; prm.K = k; prm.N = n; prm.act = act; prm.requant = requant;
+  prm.bm = bm; prm.bn = bn; prm.split = split; prm.kpr = kpr; prm.stages = stages;
+  if (qlayout(prm, bk) != smem || smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x), wa = reinterpret_cast<uintptr_t>(w);
+  prm.xcopy = k % 16 == 0 && xa % 16 == 0 ? 16 : k % 8 == 0 && xa % 8 == 0 ? 8 : 0;
+  prm.wcopy = n % 16 == 0 && wa % 16 == 0 ? 16 : n % 8 == 0 && wa % 8 == 0 ? 8 : 0;
+  prm.vec_out = aligned16(out) && n % 16 == 0;   // else the staged store
+  void (*kern)(QParams) = bk == 32 ? qconv1x1_kernel<32>
+                          : bk == 64 ? qconv1x1_kernel<64> : qconv1x1_kernel<128>;
+  // raise the shared-memory limit only when a larger one is needed (one
+  // host call per size, not per launch); the process uses one device
+  static int given[3] = {0, 0, 0};
+  int& g = given[bk == 32 ? 0 : bk == 64 ? 1 : 2];
+  cudaError_t err = cudaSuccess;
+  if (smem > g) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    g = smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(((n + bn - 1) / bn) * split),
+                     static_cast<unsigned>((m + bm - 1) / bm), 1);
+  cfg.blockDim = dim3(NT, 1, 1);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = static_cast<unsigned>(split);
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kern, prm);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

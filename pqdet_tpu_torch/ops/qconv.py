@@ -12,7 +12,9 @@ and a requantised output is clip(round(y * (1/out_scale) + out_zp - 128),
 The scalars ride in one (1, 4) f32 tensor from ``make_scalars``.
 
 - ``qconv1x1_s8``: pointwise conv, s8 x s8 -> s32 (``csrc/qconv.cu``,
-  WMMA int8 tensor-core tiles);
+  mma.sync int8 tensor-core tiles, split-K across a thread-block cluster
+  where the tiles alone do not fill the card; ``plan_qconv1x1`` picks the
+  tiles from the shapes);
 - ``qdwconv3x3_s8``: depthwise 3x3, pad 1 with the recentred zero point,
   stride 1 or 2 (``csrc/qconv.cu``, CUDA cores).
 
@@ -27,13 +29,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from pqdet_tpu_torch import resolve_device
-from pqdet_tpu_torch.ops.fused_ir import ACT_CODES, _apply_act
+from pqdet_tpu_torch.ops.fused_ir import ACT_CODES, MAX_CLUSTER, SMEM_TWO, _apply_act
 
 
 def make_scalars(x_scale, x_zp, out_scale=None, out_zp=None, device='cuda'):
@@ -119,12 +122,85 @@ def _check_common(fn, x, w_scale, b, scalars, act, cout):
     _check(fn, 'scalars', scalars, torch.float32, (1, 4), dev)
 
 
+SMALL_M = 512        # below this many rows a CTA takes 64 of them, else 128
+WIDE_TILES = 400     # more tiles than this at bn 32: take bn 64
+SPLIT_CTAS = 256     # split K until the CTAs are about this many
+
+
+class QconvPlan(NamedTuple):
+    """Launch plan of one pointwise int8 conv, plain ints for the C entry
+    point: ``bm`` x ``bn`` output tiles, K steps of ``bk``; ``split``
+    CTAs of a cluster share one tile's K steps, ``kpr`` steps each, and
+    add their s32 partials through distributed shared memory (1: no
+    split); ``stages`` cp.async buffers; ``smem`` dynamic shared-memory
+    bytes. The grid is (n_blocks * split, m_blocks)."""
+    bm: int
+    bn: int
+    bk: int
+    split: int
+    kpr: int
+    stages: int
+    smem: int
+    m_blocks: int
+    n_blocks: int
+
+    @property
+    def c_args(self):
+        return (self.bm, self.bn, self.bk, self.split, self.kpr, self.stages, self.smem)
+
+
+def qconv1x1_smem_bytes(bm, bn, bk, stages) -> int:
+    """Dynamic shared memory of the kernel: the larger of the K loop's
+    ring (``stages`` x (x tile [bm][bk+16] + w tile [bk][bn]) and the
+    transposed w tile [bn][bk+16], bytes) and the s32 tile [bm][bn+4] with
+    the staged outputs [bm][bn] (4 bytes each, for rows that are not
+    16-byte aligned); then alpha and beta for bn channels. The C layout
+    (csrc/qconv.cu, ``qlayout``) is the same formula, and the launch
+    refuses a mismatch."""
+    ring = stages * (bm * (bk + 16) + bk * bn) + bn * (bk + 16)
+    return max(ring, bm * (bn + 4) * 4 + bm * bn * 4) + 8 * bn
+
+
+@functools.lru_cache(maxsize=None)
+def plan_qconv1x1(m: int, k: int, n: int) -> QconvPlan:
+    """Tiles, split-K and stages of ``qconv1x1_s8`` for M = N*H*W rows, K
+    input and N output channels (rules read off plan_sweep.py's sweep of
+    every plan at every pointwise shape of the int8 graph, PERF.md):
+
+    - bm 128 rows (64 below SMALL_M): eight warps of 32 rows each;
+    - bn 32 columns, or 64 where N > 32 and 32 would make more than
+      WIDE_TILES tiles (a warp's tile is at most 32 x 32, so three CTAs fit
+      on an SM);
+    - bk 32 for K <= 32 (the stem's 27 -> 32, Cin 16/24/32), 64 for K <= 64,
+      else 128;
+    - split: where the tiles are fewer than SPLIT_CTAS, up to 8 CTAs of a
+      cluster each take kpr of the K steps (whole steps, none empty) and add
+      their s32 partials in distributed shared memory: an integer sum, so
+      exact in any order;
+    - stages 3 where two CTAs still fit on an SM, else 2.
+    Plans are cached: a forward asks for the same ones every time."""
+    if min(m, k, n) < 1:
+        raise ValueError(f'plan_qconv1x1: empty shape {(m, k, n)}')
+    bm = 128 if m >= SMALL_M else 64
+    m_blocks = -(-m // bm)
+    bn = 32 if bm == 128 and (n <= 32 or m_blocks * -(-n // 32) <= WIDE_TILES) else 64
+    bk = 32 if k <= 32 else 64 if k <= 64 else 128
+    n_blocks = -(-n // bn)
+    ksteps = -(-k // bk)
+    split = max(1, min(MAX_CLUSTER, ksteps, SPLIT_CTAS // (m_blocks * n_blocks)))
+    kpr = -(-ksteps // split)
+    split = -(-ksteps // kpr)
+    stages = 3 if qconv1x1_smem_bytes(bm, bn, bk, 3) <= SMEM_TWO else 2
+    return QconvPlan(bm, bn, bk, split, kpr, stages,
+                     qconv1x1_smem_bytes(bm, bn, bk, stages), m_blocks, n_blocks)
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     from pqdet_tpu_torch.ops._build import load_library
     lib = load_library('qconv')
     lib.qconv1x1_launch.restype = ctypes.c_int
-    lib.qconv1x1_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 \
+    lib.qconv1x1_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 \
         + [ctypes.c_void_p]
     lib.qdw3x3_launch.restype = ctypes.c_int
     lib.qdw3x3_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
@@ -159,7 +235,8 @@ def qconv1x1_s8(x, w, w_scale, b, colsum, *, act: str, scalars, requant: bool):
     rc = _library().qconv1x1_launch(
         x.data_ptr(), w.data_ptr(), w_scale.data_ptr(), b.data_ptr(),
         colsum.data_ptr(), scalars.data_ptr(), out.data_ptr(), n * h * wd, cin,
-        cout, ACT_CODES[act], int(requant), torch.cuda.current_stream(dev).cuda_stream)
+        cout, ACT_CODES[act], int(requant), *plan_qconv1x1(n * h * wd, cin, cout).c_args,
+        torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f'qconv1x1_s8: kernel launch failed with CUDA error {rc}')
     qconv1x1_s8.launches += 1
