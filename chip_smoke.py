@@ -8,9 +8,10 @@ Builds the CUDA kernels from pqdet_tpu_torch/csrc with nvcc (sm_90a), then:
 1. prints the card (nvidia-smi name, power limit), torch and CUDA versions,
    the build time and ptxas's registers, shared memory and spills of each
    kernel;
-2. holds the Triton decode kernel to the plain decode on the card, at the
-   three head shapes of mobilenetv2-fpn at 512x512 (B=4, bf16 and f32),
-   an odd H and an exp_cap case (rtol = atol = 1e-5; for a box
+2. holds the Triton decode kernel to its plain version on the card: the
+   three heads of mobilenetv2-fpn at 512x512 (B=4, bf16 and f32) decoded
+   by one launch into the concatenated preds, with and without exp_cap,
+   and single heads with an odd H (rtol = atol = 1e-5; for a box
    coordinate relative to its operands, see decode_tolerance);
 3. holds the CUDA fused inverted-residual kernel to fused_ir_reference on
    the card, at all 21 chain shapes of mobilenetv2-fpn at 512x512, B=1 and
@@ -22,17 +23,20 @@ Builds the CUDA kernels from pqdet_tpu_torch/csrc with nvcc (sm_90a), then:
    and BN statistics from a seed, BN folded, bf16, fused-IR table of 21
    chains) through build_predict_pipeline: 16 requests of 4 uint8
    images. The kernels' launch counts are set to 0 just before and read
-   just after; each must be exactly 21 (fused IR) and 3 (decode) per
-   forward. The kernel path's preds are compared with the plain fused
-   path on the card (scores 0.03, boxes 1.5 px) and with the cuDNN layer
-   walk (scores 0.03, boxes 3 px), and every detection must be finite;
+   just after; each must be exactly 21 (fused IR) and 1 (decode, all
+   three heads) per forward. The kernel path's preds are compared with the
+   plain fused path on the card (scores 0.03, boxes 1.5 px) and with the
+   cuDNN layer walk (scores 0.03, boxes 3 px), and every detection must be
+   finite;
 5. times, with CUDA events after warm-up, requests at B=1 and B=4 and each
    stage of a B=4 request alone (normalize, forward, recover, NMS, copy to
    the host); and as device time (calls captured in a CUDA graph), each
    kernel per forward, its plain version, and for the fused chains three
    cuDNN convs with bias and activation as the library yardstick (biases
-   cast to bf16 once, outside the timing); per chain the plan, the
-   clusters the card holds at once and the kernel's ptxas report; a
+   cast to bf16 once, outside the timing); the decode as its one launch
+   and as the earlier form, a launch per head and a concatenation; per
+   chain the plan, the clusters the card holds at once and the kernel's
+   ptxas report; a
    torch.profiler trace of B=4 requests gives the device's busy share and
    its top kernels;
 6. holds the CUDA int8 kernels to their plain versions on the card, at
@@ -40,10 +44,13 @@ Builds the CUDA kernels from pqdet_tpu_torch/csrc with nvcc (sm_90a), then:
    pointwise shapes, the stem's im2col shape with K = 27 padded to 32, the
    13 depthwise shapes at strides 1 and 2), at QCONV_EDGE_SHAPES (M below
    a tile, ragged M, N 75, the raw K 27, split-K with a ragged M) and
-   RAGGED_DW_SHAPES, at B=1 and B=4, with f32 output and requantised
-   output, with nonzero zero points: s8 codes equal or 1 apart on under
-   0.1 % of the elements, f32 within 1e-5 * max(1, |r|); each pointwise
-   line names its plan (tiles, K step, split-K);
+   DW_EDGE_SHAPES (C 27, 75 and 20 at both strides, W not a multiple of
+   the tile, a 2x2 stride-2 input), at B=1 and B=4, with f32 output and
+   requantised output, with integer zero points: every output equal to
+   its plain version bit for bit; each line names its plan. Fractional
+   zero points (the depthwise kernel's exact-order path) are held to s8
+   codes equal or 1 apart on under 0.1 % of the elements and f32 within
+   1e-5 * max(1, |r|);
 7. serves the int8 path: the quant graph of mobilenetv2-fpn (relu) with
    seeded weights and BN statistics, calibrated by 4 observer passes
    (prepare_qat_state + QuantCtx) on seeded uint8 images, converted by
@@ -51,7 +58,7 @@ Builds the CUDA kernels from pqdet_tpu_torch/csrc with nvcc (sm_90a), then:
    build_predict_pipeline(apply_fn=...): 16 requests of 4 images. The
    launch counts are set to 0 just before and read just after; per
    forward they must be exactly 58 qconv1x1_s8 (57 pointwise + the stem),
-   26 qdwconv3x3_s8 and 3 decode. The kernel path is held to apply(...,
+   26 qdwconv3x3_s8 and 1 decode. The kernel path is held to apply(...,
    plain=True) node by node (the phase 6 bound) and on the preds (scores
    0.02, boxes 1 px); every detection must be finite. The int8 preds
    against the bf16 fp path on the same weights are printed, not gated;
@@ -188,8 +195,8 @@ def ptxas_report(log: str) -> dict:
             name = m.group(1)
             for k in ('fused_ir_kernel', 'qconv1x1_kernel', 'qdw3x3_kernel'):
                 if k in name:
-                    t = re.search(k + r'ILi(\d+)E', name)
-                    name = f'{k}<{t.group(1)}>' if t else k
+                    t = re.findall(r'Li(\d+)E', name[name.index(k):])
+                    name = f'{k}<{",".join(t)}>' if t else k
             out[name] = {}
             continue
         m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads', line)
@@ -393,9 +400,19 @@ def int8_bound_ms(kind, n, h, w, cin, cout, stride, requant):
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OP_PER_S * 1e3
 
 
-# depthwise shapes with C % 4 != 0: the graph's own C are all multiples of
-# 4, so these are the only cases that reach the kernel's one-channel form
-RAGGED_DW_SHAPES = [('dw', 64, 64, c, c, s, 'relu', False) for c in (27, 75) for s in (1, 2)]
+# depthwise shapes beyond the graph's, whose C are all multiples of 16:
+# C 27 and 75 (one channel a thread, byte copies), C 20 (4-byte copies and
+# stores, a partly masked channel slice), W not a multiple of the tile, a
+# 2x2 stride-2 input (one output pixel)
+DW_EDGE_SHAPES = ([('dw', 64, 64, c, c, s, 'relu', False) for c in (27, 75, 20) for s in (1, 2)]
+                  + [('dw', 20, 36, 32, 32, 1, 'relu6', False),
+                     ('dw', 20, 36, 96, 96, 2, 'linear', False),
+                     ('dw', 2, 2, 20, 20, 2, 'relu', False)])
+# the depthwise kernel's exact-order path runs only at a fractional zero
+# point (act_qparams rounds them): (shape, zero point offset)
+DW_FRACTIONAL_ZP = [(('dw', 64, 64, 96, 96, 2, 'relu', True), 0.37),
+                    (('dw', 20, 36, 32, 32, 1, 'relu', True), 0.37),
+                    (('dw', 64, 64, 27, 27, 1, 'relu', True), 0.37)]
 # pointwise shapes beyond the graph's: M below one tile, M not a multiple of
 # the tile with N 75, the stem's raw K 27 (rows not 16-byte aligned: the
 # byte path), K 24 in a 32-deep step, split-K with a ragged M
@@ -410,61 +427,69 @@ QCONV_EDGE_SHAPES = [
 
 def phase6_int8_parity(gen, dev, shapes):
     """Each int8 kernel against its plain version at every shape, and the
-    depthwise kernel at ``RAGGED_DW_SHAPES``, B=1 and B=4, f32 then
-    requantised output. Returns the largest error of each kernel: |f32 err|
-    or s8 code difference."""
+    depthwise kernel at ``DW_EDGE_SHAPES``, B=1 and B=4, f32 then
+    requantised output, every output bit for bit; then the depthwise
+    kernel at ``DW_FRACTIONAL_ZP``, to the s8/f32 bound. Returns the
+    largest error of each kernel: |f32 err| or s8 code difference."""
     import torch
-    from pqdet_tpu_torch.ops.qconv import (make_scalars, plan_qconv1x1, qconv1x1_reference,
-                                           qconv1x1_s8, qdwconv3x3_reference,
-                                           qdwconv3x3_s8)
+    from pqdet_tpu_torch.ops.qconv import (make_scalars, plan_qconv1x1, plan_qdwconv3x3,
+                                           qconv1x1_reference, qconv1x1_s8,
+                                           qdwconv3x3_reference, qdwconv3x3_s8)
     worst = {'qconv1x1_s8': 0.0, 'qdwconv3x3_s8': 0.0}
     failures = []
     n_exact = n_checks = 0
-    for kind, h, w, cin, cout, stride, act, _ in (sorted(shapes) + QCONV_EDGE_SHAPES
-                                                   + RAGGED_DW_SHAPES):
-        for n in (1, BATCH):
-            x, wq, ws, b, cs, x_scale, x_zp = int8_inputs(gen, kind, n, h, w, cin, cout, dev)
-            if kind == 'dw':
-                name = 'qdwconv3x3_s8'
-                kern = lambda sc, rq: qdwconv3x3_s8(  # noqa: E731
-                    x, wq, ws, b, act=act, stride=stride, scalars=sc, requant=rq)
-                ref = lambda sc, rq: qdwconv3x3_reference(  # noqa: E731
-                    x, wq, ws, b, act=act, stride=stride, scalars=sc, requant=rq)
-            else:
-                name = 'qconv1x1_s8'
-                kern = lambda sc, rq: qconv1x1_s8(  # noqa: E731
-                    x, wq, ws, b, cs, act=act, scalars=sc, requant=rq)
-                ref = lambda sc, rq: qconv1x1_reference(  # noqa: E731
-                    x, wq, ws, b, cs, act=act, scalars=sc, requant=rq)
-            sc = make_scalars(x_scale, x_zp, device=dev)
-            got, want = kern(sc, False), ref(sc, False)
-            torch.cuda.synchronize()
-            err = (got - want).abs()
-            f32_ok = bool(torch.isfinite(got).all()) and bool(
-                (err <= 1e-5 * want.abs().clamp_min(1.0)).all())
-            o_scale, o_zp = edge_of(want)
-            sc = make_scalars(x_scale, x_zp, o_scale, o_zp, device=dev)
-            q, qref = kern(sc, True), ref(sc, True)
-            torch.cuda.synchronize()
-            d = (q.to(torch.int32) - qref.to(torch.int32)).abs()
-            n_diff = int((d > 0).sum())
-            s8_ok = d.max().item() <= 1 and n_diff < 1e-3 * d.numel()
-            worst[name] = max(worst[name], err.max().item(), float(d.max().item()))
+    cases = [(k, n, 0.0) for k in sorted(shapes) + QCONV_EDGE_SHAPES + DW_EDGE_SHAPES
+             for n in (1, BATCH)] + [(k, BATCH, f) for k, f in DW_FRACTIONAL_ZP]
+    for (kind, h, w, cin, cout, stride, act, _), n, frac in cases:
+        x, wq, ws, b, cs, x_scale, x_zp = int8_inputs(gen, kind, n, h, w, cin, cout, dev)
+        x_zp += frac
+        if kind == 'dw':
+            name = 'qdwconv3x3_s8'
+            kern = lambda sc, rq: qdwconv3x3_s8(  # noqa: E731
+                x, wq, ws, b, act=act, stride=stride, scalars=sc, requant=rq)
+            ref = lambda sc, rq: qdwconv3x3_reference(  # noqa: E731
+                x, wq, ws, b, act=act, stride=stride, scalars=sc, requant=rq)
+        else:
+            name = 'qconv1x1_s8'
+            kern = lambda sc, rq: qconv1x1_s8(  # noqa: E731
+                x, wq, ws, b, cs, act=act, scalars=sc, requant=rq)
+            ref = lambda sc, rq: qconv1x1_reference(  # noqa: E731
+                x, wq, ws, b, cs, act=act, scalars=sc, requant=rq)
+        sc = make_scalars(x_scale, x_zp, device=dev)
+        got, want = kern(sc, False), ref(sc, False)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        f32_ok = bool(torch.isfinite(got).all()) and bool(
+            (err <= 1e-5 * want.abs().clamp_min(1.0)).all())
+        o_scale, o_zp = edge_of(want)
+        sc = make_scalars(x_scale, x_zp, o_scale, o_zp, device=dev)
+        q, qref = kern(sc, True), ref(sc, True)
+        torch.cuda.synchronize()
+        d = (q.to(torch.int32) - qref.to(torch.int32)).abs()
+        n_diff = int((d > 0).sum())
+        s8_ok = d.max().item() <= 1 and n_diff < 1e-3 * d.numel()
+        worst[name] = max(worst[name], err.max().item(), float(d.max().item()))
+        exact = int(err.max().item() == 0) + int(n_diff == 0)
+        if not frac:
             n_checks += 2
-            n_exact += int(err.max().item() == 0) + int(n_diff == 0)
-            ok = f32_ok and s8_ok
-            plan = '' if kind == 'dw' else \
-                f' plan {tuple(plan_qconv1x1(n * h * w, cin, cout))[:6]}'
-            print(f'phase 6: {name} {kind} N={n} H={h} W={w} Cin={cin} Cout={cout} '
-                  f's={stride} {act} x_zp={x_zp:.0f}{plan}: f32 max |err| '
-                  f'{err.max().item():.3g}, s8 {n_diff} of {d.numel()} codes differ (max '
-                  f'{d.max().item()}) {"ok" if ok else "FAIL"}')
-            if not ok:
-                failures.append((name, kind, n, h, cin, cout, stride))
+            n_exact += exact
+        # integer zero points: bit for bit; fractional: the bound
+        ok = f32_ok and s8_ok and (frac or exact == 2)
+        if kind == 'dw':
+            pl = plan_qdwconv3x3(n, h, w, cin, stride)
+            plan = f' plan th={pl.th} tw={pl.tw} cs={pl.cs} cw={pl.cw} grid={pl.grid}'
+        else:
+            plan = f' plan {tuple(plan_qconv1x1(n * h * w, cin, cout))[:6]}'
+        print(f'phase 6: {name} {kind} N={n} H={h} W={w} Cin={cin} Cout={cout} '
+              f's={stride} {act} x_zp={x_zp:.2f}{plan}: f32 max |err| '
+              f'{err.max().item():.3g}, s8 {n_diff} of {d.numel()} codes differ (max '
+              f'{d.max().item()}) {"ok" if ok else "FAIL"}')
+        if not ok:
+            failures.append((name, kind, n, h, cin, cout, stride))
     if failures:
         raise AssertionError(f'int8 kernels disagree with their plain versions on {failures}')
-    print(f'phase 6: {n_exact} of {n_checks} outputs equal to their plain version '
-          f'bit for bit; largest error {worst}')
+    print(f'phase 6: {n_exact} of {n_checks} outputs at integer zero points equal to their '
+          f'plain version bit for bit; largest error {worst}')
     return worst
 
 
@@ -478,7 +503,7 @@ def phase7_int8_path(gen, dev, cfg, batch, tag, qnet, shapes):
     from pqdet_tpu_torch.evaluation.predict import (build_predict_pipeline,
                                                     make_batch_predict)
     from pqdet_tpu_torch.model.network import cast_params, fuse_params
-    from pqdet_tpu_torch.ops.decode_kernel import decode_head
+    from pqdet_tpu_torch.ops.decode_kernel import decode_heads
     from pqdet_tpu_torch.ops.fused_ir import prepare_fused_ir
     from pqdet_tpu_torch.ops.preprocess import device_normalize
     from pqdet_tpu_torch.ops.qconv import qconv1x1_s8, qdwconv3x3_s8
@@ -508,15 +533,15 @@ def phase7_int8_path(gen, dev, cfg, batch, tag, qnet, shapes):
     requests = [batch(BATCH) for _ in range(N_REQUESTS)]
     predict(requests[0])                      # warm-up
     torch.cuda.synchronize()
-    qconv1x1_s8.launches = qdwconv3x3_s8.launches = decode_head.launches = 0
+    qconv1x1_s8.launches = qdwconv3x3_s8.launches = decode_heads.launches = 0
     dets = [predict(r) for r in requests]
     torch.cuda.synchronize()
     launches = {'qconv1x1_s8': qconv1x1_s8.launches,
-                'qdwconv3x3_s8': qdwconv3x3_s8.launches, 'decode': decode_head.launches}
+                'qdwconv3x3_s8': qdwconv3x3_s8.launches, 'decode': decode_heads.launches}
     want = {'qconv1x1_s8': n_pw * N_REQUESTS, 'qdwconv3x3_s8': n_dw * N_REQUESTS,
-            'decode': 3 * N_REQUESTS}
+            'decode': N_REQUESTS}
     print(f'phase 7: served {N_REQUESTS} int8 requests of {BATCH} images at {SIZE}x{SIZE}; '
-          f'launches {launches} (want {want}: {n_pw} + {n_dw} + 3 per forward)')
+          f'launches {launches} (want {want}: {n_pw} + {n_dw} + 1 per forward)')
     if (n_pw, n_dw) != (58, 26) or launches != want:
         raise AssertionError(f'int8 kernel launches {launches} != {want}')
     nc = qnet.num_classes
@@ -598,7 +623,7 @@ def phase8_int8_timings(gen, dev, cfg, batch, tag, shapes, inf, qprep, predict, 
     import torch.nn.functional as F
     from pqdet_tpu_torch.ops.preprocess import device_normalize
     from pqdet_tpu_torch.ops.qconv import (_epilogue, make_scalars, plan_qconv1x1,
-                                           qconv1x1_reference, qconv1x1_s8,
+                                           plan_qdwconv3x3, qconv1x1_reference, qconv1x1_s8,
                                            qdwconv3x3_reference, qdwconv3x3_s8)
     for b in (1, BATCH):
         request_times(predict, batch, b, tag, 'phase 8')
@@ -656,7 +681,10 @@ def phase8_int8_timings(gen, dev, cfg, batch, tag, shapes, inf, qprep, predict, 
         t['bytes_ms'] += count * by_ms
         t['ops_ms'] += count * op_ms
         if kind == 'dw':
-            how = f'ptxas {ptx.get("qdw3x3_kernel<4>", "not reported")}'
+            pl = plan_qdwconv3x3(BATCH, h, w, cin, stride)
+            how = (f'plan th={pl.th} tw={pl.tw} cs={pl.cs} cw={pl.cw} smem={pl.smem} B, '
+                   f'{pl.grid} CTAs, one a tile; ptxas '
+                   f'{ptx.get(f"qdw3x3_kernel<4,{stride}>", "not reported")}')
         else:
             pl = plan_qconv1x1(BATCH * h * w, cin, cout)
             how = (f'plan bm={pl.bm} bn={pl.bn} bk={pl.bk} split={pl.split} kpr={pl.kpr} '
@@ -688,11 +716,10 @@ def main() -> int:
     from pqdet_tpu_torch.config import Config
     from pqdet_tpu_torch.evaluation.predict import (build_predict_pipeline,
                                                     make_batch_predict)
-    from pqdet_tpu_torch.model.decode import decode
     from pqdet_tpu_torch.model.network import (DetectionNetwork, cast_params,
                                                fuse_params)
     from pqdet_tpu_torch.ops._build import build_all
-    from pqdet_tpu_torch.ops.decode_kernel import decode_head
+    from pqdet_tpu_torch.ops.decode_kernel import decode_heads, decode_heads_reference
     from pqdet_tpu_torch.ops._build import load_library
     from pqdet_tpu_torch.ops.fused_ir import (_apply_act, fused_ir_conv,
                                               fused_ir_reference, max_active_clusters,
@@ -728,22 +755,30 @@ def main() -> int:
     net = DetectionNetwork.from_cfg(get_cfg('mobilenetv2-fpn'))
     heads = [(SIZE // y.attrs['stride'], y.attrs['stride']) for y in net.graph.yolo_nodes]
     nc = net.num_classes
-    cases = [(BATCH, h, h, s, dt, 0.0) for h, s in heads
-             for dt in (torch.bfloat16, torch.float32)]
-    cases += [(2, 13, 16, 8, torch.float32, 0.0), (BATCH, 16, 16, 32, torch.float32, 2.0)]
+    strides = [s for _, s in heads]
+    # (B, [(H, W) of each head], strides, dtype, exp caps)
+    cases = [(BATCH, [(h, h) for h, _ in heads], strides, dt, caps)
+             for dt in (torch.bfloat16, torch.float32)
+             for caps in ([0.0] * 3, [2.0, 0.0, 1.5])]
+    cases += [(2, [(13, 16)], [8], torch.float32, [0.0]),
+              (BATCH, [(7, 9), (13, 16)], [16, 8], torch.float32, [0.0, 2.0])]
     decode_err = 0.0
-    for b, h, w, s, dt, cap in cases:
-        raw = (torch.randn(b, h, w, 3 * (5 + nc), generator=gen) * 2).to(dev, dt)
-        got = decode_head(raw, nc, s, exp_cap=cap)
-        ref = decode(raw, nc, s, exp_cap=cap)
+    for b, sizes, ss, dt, caps in cases:
+        raws = [(torch.randn(b, h, w, 3 * (5 + nc), generator=gen) * 2).to(dev, dt)
+                for h, w in sizes]
+        got = decode_heads(raws, nc, ss, caps)
+        ref = decode_heads_reference(raws, nc, ss, caps)
         torch.cuda.synchronize()
         err = (got - ref).abs()
-        ok = bool((err <= decode_tolerance(raw, nc, s, cap)).all())
+        tol = torch.cat([decode_tolerance(r, nc, st, cap).flatten(1, 3)
+                         for r, st, cap in zip(raws, ss, caps)], 1)
+        ok = got.shape == ref.shape and bool((err <= tol).all())
         decode_err = max(decode_err, err.max().item())
-        print(f'phase 2: decode B={b} H={h} W={w} stride={s} {dt} exp_cap={cap}: '
-              f'max |err| {err.max().item():.3g} {"ok" if ok else "FAIL"}')
+        print(f'phase 2: decode_heads B={b} heads {sizes} strides {ss} {dt} exp_cap={caps}: '
+              f'one launch into {tuple(got.shape)}, max |err| {err.max().item():.3g} '
+              f'{"ok" if ok else "FAIL"}')
         if not ok:
-            raise AssertionError('decode kernel disagrees with the plain decode')
+            raise AssertionError('decode kernel disagrees with its plain version')
 
     # ---- phase 3: fused IR kernel vs fused_ir_reference
     chains = chain_shapes(net, SIZE)
@@ -805,11 +840,11 @@ def main() -> int:
     predict(requests[0])                      # warm-up: Triton compile
     torch.cuda.synchronize()
     fused_ir_conv.launches = 0
-    decode_head.launches = 0
+    decode_heads.launches = 0
     dets = [predict(r) for r in requests]
     torch.cuda.synchronize()
-    launches = {'fused_ir': fused_ir_conv.launches, 'decode': decode_head.launches}
-    want = {'fused_ir': 21 * N_REQUESTS, 'decode': 3 * N_REQUESTS}
+    launches = {'fused_ir': fused_ir_conv.launches, 'decode': decode_heads.launches}
+    want = {'fused_ir': 21 * N_REQUESTS, 'decode': N_REQUESTS}
     print(f'phase 4: served {N_REQUESTS} requests of {BATCH} images at {SIZE}x{SIZE}; '
           f'launches {launches} (want {want})')
     if launches != want:
@@ -858,20 +893,26 @@ def main() -> int:
                 xb, rb, dev, ev, tag, 'phase 5')
     profile_requests(predict, batch(BATCH), tag, 'phase 5')
 
-    # decode: the three heads of one B=4 bf16 forward
-    dec = {'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0}
-    for h, s in heads:
-        raw = torch.randn(BATCH, h, h, 3 * (5 + nc), generator=gen).to(dev, torch.bfloat16)
-        k_ms = device_ms(lambda: decode_head(raw, nc, s))
-        call_ms = cuda_ms(lambda: decode_head(raw, nc, s))
-        p_ms = device_ms(lambda: decode(raw, nc, s))
-        nbytes = raw.numel() * (2 + 4)
-        dec['ms'] += k_ms
-        dec['plain_ms'] += p_ms
-        dec['bound_ms'] += nbytes / HBM_BYTES_PER_S * 1e3
-        print(f'phase 5: {tag} decode B={BATCH} H=W={h}: kernel {k_ms:.4f} ms '
-              f'({call_ms:.4f} ms a call with its launch), plain {p_ms:.4f} ms, '
-              f'bound {nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms (bytes)')
+    # decode: the three heads of one B=4 bf16 forward, one launch into the
+    # preds; and the earlier form, a launch per head and the concatenation
+    raws = [torch.randn(BATCH, h, h, 3 * (5 + nc), generator=gen).to(dev, torch.bfloat16)
+            for h, _ in heads]
+    caps = [0.0] * len(heads)
+    nbytes = sum(r.numel() for r in raws) * (2 + 4)
+
+    def per_head():
+        return torch.cat([decode_heads([r], nc, [s], [0.0]) for r, (_, s) in zip(raws, heads)], 1)
+
+    dec = {'ms': device_ms(lambda: decode_heads(raws, nc, strides, caps)),
+           'plain_ms': device_ms(lambda: decode_heads_reference(raws, nc, strides, caps)),
+           'bound_ms': nbytes / HBM_BYTES_PER_S * 1e3}
+    call_ms = cuda_ms(lambda: decode_heads(raws, nc, strides, caps))
+    old_ms = device_ms(per_head)
+    old_call_ms = cuda_ms(per_head)
+    print(f'phase 5: {tag} decode B={BATCH} heads {[h for h, _ in heads]}: one launch '
+          f'{dec["ms"]:.4f} ms ({call_ms:.4f} ms a call with its launch); a launch per head '
+          f'and torch.cat {old_ms:.4f} ms ({old_call_ms:.4f} ms a call with its launches); '
+          f'plain {dec["plain_ms"]:.4f} ms, bound {dec["bound_ms"]:.5f} ms (bytes)')
 
     # fused IR: each chain at B=4, its plain version and three cuDNN convs
     fir = dict.fromkeys(('ms', 'plain_ms', 'bound_ms', 'library_ms', 'call_ms',
@@ -928,7 +969,7 @@ def main() -> int:
           f'{fir["library_ms"]:.4f} ms, bound {fir["bound_ms"]:.5f} ms; calls with '
           f'their launches: kernel {fir["call_ms"]:.4f} ms, cuDNN x3 '
           f'{fir["library_call_ms"]:.4f} ms')
-    print(f'phase 5: {tag} decode per B={BATCH} forward (3 launches): kernel '
+    print(f'phase 5: {tag} decode per B={BATCH} forward (1 launch): kernel '
           f'{dec["ms"]:.4f} ms, plain {dec["plain_ms"]:.4f} ms, bound '
           f'{dec["bound_ms"]:.5f} ms')
 
@@ -940,7 +981,7 @@ def main() -> int:
     qt = phase8_int8_timings(gen, dev, cfg, batch, tag, shapes, inf, qprep, qpredict, ptx)
 
     kernels = [
-        {'name': 'decode_head', 'route': 'triton',
+        {'name': 'decode_heads', 'route': 'triton',
          'source': 'pqdet_tpu_torch/ops/decode_kernel.py',
          'replaces': 'pqdet_tpu/ops/pallas_decode.py:59',
          'launches': launches['decode'], 'max_abs_err': decode_err,

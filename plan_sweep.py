@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Sweep the launch plans of the port's two CUDA kernels on one NVIDIA GPU.
+"""Sweep the launch plans of the port's three CUDA kernels on one NVIDIA GPU.
 
-    python3 plan_sweep.py [fused|qconv|both]
+    python3 plan_sweep.py [fused|qconv|dw|all]
 
 - fused: each of the 21 fused-IR chains of mobilenetv2-fpn at 512x512, B=4,
   under the plans ``plan_fused_ir`` makes with the cluster capped at 2, 4
@@ -9,7 +9,12 @@
 - qconv: each pointwise shape of the int8 graph at 512x512, B=4, under
   every plan the qconv1x1 kernel takes (bm, bn, bk, split, stages), each
   checked bit for bit against the plain version, device ms from CUDA
-  graphs; prints the current plan's time and the best three.
+  graphs; prints the current plan's time and the best three;
+- dw: each depthwise shape of the int8 graph at 512x512, B=4, under every
+  tile (th, tw, cs) the depthwise kernel takes with up to 16 units a
+  thread, each checked bit for bit against the plain version, device ms
+  from CUDA graphs; prints the current plan's time, the best three and
+  the bytes bound.
 
 The plans' rules (ops/fused_ir.py, ops/qconv.py) were read off these
 sweeps; PERF.md keeps the numbers. Needs a card; prints the card's name and
@@ -108,6 +113,62 @@ def sweep_qconv(dev, gen):
           f'{best_total:.4f} ms')
 
 
+def sweep_dw(dev, gen):
+    import torch
+
+    import chip_smoke as cs
+    from pqdet_tpu_torch.model.network import DetectionNetwork
+    from pqdet_tpu_torch.ops import qconv as qc
+    from pqdet_tpu_torch.zoo import get_cfg
+    lib = qc._library()
+    net = DetectionNetwork.from_cfg(get_cfg('mobilenetv2-fpn'), quant=True)
+    cur_total = best_total = bound_total = 0.0
+    for (kind, h, _, c, _, s, act, rq), count in sorted(cs.int8_conv_shapes(net, 512).items()):
+        if kind != 'dw':
+            continue
+        x, wq, ws, b, _, x_scale, x_zp = cs.int8_inputs(gen, 'dw', 4, h, h, c, c, dev)
+        sc = qc.make_scalars(x_scale, x_zp, 0.05, 3.0, dev)
+        ho = h // s
+        out = torch.empty(4, ho, ho, c, dtype=torch.int8, device=dev)
+        ref = qc.qdwconv3x3_reference(x, wq, ws, b, act=act, stride=s, scalars=sc,
+                                      requant=True)
+        cur = qc.plan_qdwconv3x3(4, h, h, c, s).c_args
+        results = []
+        for th, tw, csl in itertools.product((1, 2, 4, 8, 16, 32), (4, 8, 16, 32),
+                                             (16, 32, 64, 128)):
+            if th > max(1, ho) * 2 or tw > max(4, ho) * 2 or csl > c \
+                    or (csl // 4) * th * (tw // 4) > 16 * 256:
+                continue
+            smem = qc.qdwconv3x3_smem_bytes(th, tw, csl, s)
+            if smem > qc.SMEM_TWO:               # fewer than two CTAs an SM
+                continue
+            plan = (th, tw, csl, cur[3], smem, 4 * -(-ho // th) * -(-ho // tw) * -(-c // csl))
+
+            def run():
+                rc = lib.qdw3x3_launch(
+                    x.data_ptr(), wq.data_ptr(), ws.data_ptr(), b.data_ptr(), sc.data_ptr(),
+                    out.data_ptr(), 4, h, h, c, s, qc.ACT_CODES[act], 1, *plan,
+                    torch.cuda.current_stream().cuda_stream)
+                if rc != 0:
+                    raise RuntimeError(f'qdw3x3 plan {plan} launch failed with CUDA error {rc}')
+            out.fill_(0)
+            run()
+            torch.cuda.synchronize()
+            if not torch.equal(out, ref):
+                raise AssertionError(f'qdw3x3 plan {plan} disagrees with its plain version')
+            results.append((cs.device_ms(run, iters=10, replays=3), plan))
+        results.sort()
+        cur_ms = next((ms for ms, pl in results if pl == cur), float('nan'))
+        bound = cs.int8_bound_ms('dw', 4, h, h, c, c, s, True)[0]
+        cur_total += count * cur_ms
+        best_total += count * results[0][0]
+        bound_total += count * bound
+        print(f'dw {h}x{h} C={c} s={s} x{count}: bound {bound:.5f} ms; current {cur_ms:.4f} '
+              f'ms {cur[:3]}; best ' + '; '.join(f'{ms:.4f} ms {pl[:3]}' for ms, pl in results[:3]))
+    print(f'dw per B=4 forward: current plans {cur_total:.4f} ms, best plans '
+          f'{best_total:.4f} ms, bound {bound_total:.5f} ms')
+
+
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
@@ -116,17 +177,19 @@ def main() -> int:
         return 2
     import chip_smoke as cs
     from pqdet_tpu_torch.ops._build import build_all
-    which = sys.argv[1] if len(sys.argv) > 1 else 'both'
+    which = sys.argv[1] if len(sys.argv) > 1 else 'all'
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print(cs.smi())
     build_all()
     dev = torch.device('cuda', 0)
     gen = torch.Generator().manual_seed(cs.SEED)
-    if which in ('fused', 'both'):
+    if which in ('fused', 'all'):
         sweep_fused(dev, gen)
-    if which in ('qconv', 'both'):
+    if which in ('qconv', 'all'):
         sweep_qconv(dev, gen)
+    if which in ('dw', 'all'):
+        sweep_dw(dev, gen)
     return 0
 
 

@@ -11,8 +11,9 @@ between a dequant and a requant, as in the JAX package.
   recentred s8 form, every pointwise conv through ``qconv1x1_s8``, every
   depthwise 3x3 through ``qdwconv3x3_s8`` (both CUDA kernels on the card,
   ``csrc/qconv.cu``), and the dense 3x3 stem as im2col patches into
-  ``qconv1x1_s8``; yolo heads through the Triton decode kernel. This is
-  the serving path;
+  ``qconv1x1_s8``; the raw yolo heads are decoded after the walk by one
+  launch of the Triton decode kernel into the preds. This is the serving
+  path;
 - ``'int'``: uint8 activations and ``int8_conv``, the exact integer
   reference, plain PyTorch (the sum in float64: torch has no integer
   conv);
@@ -32,10 +33,10 @@ import torch.nn.functional as F
 
 from pqdet_tpu_torch.compress.qat import act_qparams
 from pqdet_tpu_torch.model import layers as L
-from pqdet_tpu_torch.model.decode import decode
 from pqdet_tpu_torch.model.graph import solve_padding
-from pqdet_tpu_torch.model.network import DetectionNetwork, fuse_params
-from pqdet_tpu_torch.ops.decode_kernel import decode_head
+from pqdet_tpu_torch.model.network import (DetectionNetwork, decode_all_heads,
+                                           decode_consumed_head, fuse_params)
+from pqdet_tpu_torch.ops.decode_kernel import head_views
 from pqdet_tpu_torch.ops.qconv import (make_scalars, qconv1x1_reference,
                                        qconv1x1_s8, qdwconv3x3_reference,
                                        qdwconv3x3_s8)
@@ -227,17 +228,17 @@ class Int8Inference:
         """Run the quantized graph on normalized NHWC f32 ``x``; returns
         (B, sum HWA, 5+C) f32 preds. With ``intermediates`` the return value
         is ``(preds, {node_key: f32 node output})``, the per-layer view the
-        kernel path is held to. ``plain`` runs the kernels' plain versions
+        kernel path is held to; a yolo node's entry is its (B, H, W, A, 5+C)
+        view of the preds. ``plain`` runs the kernels' plain versions
         on any device."""
         act = qparams['act']
         layers = qparams['layers']
         cache: Dict[int, tuple] = {}
         inter: Dict[str, torch.Tensor] = {}
-        outputs = []
+        heads = []                       # (raw f32 head, yolo node)
         kernel = self.mode == 'kernel'
         pw_fn = qconv1x1_reference if plain else qconv1x1_s8
         dw_fn = qdwconv3x3_reference if plain else qdwconv3x3_s8
-        decode_fn = decode if plain else decode_head
 
         if self.mode == 'dequant':
             xq, cur_sz = _fake_quant_edge(x, act['input']), None
@@ -333,8 +334,10 @@ class Int8Inference:
                 y = L.linear(as_fp(xq, cur_sz).reshape(xq.shape[0], -1), p)
                 y = L.apply_activation(a['activation'], y)
             elif kind == 'yolo':
-                xq, cur_sz = decode_fn(as_fp(xq, cur_sz), a['classes'], a['stride']), None
-                outputs.append(xq)
+                xq, cur_sz = as_fp(xq, cur_sz), None
+                heads.append((xq, node))
+                if i in self.graph.last_use:
+                    xq = decode_consumed_head(xq, node, plain, capped=False)
                 self._keep(i, xq, cur_sz, cache, inter, intermediates, as_fp)
                 continue
             else:
@@ -346,9 +349,12 @@ class Int8Inference:
                 xq, cur_sz = y, None
             self._keep(i, xq, cur_sz, cache, inter, intermediates, as_fp)
 
-        flat = [o.reshape(o.shape[0], -1, o.shape[-1]) for o in outputs]
-        preds = torch.cat(flat, dim=1)
+        raws = [r for r, _ in heads]
+        # no exp_cap, as the JAX package's int8 walk decodes
+        preds = decode_all_heads(raws, [n for _, n in heads], plain, capped=False)
         if intermediates:
+            for (_, node), view in zip(heads, head_views(preds, [r.shape for r in raws])):
+                inter[str(node.index)] = view
             return preds, inter
         return preds
 

@@ -34,7 +34,9 @@
 // and 32x32 (M = 1024, 4096 at batch 4) qconv1x1 is bound by the latency of
 // each CTA's few steps, at 64x64 and up by its epilogue's instructions
 // (about ten per output, 25 M outputs at 256x256) and the per-tile copies.
-// qdwconv3x3 reads its nine taps from L1/L2 without a shared-memory window.
+// qdwconv3x3 does 18 operations per output byte; measured on the card its
+// tiles are bound by the latency of each CTA's load -> taps -> store
+// sequence, and the small layers by the launch (PERF.md).
 //
 // qconv1x1 design (tiles, K step, split-K and stages from the host's plan,
 // ops/qconv.py::plan_qconv1x1, as plain ints):
@@ -63,12 +65,42 @@
 //   consecutive elements. Without split-K and with s8 output the epilogue
 //   runs on the accumulators in registers and stages one byte per output.
 //
-// qdwconv3x3 design: one thread per output pixel and group of 4 channels
-// (char4 loads and stores; 1 channel when C % 4 != 0). Taps outside the
-// image read the pad value rint(x_zp) - 128, the recentred zero point. The
-// sum is the TPU kernel's: acc += w * (tap - (x_zp - 128)) in f32 over
-// (kh, kw) in order, exact for s8 operands and an integer zero point
-// (|acc| <= 9 * 127 * 255 < 2^24), and the epilogue's colsum term is 0.
+// qdwconv3x3 design (tiles from the host's plan, ops/qconv.py::
+// plan_qdwconv3x3, as plain ints). By its bytes bound the conv is 18
+// operations per output byte, and at stride 2 the input is four times the
+// output; each input byte is read from device memory once per CTA:
+// - one CTA of 256 threads per output tile of (image, TH rows x TW columns,
+//   CS channels), the channel slices of a tile neighbours in the grid; its
+//   input window with halo, (TH*s+2) x (TW*s+2) x CS int8 (rows padded to a
+//   bank-skewed pitch), the CS-channel slices of the weights, w_scale and
+//   bias all come into shared memory by cp.async in one round trip (16-byte
+//   copies; 8 or 4 where C is not a multiple of 16, byte loads where C is
+//   odd); window pixels outside the image get the pad code rint(x_zp) -
+//   128, the recentred zero point;
+// - each thread takes 4 consecutive output columns x 4 channels (1 where C
+//   % 4 != 0) of one row: per kernel row it reads a 1 x (3s+3) slice of the
+//   window;
+// - an integer zero point in [0, 255] (every edge act_qparams makes): the
+//   taps are integer dot products. The slice's pixel words (4 channels
+//   each) are transposed into channel words (4 pixels each) by byte
+//   permutes, and an output's three taps of a kernel row are one dp4a
+//   against [w0, w1, w2, 0]; sum w * (x - x_off) = sum w * x - x_off *
+//   sum w is exact, and so is the TPU kernel's f32 sum of these integers
+//   (all below 2^24), so the two agree bit for bit. The integer goes to
+//   f32 through the mantissa of 1.5 * 2^23 (an add), not the conversion
+//   unit, which runs at a quarter of the FP32 rate;
+// - any other zero point: the taps in f32 in the TPU kernel's order, acc +=
+//   w * (tap - x_off) over (kh, kw), the multiply and the add rounded
+//   apart; each s8 tap is converted to f32 once, exactly, through the
+//   mantissa of 2^23;
+// - the epilogue is affine/epilogue/requant_code's rounded steps, with
+//   rint done by adding 1.5 * 2^23 (round to nearest even) after the clamp:
+//   no conversion-unit instruction per output;
+// - all index arithmetic is 32-bit shifts and masks (TH, TW and CS are
+//   powers of two): nothing is divided in the tap loop;
+// - s8 codes are staged in shared memory and stored as 16-byte rows (8, 4
+//   or 1 bytes where C is not a multiple of 16); f32 goes out as float4.
+// The epilogue's colsum term is 0.
 //
 // Interface: plain C, loaded with ctypes. Launches go on the caller's
 // stream; each entry point returns a CUDA error code (0 = launched).
@@ -496,83 +528,423 @@ __global__ void __launch_bounds__(NT, 3) qconv1x1_kernel(const QParams p) {
   if (p.split > 1) cluster.sync();   // no rank exits while a peer reads its tile
 }
 
+struct DwParams {
+  const int8_t* x;
+  const int8_t* w;
+  const float* wscale;
+  const float* bias;
+  const float* s;
+  void* out;
+  int H, W, C, Ho, Wo, act, requant;
+  int th, tw, cs, cw;   // the plan
+  int tiles_x, tiles_y, slices;
+  // derived by dwlayout from the plan: the window, weights, w_scale and
+  // bias (buf bytes), then the staged codes
+  int wr, wc, rp, sp, off_w, off_ab, buf;
+  int lg_th, lg_tw, lg_cs, lg_cw;
+};
+
+constexpr int DW_PX = 4;   // output columns per thread
+constexpr int DW_LG_PX = 2;   // log2(DW_PX)
+
+int ilog2(int v) {
+  int l = 0;
+  while ((1 << (l + 1)) <= v) ++l;
+  return l;
+}
+
+// Shared-memory layout of the depthwise kernel; returns its bytes, -1 for a
+// plan the kernel does not take. ops/qconv.py::qdwconv3x3_smem_bytes is the
+// same formula, and the launch refuses a mismatch.
+int dwlayout(DwParams& p, int stride) {
+  auto pow2 = [](int v) { return v > 0 && (v & (v - 1)) == 0; };
+  if (!pow2(p.th) || p.th > 64 || !pow2(p.tw) || p.tw < DW_PX || p.tw > 64 ||
+      !pow2(p.cs) || p.cs < 4 || p.cs > 256 || p.cw > p.cs ||
+      (p.cw != 16 && p.cw != 8 && p.cw != 4 && p.cw != 1) || p.C % p.cw)
+    return -1;
+  p.wr = (p.th - 1) * stride + 3;
+  p.wc = (p.tw - 1) * stride + 3;
+  // rows of the window padded to 128 bytes and then skewed, so the rows a
+  // warp reads fall on other banks
+  const int skew = (stride == 1 ? p.cs : p.cs / 2) % 128;
+  p.rp = (p.wc * p.cs + 127) / 128 * 128 + (skew > 16 ? skew : 16);
+  p.off_w = p.wr * p.rp;                     // s8 weights [9][cs]
+  p.off_ab = p.off_w + (9 * p.cs + 15) / 16 * 16;   // f32 w_scale [cs], bias [cs]
+  p.buf = p.off_ab + 8 * p.cs;
+  // s8 codes [th][sp], the rows skewed like the window's (a warp writes
+  // 32 / (cs / 4) consecutive rows)
+  p.sp = p.tw * p.cs + (p.cs % 128 > 16 ? p.cs % 128 : 16);
+  p.lg_th = ilog2(p.th);
+  p.lg_tw = ilog2(p.tw);
+  p.lg_cs = ilog2(p.cs);
+  p.lg_cw = ilog2(p.cw);
+  return p.buf + p.th * p.sp;
+}
+
+// f32 value of byte v (0-3) of a word of four s8 codes, exactly: the byte
+// + 128 as the low mantissa bits of 2^23, minus 2^23 + 128
+__device__ __forceinline__ float s8_to_f32(uint32_t biased, int v) {
+  return __fsub_rn(__int_as_float(static_cast<int>(__byte_perm(biased, 0x4B000000u,
+                                                               0x7440u | v))),
+                   8388736.f);
+}
+
+// The s8 code of y as the low byte of the returned bits: requant_code's
+// rounded steps, with the clamp before the rounding (the bounds are
+// integers, so the order does not matter) and rint done by adding 1.5 * 2^23
+// in round-to-nearest-even, which leaves the integer in the low mantissa
+// bits: full-rate adds where rintf and the f32 -> s32 conversion run at a
+// quarter of the rate or less.
+__device__ __forceinline__ uint32_t requant_bits(float y, float inv_scale, float zp_off) {
+  const float q = fminf(fmaxf(__fadd_rn(__fmul_rn(y, inv_scale), zp_off), -128.f), 127.f);
+  return __float_as_uint(__fadd_rn(q, 12582912.f));
+}
+
+// One output pixel's V channels: the epilogue of affine/epilogue/
+// requant_code in the same rounded steps, into the staged codes (s8) or
+// straight out as f32.
 template <int V>
-__global__ void __launch_bounds__(256) qdw3x3_kernel(
-    const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-    const float* __restrict__ wscale, const float* __restrict__ bias,
-    const float* __restrict__ s, void* __restrict__ out, int N, int H, int W,
-    int C, int Ho, int Wo, int stride, int act, int requant) {
-  const int CG = C / V;
-  const size_t total = static_cast<size_t>(N) * Ho * Wo * CG;
-  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int cg = static_cast<int>(idx % CG);
-  size_t p = idx / CG;
-  const int ox = static_cast<int>(p % Wo);
-  p /= Wo;
-  const int oy = static_cast<int>(p % Ho);
-  const int n = static_cast<int>(p / Ho);
-  const int c = cg * V;
-
-  const float x_off = __fsub_rn(s[1], 128.f);
-  const int8_t pad = static_cast<int8_t>(static_cast<int>(rintf(s[1])) - 128);
-  float acc[V];
-#pragma unroll
-  for (int v = 0; v < V; ++v) acc[v] = 0.f;
-
-#pragma unroll
-  for (int kh = 0; kh < 3; ++kh) {
-    const int iy = oy * stride - 1 + kh;
-#pragma unroll
-    for (int kw = 0; kw < 3; ++kw) {
-      const int ix = ox * stride - 1 + kw;
-      const bool inside = iy >= 0 && iy < H && ix >= 0 && ix < W;
-      int8_t tap[V], wk[V];
-      const int8_t* wp = w + static_cast<size_t>(kh * 3 + kw) * C + c;
-      const int8_t* xp = x + ((static_cast<size_t>(n) * H + iy) * W + ix) * C + c;
-      if constexpr (V == 4) {
-        const char4 wv = *reinterpret_cast<const char4*>(wp);
-        const char4 xv = inside ? *reinterpret_cast<const char4*>(xp)
-                                : make_char4(pad, pad, pad, pad);
-        wk[0] = wv.x; wk[1] = wv.y; wk[2] = wv.z; wk[3] = wv.w;
-        tap[0] = xv.x; tap[1] = xv.y; tap[2] = xv.z; tap[3] = xv.w;
-      } else {
-        wk[0] = wp[0];
-        tap[0] = inside ? xp[0] : pad;
-      }
-#pragma unroll
-      for (int v = 0; v < V; ++v)
-        acc[v] = __fadd_rn(acc[v], __fmul_rn(static_cast<float>(wk[v]),
-                                              __fsub_rn(static_cast<float>(tap[v]), x_off)));
-    }
-  }
-
-  const size_t o = (((static_cast<size_t>(n) * Ho + oy) * Wo + ox) * C) + c;
+__device__ __forceinline__ void dw_out(const DwParams& p, unsigned char* stage, int n,
+                                       int c0, int cl, int ty, int px, int oy, int ox,
+                                       const float (&acc)[V], const float (&al)[V],
+                                       const float (&bt)[V], const float (&sc)[4]) {
+  const bool relu = p.act == ACT_RELU || p.act == ACT_RELU6;
   float y[V];
 #pragma unroll
   for (int v = 0; v < V; ++v) {
-    float a, b;
-    affine(s, wscale[c + v], bias[c + v], 0.f, a, b);
-    y[v] = epilogue(acc[v], a, b, act);
+    float e = __fadd_rn(__fmul_rn(acc[v], al[v]), bt[v]);
+    if (relu) e = fmaxf(e, 0.f);
+    if (p.act == ACT_RELU6) e = fminf(e, 6.f);
+    if (p.act == ACT_LEAKY) e = e > 0.f ? e : __fmul_rn(0.1f, e);
+    if (p.act == ACT_LOGISTIC) e = 1.f / (1.f + expf(-e));
+    y[v] = e;
   }
-  if (requant) {
-    int8_t* ob = static_cast<int8_t*>(out) + o;
+  if (p.requant) {
+    unsigned char* sp = stage + ty * p.sp + (px << p.lg_cs) + cl;
     if constexpr (V == 4) {
-      *reinterpret_cast<char4*>(ob) = make_char4(requant_code(y[0], s), requant_code(y[1], s),
-                                                 requant_code(y[2], s), requant_code(y[3], s));
+      const uint32_t lo = __byte_perm(requant_bits(y[0], sc[2], sc[3]),
+                                      requant_bits(y[1], sc[2], sc[3]), 0x0040u);
+      const uint32_t hi = __byte_perm(requant_bits(y[2], sc[2], sc[3]),
+                                      requant_bits(y[3], sc[2], sc[3]), 0x0040u);
+      *reinterpret_cast<uint32_t*>(sp) = __byte_perm(lo, hi, 0x5410u);
     } else {
-      ob[0] = requant_code(y[0], s);
+      *sp = static_cast<unsigned char>(requant_bits(y[0], sc[2], sc[3]));
     }
-  } else {
-    float* of = static_cast<float*>(out) + o;
-    if constexpr (V == 4) {
+  } else if (oy < p.Ho && ox < p.Wo && c0 + cl < p.C) {
+    float* of = static_cast<float*>(p.out) + static_cast<size_t>(n) * p.Ho * p.Wo * p.C +
+                (oy * p.Wo + ox) * p.C + c0 + cl;
+    if constexpr (V == 4)
       *reinterpret_cast<float4*>(of) = make_float4(y[0], y[1], y[2], y[3]);
-    } else {
-      of[0] = y[0];
+    else
+      *of = y[0];
+  }
+}
+
+// Unit u of the CTA: V channels (from cl), one row (ty) and DW_PX columns
+// (from gx); channels fastest, then rows, then column groups, so a warp's
+// reads of the window fall on the bank-skewed rows.
+struct DwUnit {
+  int cl, ty, gx;
+};
+
+__device__ __forceinline__ DwUnit dw_unit(const DwParams& p, int u, int lg_cg) {
+  return {(u & ((1 << lg_cg) - 1)) << (p.lg_cs - lg_cg), (u >> lg_cg) & (p.th - 1),
+          u >> (lg_cg + p.lg_th)};
+}
+
+// The taps in f32 in the TPU kernel's order: for each output, over (kh, kw),
+// acc += w * (tap - x_off) with the multiply and the add rounded apart.
+template <int V, int S>
+__device__ __forceinline__ void dw_units_f32(const DwParams& p, const unsigned char* buf,
+                                             unsigned char* stage, int n, int oy0, int ox0,
+                                             int c0, const float (&sc)[4]) {
+  constexpr int SL = (DW_PX - 1) * S + 3;          // window columns a unit reads
+  const unsigned char* wsm = buf + p.off_w;
+  const float* wsc = reinterpret_cast<const float*>(buf + p.off_ab);
+  const float* bsc = wsc + p.cs;
+  const float x_off = __fsub_rn(sc[1], 128.f);
+  const int lg_cg = p.lg_cs - (V == 4 ? 2 : 0);
+  const int units = 1 << (lg_cg + p.lg_th + p.lg_tw - DW_LG_PX);
+  for (int u = threadIdx.x; u < units; u += 256) {
+    const DwUnit un = dw_unit(p, u, lg_cg);
+    float wk[9][V];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      if constexpr (V == 4) {
+        const uint32_t word =
+            *reinterpret_cast<const uint32_t*>(wsm + (k << p.lg_cs) + un.cl) ^ 0x80808080u;
+#pragma unroll
+        for (int v = 0; v < 4; ++v) wk[k][v] = s8_to_f32(word, v);
+      } else {
+        wk[k][0] = static_cast<float>(static_cast<int8_t>(wsm[(k << p.lg_cs) + un.cl]));
+      }
+    }
+    float acc[DW_PX][V];
+#pragma unroll
+    for (int q = 0; q < DW_PX; ++q)
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc[q][v] = 0.f;
+    const unsigned char* base =
+        buf + un.ty * S * p.rp + ((un.gx * DW_PX * S) << p.lg_cs) + un.cl;
+    // rows and columns ascend, so each output takes its taps in (kh, kw)
+    // order
+#pragma unroll
+    for (int kh = 0; kh < 3; ++kh) {
+      const unsigned char* row = base + kh * p.rp;
+#pragma unroll
+      for (int j = 0; j < SL; ++j) {
+        float d[V];
+        if constexpr (V == 4) {
+          const uint32_t word =
+              *reinterpret_cast<const uint32_t*>(row + (j << p.lg_cs)) ^ 0x80808080u;
+#pragma unroll
+          for (int v = 0; v < 4; ++v) d[v] = __fsub_rn(s8_to_f32(word, v), x_off);
+        } else {
+          d[0] = __fsub_rn(static_cast<float>(static_cast<int8_t>(row[j << p.lg_cs])), x_off);
+        }
+#pragma unroll
+        for (int q = 0; q < DW_PX; ++q) {
+          const int kw = j - q * S;
+          if (kw < 0 || kw > 2) continue;
+#pragma unroll
+          for (int v = 0; v < V; ++v)
+            acc[q][v] = __fadd_rn(acc[q][v], __fmul_rn(wk[kh * 3 + kw][v], d[v]));
+        }
+      }
+    }
+    float al[V], bt[V];
+    const float sv[2] = {sc[0], sc[1]};
+#pragma unroll
+    for (int v = 0; v < V; ++v) affine(sv, wsc[un.cl + v], bsc[un.cl + v], 0.f, al[v], bt[v]);
+#pragma unroll
+    for (int q = 0; q < DW_PX; ++q)
+      dw_out<V>(p, stage, n, c0, un.cl, un.ty, un.gx * DW_PX + q, oy0 + un.ty,
+                ox0 + un.gx * DW_PX + q, acc[q], al, bt, sc);
+  }
+}
+
+// 4x4 byte transpose: word v of the result holds byte v of a, b, c, d
+__device__ __forceinline__ void transpose4(uint32_t a, uint32_t b, uint32_t c, uint32_t d,
+                                           uint32_t (&t)[4]) {
+  const uint32_t ab02 = __byte_perm(a, b, 0x5140u), cd02 = __byte_perm(c, d, 0x5140u);
+  const uint32_t ab13 = __byte_perm(a, b, 0x7362u), cd13 = __byte_perm(c, d, 0x7362u);
+  t[0] = __byte_perm(ab02, cd02, 0x5410u);
+  t[1] = __byte_perm(ab02, cd02, 0x7632u);
+  t[2] = __byte_perm(ab13, cd13, 0x5410u);
+  t[3] = __byte_perm(ab13, cd13, 0x7632u);
+}
+
+// The taps as integer dot products where the zero point is an integer:
+// sum w * (x - x_off) = sum w * x - x_off * sum w exactly, so the f32 sum of
+// the TPU kernel's order (exact here: integers below 2^24) is this integer.
+// Each window row's pixel words (4 channels each) are transposed into
+// channel words of 4 pixels; an output's 3 taps of a row are one dp4a
+// against [w(kh,0), w(kh,1), w(kh,2), 0] of its channel.
+template <int S>
+__device__ __forceinline__ void dw_units_dp4a(const DwParams& p, const unsigned char* buf,
+                                              unsigned char* stage, int n, int oy0, int ox0,
+                                              int c0, const float (&sc)[4]) {
+  constexpr int SL = (DW_PX - 1) * S + 3;          // window columns a unit reads
+  constexpr int NB = (SL + 3) / 4;                 // blocks of 4 pixels
+  const unsigned char* wsm = buf + p.off_w;
+  const float* wsc = reinterpret_cast<const float*>(buf + p.off_ab);
+  const float* bsc = wsc + p.cs;
+  const int xo = static_cast<int>(sc[1]) - 128;   // x_off, an integer here
+  const int lg_cg = p.lg_cs - 2;
+  const int units = 1 << (lg_cg + p.lg_th + p.lg_tw - DW_LG_PX);
+  // the channel groups divide 256, so all of a thread's units have its
+  // channels: their weights and constants are made once
+  const int cl = (threadIdx.x & ((1 << lg_cg) - 1)) << 2;
+  // wk[kh][v] = [w(kh,0), w(kh,1), w(kh,2), 0] of channel cl + v
+  uint32_t wk[3][4];
+  int kbias[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int kh = 0; kh < 3; ++kh) {
+    const unsigned char* wrow = wsm + ((kh * 3) << p.lg_cs) + cl;
+    transpose4(*reinterpret_cast<const uint32_t*>(wrow),
+               *reinterpret_cast<const uint32_t*>(wrow + p.cs),
+               *reinterpret_cast<const uint32_t*>(wrow + 2 * p.cs), 0u, wk[kh]);
+#pragma unroll
+    for (int v = 0; v < 4; ++v)
+      kbias[v] = __dp4a(static_cast<int>(wk[kh][v]), 0x01010101, kbias[v]);
+  }
+  // the integer sum plus 1.5 * 2^23's bits is the f32 1.5 * 2^23 + sum
+#pragma unroll
+  for (int v = 0; v < 4; ++v) kbias[v] = 0x4B400000 - xo * kbias[v];
+  float al[4], bt[4];
+  const float sv[2] = {sc[0], sc[1]};
+#pragma unroll
+  for (int v = 0; v < 4; ++v) affine(sv, wsc[cl + v], bsc[cl + v], 0.f, al[v], bt[v]);
+  for (int u = threadIdx.x; u < units; u += 256) {
+    const DwUnit un = dw_unit(p, u, lg_cg);
+    int acc[DW_PX][4];
+#pragma unroll
+    for (int q = 0; q < DW_PX; ++q)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[q][v] = 0;
+    const unsigned char* base =
+        buf + un.ty * S * p.rp + ((un.gx * DW_PX * S) << p.lg_cs) + un.cl;
+#pragma unroll
+    for (int kh = 0; kh < 3; ++kh) {
+      const unsigned char* row = base + kh * p.rp;
+      uint32_t px[NB * 4];
+#pragma unroll
+      for (int j = 0; j < NB * 4; ++j)
+        px[j] = j < SL ? *reinterpret_cast<const uint32_t*>(row + (j << p.lg_cs)) : 0u;
+      uint32_t ch[NB][4];                        // ch[b][v]: pixels 4b..4b+3 of channel v
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+        transpose4(px[4 * b], px[4 * b + 1], px[4 * b + 2], px[4 * b + 3], ch[b]);
+#pragma unroll
+      for (int q = 0; q < DW_PX; ++q) {
+        // pixels q*S .. q*S+2 of each channel: bytes (q*S % 4)... of block q*S / 4
+        const int b = q * S / 4, o = q * S % 4;
+        int x[4];
+#pragma unroll
+        for (int v = 0; v < 4; ++v)
+          x[v] = static_cast<int>(o == 0 ? ch[b][v]
+                                         : __byte_perm(ch[b][v], ch[b + 1 < NB ? b + 1 : b][v],
+                                                       (o | (o + 1) << 4 | (o + 2) << 8 |
+                                                        (o + 3) << 12)));
+#pragma unroll
+        for (int v = 0; v < 4; ++v)
+          acc[q][v] = __dp4a(x[v], static_cast<int>(wk[kh][v]), acc[q][v]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < DW_PX; ++q) {
+      float a[4];
+#pragma unroll
+      for (int v = 0; v < 4; ++v) a[v] = __fsub_rn(__int_as_float(acc[q][v] + kbias[v]), 12582912.f);
+      dw_out<4>(p, stage, n, c0, un.cl, un.ty, un.gx * DW_PX + q, oy0 + un.ty,
+                ox0 + un.gx * DW_PX + q, a, al, bt, sc);
     }
   }
 }
 
+// `bytes` (16, 8, 4 or 1) global -> shared: cp.async, or a plain byte copy
+__device__ __forceinline__ void dw_copy(int bytes, unsigned char* dst, const int8_t* src) {
+  const uint32_t d = smem_u32(dst);
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
+  else if (bytes == 4)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+  else
+    *dst = static_cast<unsigned char>(__ldg(src));
+}
+
+// Everything one tile reads from device memory, put in flight at once into
+// `buf`: the window's pixels inside the image by cp.async (the pad code
+// stored where the window leaves the image), the CS-channel slices of the
+// weights (s8 [9][cs]), w_scale and bias (f32 [cs] each). Warps take window
+// rows, lanes cw-byte chunks of a row. Commits one cp.async group.
+template <int S>
+__device__ __forceinline__ void dw_issue(const DwParams& p, unsigned char* buf,
+                                         const int8_t* ximg, int oy0, int ox0, int c0,
+                                         uint32_t pad8) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int iy0 = oy0 * S - 1, ix0 = ox0 * S - 1;
+  const int lg_k = p.lg_cs - p.lg_cw, per_row = p.wc << lg_k;
+  for (int r = warp; r < p.wr; r += 8) {
+    const int iy = iy0 + r;
+    if (iy < 0 || iy >= p.H) continue;
+    for (int j = lane; j < per_row; j += 32) {
+      const int col = j >> lg_k, cc = (j & ((1 << lg_k) - 1)) << p.lg_cw;
+      const int ix = ix0 + col;
+      if (ix < 0 || ix >= p.W || c0 + cc >= p.C) continue;   // pad, or never stored
+      dw_copy(p.cw, buf + r * p.rp + (col << p.lg_cs) + cc,
+              ximg + (iy * p.W + ix) * p.C + c0 + cc);
+    }
+  }
+  unsigned char* wsm = buf + p.off_w;
+  float* wsc = reinterpret_cast<float*>(buf + p.off_ab);
+  float* bsc = wsc + p.cs;
+  for (int i = t; i < 9 << lg_k; i += 256) {
+    const int tap = i >> lg_k, cc = (i & ((1 << lg_k) - 1)) << p.lg_cw;
+    if (c0 + cc < p.C) dw_copy(p.cw, wsm + tap * p.cs + cc, p.w + tap * p.C + c0 + cc);
+  }
+  for (int i = t; i < p.cs / 2; i += 256) {   // 4 floats a copy, zeros beyond C
+    const int c = c0 + (i & (p.cs / 4 - 1)) * 4;
+    const float* src = (i < p.cs / 4 ? p.wscale : p.bias) + c;
+    const int valid = 4 * max(0, min(4, p.C - c));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_u32((i < p.cs / 4 ? wsc : bsc) + c - c0)),
+                 "l"(valid ? src : p.bias), "r"(valid)
+                 : "memory");
+  }
+  cp_commit();
+  const uint32_t pad = pad8 * 0x01010101u;
+  for (int r = warp; r < p.wr; r += 8) {
+    const int iy = iy0 + r;
+    const bool row_in = iy >= 0 && iy < p.H;
+    for (int j = lane; j < per_row; j += 32) {
+      const int col = j >> lg_k, cc = (j & ((1 << lg_k) - 1)) << p.lg_cw;
+      const int ix = ix0 + col;
+      if ((row_in && ix >= 0 && ix < p.W) || c0 + cc >= p.C) continue;
+      unsigned char* dst = buf + r * p.rp + (col << p.lg_cs) + cc;
+      if (p.cw == 16)
+        *reinterpret_cast<uint4*>(dst) = make_uint4(pad, pad, pad, pad);
+      else if (p.cw == 8)
+        *reinterpret_cast<uint2*>(dst) = make_uint2(pad, pad);
+      else if (p.cw == 4)
+        *reinterpret_cast<uint32_t*>(dst) = pad;
+      else
+        *dst = static_cast<unsigned char>(pad8);
+    }
+  }
+}
+
+// Depthwise 3x3, pad 1, stride S, V channels a thread (4, or 1 where C % 4
+// != 0), one output tile per CTA (see the note at the head of the file).
+template <int V, int S>
+__global__ void __launch_bounds__(256, 4) qdw3x3_kernel(const DwParams p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int t = threadIdx.x;
+  const float s0 = p.s[0], s1 = p.s[1], s2 = p.s[2], s3 = p.s[3];
+  const float sc[4] = {s0, s1, s2, s3};
+  const uint32_t pad8 = static_cast<uint8_t>(static_cast<int>(rintf(s1)) - 128);
+  // tile index -> (image, tile origin, channel slice); the channel slices of
+  // a tile are neighbours, so the slices of one pixel's row are read from
+  // device memory at about the same time
+  const int per_img = p.tiles_x * p.tiles_y * p.slices;
+  const int n = blockIdx.x / per_img, rem = blockIdx.x - n * per_img;
+  const int tile = rem / p.slices, c0 = (rem - tile * p.slices) * p.cs;
+  const int ty0 = tile / p.tiles_x;
+  const int oy0 = ty0 * p.th, ox0 = (tile - ty0 * p.tiles_x) * p.tw;
+  dw_issue<S>(p, smem, p.x + static_cast<size_t>(n) * p.H * p.W * p.C, oy0, ox0, c0, pad8);
+  cp_wait_all();
+  __syncthreads();        // the window, weights and constants landed
+  unsigned char* stage = smem + p.buf;
+  // the dp4a path's integers stay below 2^22 for a zero point in [0, 255]
+  if (V == 4 && s1 == rintf(s1) && s1 >= 0.f && s1 <= 255.f)
+    dw_units_dp4a<S>(p, smem, stage, n, oy0, ox0, c0, sc);
+  else
+    dw_units_f32<V, S>(p, smem, stage, n, oy0, ox0, c0, sc);
+  if (!p.requant) return;
+  __syncthreads();        // the codes are staged
+  // the staged codes out, cw bytes a thread (16 where C % 16 == 0)
+  int8_t* oimg = static_cast<int8_t*>(p.out) + static_cast<size_t>(n) * p.Ho * p.Wo * p.C;
+  const int lg_k = p.lg_cs - p.lg_cw;
+  const int chunks = 1 << (lg_k + p.lg_tw + p.lg_th);
+  for (int j = t; j < chunks; j += 256) {
+    const int cc = (j & ((1 << lg_k) - 1)) << p.lg_cw;
+    const int px = (j >> lg_k) & (p.tw - 1), ty = j >> (lg_k + p.lg_tw);
+    const int oy = oy0 + ty, ox = ox0 + px;
+    if (oy >= p.Ho || ox >= p.Wo || c0 + cc >= p.C) continue;
+    const unsigned char* sp = stage + ty * p.sp + (px << p.lg_cs) + cc;
+    int8_t* dst = oimg + (oy * p.Wo + ox) * p.C + c0 + cc;
+    if (p.cw == 16)
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(sp);
+    else if (p.cw == 8)
+      *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(sp);
+    else if (p.cw == 4)
+      *reinterpret_cast<uint32_t*>(dst) = *reinterpret_cast<const uint32_t*>(sp);
+    else
+      *dst = static_cast<int8_t>(*sp);
+  }
+}
 
 int qlayout(QParams& p, int bk) {
   const int ksteps = (p.K + bk - 1) / bk;
@@ -648,24 +1020,51 @@ extern "C" int qconv1x1_launch(const void* x, const void* w, const void* wscale,
 extern "C" int qdw3x3_launch(const void* x, const void* w, const void* wscale,
                              const void* bias, const void* scalars, void* out,
                              int n, int h, int wd, int c, int stride, int act,
-                             int requant, void* stream) {
-  const int ho = h / stride, wo = wd / stride;
-  const bool vec = (c % 4 == 0) &&
-                   ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
-                     reinterpret_cast<uintptr_t>(out)) % 16 == 0);
-  const size_t total = static_cast<size_t>(n) * ho * wo * (vec ? c / 4 : c);
-  const unsigned blocks = static_cast<unsigned>((total + 255) / 256);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int8_t* xb = static_cast<const int8_t*>(x);
-  const int8_t* wb = static_cast<const int8_t*>(w);
-  const float* wsf = static_cast<const float*>(wscale);
-  const float* bf = static_cast<const float*>(bias);
-  const float* sf = static_cast<const float*>(scalars);
-  if (vec)
-    qdw3x3_kernel<4><<<blocks, 256, 0, st>>>(xb, wb, wsf, bf, sf, out, n, h, wd,
-                                             c, ho, wo, stride, act, requant);
-  else
-    qdw3x3_kernel<1><<<blocks, 256, 0, st>>>(xb, wb, wsf, bf, sf, out, n, h, wd,
-                                             c, ho, wo, stride, act, requant);
+                             int requant, int th, int tw, int cs, int cw, int smem,
+                             int grid, void* stream) {
+  DwParams prm{};
+  prm.x = static_cast<const int8_t*>(x);
+  prm.w = static_cast<const int8_t*>(w);
+  prm.wscale = static_cast<const float*>(wscale);
+  prm.bias = static_cast<const float*>(bias);
+  prm.s = static_cast<const float*>(scalars);
+  prm.out = out;
+  prm.H = h; prm.W = wd; prm.C = c; prm.act = act; prm.requant = requant;
+  prm.th = th; prm.tw = tw; prm.cs = cs; prm.cw = cw;
+  if ((stride != 1 && stride != 2) || (stride == 2 && (h % 2 || wd % 2)) || n < 1 ||
+      n > 65535 || h < 1 || wd < 1 || c < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  prm.Ho = h / stride;
+  prm.Wo = wd / stride;
+  // 32-bit offsets within one image, f32 output included
+  if (static_cast<long long>(h) * wd * c * 4 >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int v = c % 4 == 0 ? 4 : 1;
+  const uintptr_t al = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out) |
+                       reinterpret_cast<uintptr_t>(w);
+  const uintptr_t al16 = reinterpret_cast<uintptr_t>(wscale) | reinterpret_cast<uintptr_t>(bias);
+  if (dwlayout(prm, stride) != smem || smem > 232448 || al % cw || al16 % 16 ||
+      (!requant && v == 4 && reinterpret_cast<uintptr_t>(out) % 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  prm.tiles_x = (prm.Wo + tw - 1) / tw;
+  prm.tiles_y = (prm.Ho + th - 1) / th;
+  prm.slices = (c + cs - 1) / cs;
+  // one CTA a tile: the plan's grid must be the tile count
+  if (static_cast<long long>(prm.tiles_x) * prm.tiles_y * prm.slices * n != grid)
+    return static_cast<int>(cudaErrorInvalidValue);
+  void (*kern)(DwParams) = v == 4 ? (stride == 1 ? qdw3x3_kernel<4, 1> : qdw3x3_kernel<4, 2>)
+                                  : (stride == 1 ? qdw3x3_kernel<1, 1> : qdw3x3_kernel<1, 2>);
+  // raise the shared-memory limit only when a larger one is needed; the
+  // process uses one device
+  static int given[4] = {0, 0, 0, 0};
+  int& g = given[(v == 4 ? 0 : 2) + stride - 1];
+  if (smem > 48 * 1024 && smem > g) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    g = smem;
+  }
+  kern<<<static_cast<unsigned>(grid), 256, static_cast<size_t>(smem),
+         static_cast<cudaStream_t>(stream)>>>(prm);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,8 +9,10 @@ params hold no ``'bn'`` entry is BN-folded (the fused inference form).
 The walk runs eagerly and drops each cached activation as soon as its
 last consumer has run (graph liveness). With a fused-IR table it replaces
 each [1x1 expand] -> [dw3x3] -> [1x1 project] chain by one CUDA kernel
-launch; every yolo head goes through the Triton decode kernel. On CPU
-tensors both wrappers run their plain versions; ``plain=True`` asks for
+launch; the raw yolo heads are kept and decoded after the walk by one
+launch of the Triton decode kernel, straight into the (B, sum HWA, 5+C)
+preds (``ops/decode_kernel.py::decode_heads``). On CPU tensors both
+wrappers run their plain versions; ``plain=True`` asks for
 the plain versions on any device (the baseline ``chip_smoke.py`` holds
 the kernels to). With a ``quant_ctx`` (``compress.qat.QuantCtx``) the walk
 fake-quantises the input, every conv weight and every observed output,
@@ -29,7 +31,8 @@ from pqdet_tpu_torch import resolve_device
 from pqdet_tpu_torch.model import layers as L
 from pqdet_tpu_torch.model.decode import decode
 from pqdet_tpu_torch.model.graph import Graph, solve_padding
-from pqdet_tpu_torch.ops.decode_kernel import decode_head
+from pqdet_tpu_torch.ops.decode_kernel import (decode_heads, decode_heads_reference,
+                                               head_views)
 from pqdet_tpu_torch.ops.fused_ir import fused_ir_conv, fused_ir_reference
 
 # options of the JAX apply that belong to later slices of the port
@@ -86,25 +89,30 @@ class Network(nn.Module):
                 fused_ir: Optional[Dict] = None, plain: bool = False,
                 quant_ctx=None, **later):
         """Run the graph on NHWC ``x``. Returns the list of decoded yolo
-        heads, each (B, H, W, A, 5+C) f32, or the final activation when the
-        graph has no yolo head.
+        heads, each (B, H, W, A, 5+C) f32 (views of the one preds tensor
+        the decode writes), or the final activation when the graph has no
+        yolo head.
 
         ``compute_dtype`` (e.g. bf16) is the dtype carried between nodes;
         ``fused_ir`` is the table of ``ops.fused_ir.prepare_fused_ir`` on
         BN-fused params; ``plain`` runs the kernels' plain versions;
         ``quant_ctx`` adds the QAT fake-quant hooks (the observers'
         updates collect in ``quant_ctx.new_obs``)."""
+        x, preds, shapes = self._run(params, state, x, compute_dtype, fused_ir, plain,
+                                     quant_ctx, later)
+        return head_views(preds, shapes) if shapes else x
+
+    def _run(self, params, state, x, compute_dtype, fused_ir, plain, quant_ctx, later):
+        """(last activation, preds or None, raw head shapes) of one walk."""
         _refuse_later(later)
         if quant_ctx is not None:
             x = quant_ctx.quantize_input(x)
             fused_ir = None
-        x, outputs = self._walk(params, state, x, compute_dtype, fused_ir, plain,
-                                quant_ctx)
-        return outputs if outputs else x
+        return self._walk(params, state, x, compute_dtype, fused_ir, plain, quant_ctx)
 
     def _walk(self, params, state, x, compute_dtype, fused_ir, plain, quant_ctx):
         cache: Dict[int, torch.Tensor] = {}
-        outputs = []
+        heads = []                       # (raw head, yolo node)
         last_use = self.graph.last_use
         skip = set()
         fused_fn = fused_ir_reference if plain else fused_ir_conv
@@ -159,10 +167,9 @@ class Network(nn.Module):
             elif kind == 'upsample':
                 x = L.upsample_nearest(x, node.attrs['stride'])
             elif kind == 'yolo':
-                a = node.attrs
-                dec = decode if plain else decode_head
-                x = dec(x, a['classes'], a['stride'], exp_cap=a.get('exp_cap', 0.0))
-                outputs.append(x)
+                heads.append((x, node))
+                if i in last_use:
+                    x = decode_consumed_head(x, node, plain)
             elif kind == 'dropout':
                 x = L.dropout(x, node.attrs['probability'])
             else:
@@ -182,11 +189,44 @@ class Network(nn.Module):
             for j in [j for j in cache if last_use.get(j, -1) <= i and j != i]:
                 del cache[j]
 
-        return x, outputs
+        if not heads:
+            return x, None, []
+        raws = [r for r, _ in heads]
+        preds = decode_all_heads(raws, [n for _, n in heads], plain)
+        return x, preds, [r.shape for r in raws]
+
+
+def _exp_cap(node, capped: bool) -> float:
+    return node.attrs.get('exp_cap', 0.0) if capped else 0.0
+
+
+def decode_all_heads(raws, nodes, plain: bool, capped: bool = True) -> torch.Tensor:
+    """The raw heads of yolo ``nodes`` decoded into the (B, sum HWA, 5+C)
+    preds: one kernel launch, or the plain version when ``plain`` (or on
+    CPU tensors). ``capped``: apply each node's ``exp_cap``."""
+    classes = {n.attrs['classes'] for n in nodes}
+    if len(classes) != 1:
+        raise ValueError(f'yolo heads with different class counts {sorted(classes)}')
+    dec = decode_heads_reference if plain else decode_heads
+    return dec(raws, classes.pop(), [n.attrs['stride'] for n in nodes],
+               [_exp_cap(n, capped) for n in nodes])
+
+
+def decode_consumed_head(raw, node, plain: bool, capped: bool = True) -> torch.Tensor:
+    """The decoded head of yolo ``node`` for a later node that reads it (no
+    zoo graph has one). The decode kernel decodes every head at the end of
+    the walk, so the kernel path raises; the plain path decodes it here."""
+    if not plain and raw.device.type != 'cpu':
+        raise NotImplementedError(
+            f'yolo node {node.index} is read by a later node: the decode kernel '
+            'decodes all heads after the walk, so only the plain path runs this graph')
+    a = node.attrs
+    return decode(raw, a['classes'], a['stride'], exp_cap=_exp_cap(node, capped))
 
 
 class DetectionNetwork(Network):
-    """Detection graph: decoded heads concatenated to (B, sum HWA, 5+C)."""
+    """Detection graph: forward returns the decoded heads as one
+    (B, sum HWA, 5+C) tensor, which the decode writes directly."""
 
     @property
     def num_classes(self) -> int:
@@ -194,11 +234,9 @@ class DetectionNetwork(Network):
 
     def forward(self, params, state, x, compute_dtype=None, fused_ir=None,
                 plain: bool = False, quant_ctx=None, **later):
-        outputs = super().forward(params, state, x, compute_dtype=compute_dtype,
-                                  fused_ir=fused_ir, plain=plain,
-                                  quant_ctx=quant_ctx, **later)
-        flat = [o.reshape(o.shape[0], -1, o.shape[-1]) for o in outputs]
-        return torch.cat(flat, dim=1)
+        _, preds, _ = self._run(params, state, x, compute_dtype, fused_ir, plain, quant_ctx,
+                                later)
+        return preds
 
 
 def to_device(tree, device):

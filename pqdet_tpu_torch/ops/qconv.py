@@ -16,7 +16,9 @@ The scalars ride in one (1, 4) f32 tensor from ``make_scalars``.
   where the tiles alone do not fill the card; ``plan_qconv1x1`` picks the
   tiles from the shapes);
 - ``qdwconv3x3_s8``: depthwise 3x3, pad 1 with the recentred zero point,
-  stride 1 or 2 (``csrc/qconv.cu``, CUDA cores).
+  stride 1 or 2 (``csrc/qconv.cu``, CUDA cores: one CTA per output tile
+  with its input window in shared memory; ``plan_qdwconv3x3`` picks the
+  tiles from the shapes).
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
 version for a CPU tensor; it raises on any other device. The plain
@@ -195,6 +197,81 @@ def plan_qconv1x1(m: int, k: int, n: int) -> QconvPlan:
                      qconv1x1_smem_bytes(bm, bn, bk, stages), m_blocks, n_blocks)
 
 
+DW_PX = 4            # output columns a depthwise thread takes
+DW_THREADS = 256     # threads of a depthwise CTA
+
+
+class DwPlan(NamedTuple):
+    """Launch plan of one depthwise int8 conv, plain ints for the C entry
+    point: output tiles of ``th`` rows x ``tw`` columns x ``cs`` channels
+    (all powers of two); the input window comes in by copies of ``cw``
+    bytes (16, 8, 4 or 1: the widest that divides C); ``smem`` dynamic
+    shared-memory bytes; ``grid`` CTAs, one a tile (N * tiles_y * tiles_x *
+    slices, the slices of a tile neighbours)."""
+    th: int
+    tw: int
+    cs: int
+    cw: int
+    smem: int
+    grid: int
+    tiles_x: int
+    tiles_y: int
+    slices: int
+
+    @property
+    def c_args(self):
+        return (self.th, self.tw, self.cs, self.cw, self.smem, self.grid)
+
+
+def _pow2_at_least(v: int) -> int:
+    return 1 << max(0, (v - 1).bit_length())
+
+
+def qdwconv3x3_smem_bytes(th, tw, cs, stride) -> int:
+    """Dynamic shared memory of the depthwise kernel: the s8 input window,
+    (th-1)*stride+3 rows of (tw-1)*stride+3 pixels x cs channels, each row
+    padded to 128 bytes and then skewed by max(16, (cs or cs/2) % 128)
+    bytes so the rows a warp reads sit on other banks; the s8 weights
+    [9][cs] (rounded up to 16 bytes); f32 w_scale and bias [cs] each; the
+    staged s8 codes, th rows of tw*cs bytes skewed by max(16, cs % 128).
+    The C layout (csrc/qconv.cu, ``dwlayout``) is the same formula, and
+    the launch refuses a mismatch."""
+    wr, wc = (th - 1) * stride + 3, (tw - 1) * stride + 3
+    skew = (cs if stride == 1 else cs // 2) % 128
+    rp = -(-wc * cs // 128) * 128 + max(16, skew)
+    buf = wr * rp + -(-9 * cs // 16) * 16 + 8 * cs
+    return buf + th * (tw * cs + max(16, cs % 128))
+
+
+@functools.lru_cache(maxsize=None)
+def plan_qdwconv3x3(n: int, h: int, w: int, c: int, stride: int) -> DwPlan:
+    """Tiles of ``qdwconv3x3_s8`` for an (N, H, W, C) input at ``stride``
+    (rules read off plan_sweep.py's sweep of every plan at every depthwise
+    shape of the int8 graph, PERF.md):
+
+    - cs: 64 channels where 64 divides C, else 32 (C 20, 27, 75 and 144
+      end in a partly masked slice);
+    - cw: the widest copy of 16, 8, 4 or 1 bytes that divides C;
+    - tw: 16 columns where Wo <= 32, else 32;
+    - th: where Ho >= 128, 16 rows at stride 1 and 8 at stride 2 (a window
+      of 18 or 17 rows), else 4; at most Ho rounded up to a power of two;
+    - grid: one CTA a tile.
+    A thread takes units of one row x DW_PX columns x 4 channels (1 where
+    C % 4 != 0).
+    Plans are cached: a forward asks for the same ones every time."""
+    _check_stride('plan_qdwconv3x3', h, w, stride)
+    if min(n, h, w, c) < 1:
+        raise ValueError(f'plan_qdwconv3x3: empty shape {(n, h, w, c)}')
+    ho, wo = h // stride, w // stride
+    cs = 64 if c % 64 == 0 else 32
+    cw = next(k for k in (16, 8, 4, 1) if c % k == 0)
+    tw = 16 if wo <= 32 else 32
+    th = min(_pow2_at_least(ho), 16 // stride if ho >= 128 else 4)
+    slices, tiles_x, tiles_y = -(-c // cs), -(-wo // tw), -(-ho // th)
+    return DwPlan(th, tw, cs, cw, qdwconv3x3_smem_bytes(th, tw, cs, stride),
+                  n * tiles_y * tiles_x * slices, tiles_x, tiles_y, slices)
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     from pqdet_tpu_torch.ops._build import load_library
@@ -203,7 +280,7 @@ def _library():
     lib.qconv1x1_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 \
         + [ctypes.c_void_p]
     lib.qdw3x3_launch.restype = ctypes.c_int
-    lib.qdw3x3_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
+    lib.qdw3x3_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 \
         + [ctypes.c_void_p]
     return lib
 
@@ -270,10 +347,13 @@ def qdwconv3x3_s8(x, w, w_scale, b, *, act: str, stride: int, scalars,
                       dtype=torch.int8 if requant else torch.float32, device=dev)
     if out.numel() == 0:
         return out
+    # the copies want 16-byte boundaries: a view off one is copied first
+    x, w, w_scale, b = (t.clone() if t.data_ptr() % 16 else t for t in (x, w, w_scale, b))
     rc = _library().qdw3x3_launch(
         x.data_ptr(), w.data_ptr(), w_scale.data_ptr(), b.data_ptr(),
         scalars.data_ptr(), out.data_ptr(), n, h, wd, c, stride, ACT_CODES[act],
-        int(requant), torch.cuda.current_stream(dev).cuda_stream)
+        int(requant), *plan_qdwconv3x3(n, h, wd, c, stride).c_args,
+        torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f'qdwconv3x3_s8: kernel launch failed with CUDA error {rc}')
     qdwconv3x3_s8.launches += 1

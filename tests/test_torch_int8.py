@@ -393,3 +393,25 @@ def test_predict_pipeline_int_mode_matches_jax(calibrated):
         np.testing.assert_array_equal(dets[i][:, 5], ref[:, 5])
         np.testing.assert_allclose(dets[i][:, :4], ref[:, :4], atol=1e-3)
         np.testing.assert_allclose(dets[i][:, 4], ref[:, 4], atol=1e-5)
+
+
+def test_kernel_mode_yolo_intermediates_are_views_of_the_preds(calibrated, jax_kernel_run):
+    """The heads are decoded once, after the walk, into the preds: each yolo
+    node's intermediate is its (B, H, W, A, 5+C) view of them, with JAX's
+    values for that node (the whole-net bounds)."""
+    _, jinter = jax_kernel_run
+    net = calibrated['net']
+    inf = Int8Inference(net)
+    qp = Int8Inference.prepare(calibrated['qp'])
+    with torch.inference_mode():
+        preds, inter = inf.apply(qp, torch.from_numpy(calibrated['x']), intermediates=True)
+    heads = [inter[str(y.index)] for y in net.graph.yolo_nodes]
+    assert [tuple(h.shape) for h in heads] == [(2, 2, 2, 3, 25), (2, 4, 4, 3, 25),
+                                               (2, 8, 8, 3, 25)]
+    assert all(h.untyped_storage().data_ptr() == preds.untyped_storage().data_ptr()
+               for h in heads)
+    assert torch.equal(torch.cat([h.reshape(2, -1, 25) for h in heads], 1), preds)
+    for y, h in zip(net.graph.yolo_nodes, heads):
+        ref = jinter[str(y.index)]
+        np.testing.assert_allclose(h.numpy()[..., 4:], ref[..., 4:], atol=2e-2, rtol=0)
+        np.testing.assert_allclose(h.numpy()[..., :4], ref[..., :4], atol=0.5, rtol=0)

@@ -11,7 +11,14 @@ CPU (the kernels themselves run only on the card, in chip_smoke.py):
 - ``plan_qconv1x1`` at the 34 pointwise shapes of the int8 graph (33 1x1
   convs and the stem's im2col), B=1 and B=4, and at edge shapes: the tiles
   cover M and N, the split-K ranks cover the K steps exactly once with none
-  empty, shared memory fits, the warp tiles are what the kernel takes.
+  empty, shared memory fits, the warp tiles are what the kernel takes;
+- ``plan_qdwconv3x3`` at the 13 depthwise shapes of the int8 graph, B=1 and
+  B=4, and at edge shapes (C 27, 75, 20, W not a multiple of the tile, a
+  2x2 stride-2 input, C 1280): the tiles cover every output pixel and
+  channel exactly once, each tile's window holds every tap of its
+  outputs, the threads' units cover the tile once, the copies divide C,
+  and the shared memory is the C side's layout (``dwlayout`` in
+  csrc/qconv.cu) and fits.
 """
 
 import functools
@@ -23,7 +30,8 @@ from pqdet_tpu_torch.compress.quantized import im2col_depth
 from pqdet_tpu_torch.model.network import DetectionNetwork
 from pqdet_tpu_torch.ops.fused_ir import (FusedIrPlan, find_fused_triples,
                                           fused_ir_smem_bytes, plan_fused_ir)
-from pqdet_tpu_torch.ops.qconv import plan_qconv1x1, qconv1x1_smem_bytes
+from pqdet_tpu_torch.ops.qconv import (DW_PX, DW_THREADS, plan_qconv1x1, plan_qdwconv3x3,
+                                       qconv1x1_smem_bytes, qdwconv3x3_smem_bytes)
 from pqdet_tpu_torch.zoo import get_cfg
 
 SMEM_MAX = 232448
@@ -197,3 +205,103 @@ def test_plan_qconv1x1_edges(m, k, n):
 
 def test_im2col_depth_pads_to_16():
     assert [im2col_depth(c) for c in (1, 2, 3, 16)] == [16, 32, 32, 144]
+
+
+@functools.lru_cache(maxsize=None)
+def depthwise_shapes():
+    """Sorted (h, c, stride) the depthwise kernel sees in the int8 graph at
+    SIZE."""
+    net = DetectionNetwork.from_cfg(get_cfg('mobilenetv2-fpn'), quant=True)
+    return sorted({(SIZE * n.attrs['stride'] // n.stride, n.in_channels, n.attrs['stride'])
+                   for n in net.graph.nodes if n.kind == 'convolutional'
+                   and n.attrs['size'] == 3 and n.attrs['groups'] == n.in_channels > 1})
+
+
+def dwlayout(th, tw, cs, stride):
+    """csrc/qconv.cu ``dwlayout``, line for line: the window rows padded to
+    128 bytes and skewed, then s8 weights [9][cs], f32 w_scale and bias
+    [cs], then the staged codes in th skewed rows; None for a plan the
+    kernel refuses."""
+    def pow2(v):
+        return v > 0 and v & (v - 1) == 0
+    if not (pow2(th) and th <= 64 and pow2(tw) and 4 <= tw <= 64 and pow2(cs)
+            and 4 <= cs <= 256):
+        return None
+    wr, wc = (th - 1) * stride + 3, (tw - 1) * stride + 3
+    skew = (cs if stride == 1 else cs // 2) % 128
+    rp = (wc * cs + 127) // 128 * 128 + (skew if skew > 16 else 16)
+    assert rp % 16 == 0                      # 16-byte copies into every row
+    off_w = wr * rp
+    off_ab = off_w + (9 * cs + 15) // 16 * 16
+    buf = off_ab + 8 * cs
+    sp = tw * cs + (cs % 128 if cs % 128 > 16 else 16)
+    assert off_w % 16 == 0 and off_ab % 16 == 0 and buf % 16 == 0 and sp % 16 == 0
+    return buf + th * sp
+
+
+def check_dw_plan(n, h, w, c, stride):
+    plan = plan_qdwconv3x3(n, h, w, c, stride)
+    th, tw, cs, cw = plan.th, plan.tw, plan.cs, plan.cw
+    ho, wo = h // stride, w // stride
+    assert plan.smem == dwlayout(th, tw, cs, stride) == qdwconv3x3_smem_bytes(th, tw, cs, stride)
+    assert plan.smem <= SMEM_MAX
+    assert cw in (16, 8, 4, 1) and c % cw == 0 and cw <= cs
+    # tiles cover every output pixel once, slices every channel once
+    assert plan.tiles_x == -(-wo // tw) and plan.tiles_y == -(-ho // th)
+    cover = np.zeros((ho, wo), np.int32)
+    for ty in range(plan.tiles_y):
+        for tx in range(plan.tiles_x):
+            oy0, ox0 = ty * th, tx * tw
+            cover[oy0:oy0 + th, ox0:ox0 + tw] += 1
+            # the window [oy0*s-1, +wr) x [ox0*s-1, +wc) holds every tap
+            wr, wc = (th - 1) * stride + 3, (tw - 1) * stride + 3
+            taps_y = [oy * stride - 1 + k for oy in range(oy0, oy0 + th) for k in range(3)]
+            taps_x = [ox * stride - 1 + k for ox in range(ox0, ox0 + tw) for k in range(3)]
+            assert min(taps_y) == oy0 * stride - 1 and max(taps_y) < oy0 * stride - 1 + wr
+            assert min(taps_x) == ox0 * stride - 1 and max(taps_x) < ox0 * stride - 1 + wc
+    assert (cover == 1).all()
+    _check_slices(c, cs, plan.slices, allow_empty=False)
+    # one CTA a tile (the C entry point refuses another grid)
+    assert plan.grid == n * plan.tiles_y * plan.tiles_x * plan.slices
+    # the units (1 row x 4 columns x 4 channels, 1 where C % 4) cover the
+    # tile once
+    v = 4 if c % 4 == 0 else 1
+    units = (cs // v) * th * (tw // DW_PX)
+    assert units * v * DW_PX == th * tw * cs and units <= 16 * DW_THREADS
+    return plan
+
+
+def test_depthwise_shapes_are_the_13():
+    shapes = depthwise_shapes()
+    assert len(shapes) == 13
+    assert (256, 96, 2) in shapes and (16, 960, 1) in shapes
+
+
+@pytest.mark.parametrize('b', [1, 4])
+@pytest.mark.parametrize('i', range(13))
+def test_plan_qdwconv3x3_graph_shape(i, b):
+    h, c, stride = depthwise_shapes()[i]
+    plan = check_dw_plan(b, h, h, c, stride)
+    assert plan.cw == 16                     # the graph's C are multiples of 16
+    if b == 4:                               # two CTAs an SM, or the whole image
+        assert plan.grid >= 128                  # about one CTA an SM, or more
+
+
+@pytest.mark.parametrize('n,h,w,c,stride', [
+    (1, 64, 64, 27, 1), (4, 64, 64, 27, 2),     # C odd: byte copies, 1 channel a thread
+    (1, 64, 64, 75, 1), (4, 64, 64, 75, 2),
+    (1, 64, 64, 20, 1), (4, 64, 64, 20, 2),     # C % 16 == 4: 4-byte copies
+    (2, 20, 36, 32, 1), (2, 20, 36, 96, 2),     # W not a multiple of the tile
+    (1, 2, 2, 20, 2), (2, 2, 2, 32, 2),         # a 2x2 input at stride 2
+    (1, 16, 16, 1280, 1), (4, 16, 16, 1280, 1),
+    (1, 5, 7, 6, 1), (3, 9, 13, 8, 1),
+])
+def test_plan_qdwconv3x3_edges(n, h, w, c, stride):
+    check_dw_plan(n, h, w, c, stride)
+
+
+def test_plan_qdwconv3x3_refuses():
+    with pytest.raises(ValueError, match='empty'):
+        plan_qdwconv3x3(1, 4, 4, 0, 1)
+    with pytest.raises(ValueError, match='even H/W'):
+        plan_qdwconv3x3(1, 5, 4, 8, 2)

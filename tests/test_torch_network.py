@@ -31,7 +31,8 @@ from pqdet_tpu_torch.bridge import from_jax_params
 from pqdet_tpu_torch.config import Config
 from pqdet_tpu_torch.evaluation.predict import (build_predict_pipeline,
                                                 make_batch_predict)
-from pqdet_tpu_torch.model.network import (DetectionNetwork, cast_params,
+from pqdet_tpu_torch.model.decode import decode
+from pqdet_tpu_torch.model.network import (DetectionNetwork, Network, cast_params,
                                            fuse_params)
 from pqdet_tpu_torch.ops.fused_ir import prepare_fused_ir
 from pqdet_tpu_torch.ops.boxes import iou
@@ -197,3 +198,60 @@ def test_later_slices_raise(model20):
             net(tp, ts, x, **kw)
     with pytest.raises(TypeError):
         net(tp, ts, x, no_such_option=1)
+
+
+def test_network_forward_heads_are_views_of_the_preds(model20):
+    """``Network.forward`` returns each head as (B, H, W, A, 5+C), views of
+    the one preds tensor the decode writes, which ``DetectionNetwork``
+    returns whole: the same values both ways."""
+    *_, net, tp, ts = model20
+    x = device_normalize(torch.from_numpy(_images()))
+    with torch.inference_mode():
+        heads = Network.forward(net, tp, ts, x)
+        preds = net(tp, ts, x)
+    want = [(2, SIZE // y.attrs['stride'], SIZE // y.attrs['stride'], 3, 25)
+            for y in net.graph.yolo_nodes]
+    assert [tuple(h.shape) for h in heads] == want == [(2, 2, 2, 3, 25), (2, 4, 4, 3, 25),
+                                                         (2, 8, 8, 3, 25)]
+    assert len({h.untyped_storage().data_ptr() for h in heads}) == 1
+    assert torch.equal(torch.cat([h.reshape(2, -1, 25) for h in heads], 1), preds)
+
+
+READ_YOLO_CFG = """[net]
+channels=3
+
+[convolutional]
+filters=18
+size=1
+stride=2
+pad=1
+activation=linear
+
+[yolo]
+mask=0,1,2
+anchors=10,13,16,30,33,23
+classes=1
+
+[route]
+layers=-1
+"""
+
+
+def test_a_graph_that_reads_a_yolo_output():
+    """No zoo graph reads a yolo node's output; one that does decodes that
+    head in the walk on the plain path (CPU tensors), and raises naming the
+    node on the kernel path (a meta tensor stands in for the card), since
+    the kernel decodes every head after the walk."""
+    net = DetectionNetwork.from_cfg(READ_YOLO_CFG)
+    assert 1 in net.graph.last_use                   # the route reads yolo node 1
+    params, state = net.init(torch.Generator().manual_seed(0), device='cpu')
+    x = torch.randn(1, 8, 8, 3, generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        preds = net(params, state, x)
+        raw = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), params['0']['w'],
+                                         params['0']['b'], 2).permute(0, 2, 3, 1)
+    assert preds.shape == (1, 4 * 4 * 3, 6)
+    torch.testing.assert_close(preds, decode(raw, 1, 2).reshape(1, -1, 6))
+    meta = {k: {n: t.to('meta') for n, t in v.items()} for k, v in params.items()}
+    with pytest.raises(NotImplementedError, match='yolo node 1 is read'):
+        net(meta, {}, x.to('meta'))
