@@ -66,16 +66,38 @@ Builds the CUDA kernels from pqdet_tpu_torch/csrc with nvcc (sm_90a), then:
    request, a profiler trace; and per B=4 forward, each int8 kernel's
    device time from CUDA graphs, its plain version's, its bound and a
    library yardstick (torch._int_mm + the epilogue as torch ops; cuDNN's
-   f32 depthwise conv + the epilogue), with the plan and ptxas report.
+   f32 depthwise conv + the epilogue), with the plan and ptxas report;
+9. the training step of the full-width mobilenetv2-fpn (seeded random
+   weights, 20 classes): one f32 step on the card against the same step on
+   the CPU, with batch statistics at 256x256 (loss and parts 1e-3, grads
+   by relative L2 distance 0.5 and leaf cosine 0.9, BN state 1e-2, params
+   2 lrs and the direction of 90 % of the moved elements: the walk with
+   batch statistics amplifies rounding, see tests/test_torch_train_step.py)
+   and with running statistics at 128x128 (loss 1e-4, grads 1e-3 of each
+   element plus 1e-4 of the largest), B=2; then 30 bf16 steps at 512x512,
+   B=12, device labels from seeded padded GT (up to 64 boxes an image),
+   head_probe on, on one fixed batch under a 5-step warmup: every loss and
+   head_max finite, the mean loss of the last 5 steps below that of the
+   first 5, BN running means moved; one step at 320x320 and 608x608
+   (finite); the same step at remat 4 and 0 (loss within 1e-3, lower peak
+   memory at remat 4). The four kernels' launch counts stay 0 through all
+   of it, and each wrapper raises on a CUDA tensor that requires grad;
+10. the training timings: ms per step p50 and p90 (CUDA events, after the
+   5 warm-up steps), images/s, peak memory at remat 0 and 4, the step by
+   stage (labels, forward and loss, backward, optimizer) and a profiled
+   step (device idle share, top kernels, host launches).
 
-It prints one JSON line of kernels, then the nvidia-smi line, and ends with
-{"ok": true, "device": {...}}. Any failure exits non-zero before that line.
-TF32 is off for cuDNN and matmul throughout, so f32 comparisons are f32.
+Each phase draws from its own generator, seeded from SEED and the phase
+number. It prints one JSON line of kernels, then the nvidia-smi line, and
+ends with {"ok": true, "device": {...}}. Any failure exits non-zero before
+that line. TF32 is off for cuDNN and matmul throughout, so f32 comparisons
+are f32.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -90,6 +112,26 @@ N_REQUESTS = 16
 BATCH = 4
 SIZE = 512
 N_CALIB = 4
+
+
+def phase_gen(phase: int):
+    """The generator of one phase, seeded from SEED and the phase number, so
+    that what a phase draws does not depend on what the phases before it
+    drew."""
+    import torch
+    return torch.Generator().manual_seed(1000 * SEED + phase)
+
+
+def request_maker(gen, dev):
+    """batch(b): a request of b seeded uint8 images at SIZE and original
+    shapes of 200-900 px, drawn from ``gen``."""
+    import torch
+
+    def batch(b):
+        img = torch.randint(0, 256, (b, SIZE, SIZE, 3), generator=gen, dtype=torch.uint8)
+        hw = torch.randint(200, 900, (b, 2), generator=gen)
+        return {'image': img.to(dev), 'shape': hw.to(dev), 'count': b}
+    return batch
 
 
 def smi() -> str:
@@ -303,34 +345,34 @@ def stage_split(fwd, xb, rb, dev, ev, tag, label):
           + f'; forward on the device alone (CUDA graph) {fwd_device:.3f} ms')
 
 
-def profile_requests(predict, r, tag, label):
-    """torch.profiler over 3 requests: wall, device busy, idle share and the
-    top kernels per request."""
+def profile_calls(call, tag, label, what):
+    """torch.profiler over 3 calls of ``call``: wall, device busy, idle share
+    and the top kernels per call (``what`` names a call in the lines)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(3):
-            predict(r)
+            call()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / 3
     kern_ev = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
     busy_ms = sum(ev.self_device_time_total for ev in kern_ev) / 1e3 / 3
     if busy_ms > 0:
-        print(f'{label}: {tag} profiled B={BATCH} request: wall {wall_ms:.3f} ms, '
+        print(f'{label}: {tag} profiled {what}: wall {wall_ms:.3f} ms, '
               f'device busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}')
         for ev in sorted(kern_ev, key=lambda e: -e.self_device_time_total)[:8]:
-            print(f'  {ev.self_device_time_total / 1e3 / 3:9.4f} ms/request '
+            print(f'  {ev.self_device_time_total / 1e3 / 3:9.4f} ms/{what.split()[0]} '
                   f'{ev.count // 3:4d} launches  {ev.key[:90]}')
     else:
         print(f'{label}: {tag} profiler saw no device time: busy share not measured')
-    # the host side: what a request spends its CPU time on
+    # the host side: what a call spends its CPU time on
     host_ev = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CPU]
     n_launch = sum(ev.count for ev in host_ev
                    if ev.key in ('cudaLaunchKernel', 'cudaLaunchKernelExC')) // 3
-    print(f'{label}: {tag} host per request: {n_launch} kernel launches; top ops by '
-          'self CPU ms: ' + ', '.join(
+    print(f'{label}: {tag} host per {what.split()[0]}: {n_launch} kernel launches; top ops '
+          'by self CPU ms: ' + ', '.join(
               f'{ev.key} {ev.self_cpu_time_total / 1e3 / 3:.3f} ({ev.count // 3})'
               for ev in sorted(host_ev, key=lambda e: -e.self_cpu_time_total)[:6]))
 
@@ -631,7 +673,8 @@ def phase8_int8_timings(gen, dev, cfg, batch, tag, shapes, inf, qprep, predict, 
     with torch.inference_mode():
         xb = device_normalize(rb['image'])
     stage_split(lambda x: inf.apply(qprep, x), xb, rb, dev, cfg.eval, tag, 'phase 8')
-    profile_requests(predict, batch(BATCH), tag, 'phase 8')
+    rp = batch(BATCH)
+    profile_calls(lambda: predict(rp), tag, 'phase 8', f'request B={BATCH}')
 
     tot = {k: dict.fromkeys(('ms', 'plain_ms', 'library_ms', 'bound_ms', 'bytes_ms',
                              'ops_ms'), 0.0) for k in ('qconv1x1_s8', 'qdwconv3x3_s8')}
@@ -703,6 +746,331 @@ def phase8_int8_timings(gen, dev, cfg, batch, tag, shapes, inf, qprep, predict, 
     return tot
 
 
+# training (phases 9-10): full-width mobilenetv2-fpn, bf16, device labels
+TRAIN_SIZE = 512
+TRAIN_BATCH = 12               # train.batch_size
+TRAIN_STEPS = 30
+TRAIN_WARMUP = 5
+TRAIN_OTHER_SIZES = (320, 608)  # the ends of train.input_sizes
+MAX_GT = 64                    # model.max_gt_boxes
+REMAT = 4
+PARITY_SIZE = 256              # phase 9's card-against-CPU f32 step
+PARITY_RUNNING_SIZE = 128      # ... and its running-statistics check
+PARITY_BATCH = 2
+PARITY_LR = 1e-3
+
+
+def train_batch(gen, b, size, dev):
+    """b seeded uint8 images at ``size`` and their padded GT boxes (B,
+    MAX_GT, 6): 1 to MAX_GT boxes an image, 8 px to size/2 a side, centres
+    in the image, 20 classes, mixup weights in [0.5, 1]."""
+    import torch
+    img = torch.randint(0, 256, (b, size, size, 3), generator=gen, dtype=torch.uint8)
+    gt = torch.zeros(b, MAX_GT, 6)
+    for i in range(b):
+        n = int(torch.randint(1, MAX_GT + 1, (), generator=gen))
+        c = torch.rand(n, 2, generator=gen) * size
+        wh = 8 + torch.rand(n, 2, generator=gen) * (size / 2 - 8)
+        gt[i, :n, :2] = (c - wh / 2).clamp(0, size)
+        gt[i, :n, 2:4] = (c + wh / 2).clamp(0, size)
+        gt[i, :n, 4] = torch.randint(0, 20, (n,), generator=gen).float()
+        gt[i, :n, 5] = 0.5 + 0.5 * torch.rand(n, generator=gen)
+    return {'image': img.to(dev), 'gt': gt.to(dev)}
+
+
+def kernel_launches():
+    from pqdet_tpu_torch.ops.decode_kernel import decode_heads
+    from pqdet_tpu_torch.ops.fused_ir import fused_ir_conv
+    from pqdet_tpu_torch.ops.qconv import qconv1x1_s8, qdwconv3x3_s8
+    return {f.__name__: f.launches
+            for f in (decode_heads, fused_ir_conv, qconv1x1_s8, qdwconv3x3_s8)}
+
+
+def reset_kernel_launches():
+    from pqdet_tpu_torch.ops.decode_kernel import decode_heads
+    from pqdet_tpu_torch.ops.fused_ir import fused_ir_conv
+    from pqdet_tpu_torch.ops.qconv import qconv1x1_s8, qdwconv3x3_s8
+    for f in (decode_heads, fused_ir_conv, qconv1x1_s8, qdwconv3x3_s8):
+        f.launches = 0
+
+
+def grad_step_parts(net, params, state, batch, dev, cfg, train):
+    """Loss parts, grads, new BN state and the params after one update of
+    the port's step pieces on ``dev`` (f32): sparse-L1 0.01, a clip of 1
+    (binding at init), weight decay 1e-4, lr PARITY_LR. ``train``: batch
+    statistics in BN, else running statistics (no update then)."""
+    import torch
+    from pqdet_tpu_torch.model.network import to_device
+    from pqdet_tpu_torch.ops.labels import label_assigner_from_config
+    from pqdet_tpu_torch.ops.preprocess import device_normalize
+    from pqdet_tpu_torch.train.step import (add_sparse_l1, make_optimizer,
+                                            sparse_bn_gamma_ids, value_and_grad)
+    p, s, b = to_device(params, dev), to_device(state, dev), to_device(batch, dev)
+    labels = label_assigner_from_config(cfg, device=dev)
+
+    def loss_fn(p_, s_, b_, rng=None):
+        image = device_normalize(b_['image'])
+        losses, new_state = net(p_, s_, image, targets=labels(b_['gt'], image.shape[1:3]),
+                                train=train)
+        return losses['loss'][0], (losses, new_state)
+    (_, (losses, new_state)), grads = value_and_grad(loss_fn, p, s, b)
+    out = {'parts': torch.stack([losses[k][0] for k in
+                                 ('loss', 'giou_loss', 'conf_loss', 'class_loss')]),
+           'grads': grads, 'state': new_state}
+    if train:
+        opt = make_optimizer(lambda k: PARITY_LR, weight_decay=1e-4, grad_clip=1.0)
+        g = add_sparse_l1(grads, p, sparse_bn_gamma_ids(net), 0.01)
+        out['params'], _ = opt.update(g, opt.init(p), p)
+    if dev.type == 'cuda':
+        torch.cuda.synchronize()
+    return to_device(out, torch.device('cpu'))
+
+
+def phase9_parity(net, params, state, gen, dev, cfg):
+    """Phase 9.1: one f32 step on the card against the same step on the CPU
+    (the CPU path is what the tests hold to JAX), at PARITY_SIZE with batch
+    statistics in BN, and the loss and grads at PARITY_RUNNING_SIZE with
+    running statistics, where the walk is well conditioned and the bounds
+    are tight. Prints the largest relative error of each quantity and its
+    bound; raises outside one."""
+    import torch
+    from pqdet_tpu_torch.train.step import tree_leaves
+    cpu = torch.device('cpu')
+    fails = []
+
+    def check(name, err, bound):
+        ok = err <= bound
+        print(f'phase 9: card vs CPU f32 step B={PARITY_BATCH} {size}x{size}: '
+              f'{name} {err:.4g} (bound {bound:g}) {"ok" if ok else "FAIL"}')
+        if not ok:
+            fails.append(name)
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+    for train, size in ((False, PARITY_RUNNING_SIZE), (True, PARITY_SIZE)):
+        batch = train_batch(gen, PARITY_BATCH, size, cpu)
+        t0 = time.perf_counter()
+        card = grad_step_parts(net, params, state, batch, dev, cfg, train)
+        t1 = time.perf_counter()
+        host = grad_step_parts(net, params, state, batch, cpu, cfg, train)
+        t2 = time.perf_counter()
+        mode = 'batch-statistics BN' if train else 'running-statistics BN'
+        print(f'phase 9: {mode}: card {t1 - t0:.2f} s, CPU {t2 - t1:.2f} s (with labels)')
+        a, b = card['parts'], host['parts']
+        parts = ((a - b).abs() / b.abs()).max().item()
+        ga, gb = tree_leaves(card['grads']), tree_leaves(host['grads'])
+        leaf = max(rel(x, y) for x, y in zip(ga, gb))
+        if not train:
+            # well conditioned: held tightly
+            top = max(y.abs().max().item() for y in gb)
+            gerr = max(((x - y).abs() - 1e-3 * y.abs()).max().item() for x, y in zip(ga, gb))
+            check(f'{mode} loss and parts, max rel err', parts, 1e-4)
+            check(f'{mode} grads, max |d| - 1e-3 |g| over the largest |g|',
+                  max(gerr, 0.0) / top, 1e-4)
+            print(f'phase 9: {mode} grads, largest per-leaf max|d| / max|g|: {leaf:.4g}')
+            continue
+        # batch statistics: the walk amplifies rounding (tests/test_torch_train_step.py)
+        check(f'{mode} loss and parts, max rel err', parts, 1e-3)
+        g, h = torch.cat([x.reshape(-1) for x in ga]), torch.cat([y.reshape(-1) for y in gb])
+        check(f'{mode} grads, relative L2 distance', ((g - h).norm() / h.norm()).item(), 0.5)
+        top = max(y.norm().item() for y in gb)
+        cos = min(((x * y).sum() / (x.norm() * y.norm())).item()
+                  for x, y in zip(ga, gb) if y.norm() > 1e-3 * top)
+        check(f'{mode} grads, 1 - smallest leaf cosine (leaves over 1e-3 of the largest '
+              'norm)', 1 - cos, 0.1)
+        print(f'phase 9: {mode} grads, largest per-leaf max|d| / max|g|: {leaf:.4g} '
+              '(not gated)')
+        sa, sb = tree_leaves(card['state']), tree_leaves(host['state'])
+        check(f'{mode} new BN state, max |d| / max(1, |s|)',
+              max(((x - y).abs() / y.abs().clamp_min(1.0)).max().item()
+                  for x, y in zip(sa, sb)), 1e-2)
+        start = torch.cat([x.reshape(-1) for x in tree_leaves(params)])
+        pa = torch.cat([x.reshape(-1) for x in tree_leaves(card['params'])])
+        pb = torch.cat([x.reshape(-1) for x in tree_leaves(host['params'])])
+        check(f'{mode} updated params, max |d| / lr', ((pa - pb).abs().max() / PARITY_LR).item(),
+              2.02)
+        moved = (pb - start).abs() > 0.5 * PARITY_LR
+        same = (torch.sign(pa - start) == torch.sign(pb - start))[moved].float().mean().item()
+        check(f'{mode} updated params, share moved the other way (of those the CPU moved '
+              'by over lr/2)', 1 - same, 0.1)
+    if fails:
+        raise AssertionError(f'the card step disagrees with the CPU step: {fails}')
+
+
+def check_grad_guard(dev):
+    """Each kernel wrapper, given a tensor on ``dev`` that requires grad
+    while grad mode is on, raises before it launches."""
+    import torch
+    from pqdet_tpu_torch.ops.decode_kernel import decode_heads
+    from pqdet_tpu_torch.ops.fused_ir import fused_ir_conv
+    from pqdet_tpu_torch.ops.qconv import qconv1x1_s8, qdwconv3x3_s8
+    f = dict(device=dev)
+    g = dict(device=dev, requires_grad=True)
+    sc = torch.zeros(1, 4, **f)
+    guarded = {
+        'decode_heads': lambda: decode_heads([torch.zeros(1, 2, 2, 75, **g)], 20, [8], [0.0]),
+        'fused_ir_conv': lambda: fused_ir_conv(
+            torch.zeros(1, 4, 4, 8, dtype=torch.bfloat16, **g), None, None,
+            torch.zeros(9, 8, dtype=torch.bfloat16, **f), torch.zeros(8, **f),
+            torch.zeros(8, 8, dtype=torch.bfloat16, **f), torch.zeros(8, **f),
+            act_e='linear'),
+        'qconv1x1_s8': lambda: qconv1x1_s8(
+            torch.zeros(1, 2, 2, 16, dtype=torch.int8, **f),
+            torch.zeros(16, 8, dtype=torch.int8, **f), torch.ones(8, **g), torch.zeros(8, **f),
+            torch.zeros(8, dtype=torch.int32, **f), act='relu', scalars=sc, requant=False),
+        'qdwconv3x3_s8': lambda: qdwconv3x3_s8(
+            torch.zeros(1, 4, 4, 16, dtype=torch.int8, **f),
+            torch.zeros(3, 3, 16, dtype=torch.int8, **f), torch.ones(16, **f),
+            torch.zeros(16, **g), act='relu', stride=1, scalars=sc, requant=False),
+    }
+    for name, call in guarded.items():
+        try:
+            call()
+        except RuntimeError as e:
+            if 'no backward' not in str(e):
+                raise
+            print(f'phase 9: {name} on a {dev.type} tensor that requires grad raises: {e}')
+        else:
+            raise AssertionError(f'{name} took a {dev.type} tensor that requires grad')
+    if any(kernel_launches().values()):
+        raise AssertionError('a refused call launched its kernel')
+
+
+def phase9_training(dev, cfg, tag):
+    """Phase 9: card-against-CPU parity, then the full-width bf16 step:
+    TRAIN_STEPS steps on one fixed batch, other input sizes, remat, and no
+    hand-written kernel launched. Returns what phase 10 prints."""
+    import torch
+    from pqdet_tpu_torch.model.network import DetectionNetwork, to_device
+    from pqdet_tpu_torch.ops.labels import label_assigner_from_config
+    from pqdet_tpu_torch.train.schedule import cosine_warmup
+    from pqdet_tpu_torch.train.step import make_optimizer, make_train_step, tree_leaves
+    from pqdet_tpu_torch.zoo import get_cfg
+
+    gen = phase_gen(9)
+    net = DetectionNetwork.from_cfg(get_cfg('mobilenetv2-fpn'))
+    params, state = net.init(gen, device='cpu')
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    reset_kernel_launches()
+    phase9_parity(net, params, state, gen, dev, cfg)
+
+    # the full-width bf16 step on one fixed batch
+    labels = label_assigner_from_config(cfg, device=dev)
+    sched = cosine_warmup(1e-3, 1e-5, TRAIN_WARMUP, TRAIN_STEPS)
+    opt = make_optimizer(sched)
+    step = make_train_step(net, opt, compute_dtype=torch.bfloat16, label_fn=labels,
+                           probe_heads=True)
+    p, s = to_device(params, dev), to_device(state, dev)
+    o = opt.init(p)
+    tb = train_batch(gen, TRAIN_BATCH, TRAIN_SIZE, dev)
+    n_gt = int((tb['gt'][..., 2] > tb['gt'][..., 0]).sum())
+    losses, heads, ms = [], [], []
+    for k in range(TRAIN_STEPS):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        p, s, o, m = step(p, s, o, tb)
+        e1.record()
+        e1.synchronize()
+        ms.append(e0.elapsed_time(e1))
+        losses.append(float(m['loss']))
+        heads.append(m['head_max'].tolist())
+        if k in (0, 1, TRAIN_WARMUP, TRAIN_STEPS - 1) or not math.isfinite(losses[-1]):
+            print(f'phase 9: step {k} lr {sched(k):.3g}: loss {losses[-1]:.4f} (giou '
+                  f'{float(m["giou_loss"]):.4f}, conf {float(m["conf_loss"]):.4f}, class '
+                  f'{float(m["class_loss"]):.4f}), head_max {[round(h, 3) for h in heads[-1]]}, '
+                  f'{ms[-1]:.2f} ms')
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    moved = max((s[k]['mean'] - state[k]['mean'].to(dev)).abs().max().item() for k in s)
+    print(f'phase 9: {TRAIN_STEPS} bf16 steps of mobilenetv2-fpn ({n_params} params) at '
+          f'{TRAIN_SIZE}x{TRAIN_SIZE}, B={TRAIN_BATCH}, {n_gt} GT boxes: mean loss of steps '
+          f'1-5 {first:.4f}, of the last 5 {last:.4f}; BN running means moved by up to '
+          f'{moved:.4g}')
+    if not all(math.isfinite(x) for x in losses + [h for hs in heads for h in hs]):
+        raise AssertionError('a training loss or head_max is not finite')
+    if not last < first or not moved > 0:
+        raise AssertionError('the loss did not fall on the fixed batch, or BN did not move')
+
+    for size in TRAIN_OTHER_SIZES:
+        _, _, _, m = step(p, s, o, train_batch(gen, TRAIN_BATCH, size, dev))
+        loss = float(m['loss'])
+        print(f'phase 9: one step at {size}x{size}, B={TRAIN_BATCH}: loss {loss:.4f}')
+        if not math.isfinite(loss):
+            raise AssertionError(f'the step at {size}x{size} is not finite')
+
+    # remat: the same step as REMAT checkpointed segments
+    peak, rloss = {}, {}
+    for r in (0, REMAT):
+        rstep = make_train_step(net, opt, compute_dtype=torch.bfloat16, label_fn=labels,
+                                remat=r)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _, _, _, m = rstep(p, s, o, tb)
+        rloss[r] = float(m['loss'])
+        peak[r] = torch.cuda.max_memory_allocated(dev)
+    d = abs(rloss[REMAT] - rloss[0]) / abs(rloss[0])
+    print(f'phase 9: remat {REMAT} loss {rloss[REMAT]:.6f} vs remat 0 {rloss[0]:.6f}: rel '
+          f'{d:.3g} (bound 1e-3); peak memory {peak[REMAT] / 2**30:.3f} GiB vs '
+          f'{peak[0] / 2**30:.3f} GiB')
+    if not (d <= 1e-3 and peak[REMAT] < peak[0]):
+        raise AssertionError('remat changed the loss or did not lower the peak memory')
+
+    launches = kernel_launches()
+    print(f'phase 9: hand-written kernel launches over every training step above: '
+          f'{launches} (want all 0)')
+    if any(launches.values()):
+        raise AssertionError(f'a training step launched a hand-written kernel: {launches}')
+    check_grad_guard(dev)
+    return {'ms': ms, 'peak': peak, 'step': step, 'opt': opt, 'p': p, 's': s, 'o': o,
+            'tb': tb, 'labels': labels, 'net': net}
+
+
+def phase10_training_timings(run, tag):
+    """Phase 10: ms per step p50/p90 and images/s after warm-up, peak memory
+    with and without remat, the step's time by stage, one profiled step."""
+    import torch
+    from pqdet_tpu_torch.train.step import make_loss_fn, tree_leaves, tree_unflatten
+    ms = sorted(run['ms'][TRAIN_WARMUP:])
+    p50, p90 = statistics.median(ms), ms[int(0.9 * (len(ms) - 1))]
+    print(f'phase 10: {tag} train step mobilenetv2-fpn {TRAIN_SIZE}x{TRAIN_SIZE} '
+          f'B={TRAIN_BATCH} bf16 ({len(ms)} steps after {TRAIN_WARMUP} of warm-up, CUDA '
+          f'events, synchronised each step): p50 {p50:.3f} ms, p90 {p90:.3f} ms, '
+          f'{TRAIN_BATCH * 1000.0 / p50:.2f} images/s')
+    for r, b in sorted(run['peak'].items()):
+        print(f'phase 10: {tag} peak memory of one step, remat {r}: '
+              f'{b / 2**30:.3f} GiB (torch.cuda.max_memory_allocated)')
+
+    net, p, s, o, tb, labels, opt = (run[k] for k in
+                                     ('net', 'p', 's', 'o', 'tb', 'labels', 'opt'))
+    loss_fn = make_loss_fn(net, compute_dtype=torch.bfloat16, label_fn=labels)
+    leaves = tree_leaves(p)
+
+    def staged():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        targets = labels(tb['gt'], (TRAIN_SIZE, TRAIN_SIZE))
+        ev[1].record()
+        req = [t.detach().requires_grad_(True) for t in leaves]
+        loss, _ = loss_fn(tree_unflatten(p, req), s, {'image': tb['image'], 'targets': targets})
+        ev[2].record()
+        grads = torch.autograd.grad(loss, req)
+        ev[3].record()
+        opt.update(tree_unflatten(p, list(grads)), o, p)
+        ev[4].record()
+        ev[4].synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+
+    splits = [staged() for _ in range(6)][1:]
+    names = ('labels', 'forward and loss', 'backward', 'optimizer')
+    med = [statistics.median(x[i] for x in splits) for i in range(4)]
+    print(f'phase 10: {tag} step by stage (CUDA events between the stages of one step, '
+          'median of 5): ' + ', '.join(f'{n} {v:.3f} ms' for n, v in zip(names, med))
+          + f'; sum {sum(med):.3f} ms')
+    step = run['step']
+    profile_calls(lambda: step(p, s, o, tb), tag, 'phase 10', f'step B={TRAIN_BATCH}')
+    return {'p50': p50, 'p90': p90, 'stages': dict(zip(names, med))}
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -727,6 +1095,11 @@ def main() -> int:
     from pqdet_tpu_torch.ops.preprocess import device_normalize
     from pqdet_tpu_torch.zoo import get_cfg
 
+    t_start = time.perf_counter()
+
+    def stamp(what):
+        print(f'chip_smoke: {what} at {time.perf_counter() - t_start:.1f} s')
+
     dev = torch.device('cuda', 0)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -749,9 +1122,10 @@ def main() -> int:
     ptx = ptxas_report('\n'.join(r['log'] for r in report.values()))
     for k, v in sorted(ptx.items()):
         print(f'phase 1: ptxas {k}: {v}')
-    gen = torch.Generator().manual_seed(SEED)
 
+    stamp('phase 2 starts')
     # ---- phase 2: decode kernel vs plain decode
+    gen = phase_gen(2)
     net = DetectionNetwork.from_cfg(get_cfg('mobilenetv2-fpn'))
     heads = [(SIZE // y.attrs['stride'], y.attrs['stride']) for y in net.graph.yolo_nodes]
     nc = net.num_classes
@@ -780,7 +1154,9 @@ def main() -> int:
         if not ok:
             raise AssertionError('decode kernel disagrees with its plain version')
 
+    stamp('phase 3 starts')
     # ---- phase 3: fused IR kernel vs fused_ir_reference
+    gen = phase_gen(3)
     chains = chain_shapes(net, SIZE)
     if len(chains) != 21:
         raise AssertionError(f'expected 21 fused chains, found {len(chains)}')
@@ -815,7 +1191,9 @@ def main() -> int:
     if failures:
         raise AssertionError(f'fused IR kernel disagrees on {failures}')
 
+    stamp('phase 4 starts')
     # ---- phase 4: the main path
+    gen = phase_gen(4)
     cfg = Config()
     cfg.eval.input_size = SIZE
     cfg.eval.fused_ir = True
@@ -829,13 +1207,7 @@ def main() -> int:
     run = build_predict_pipeline(net, cfg, compute_dtype=torch.bfloat16,
                                  fused_ir=table, device=dev)
     predict = make_batch_predict(run, fparams)
-    rng = torch.Generator().manual_seed(SEED + 1)
-
-    def batch(b):
-        img = torch.randint(0, 256, (b, SIZE, SIZE, 3), generator=rng, dtype=torch.uint8)
-        hw = torch.randint(200, 900, (b, 2), generator=rng)
-        return {'image': img.to(dev), 'shape': hw.to(dev), 'count': b}
-
+    batch = request_maker(gen, dev)
     requests = [batch(BATCH) for _ in range(N_REQUESTS)]
     predict(requests[0])                      # warm-up: Triton compile
     torch.cuda.synchronize()
@@ -881,8 +1253,11 @@ def main() -> int:
         if not (ds <= 0.03 and db <= box_tol):
             raise AssertionError(f'kernel path disagrees with the {name}')
 
+    stamp('phase 5 starts')
     # ---- phase 5: timings (CUDA events, after warm-up; kernels, their plain
     # versions and cuDNN as device time, from CUDA graphs)
+    gen = phase_gen(5)
+    batch = request_maker(gen, dev)
     for b in (1, BATCH):
         request_times(predict, batch, b, tag, 'phase 5')
     rb = batch(BATCH)
@@ -891,7 +1266,8 @@ def main() -> int:
         xb = device_normalize(rb['image'])
     stage_split(lambda x: net(fparams, {}, x, compute_dtype=torch.bfloat16, fused_ir=table),
                 xb, rb, dev, ev, tag, 'phase 5')
-    profile_requests(predict, batch(BATCH), tag, 'phase 5')
+    rp = batch(BATCH)
+    profile_calls(lambda: predict(rp), tag, 'phase 5', f'request B={BATCH}')
 
     # decode: the three heads of one B=4 bf16 forward, one launch into the
     # preds; and the earlier form, a launch per head and the concatenation
@@ -973,12 +1349,24 @@ def main() -> int:
           f'{dec["ms"]:.4f} ms, plain {dec["plain_ms"]:.4f} ms, bound '
           f'{dec["bound_ms"]:.5f} ms')
 
+    stamp('phase 6 starts')
     # ---- phases 6-8: the int8 serving path
     qnet = DetectionNetwork.from_cfg(get_cfg('mobilenetv2-fpn'), quant=True)
     shapes = int8_conv_shapes(qnet, SIZE)
-    int8_err = phase6_int8_parity(gen, dev, shapes)
-    inf, qprep, qpredict, qlaunches = phase7_int8_path(gen, dev, cfg, batch, tag, qnet, shapes)
-    qt = phase8_int8_timings(gen, dev, cfg, batch, tag, shapes, inf, qprep, qpredict, ptx)
+    int8_err = phase6_int8_parity(phase_gen(6), dev, shapes)
+    gen = phase_gen(7)
+    inf, qprep, qpredict, qlaunches = phase7_int8_path(gen, dev, cfg, request_maker(gen, dev),
+                                                       tag, qnet, shapes)
+    gen = phase_gen(8)
+    qt = phase8_int8_timings(gen, dev, cfg, request_maker(gen, dev), tag, shapes, inf, qprep,
+                             qpredict, ptx)
+
+    stamp('phase 9 starts')
+    # ---- phases 9-10: the training step
+    train_run = phase9_training(dev, cfg, tag)
+    stamp('phase 10 starts')
+    phase10_training_timings(train_run, tag)
+    stamp('phase 10 ends')
 
     kernels = [
         {'name': 'decode_heads', 'route': 'triton',

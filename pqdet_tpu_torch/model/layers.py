@@ -1,4 +1,4 @@
-"""Functional PyTorch layers for the graph walk (inference).
+"""Functional PyTorch layers for the graph walk.
 
 The port of ``pqdet_tpu/model/layers.py``. Public functions keep the JAX
 package's NHWC layout, so the tests compare like with like; inside, a
@@ -9,8 +9,9 @@ tensor), which costs no copy. Conv weights are OIHW, PyTorch's layout
 
 Initialisation matches torch defaults (kaiming-uniform fan_in for conv and
 linear weights, uniform bound 1/sqrt(fan_in) for biases), drawn from an
-explicit ``torch.Generator``. Train-mode batch norm and dropout come with
-the training slice.
+explicit ``torch.Generator``. Train-mode batch norm returns its new running
+statistics (it never writes them in place); dropout draws from an explicit
+generator.
 """
 
 from __future__ import annotations
@@ -22,8 +23,7 @@ import torch
 import torch.nn.functional as F
 
 BN_EPS = 1e-5       # torch nn.BatchNorm2d default
-
-LATER_TRAINING = 'training comes in a later slice of the port'
+BN_MOMENTUM = 0.1   # torch nn.BatchNorm2d default
 
 
 # ----------------------------------------------------------------- activations
@@ -32,11 +32,27 @@ def mish(x):
     return x * torch.tanh(F.softplus(x))
 
 
+# Under autograd the kinks take the JAX package's subgradients (jnp.clip is
+# a maximum and a minimum, which split a tie 0.5 / 0.5; its leaky relu is a
+# where on x >= 0); torch.clamp and F.leaky_relu, one kernel each, give the
+# same values where no gradient is taken.
+def relu6(x):
+    if x.requires_grad:
+        return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_full((), 6.0))
+    return torch.clamp(x, 0.0, 6.0)
+
+
+def leaky(x):
+    if x.requires_grad:
+        return torch.where(x >= 0, x, 0.1 * x)
+    return F.leaky_relu(x, 0.1)
+
+
 ACTIVATION_FNS = {
     'logistic': torch.sigmoid,
-    'leaky': lambda x: F.leaky_relu(x, 0.1),
+    'leaky': leaky,
     'relu': torch.relu,
-    'relu6': lambda x: torch.clamp(x, 0.0, 6.0),
+    'relu6': relu6,
     'tanh': torch.tanh,
     'mish': mish,
     'linear': lambda x: x,
@@ -116,14 +132,42 @@ def conv2d(x, w, b=None, stride: int = 1, padding: int = 0, groups: int = 1,
     return out.contiguous()
 
 
+def _bn_moments(x):
+    """One-pass batch moments of NHWC ``x`` in f32: E[x] and the biased
+    Var[x], as E[d^2] - E[d]^2 of d = x - s. The per-channel shift s, the
+    mean of the strided subsample ``x[:, ::8, ::8]``, is detached; it keeps
+    the subtraction free of cancellation, and mean and variance do not
+    depend on it, so neither do their gradients."""
+    n = x.numel() // x.shape[-1]
+    dims = tuple(range(x.dim() - 1))
+    s = x[:, ::8, ::8, :].float().mean(dim=dims).detach()
+    d = x.float() - s
+    dm = d.sum(dim=dims) / n
+    var = torch.clamp_min(torch.square(d).sum(dim=dims) / n - torch.square(dm), 0.0)
+    return s + dm, var
+
+
 def batch_norm(x, params, state, train: bool = False):
-    """Eval-mode BatchNorm over NHWC with running statistics; returns
-    (y, state)."""
+    """BatchNorm over (N, H, W) of NHWC ``x``; returns (y, new state).
+
+    Train mode normalises with the batch's moments (biased variance) and
+    returns new running statistics, the unbiased variance mixed in with
+    ``BN_MOMENTUM``, as torch.nn.BatchNorm2d; ``state`` is not written.
+    Eval mode normalises with the running statistics and returns ``state``.
+    ``y`` is in ``x.dtype``."""
+    gamma, beta = params['gamma'], params['beta']
     if train:
-        raise NotImplementedError(f'train-mode batch norm: {LATER_TRAINING}')
-    inv = torch.rsqrt(state['var'] + BN_EPS) * params['gamma']
-    y = (x - state['mean'].to(x.dtype)) * inv.to(x.dtype) + params['beta'].to(x.dtype)
-    return y, state
+        mean, var = _bn_moments(x)
+    else:
+        mean, var = state['mean'], state['var']
+    inv = torch.rsqrt(var + BN_EPS) * gamma
+    y = (x - mean.to(x.dtype)) * inv.to(x.dtype) + beta.to(x.dtype)
+    if not train:
+        return y, state
+    n = x.numel() // x.shape[-1]
+    unbiased = (var * (n / max(n - 1, 1))).detach()
+    return y, {'mean': (1 - BN_MOMENTUM) * state['mean'] + BN_MOMENTUM * mean.detach(),
+               'var': (1 - BN_MOMENTUM) * state['var'] + BN_MOMENTUM * unbiased}
 
 
 def fold_bn_into_conv(conv_params: dict, bn_params: dict, bn_state: dict) -> dict:
@@ -173,8 +217,14 @@ def linear(x, params):
     return F.linear(x, params['w'], params['b'])
 
 
-def dropout(x, rate: float, train: bool = False):
-    """Identity at inference."""
-    if train and rate:
-        raise NotImplementedError(f'train-mode dropout: {LATER_TRAINING}')
-    return x
+def dropout(x, rate: float, gen, train: bool = False):
+    """Identity at inference; in training each element is kept with
+    probability 1 - ``rate`` (a uniform draw from ``gen``, a generator on
+    x's device) and scaled by 1 / (1 - rate)."""
+    if not train or rate == 0.0:
+        return x
+    if gen is None:
+        raise ValueError('train-mode dropout needs a torch.Generator (rng=)')
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))

@@ -1,56 +1,82 @@
-"""Network = Graph + an inference walk over plain parameter dicts.
+"""Network = Graph + a walk over plain parameter dicts, for inference and
+training.
 
-The port of ``pqdet_tpu/model/network.py`` (inference). Parameters and BN
-statistics are plain dicts of tensors keyed like the JAX pytrees,
-``params[str(i)]`` / ``state[str(i)]`` for graph node ``i``, with conv
-weights in OIHW, so weights cross 1:1 (``bridge.py``). A conv node whose
-params hold no ``'bn'`` entry is BN-folded (the fused inference form).
+The port of ``pqdet_tpu/model/network.py``. Parameters and BN statistics
+are plain dicts of tensors keyed like the JAX pytrees, ``params[str(i)]`` /
+``state[str(i)]`` for graph node ``i``, with conv weights in OIHW, so
+weights cross 1:1 (``bridge.py``). A conv node whose params hold no
+``'bn'`` entry is BN-folded (the fused inference form).
 
 The walk runs eagerly and drops each cached activation as soon as its
-last consumer has run (graph liveness). With a fused-IR table it replaces
-each [1x1 expand] -> [dw3x3] -> [1x1 project] chain by one CUDA kernel
-launch; the raw yolo heads are kept and decoded after the walk by one
-launch of the Triton decode kernel, straight into the (B, sum HWA, 5+C)
-preds (``ops/decode_kernel.py::decode_heads``). On CPU tensors both
-wrappers run their plain versions; ``plain=True`` asks for
-the plain versions on any device (the baseline ``chip_smoke.py`` holds
-the kernels to). With a ``quant_ctx`` (``compress.qat.QuantCtx``) the walk
-fake-quantises the input, every conv weight and every observed output,
-and ignores the fused-IR table, as the JAX walk does; int8 serving is
-``compress.quantized.Int8Inference``.
+last consumer has run (graph liveness).
+
+Inference: with a fused-IR table the walk replaces each [1x1 expand] ->
+[dw3x3] -> [1x1 project] chain by one CUDA kernel launch; the raw yolo
+heads are kept and decoded after the walk by one launch of the Triton
+decode kernel, straight into the (B, sum HWA, 5+C) preds
+(``ops/decode_kernel.py::decode_heads``). On CPU tensors both wrappers run
+their plain versions; ``plain=True`` asks for the plain versions on any
+device (the baseline ``chip_smoke.py`` holds the kernels to). With a
+``quant_ctx`` (``compress.qat.QuantCtx``) the walk fake-quantises the
+input, every conv weight and every observed output, as the JAX walk does;
+int8 serving is ``compress.quantized.Int8Inference``.
+
+Training (``train=True``: batch statistics in BN, dropout from ``rng``;
+``targets``: the YOLO loss at each head) runs cuDNN convs and autograd and
+no hand-written kernel, as the JAX training walk reaches no Pallas kernel:
+each yolo node decodes with the plain ``decode`` at its node and takes its
+``loss_per_scale``; the kernel wrappers refuse tensors that require grad.
+``remat_segments`` N >= 1 runs the walk as N ``torch.utils.checkpoint``
+segments over ``np.linspace`` bounds: only the activations that cross a
+boundary are kept for the backward pass, the rest is recomputed. A segment
+returns its BN state updates, so the recompute never applies them twice,
+and replays its dropout draws from the state ``rng`` had when it began.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from pqdet_tpu_torch import resolve_device
 from pqdet_tpu_torch.model import layers as L
 from pqdet_tpu_torch.model.decode import decode
 from pqdet_tpu_torch.model.graph import Graph, solve_padding
+from pqdet_tpu_torch.model.loss import loss_per_scale, sum_scale_losses
 from pqdet_tpu_torch.ops.decode_kernel import (decode_heads, decode_heads_reference,
                                                head_views)
 from pqdet_tpu_torch.ops.fused_ir import fused_ir_conv, fused_ir_reference
 
-# options of the JAX apply that belong to later slices of the port
+# stride -> (grid-label index, raw-box index) in the 6-tuple of targets
+TARGET_MAP = {8: (0, 3), 16: (1, 4), 32: (2, 5)}
+# optional evolved loss hyperparameters, read from the yolo attrs
+LOSS_ATTRS = ('bbox_loss_gain', 'conf_loss_gain', 'cls_loss_gain', 'conf_loss_alpha',
+              'cls_loss_alpha', 'conf_loss_beta', 'cls_loss_beta')
+
+# what the JAX walk does that belongs to later slices of the port
 LATER_SLICES = {
-    'targets': 'training', 'train': 'training', 'rng': 'training',
-    'remat_segments': 'training', 'tap': 'training',
     's2d_stem': 'the space-to-depth slice',
+    'quant_ctx with train=True': 'the QAT training slice',
 }
 
 
-def _refuse_later(options: dict):
-    for name, value in options.items():
-        if name not in LATER_SLICES:
-            raise TypeError(f'unexpected keyword argument {name!r}')
-        if value:
-            raise NotImplementedError(
-                f'{name}={value!r}: {LATER_SLICES[name]} comes in a later slice '
-                'of the port')
+def _later(what: str):
+    return NotImplementedError(f'{what}: {LATER_SLICES[what]} comes in a later slice '
+                               'of the port')
+
+
+def _generator_at(rng: Optional[torch.Generator], gen_state):
+    """A new generator on ``rng``'s device set to ``gen_state`` (None for
+    no ``rng``)."""
+    if rng is None:
+        return None
+    gen = torch.Generator(device=rng.device)
+    gen.set_state(gen_state)
+    return gen
 
 
 class Network(nn.Module):
@@ -87,37 +113,104 @@ class Network(nn.Module):
     def forward(self, params: Dict, state: Dict, x: torch.Tensor,
                 compute_dtype: Optional[torch.dtype] = None,
                 fused_ir: Optional[Dict] = None, plain: bool = False,
-                quant_ctx=None, **later):
-        """Run the graph on NHWC ``x``. Returns the list of decoded yolo
-        heads, each (B, H, W, A, 5+C) f32 (views of the one preds tensor
-        the decode writes), or the final activation when the graph has no
-        yolo head.
+                quant_ctx=None, targets: Optional[tuple] = None, train: bool = False,
+                rng: Optional[torch.Generator] = None, remat_segments: int = 0,
+                tap=None, s2d_stem: int = 0):
+        """Run the graph on NHWC ``x``.
+
+        Inference (no ``train``, no ``targets``) returns the list of decoded
+        yolo heads, each (B, H, W, A, 5+C) f32 (views of the one preds
+        tensor the decode writes), or the final activation when the graph
+        has no yolo head. With ``train`` or ``targets`` it returns
+        (outputs, new_state): outputs are the per-head loss 4-tuples of
+        ``loss_per_scale`` with ``targets`` (the 6-tuple of
+        ``ops/labels.py``), else the decoded heads or final activation;
+        new_state holds the BN running statistics a train walk computed.
 
         ``compute_dtype`` (e.g. bf16) is the dtype carried between nodes;
         ``fused_ir`` is the table of ``ops.fused_ir.prepare_fused_ir`` on
-        BN-fused params; ``plain`` runs the kernels' plain versions;
-        ``quant_ctx`` adds the QAT fake-quant hooks (the observers'
-        updates collect in ``quant_ctx.new_obs``)."""
-        x, preds, shapes = self._run(params, state, x, compute_dtype, fused_ir, plain,
-                                     quant_ctx, later)
-        return head_views(preds, shapes) if shapes else x
+        BN-fused params (inference only); ``plain`` runs the kernels' plain
+        versions; ``quant_ctx`` adds the QAT fake-quant hooks (the
+        observers' updates collect in ``quant_ctx.new_obs``); ``rng`` is
+        the generator of the dropout draws; ``tap(i, x)`` sees each
+        non-yolo node's output; ``remat_segments`` as in the module
+        docstring."""
+        x, losses, preds, shapes, new_state = self._run(
+            params, state, x, compute_dtype, fused_ir, plain, quant_ctx, targets, train,
+            rng, remat_segments, tap, s2d_stem)
+        out = losses if targets is not None else (head_views(preds, shapes) if shapes else x)
+        return (out, new_state) if train or targets is not None else out
 
-    def _run(self, params, state, x, compute_dtype, fused_ir, plain, quant_ctx, later):
-        """(last activation, preds or None, raw head shapes) of one walk."""
-        _refuse_later(later)
+    def _run(self, params, state, x, compute_dtype, fused_ir, plain, quant_ctx, targets,
+             train, rng, remat_segments, tap, s2d_stem):
+        """(last activation, per-head losses, preds or None, raw head
+        shapes, new state) of one walk."""
+        if s2d_stem:
+            raise _later('s2d_stem')
+        if quant_ctx is not None and train:
+            raise _later('quant_ctx with train=True')
+        if fused_ir is not None and (train or targets is not None or remat_segments):
+            raise ValueError('the fused-IR table serves inference only: it takes no train, '
+                             'targets or remat_segments')
+        if remat_segments and (quant_ctx is not None or tap is not None):
+            raise ValueError('remat_segments does not combine with quant_ctx or tap: the '
+                             'recompute would observe each node twice')
         if quant_ctx is not None:
             x = quant_ctx.quantize_input(x)
-            fused_ir = None
-        return self._walk(params, state, x, compute_dtype, fused_ir, plain, quant_ctx)
+        kw = dict(compute_dtype=compute_dtype, plain=plain, targets=targets, train=train)
+        if remat_segments:
+            x, updates, losses, heads = self._segments(params, state, x, rng,
+                                                       remat_segments, kw)
+        else:
+            x, _, updates, losses, heads = self._walk(
+                self.graph.nodes, params, state, x, {}, rng, fused_ir=fused_ir,
+                quant_ctx=quant_ctx, tap=tap, **kw)
+        new_state = {**state, **updates}
+        if not heads:
+            return x, losses, None, [], new_state
+        raws = [r for r, _ in heads]
+        preds = decode_all_heads(raws, [n for _, n in heads], plain)
+        return x, losses, preds, [r.shape for r in raws], new_state
 
-    def _walk(self, params, state, x, compute_dtype, fused_ir, plain, quant_ctx):
+    def _segments(self, params, state, x, rng, n_segments, kw):
+        """The walk as ``n_segments`` checkpointed spans of nodes."""
+        nodes = self.graph.nodes
+        bounds = np.linspace(0, len(nodes), n_segments + 1).astype(int)
         cache: Dict[int, torch.Tensor] = {}
-        heads = []                       # (raw head, yolo node)
+        updates, losses, heads = {}, [], []
+        for k in range(n_segments):
+            span = nodes[bounds[k]:bounds[k + 1]]
+            if not span:
+                continue
+            start = None if rng is None else rng.get_state()
+
+            def segment(x, cache, span=span, start=start):
+                gen = _generator_at(rng, start)
+                out = self._walk(span, params, state, x, cache, gen, **kw)
+                return out, None if gen is None else gen.get_state()
+
+            (x, cache, upd, ls, hs), end = checkpoint(
+                segment, x, cache, use_reentrant=False, preserve_rng_state=False)
+            if rng is not None:
+                rng.set_state(end)
+            updates.update(upd)
+            losses += ls
+            heads += hs
+        return x, updates, losses, heads
+
+    def _walk(self, nodes, params, state, x, cache, gen, compute_dtype=None,
+              fused_ir=None, plain=False, quant_ctx=None, targets=None, train=False,
+              tap=None):
+        """Run a contiguous span of graph nodes. Returns (x, live cache, BN
+        state updates, per-head losses, [(raw head, yolo node)] to decode)."""
+        cache = dict(cache)
+        updates: Dict[str, dict] = {}
+        losses, heads = [], []
         last_use = self.graph.last_use
         skip = set()
         fused_fn = fused_ir_reference if plain else fused_ir_conv
 
-        for node in self.graph.nodes:
+        for node in nodes:
             i = node.index
             kind = node.kind
             if i in skip:
@@ -145,7 +238,9 @@ class Network(nn.Module):
                              padding=padding, groups=a['groups'],
                              compute_dtype=compute_dtype)
                 if 'bn' in p:
-                    x, _ = L.batch_norm(x, p['bn'], state[str(i)])
+                    x, bn_s = L.batch_norm(x, p['bn'], state[str(i)], train)
+                    if train:
+                        updates[str(i)] = bn_s
                 x = L.apply_activation(a['activation'], x)
             elif kind == 'fc':
                 x = L.linear(x.reshape(x.shape[0], -1), p)
@@ -167,11 +262,21 @@ class Network(nn.Module):
             elif kind == 'upsample':
                 x = L.upsample_nearest(x, node.attrs['stride'])
             elif kind == 'yolo':
-                heads.append((x, node))
-                if i in last_use:
-                    x = decode_consumed_head(x, node, plain)
+                if targets is None:
+                    heads.append((x, node))
+                    if i in last_use:
+                        x = decode_consumed_head(x, node, plain)
+                else:
+                    a = node.attrs
+                    x = decode(x, a['classes'], a['stride'], exp_cap=a.get('exp_cap', 0.0))
+                    gi, bi = TARGET_MAP[a['stride']]
+                    losses.append(loss_per_scale(
+                        x, targets[gi], targets[bi], stride=a['stride'],
+                        num_classes=a['classes'], bbox_loss_type=a['bbox_loss'],
+                        ignore_thresh=a['ignore_thresh'], l1_loss_gain=a['l1_loss_gain'],
+                        **{k: a[k] for k in LOSS_ATTRS if k in a}))
             elif kind == 'dropout':
-                x = L.dropout(x, node.attrs['probability'])
+                x = L.dropout(x, node.attrs['probability'], gen, train)
             else:
                 raise ValueError(f'unknown layer kind: {kind}')
 
@@ -183,17 +288,16 @@ class Network(nn.Module):
                     and x.dtype != compute_dtype:
                 x = x.to(compute_dtype)
 
+            if tap is not None and kind != 'yolo':
+                tap(i, x)
+
             if i in last_use:
                 cache[i] = x
             # free activations whose consumers have all run
             for j in [j for j in cache if last_use.get(j, -1) <= i and j != i]:
                 del cache[j]
 
-        if not heads:
-            return x, None, []
-        raws = [r for r, _ in heads]
-        preds = decode_all_heads(raws, [n for _, n in heads], plain)
-        return x, preds, [r.shape for r in raws]
+        return x, cache, updates, losses, heads
 
 
 def _exp_cap(node, capped: bool) -> float:
@@ -225,18 +329,23 @@ def decode_consumed_head(raw, node, plain: bool, capped: bool = True) -> torch.T
 
 
 class DetectionNetwork(Network):
-    """Detection graph: forward returns the decoded heads as one
-    (B, sum HWA, 5+C) tensor, which the decode writes directly."""
+    """Detection graph: inference returns the decoded heads as one
+    (B, sum HWA, 5+C) tensor, which the decode writes directly; with
+    ``targets`` it returns (loss dict of ``sum_scale_losses``, new state)."""
 
     @property
     def num_classes(self) -> int:
         return self.graph.yolo_nodes[0].attrs['classes']
 
     def forward(self, params, state, x, compute_dtype=None, fused_ir=None,
-                plain: bool = False, quant_ctx=None, **later):
-        _, preds, _ = self._run(params, state, x, compute_dtype, fused_ir, plain, quant_ctx,
-                                later)
-        return preds
+                plain: bool = False, quant_ctx=None, targets=None, train: bool = False,
+                rng=None, remat_segments: int = 0, tap=None, s2d_stem: int = 0):
+        _, losses, preds, _, new_state = self._run(
+            params, state, x, compute_dtype, fused_ir, plain, quant_ctx, targets, train,
+            rng, remat_segments, tap, s2d_stem)
+        if targets is not None:
+            return sum_scale_losses(losses), new_state
+        return (preds, new_state) if train else preds
 
 
 def to_device(tree, device):

@@ -39,6 +39,7 @@ from typing import Sequence
 import torch
 
 from pqdet_tpu_torch.model.decode import decode
+from pqdet_tpu_torch.ops import refuse_autograd
 
 BLOCK = 1024
 MAX_HEADS = 4
@@ -129,14 +130,16 @@ def decode_heads(raws: Sequence[torch.Tensor], num_classes: int,
                  strides: Sequence[int], exp_caps: Sequence[float]) -> torch.Tensor:
     """Raw heads, each (B, H_i, W_i, A_i*(5+C)) f32, bf16 or f16, -> the
     (B, sum H_i W_i A_i, 5+C) f32 preds, head after head. One kernel launch
-    for CUDA tensors (at most ``MAX_HEADS`` heads); the plain version for
-    CPU tensors."""
+    for CUDA tensors (at most ``MAX_HEADS`` heads), which raises when grad
+    mode is on and a head requires grad (the kernel has no backward); the
+    plain version, differentiable, for CPU tensors."""
     if not 1 <= len(raws) == len(strides) == len(exp_caps):
         raise ValueError(f'decode_heads: {len(raws)} heads, {len(strides)} strides, '
                          f'{len(exp_caps)} exp caps')
     dev = raws[0].device
     if dev.type == 'cpu':
         return decode_heads_reference(raws, num_classes, strides, exp_caps)
+    refuse_autograd('decode_heads', *raws)
     if dev.type != 'cuda':
         raise ValueError(f'decode_heads: no kernel for device {dev}')
     if len(raws) > MAX_HEADS:

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from pqdet_tpu_torch.model.graph import solve_padding
+from pqdet_tpu_torch.ops import refuse_autograd
 
 LANE = 128  # bare-pair rule of find_fused_triples: dw width a whole lane tile
 
@@ -285,10 +286,13 @@ def fused_ir_conv(x, we, be, wdw, bdw, wp, bp, *, act_e: str = 'relu6',
     """Fused [expand + act] -> [dw3x3 + act] -> [project + act] on NHWC
     bf16 ``x`` (N, H, W, Cin); ``we``/``be`` None for a bare pair
     (Cin == E). Returns (N, H, W, P) bf16. Launches the CUDA kernel for a
-    CUDA tensor, runs ``fused_ir_reference`` for a CPU tensor."""
+    CUDA tensor (RuntimeError when grad mode is on and an input requires
+    grad: the kernel has no backward), runs ``fused_ir_reference`` for a
+    CPU tensor."""
     if x.device.type == 'cpu':
         return fused_ir_reference(x, we, be, wdw, bdw, wp, bp, act_e=act_e,
                                   act_dw=act_dw, act_p=act_p)
+    refuse_autograd('fused_ir_conv', x, we, be, wdw, bdw, wp, bp)
     if x.device.type != 'cuda':
         raise ValueError(f'fused_ir_conv: no kernel for device {x.device}')
     for a in (act_e, act_dw, act_p):

@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from pqdet_tpu_torch import resolve_device
+from pqdet_tpu_torch.ops import refuse_autograd
 from pqdet_tpu_torch.ops.fused_ir import ACT_CODES, MAX_CLUSTER, SMEM_TWO, _apply_act
 
 
@@ -291,11 +292,13 @@ def qconv1x1_s8(x, w, w_scale, b, colsum, *, act: str, scalars, requant: bool):
     x: (N, H, W, Cin) int8 recentred; w: (Cin, Cout) int8; w_scale, b:
     (Cout,) f32; colsum: (Cout,) int32, the per-channel sum of w; scalars:
     (1, 4) f32 from ``make_scalars``. Returns (N, H, W, Cout) int8 when
-    ``requant``, else f32. Launches the CUDA kernel for a CUDA tensor, runs
-    ``qconv1x1_reference`` for a CPU tensor."""
+    ``requant``, else f32. Launches the CUDA kernel for a CUDA tensor
+    (RuntimeError when grad mode is on and an input requires grad: the
+    kernel has no backward), runs ``qconv1x1_reference`` for a CPU tensor."""
     if x.device.type == 'cpu':
         return qconv1x1_reference(x, w, w_scale, b, colsum, act=act,
                                   scalars=scalars, requant=requant)
+    refuse_autograd('qconv1x1_s8', x, w, w_scale, b, colsum, scalars)
     if x.device.type != 'cuda':
         raise ValueError(f'qconv1x1_s8: no kernel for device {x.device}')
     n, h, wd, cin = x.shape
@@ -331,12 +334,14 @@ def qdwconv3x3_s8(x, w, w_scale, b, *, act: str, stride: int, scalars,
     f32; scalars: (1, 4) f32 from ``make_scalars``. Output (N, H, W, C) at
     stride 1 and (N, H/2, W/2, C) at stride 2, where H and W must be even
     (ValueError otherwise, as the TPU kernel). Launches the CUDA kernel for
-    a CUDA tensor, runs ``qdwconv3x3_reference`` for a CPU tensor."""
+    a CUDA tensor (RuntimeError when grad mode is on and an input requires
+    grad), runs ``qdwconv3x3_reference`` for a CPU tensor."""
     n, h, wd, c = x.shape
     _check_stride('qdwconv3x3_s8', h, wd, stride)
     if x.device.type == 'cpu':
         return qdwconv3x3_reference(x, w, w_scale, b, act=act, stride=stride,
                                     scalars=scalars, requant=requant)
+    refuse_autograd('qdwconv3x3_s8', x, w, w_scale, b, scalars)
     if x.device.type != 'cuda':
         raise ValueError(f'qdwconv3x3_s8: no kernel for device {x.device}')
     dev = x.device

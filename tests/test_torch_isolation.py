@@ -16,6 +16,7 @@ from pqdet_tpu_torch.ops.qconv import make_scalars
 from pqdet_tpu_torch.config import Config
 from pqdet_tpu_torch.evaluation.predict import build_predict_pipeline
 from pqdet_tpu_torch.model.network import DetectionNetwork
+from pqdet_tpu_torch.ops.labels import label_assigner_from_config
 from pqdet_tpu_torch.zoo import get_cfg
 
 REPO = Path(__file__).resolve().parent.parent
@@ -34,9 +35,11 @@ def test_port_imports_no_jax():
         bad = sorted(m for m in sys.modules
                      if m.split('.')[0] in ('jax', 'jaxlib', 'pqdet_tpu'))
         new = {'pqdet_tpu_torch.compress.qat', 'pqdet_tpu_torch.compress.quantized',
-               'pqdet_tpu_torch.ops.qconv'}
+               'pqdet_tpu_torch.ops.qconv', 'pqdet_tpu_torch.ops.labels',
+               'pqdet_tpu_torch.model.loss', 'pqdet_tpu_torch.train.schedule',
+               'pqdet_tpu_torch.train.step'}
         print(len(names), bad, sorted(new - set(names)))
-        sys.exit(1 if bad or len(names) < 18 or not new <= set(names) else 0)
+        sys.exit(1 if bad or len(names) < 22 or not new <= set(names) else 0)
     """)
     res = subprocess.run([sys.executable, '-c', code], cwd=REPO, capture_output=True,
                          text=True, timeout=300)
@@ -59,7 +62,8 @@ def _no_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize('entry', ['resolve_device', 'init', 'pipeline', 'bridge',
-                                   'bridge_qparams', 'bridge_quant_state', 'scalars'])
+                                   'bridge_qparams', 'bridge_quant_state', 'scalars',
+                                   'label_assigner'])
 def test_entry_point_without_device_raises(entry, monkeypatch):
     """Without ``device="cpu"`` and with no card, an entry point raises
     instead of quietly running on the CPU."""
@@ -73,6 +77,7 @@ def test_entry_point_without_device_raises(entry, monkeypatch):
         'bridge_qparams': lambda: from_jax_qparams({'layers': {}, 'act': {}}, net.graph),
         'bridge_quant_state': lambda: from_jax_quant_state({'quant': {}}),
         'scalars': lambda: make_scalars(0.1, 3.0),
+        'label_assigner': lambda: label_assigner_from_config(Config()),
     }[entry]
     with pytest.raises(RuntimeError, match='device="cpu"'):
         call()

@@ -190,12 +190,16 @@ def test_predict_pipeline_matches_jax():
 
 
 def test_later_slices_raise(model20):
+    """The space-to-depth stem and the QAT training walk belong to later
+    slices and raise, naming them; an unknown option is a TypeError."""
+    from pqdet_tpu_torch.compress.qat import QuantCtx, prepare_qat_state
     *_, net, tp, ts = model20
     x = torch.zeros(1, 32, 32, 3)
-    for kw in ({'train': True}, {'remat_segments': 2},
-               {'s2d_stem': 2}, {'tap': print}, {'targets': (1,)}):
-        with pytest.raises(NotImplementedError, match='later slice'):
-            net(tp, ts, x, **kw)
+    with pytest.raises(NotImplementedError, match='space-to-depth slice comes in a later slice'):
+        net(tp, ts, x, s2d_stem=2)
+    _, qs = prepare_qat_state(net, tp, ts)
+    with pytest.raises(NotImplementedError, match='QAT training slice comes in a later slice'):
+        net(tp, qs, x, quant_ctx=QuantCtx(qs['quant']), train=True)
     with pytest.raises(TypeError):
         net(tp, ts, x, no_such_option=1)
 
