@@ -21,9 +21,11 @@ device (the baseline ``chip_smoke.py`` holds the kernels to). With a
 input, every conv weight and every observed output, as the JAX walk does;
 int8 serving is ``compress.quantized.Int8Inference``.
 
-Training (``train=True``: batch statistics in BN, dropout from ``rng``;
-``targets``: the YOLO loss at each head) runs cuDNN convs and autograd and
-no hand-written kernel, as the JAX training walk reaches no Pallas kernel:
+Training is its own entry, ``forward_train``, which always returns
+(outputs, new BN state) as the JAX ``apply`` does (``train=True``: batch
+statistics in BN, dropout from ``rng``; ``targets``: the YOLO loss at each
+head). It runs cuDNN convs and autograd and no hand-written kernel, as the
+JAX training walk reaches no Pallas kernel:
 each yolo node decodes with the plain ``decode`` at its node and takes its
 ``loss_per_scale``; the kernel wrappers refuse tensors that require grad.
 ``remat_segments`` N >= 1 runs the walk as N ``torch.utils.checkpoint``
@@ -113,33 +115,42 @@ class Network(nn.Module):
     def forward(self, params: Dict, state: Dict, x: torch.Tensor,
                 compute_dtype: Optional[torch.dtype] = None,
                 fused_ir: Optional[Dict] = None, plain: bool = False,
-                quant_ctx=None, targets: Optional[tuple] = None, train: bool = False,
-                rng: Optional[torch.Generator] = None, remat_segments: int = 0,
-                tap=None, s2d_stem: int = 0):
-        """Run the graph on NHWC ``x``.
-
-        Inference (no ``train``, no ``targets``) returns the list of decoded
-        yolo heads, each (B, H, W, A, 5+C) f32 (views of the one preds
-        tensor the decode writes), or the final activation when the graph
-        has no yolo head. With ``train`` or ``targets`` it returns
-        (outputs, new_state): outputs are the per-head loss 4-tuples of
-        ``loss_per_scale`` with ``targets`` (the 6-tuple of
-        ``ops/labels.py``), else the decoded heads or final activation;
-        new_state holds the BN running statistics a train walk computed.
+                quant_ctx=None, tap=None, s2d_stem: int = 0):
+        """Run the graph on NHWC ``x`` for inference (BN on its running
+        statistics). Returns the list of decoded yolo heads, each (B, H, W,
+        A, 5+C) f32 (views of the one preds tensor the decode writes), or
+        the final activation when the graph has no yolo head.
 
         ``compute_dtype`` (e.g. bf16) is the dtype carried between nodes;
         ``fused_ir`` is the table of ``ops.fused_ir.prepare_fused_ir`` on
-        BN-fused params (inference only); ``plain`` runs the kernels' plain
-        versions; ``quant_ctx`` adds the QAT fake-quant hooks (the
-        observers' updates collect in ``quant_ctx.new_obs``); ``rng`` is
-        the generator of the dropout draws; ``tap(i, x)`` sees each
-        non-yolo node's output; ``remat_segments`` as in the module
-        docstring."""
+        BN-fused params; ``plain`` runs the kernels' plain versions;
+        ``quant_ctx`` adds the QAT fake-quant hooks (the observers' updates
+        collect in ``quant_ctx.new_obs``); ``tap(i, x)`` sees each non-yolo
+        node's output."""
+        x, _, preds, shapes, _ = self._run(params, state, x, compute_dtype, fused_ir, plain,
+                                           quant_ctx, None, False, None, 0, tap, s2d_stem)
+        return head_views(preds, shapes) if shapes else x
+
+    def forward_train(self, params: Dict, state: Dict, x: torch.Tensor,
+                      targets: Optional[tuple] = None, train: bool = True,
+                      rng: Optional[torch.Generator] = None,
+                      compute_dtype: Optional[torch.dtype] = None, remat_segments: int = 0,
+                      tap=None, quant_ctx=None, s2d_stem: int = 0):
+        """The training walk: (outputs, new_state), always. Outputs are the
+        per-head loss 4-tuples of ``loss_per_scale`` with ``targets`` (the
+        6-tuple of ``ops/labels.py``), else the decoded heads or final
+        activation as ``forward`` returns them; new_state holds the BN
+        running statistics a ``train`` walk computed (``state`` itself
+        without ``train``: BN on its running statistics, e.g. for the loss at
+        eval statistics). ``rng`` is the generator of the dropout draws;
+        ``remat_segments`` as in the module docstring; the other arguments
+        as in ``forward``."""
         x, losses, preds, shapes, new_state = self._run(
-            params, state, x, compute_dtype, fused_ir, plain, quant_ctx, targets, train,
-            rng, remat_segments, tap, s2d_stem)
-        out = losses if targets is not None else (head_views(preds, shapes) if shapes else x)
-        return (out, new_state) if train or targets is not None else out
+            params, state, x, compute_dtype, None, False, quant_ctx, targets, train, rng,
+            remat_segments, tap, s2d_stem)
+        if targets is not None:
+            return losses, new_state
+        return (head_views(preds, shapes) if shapes else x), new_state
 
     def _run(self, params, state, x, compute_dtype, fused_ir, plain, quant_ctx, targets,
              train, rng, remat_segments, tap, s2d_stem):
@@ -149,9 +160,6 @@ class Network(nn.Module):
             raise _later('s2d_stem')
         if quant_ctx is not None and train:
             raise _later('quant_ctx with train=True')
-        if fused_ir is not None and (train or targets is not None or remat_segments):
-            raise ValueError('the fused-IR table serves inference only: it takes no train, '
-                             'targets or remat_segments')
         if remat_segments and (quant_ctx is not None or tap is not None):
             raise ValueError('remat_segments does not combine with quant_ctx or tap: the '
                              'recompute would observe each node twice')
@@ -330,22 +338,27 @@ def decode_consumed_head(raw, node, plain: bool, capped: bool = True) -> torch.T
 
 class DetectionNetwork(Network):
     """Detection graph: inference returns the decoded heads as one
-    (B, sum HWA, 5+C) tensor, which the decode writes directly; with
-    ``targets`` it returns (loss dict of ``sum_scale_losses``, new state)."""
+    (B, sum HWA, 5+C) tensor, which the decode writes directly;
+    ``forward_train`` with ``targets`` returns (loss dict of
+    ``sum_scale_losses``, new state), without them (preds, new state)."""
 
     @property
     def num_classes(self) -> int:
         return self.graph.yolo_nodes[0].attrs['classes']
 
     def forward(self, params, state, x, compute_dtype=None, fused_ir=None,
-                plain: bool = False, quant_ctx=None, targets=None, train: bool = False,
-                rng=None, remat_segments: int = 0, tap=None, s2d_stem: int = 0):
+                plain: bool = False, quant_ctx=None, tap=None, s2d_stem: int = 0):
+        _, _, preds, _, _ = self._run(params, state, x, compute_dtype, fused_ir, plain,
+                                      quant_ctx, None, False, None, 0, tap, s2d_stem)
+        return preds
+
+    def forward_train(self, params, state, x, targets=None, train: bool = True, rng=None,
+                      compute_dtype=None, remat_segments: int = 0, tap=None, quant_ctx=None,
+                      s2d_stem: int = 0):
         _, losses, preds, _, new_state = self._run(
-            params, state, x, compute_dtype, fused_ir, plain, quant_ctx, targets, train,
-            rng, remat_segments, tap, s2d_stem)
-        if targets is not None:
-            return sum_scale_losses(losses), new_state
-        return (preds, new_state) if train else preds
+            params, state, x, compute_dtype, None, False, quant_ctx, targets, train, rng,
+            remat_segments, tap, s2d_stem)
+        return (sum_scale_losses(losses) if targets is not None else preds), new_state
 
 
 def to_device(tree, device):

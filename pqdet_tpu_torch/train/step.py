@@ -18,7 +18,11 @@ from typing import Callable, Optional, Set
 import numpy as np
 import torch
 
+from pqdet_tpu_torch.ops.labels import label_assigner_from_config
 from pqdet_tpu_torch.ops.preprocess import device_normalize
+from pqdet_tpu_torch.train.schedule import build_schedule
+
+COMPUTE_DTYPES = {'float32': None, 'bfloat16': torch.bfloat16}
 
 
 def sparse_bn_gamma_ids(network) -> Set[str]:
@@ -153,9 +157,9 @@ def make_loss_fn(network, compute_dtype=None, remat: int = 0, label_fn=None,
             targets = batch['targets']
         else:
             targets = label_fn(batch['gt'], image.shape[1:3])
-        losses, new_state = network(params, state, image, targets=targets, train=True,
-                                    rng=rng, compute_dtype=compute_dtype,
-                                    remat_segments=remat_n, tap=tap)
+        losses, new_state = network.forward_train(params, state, image, targets=targets,
+                                                  rng=rng, compute_dtype=compute_dtype,
+                                                  remat_segments=remat_n, tap=tap)
         return losses['loss'][0], (losses, new_state, stats)
 
     return loss_fn
@@ -205,6 +209,27 @@ def make_train_step(network, optimizer: Adam, sparse_ratio: float = 0.0,
         return params, new_state, opt_state, metrics
 
     return train_step
+
+
+def train_step_from_config(network, cfg, steps_per_epoch: int, device='cuda'):
+    """(train_step, optimizer) as the config sets them, the way the JAX
+    trainer builds its step: the lr schedule of ``build_schedule`` over
+    ``steps_per_epoch``, ``train.weight_decay`` and ``train.grad_clip``,
+    sparse-L1 of ``sparse.ratio`` on every prunable BN gamma when
+    ``sparse.switch`` is on, ``system.compute_dtype``, ``train.remat``,
+    ``train.head_probe``, and device labels from ``cfg.model`` with their
+    anchors on ``device``."""
+    t = cfg.train
+    optimizer = make_optimizer(build_schedule(cfg, steps_per_epoch),
+                               weight_decay=t.weight_decay, grad_clip=t.grad_clip)
+    sparse = bool(cfg.sparse.switch)
+    step = make_train_step(network, optimizer,
+                           sparse_ratio=cfg.sparse.ratio if sparse else 0.0,
+                           sparse_ids=sparse_bn_gamma_ids(network) if sparse else None,
+                           compute_dtype=COMPUTE_DTYPES[cfg.system.compute_dtype],
+                           remat=int(t.remat), probe_heads=bool(t.head_probe),
+                           label_fn=label_assigner_from_config(cfg, device=device))
+    return step, optimizer
 
 
 def _index(tree, k):

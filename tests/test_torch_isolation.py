@@ -17,6 +17,7 @@ from pqdet_tpu_torch.config import Config
 from pqdet_tpu_torch.evaluation.predict import build_predict_pipeline
 from pqdet_tpu_torch.model.network import DetectionNetwork
 from pqdet_tpu_torch.ops.labels import label_assigner_from_config
+from pqdet_tpu_torch.train.step import train_step_from_config
 from pqdet_tpu_torch.zoo import get_cfg
 
 REPO = Path(__file__).resolve().parent.parent
@@ -63,7 +64,7 @@ def _no_cuda(monkeypatch):
 
 @pytest.mark.parametrize('entry', ['resolve_device', 'init', 'pipeline', 'bridge',
                                    'bridge_qparams', 'bridge_quant_state', 'scalars',
-                                   'label_assigner'])
+                                   'label_assigner', 'train_step_from_config'])
 def test_entry_point_without_device_raises(entry, monkeypatch):
     """Without ``device="cpu"`` and with no card, an entry point raises
     instead of quietly running on the CPU."""
@@ -78,6 +79,7 @@ def test_entry_point_without_device_raises(entry, monkeypatch):
         'bridge_quant_state': lambda: from_jax_quant_state({'quant': {}}),
         'scalars': lambda: make_scalars(0.1, 3.0),
         'label_assigner': lambda: label_assigner_from_config(Config()),
+        'train_step_from_config': lambda: train_step_from_config(net, Config(), 10),
     }[entry]
     with pytest.raises(RuntimeError, match='device="cpu"'):
         call()

@@ -199,7 +199,7 @@ def test_later_slices_raise(model20):
         net(tp, ts, x, s2d_stem=2)
     _, qs = prepare_qat_state(net, tp, ts)
     with pytest.raises(NotImplementedError, match='QAT training slice comes in a later slice'):
-        net(tp, qs, x, quant_ctx=QuantCtx(qs['quant']), train=True)
+        net.forward_train(tp, qs, x, quant_ctx=QuantCtx(qs['quant']))
     with pytest.raises(TypeError):
         net(tp, ts, x, no_such_option=1)
 

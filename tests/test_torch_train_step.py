@@ -13,12 +13,16 @@ measures it), so the 1-ulp differences of two conv libraries reach the
 loss at ~1e-4 and the grads at ~15 % of a leaf's largest element, and
 Adam's first update, about lr * sign(g), moves the elements whose grad is
 at that noise level the other way, which the next steps amplify again
-(losses ~3 % apart after one update of lr 1e-3). The same walk with
-running statistics (``tests/test_torch_train_walk.py``) agrees to 1e-6 on
-the loss and 1e-6 of the largest grad element, which is where the port is
-held to the JAX function tightly; here the whole step is held to what the
-conditioning allows. Three steps are also held tightly on a shallow
-six-conv net, where the conditioning is not in the way
+(losses ~3 % apart after one update of lr 1e-3). JAX run on the same
+batches with their images reversed (the same step, its sums in another
+order) drifts as far from JAX, and the params are held to that yardstick.
+The same walk with running statistics (``tests/test_torch_train_walk.py``)
+agrees to 1e-6 on the loss and 1e-6 of the largest grad element; the
+train-mode step of this net is held step by step at 128x128, B=4, where
+its loss agrees to 1e-5 (``tests/test_torch_train_parity.py``); here the
+whole step runs free at the size the JAX package's own step test uses.
+Three steps are also held tightly on a shallow six-conv net, where the
+conditioning is not in the way
 (``test_three_steps_of_a_shallow_net_match_jax``).
 """
 
@@ -85,21 +89,31 @@ def model():
     return jnet, params, state, net, tp, ts
 
 
+def _reversed(b):
+    """The batch with its images in reverse order: the same step, with its
+    sums taken in another order."""
+    return {k: v[::-1].copy() for k, v in b.items()}
+
+
 @pytest.fixture(scope='module')
 def jax_run(model):
-    """Three jitted JAX steps from the same start, one batch each."""
+    """Three jitted JAX steps from the same start, one batch each; and the
+    same three steps on the reversed batches, JAX's own rounding yardstick."""
     jnet, params, state, *_ = model
     opt = jax_make_optimizer(schedule, weight_decay=WD, grad_clip=CLIP)
     step = jax.jit(jax_make_train_step(jnet, opt, sparse_ratio=SPARSE,
                                        sparse_ids=jax_sparse_ids(jnet),
                                        label_fn=_jax_label_fn))
-    p, s, o = params, state, opt.init(params)
-    out = []
-    for k in range(3):
-        p, s, o, m = step(p, s, o, jax.tree.map(jnp.asarray, _batch(k)),
-                          jax.random.PRNGKey(k))
-        out.append((jax.device_get(p), jax.device_get(s), jax.device_get(m)))
-    return out
+    runs = {}
+    for name, order in (('jax', lambda b: b), ('reversed', _reversed)):
+        p, s, o = params, state, opt.init(params)
+        out = []
+        for k in range(3):
+            p, s, o, m = step(p, s, o, jax.tree.map(jnp.asarray, order(_batch(k))),
+                              jax.random.PRNGKey(k))
+            out.append((jax.device_get(p), jax.device_get(s), jax.device_get(m)))
+        runs[name] = out
+    return runs
 
 
 def _port_steps(model, n):
@@ -126,25 +140,26 @@ def test_train_step_matches_jax(model, jax_run, n_steps):
     the loss and its parts of the first step rtol 1e-3, of the later steps
     5e-2; the BN running statistics |d| <= 1e-2 * max(1, |s|) after one
     step, 2e-1 after three (two updates have moved the batch statistics of
-    the deepest layers by tens of %); the params:
-    every element within 2 * (sum of the lrs) * 1.01 of JAX's (Adam's
-    largest step difference), and of the elements JAX moved by over half an
-    lr, at least 90 % moved the same way by the port after one step (the
-    rest have grads at the level of the conditioning's noise), 70 % after
-    three (78 % measured)."""
+    the deepest layers by tens of %); the params: their L2 distance from
+    JAX's at most 2x that of JAX's own run on the reversed batches (measured
+    0.96x after one step, 1.03x after three), and of
+    the elements JAX moved by over half an lr, at least 90 % moved the same
+    way by the port after one step (the rest have grads at the level of the
+    conditioning's noise), 70 % after three (78 % measured)."""
     jnet, params, state, net, tp, ts = model
     ours = _port_steps(model, n_steps)
     for k in range(n_steps):
-        jm, tm = jax_run[k][2], ours[k][2]
+        jm, tm = jax_run['jax'][k][2], ours[k][2]
         rtol = 1e-3 if k == 0 else 5e-2
         for name in ('loss', 'giou_loss', 'conf_loss', 'class_loss'):
             np.testing.assert_allclose(float(tm[name]), float(jm[name]), rtol=rtol,
                                        err_msg=f'step {k} {name}')
         np.testing.assert_allclose(tm['loss_per_branch'].numpy(), jm['loss_per_branch'],
                                    rtol=rtol)
-    jp, js, _ = jax_run[n_steps - 1]
+    jp, js, _ = jax_run['jax'][n_steps - 1]
     tp_n, ts_n, _ = ours[-1]
     want_p, want_s = from_jax_params(jp, js, net.graph, device='cpu')
+    own_p, _ = from_jax_params(jax_run['reversed'][n_steps - 1][0], js, net.graph, device='cpu')
     assert sorted(ts_n) == sorted(want_s)
     for key in want_s:
         for st in ('mean', 'var'):
@@ -152,8 +167,13 @@ def test_train_step_matches_jax(model, jax_run, n_steps):
             bound = (1e-2 if n_steps == 1 else 2e-1) * b.abs().clamp_min(1.0).max()
             assert (a - b).abs().max() <= bound, (key, st)
     got, want, start = _flat(tp_n), _flat(want_p), _flat(tp)
-    lr_sum = sum(schedule(k) for k in range(n_steps))
-    assert (got - want).abs().max() <= 2 * lr_sum * 1.01
+    gap, own = (got - want).norm().item(), (_flat(own_p) - want).norm().item()
+    first = {who: abs(float(run[0][2]['loss']) / float(jax_run['jax'][0][2]['loss']) - 1)
+             for who, run in (('port', ours), ('reversed', jax_run['reversed']))}
+    print(f'{n_steps} steps: params L2 distance from JAX {gap:.4g}, JAX on the reversed '
+          f'batches {own:.4g}; first loss rel gap {first["port"]:.3g}, JAX on the reversed '
+          f'batch {first["reversed"]:.3g}')
+    assert gap <= 2 * own
     moved = (want - start).abs() > 0.5 * LR
     same = torch.sign(got - start)[moved] == torch.sign(want - start)[moved]
     assert moved.float().mean() > 0.5 and same.float().mean() >= (0.9 if n_steps == 1 else 0.7), \
@@ -201,7 +221,8 @@ def test_train_walk_amplifies_rounding(model):
         for k, xx in enumerate((x, x * (1 + 1e-6))):
             got = {}
             with torch.no_grad():
-                net(tp, ts, xx, train=train, tap=lambda i, t: got.__setitem__(i, t))
+                net.forward_train(tp, ts, xx, train=train,
+                                  tap=lambda i, t: got.__setitem__(i, t))
             outs[train, k] = got[len(net.graph.nodes) - 2]
     rel = {t: ((outs[t, 0] - outs[t, 1]).abs().max() / outs[t, 0].abs().max()).item()
            for t in (True, False)}

@@ -20,8 +20,10 @@ from pqdet_tpu_torch.config import Config
 from pqdet_tpu_torch.model.network import DetectionNetwork
 from pqdet_tpu_torch.ops.labels import label_assigner_from_config
 from pqdet_tpu_torch.ops.preprocess import device_normalize
+from pqdet_tpu_torch.train.schedule import cosine_warmup, step_decay_warmup
 from pqdet_tpu_torch.train.step import (make_loss_fn, make_multi_step, make_optimizer,
-                                        make_train_step, tree_leaves, value_and_grad)
+                                        make_train_step, sparse_bn_gamma_ids,
+                                        train_step_from_config, tree_leaves, value_and_grad)
 from pqdet_tpu_torch.zoo import CfgBuilder, get_cfg
 from test_torch_train_step import (JaxNetwork, _batch, _jax_label_fn, _shallow_cfg,
                                    _torch_batch, jax_mobilenetv2_fpn, schedule)
@@ -58,7 +60,8 @@ def test_loss_and_grads_with_running_bn_match_jax():
 
     def loss_fn(p, s, batch, rng=None):
         image = device_normalize(batch['image'])
-        losses, new_state = net(p, s, image, targets=LABELS(batch['gt'], image.shape[1:3]))
+        losses, new_state = net.forward_train(p, s, image, train=False,
+                                              targets=LABELS(batch['gt'], image.shape[1:3]))
         assert all(new_state[k] is s[k] for k in s)
         return losses['loss'][0], losses
     (tl, tlosses), tg = value_and_grad(loss_fn, tp, ts, _torch_batch(b))
@@ -191,22 +194,61 @@ def test_multi_step_equals_single_steps():
 
 def test_train_walk_options():
     """A train walk returns (preds, new state) and writes no input state;
-    the options that do not combine raise."""
+    inference returns the preds alone; the options that do not combine
+    raise, and the training entry takes no fused-IR table."""
     *_, net, tp, ts = _models('shallow')
     x = device_normalize(_torch_batch(_batch(0))['image'])
     before = {k: {n: t.clone() for n, t in v.items()} for k, v in ts.items()}
-    preds, new_state = net(tp, ts, x, train=True)
+    preds, new_state = net.forward_train(tp, ts, x)
     assert preds.shape == (2, (8 * 8 + 4 * 4 + 2 * 2) * 3, 25)
+    assert net(tp, ts, x).shape == preds.shape
     assert sorted(new_state) == sorted(ts) and not torch.equal(new_state['0']['mean'],
                                                                ts['0']['mean'])
     for k, v in before.items():
         for n, t in v.items():
             assert torch.equal(ts[k][n], t)
-    with pytest.raises(ValueError, match='inference only'):
-        net(tp, ts, x, train=True, fused_ir={})
+    with pytest.raises(TypeError, match='fused_ir'):
+        net.forward_train(tp, ts, x, fused_ir={})
     with pytest.raises(ValueError, match='remat_segments'):
-        net(tp, ts, x, train=True, remat_segments=2, tap=lambda i, t: None)
+        net.forward_train(tp, ts, x, remat_segments=2, tap=lambda i, t: None)
     with pytest.raises(ValueError, match='probe_heads'):
         make_loss_fn(net, remat=2, probe_heads=True)
     with pytest.raises(NotImplementedError, match='device-augment slice'):
         make_loss_fn(net, augment_fn=lambda *a: a)
+
+
+@pytest.mark.parametrize('case', ['f32_sparse_remat', 'bf16_probe_step_decay'])
+def test_train_step_from_config(case):
+    """The step the config builds is the step of the explicit arguments the
+    config's fields name: the same params, BN state and metrics after two
+    steps, bit for bit (a field the builder did not read would change
+    them)."""
+    *_, net, tp, ts = _models('shallow')
+    cfg = Config()
+    t = cfg.train
+    t.weight_decay, t.grad_clip, t.warmup_epochs = 1e-3, 1.0, 0.5
+    if case == 'f32_sparse_remat':
+        cfg.system.compute_dtype = 'float32'
+        cfg.sparse.switch, cfg.sparse.ratio = True, 0.02
+        t.remat, t.head_probe = 2, False
+        sched = cosine_warmup(t.learning_rate_init, t.learning_rate_end, 1, t.max_epochs * 2)
+        kw = dict(sparse_ratio=0.02, sparse_ids=sparse_bn_gamma_ids(net), remat=2)
+    else:
+        t.scheduler, t.mile_stones = 'step', [1, 2]
+        sched = step_decay_warmup(t.learning_rate_init, 1, 2, [1, 2], t.gamma)
+        kw = dict(compute_dtype=torch.bfloat16, probe_heads=True)
+    step, opt = train_step_from_config(net, cfg, steps_per_epoch=2, device='cpu')
+    ref_opt = make_optimizer(sched, weight_decay=1e-3, grad_clip=1.0)
+    ref = make_train_step(net, ref_opt, label_fn=LABELS, **kw)
+    out = []
+    for fn, o in ((step, opt), (ref, ref_opt)):
+        p, s, st = tp, ts, o.init(tp)
+        for k in range(2):
+            p, s, st, m = fn(p, s, st, _torch_batch(_batch(k)))
+        out.append((p, s, m))
+    (p1, s1, m1), (p2, s2, m2) = out
+    assert [opt.schedule(k) for k in range(4)] == [sched(k) for k in range(4)]
+    assert sorted(m1) == sorted(m2) and ('head_max' in m1) == (case != 'f32_sparse_remat')
+    for a, b in zip(tree_leaves(p1) + tree_leaves(s1) + [m1[k] for k in sorted(m1)],
+                    tree_leaves(p2) + tree_leaves(s2) + [m2[k] for k in sorted(m2)]):
+        assert torch.equal(a, b)
