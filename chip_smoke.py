@@ -84,13 +84,32 @@ Builds the CUDA kernels from pqdet_tpu_torch/csrc with nvcc (sm_90a), then:
    steps below that of the first 5, BN running means moved; one step at
    320x320 and 608x608 (finite); the same step at remat 4 and 0 (loss
    within 1e-3, effective grads 5e-2 and params 5e-2 of the update by
-   relative L2, BN state 1e-5; lower peak memory at remat 4). The four
-   kernels' launch counts stay 0 through all of it, and each wrapper
-   raises on a CUDA tensor that requires grad;
+   relative L2, BN state 1e-5; lower peak memory at remat 4); one
+   forward_train without targets at B=2 under grad, whose preds' sum
+   backpropagates to finite grads. The four kernels' launch counts stay 0
+   through all of it, and each wrapper raises on a CUDA tensor that
+   requires grad;
 10. the training timings: ms per step p50 and p90 (CUDA events, after the
    5 warm-up steps), images/s, peak memory at remat 0 and 4, the step by
    stage (labels, forward and loss, backward, optimizer) and a profiled
-   step (device idle share, top kernels, host launches).
+   step (device idle share, top kernels, host launches);
+11. the trainer entry point: synth_shapes writes 128 images (sides
+   307-715 px, 96 train, 32 eval) into a temporary directory;
+   Trainer(cfg).run() trains mobilenetv2-fpn (3 classes, full width) from
+   yamls/shapes.yaml (batch 16, sizes 416-512, lr 4e-4, bf16, the host
+   augment chain) for 3 epochs, evaluating AP after epochs 1 and 2. Gates:
+   every step loss finite; the mean loss of epoch 2 below epoch 0's; each
+   AP finite in [0, 1]; 0 kernel launches in every epoch's steps and one
+   decode_heads launch per eval batch (counts set to 0 before each epoch
+   and each evaluation); three checkpoints, named with the AP where the
+   epoch evaluated; the last one loads the trainer's params and BN state
+   bit for bit; a second trainer resumed from the epoch-1 checkpoint
+   starts at step 12 with the lr of schedule(12) and Adam's count 0, and
+   trains epoch 2 with finite losses; the predict CLI on an eval image
+   exits 0 with finite detections. Prints seconds, the trainer's
+   data-load and model split and images/s per epoch (against phase 10's
+   bare step), the first step at each input size, each evaluation's
+   seconds and the phase's seconds.
 
 Each phase draws from its own generator, seeded from SEED and the phase
 number. It prints one JSON line of kernels, then the nvidia-smi line, and
@@ -981,7 +1000,8 @@ def phase9_training(dev, tag):
     import copy
     import torch
     from pqdet_tpu_torch.model.network import DetectionNetwork, to_device
-    from pqdet_tpu_torch.train.step import train_step_from_config, tree_leaves
+    from pqdet_tpu_torch.ops.preprocess import device_normalize
+    from pqdet_tpu_torch.train.step import train_step_from_config, tree_leaves, tree_unflatten
     from pqdet_tpu_torch.zoo import get_cfg
 
     gen = phase_gen(9)
@@ -1067,9 +1087,23 @@ def phase9_training(dev, tag):
             and peak[REMAT] < peak[0]):
         raise AssertionError('remat changed the step or did not lower the peak memory')
 
+    # the training entry without targets returns the decoded preds through
+    # the plain decode: differentiable on the card, and no kernel launched
+    req = [t.detach().requires_grad_(True) for t in tree_leaves(p)]
+    preds, _ = net.forward_train(tree_unflatten(p, req), s,
+                                 device_normalize(tb['image'][:2]), compute_dtype=torch.bfloat16)
+    grads = torch.autograd.grad(preds.sum(), req, allow_unused=True)
+    n_grad = sum(1 for g in grads if g is not None and bool(g.abs().sum() > 0))
+    finite = all(bool(torch.isfinite(g).all()) for g in grads if g is not None)
+    print(f'phase 9: forward_train without targets, B=2 {TRAIN_SIZE}x{TRAIN_SIZE}: preds '
+          f'{tuple(preds.shape)}, the grad of their sum reaches {n_grad} of {len(req)} leaves, '
+          f'all finite: {finite}')
+    if not (finite and n_grad > 0 and preds.requires_grad):
+        raise AssertionError('forward_train without targets did not backpropagate')
+
     launches = kernel_launches()
-    print(f'phase 9: hand-written kernel launches over every training step above: '
-          f'{launches} (want all 0)')
+    print(f'phase 9: hand-written kernel launches over every training step above and the '
+          f'walk without targets: {launches} (want all 0)')
     if any(launches.values()):
         raise AssertionError(f'a training step launched a hand-written kernel: {launches}')
     check_grad_guard(dev)
@@ -1127,6 +1161,200 @@ def phase10_training_timings(run, tag):
     return {'p50': p50, 'p90': p90, 'stages': dict(zip(names, med))}
 
 
+# the trainer (phase 11): yamls/shapes.yaml on a corpus of the port's
+# synthetic shapes, written by synth_shapes at a seed
+CORPUS_IMAGES = 128
+CORPUS_SIZE = 512
+CORPUS_HOLDOUT = 0.25
+TRAINER_EPOCHS = 3
+
+
+def phase11_trainer(dev, tag, bare_ips):
+    """Phase 11: ``Trainer(cfg).run()`` on the card for TRAINER_EPOCHS epochs
+    of full-width mobilenetv2-fpn from ``yamls/shapes.yaml`` (batch 16,
+    sizes 416-512, lr 4e-4, host augment chain) on a synth_shapes corpus;
+    then loading the last checkpoint, resuming from the epoch-1 checkpoint,
+    and the predict CLI on an eval image. ``bare_ips``: phase 10's images/s
+    of the bare step. Raises on any failed gate."""
+    import re
+    import tempfile
+    import torch
+    from pqdet_tpu_torch.config import load_config
+    from pqdet_tpu_torch.data.scripts.synth_shapes import generate
+    from pqdet_tpu_torch.train.checkpoint import load_checkpoint, load_weights_into
+    from pqdet_tpu_torch.train.step import tree_leaves
+    from pqdet_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    class ProbedTrainer(Trainer):
+        """The trainer with probes: per-step losses (read after each epoch),
+        the first step at each input size timed between synchronisations,
+        kernel launches and seconds of each epoch and each evaluation."""
+
+        def init_all(self):
+            super().init_all()
+            self.probe = {'loss': {}, 'first_step_s': {}, 'epochs': {}, 'evals': {}}
+            step = self.step_fn
+
+            def probed(params, state, opt_state, batch, rng=None):
+                size = tuple(batch['image'].shape[1:3])
+                first = size not in self.probe['first_step_s']
+                if first:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                out = step(params, state, opt_state, batch, rng)
+                if first:
+                    torch.cuda.synchronize()
+                    self.probe['first_step_s'][size] = time.perf_counter() - t0
+                self.probe['loss'].setdefault(self._epoch, []).append(out[3]['loss'])
+                return out
+            self.step_fn = probed
+
+        def train_epoch(self, epoch):
+            self._epoch = epoch
+            reset_kernel_launches()
+            t0 = time.perf_counter()
+            split = super().train_epoch(epoch)
+            self.probe['epochs'][epoch] = {'s': time.perf_counter() - t0,
+                                           'launches': kernel_launches(),
+                                           'steps': self.steps_per_epoch, **split}
+            self.probe['loss'][epoch] = [float(x) for x in self.probe['loss'][epoch]]
+            return split
+
+        def evaluate(self):
+            reset_kernel_launches()
+            t0 = time.perf_counter()
+            ap = super().evaluate()
+            self.probe['evals'][self._epoch] = {'s': time.perf_counter() - t0, 'AP': ap.AP,
+                                                'launches': kernel_launches(),
+                                                'batches': len(self.eval_data)}
+            return ap
+
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_phase11_') as tmp:
+        root = os.path.join(tmp, 'shapes')
+        t0 = time.perf_counter()
+        generate(root, n=CORPUS_IMAGES, size=CORPUS_SIZE, seed=SEED, holdout=CORPUS_HOLDOUT,
+                 vary_aspect=True)
+        print(f'phase 11: wrote {CORPUS_IMAGES} synth_shapes images at {CORPUS_SIZE} '
+              f'(sides {CORPUS_SIZE * 6 // 10}-{CORPUS_SIZE * 14 // 10 - 1} px), holdout '
+              f'{CORPUS_HOLDOUT}, in {time.perf_counter() - t0:.2f} s')
+        workers = str(os.cpu_count() or 1)
+
+        def config(*extra):
+            return load_config(os.path.join(here, 'yamls', 'shapes.yaml'), [
+                'dataset.train_txt_file', os.path.join(root, 'train.txt'),
+                'dataset.eval_txt_file', os.path.join(root, 'test.txt'),
+                'augment.device', 'off', 'train.max_epochs', str(TRAINER_EPOCHS),
+                'eval.after', '1', 'weight.dir', os.path.join(tmp, 'weights'),
+                'system.num_workers', workers, *extra])
+        cfg = config()
+        t = cfg.train
+        print(f'phase 11: yamls/shapes.yaml with overrides: batch {t.batch_size}, input sizes '
+              f'{t.input_sizes}, lr {t.learning_rate_init}, {cfg.system.compute_dtype}, mixup '
+              f'{cfg.augment.mixup_p}, crop {cfg.augment.crop_p}, hflip {cfg.augment.hflip_p}, '
+              f'{t.max_epochs} epochs, eval after epoch {cfg.eval.after}, {workers} loader '
+              f'threads')
+
+        trainer = ProbedTrainer(cfg)
+        t0 = time.perf_counter()
+        trainer.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        pr, b = trainer.probe, cfg.train.batch_size
+        fails = []
+
+        def gate(ok, what):
+            print(f'phase 11: {what}: {"ok" if ok else "FAIL"}')
+            if not ok:
+                fails.append(what)
+
+        print(f'phase 11: Trainer.run() {run_s:.2f} s, {trainer.steps_per_epoch} steps an epoch')
+        for e, ep in sorted(pr['epochs'].items()):
+            ips = ep['steps'] * b / ep['s']
+            print(f'phase 11: {tag} epoch {e}: {ep["s"]:.3f} s, data load {ep["data_load_s"]:.3f} '
+                  f's, model {ep["model_s"]:.3f} s, {ips:.2f} images/s; losses '
+                  f'{[round(x, 3) for x in pr["loss"][e]]}; kernel launches {ep["launches"]}')
+        for size, sec in pr['first_step_s'].items():
+            print(f'phase 11: {tag} first step at {size[0]}x{size[1]}, B={b}: {sec:.3f} s')
+        steady = [ep['steps'] * b / ep['s'] for e, ep in pr['epochs'].items() if e > 0]
+        print(f'phase 11: {tag} trainer images/s (epochs 1-{TRAINER_EPOCHS - 1}, B={b}, sizes '
+              f'{cfg.train.input_sizes}): {statistics.mean(steady):.2f}; the bare step of '
+              f'phase 10 (B=12, 512x512, one fixed batch): {bare_ips:.2f}')
+        for e, ev in sorted(pr['evals'].items()):
+            print(f'phase 11: {tag} eval after epoch {e}: {ev["s"]:.3f} s, {ev["batches"]} '
+                  f'batches, AP {ev["AP"]:.6f}, kernel launches {ev["launches"]}')
+
+        losses = [x for e in pr['loss'] for x in pr['loss'][e]]
+        gate(all(math.isfinite(x) for x in losses), f'all {len(losses)} step losses finite')
+        first, last = statistics.mean(pr['loss'][0]), statistics.mean(pr['loss'][2])
+        gate(last < first, f'mean loss of epoch 2 {last:.4f} below epoch 0 {first:.4f} '
+             f'(ratio {last / first:.4f})')
+        gate(sorted(pr['evals']) == [1, 2] and all(
+            math.isfinite(ev['AP']) and 0.0 <= ev['AP'] <= 1.0 for ev in pr['evals'].values()),
+             f'AP evaluated after epochs {sorted(pr["evals"])}, finite, in [0, 1]')
+        gate(all(not any(ep['launches'].values()) for ep in pr['epochs'].values()),
+             'hand-written kernel launches during training steps: 0')
+        gate(all(ev['launches'] == {**dict.fromkeys(ev['launches'], 0),
+                                    'decode_heads': ev['batches']}
+                 for ev in pr['evals'].values()),
+             'one decode_heads launch per eval batch, no other kernel')
+
+        wdir = os.path.join(tmp, 'weights', cfg.experiment_name)
+        names = sorted(os.listdir(wdir))
+        want = ['model-0.ckpt'] + [f'model-{e}-{pr["evals"][e]["AP"]:.4f}.ckpt'
+                                   for e in sorted(pr['evals'])]
+        gate(names == sorted(want), f'checkpoints {names} (want {sorted(want)})')
+        last_ckpt = load_checkpoint(os.path.join(wdir, want[-1]))
+        lp, ls = load_weights_into(trainer.network.graph, trainer.params, trainer.state,
+                                   last_ckpt)
+        same = all(torch.equal(x, y) for x, y in zip(
+            tree_leaves(lp) + tree_leaves(ls),
+            tree_leaves(trainer.params) + tree_leaves(trainer.state)))
+        gate(same and last_ckpt['step'] == trainer.global_step,
+             f'the last checkpoint (step {last_ckpt["step"]}) loads the trainer\'s params and BN '
+             'state bit for bit')
+
+        # resume from the epoch-1 checkpoint into a second run dir
+        resumed = ProbedTrainer(config('weight.resume', os.path.join(wdir, want[1]),
+                                       'experiment_name', 'shapes_resumed'))
+        resumed.init_all()
+        lr = resumed.schedule(resumed.opt_state['schedule_count'])
+        gate(resumed.global_step == 2 * trainer.steps_per_epoch
+             and resumed.opt_state['schedule_count'] == resumed.global_step
+             and resumed.opt_state['count'] == 0
+             and lr == trainer.schedule(resumed.global_step),
+             f'resumed at global_step {resumed.global_step}, epoch {resumed.init_epoch}, '
+             f'schedule count {resumed.opt_state["schedule_count"]}, Adam count '
+             f'{resumed.opt_state["count"]}, next lr {lr:.6g} = schedule({resumed.global_step})')
+        resumed.train()
+        rl = resumed.probe['loss'].get(2, [])
+        gate(len(rl) == trainer.steps_per_epoch and all(math.isfinite(x) for x in rl),
+             f'the resumed run\'s epoch 2: losses {[round(x, 3) for x in rl]}')
+
+        img = open(os.path.join(root, 'test.txt')).read().split()[0]
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, '-m', 'pqdet_tpu_torch.cli.predict', '--img', img,
+                              '--weight', os.path.join(wdir, want[-1]), '--yaml',
+                              os.path.join(here, 'yamls', 'shapes.yaml'), '--output',
+                              os.path.join(tmp, 'mark.jpg')],
+                             cwd=here, capture_output=True, text=True, timeout=300)
+        boxes = re.findall(r'box=\(([^)]*)\) score=(\S+)', res.stdout)
+        vals = [float(v) for bx, sc in boxes for v in bx.split(',') + [sc]]
+        head = res.stdout.strip().splitlines()[:4]
+        print(f'phase 11: predict CLI on {os.path.basename(img)}: exit {res.returncode}, '
+              f'{time.perf_counter() - t0:.2f} s; {head}')
+        if res.returncode != 0:
+            print(res.stderr[-3000:])
+        gate(res.returncode == 0 and f'{len(boxes)} detections' in res.stdout
+             and all(math.isfinite(v) for v in vals),
+             f'predict exits 0 with {len(boxes)} finite detections')
+    print(f'phase 11: {tag} phase seconds {time.perf_counter() - t_phase:.1f}')
+    if fails:
+        raise AssertionError(f'phase 11 gates failed: {fails}')
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -1169,6 +1397,13 @@ def main() -> int:
           f'{sys.version.split()[0]}')
     print('TF32 off: torch.backends.cudnn.allow_tf32 = False, '
           'torch.backends.cuda.matmul.allow_tf32 = False')
+    libs = {}
+    for name in ('cv2', 'PIL', 'yaml', 'msgpack', 'numpy', 'flax', 'torchvision'):
+        try:
+            libs[name] = getattr(__import__(name), '__version__', 'present')
+        except ImportError:
+            libs[name] = 'absent'
+    print(f'phase 1: host libraries {libs} (the port needs cv2, yaml, msgpack, numpy)')
     t0 = time.perf_counter()
     report = build_all()
     print(f'phase 1: built {sorted(report)} in {time.perf_counter() - t0:.2f} s')
@@ -1421,8 +1656,10 @@ def main() -> int:
     # ---- phases 9-10: the training step
     train_run = phase9_training(dev, tag)
     stamp('phase 10 starts')
-    phase10_training_timings(train_run, tag)
-    stamp('phase 10 ends')
+    tt = phase10_training_timings(train_run, tag)
+    stamp('phase 11 starts')
+    phase11_trainer(dev, tag, train_run['cfg'].train.batch_size * 1000.0 / tt['p50'])
+    stamp('phase 11 ends')
 
     kernels = [
         {'name': 'decode_heads', 'route': 'triton',

@@ -7,7 +7,9 @@ an optional ``bn`` with ``gamma`` and ``beta``, whose ``mean`` and ``var``
 are in ``state``; an fc holds ``w`` (in, out) and ``b``. It returns the
 port's dicts, conv weights in OIHW and fc weights in torch's (out, in),
 keeping its own copy of the HWIO -> OIHW rule of
-``pqdet_tpu/exporters/torch_convert.py``.
+``pqdet_tpu/exporters/torch_convert.py``. ``to_jax_params`` is its
+inverse: the port's (params, state) as numpy pytrees in JAX's layout, the
+form a checkpoint holds (``train/checkpoint.py``).
 
 ``from_jax_qparams`` carries the output of the JAX package's
 ``convert_to_int8`` (int8 HWIO ``wq``, ``w_scale``, ``b``, and the ``act``
@@ -58,6 +60,33 @@ def from_jax_params(params: Dict, state: Dict, graph,
         elif node.kind == 'fc':
             out_p[key] = {'w': _tensor(np.asarray(p['w']).T, dev),
                           'b': _tensor(p['b'], dev)}
+    return out_p, out_s
+
+
+def to_jax_params(params: Dict, state: Dict, graph) -> Tuple[Dict, Dict]:
+    """The port's (params, state) -> JAX's layout as f32 numpy pytrees (conv
+    ``w`` HWIO, fc ``w`` (in, out)), keyed as ``from_jax_params`` reads
+    them; each array is an exact copy."""
+    def host(t):
+        return np.array(t.detach().to('cpu', torch.float32).numpy())
+
+    out_p: Dict[str, dict] = {}
+    out_s: Dict[str, dict] = {}
+    for node in graph.nodes:
+        key = str(node.index)
+        p = params.get(key)
+        if p is None:
+            continue
+        if node.kind == 'convolutional':
+            q = {'w': np.ascontiguousarray(host(p['w']).transpose(2, 3, 1, 0))}
+            if 'b' in p:
+                q['b'] = host(p['b'])
+            if 'bn' in p:
+                q['bn'] = {'gamma': host(p['bn']['gamma']), 'beta': host(p['bn']['beta'])}
+                out_s[key] = {'mean': host(state[key]['mean']), 'var': host(state[key]['var'])}
+            out_p[key] = q
+        elif node.kind == 'fc':
+            out_p[key] = {'w': np.ascontiguousarray(host(p['w']).T), 'b': host(p['b'])}
     return out_p, out_s
 
 

@@ -1,0 +1,27 @@
+"""Training CLI (the port of ``pqdet_tpu/cli/train.py``).
+
+    python -m pqdet_tpu_torch.cli.train --yaml yamls/shapes.yaml \
+        [--device cuda|cpu] [key value ...]
+
+Trailing ``key value`` pairs override the yaml (dotted keys, e.g.
+``train.max_epochs 3``).
+"""
+
+import argparse
+
+from pqdet_tpu_torch.config import load_config
+from pqdet_tpu_torch.train.trainer import Trainer
+
+
+def main():
+    parser = argparse.ArgumentParser(description='trainer configuration')
+    parser.add_argument('--yaml', default=None)
+    parser.add_argument('--device', default='cuda')
+    args, rest = parser.parse_known_args()
+    cfg = load_config(args.yaml, rest)
+    print(cfg)
+    Trainer(cfg, device=args.device).run()
+
+
+if __name__ == '__main__':
+    main()

@@ -3,15 +3,25 @@
 Plain dataclasses instead of the yaml-backed ``ConfigNode``; the attribute
 paths (``cfg.dataset.name``, ``cfg.eval.input_size``, ``cfg.train.batch_size``
 ...) are the same, so the pipelines read both alike. The groups carry the
-fields of the slices ported so far: serving (``dataset``, ``eval``) and the
-training step (``model``, ``train``, ``system.compute_dtype``, ``sparse``).
+fields of the slices ported so far: serving (``dataset``, ``eval``), the
+training step (``model``, ``train``, ``system.compute_dtype``, ``sparse``) and
+the trainer (``experiment_name``, ``weight``, ``augment``, ``quant.switch``,
+the loaders' ``dataset``/``system`` fields, ``eval.after`` ...).
+
+``load_config(yaml_path, opts)`` merges a yaml file and a flat list of
+dotted overrides into the defaults, typed by each field's default as the
+JAX ``ConfigNode`` types them. A key of the JAX schema whose slice is not
+ported yet raises ``NotImplementedError`` naming its ROADMAP item; any other
+unknown key raises ``KeyError``.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import List, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
+
+import yaml
 
 VOC_CLASSES = ['aeroplane', 'bicycle', 'bird', 'boat', 'bottle', 'bus',
                'car', 'cat', 'chair', 'cow', 'diningtable', 'dog', 'horse',
@@ -28,16 +38,29 @@ class SystemConfig:
     # bf16 conv compute (f32 accumulation, BN statistics and loss);
     # 'float32' for f32 throughout
     compute_dtype: str = 'bfloat16'
+    num_workers: int = 4           # host loader threads (decode and augment)
+    prefetch: int = 2              # batches assembled ahead of the consumer
+    # 'device': batches carry padded GT boxes, the label grids are built in
+    # the step (ops/labels.py); 'host' assignment is not ported
+    label_assign: str = 'device'
+    # seed of the epoch plan (sample indices, input sizes) and of each
+    # sample's augment generator
+    seed: int = 0
 
 
 @dataclasses.dataclass
 class DatasetConfig:
-    name: str = 'voc'
+    name: str = 'VOC'
+    train_txt_file: str = ''
+    eval_txt_file: str = ''
     classes: List[str] = _field(VOC_CLASSES)
+    # keep decoded images (and parsed labels) in RAM, hand out copies
+    cache_images: bool = False
 
 
 @dataclasses.dataclass
 class ModelConfig:
+    cfg_path: str = 'mobilenetv2-fpn'   # a .cfg path or a zoo model name
     strides: List[int] = _field([8, 16, 32])
     gt_per_grid: int = 3
     anchors: List[List[int]] = _field([[10, 13], [16, 30], [33, 23], [30, 61], [62, 45],
@@ -67,14 +90,46 @@ class TrainConfig:
 
 
 @dataclasses.dataclass
+class AugmentConfig:
+    """The host chain's probabilities (``data/augment.py``)."""
+    mixup_p: float = 0.5
+    color_p: float = 0.0
+    hflip_p: float = 0.5
+    vflip_p: float = 0.0
+    crop_p: float = 0.75
+    mosaic_p: float = 0.0
+    # the stochastic chain on the device: not ported (raises when on)
+    device: bool = False
+
+
+@dataclasses.dataclass
+class WeightConfig:
+    dir: str = 'weights'           # checkpoints go to <dir>/<experiment_name>/
+    backbone: str = ''             # checkpoint whose layers seed the model
+    resume: str = ''               # checkpoint to resume from
+    clear_history: bool = False    # resume the weights but restart at step 0
+
+
+@dataclasses.dataclass
 class SparseConfig:
     switch: bool = False
     ratio: float = 0.01
 
 
 @dataclasses.dataclass
+class QuantConfig:
+    switch: bool = False           # QAT training: not ported (raises when on)
+
+
+@dataclasses.dataclass
 class EvalConfig:
+    after: int = 30                # first epoch that evaluates
+    interval: int = 1              # then every Nth epoch (and the last)
     input_size: Union[int, Tuple[int, int]] = 512
+    batch_size: int = 16
+    partial: int = 0               # evaluate the first N images (0 = all)
+    # normalize eval images on the host (float batches) instead of the device
+    host_normalize: bool = False
     score_threshold: float = 0.1
     iou_threshold: float = 0.45
     max_detections: int = 256      # static NMS output size
@@ -91,12 +146,146 @@ class EvalConfig:
 
 @dataclasses.dataclass
 class Config:
+    experiment_name: str = 'VOC'
     system: SystemConfig = dataclasses.field(default_factory=SystemConfig)
     dataset: DatasetConfig = dataclasses.field(default_factory=DatasetConfig)
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    augment: AugmentConfig = dataclasses.field(default_factory=AugmentConfig)
+    weight: WeightConfig = dataclasses.field(default_factory=WeightConfig)
     sparse: SparseConfig = dataclasses.field(default_factory=SparseConfig)
+    quant: QuantConfig = dataclasses.field(default_factory=QuantConfig)
     eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
+
+
+# keys of the JAX schema whose slice of the port is still queued
+LATER_KEYS = {
+    'system.loader': 'queue 1, item 3 (the process loader)',
+    'system.device_prefetch': 'queue 1, item 3 (the upload thread)',
+    'system.data_devices': 'queue 1, item 7 (data parallelism)',
+    'train.spatial': 'queue 1, item 7 (data parallelism)',
+    'train.unroll_steps': 'queue 1, item 2 (one dispatch per step)',
+    'dataset.device_cache': 'queue 1, item 6 (the GPU-resident corpus)',
+    'augment.fresh_partners': 'queue 1, item 6 (device augmentation)',
+    'train.s2d_stem': 'queue 1, item 8 (the space-to-depth stem)',
+    'eval.s2d_stem': 'queue 1, item 8 (the space-to-depth stem)',
+    'quant.backend': 'queue 1, item 5 (QAT training)',
+    'quant.disable_observer_after': 'queue 1, item 5 (QAT training)',
+    'quant.freeze_bn_after': 'queue 1, item 5 (QAT training)',
+    'prune': 'queue 1, item 10 (pruning)',
+}
+
+
+def later(what: str, item: str):
+    """The error for a part of the JAX package whose slice is queued."""
+    return NotImplementedError(f'{what}: not ported yet (ROADMAP.md {item})')
+
+
+def _coerce(key: str, old, new):
+    """``new`` as the type of the default ``old`` (the JAX ``ConfigNode``'s
+    rules: yaml's on/off and strings for bools, ints for floats, numeric
+    strings for numbers, sequences for lists)."""
+    if old is None or new is None:
+        return new
+    if isinstance(old, bool):
+        if isinstance(new, bool):
+            return new
+        if isinstance(new, str):
+            low = new.lower()
+            if low in ('true', 'on', 'yes', '1'):
+                return True
+            if low in ('false', 'off', 'no', '0'):
+                return False
+        if isinstance(new, int):
+            return bool(new)
+        raise TypeError(f'{key}: cannot interpret {new!r} as bool')
+    if isinstance(old, float) and isinstance(new, int):
+        return float(new)
+    if isinstance(old, (int, float)) and isinstance(new, str):
+        try:
+            return type(old)(float(new) if '.' in new or 'e' in new.lower() else new)
+        except ValueError:
+            raise TypeError(f'{key}: cannot interpret {new!r} as {type(old).__name__}')
+    if isinstance(old, (list, tuple)) and isinstance(new, (list, tuple)):
+        return list(new)
+    if isinstance(old, str) and isinstance(new, bool):
+        return 'on' if new else 'off'
+    if type(old) is not type(new) and not (
+            isinstance(old, (int, float)) and isinstance(new, (int, float))):
+        raise TypeError(
+            f'{key}: type mismatch ({type(new).__name__} vs {type(old).__name__})')
+    return new
+
+
+def _check_known(node, key: str, leaf: str):
+    if leaf not in {f.name for f in dataclasses.fields(node)}:
+        group = key.split('.')[0]
+        item = LATER_KEYS.get(key) or LATER_KEYS.get(group)
+        if item:
+            raise later(f'config key {key}', item)
+        raise KeyError(f'unknown config key: {key}')
+
+
+def merge_dict(cfg, data: Dict[str, Any], prefix: str = ''):
+    """Merge a nested mapping (a parsed yaml file) into ``cfg`` in place."""
+    for k, v in data.items():
+        key = f'{prefix}{k}'
+        _check_known(cfg, key, k)
+        cur = getattr(cfg, k)
+        if dataclasses.is_dataclass(cur):
+            if not isinstance(v, dict):
+                raise TypeError(f'{key}: expected a mapping')
+            merge_dict(cur, v, key + '.')
+        else:
+            setattr(cfg, k, _coerce(key, cur, v))
+    return cfg
+
+
+def merge_from_list(cfg, opts: List[str]):
+    """Merge a flat [key, value, key, value, ...] override list with dotted
+    keys into ``cfg`` in place; string values are read as yaml scalars or
+    flow lists."""
+    if len(opts) % 2 != 0:
+        raise ValueError('override list must have even length')
+    for key, value in zip(opts[::2], opts[1::2]):
+        node = cfg
+        parts = key.split('.')
+        for i, p in enumerate(parts[:-1]):
+            _check_known(node, '.'.join(parts[:i + 1]), p)
+            node = getattr(node, p)
+            if not dataclasses.is_dataclass(node):
+                raise KeyError(f'unknown config key: {key}')
+        _check_known(node, key, parts[-1])
+        if isinstance(value, str):
+            try:
+                value = yaml.safe_load(value)
+            except yaml.YAMLError:
+                pass
+        setattr(node, parts[-1], _coerce(key, getattr(node, parts[-1]), value))
+    return cfg
+
+
+def load_config(yaml_path: Optional[str] = None, opts: Optional[List[str]] = None) -> Config:
+    """The defaults, then the yaml file, then the overrides."""
+    cfg = Config()
+    if yaml_path:
+        with open(yaml_path, 'r') as fr:
+            merge_dict(cfg, yaml.safe_load(fr) or {})
+    if opts:
+        merge_from_list(cfg, list(opts))
+    return cfg
+
+
+def resolve_model_cfg(cfg: Config) -> str:
+    """``model.cfg_path`` as cfg text: a zoo model name or a file path."""
+    from pqdet_tpu_torch.zoo import MODEL_ZOO, get_cfg
+    path = cfg.model.cfg_path
+    if path in MODEL_ZOO:
+        return get_cfg(path, num_classes=len(cfg.dataset.classes))
+    if path.startswith('regnet'):
+        raise later(f'zoo model {path}', 'queue 1, item 9 (the RegNet zoo)')
+    with open(path, 'r') as fr:
+        return fr.read()
 
 
 def size_fix(size):
@@ -104,3 +293,7 @@ def size_fix(size):
     if isinstance(size, int):
         return (size, size)
     return tuple(size)
+
+
+def sizes_fix(sizes):
+    return [size_fix(s) for s in sizes]

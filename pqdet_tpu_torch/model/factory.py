@@ -1,0 +1,84 @@
+"""Model factory: the network and its weights from a cfg or a checkpoint
+(the port of ``pqdet_tpu/model/factory.py``, normal checkpoints; QAT and
+quantized models come with the QAT slice, ROADMAP.md queue 1, item 5).
+A checkpoint with no cfg given rebuilds its architecture from the cfg text
+it embeds.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from pqdet_tpu_torch.config import later
+from pqdet_tpu_torch.model.network import DetectionNetwork, cast_params, fuse_params
+from pqdet_tpu_torch.train.checkpoint import (load_backbone_into, load_checkpoint,
+                                              load_weights_into)
+
+
+def check_no_grouped_convs(network) -> None:
+    """Raise for a grouped conv that is not depthwise: the JAX package runs
+    those densified (``densify_grouped_convs``), which comes with the
+    RegNet zoo. Depthwise convs stay grouped in both packages."""
+    for node in network.graph.nodes:
+        if node.kind == 'convolutional' and node.attrs['groups'] > 1 \
+                and node.in_channels // node.attrs['groups'] >= 2:
+            raise later(f'grouped conv {node.index} (groups {node.attrs["groups"]})',
+                        'queue 1, item 9 (grouped-conv densification)')
+
+
+def build_detector(cfg_text: Optional[str] = None,
+                   weight_path: Optional[str] = None,
+                   backbone_path: Optional[str] = None,
+                   clear_history: bool = False,
+                   qat: bool = False,
+                   quantized: bool = False,
+                   rng_seed: int = 0,
+                   device='cuda'):
+    """Returns (network, params, state, info) with the weights on ``device``.
+
+    A fresh init draws from ``torch.Generator().manual_seed(rng_seed)``;
+    ``backbone_path`` seeds the layers it holds, ``weight_path`` loads a
+    normal checkpoint strictly. info holds {step, AP, type, cfg_text} from
+    the checkpoint (step 0 when starting fresh or with ``clear_history``).
+    """
+    info: Dict = {'step': 0, 'AP': None, 'type': 'normal'}
+    ckpt = None
+    if weight_path:
+        ckpt = load_checkpoint(weight_path)
+        info['step'] = 0 if clear_history else int(ckpt.get('step', 0))
+        ap = ckpt.get('AP', -1.0)
+        info['AP'] = None if ap is None or ap < 0 else float(ap)
+        info['type'] = ckpt.get('type', 'normal')
+
+    if not cfg_text:
+        if ckpt is None:
+            raise ValueError('need a model cfg or a checkpoint embedding one')
+        cfg_text = ckpt['cfg']
+    info['cfg_text'] = cfg_text
+
+    if info['type'] == 'quant':
+        raise ValueError('quantized checkpoints hold int8 weights; they load with '
+                         'load_quantized, which comes with the QAT slice')
+    if qat or quantized or info['type'] == 'qat':
+        raise later('QAT and quantized models', 'queue 1, item 5 (QAT training)')
+
+    network = DetectionNetwork.from_cfg(cfg_text)
+    check_no_grouped_convs(network)
+    params, state = network.init(torch.Generator().manual_seed(rng_seed), device=device)
+    if backbone_path:
+        params, state = load_backbone_into(network.graph, params, state,
+                                           load_checkpoint(backbone_path))
+    if ckpt is not None:
+        params, state = load_weights_into(network.graph, params, state, ckpt)
+    return network, params, state, info
+
+
+def inference_params(network, params, state, dtype=None) -> Dict:
+    """BN-folded params for the inference walk, optionally cast to
+    ``dtype``, computed without autograd."""
+    check_no_grouped_convs(network)
+    with torch.no_grad():
+        fused = fuse_params(network, params, state)
+        return cast_params(fused, dtype) if dtype is not None else fused

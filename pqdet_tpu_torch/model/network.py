@@ -26,8 +26,11 @@ Training is its own entry, ``forward_train``, which always returns
 statistics in BN, dropout from ``rng``; ``targets``: the YOLO loss at each
 head). It runs cuDNN convs and autograd and no hand-written kernel, as the
 JAX training walk reaches no Pallas kernel:
-each yolo node decodes with the plain ``decode`` at its node and takes its
-``loss_per_scale``; the kernel wrappers refuse tensors that require grad.
+with ``targets`` each yolo node decodes with the plain ``decode`` at its
+node and takes its ``loss_per_scale``; without them the heads go through
+the plain, differentiable decode after the walk, as JAX's ``apply`` decodes
+with the jnp ``decode``. The kernel wrappers refuse tensors that require
+grad.
 ``remat_segments`` N >= 1 runs the walk as N ``torch.utils.checkpoint``
 segments over ``np.linspace`` bounds: only the activations that cross a
 boundary are kept for the backward pass, the rest is recomputed. A segment
@@ -139,14 +142,15 @@ class Network(nn.Module):
         """The training walk: (outputs, new_state), always. Outputs are the
         per-head loss 4-tuples of ``loss_per_scale`` with ``targets`` (the
         6-tuple of ``ops/labels.py``), else the decoded heads or final
-        activation as ``forward`` returns them; new_state holds the BN
+        activation as ``forward`` returns them, the heads through the plain
+        decode on every device (differentiable); new_state holds the BN
         running statistics a ``train`` walk computed (``state`` itself
         without ``train``: BN on its running statistics, e.g. for the loss at
         eval statistics). ``rng`` is the generator of the dropout draws;
         ``remat_segments`` as in the module docstring; the other arguments
         as in ``forward``."""
         x, losses, preds, shapes, new_state = self._run(
-            params, state, x, compute_dtype, None, False, quant_ctx, targets, train, rng,
+            params, state, x, compute_dtype, None, True, quant_ctx, targets, train, rng,
             remat_segments, tap, s2d_stem)
         if targets is not None:
             return losses, new_state
@@ -356,7 +360,7 @@ class DetectionNetwork(Network):
                       compute_dtype=None, remat_segments: int = 0, tap=None, quant_ctx=None,
                       s2d_stem: int = 0):
         _, losses, preds, _, new_state = self._run(
-            params, state, x, compute_dtype, None, False, quant_ctx, targets, train, rng,
+            params, state, x, compute_dtype, None, True, quant_ctx, targets, train, rng,
             remat_segments, tap, s2d_stem)
         return (sum_scale_losses(losses) if targets is not None else preds), new_state
 

@@ -78,9 +78,13 @@ class Adam:
 
     It runs on one flat f32 vector of all leaves, as ``optax.flatten`` does
     in JAX: every step is a handful of elementwise kernels over it, and the
-    global norm is that vector's norm. The state is a dict: ``count`` (a
-    Python int, so the schedule is plain Python), ``mu`` and ``nu`` (flat
-    f32 on the params' device)."""
+    global norm is that vector's norm. The state is a dict: ``count`` (the
+    bias corrections' update count) and ``schedule_count`` (the lr's), both
+    Python ints so the schedule is plain Python, and ``mu`` and ``nu``
+    (flat f32 on the params' device). The two counts move together; a
+    resumed run sets ``schedule_count`` alone (``resume_schedule_step``),
+    as the JAX package fast-forwards optax's schedule count and leaves
+    Adam's at 0."""
 
     b1, b2, eps = 0.9, 0.999, 1e-8
 
@@ -92,7 +96,8 @@ class Adam:
 
     def init(self, params) -> dict:
         flat = torch.cat([t.reshape(-1) for t in tree_leaves(params)]).float()
-        return {'count': 0, 'mu': torch.zeros_like(flat), 'nu': torch.zeros_like(flat)}
+        return {'count': 0, 'schedule_count': 0, 'mu': torch.zeros_like(flat),
+                'nu': torch.zeros_like(flat)}
 
     def update(self, grads, opt_state: dict, params):
         """(new params, new optimizer state) after one update with ``grads``."""
@@ -111,10 +116,19 @@ class Adam:
         bc1 = float(np.float32(1) - np.float32(self.b1) ** np.float32(count))
         bc2 = float(np.float32(1) - np.float32(self.b2) ** np.float32(count))
         u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-        new = p + u * -float(self.schedule(opt_state['count']))
+        new = p + u * -float(self.schedule(opt_state['schedule_count']))
         out = [t.view(like.shape)
                for t, like in zip(torch.split(new, [t.numel() for t in leaves]), leaves)]
-        return tree_unflatten(params, out), {'count': count, 'mu': mu, 'nu': nu}
+        return tree_unflatten(params, out), {
+            'count': count, 'schedule_count': opt_state['schedule_count'] + 1,
+            'mu': mu, 'nu': nu}
+
+
+def resume_schedule_step(opt_state: dict, step: int) -> dict:
+    """Fast-forward the lr schedule to ``step`` after a checkpoint resume,
+    so the next update takes ``schedule(step)``; Adam's count and moments
+    start fresh."""
+    return {**opt_state, 'schedule_count': int(step)}
 
 
 def make_optimizer(schedule: Callable[[int], float], weight_decay: float = 0.0,

@@ -12,6 +12,9 @@ import torch
 from pqdet_tpu_torch import resolve_device
 from pqdet_tpu_torch.bridge import (from_jax_params, from_jax_qparams,
                                     from_jax_quant_state)
+from pqdet_tpu_torch.cli.predict import predict_image
+from pqdet_tpu_torch.model.factory import build_detector
+from pqdet_tpu_torch.train.trainer import Trainer
 from pqdet_tpu_torch.ops.qconv import make_scalars
 from pqdet_tpu_torch.config import Config
 from pqdet_tpu_torch.evaluation.predict import build_predict_pipeline
@@ -38,9 +41,16 @@ def test_port_imports_no_jax():
         new = {'pqdet_tpu_torch.compress.qat', 'pqdet_tpu_torch.compress.quantized',
                'pqdet_tpu_torch.ops.qconv', 'pqdet_tpu_torch.ops.labels',
                'pqdet_tpu_torch.model.loss', 'pqdet_tpu_torch.train.schedule',
-               'pqdet_tpu_torch.train.step'}
+               'pqdet_tpu_torch.train.step', 'pqdet_tpu_torch.utils.meters',
+               'pqdet_tpu_torch.data.augment', 'pqdet_tpu_torch.data.samples',
+               'pqdet_tpu_torch.data.train_data', 'pqdet_tpu_torch.data.eval_data',
+               'pqdet_tpu_torch.data.scripts.synth_shapes',
+               'pqdet_tpu_torch.native.matcher', 'pqdet_tpu_torch.evaluation.evaluator',
+               'pqdet_tpu_torch.train.checkpoint', 'pqdet_tpu_torch.model.factory',
+               'pqdet_tpu_torch.train.trainer', 'pqdet_tpu_torch.cli.train',
+               'pqdet_tpu_torch.cli.predict'}
         print(len(names), bad, sorted(new - set(names)))
-        sys.exit(1 if bad or len(names) < 22 or not new <= set(names) else 0)
+        sys.exit(1 if bad or len(names) < 40 or not new <= set(names) else 0)
     """)
     res = subprocess.run([sys.executable, '-c', code], cwd=REPO, capture_output=True,
                          text=True, timeout=300)
@@ -64,7 +74,8 @@ def _no_cuda(monkeypatch):
 
 @pytest.mark.parametrize('entry', ['resolve_device', 'init', 'pipeline', 'bridge',
                                    'bridge_qparams', 'bridge_quant_state', 'scalars',
-                                   'label_assigner', 'train_step_from_config'])
+                                   'label_assigner', 'train_step_from_config',
+                                   'build_detector', 'trainer', 'predict_image'])
 def test_entry_point_without_device_raises(entry, monkeypatch):
     """Without ``device="cpu"`` and with no card, an entry point raises
     instead of quietly running on the CPU."""
@@ -80,6 +91,10 @@ def test_entry_point_without_device_raises(entry, monkeypatch):
         'scalars': lambda: make_scalars(0.1, 3.0),
         'label_assigner': lambda: label_assigner_from_config(Config()),
         'train_step_from_config': lambda: train_step_from_config(net, Config(), 10),
+        'build_detector': lambda: build_detector(get_cfg('mobilenetv2-fpn', width_mult=0.25)),
+        'trainer': lambda: Trainer(Config()),
+        'predict_image': lambda: predict_image(Config(), 'x.jpg',
+                                               cfg_path='mobilenetv2-fpn'),
     }[entry]
     with pytest.raises(RuntimeError, match='device="cpu"'):
         call()

@@ -107,7 +107,8 @@ def run():
         js_host = jax.device_get(js)
         p0, s0 = from_jax_params(jax.device_get(jp), js_host, net.graph, device='cpu')
         mu0 = port_flat(_adam(jo).mu, js_host)
-        o0 = {'count': k, 'mu': mu0, 'nu': port_flat(_adam(jo).nu, js_host)}
+        o0 = {'count': k, 'schedule_count': k, 'mu': mu0,
+              'nu': port_flat(_adam(jo).nu, js_host)}
         res = {}
         for name, bb in (('jax', b), ('reversed', {key: v[::-1].copy() for key, v in b.items()})):
             np_, ns, no, m = jstep(jp, js, jo, jax.tree.map(jnp.asarray, bb),

@@ -17,7 +17,8 @@ from pqdet_tpu.train.step import make_optimizer as jax_make_optimizer
 from pqdet_tpu.train.step import make_train_step as jax_make_train_step
 from pqdet_tpu_torch.bridge import from_jax_params
 from pqdet_tpu_torch.config import Config
-from pqdet_tpu_torch.model.network import DetectionNetwork
+from pqdet_tpu_torch.model import network as network_module
+from pqdet_tpu_torch.model.network import DetectionNetwork, to_device
 from pqdet_tpu_torch.ops.labels import label_assigner_from_config
 from pqdet_tpu_torch.ops.preprocess import device_normalize
 from pqdet_tpu_torch.train.schedule import cosine_warmup, step_decay_warmup
@@ -252,3 +253,30 @@ def test_train_step_from_config(case):
     for a, b in zip(tree_leaves(p1) + tree_leaves(s1) + [m1[k] for k in sorted(m1)],
                     tree_leaves(p2) + tree_leaves(s2) + [m2[k] for k in sorted(m2)]):
         assert torch.equal(a, b)
+
+
+def test_training_entry_decodes_plain_off_the_cpu(monkeypatch):
+    """``forward_train`` without targets decodes the heads with the plain,
+    differentiable decode on every device: on meta tensors (standing in for
+    the card) whose input requires grad it never calls ``decode_heads`` and
+    returns preds that carry a grad_fn. The inference ``forward`` on the
+    same input goes to ``decode_heads``, which refuses a non-CPU head that
+    requires grad."""
+    net = DetectionNetwork.from_cfg(_shallow_cfg())
+    params, state = net.init(torch.Generator().manual_seed(0), device='cpu')
+    mp, ms = to_device(params, torch.device('meta')), to_device(state, torch.device('meta'))
+    x = torch.empty(2, 64, 64, 3, device='meta', requires_grad=True)
+    calls = []
+    real = network_module.decode_heads
+
+    def spy(*args, **kwargs):
+        calls.append(args[0][0].device)
+        return real(*args, **kwargs)
+    monkeypatch.setattr(network_module, 'decode_heads', spy)
+    for train in (True, False):
+        preds, new_state = net.forward_train(mp, ms, x, train=train)
+        assert preds.device.type == 'meta' and preds.shape == (2, (8 * 8 + 4 * 4 + 2 * 2) * 3, 25)
+        assert preds.grad_fn is not None and not calls
+    with pytest.raises(RuntimeError, match='decode_heads: the kernel has no backward'):
+        net(mp, ms, x)
+    assert calls == [torch.device('meta')]
