@@ -105,11 +105,17 @@ Builds the CUDA kernels from pqdet_tpu_torch/csrc with nvcc (sm_90a), then:
    epoch evaluated; the last one loads the trainer's params and BN state
    bit for bit; a second trainer resumed from the epoch-1 checkpoint
    starts at step 12 with the lr of schedule(12) and Adam's count 0, and
-   trains epoch 2 with finite losses; the predict CLI on an eval image
-   exits 0 with finite detections. Prints seconds, the trainer's
-   data-load and model split and images/s per epoch (against phase 10's
-   bare step), the first step at each input size, each evaluation's
-   seconds and the phase's seconds.
+   trains epoch 2 with finite losses on the first run's epoch-2 plan; the
+   trainer's eval (bf16, the decode kernel) gives at least 0.99 of the
+   detections of the same pipeline with the plain decode on the same
+   params (box, score and class to 1e-3), and the evaluator scores the
+   eval split's own boxes at AP 1; the predict CLI on an eval image exits
+   0 with finite detections. A timed run then trains 2 epochs of 300 more
+   images at phase 10's B=12 and 512x512 (25 steps an epoch, metrics
+   flushed every 5). Prints seconds, the trainer's data-load and model
+   split and images/s per epoch, those of the timed run's epoch 1 against
+   phase 10's bare step, the first step at each input size, each
+   evaluation's seconds and the phase's seconds.
 
 Each phase draws from its own generator, seeded from SEED and the phase
 number. It prints one JSON line of kernels, then the nvidia-smi line, and
@@ -156,6 +162,31 @@ def request_maker(gen, dev):
         hw = torch.randint(200, 900, (b, 2), generator=gen)
         return {'image': img.to(dev), 'shape': hw.to(dev), 'count': b}
     return batch
+
+
+# modules the JAX package reads on the trainer's path: import name, the
+# distributions that may carry it
+HOST_LIBRARIES = (('cv2', ('opencv-python', 'opencv-python-headless', 'opencv-contrib-python',
+                           'opencv-contrib-python-headless')),
+                  ('PIL', ('Pillow',)), ('yaml', ('PyYAML',)), ('msgpack', ('msgpack',)),
+                  ('numpy', ('numpy',)), ('torchvision', ('torchvision',)))
+
+
+def host_libraries() -> dict:
+    """{import name: distribution version, 'present' or 'absent'} for
+    HOST_LIBRARIES, found without importing any of them."""
+    import importlib.metadata
+    import importlib.util
+    libs = {}
+    for name, dists in HOST_LIBRARIES:
+        libs[name] = 'absent' if importlib.util.find_spec(name) is None else 'present'
+        for dist in dists if libs[name] == 'present' else ():
+            try:
+                libs[name] = importlib.metadata.version(dist)
+                break
+            except importlib.metadata.PackageNotFoundError:
+                pass
+    return libs
 
 
 def smi() -> str:
@@ -1167,6 +1198,18 @@ CORPUS_IMAGES = 128
 CORPUS_SIZE = 512
 CORPUS_HOLDOUT = 0.25
 TRAINER_EPOCHS = 3
+# the timed run: a corpus of TIMING_IMAGES train images through 2 epochs at
+# phase 10's B=12 and 512x512, so an epoch has 25 steps and flushes its
+# metrics every 5 as a real epoch does (the run above flushes every step)
+TIMING_IMAGES = 300
+TIMING_BATCH = 12
+# the trainer's eval (bf16, the decode kernel) against the same pipeline
+# with the plain decode: the share of the plain detections that it gives
+# too (same box, score and class to EVAL_AGREEMENT_ATOL). The decode kernel
+# is 6e-8 off its plain version, so only near-ties at the NMS pool's cutoff
+# or between overlapping boxes may part them
+EVAL_AGREEMENT = 0.99
+EVAL_AGREEMENT_ATOL = 1e-3
 
 
 def phase11_trainer(dev, tag, bare_ips):
@@ -1174,13 +1217,20 @@ def phase11_trainer(dev, tag, bare_ips):
     of full-width mobilenetv2-fpn from ``yamls/shapes.yaml`` (batch 16,
     sizes 416-512, lr 4e-4, host augment chain) on a synth_shapes corpus;
     then loading the last checkpoint, resuming from the epoch-1 checkpoint,
-    and the predict CLI on an eval image. ``bare_ips``: phase 10's images/s
-    of the bare step. Raises on any failed gate."""
+    the trainer's eval against the same pipeline with the plain decode and
+    the evaluator against the eval split's own boxes, the predict CLI on an
+    eval image, and a timed run of 25-step epochs at B=12, 512x512.
+    ``bare_ips``: phase 10's images/s of the bare step (B=12, 512x512).
+    Raises on any failed gate."""
     import re
     import tempfile
+    import numpy as np
     import torch
     from pqdet_tpu_torch.config import load_config
     from pqdet_tpu_torch.data.scripts.synth_shapes import generate
+    from pqdet_tpu_torch.evaluation.evaluator import Evaluator
+    from pqdet_tpu_torch.evaluation.predict import build_predict_pipeline, make_batch_predict
+    from pqdet_tpu_torch.model.factory import inference_params
     from pqdet_tpu_torch.train.checkpoint import load_checkpoint, load_weights_into
     from pqdet_tpu_torch.train.step import tree_leaves
     from pqdet_tpu_torch.train.trainer import Trainer
@@ -1195,7 +1245,8 @@ def phase11_trainer(dev, tag, bare_ips):
 
         def init_all(self):
             super().init_all()
-            self.probe = {'loss': {}, 'first_step_s': {}, 'epochs': {}, 'evals': {}}
+            self.probe = {'loss': {}, 'first_step_s': {}, 'epochs': {}, 'evals': {},
+                          'plans': {}}
             step = self.step_fn
 
             def probed(params, state, opt_state, batch, rng=None):
@@ -1214,6 +1265,8 @@ def phase11_trainer(dev, tag, bare_ips):
 
         def train_epoch(self, epoch):
             self._epoch = epoch
+            d = self.train_data
+            self.probe['plans'][epoch] = (d._epoch, list(d._indexes), list(d._sizes))
             reset_kernel_launches()
             t0 = time.perf_counter()
             split = super().train_epoch(epoch)
@@ -1280,7 +1333,8 @@ def phase11_trainer(dev, tag, bare_ips):
             print(f'phase 11: {tag} first step at {size[0]}x{size[1]}, B={b}: {sec:.3f} s')
         steady = [ep['steps'] * b / ep['s'] for e, ep in pr['epochs'].items() if e > 0]
         print(f'phase 11: {tag} trainer images/s (epochs 1-{TRAINER_EPOCHS - 1}, B={b}, sizes '
-              f'{cfg.train.input_sizes}): {statistics.mean(steady):.2f}; the bare step of '
+              f'{cfg.train.input_sizes}, metrics flushed every {trainer._print_interval} '
+              f'steps): {statistics.mean(steady):.2f}; the bare step of '
               f'phase 10 (B=12, 512x512, one fixed batch): {bare_ips:.2f}')
         for e, ev in sorted(pr['evals'].items()):
             print(f'phase 11: {tag} eval after epoch {e}: {ev["s"]:.3f} s, {ev["batches"]} '
@@ -1316,6 +1370,49 @@ def phase11_trainer(dev, tag, bare_ips):
              f'the last checkpoint (step {last_ckpt["step"]}) loads the trainer\'s params and BN '
              'state bit for bit')
 
+        # the trainer's eval on the card, held to the same pipeline with the
+        # plain decode on the same params, and the evaluator to the eval
+        # split's own boxes
+        net, dtype = trainer.network, trainer._compute_dtype
+        plain_predict = make_batch_predict(build_predict_pipeline(
+            net, cfg, compute_dtype=dtype, device=dev,
+            apply_fn=lambda p, im: net(p, {}, im, compute_dtype=dtype, plain=True)),
+            inference_params(net, trainer.params, trainer.state))
+        kernel_predict = trainer.make_predict_fn()
+        same, n_img, n_det, n_found, launches = 0, 0, 0, 0, {'kernel': {}, 'plain': {}}
+        for batch in trainer.eval_data.batches(cfg.system.num_workers, cfg.system.prefetch):
+            outs = {}
+            for name, fn in (('kernel', kernel_predict), ('plain', plain_predict)):
+                reset_kernel_launches()
+                with torch.inference_mode():
+                    outs[name] = fn(batch)
+                for k, v in kernel_launches().items():
+                    launches[name][k] = launches[name].get(k, 0) + v
+            for i in range(batch['count']):
+                kd, pd = outs['kernel'][i], outs['plain'][i]
+                near = np.abs(pd[:, None, :] - kd[None, :, :]).max(-1) <= EVAL_AGREEMENT_ATOL
+                same += kd.shape == pd.shape and bool(near.diagonal().all())
+                n_img, n_det, n_found = n_img + 1, n_det + len(pd), n_found + near.any(1).sum()
+        share = n_found / max(n_det, 1)
+        print(f'phase 11: {tag} the trainer\'s eval (decode kernel) against the plain decode '
+              f'on its params: {n_found}/{n_det} plain detections found (share {share:.6f}), '
+              f'{same}/{n_img} images with the same detections in the same order, to '
+              f'{EVAL_AGREEMENT_ATOL}; launches {launches}')
+        n_eval = len(trainer.eval_data)
+        gate(n_det > 0 and share >= EVAL_AGREEMENT
+             and launches['kernel'] == {**dict.fromkeys(launches['kernel'], 0),
+                                        'decode_heads': n_eval}
+             and not any(launches['plain'].values()),
+             f'the trainer\'s eval gives {share:.6f} >= {EVAL_AGREEMENT} of the plain decode\'s '
+             f'detections, with {n_eval} decode_heads launches (plain 0)')
+
+        def gt_as_detections(batch):
+            return [np.concatenate([bb[:, :4], np.ones((len(bb), 1), np.float32), bb[:, 4:5]], 1)
+                    for bb in batch['bboxes'][:batch['count']]]
+        oracle = Evaluator(gt_as_detections, trainer.eval_data, cfg).evaluate()
+        gate(abs(oracle.AP - 1.0) <= 1e-12,
+             f'the evaluator scores the eval split\'s own boxes at AP {oracle.AP:.12f} (want 1)')
+
         # resume from the epoch-1 checkpoint into a second run dir
         resumed = ProbedTrainer(config('weight.resume', os.path.join(wdir, want[1]),
                                        'experiment_name', 'shapes_resumed'))
@@ -1332,6 +1429,10 @@ def phase11_trainer(dev, tag, bare_ips):
         rl = resumed.probe['loss'].get(2, [])
         gate(len(rl) == trainer.steps_per_epoch and all(math.isfinite(x) for x in rl),
              f'the resumed run\'s epoch 2: losses {[round(x, 3) for x in rl]}')
+        gate(resumed.probe['plans'].get(2) == pr['plans'][2],
+             'the resumed run\'s epoch 2 plan (augment epoch, indices, sizes) is the first '
+             f'run\'s; first step loss {rl[:1]} against the first run\'s '
+             f'{pr["loss"][2][:1]} on the same params and batch')
 
         img = open(os.path.join(root, 'test.txt')).read().split()[0]
         t0 = time.perf_counter()
@@ -1350,6 +1451,32 @@ def phase11_trainer(dev, tag, bare_ips):
         gate(res.returncode == 0 and f'{len(boxes)} detections' in res.stdout
              and all(math.isfinite(v) for v in vals),
              f'predict exits 0 with {len(boxes)} finite detections')
+
+        # the timed run: 25-step epochs at B=12, 512x512
+        root2 = os.path.join(tmp, 'shapes_timing')
+        t0 = time.perf_counter()
+        generate(root2, n=TIMING_IMAGES, size=CORPUS_SIZE, seed=SEED + 1, holdout=0.0,
+                 vary_aspect=True)
+        gen_s = time.perf_counter() - t0
+        timed = ProbedTrainer(config(
+            'dataset.train_txt_file', os.path.join(root2, 'train.txt'),
+            'train.batch_size', str(TIMING_BATCH), 'train.input_sizes', f'[{CORPUS_SIZE}]',
+            'train.max_epochs', '2', 'eval.after', '2', 'experiment_name', 'shapes_timing'))
+        timed.run()
+        torch.cuda.synchronize()
+        ep = timed.probe['epochs'][1]
+        tl = [x for e in timed.probe['loss'] for x in timed.probe['loss'][e]]
+        ips = ep['steps'] * TIMING_BATCH / ep['s']
+        print(f'phase 11: {tag} timed run ({TIMING_IMAGES} images written in {gen_s:.2f} s, '
+              f'B={TIMING_BATCH}, {CORPUS_SIZE}x{CORPUS_SIZE}, {timed.steps_per_epoch} steps '
+              f'an epoch, metrics flushed every {timed._print_interval} steps): epoch 0 '
+              f'{timed.probe["epochs"][0]["s"]:.3f} s; epoch 1 {ep["s"]:.3f} s, data load '
+              f'{ep["data_load_s"]:.3f} s (share {ep["data_load_s"] / ep["s"]:.4f}), model '
+              f'{ep["model_s"]:.3f} s, {ips:.2f} images/s against the bare step\'s '
+              f'{bare_ips:.2f} (ratio {ips / bare_ips:.4f})')
+        gate(timed.steps_per_epoch >= 25 and all(math.isfinite(x) for x in tl)
+             and not any(ep['launches'].values()),
+             f'the timed run: {len(tl)} finite step losses, 0 kernel launches')
     print(f'phase 11: {tag} phase seconds {time.perf_counter() - t_phase:.1f}')
     if fails:
         raise AssertionError(f'phase 11 gates failed: {fails}')
@@ -1397,13 +1524,8 @@ def main() -> int:
           f'{sys.version.split()[0]}')
     print('TF32 off: torch.backends.cudnn.allow_tf32 = False, '
           'torch.backends.cuda.matmul.allow_tf32 = False')
-    libs = {}
-    for name in ('cv2', 'PIL', 'yaml', 'msgpack', 'numpy', 'flax', 'torchvision'):
-        try:
-            libs[name] = getattr(__import__(name), '__version__', 'present')
-        except ImportError:
-            libs[name] = 'absent'
-    print(f'phase 1: host libraries {libs} (the port needs cv2, yaml, msgpack, numpy)')
+    print(f'phase 1: host libraries {host_libraries()} (the port needs cv2, yaml, msgpack, '
+          'numpy)')
     t0 = time.perf_counter()
     report = build_all()
     print(f'phase 1: built {sorted(report)} in {time.perf_counter() - t0:.2f} s')

@@ -12,7 +12,9 @@ eval split; a checkpoint in the JAX package's format is written every
 epoch, with the AP in its name when the epoch evaluated.
 
 Resume (``weight.resume``) loads a checkpoint, starts at its step and sets
-the lr schedule there, with Adam's moments fresh, as the JAX trainer does.
+the lr schedule there, with Adam's moments fresh, as the JAX trainer does;
+its epochs see the batches of an uninterrupted run (the JAX trainer starts
+the epoch plan over).
 Not ported yet, and raising: QAT (``quant.switch``), device augmentation,
 host label assignment, the process loader, data parallelism and the
 GPU-resident corpus, pruning and NAS fine-tuning (ROADMAP.md queue 1).
@@ -94,6 +96,10 @@ class Trainer:
         self.init_epoch = self.global_step // self.steps_per_epoch
         if self._resume:
             print(f'resumed at {self.global_step} steps from {self._resume}')
+        # the data of the resumed epoch is that of an uninterrupted run: the
+        # epoch plan and the per-sample augment seeds move on to init_epoch
+        for _ in range(self.init_epoch):
+            self.train_data.init_shuffle()
 
         self.step_fn, self.optimizer = train_step_from_config(
             self.network, self.config, self.steps_per_epoch, device=self.device)

@@ -59,13 +59,37 @@ def test_port_imports_no_jax():
 
 def test_port_sources_name_no_jax():
     """No source line of the port, and none of chip_smoke.py, imports jax or
-    pqdet_tpu."""
+    pqdet_tpu, and none imports a module by a name computed at run time
+    (``__import__``, ``importlib.import_module``), which the line scan
+    could not read."""
     for path in [*(REPO / 'pqdet_tpu_torch').rglob('*.py'), REPO / 'chip_smoke.py']:
         for line in path.read_text().splitlines():
             words = line.split()
             if words[:1] in (['import'], ['from']) and len(words) > 1:
                 top = words[1].split('.')[0]
                 assert top not in ('jax', 'jaxlib', 'pqdet_tpu'), f'{path}: {line}'
+            assert '__import__(' not in line and 'import_module(' not in line, \
+                f'{path}: {line}'
+
+
+def test_chip_smoke_library_probe_imports_nothing():
+    """chip_smoke.py's probe of the host libraries (phase 1) finds them
+    without importing them: in a fresh interpreter it leaves none of them,
+    and no jax or flax, in sys.modules."""
+    code = textwrap.dedent("""
+        import sys
+        import chip_smoke
+        libs = chip_smoke.host_libraries()
+        probed = {name for name, _ in chip_smoke.HOST_LIBRARIES}
+        loaded = sorted(m for m in sys.modules if m.split('.')[0] in
+                        probed | {'jax', 'jaxlib', 'flax', 'pqdet_tpu', 'torch'})
+        print(libs, loaded)
+        sys.exit(1 if loaded or set(libs) != probed
+                 or libs['numpy'] in ('absent', 'present') else 0)
+    """)
+    res = subprocess.run([sys.executable, '-c', code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
 
 
 def _no_cuda(monkeypatch):

@@ -19,6 +19,7 @@ from pqdet_tpu.train.checkpoint import save_checkpoint as jax_save_checkpoint
 from pqdet_tpu.train.trainer import Trainer as JaxTrainer
 from pqdet_tpu_torch.bridge import from_jax_params
 from pqdet_tpu_torch.config import load_config
+from pqdet_tpu_torch.data.train_data import make_batch
 from pqdet_tpu_torch.train.checkpoint import load_checkpoint, load_weights_into
 from pqdet_tpu_torch.train.step import tree_leaves
 from pqdet_tpu_torch.train.trainer import Trainer
@@ -43,7 +44,8 @@ def _opts(tmp_path, n=4, *extra):
 def test_trainer_end_to_end_and_resume(tmp_path, capsys):
     """Two epochs (eval after epoch 1), two checkpoints JAX reads, then a
     third epoch resumed from the epoch-1 checkpoint: step 4, the schedule
-    at 4 with Adam's count and moments fresh, the checkpoint's weights."""
+    at 4 with Adam's count and moments fresh, the checkpoint's weights, and
+    the batches the uninterrupted run would have drawn in its third epoch."""
     opts = _opts(tmp_path)
     trainer = Trainer(load_config(opts=opts), device='cpu')
     trainer.run()
@@ -67,6 +69,14 @@ def test_trainer_end_to_end_and_resume(tmp_path, capsys):
     assert not o['mu'].any() and not o['nu'].any()
     assert all(torch.equal(a, b) for a, b in zip(tree_leaves(resumed.params),
                                                  tree_leaves(trainer.params)))
+    # the resumed epoch's plan and augment draws are the uninterrupted run's
+    # epoch 2 (the first trainer has planned it after its last epoch)
+    rd, td = resumed.train_data, trainer.train_data
+    assert rd._epoch == td._epoch == 2
+    assert (rd._indexes, rd._sizes) == (td._indexes, td._sizes)
+    for idx in rd.batch_indices():
+        rb, tb = make_batch(rd, idx), make_batch(td, idx)
+        assert all(np.array_equal(rb[k], tb[k]) for k in ('image', 'gt'))
     resumed.train()
     assert resumed.global_step == 6 and resumed.opt_state['schedule_count'] == 6
     assert resumed.opt_state['count'] == 2
