@@ -115,7 +115,38 @@ Builds the CUDA kernels from pqdet_tpu_torch/csrc with nvcc (sm_90a), then:
    flushed every 5). Prints seconds, the trainer's data-load and model
    split and images/s per epoch, those of the timed run's epoch 1 against
    phase 10's bare step, the first step at each input size, each
-   evaluation's seconds and the phase's seconds.
+   evaluation's seconds and the phase's seconds;
+12. the QAT arc: Trainer(cfg).run() of yamls/shapes_quant.yaml (full-width
+   mobilenetv2-fpn, 3 classes, B=16, 512x512, lr 5e-5) resumed from phase
+   11's last checkpoint into the quant graph on phase 11's corpus, 3
+   epochs: epoch 0 observes with BN on batch statistics, epoch 1 freezes
+   the observers, epoch 2 BN as well, and the converted int8 model is
+   evaluated after every epoch (Int8Inference kernel mode). Gates: finite
+   losses; 0 kernel launches in the QAT steps and, per eval forward, 58
+   qconv1x1_s8, 26 qdwconv3x3_s8 and 1 decode_heads (counts set to 0
+   before each epoch and each evaluation); all 98 observers initialised
+   with a real range after epoch 0, unchanged bit for bit across epoch 1
+   (while BN moves), and they and the BN statistics unchanged bit for bit
+   across epoch 2; three qat checkpoints; the trainer's int8 eval against
+   the same qparams through the plain versions (at least 30 of 32 images
+   identical and 0.999 of the plain detections found; the edges' zero
+   points printed); the convert CLI (quantize) on the last checkpoint
+   gives the qparams the trainer converted in memory bit for bit, and
+   convert_to_int8 on the card equals the CPU's bit for bit (the BN fold,
+   wq, w_scale, b, the edges' scales and zero points; torch's f32 ops of
+   the fold printed op by op); the bench CLI (eval) on that file prints
+   the trainer's last AP exactly; the card's f32 QAT walk against the
+   CPU's node by node, with BN and observers frozen at 128x128 and with
+   batch statistics and observers updating at 256x256: each node from the
+   CPU walk's inputs to it, its codes, output or loss, new observer and BN
+   statistics, and every grad of its VJP within the QAT_NODE_* bounds,
+   and the whole walk's loss parts (and new observers) within 2x a drift
+   of the same step with its sums in another order (its grads printed:
+   a moved code moves codes downstream, so the whole walk's grads drift).
+   Prints each epoch's and eval's seconds, the CLIs' seconds, and
+   the bf16 QAT step at B=12, 512x512 with observers on and off (ms p50
+   and p90, peak memory, a profiled step's launches and idle share)
+   beside phase 10's fp step.
 
 Each phase draws from its own generator, seeded from SEED and the phase
 number. It prints one JSON line of kernels, then the nvidia-smi line, and
@@ -132,6 +163,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
@@ -828,10 +860,10 @@ def train_config():
     return cfg
 
 
-def train_batch(gen, b, size, dev, max_gt):
+def train_batch(gen, b, size, dev, max_gt, classes=20):
     """b seeded uint8 images at ``size`` and their padded GT boxes (B,
     max_gt, 6): 1 to max_gt boxes an image, 8 px to size/2 a side, centres
-    in the image, 20 classes, mixup weights in [0.5, 1]."""
+    in the image, ``classes`` classes, mixup weights in [0.5, 1]."""
     import torch
     img = torch.randint(0, 256, (b, size, size, 3), generator=gen, dtype=torch.uint8)
     gt = torch.zeros(b, max_gt, 6)
@@ -841,7 +873,7 @@ def train_batch(gen, b, size, dev, max_gt):
         wh = 8 + torch.rand(n, 2, generator=gen) * (size / 2 - 8)
         gt[i, :n, :2] = (c - wh / 2).clamp(0, size)
         gt[i, :n, 2:4] = (c + wh / 2).clamp(0, size)
-        gt[i, :n, 4] = torch.randint(0, 20, (n,), generator=gen).float()
+        gt[i, :n, 4] = torch.randint(0, classes, (n,), generator=gen).float()
         gt[i, :n, 5] = 0.5 + 0.5 * torch.rand(n, generator=gen)
     return {'image': img.to(dev), 'gt': gt.to(dev)}
 
@@ -1212,7 +1244,7 @@ EVAL_AGREEMENT = 0.99
 EVAL_AGREEMENT_ATOL = 1e-3
 
 
-def phase11_trainer(dev, tag, bare_ips):
+def phase11_trainer(dev, tag, bare_ips, tmp):
     """Phase 11: ``Trainer(cfg).run()`` on the card for TRAINER_EPOCHS epochs
     of full-width mobilenetv2-fpn from ``yamls/shapes.yaml`` (batch 16,
     sizes 416-512, lr 4e-4, host augment chain) on a synth_shapes corpus;
@@ -1220,10 +1252,11 @@ def phase11_trainer(dev, tag, bare_ips):
     the trainer's eval against the same pipeline with the plain decode and
     the evaluator against the eval split's own boxes, the predict CLI on an
     eval image, and a timed run of 25-step epochs at B=12, 512x512.
-    ``bare_ips``: phase 10's images/s of the bare step (B=12, 512x512).
-    Raises on any failed gate."""
+    ``bare_ips``: phase 10's images/s of the bare step (B=12, 512x512);
+    ``tmp``: the directory of the corpus and checkpoints, which phase 12
+    reads on. Raises on any failed gate; returns the corpus directory and
+    the last checkpoint of the main run."""
     import re
-    import tempfile
     import numpy as np
     import torch
     from pqdet_tpu_torch.config import load_config
@@ -1231,9 +1264,10 @@ def phase11_trainer(dev, tag, bare_ips):
     from pqdet_tpu_torch.evaluation.evaluator import Evaluator
     from pqdet_tpu_torch.evaluation.predict import build_predict_pipeline, make_batch_predict
     from pqdet_tpu_torch.model.factory import inference_params
-    from pqdet_tpu_torch.train.checkpoint import load_checkpoint, load_weights_into
+    from pqdet_tpu_torch.train.checkpoint import load_weights_into
     from pqdet_tpu_torch.train.step import tree_leaves
     from pqdet_tpu_torch.train.trainer import Trainer
+    from pqdet_tpu_torch.utils.codec import load_checkpoint
 
     t_phase = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
@@ -1285,201 +1319,823 @@ def phase11_trainer(dev, tag, bare_ips):
                                                 'batches': len(self.eval_data)}
             return ap
 
-    with tempfile.TemporaryDirectory(prefix='chip_smoke_phase11_') as tmp:
-        root = os.path.join(tmp, 'shapes')
-        t0 = time.perf_counter()
-        generate(root, n=CORPUS_IMAGES, size=CORPUS_SIZE, seed=SEED, holdout=CORPUS_HOLDOUT,
-                 vary_aspect=True)
-        print(f'phase 11: wrote {CORPUS_IMAGES} synth_shapes images at {CORPUS_SIZE} '
-              f'(sides {CORPUS_SIZE * 6 // 10}-{CORPUS_SIZE * 14 // 10 - 1} px), holdout '
-              f'{CORPUS_HOLDOUT}, in {time.perf_counter() - t0:.2f} s')
-        workers = str(os.cpu_count() or 1)
+    root = os.path.join(tmp, 'shapes')
+    t0 = time.perf_counter()
+    generate(root, n=CORPUS_IMAGES, size=CORPUS_SIZE, seed=SEED, holdout=CORPUS_HOLDOUT,
+             vary_aspect=True)
+    print(f'phase 11: wrote {CORPUS_IMAGES} synth_shapes images at {CORPUS_SIZE} '
+          f'(sides {CORPUS_SIZE * 6 // 10}-{CORPUS_SIZE * 14 // 10 - 1} px), holdout '
+          f'{CORPUS_HOLDOUT}, in {time.perf_counter() - t0:.2f} s')
+    workers = str(os.cpu_count() or 1)
 
-        def config(*extra):
-            return load_config(os.path.join(here, 'yamls', 'shapes.yaml'), [
-                'dataset.train_txt_file', os.path.join(root, 'train.txt'),
-                'dataset.eval_txt_file', os.path.join(root, 'test.txt'),
-                'augment.device', 'off', 'train.max_epochs', str(TRAINER_EPOCHS),
-                'eval.after', '1', 'weight.dir', os.path.join(tmp, 'weights'),
-                'system.num_workers', workers, *extra])
-        cfg = config()
-        t = cfg.train
-        print(f'phase 11: yamls/shapes.yaml with overrides: batch {t.batch_size}, input sizes '
-              f'{t.input_sizes}, lr {t.learning_rate_init}, {cfg.system.compute_dtype}, mixup '
-              f'{cfg.augment.mixup_p}, crop {cfg.augment.crop_p}, hflip {cfg.augment.hflip_p}, '
-              f'{t.max_epochs} epochs, eval after epoch {cfg.eval.after}, {workers} loader '
-              f'threads')
+    def config(*extra):
+        return load_config(os.path.join(here, 'yamls', 'shapes.yaml'), [
+            'dataset.train_txt_file', os.path.join(root, 'train.txt'),
+            'dataset.eval_txt_file', os.path.join(root, 'test.txt'),
+            'augment.device', 'off', 'train.max_epochs', str(TRAINER_EPOCHS),
+            'eval.after', '1', 'weight.dir', os.path.join(tmp, 'weights'),
+            'system.num_workers', workers, *extra])
+    cfg = config()
+    t = cfg.train
+    print(f'phase 11: yamls/shapes.yaml with overrides: batch {t.batch_size}, input sizes '
+          f'{t.input_sizes}, lr {t.learning_rate_init}, {cfg.system.compute_dtype}, mixup '
+          f'{cfg.augment.mixup_p}, crop {cfg.augment.crop_p}, hflip {cfg.augment.hflip_p}, '
+          f'{t.max_epochs} epochs, eval after epoch {cfg.eval.after}, {workers} loader '
+          f'threads')
 
-        trainer = ProbedTrainer(cfg)
-        t0 = time.perf_counter()
-        trainer.run()
-        torch.cuda.synchronize()
-        run_s = time.perf_counter() - t0
-        pr, b = trainer.probe, cfg.train.batch_size
-        fails = []
+    trainer = ProbedTrainer(cfg)
+    t0 = time.perf_counter()
+    trainer.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    pr, b = trainer.probe, cfg.train.batch_size
+    fails = []
 
-        def gate(ok, what):
-            print(f'phase 11: {what}: {"ok" if ok else "FAIL"}')
-            if not ok:
-                fails.append(what)
+    def gate(ok, what):
+        print(f'phase 11: {what}: {"ok" if ok else "FAIL"}')
+        if not ok:
+            fails.append(what)
 
-        print(f'phase 11: Trainer.run() {run_s:.2f} s, {trainer.steps_per_epoch} steps an epoch')
-        for e, ep in sorted(pr['epochs'].items()):
-            ips = ep['steps'] * b / ep['s']
-            print(f'phase 11: {tag} epoch {e}: {ep["s"]:.3f} s, data load {ep["data_load_s"]:.3f} '
-                  f's, model {ep["model_s"]:.3f} s, {ips:.2f} images/s; losses '
-                  f'{[round(x, 3) for x in pr["loss"][e]]}; kernel launches {ep["launches"]}')
-        for size, sec in pr['first_step_s'].items():
-            print(f'phase 11: {tag} first step at {size[0]}x{size[1]}, B={b}: {sec:.3f} s')
-        steady = [ep['steps'] * b / ep['s'] for e, ep in pr['epochs'].items() if e > 0]
-        print(f'phase 11: {tag} trainer images/s (epochs 1-{TRAINER_EPOCHS - 1}, B={b}, sizes '
-              f'{cfg.train.input_sizes}, metrics flushed every {trainer._print_interval} '
-              f'steps): {statistics.mean(steady):.2f}; the bare step of '
-              f'phase 10 (B=12, 512x512, one fixed batch): {bare_ips:.2f}')
-        for e, ev in sorted(pr['evals'].items()):
-            print(f'phase 11: {tag} eval after epoch {e}: {ev["s"]:.3f} s, {ev["batches"]} '
-                  f'batches, AP {ev["AP"]:.6f}, kernel launches {ev["launches"]}')
+    print(f'phase 11: Trainer.run() {run_s:.2f} s, {trainer.steps_per_epoch} steps an epoch')
+    for e, ep in sorted(pr['epochs'].items()):
+        ips = ep['steps'] * b / ep['s']
+        print(f'phase 11: {tag} epoch {e}: {ep["s"]:.3f} s, data load {ep["data_load_s"]:.3f} '
+              f's, model {ep["model_s"]:.3f} s, {ips:.2f} images/s; losses '
+              f'{[round(x, 3) for x in pr["loss"][e]]}; kernel launches {ep["launches"]}')
+    for size, sec in pr['first_step_s'].items():
+        print(f'phase 11: {tag} first step at {size[0]}x{size[1]}, B={b}: {sec:.3f} s')
+    steady = [ep['steps'] * b / ep['s'] for e, ep in pr['epochs'].items() if e > 0]
+    print(f'phase 11: {tag} trainer images/s (epochs 1-{TRAINER_EPOCHS - 1}, B={b}, sizes '
+          f'{cfg.train.input_sizes}, metrics flushed every {trainer._print_interval} '
+          f'steps): {statistics.mean(steady):.2f}; the bare step of '
+          f'phase 10 (B=12, 512x512, one fixed batch): {bare_ips:.2f}')
+    for e, ev in sorted(pr['evals'].items()):
+        print(f'phase 11: {tag} eval after epoch {e}: {ev["s"]:.3f} s, {ev["batches"]} '
+              f'batches, AP {ev["AP"]:.6f}, kernel launches {ev["launches"]}')
 
-        losses = [x for e in pr['loss'] for x in pr['loss'][e]]
-        gate(all(math.isfinite(x) for x in losses), f'all {len(losses)} step losses finite')
-        first, last = statistics.mean(pr['loss'][0]), statistics.mean(pr['loss'][2])
-        gate(last < first, f'mean loss of epoch 2 {last:.4f} below epoch 0 {first:.4f} '
-             f'(ratio {last / first:.4f})')
-        gate(sorted(pr['evals']) == [1, 2] and all(
-            math.isfinite(ev['AP']) and 0.0 <= ev['AP'] <= 1.0 for ev in pr['evals'].values()),
-             f'AP evaluated after epochs {sorted(pr["evals"])}, finite, in [0, 1]')
-        gate(all(not any(ep['launches'].values()) for ep in pr['epochs'].values()),
-             'hand-written kernel launches during training steps: 0')
-        gate(all(ev['launches'] == {**dict.fromkeys(ev['launches'], 0),
-                                    'decode_heads': ev['batches']}
-                 for ev in pr['evals'].values()),
-             'one decode_heads launch per eval batch, no other kernel')
+    losses = [x for e in pr['loss'] for x in pr['loss'][e]]
+    gate(all(math.isfinite(x) for x in losses), f'all {len(losses)} step losses finite')
+    first, last = statistics.mean(pr['loss'][0]), statistics.mean(pr['loss'][2])
+    gate(last < first, f'mean loss of epoch 2 {last:.4f} below epoch 0 {first:.4f} '
+         f'(ratio {last / first:.4f})')
+    gate(sorted(pr['evals']) == [1, 2] and all(
+        math.isfinite(ev['AP']) and 0.0 <= ev['AP'] <= 1.0 for ev in pr['evals'].values()),
+         f'AP evaluated after epochs {sorted(pr["evals"])}, finite, in [0, 1]')
+    gate(all(not any(ep['launches'].values()) for ep in pr['epochs'].values()),
+         'hand-written kernel launches during training steps: 0')
+    gate(all(ev['launches'] == {**dict.fromkeys(ev['launches'], 0),
+                                'decode_heads': ev['batches']}
+             for ev in pr['evals'].values()),
+         'one decode_heads launch per eval batch, no other kernel')
 
-        wdir = os.path.join(tmp, 'weights', cfg.experiment_name)
-        names = sorted(os.listdir(wdir))
-        want = ['model-0.ckpt'] + [f'model-{e}-{pr["evals"][e]["AP"]:.4f}.ckpt'
-                                   for e in sorted(pr['evals'])]
-        gate(names == sorted(want), f'checkpoints {names} (want {sorted(want)})')
-        last_ckpt = load_checkpoint(os.path.join(wdir, want[-1]))
-        lp, ls = load_weights_into(trainer.network.graph, trainer.params, trainer.state,
-                                   last_ckpt)
-        same = all(torch.equal(x, y) for x, y in zip(
-            tree_leaves(lp) + tree_leaves(ls),
-            tree_leaves(trainer.params) + tree_leaves(trainer.state)))
-        gate(same and last_ckpt['step'] == trainer.global_step,
-             f'the last checkpoint (step {last_ckpt["step"]}) loads the trainer\'s params and BN '
-             'state bit for bit')
+    wdir = os.path.join(tmp, 'weights', cfg.experiment_name)
+    names = sorted(os.listdir(wdir))
+    want = ['model-0.ckpt'] + [f'model-{e}-{pr["evals"][e]["AP"]:.4f}.ckpt'
+                               for e in sorted(pr['evals'])]
+    gate(names == sorted(want), f'checkpoints {names} (want {sorted(want)})')
+    last_ckpt = load_checkpoint(os.path.join(wdir, want[-1]))
+    lp, ls = load_weights_into(trainer.network.graph, trainer.params, trainer.state,
+                               last_ckpt)
+    same = all(torch.equal(x, y) for x, y in zip(
+        tree_leaves(lp) + tree_leaves(ls),
+        tree_leaves(trainer.params) + tree_leaves(trainer.state)))
+    gate(same and last_ckpt['step'] == trainer.global_step,
+         f'the last checkpoint (step {last_ckpt["step"]}) loads the trainer\'s params and BN '
+         'state bit for bit')
 
-        # the trainer's eval on the card, held to the same pipeline with the
-        # plain decode on the same params, and the evaluator to the eval
-        # split's own boxes
-        net, dtype = trainer.network, trainer._compute_dtype
-        plain_predict = make_batch_predict(build_predict_pipeline(
-            net, cfg, compute_dtype=dtype, device=dev,
-            apply_fn=lambda p, im: net(p, {}, im, compute_dtype=dtype, plain=True)),
-            inference_params(net, trainer.params, trainer.state))
-        kernel_predict = trainer.make_predict_fn()
-        same, n_img, n_det, n_found, launches = 0, 0, 0, 0, {'kernel': {}, 'plain': {}}
-        for batch in trainer.eval_data.batches(cfg.system.num_workers, cfg.system.prefetch):
-            outs = {}
-            for name, fn in (('kernel', kernel_predict), ('plain', plain_predict)):
-                reset_kernel_launches()
-                with torch.inference_mode():
-                    outs[name] = fn(batch)
-                for k, v in kernel_launches().items():
-                    launches[name][k] = launches[name].get(k, 0) + v
-            for i in range(batch['count']):
-                kd, pd = outs['kernel'][i], outs['plain'][i]
-                near = np.abs(pd[:, None, :] - kd[None, :, :]).max(-1) <= EVAL_AGREEMENT_ATOL
-                same += kd.shape == pd.shape and bool(near.diagonal().all())
-                n_img, n_det, n_found = n_img + 1, n_det + len(pd), n_found + near.any(1).sum()
-        share = n_found / max(n_det, 1)
-        print(f'phase 11: {tag} the trainer\'s eval (decode kernel) against the plain decode '
-              f'on its params: {n_found}/{n_det} plain detections found (share {share:.6f}), '
-              f'{same}/{n_img} images with the same detections in the same order, to '
-              f'{EVAL_AGREEMENT_ATOL}; launches {launches}')
-        n_eval = len(trainer.eval_data)
-        gate(n_det > 0 and share >= EVAL_AGREEMENT
-             and launches['kernel'] == {**dict.fromkeys(launches['kernel'], 0),
-                                        'decode_heads': n_eval}
-             and not any(launches['plain'].values()),
-             f'the trainer\'s eval gives {share:.6f} >= {EVAL_AGREEMENT} of the plain decode\'s '
-             f'detections, with {n_eval} decode_heads launches (plain 0)')
+    # the trainer's eval on the card, held to the same pipeline with the
+    # plain decode on the same params, and the evaluator to the eval
+    # split's own boxes
+    net, dtype = trainer.network, trainer._compute_dtype
+    plain_predict = make_batch_predict(build_predict_pipeline(
+        net, cfg, compute_dtype=dtype, device=dev,
+        apply_fn=lambda p, im: net(p, {}, im, compute_dtype=dtype, plain=True)),
+        inference_params(net, trainer.params, trainer.state))
+    kernel_predict = trainer.make_predict_fn()
+    same, n_img, n_det, n_found, launches = 0, 0, 0, 0, {'kernel': {}, 'plain': {}}
+    for batch in trainer.eval_data.batches(cfg.system.num_workers, cfg.system.prefetch):
+        outs = {}
+        for name, fn in (('kernel', kernel_predict), ('plain', plain_predict)):
+            reset_kernel_launches()
+            with torch.inference_mode():
+                outs[name] = fn(batch)
+            for k, v in kernel_launches().items():
+                launches[name][k] = launches[name].get(k, 0) + v
+        for i in range(batch['count']):
+            kd, pd = outs['kernel'][i], outs['plain'][i]
+            near = np.abs(pd[:, None, :] - kd[None, :, :]).max(-1) <= EVAL_AGREEMENT_ATOL
+            same += kd.shape == pd.shape and bool(near.diagonal().all())
+            n_img, n_det, n_found = n_img + 1, n_det + len(pd), n_found + near.any(1).sum()
+    share = n_found / max(n_det, 1)
+    print(f'phase 11: {tag} the trainer\'s eval (decode kernel) against the plain decode '
+          f'on its params: {n_found}/{n_det} plain detections found (share {share:.6f}), '
+          f'{same}/{n_img} images with the same detections in the same order, to '
+          f'{EVAL_AGREEMENT_ATOL}; launches {launches}')
+    n_eval = len(trainer.eval_data)
+    gate(n_det > 0 and share >= EVAL_AGREEMENT
+         and launches['kernel'] == {**dict.fromkeys(launches['kernel'], 0),
+                                    'decode_heads': n_eval}
+         and not any(launches['plain'].values()),
+         f'the trainer\'s eval gives {share:.6f} >= {EVAL_AGREEMENT} of the plain decode\'s '
+         f'detections, with {n_eval} decode_heads launches (plain 0)')
 
-        def gt_as_detections(batch):
-            return [np.concatenate([bb[:, :4], np.ones((len(bb), 1), np.float32), bb[:, 4:5]], 1)
-                    for bb in batch['bboxes'][:batch['count']]]
-        oracle = Evaluator(gt_as_detections, trainer.eval_data, cfg).evaluate()
-        gate(abs(oracle.AP - 1.0) <= 1e-12,
-             f'the evaluator scores the eval split\'s own boxes at AP {oracle.AP:.12f} (want 1)')
+    def gt_as_detections(batch):
+        return [np.concatenate([bb[:, :4], np.ones((len(bb), 1), np.float32), bb[:, 4:5]], 1)
+                for bb in batch['bboxes'][:batch['count']]]
+    oracle = Evaluator(gt_as_detections, trainer.eval_data, cfg).evaluate()
+    gate(abs(oracle.AP - 1.0) <= 1e-12,
+         f'the evaluator scores the eval split\'s own boxes at AP {oracle.AP:.12f} (want 1)')
 
-        # resume from the epoch-1 checkpoint into a second run dir
-        resumed = ProbedTrainer(config('weight.resume', os.path.join(wdir, want[1]),
-                                       'experiment_name', 'shapes_resumed'))
-        resumed.init_all()
-        lr = resumed.schedule(resumed.opt_state['schedule_count'])
-        gate(resumed.global_step == 2 * trainer.steps_per_epoch
-             and resumed.opt_state['schedule_count'] == resumed.global_step
-             and resumed.opt_state['count'] == 0
-             and lr == trainer.schedule(resumed.global_step),
-             f'resumed at global_step {resumed.global_step}, epoch {resumed.init_epoch}, '
-             f'schedule count {resumed.opt_state["schedule_count"]}, Adam count '
-             f'{resumed.opt_state["count"]}, next lr {lr:.6g} = schedule({resumed.global_step})')
-        resumed.train()
-        rl = resumed.probe['loss'].get(2, [])
-        gate(len(rl) == trainer.steps_per_epoch and all(math.isfinite(x) for x in rl),
-             f'the resumed run\'s epoch 2: losses {[round(x, 3) for x in rl]}')
-        gate(resumed.probe['plans'].get(2) == pr['plans'][2],
-             'the resumed run\'s epoch 2 plan (augment epoch, indices, sizes) is the first '
-             f'run\'s; first step loss {rl[:1]} against the first run\'s '
-             f'{pr["loss"][2][:1]} on the same params and batch')
+    # resume from the epoch-1 checkpoint into a second run dir
+    resumed = ProbedTrainer(config('weight.resume', os.path.join(wdir, want[1]),
+                                   'experiment_name', 'shapes_resumed'))
+    resumed.init_all()
+    lr = resumed.schedule(resumed.opt_state['schedule_count'])
+    gate(resumed.global_step == 2 * trainer.steps_per_epoch
+         and resumed.opt_state['schedule_count'] == resumed.global_step
+         and resumed.opt_state['count'] == 0
+         and lr == trainer.schedule(resumed.global_step),
+         f'resumed at global_step {resumed.global_step}, epoch {resumed.init_epoch}, '
+         f'schedule count {resumed.opt_state["schedule_count"]}, Adam count '
+         f'{resumed.opt_state["count"]}, next lr {lr:.6g} = schedule({resumed.global_step})')
+    resumed.train()
+    rl = resumed.probe['loss'].get(2, [])
+    gate(len(rl) == trainer.steps_per_epoch and all(math.isfinite(x) for x in rl),
+         f'the resumed run\'s epoch 2: losses {[round(x, 3) for x in rl]}')
+    gate(resumed.probe['plans'].get(2) == pr['plans'][2],
+         'the resumed run\'s epoch 2 plan (augment epoch, indices, sizes) is the first '
+         f'run\'s; first step loss {rl[:1]} against the first run\'s '
+         f'{pr["loss"][2][:1]} on the same params and batch')
 
-        img = open(os.path.join(root, 'test.txt')).read().split()[0]
-        t0 = time.perf_counter()
-        res = subprocess.run([sys.executable, '-m', 'pqdet_tpu_torch.cli.predict', '--img', img,
-                              '--weight', os.path.join(wdir, want[-1]), '--yaml',
-                              os.path.join(here, 'yamls', 'shapes.yaml'), '--output',
-                              os.path.join(tmp, 'mark.jpg')],
-                             cwd=here, capture_output=True, text=True, timeout=300)
-        boxes = re.findall(r'box=\(([^)]*)\) score=(\S+)', res.stdout)
-        vals = [float(v) for bx, sc in boxes for v in bx.split(',') + [sc]]
-        head = res.stdout.strip().splitlines()[:4]
-        print(f'phase 11: predict CLI on {os.path.basename(img)}: exit {res.returncode}, '
-              f'{time.perf_counter() - t0:.2f} s; {head}')
-        if res.returncode != 0:
-            print(res.stderr[-3000:])
-        gate(res.returncode == 0 and f'{len(boxes)} detections' in res.stdout
-             and all(math.isfinite(v) for v in vals),
-             f'predict exits 0 with {len(boxes)} finite detections')
+    img = open(os.path.join(root, 'test.txt')).read().split()[0]
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, '-m', 'pqdet_tpu_torch.cli.predict', '--img', img,
+                          '--weight', os.path.join(wdir, want[-1]), '--yaml',
+                          os.path.join(here, 'yamls', 'shapes.yaml'), '--output',
+                          os.path.join(tmp, 'mark.jpg')],
+                         cwd=here, capture_output=True, text=True, timeout=300)
+    boxes = re.findall(r'box=\(([^)]*)\) score=(\S+)', res.stdout)
+    vals = [float(v) for bx, sc in boxes for v in bx.split(',') + [sc]]
+    head = res.stdout.strip().splitlines()[:4]
+    print(f'phase 11: predict CLI on {os.path.basename(img)}: exit {res.returncode}, '
+          f'{time.perf_counter() - t0:.2f} s; {head}')
+    if res.returncode != 0:
+        print(res.stderr[-3000:])
+    gate(res.returncode == 0 and f'{len(boxes)} detections' in res.stdout
+         and all(math.isfinite(v) for v in vals),
+         f'predict exits 0 with {len(boxes)} finite detections')
 
-        # the timed run: 25-step epochs at B=12, 512x512
-        root2 = os.path.join(tmp, 'shapes_timing')
-        t0 = time.perf_counter()
-        generate(root2, n=TIMING_IMAGES, size=CORPUS_SIZE, seed=SEED + 1, holdout=0.0,
-                 vary_aspect=True)
-        gen_s = time.perf_counter() - t0
-        timed = ProbedTrainer(config(
-            'dataset.train_txt_file', os.path.join(root2, 'train.txt'),
-            'train.batch_size', str(TIMING_BATCH), 'train.input_sizes', f'[{CORPUS_SIZE}]',
-            'train.max_epochs', '2', 'eval.after', '2', 'experiment_name', 'shapes_timing'))
-        timed.run()
-        torch.cuda.synchronize()
-        ep = timed.probe['epochs'][1]
-        tl = [x for e in timed.probe['loss'] for x in timed.probe['loss'][e]]
-        ips = ep['steps'] * TIMING_BATCH / ep['s']
-        print(f'phase 11: {tag} timed run ({TIMING_IMAGES} images written in {gen_s:.2f} s, '
-              f'B={TIMING_BATCH}, {CORPUS_SIZE}x{CORPUS_SIZE}, {timed.steps_per_epoch} steps '
-              f'an epoch, metrics flushed every {timed._print_interval} steps): epoch 0 '
-              f'{timed.probe["epochs"][0]["s"]:.3f} s; epoch 1 {ep["s"]:.3f} s, data load '
-              f'{ep["data_load_s"]:.3f} s (share {ep["data_load_s"] / ep["s"]:.4f}), model '
-              f'{ep["model_s"]:.3f} s, {ips:.2f} images/s against the bare step\'s '
-              f'{bare_ips:.2f} (ratio {ips / bare_ips:.4f})')
-        gate(timed.steps_per_epoch >= 25 and all(math.isfinite(x) for x in tl)
-             and not any(ep['launches'].values()),
-             f'the timed run: {len(tl)} finite step losses, 0 kernel launches')
+    # the timed run: 25-step epochs at B=12, 512x512
+    root2 = os.path.join(tmp, 'shapes_timing')
+    t0 = time.perf_counter()
+    generate(root2, n=TIMING_IMAGES, size=CORPUS_SIZE, seed=SEED + 1, holdout=0.0,
+             vary_aspect=True)
+    gen_s = time.perf_counter() - t0
+    timed = ProbedTrainer(config(
+        'dataset.train_txt_file', os.path.join(root2, 'train.txt'),
+        'train.batch_size', str(TIMING_BATCH), 'train.input_sizes', f'[{CORPUS_SIZE}]',
+        'train.max_epochs', '2', 'eval.after', '2', 'experiment_name', 'shapes_timing'))
+    timed.run()
+    torch.cuda.synchronize()
+    ep = timed.probe['epochs'][1]
+    tl = [x for e in timed.probe['loss'] for x in timed.probe['loss'][e]]
+    ips = ep['steps'] * TIMING_BATCH / ep['s']
+    print(f'phase 11: {tag} timed run ({TIMING_IMAGES} images written in {gen_s:.2f} s, '
+          f'B={TIMING_BATCH}, {CORPUS_SIZE}x{CORPUS_SIZE}, {timed.steps_per_epoch} steps '
+          f'an epoch, metrics flushed every {timed._print_interval} steps): epoch 0 '
+          f'{timed.probe["epochs"][0]["s"]:.3f} s; epoch 1 {ep["s"]:.3f} s, data load '
+          f'{ep["data_load_s"]:.3f} s (share {ep["data_load_s"] / ep["s"]:.4f}), model '
+          f'{ep["model_s"]:.3f} s, {ips:.2f} images/s against the bare step\'s '
+          f'{bare_ips:.2f} (ratio {ips / bare_ips:.4f})')
+    gate(timed.steps_per_epoch >= 25 and all(math.isfinite(x) for x in tl)
+         and not any(ep['launches'].values()),
+         f'the timed run: {len(tl)} finite step losses, 0 kernel launches')
     print(f'phase 11: {tag} phase seconds {time.perf_counter() - t_phase:.1f}')
     if fails:
         raise AssertionError(f'phase 11 gates failed: {fails}')
+    return {'root': root, 'ckpt': os.path.join(wdir, want[-1]), 'workers': workers}
+
+
+# the QAT arc (phase 12): yamls/shapes_quant.yaml resumed from phase 11's
+# last fp checkpoint on its corpus; epoch 0 observes with BN on batch
+# statistics, epoch 1 freezes the observers, epoch 2 BN as well
+QAT_EPOCHS = 3
+QAT_OBSERVE_EPOCHS = 1         # quant.disable_observer_after
+QAT_BN_EPOCHS = 2              # quant.freeze_bn_after
+QAT_WARMUP = 3                 # the timed QAT steps: after these ...
+QAT_TIMED_STEPS = 10           # ... these, at B=TIMING_BATCH, TRAIN_SIZE, bf16
+# the card's QAT step against the CPU's (f32, TF32 off, B=PARITY_BATCH),
+# with BN and observers frozen (PARITY_RUNNING_SIZE) and with batch
+# statistics and observers updating (PARITY_SIZE). The whole walk is chaotic
+# in its rounding: a conv's sums in another order move a few fake-quant codes
+# a whole step, and each moved code moves codes downstream, so its grads
+# cannot be held tightly (they are printed beside a drift of the same
+# function with its sums in another order: with BN frozen the card's own with
+# cuDNN off, with batch statistics the CPU's own on the reversed batch, as
+# phase 9 holds the fp step). The gates are node by node, as phase 7 holds
+# the int8 path: each node of the walk (the input edge, each conv with its
+# weight fake-quant, BN and edge fake-quant, each shortcut, route, upsample,
+# and each yolo head's loss) runs on the card and on the CPU from the CPU
+# walk's inputs to it, and its output, new observer and BN statistics and
+# the VJP of a seeded normal cotangent (of its loss, at a head) are held to
+# the CPU's:
+QAT_NODE_CODES_APART = 1e-3    # share of a quantised edge's codes apart
+QAT_NODE_OUT_L2 = 1e-5         # relative L2 of an output with no edge (the heads' convs)
+QAT_NODE_LOSS_RTOL = 1e-5      # max relative error of a head's loss parts
+QAT_NODE_STATE_ATOL = 1e-5     # max |d| / max(1, |v|) of new observers and BN statistics
+QAT_NODE_GRAD_L2 = 1e-4        # relative L2 of each grad (an input's, a param's)
+# the whole walk's loss parts: within QAT_DRIFT_FACTOR x the drift, at least
+# QAT_WALK_PARTS_RTOL (frozen) or 1e-3 (batch statistics); its new
+# observers (batch statistics) within QAT_DRIFT_FACTOR x the CPU's own, at
+# least 1e-6
+QAT_WALK_PARTS_RTOL = 1e-4
+QAT_DRIFT_FACTOR = 2.0
+# per int8 eval forward (phase 7's count)
+INT8_FORWARD_LAUNCHES = {'qconv1x1_s8': 58, 'qdwconv3x3_s8': 26, 'decode_heads': 1}
+INT8_EVAL_SAME_IMAGES = 30     # of the 32 eval images, identical to the plain versions'
+INT8_EVAL_AGREEMENT = 0.999    # share of the plain versions' detections found
+
+
+def qat_step_parts(net, params, state, batch, dev, cfg, train, observing):
+    """Loss parts, grads and new state (BN statistics and observers) of the
+    port's QAT loss (``make_qat_loss_fn``) on ``dev`` in f32, on the CPU."""
+    import torch
+    from pqdet_tpu_torch.model.network import to_device
+    from pqdet_tpu_torch.ops.labels import label_assigner_from_config
+    from pqdet_tpu_torch.train.step import make_qat_loss_fn, value_and_grad
+    p, s, b = to_device(params, dev), to_device(state, dev), to_device(batch, dev)
+    loss_fn = make_qat_loss_fn(net, observing=observing, bn_frozen=not train,
+                               label_fn=label_assigner_from_config(cfg, device=dev))
+    (_, (losses, new_state, _)), grads = value_and_grad(loss_fn, p, s, b)
+    out = {'parts': torch.stack([losses[k][0] for k in
+                                 ('loss', 'giou_loss', 'conf_loss', 'class_loss')]),
+           'grads': grads, 'state': new_state}
+    if dev.type == 'cuda':
+        torch.cuda.synchronize()
+    return to_device(out, torch.device('cpu'))
+
+
+def qat_walk_inputs(net, params, state, batch, cfg, train, observing):
+    """The CPU's f32 QAT walk on ``batch``: (the inputs of every node,
+    targets). {'input': the normalised images, 'x0': their fake-quantised
+    form, node: its output} on the CPU."""
+    import torch
+    from pqdet_tpu_torch.compress.qat import QuantCtx
+    from pqdet_tpu_torch.ops.labels import label_assigner_from_config
+    from pqdet_tpu_torch.ops.preprocess import device_normalize
+    cpu = torch.device('cpu')
+    image = device_normalize(batch['image'])
+    targets = label_assigner_from_config(cfg, device=cpu)(batch['gt'], image.shape[1:3])
+    outs = {'input': image}
+    with torch.no_grad():
+        outs['x0'] = QuantCtx(state['quant'], observing).quantize_input(image)
+        net.forward_train(params, state, image, train=train,
+                          quant_ctx=QuantCtx(state['quant'], observing),
+                          tap=lambda i, t: outs.__setitem__(i, t.detach().clone()))
+    return outs, targets
+
+
+def qat_node_run(net, i, params, state, inputs, targets, dev, train, observing):
+    """Node ``i`` of the f32 QAT walk ('input': the input edge) on ``dev``
+    from ``inputs`` ({'x' or a ref index: CPU tensor}) with its params, BN
+    state and observer: (output, {'quant' / 'bn': its new observer / BN
+    statistics}, {leaf: grad}), on the CPU. A quantised edge's output is its
+    uint8 codes (as f32); a yolo node's, its loss parts, and its grads are
+    those of its loss; any other node's grads are the VJP of a normal
+    cotangent seeded by ``i``."""
+    import torch
+    from pqdet_tpu_torch.compress.qat import QuantCtx, act_qparams
+    from pqdet_tpu_torch.model.network import to_device
+    cpu = torch.device('cpu')
+    key = str(i)
+    leaves = {}
+
+    def leaf(t, name):
+        if isinstance(t, dict):
+            return {k: leaf(v, f'{name}/{k}') for k, v in t.items()}
+        leaves[name] = t.detach().to(dev).requires_grad_(True)
+        return leaves[name]
+
+    xs = {k: leaf(v, f'input {k}') for k, v in inputs.items()}
+    p = {key: leaf(params[key], 'param')} if key in params else {}
+    s = to_device({k: v for k, v in state.items() if k in (key, 'quant')}, dev)
+    ctx = QuantCtx(s['quant'], observing=observing)
+    new = {}
+    if i == 'input':
+        out = ctx.quantize_input(xs['x'])
+        yolo = False
+    else:
+        node = net.graph.nodes[i]
+        yolo = node.kind == 'yolo'
+        out, _, updates, losses, _ = net._walk(
+            [node], p, s, xs.get('x'), {r: xs[r] for r in node.refs}, None,
+            quant_ctx=ctx, targets=tuple(t.to(dev) for t in targets) if yolo else None,
+            train=train)
+        if key in updates:
+            new['bn'] = updates[key]
+    if yolo:
+        parts = torch.cat(losses[0])
+        shown, out, cot = parts.detach(), parts[0], None
+    else:
+        shown = out.detach()
+        cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(
+            0 if i == 'input' else i + 1)).to(dev)
+    if key in s['quant']:
+        obs = ctx.new_obs[key]
+        if observing:
+            new['quant'] = obs
+        scale, zp = act_qparams(obs)        # (q - zp) * scale back to q, exactly
+        shown = torch.round(shown / scale + zp)
+    names = list(leaves)
+    grads = torch.autograd.grad(out, [leaves[n] for n in names], cot, allow_unused=True)
+    grads = {n: g for n, g in zip(names, grads) if g is not None}
+    if dev.type == 'cuda':
+        torch.cuda.synchronize()
+    return shown.to(cpu), to_device(new, cpu), to_device(grads, cpu)
+
+
+def qat_node_parity(net, params, state, batch, dev, cfg, train, observing):
+    """The QAT walk node by node (the comment above QAT_NODE_CODES_APART):
+    {check: (worst reading, its node, bound)} over every node of the walk."""
+    import torch
+    from pqdet_tpu_torch.model.network import to_device
+    cpu = torch.device('cpu')
+    params, state = to_device(params, cpu), to_device(state, cpu)
+    ins, targets = qat_walk_inputs(net, params, state, batch, cfg, train, observing)
+    worst = {}
+
+    def note(what, err, node, bound):
+        if what not in worst or err > worst[what][0] or math.isnan(err):
+            worst[what] = (err, node, bound)
+
+    def rel_l2(a, b):
+        d, n = (a - b).norm().item(), b.norm().item()
+        return d / n if n > 0 else (0.0 if d == 0 else math.inf)
+
+    def state_gap(a, b):
+        return max(((x - y).abs() / y.abs().clamp_min(1.0)).max().item()
+                   for k in b for x, y in [(a[k].float(), b[k].float())])
+
+    quant = state['quant']
+    for node in ['input', *net.graph.nodes]:
+        i = node if node == 'input' else node.index
+        if i == 'input':
+            inputs = {'x': ins['input']}
+        else:
+            inputs = {r: ins[r] for r in node.refs}
+            if node.kind != 'route':
+                inputs['x'] = ins['x0'] if i == 0 else ins[i - 1]
+        card = qat_node_run(net, i, params, state, inputs, targets, dev, train, observing)
+        host = qat_node_run(net, i, params, state, inputs, targets, cpu, train, observing)
+        (a, an, ag), (b, bn, bg) = card, host
+        if str(i) in quant:
+            note('quantised edge, share of codes apart', (a != b).float().mean().item(), i,
+                 QAT_NODE_CODES_APART)
+        elif i != 'input' and node.kind == 'yolo':
+            note('head loss parts, max rel err',
+                 ((a - b).abs() / b.abs().clamp_min(1e-30)).max().item(), i, QAT_NODE_LOSS_RTOL)
+        else:
+            note('output with no edge, relative L2', rel_l2(a, b), i, QAT_NODE_OUT_L2)
+        if set(an) != set(bn):
+            note('new state entries', math.inf, i, 0.0)
+        for k in bn:
+            note(f'new {"observer" if k == "quant" else "BN statistics"}, max |d| / max(1, |v|)',
+                 state_gap(an[k], bn[k]), i, QAT_NODE_STATE_ATOL)
+        if set(ag) != set(bg):
+            note('grads present', math.inf, i, 0.0)
+        for n in bg:
+            kind = 'input' if n.startswith('input') else 'param'
+            note(f'{kind} grads, relative L2', rel_l2(ag[n], bg[n]), f'{i} ({n})',
+                 QAT_NODE_GRAD_L2)
+    return worst
+
+
+def phase12_parity(net, params, state, gen, dev, cfg):
+    """Phase 12.3: the card's QAT step against the CPU's on the same batch,
+    params and observers (f32), BN and observers frozen and then batch
+    statistics with observers updating: node by node (``qat_node_parity``,
+    every bound printed), and the whole walk's loss parts and new observers
+    within QAT_DRIFT_FACTOR x a drift of the same step with its sums in
+    another order (the comment above QAT_NODE_CODES_APART); the whole
+    walk's grads are printed beside their drift. Returns the failed
+    checks."""
+    import torch
+    from pqdet_tpu_torch.train.step import tree_leaves
+    cpu = torch.device('cpu')
+    fails = []
+    nc = len(cfg.dataset.classes)
+
+    def check(what, err, bound, node=None):
+        ok = err <= bound
+        at = '' if node is None else f' at node {node}'
+        print(f'phase 12: card vs CPU f32 QAT step B={PARITY_BATCH} {what} {err:.4g}{at} '
+              f'(bound {bound:.4g}) {"ok" if ok else "FAIL"}')
+        if not ok:
+            fails.append(what)
+
+    def flat(tree):
+        return torch.cat([t.reshape(-1) for t in tree_leaves(tree)])
+
+    def rel(a, b):
+        return ((a - b).abs() / b.abs()).max().item()
+
+    def l2(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    def obs_gap(a, b):
+        return max(abs(float(a[e][k]) - float(o[k])) / max(1.0, abs(float(o[k])))
+                   for e, o in b.items() for k in ('min', 'max'))
+
+    for size, train in ((PARITY_RUNNING_SIZE, False), (PARITY_SIZE, True)):
+        what = (f'{size}x{size} ' + ('batch statistics, observers updating' if train else
+                                    'BN and observers frozen'))
+        batch = train_batch(gen, PARITY_BATCH, size, cpu, cfg.model.max_gt_boxes, nc)
+        t0 = time.perf_counter()
+        worst = qat_node_parity(net, params, state, batch, dev, cfg, train, train)
+        print(f'phase 12: {what}: every node on the card and the CPU from the CPU\'s inputs '
+              f'{time.perf_counter() - t0:.2f} s')
+        for k, (err, node, bound) in worst.items():
+            check(f'{what}, node by node: {k}, worst', err, bound, node)
+        t0 = time.perf_counter()
+        card = qat_step_parts(net, params, state, batch, dev, cfg, train, train)
+        host = qat_step_parts(net, params, state, batch, cpu, cfg, train, train)
+        if train:
+            own = qat_step_parts(net, params, state, {k: v.flip(0) for k, v in batch.items()},
+                                 cpu, cfg, True, True)
+            drift, yard_of = 'the CPU\'s own on the reversed batch', host
+        else:
+            with torch.backends.cudnn.flags(enabled=False):
+                own = qat_step_parts(net, params, state, batch, dev, cfg, False, False)
+            drift, yard_of = 'the card\'s own with cuDNN off', card
+        print(f'phase 12: {what}: the whole step on the card, the CPU and {drift} '
+              f'{time.perf_counter() - t0:.2f} s')
+        yard = rel(own['parts'], yard_of['parts'])
+        check(f'{what}, whole walk: loss and parts, max rel err ({drift} {yard:.4g})',
+              rel(card['parts'], host['parts']),
+              max(1e-3 if train else QAT_WALK_PARTS_RTOL, QAT_DRIFT_FACTOR * yard))
+        g, h, o = (flat(x['grads']) for x in (card, host, own))
+        print(f'phase 12: card vs CPU f32 QAT step B={PARITY_BATCH} {what}, whole walk: grads, '
+              f'relative L2 distance {l2(g, h):.4g} ({drift} {l2(o, flat(yard_of["grads"])):.4g}; '
+              'not a gate: the rounding cascade, held node by node above)')
+        if train:
+            yard = obs_gap(own['state']['quant'], host['state']['quant'])
+            check(f'{what}, whole walk: new observers, max |d| / max(1, |v|) ({drift} '
+                  f'{yard:.4g})', obs_gap(card['state']['quant'], host['state']['quant']),
+                  max(1e-6, QAT_DRIFT_FACTOR * yard))
+    return fails
+
+
+def fold_stages_apart(net, params, state, dev):
+    """Where the BN fold (``layers.fold_bn_into_conv``) rounds apart on
+    ``dev``: each of its ops run on ``dev`` and on the CPU from the CPU's
+    inputs to it, over every conv with BN. {op: (elements, apart, of those
+    the card's equal to the op in f64 rounded to f32, the CPU's equal to
+    it)}; for these ops the f64 result rounded to f32 is the correctly
+    rounded f32 one."""
+    import torch
+    from pqdet_tpu_torch.model.layers import BN_EPS
+    eps = float(torch.tensor(BN_EPS, dtype=torch.float32))
+    ops = [('var + eps', lambda t: t['var'] + eps, 'v'),
+           ('sqrt', lambda t: torch.sqrt(t['v']), 'r'),
+           ('gamma / sqrt', lambda t: t['gamma'] / t['r'], 'scale'),
+           ('w * scale', lambda t: t['w'] * t['scale'][:, None, None, None], 'nw'),
+           ('0 - mean', lambda t: torch.zeros_like(t['mean']) - t['mean'], 'b0'),
+           ('(0 - mean) * scale', lambda t: t['b0'] * t['scale'], 'b1'),
+           ('+ beta', lambda t: t['b1'] + t['beta'], 'nb')]
+    counts = {name: [0, 0, 0, 0] for name, _, _ in ops}
+    for node in net.graph.nodes:
+        key = str(node.index)
+        p = params.get(key)
+        if node.kind != 'convolutional' or p is None or 'bn' not in p:
+            continue
+        t = {'w': p['w'].cpu(), 'gamma': p['bn']['gamma'].cpu(), 'beta': p['bn']['beta'].cpu(),
+             'mean': state[key]['mean'].cpu(), 'var': state[key]['var'].cpu()}
+        for name, fn, out in ops:
+            host = fn(t)
+            card = fn({k: v.to(dev) for k, v in t.items()}).cpu()
+            exact = fn({k: v.double() for k, v in t.items()}).float()
+            apart = card != host
+            c = counts[name]
+            c[0] += host.numel()
+            c[1] += int(apart.sum())
+            c[2] += int((card[apart] == exact[apart]).sum())
+            c[3] += int((host[apart] == exact[apart]).sum())
+            t[out] = host
+    return {k: tuple(v) for k, v in counts.items()}
+
+
+def phase12_timings(net, params, state, gen, dev, cfg, tag, fp):
+    """Phase 12.4: the bf16 QAT step at TIMING_BATCH, TRAIN_SIZE (phase 10's
+    fp step's shape) with observers on and off, BN on batch statistics:
+    ms per step p50 and p90 (CUDA events, synchronised each step, after
+    QAT_WARMUP steps), peak memory, kernel launches (0) and a profiled step
+    (host launches, device idle share). ``fp``: phase 10's p50 and p90.
+    Returns the failed checks."""
+    import torch
+    from pqdet_tpu_torch.ops.labels import label_assigner_from_config
+    from pqdet_tpu_torch.train.step import make_optimizer, make_qat_train_step
+    fails = []
+    nc = len(cfg.dataset.classes)
+    batch = train_batch(gen, TIMING_BATCH, TRAIN_SIZE, dev, cfg.model.max_gt_boxes, nc)
+    labels = label_assigner_from_config(cfg, device=dev)
+    opt = make_optimizer(lambda k: cfg.train.learning_rate_init)
+    for observing in (True, False):
+        step = make_qat_train_step(net, opt, observing=observing, bn_frozen=False,
+                                   compute_dtype=torch.bfloat16, label_fn=labels)
+        p, s, o = params, state, opt.init(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_kernel_launches()
+        ms, losses = [], []
+        for _ in range(QAT_WARMUP + QAT_TIMED_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            p, s, o, m = step(p, s, o, batch)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+            losses.append(float(m['loss']))
+        peak = torch.cuda.max_memory_allocated()
+        launches = kernel_launches()
+        timed = sorted(ms[QAT_WARMUP:])
+        p50, p90 = statistics.median(timed), timed[int(0.9 * (len(timed) - 1))]
+        on = 'on' if observing else 'off'
+        print(f'phase 12: {tag} QAT step mobilenetv2-fpn (quant graph, {nc} classes) '
+              f'{TRAIN_SIZE}x{TRAIN_SIZE} B={TIMING_BATCH} bf16, observers {on}, BN on batch '
+              f'statistics ({QAT_TIMED_STEPS} steps after {QAT_WARMUP} of warm-up, CUDA events, '
+              f'synchronised each step): p50 {p50:.3f} ms, p90 {p90:.3f} ms, '
+              f'{TIMING_BATCH * 1000.0 / p50:.2f} images/s; peak memory {peak / 2**30:.3f} GiB; '
+              f'against phase 10\'s fp step p50 {fp["p50"]:.3f} ms, p90 {fp["p90"]:.3f} ms '
+              f'(ratio {p50 / fp["p50"]:.3f}); losses {[round(x, 3) for x in losses]}; kernel '
+              f'launches {launches}')
+        if not all(math.isfinite(x) for x in losses) or any(launches.values()):
+            fails.append(f'timed QAT steps, observers {on}: finite losses, 0 kernel launches')
+        profile_calls(lambda: step(p, s, o, batch), tag, 'phase 12',
+                      f'step QAT B={TIMING_BATCH} observers {on}')
+    return fails
+
+
+def phase12_qat(dev, tag, tmp, corpus, fp):
+    """Phase 12: the QAT arc on the card. ``Trainer(cfg).run()`` of
+    ``yamls/shapes_quant.yaml`` (full-width mobilenetv2-fpn, 3 classes, B=16,
+    512x512, lr 5e-5) resumed from phase 11's last fp checkpoint on its
+    corpus (``corpus``, phase 11's return value, in ``tmp``) for QAT_EPOCHS
+    epochs with the observers frozen from epoch QAT_OBSERVE_EPOCHS and BN
+    from QAT_BN_EPOCHS, the converted int8 model evaluated after every
+    epoch; then the trainer's int8 eval against the plain versions, the
+    convert and bench CLIs on its last checkpoint, the QAT step's timings
+    (``fp``: phase 10's) and the card's QAT step against the CPU's.
+    Raises on any failed gate."""
+    import re
+    from collections import Counter
+    import numpy as np
+    import torch
+    from pqdet_tpu_torch.compress.qat import act_qparams
+    from pqdet_tpu_torch.compress.quantized import (Int8Inference, convert_to_int8,
+                                                    load_quantized)
+    from pqdet_tpu_torch.config import load_config
+    from pqdet_tpu_torch.evaluation.predict import build_predict_pipeline, make_batch_predict
+    from pqdet_tpu_torch.model.network import fuse_params, to_device
+    from pqdet_tpu_torch.utils.codec import load_checkpoint
+    from pqdet_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    yaml_path = os.path.join(here, 'yamls', 'shapes_quant.yaml')
+    root = corpus['root']
+    data = ['dataset.train_txt_file', os.path.join(root, 'train.txt'),
+            'dataset.eval_txt_file', os.path.join(root, 'test.txt'),
+            'system.num_workers', corpus['workers']]
+    wdir_root = os.path.join(tmp, 'weights_qat')
+    cfg = load_config(yaml_path, data + [
+        'weight.dir', wdir_root, 'weight.resume', corpus['ckpt'],
+        'train.max_epochs', str(QAT_EPOCHS), 'quant.disable_observer_after',
+        str(QAT_OBSERVE_EPOCHS), 'quant.freeze_bn_after', str(QAT_BN_EPOCHS), 'eval.after', '0'])
+    t, q = cfg.train, cfg.quant
+    print(f'phase 12: yamls/shapes_quant.yaml with overrides: resume {corpus["ckpt"]} '
+          f'(clear_history {cfg.weight.clear_history}), batch {t.batch_size}, input sizes '
+          f'{t.input_sizes}, lr {t.learning_rate_init}, {cfg.system.compute_dtype}, mixup '
+          f'{cfg.augment.mixup_p}, {t.max_epochs} epochs, observers until epoch '
+          f'{q.disable_observer_after}, BN frozen from epoch {q.freeze_bn_after}, eval after '
+          f'every epoch from {cfg.eval.after}')
+
+    def snapshot(state):
+        return {k: {kk: vv.clone() for kk, vv in v.items()} if k != 'quant' else
+                {e: {kk: vv.clone() for kk, vv in o.items()} for e, o in v.items()}
+                for k, v in state.items()}
+
+    def same(a, b):
+        return all(torch.equal(a[k][kk], b[k][kk]) for k in b for kk in b[k])
+
+    class ProbedQAT(Trainer):
+        """The trainer with probes: per-step losses, the phase, kernel
+        launches, seconds and the state at both ends of each epoch, and
+        kernel launches, seconds and AP of each evaluation."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.probe = {'loss': {}, 'epochs': {}, 'evals': {}}
+
+        def _make_step(self):
+            step, opt = super()._make_step()
+
+            def probed(params, state, opt_state, batch, rng=None):
+                out = step(params, state, opt_state, batch, rng)
+                self.probe['loss'].setdefault(self._epoch, []).append(out[3]['loss'])
+                return out
+            return probed, opt
+
+        def train_epoch(self, epoch):
+            self._epoch = epoch
+            before = snapshot(self.state)
+            reset_kernel_launches()
+            t0 = time.perf_counter()
+            split = super().train_epoch(epoch)
+            self.probe['epochs'][epoch] = {
+                's': time.perf_counter() - t0, 'launches': kernel_launches(),
+                'steps': self.steps_per_epoch, 'phase': (self._observing, self._bn_frozen),
+                'before': before, 'after': snapshot(self.state), **split}
+            self.probe['loss'][epoch] = [float(x) for x in self.probe['loss'][epoch]]
+            return split
+
+        def evaluate(self):
+            reset_kernel_launches()
+            t0 = time.perf_counter()
+            ap = super().evaluate()
+            torch.cuda.synchronize()
+            self.probe['evals'][self._epoch] = {'s': time.perf_counter() - t0, 'AP': ap.AP,
+                                                'launches': kernel_launches(),
+                                                'batches': len(self.eval_data)}
+            return ap
+
+    trainer = ProbedQAT(cfg)
+    t0 = time.perf_counter()
+    trainer.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    pr, b = trainer.probe, cfg.train.batch_size
+    fails = []
+
+    def gate(ok, what):
+        print(f'phase 12: {what}: {"ok" if ok else "FAIL"}')
+        if not ok:
+            fails.append(what)
+
+    print(f'phase 12: Trainer.run() (QAT) {run_s:.2f} s, {trainer.steps_per_epoch} steps an '
+          'epoch')
+    for e, ep in sorted(pr['epochs'].items()):
+        print(f'phase 12: {tag} QAT epoch {e} (observers {"on" if ep["phase"][0] else "off"}, '
+              f'BN {"frozen" if ep["phase"][1] else "on batch statistics"}): {ep["s"]:.3f} s, '
+              f'data load {ep["data_load_s"]:.3f} s, model {ep["model_s"]:.3f} s, '
+              f'{ep["steps"] * b / ep["s"]:.2f} images/s; losses '
+              f'{[round(x, 3) for x in pr["loss"][e]]}; kernel launches {ep["launches"]}')
+    for e, ev in sorted(pr['evals'].items()):
+        print(f'phase 12: {tag} int8 eval after QAT epoch {e} (convert, then Int8Inference '
+              f'kernel mode): {ev["s"]:.3f} s, {ev["batches"]} batches, AP {ev["AP"]:.6f}, '
+              f'kernel launches {ev["launches"]}')
+
+    losses = [x for e in pr['loss'] for x in pr['loss'][e]]
+    gate(all(math.isfinite(x) for x in losses), f'all {len(losses)} QAT step losses finite')
+    phases = {e: ep['phase'] for e, ep in pr['epochs'].items()}
+    gate(phases == {0: (True, False), 1: (False, False), 2: (False, True)},
+         f'the phases (observing, BN frozen) of the epochs: {phases}')
+    gate(all(not any(ep['launches'].values()) for ep in pr['epochs'].values()),
+         'hand-written kernel launches during QAT steps: 0')
+    gate(sorted(pr['evals']) == list(range(QAT_EPOCHS)) and all(
+        ev['launches'] == {**dict.fromkeys(ev['launches'], 0),
+                           **{k: n * ev['batches'] for k, n in INT8_FORWARD_LAUNCHES.items()}}
+        and math.isfinite(ev['AP']) and 0.0 <= ev['AP'] <= 1.0
+        for ev in pr['evals'].values()),
+         f'an int8 eval after every epoch, AP finite in [0, 1], launching per forward '
+         f'{INT8_FORWARD_LAUNCHES} and no fused-IR kernel')
+    obs0 = pr['epochs'][0]['after']['quant']
+    ranges = [float(act_qparams(o)[0]) for o in obs0.values()]
+    ready = sum(bool(o['initialized']) and float(o['max']) > float(o['min'])
+                for o in obs0.values())
+    gate(len(obs0) == 98 and ready == 98 and min(ranges) > 1e-6,
+         f'after epoch 0: {ready} of {len(obs0)} observers initialised with max > min, '
+         f'scales {min(ranges):.4g} to {max(ranges):.4g}')
+    e1, e2 = pr['epochs'][1], pr['epochs'][2]
+    bn1 = {k: v for k, v in e1['after'].items() if k != 'quant'}
+    moved = sum(not torch.equal(bn1[k]['mean'], e1['before'][k]['mean']) for k in bn1)
+    gate(same(e1['after']['quant'], e1['before']['quant']) and moved == len(bn1),
+         f'across epoch 1 the observers are unchanged bit for bit, and {moved} of {len(bn1)} '
+         'BN running means moved')
+    gate(same(e2['after']['quant'], e2['before']['quant'])
+         and same({k: v for k, v in e2['after'].items() if k != 'quant'},
+                  {k: v for k, v in e2['before'].items() if k != 'quant'}),
+         'across epoch 2 the observers and the BN running statistics are unchanged bit for bit')
+    wdir = os.path.join(wdir_root, cfg.experiment_name)
+    names = sorted(os.listdir(wdir))
+    want = sorted(f'model-{e}-{pr["evals"][e]["AP"]:.4f}.ckpt' for e in range(QAT_EPOCHS))
+    last = os.path.join(wdir, want[-1])
+    gate(names == want and load_checkpoint(last)['type'] == 'qat',
+         f'qat checkpoints {names} (want {want})')
+
+    # the trainer's int8 eval (the kernels) against the plain versions on the
+    # same qparams
+    net = trainer.network
+    qparams = convert_to_int8(net, trainer.params, trainer.state)
+    zps = Counter(int(zp) for _, zp in qparams['act'].values())
+    print(f'phase 12: zero points of the {len(qparams["act"])} edges after training: '
+          f'{dict(sorted(zps.items()))}')
+    # the card's conversion against the CPU's: the BN fold (its root in f64,
+    # layers.fold_bn_into_conv), the weights' int8 codes and scales and the
+    # edges' scales and zero points (both divide with ieee_div)
+    cpu = torch.device('cpu')
+    host_p, host_s = to_device(trainer.params, cpu), to_device(trainer.state, cpu)
+    host_fused, host_q = fuse_params(net, host_p, host_s), convert_to_int8(net, host_p, host_s)
+    card_fused = fuse_params(net, trainer.params, trainer.state)
+    fold_apart = {f: sum(int((card_fused[k][f].cpu() != host_fused[k][f]).sum())
+                         for k in host_fused if f in host_fused[k]) for f in ('w', 'b')}
+    q_apart = {f: sum(int((qparams['layers'][k][f].cpu() != host_q['layers'][k][f]).sum())
+                      for k in host_q['layers'] if f in host_q['layers'][k])
+               for f in ('wq', 'w_scale', 'b')}
+    print('phase 12: torch\'s f32 ops of the BN fold on the card and the CPU from the CPU\'s '
+          'inputs (elements, apart, of those the card\'s correctly rounded, the CPU\'s): '
+          f'{fold_stages_apart(net, host_p, host_s, dev)}')
+    gate(host_q['act'] == qparams['act'] and not any(q_apart.values())
+         and not any(fold_apart.values()),
+         f'convert_to_int8 on the card equals the CPU\'s bit for bit: elements apart in the BN '
+         f'fold {fold_apart}, in the qparams {q_apart}, and the edges\' scales and zero points '
+         'equal')
+    plain_inf = Int8Inference(net, mode='kernel')
+    plain_predict = make_batch_predict(build_predict_pipeline(
+        net, cfg, device=dev, apply_fn=lambda p, x: plain_inf.apply(p, x, plain=True)),
+        Int8Inference.prepare(qparams, mode='kernel'))
+    kernel_predict = trainer.make_predict_fn()
+    n_same, n_img, n_det, n_found, launches = 0, 0, 0, 0, {'kernel': {}, 'plain': {}}
+    for batch in trainer.eval_data.batches(cfg.system.num_workers, cfg.system.prefetch):
+        outs = {}
+        for name, fn in (('kernel', kernel_predict), ('plain', plain_predict)):
+            reset_kernel_launches()
+            with torch.inference_mode():
+                outs[name] = fn(batch)
+            for k, v in kernel_launches().items():
+                launches[name][k] = launches[name].get(k, 0) + v
+        for i in range(batch['count']):
+            kd, pd = outs['kernel'][i], outs['plain'][i]
+            near = np.abs(pd[:, None, :] - kd[None, :, :]).max(-1) <= EVAL_AGREEMENT_ATOL
+            n_same += kd.shape == pd.shape and bool(near.diagonal().all())
+            n_img, n_det, n_found = n_img + 1, n_det + len(pd), n_found + near.any(1).sum()
+    share = n_found / max(n_det, 1)
+    n_eval = len(trainer.eval_data)
+    print(f'phase 12: {tag} the trainer\'s int8 eval (kernels) against the plain versions on '
+          f'its qparams: {n_found}/{n_det} plain detections found (share {share:.6f}), '
+          f'{n_same}/{n_img} images with the same detections in the same order, to '
+          f'{EVAL_AGREEMENT_ATOL}; launches {launches}')
+    gate(n_det > 0 and share >= INT8_EVAL_AGREEMENT and n_same >= INT8_EVAL_SAME_IMAGES
+         and launches['kernel'] == {**dict.fromkeys(launches['kernel'], 0),
+                                    **{k: n * n_eval for k, n in INT8_FORWARD_LAUNCHES.items()}}
+         and not any(launches['plain'].values()),
+         f'the int8 eval gives {n_same} >= {INT8_EVAL_SAME_IMAGES} images and {share:.6f} >= '
+         f'{INT8_EVAL_AGREEMENT} of the plain versions\' detections')
+
+    # the user's arc: convert quantize, then bench eval, as subprocesses
+    int8_path = os.path.join(tmp, 'shapes_qat_int8.ckpt')
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, '-m', 'pqdet_tpu_torch.cli.convert', 'quantize',
+                          '--weight', last, '--out', int8_path],
+                         cwd=here, capture_output=True, text=True, timeout=300)
+    convert_s = time.perf_counter() - t0
+    print(f'phase 12: {tag} convert quantize CLI: exit {res.returncode}, {convert_s:.2f} s; '
+          f'{res.stdout.strip().splitlines()[-1:]}')
+    if res.returncode != 0:
+        print(res.stderr[-3000:])
+    ok = res.returncode == 0
+    if ok:
+        _, loaded = load_quantized(int8_path, device=dev)
+        ok = loaded['act'] == qparams['act'] and sorted(loaded['layers']) == sorted(
+            qparams['layers']) and all(
+            torch.equal(v, loaded['layers'][k][kk]) for k, p in qparams['layers'].items()
+            for kk, v in p.items())
+    gate(ok, 'convert quantize on the last qat checkpoint gives the qparams the trainer '
+         'converted in memory, bit for bit')
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, '-m', 'pqdet_tpu_torch.cli.bench', 'eval',
+                          '--weight', int8_path, '--yaml', yaml_path, *data],
+                         cwd=here, capture_output=True, text=True, timeout=300)
+    bench_s = time.perf_counter() - t0
+    found = re.findall(r'^AP (\S+)$', res.stdout, re.M)
+    bench_ap = float(found[-1]) if found else float('nan')
+    print(f'phase 12: {tag} bench eval CLI on the quant checkpoint: exit {res.returncode}, '
+          f'{bench_s:.2f} s, AP {bench_ap!r} (the trainer\'s last int8 AP '
+          f'{trainer.AP.AP!r})')
+    if res.returncode != 0:
+        print(res.stderr[-3000:])
+    gate(res.returncode == 0 and 'mAPs' in res.stdout and bench_ap == trainer.AP.AP,
+         'bench eval on the quant checkpoint prints the trainer\'s last int8 AP exactly')
+
+    # timed before the parity, whose CPU walks would share the host's cores
+    fails += phase12_timings(net, trainer.params, trainer.state, phase_gen(12), dev, cfg, tag,
+                             fp)
+    reset_kernel_launches()
+    fails += phase12_parity(net, trainer.params, trainer.state, phase_gen(12), dev, cfg)
+    gate(not any(kernel_launches().values()), 'kernel launches in the QAT walks on the card: 0')
+    print(f'phase 12: {tag} phase seconds {time.perf_counter() - t_phase:.1f}')
+    if fails:
+        raise AssertionError(f'phase 12 gates failed: {fails}')
 
 
 def main() -> int:
@@ -1780,8 +2436,12 @@ def main() -> int:
     stamp('phase 10 starts')
     tt = phase10_training_timings(train_run, tag)
     stamp('phase 11 starts')
-    phase11_trainer(dev, tag, train_run['cfg'].train.batch_size * 1000.0 / tt['p50'])
-    stamp('phase 11 ends')
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_trainer_') as tmp:
+        corpus = phase11_trainer(dev, tag, train_run['cfg'].train.batch_size * 1000.0 / tt['p50'],
+                                 tmp)
+        stamp('phase 12 starts')
+        phase12_qat(dev, tag, tmp, corpus, tt)
+    stamp('phase 12 ends')
 
     kernels = [
         {'name': 'decode_heads', 'route': 'triton',

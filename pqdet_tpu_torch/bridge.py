@@ -11,10 +11,13 @@ keeping its own copy of the HWIO -> OIHW rule of
 inverse: the port's (params, state) as numpy pytrees in JAX's layout, the
 form a checkpoint holds (``train/checkpoint.py``).
 
+A QAT state's observers (``state['quant']``: per edge 0-d f32 ``min``
+and ``max`` and a 0-d bool ``initialized``) cross with the rest:
+``from_jax_quant_state`` and ``to_jax_quant_state`` carry them alone, and
+both params functions carry them when the state has them.
 ``from_jax_qparams`` carries the output of the JAX package's
 ``convert_to_int8`` (int8 HWIO ``wq``, ``w_scale``, ``b``, and the ``act``
-dict of edge (scale, zero point)) and ``from_jax_quant_state`` its QAT
-observers (``state['quant']``: ``min``, ``max``, ``initialized``).
+dict of edge (scale, zero point)).
 """
 
 from __future__ import annotations
@@ -31,8 +34,32 @@ def _tensor(a, dev) -> torch.Tensor:
     return torch.from_numpy(np.array(a, np.float32)).to(dev)  # a writable copy
 
 
+def _host(t, dtype=None) -> np.ndarray:
+    return np.array(t.detach().to('cpu', dtype).numpy())
+
+
+def _to_torch_layout(w, kind: str) -> np.ndarray:
+    """A JAX weight in the port's layout: conv HWIO -> OIHW, fc (in, out) ->
+    (out, in)."""
+    w = np.asarray(w)
+    return np.ascontiguousarray(w.T if kind == 'fc' else w.transpose(3, 2, 0, 1))
+
+
+def _to_jax_layout(w: np.ndarray, kind: str) -> np.ndarray:
+    """The inverse of ``_to_torch_layout``."""
+    return np.ascontiguousarray(w.T if kind == 'fc' else w.transpose(2, 3, 1, 0))
+
+
 def hwio_to_oihw(w) -> np.ndarray:
-    return np.ascontiguousarray(np.asarray(w).transpose(3, 2, 0, 1))
+    return _to_torch_layout(w, 'convolutional')
+
+
+def _weighted_nodes(graph, tree: Dict):
+    """(key, kind, entry) of each conv and fc node that ``tree`` holds."""
+    for node in graph.nodes:
+        key = str(node.index)
+        if key in tree and node.kind in ('convolutional', 'fc'):
+            yield key, node.kind, tree[key]
 
 
 def from_jax_params(params: Dict, state: Dict, graph,
@@ -42,24 +69,18 @@ def from_jax_params(params: Dict, state: Dict, graph,
     dev = resolve_device(device)
     out_p: Dict[str, dict] = {}
     out_s: Dict[str, dict] = {}
-    for node in graph.nodes:
-        key = str(node.index)
-        p = params.get(key)
-        if p is None:
-            continue
-        if node.kind == 'convolutional':
-            q = {'w': _tensor(hwio_to_oihw(p['w']), dev)}
-            if 'b' in p:
-                q['b'] = _tensor(p['b'], dev)
-            if 'bn' in p:
-                q['bn'] = {'gamma': _tensor(p['bn']['gamma'], dev),
-                           'beta': _tensor(p['bn']['beta'], dev)}
-                out_s[key] = {'mean': _tensor(state[key]['mean'], dev),
-                              'var': _tensor(state[key]['var'], dev)}
-            out_p[key] = q
-        elif node.kind == 'fc':
-            out_p[key] = {'w': _tensor(np.asarray(p['w']).T, dev),
-                          'b': _tensor(p['b'], dev)}
+    for key, kind, p in _weighted_nodes(graph, params):
+        q = {'w': _tensor(_to_torch_layout(p['w'], kind), dev)}
+        if 'b' in p:
+            q['b'] = _tensor(p['b'], dev)
+        if 'bn' in p:
+            q['bn'] = {'gamma': _tensor(p['bn']['gamma'], dev),
+                       'beta': _tensor(p['bn']['beta'], dev)}
+            out_s[key] = {'mean': _tensor(state[key]['mean'], dev),
+                          'var': _tensor(state[key]['var'], dev)}
+        out_p[key] = q
+    if 'quant' in state:
+        out_s['quant'] = from_jax_quant_state(state, device=dev)
     return out_p, out_s
 
 
@@ -68,25 +89,20 @@ def to_jax_params(params: Dict, state: Dict, graph) -> Tuple[Dict, Dict]:
     ``w`` HWIO, fc ``w`` (in, out)), keyed as ``from_jax_params`` reads
     them; each array is an exact copy."""
     def host(t):
-        return np.array(t.detach().to('cpu', torch.float32).numpy())
+        return _host(t, torch.float32)
 
     out_p: Dict[str, dict] = {}
     out_s: Dict[str, dict] = {}
-    for node in graph.nodes:
-        key = str(node.index)
-        p = params.get(key)
-        if p is None:
-            continue
-        if node.kind == 'convolutional':
-            q = {'w': np.ascontiguousarray(host(p['w']).transpose(2, 3, 1, 0))}
-            if 'b' in p:
-                q['b'] = host(p['b'])
-            if 'bn' in p:
-                q['bn'] = {'gamma': host(p['bn']['gamma']), 'beta': host(p['bn']['beta'])}
-                out_s[key] = {'mean': host(state[key]['mean']), 'var': host(state[key]['var'])}
-            out_p[key] = q
-        elif node.kind == 'fc':
-            out_p[key] = {'w': np.ascontiguousarray(host(p['w']).T), 'b': host(p['b'])}
+    for key, kind, p in _weighted_nodes(graph, params):
+        q = {'w': _to_jax_layout(host(p['w']), kind)}
+        if 'b' in p:
+            q['b'] = host(p['b'])
+        if 'bn' in p:
+            q['bn'] = {'gamma': host(p['bn']['gamma']), 'beta': host(p['bn']['beta'])}
+            out_s[key] = {'mean': host(state[key]['mean']), 'var': host(state[key]['var'])}
+        out_p[key] = q
+    if 'quant' in state:
+        out_s['quant'] = to_jax_quant_state(state)
     return out_p, out_s
 
 
@@ -96,21 +112,32 @@ def from_jax_qparams(qparams: Dict, graph, device='cuda') -> Dict:
     qparams as Python floats."""
     dev = resolve_device(device)
     layers: Dict[str, dict] = {}
-    for node in graph.nodes:
-        key = str(node.index)
-        p = qparams['layers'].get(key)
-        if p is None:
-            continue
-        if node.kind == 'convolutional':
-            wq = hwio_to_oihw(np.asarray(p['wq'], np.int8))
+    for key, kind, p in _weighted_nodes(graph, qparams['layers']):
+        if kind == 'convolutional':
+            wq = _to_torch_layout(np.asarray(p['wq'], np.int8), kind)
             layers[key] = {'wq': torch.from_numpy(wq).to(dev),
                            'w_scale': _tensor(p['w_scale'], dev),
                            'b': _tensor(p['b'], dev)}
-        elif node.kind == 'fc':
-            layers[key] = {'w': _tensor(np.asarray(p['w']).T, dev),
+        else:
+            layers[key] = {'w': _tensor(_to_torch_layout(p['w'], kind), dev),
                            'b': _tensor(p['b'], dev)}
     act = {k: (float(v[0]), float(v[1])) for k, v in qparams['act'].items()}
     return {'layers': layers, 'act': act}
+
+
+def to_jax_qparams(qparams: Dict, graph) -> Dict:
+    """The port's int8 qparams -> JAX's ``convert_to_int8`` layout as numpy
+    (conv ``wq`` int8 HWIO, ``w_scale`` and ``b`` f32; fc ``w`` (in, out)),
+    the inverse of ``from_jax_qparams``."""
+    layers: Dict[str, dict] = {}
+    for key, kind, p in _weighted_nodes(graph, qparams['layers']):
+        if kind == 'convolutional':
+            layers[key] = {'wq': _to_jax_layout(_host(p['wq']), kind),
+                           'w_scale': _host(p['w_scale'], torch.float32),
+                           'b': _host(p['b'], torch.float32)}
+        else:
+            layers[key] = {'w': _to_jax_layout(_host(p['w']), kind), 'b': _host(p['b'])}
+    return {'layers': layers, 'act': dict(qparams['act'])}
 
 
 def from_jax_quant_state(state: Dict, device='cuda') -> Dict[str, dict]:
@@ -121,4 +148,14 @@ def from_jax_quant_state(state: Dict, device='cuda') -> Dict[str, dict]:
     return {edge: {'min': _tensor(obs['min'], dev), 'max': _tensor(obs['max'], dev),
                    'initialized': torch.tensor(bool(np.asarray(obs['initialized'])),
                                                device=dev)}
+            for edge, obs in state['quant'].items()}
+
+
+def to_jax_quant_state(state: Dict) -> Dict[str, dict]:
+    """The port's ``state['quant']`` -> JAX's observers as numpy 0-d arrays
+    (f32 ``min``/``max``, bool ``initialized``), the form a qat checkpoint
+    holds."""
+    return {edge: {'min': _host(obs['min'], torch.float32),
+                   'max': _host(obs['max'], torch.float32),
+                   'initialized': _host(obs['initialized'], torch.bool)}
             for edge, obs in state['quant'].items()}

@@ -13,11 +13,11 @@ from pqdet_tpu_torch.config import load_config
 from pqdet_tpu_torch.train.trainer import Trainer
 
 
-def main():
+def main(argv=None):
     parser = argparse.ArgumentParser(description='trainer configuration')
     parser.add_argument('--yaml', default=None)
     parser.add_argument('--device', default='cuda')
-    args, rest = parser.parse_known_args()
+    args, rest = parser.parse_known_args(argv)
     cfg = load_config(args.yaml, rest)
     print(cfg)
     Trainer(cfg, device=args.device).run()

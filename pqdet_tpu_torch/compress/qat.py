@@ -12,6 +12,20 @@ Scheme, as in the JAX package:
 
 Fake-quant rounds with a straight-through estimator,
 ``x + (round(x) - x).detach()``: rounding is invisible to the gradient.
+The clip after it is ``jnp.clip``'s: ``minimum(maximum(x, lo), hi)`` with
+tensor bounds, whose gradient splits a tie at a bound 0.5/0.5 (a weight's
+largest |w| in each output channel lands exactly on +-127).
+``torch.clamp`` would pass the whole gradient there.
+
+Activations fake-quantise in f32 and come back f32, as JAX's promotion of
+a bf16 activation against the observer's f32 0-d scale gives (a torch 0-d
+f32 tensor does not promote a bf16 one); the walk casts the result back
+to its compute dtype after the edge, as JAX's does.
+
+The scales divide by a tensor on the operand's device (``ieee_div``): CUDA
+turns a division by a Python number into a multiplication by its
+reciprocal, whose result is an ulp off the IEEE quotient (the CPU's and
+JAX's) in some elements, and every dequantised value carries its scale.
 """
 
 from __future__ import annotations
@@ -29,13 +43,40 @@ def _ste_round(x):
     return x + (torch.round(x) - x).detach()
 
 
+def _clip(x, lo: torch.Tensor, hi: torch.Tensor):
+    """``jnp.clip``: the gradient at a tie with a bound is 0.5. ``lo`` and
+    ``hi`` are 0-d CPU tensors, which elementwise ops take as scalars on
+    any device."""
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
+_DIVISORS: Dict[tuple, torch.Tensor] = {}
+
+
+def ieee_div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d`` rounded as IEEE division on every device (module
+    docstring). The 0-d divisor is made once per device, dtype and value
+    (outside inference mode, so autograd may save it) and reused, so the
+    quotient costs no fill launch."""
+    key = (x.device, x.dtype, float(d))
+    div = _DIVISORS.get(key)
+    if div is None:
+        with torch.inference_mode(False):
+            div = _DIVISORS[key] = torch.full((), float(d), dtype=x.dtype, device=x.device)
+    return x / div
+
+
+_W_LO, _W_HI = torch.tensor(float(W_QMIN)), torch.tensor(float(W_QMAX))
+_ACT_LO, _ACT_HI = torch.tensor(float(ACT_QMIN)), torch.tensor(float(ACT_QMAX))
+
+
 def fake_quant_weight(w: torch.Tensor) -> torch.Tensor:
     """Per-output-channel symmetric fake-quant (dim 0 = out channels)."""
     dims = tuple(range(1, w.ndim))
     absmax = torch.amax(torch.abs(w), dim=dims, keepdim=True)
     # observer-derived scales are buffers, not differentiable params
-    scale = torch.clamp_min(absmax / W_QMAX, 1e-8).detach()
-    q = torch.clamp(_ste_round(w / scale), W_QMIN, W_QMAX)
+    scale = torch.clamp_min(ieee_div(absmax, W_QMAX), 1e-8).detach()
+    q = _clip(_ste_round(w / scale), _W_LO, _W_HI)
     return q * scale
 
 
@@ -55,14 +96,16 @@ def act_qparams(obs: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
     """(scale, zero_point) for affine uint8 activation quantisation."""
     mn = torch.clamp_max(obs['min'], 0.0)
     mx = torch.clamp_min(obs['max'], 0.0)
-    scale = torch.clamp_min((mx - mn) / (ACT_QMAX - ACT_QMIN), 1e-8)
+    scale = torch.clamp_min(ieee_div(mx - mn, ACT_QMAX - ACT_QMIN), 1e-8)
     zp = torch.clamp(torch.round(ACT_QMIN - mn / scale), ACT_QMIN, ACT_QMAX)
     return scale, zp
 
 
 def fake_quant_act(x: torch.Tensor, obs: Dict) -> torch.Tensor:
+    """Affine uint8 fake-quant of ``x`` with ``obs``'s range, in f32 (the
+    result is f32 whatever ``x``'s dtype)."""
     scale, zp = act_qparams(obs)
-    q = torch.clamp(_ste_round(x / scale + zp), ACT_QMIN, ACT_QMAX)
+    q = _clip(_ste_round(x.float() / scale + zp), _ACT_LO, _ACT_HI)
     return (q - zp) * scale
 
 

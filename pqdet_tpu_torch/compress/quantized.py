@@ -22,16 +22,21 @@ between a dequant and a requant, as in the JAX package.
 
 Conv weights are OIHW (``wq`` (O, I, 3, 3) int8), as everywhere in the
 port; ``bridge.from_jax_qparams`` carries the JAX package's HWIO across.
+``save_quantized`` and ``load_quantized`` write and read 'quant'
+checkpoints in the JAX package's layout, so a converted model crosses
+both ways.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from pqdet_tpu_torch.compress.qat import act_qparams
+from pqdet_tpu_torch.bridge import from_jax_qparams, to_jax_qparams
+from pqdet_tpu_torch.compress.qat import act_qparams, ieee_div
 from pqdet_tpu_torch.model import layers as L
 from pqdet_tpu_torch.model.graph import solve_padding
 from pqdet_tpu_torch.model.network import (DetectionNetwork, decode_all_heads,
@@ -40,6 +45,7 @@ from pqdet_tpu_torch.ops.decode_kernel import head_views
 from pqdet_tpu_torch.ops.qconv import (make_scalars, qconv1x1_reference,
                                        qconv1x1_s8, qdwconv3x3_reference,
                                        qdwconv3x3_s8)
+from pqdet_tpu_torch.utils.codec import load_checkpoint, save_pytrees
 
 # widest dense 3x3 input the JAX package stages for its integer-exact
 # paths (Int8Inference.prepare, quantized.py:564-565)
@@ -57,7 +63,7 @@ def im2col_depth(cin: int) -> int:
 def quantize_weights(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """OIHW f32 -> (int8 OIHW, per-out-channel f32 scale)."""
     absmax = torch.amax(torch.abs(w), dim=(1, 2, 3), keepdim=True)
-    scale = torch.clamp_min(absmax / 127.0, 1e-8)
+    scale = torch.clamp_min(ieee_div(absmax, 127.0), 1e-8)   # IEEE on the card too
     q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
     return q, scale.reshape(-1).float()
 
@@ -91,6 +97,30 @@ def convert_to_int8(network: DetectionNetwork, params: Dict, state: Dict) -> Dic
         scale, zp = act_qparams(obs)
         act[edge] = (float(scale), float(zp))
     return {'layers': layers, 'act': act}
+
+
+def save_quantized(path: str, network: DetectionNetwork, qparams: Dict, cfg_text: str,
+                   step: int = 0, ap=None):
+    """Write int8 ``qparams`` as a 'quant' checkpoint in the JAX package's
+    layout (``params``: the layers of ``bridge.to_jax_qparams``; ``state``:
+    ``act``, each edge's (scale, zero point) as a (2,) f32 array), which
+    JAX's ``load_quantized`` reads."""
+    jq = to_jax_qparams(qparams, network.graph)
+    act = {k: np.asarray(v, np.float32) for k, v in jq['act'].items()}
+    save_pytrees(path, jq['layers'], {'act': act}, step=step, cfg_text=cfg_text, ap=ap,
+                 ckpt_type='quant', backend='int8')
+
+
+def load_quantized(path: str, device='cuda'):
+    """A 'quant' checkpoint (of either package) -> (quant-graph network, int8
+    qparams on ``device``)."""
+    ckpt = load_checkpoint(path)
+    if ckpt.get('type') != 'quant':
+        raise ValueError(f'{path} is not a quantized checkpoint')
+    network = DetectionNetwork.from_cfg(ckpt['cfg'], quant=True)
+    qparams = from_jax_qparams({'layers': ckpt['params'], 'act': ckpt['state']['act']},
+                               network.graph, device=device)
+    return network, qparams
 
 
 def _quant(x, scale_zp):

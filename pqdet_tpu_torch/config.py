@@ -5,8 +5,8 @@ paths (``cfg.dataset.name``, ``cfg.eval.input_size``, ``cfg.train.batch_size``
 ...) are the same, so the pipelines read both alike. The groups carry the
 fields of the slices ported so far: serving (``dataset``, ``eval``), the
 training step (``model``, ``train``, ``system.compute_dtype``, ``sparse``) and
-the trainer (``experiment_name``, ``weight``, ``augment``, ``quant.switch``,
-the loaders' ``dataset``/``system`` fields, ``eval.after`` ...).
+the trainer (``experiment_name``, ``weight``, ``augment``, the loaders'
+``dataset``/``system`` fields, ``eval.after`` ...) and QAT (``quant``).
 
 ``load_config(yaml_path, opts)`` merges a yaml file and a flat list of
 dotted overrides into the defaults, typed by each field's default as the
@@ -118,7 +118,12 @@ class SparseConfig:
 
 @dataclasses.dataclass
 class QuantConfig:
-    switch: bool = False           # QAT training: not ported (raises when on)
+    switch: bool = False           # quantization-aware training (fake-quant int8)
+    backend: str = 'int8'          # JAX's schema carries it; qat checkpoints name 'int8'
+    # the observers update in epochs before this one, then freeze
+    disable_observer_after: int = 4
+    # BN runs on batch statistics in epochs before this one, then frozen
+    freeze_bn_after: int = 8
 
 
 @dataclasses.dataclass
@@ -169,9 +174,6 @@ LATER_KEYS = {
     'augment.fresh_partners': 'queue 1, item 6 (device augmentation)',
     'train.s2d_stem': 'queue 1, item 8 (the space-to-depth stem)',
     'eval.s2d_stem': 'queue 1, item 8 (the space-to-depth stem)',
-    'quant.backend': 'queue 1, item 5 (QAT training)',
-    'quant.disable_observer_after': 'queue 1, item 5 (QAT training)',
-    'quant.freeze_bn_after': 'queue 1, item 5 (QAT training)',
     'prune': 'queue 1, item 10 (pruning)',
 }
 

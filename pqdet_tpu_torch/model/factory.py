@@ -1,8 +1,10 @@
 """Model factory: the network and its weights from a cfg or a checkpoint
-(the port of ``pqdet_tpu/model/factory.py``, normal checkpoints; QAT and
-quantized models come with the QAT slice, ROADMAP.md queue 1, item 5).
-A checkpoint with no cfg given rebuilds its architecture from the cfg text
-it embeds.
+(the port of ``pqdet_tpu/model/factory.py``). The checkpoint's ``type``
+and the ``qat``/``quantized`` flags drive it as in JAX: a normal model, or
+the quant graph with its observers (QAT) and a qat checkpoint's weights
+and observers; a quant checkpoint holds int8 weights and loads with
+``compress.quantized.load_quantized``. A checkpoint with no cfg given
+rebuilds its architecture from the cfg text it embeds.
 """
 
 from __future__ import annotations
@@ -11,10 +13,11 @@ from typing import Dict, Optional
 
 import torch
 
+from pqdet_tpu_torch.compress.qat import prepare_qat_state
 from pqdet_tpu_torch.config import later
 from pqdet_tpu_torch.model.network import DetectionNetwork, cast_params, fuse_params
-from pqdet_tpu_torch.train.checkpoint import (load_backbone_into, load_checkpoint,
-                                              load_weights_into)
+from pqdet_tpu_torch.train.checkpoint import load_backbone_into, load_weights_into
+from pqdet_tpu_torch.utils.codec import load_checkpoint
 
 
 def check_no_grouped_convs(network) -> None:
@@ -40,8 +43,12 @@ def build_detector(cfg_text: Optional[str] = None,
 
     A fresh init draws from ``torch.Generator().manual_seed(rng_seed)``;
     ``backbone_path`` seeds the layers it holds, ``weight_path`` loads a
-    normal checkpoint strictly. info holds {step, AP, type, cfg_text} from
-    the checkpoint (step 0 when starting fresh or with ``clear_history``).
+    normal or qat checkpoint strictly. ``qat``, ``quantized`` or a qat
+    checkpoint build the quant graph (plain relu activations) and add the
+    observers of ``prepare_qat_state`` (fresh, after a normal checkpoint's
+    weights; a qat checkpoint's own, loaded after they exist). info holds
+    {step, AP, type, cfg_text} from the checkpoint (step 0 when starting
+    fresh or with ``clear_history``).
     """
     info: Dict = {'step': 0, 'AP': None, 'type': 'normal'}
     ckpt = None
@@ -59,19 +66,22 @@ def build_detector(cfg_text: Optional[str] = None,
     info['cfg_text'] = cfg_text
 
     if info['type'] == 'quant':
-        raise ValueError('quantized checkpoints hold int8 weights; they load with '
-                         'load_quantized, which comes with the QAT slice')
-    if qat or quantized or info['type'] == 'qat':
-        raise later('QAT and quantized models', 'queue 1, item 5 (QAT training)')
+        raise ValueError('quantized checkpoints hold int8 weights; load them with '
+                         'compress.quantized.load_quantized (the bench CLI does)')
 
-    network = DetectionNetwork.from_cfg(cfg_text)
+    needs_quant_graph = qat or quantized or info['type'] == 'qat'
+    network = DetectionNetwork.from_cfg(cfg_text, quant=needs_quant_graph)
     check_no_grouped_convs(network)
     params, state = network.init(torch.Generator().manual_seed(rng_seed), device=device)
     if backbone_path:
         params, state = load_backbone_into(network.graph, params, state,
                                            load_checkpoint(backbone_path))
-    if ckpt is not None:
+    if ckpt is not None and info['type'] == 'normal':
         params, state = load_weights_into(network.graph, params, state, ckpt)
+    if needs_quant_graph:
+        params, state = prepare_qat_state(network, params, state)
+        if ckpt is not None and info['type'] == 'qat':
+            params, state = load_weights_into(network.graph, params, state, ckpt)
     return network, params, state, info
 
 

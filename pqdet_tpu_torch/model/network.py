@@ -30,7 +30,14 @@ with ``targets`` each yolo node decodes with the plain ``decode`` at its
 node and takes its ``loss_per_scale``; without them the heads go through
 the plain, differentiable decode after the walk, as JAX's ``apply`` decodes
 with the jnp ``decode``. The kernel wrappers refuse tensors that require
-grad.
+grad. With a ``quant_ctx`` it is the QAT walk of JAX's ``apply``: the
+input, every conv weight (per output channel, under autograd) and every
+observed edge are fake-quantised, the observers update in
+``quant_ctx.new_obs`` when it is ``observing``, and BN runs on batch
+statistics (``train``) or frozen on its running ones. Each edge
+fake-quantises in f32 and the walk casts the result to ``compute_dtype``,
+so every conv takes ``compute_dtype`` and the heads take bf16 in a bf16
+walk, as in JAX.
 ``remat_segments`` N >= 1 runs the walk as N ``torch.utils.checkpoint``
 segments over ``np.linspace`` bounds: only the activations that cross a
 boundary are kept for the backward pass, the rest is recomputed. A segment
@@ -65,7 +72,6 @@ LOSS_ATTRS = ('bbox_loss_gain', 'conf_loss_gain', 'cls_loss_gain', 'conf_loss_al
 # what the JAX walk does that belongs to later slices of the port
 LATER_SLICES = {
     's2d_stem': 'the space-to-depth slice',
-    'quant_ctx with train=True': 'the QAT training slice',
 }
 
 
@@ -160,10 +166,11 @@ class Network(nn.Module):
              train, rng, remat_segments, tap, s2d_stem):
         """(last activation, per-head losses, preds or None, raw head
         shapes, new state) of one walk."""
+        if s2d_stem and quant_ctx is not None:
+            raise ValueError('s2d_stem does not combine with quant_ctx: the stem observer '
+                             'would see folded weights')
         if s2d_stem:
             raise _later('s2d_stem')
-        if quant_ctx is not None and train:
-            raise _later('quant_ctx with train=True')
         if remat_segments and (quant_ctx is not None or tap is not None):
             raise ValueError('remat_segments does not combine with quant_ctx or tap: the '
                              'recompute would observe each node twice')

@@ -2,81 +2,23 @@
 ``pqdet_tpu/train/checkpoint.py``), so a file written by either package
 loads in the other.
 
-A checkpoint is one msgpack map, as ``flax.serialization`` writes it:
-``step``, ``AP`` (-1.0 for none), ``params`` and ``state`` (the pytrees in
-JAX's layout: conv ``w`` HWIO, fc ``w`` (in, out); ``bridge.to_jax_params``
-and ``from_jax_params`` convert), ``cfg`` (the architecture's cfg text),
-``type`` ('normal' | 'qat' | 'quant') and ``backend``. Every dict is
-written with its keys sorted, an ndarray as msgpack ext type 1 holding
-``packb((shape, dtype name, C-order bytes))`` and a numpy scalar as ext
-type 3 holding the same of its 0-d array: the bytes flax gives for the
-same payload. flax splits arrays over 2**30 bytes into chunks; no model
-of the port has one, so the codec refuses them.
+The file is the msgpack map of ``utils/codec.py`` (flax's bytes). Its
+``params`` and ``state`` are the pytrees in JAX's layout: conv ``w`` HWIO,
+fc ``w`` (in, out); a qat checkpoint's state also holds the observers under
+``quant``, 0-d arrays. ``bridge.to_jax_params`` and ``from_jax_params``
+convert.
 """
 
 from __future__ import annotations
 
-import os
-import threading
 from typing import Any, Dict, Optional, Tuple
 
-import msgpack
 import numpy as np
 import torch
 
 from pqdet_tpu_torch.bridge import from_jax_params, to_jax_params
-
-EXT_NDARRAY = 1
-EXT_NPSCALAR = 3
-MAX_ARRAY_BYTES = 2 ** 30
-
-
-def _array_bytes(arr: np.ndarray) -> bytes:
-    if arr.dtype.hasobject or arr.dtype.isalignedstruct:
-        raise ValueError(f'checkpoint: cannot store dtype {arr.dtype}')
-    if arr.nbytes > MAX_ARRAY_BYTES:
-        raise ValueError(f'checkpoint: an array of {arr.nbytes} bytes would need '
-                         'flax\'s chunked form, which the port does not write')
-    return msgpack.packb((arr.shape, arr.dtype.name, arr.tobytes('C')), use_bin_type=True)
-
-
-def _ext_pack(x):
-    if isinstance(x, np.ndarray):
-        return msgpack.ExtType(EXT_NDARRAY, _array_bytes(x))
-    if isinstance(x, np.generic):
-        return msgpack.ExtType(EXT_NPSCALAR, _array_bytes(np.asarray(x)))
-    raise TypeError(f'checkpoint: cannot store {type(x).__name__}')
-
-
-def _array_from(data: bytes) -> np.ndarray:
-    shape, dtype, buf = msgpack.unpackb(data, raw=False)
-    return np.frombuffer(buf, dtype=np.dtype(dtype)).reshape(shape)
-
-
-def _ext_unpack(code: int, data: bytes):
-    if code == EXT_NDARRAY:
-        return _array_from(data)
-    if code == EXT_NPSCALAR:
-        return _array_from(data)[()]
-    raise ValueError(f'checkpoint: unknown msgpack ext type {code}')
-
-
-def _sorted_tree(tree):
-    if isinstance(tree, dict):
-        if '__msgpack_chunked_array__' in tree:
-            raise ValueError('checkpoint: flax\'s chunked arrays are not read by the port')
-        return {k: _sorted_tree(tree[k]) for k in sorted(tree)}
-    return tree
-
-
-def dumps(payload: Dict[str, Any]) -> bytes:
-    """``payload`` (dicts, str/int/float, numpy arrays and scalars) as the
-    bytes of ``flax.serialization.msgpack_serialize``."""
-    return msgpack.packb(_sorted_tree(payload), default=_ext_pack, strict_types=True)
-
-
-def loads(blob: bytes) -> Dict[str, Any]:
-    return _sorted_tree(msgpack.unpackb(blob, ext_hook=_ext_unpack, raw=False))
+# load_checkpoint is part of this module's API, as in the JAX package
+from pqdet_tpu_torch.utils.codec import load_checkpoint, save_pytrees  # noqa: F401
 
 
 def save_checkpoint(path: str, graph, params: Dict, state: Dict, step: int,
@@ -85,26 +27,7 @@ def save_checkpoint(path: str, graph, params: Dict, state: Dict, step: int,
     """Write the port's (params, state) of ``graph`` to ``path``, atomically
     (a temporary file of this process and thread, then ``os.replace``)."""
     jp, js = to_jax_params(params, state, graph)
-    payload = {
-        'step': int(step),
-        'AP': -1.0 if ap is None else float(ap),
-        'params': jp,
-        'state': js,
-        'cfg': cfg_text,
-        'type': ckpt_type,
-        'backend': backend,
-    }
-    os.makedirs(os.path.dirname(path) or '.', exist_ok=True)
-    tmp = f'{path}.{os.getpid()}.{threading.get_ident()}.tmp'
-    with open(tmp, 'wb') as fw:
-        fw.write(dumps(payload))
-    os.replace(tmp, path)
-
-
-def load_checkpoint(path: str) -> Dict[str, Any]:
-    """The payload of a checkpoint, its arrays numpy in JAX's layout."""
-    with open(path, 'rb') as fr:
-        return loads(fr.read())
+    save_pytrees(path, jp, js, step, cfg_text, ap=ap, ckpt_type=ckpt_type, backend=backend)
 
 
 def _device_of(params: Dict) -> torch.device:
@@ -116,9 +39,9 @@ def _device_of(params: Dict) -> torch.device:
 def load_weights_into(graph, params: Dict, state: Dict,
                       ckpt: Dict[str, Any]) -> Tuple[Dict, Dict]:
     """The checkpoint's weights in place of the port's (params, state) of
-    ``graph``, on their device. Strict: the checkpoint's pytrees must have
-    the model's keys and shapes, else ``ValueError`` names the first
-    mismatch."""
+    ``graph``, on their device, the observers with them when ``state`` has
+    ``quant``. Strict: the checkpoint's pytrees must have the model's keys
+    and shapes, else ``ValueError`` names the first mismatch."""
     tp, ts = to_jax_params(params, state, graph)
 
     def merge(template, loaded, path=''):

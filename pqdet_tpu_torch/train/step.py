@@ -6,9 +6,11 @@ The step is a function of plain dicts, as in JAX: it takes params, BN
 state and optimizer state and returns new ones, writing none of its inputs
 in place. The learning rate is a schedule of the update count inside the
 optimizer; sparse training's BN-gamma L1 subgradient is added to the
-grads before it. On the card the step runs cuDNN convs, PyTorch
-elementwise kernels and autograd, and launches no hand-written kernel: the
-JAX step reaches no Pallas kernel either.
+grads before it. The QAT step (``make_qat_train_step``) runs the
+fake-quant walk of the quant graph with the same Adam. On the card either
+step runs cuDNN convs, PyTorch elementwise kernels and autograd, and
+launches no hand-written kernel: the JAX step reaches no Pallas kernel
+either.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Callable, Optional, Set
 import numpy as np
 import torch
 
+from pqdet_tpu_torch.compress.qat import QuantCtx
 from pqdet_tpu_torch.ops.labels import label_assigner_from_config
 from pqdet_tpu_torch.ops.preprocess import device_normalize
 from pqdet_tpu_torch.train.schedule import build_schedule
@@ -204,7 +207,49 @@ def make_train_step(network, optimizer: Adam, sparse_ratio: float = 0.0,
     loss_fn = make_loss_fn(network, compute_dtype=compute_dtype, remat=remat,
                            label_fn=label_fn, augment_fn=augment_fn,
                            probe_heads=probe_heads)
+    return _step_of(loss_fn, optimizer, sparse_ratio, sparse_ids, probe_heads)
 
+
+def make_qat_loss_fn(network, observing: bool = True, bn_frozen: bool = False,
+                     compute_dtype=None, label_fn=None):
+    """The loss function of the QAT step, in ``make_loss_fn``'s contract:
+    normalize and label as there, then the fake-quant walk with
+    ``QuantCtx(state['quant'], observing)`` and BN on batch statistics
+    unless ``bn_frozen``; the new observers go into the new state's
+    ``quant`` (``state``'s own when not ``observing``)."""
+    def loss_fn(params, state, batch, rng: Optional[torch.Generator] = None):
+        ctx = QuantCtx(state['quant'], observing=observing)
+        image = device_normalize(batch['image'])
+        if 'targets' in batch:
+            targets = batch['targets']
+        else:
+            targets = label_fn(batch['gt'], image.shape[1:3])
+        losses, new_state = network.forward_train(params, state, image, targets=targets,
+                                                  train=not bn_frozen, rng=rng,
+                                                  compute_dtype=compute_dtype, quant_ctx=ctx)
+        new_state = {**new_state, 'quant': ctx.new_obs}
+        return losses['loss'][0], (losses, new_state, {})
+
+    return loss_fn
+
+
+def make_qat_train_step(network, optimizer: Adam, observing: bool = True,
+                        bn_frozen: bool = False, compute_dtype=None, label_fn=None):
+    """The QAT step, the port of the JAX trainer's ``_wrap_quant_step``:
+    ``make_train_step``'s contract with the loss of ``make_qat_loss_fn``
+    for one phase of the observer and BN-freeze schedule, and the same
+    Adam. Like JAX's it has no sparse L1, no remat and no head probe, and
+    it launches no hand-written kernel (the fake-quant is PyTorch ops
+    under autograd)."""
+    loss_fn = make_qat_loss_fn(network, observing=observing, bn_frozen=bn_frozen,
+                               compute_dtype=compute_dtype, label_fn=label_fn)
+    return _step_of(loss_fn, optimizer)
+
+
+def _step_of(loss_fn, optimizer: Adam, sparse_ratio: float = 0.0,
+             sparse_ids: Optional[Set[str]] = None, probe_heads: bool = False):
+    """The train step around ``loss_fn``: grads, sparse-L1, the update and
+    the metrics."""
     def train_step(params, state, opt_state, batch, rng=None):
         (_, (losses, new_state, stats)), grads = value_and_grad(
             loss_fn, params, state, batch, rng)
@@ -225,24 +270,32 @@ def make_train_step(network, optimizer: Adam, sparse_ratio: float = 0.0,
     return train_step
 
 
-def train_step_from_config(network, cfg, steps_per_epoch: int, device='cuda'):
+def train_step_from_config(network, cfg, steps_per_epoch: int, device='cuda',
+                           observing: bool = True, bn_frozen: bool = False):
     """(train_step, optimizer) as the config sets them, the way the JAX
     trainer builds its step: the lr schedule of ``build_schedule`` over
     ``steps_per_epoch``, ``train.weight_decay`` and ``train.grad_clip``,
-    sparse-L1 of ``sparse.ratio`` on every prunable BN gamma when
-    ``sparse.switch`` is on, ``system.compute_dtype``, ``train.remat``,
-    ``train.head_probe``, and device labels from ``cfg.model`` with their
-    anchors on ``device``."""
+    ``system.compute_dtype`` and device labels from ``cfg.model`` with their
+    anchors on ``device``; then sparse-L1 of ``sparse.ratio`` on every
+    prunable BN gamma when ``sparse.switch`` is on, ``train.remat`` and
+    ``train.head_probe``; or, with ``quant.switch``, the QAT step of the
+    phase ``observing``/``bn_frozen`` (of the quant graph's ``network``),
+    which reads none of those three."""
     t = cfg.train
     optimizer = make_optimizer(build_schedule(cfg, steps_per_epoch),
                                weight_decay=t.weight_decay, grad_clip=t.grad_clip)
+    dtype = COMPUTE_DTYPES[cfg.system.compute_dtype]
+    labels = label_assigner_from_config(cfg, device=device)
+    if cfg.quant.switch:
+        return make_qat_train_step(network, optimizer, observing=observing,
+                                   bn_frozen=bn_frozen, compute_dtype=dtype,
+                                   label_fn=labels), optimizer
     sparse = bool(cfg.sparse.switch)
     step = make_train_step(network, optimizer,
                            sparse_ratio=cfg.sparse.ratio if sparse else 0.0,
                            sparse_ids=sparse_bn_gamma_ids(network) if sparse else None,
-                           compute_dtype=COMPUTE_DTYPES[cfg.system.compute_dtype],
-                           remat=int(t.remat), probe_heads=bool(t.head_probe),
-                           label_fn=label_assigner_from_config(cfg, device=device))
+                           compute_dtype=dtype, remat=int(t.remat),
+                           probe_heads=bool(t.head_probe), label_fn=labels)
     return step, optimizer
 
 

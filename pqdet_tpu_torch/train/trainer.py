@@ -15,9 +15,19 @@ Resume (``weight.resume``) loads a checkpoint, starts at its step and sets
 the lr schedule there, with Adam's moments fresh, as the JAX trainer does;
 its epochs see the batches of an uninterrupted run (the JAX trainer starts
 the epoch plan over).
-Not ported yet, and raising: QAT (``quant.switch``), device augmentation,
-host label assignment, the process loader, data parallelism and the
-GPU-resident corpus, pruning and NAS fine-tuning (ROADMAP.md queue 1).
+
+QAT (``quant.switch``) trains the quant graph with the QAT step
+(``train/step.py::make_qat_train_step``): the observers update in epochs
+before ``quant.disable_observer_after`` and BN runs on batch statistics in
+epochs before ``quant.freeze_bn_after``, the step rebuilt when either flag
+flips. Each eval converts this epoch's params and observers to int8 and
+scores the converted model through ``Int8Inference`` in kernel mode (the
+int8 kernels and the decode kernel on the card), as the JAX trainer scores
+its Pallas int8 path; checkpoints are of type ``qat``.
+
+Not ported yet, and raising: device augmentation, host label assignment,
+the process loader, data parallelism and the GPU-resident corpus, pruning
+and NAS fine-tuning (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ import numpy as np
 import torch
 
 from pqdet_tpu_torch import resolve_device
+from pqdet_tpu_torch.compress.quantized import Int8Inference, convert_to_int8
 from pqdet_tpu_torch.config import later, resolve_model_cfg
 from pqdet_tpu_torch.data.eval_data import EvalData
 from pqdet_tpu_torch.data.train_data import TrainData, epoch_batches
@@ -50,8 +61,6 @@ class Trainer:
     PIPELINE_DEPTH = 4
 
     def __init__(self, config, device='cuda'):
-        if config.quant.switch:
-            raise later('quant.switch', 'queue 1, item 5 (QAT training)')
         self.config = config
         self.device = resolve_device(device)
         self.cfg_text: Optional[str] = None
@@ -64,6 +73,11 @@ class Trainer:
         self._max_epochs = c.train.max_epochs
         self._eval_after = c.eval.after
         self._sparse = c.sparse.switch
+        self._quant = c.quant.switch
+        # the QAT phase: observers updating, BN frozen (train() sets them
+        # per epoch and rebuilds the step when they flip)
+        self._observing = True
+        self._bn_frozen = False
         self._weights_dir = os.path.join(c.weight.dir, c.experiment_name)
         self._weight_base_name = 'model'
         self._resume = c.weight.resume
@@ -91,7 +105,7 @@ class Trainer:
         self.network, params, state, info = build_detector(
             self.cfg_text, weight_path=self._resume or None,
             backbone_path=self._backbone or None,
-            clear_history=self._clear_history, device=self.device)
+            clear_history=self._clear_history, qat=self._quant, device=self.device)
         self.global_step = info['step']
         self.init_epoch = self.global_step // self.steps_per_epoch
         if self._resume:
@@ -101,8 +115,7 @@ class Trainer:
         for _ in range(self.init_epoch):
             self.train_data.init_shuffle()
 
-        self.step_fn, self.optimizer = train_step_from_config(
-            self.network, self.config, self.steps_per_epoch, device=self.device)
+        self.step_fn, self.optimizer = self._make_step()
         self.schedule = self.optimizer.schedule
         opt_state = self.optimizer.init(params)
         if self.global_step:
@@ -121,12 +134,27 @@ class Trainer:
         }
         self._rng = torch.Generator(device=self.device).manual_seed(42)
 
+    def _make_step(self):
+        """(step, optimizer) of the config, for the QAT phase the trainer is
+        in."""
+        return train_step_from_config(self.network, self.config, self.steps_per_epoch,
+                                      device=self.device, observing=self._observing,
+                                      bn_frozen=self._bn_frozen)
+
     # ----------------------------------------------------------------- eval
 
     def make_predict_fn(self):
         """(batch dict) -> list of per-image (M, 6) numpy detections, through
-        the predict pipeline (built once) on this epoch's BN-folded
-        params."""
+        the predict pipeline (built once) on this epoch's BN-folded params;
+        under QAT through the int8 model converted from this epoch's params
+        and observers (a pipeline built anew each eval: the act scales move
+        while the observers run)."""
+        if self._quant:
+            qparams = convert_to_int8(self.network, self.params, self.state)
+            int8 = Int8Inference(self.network, mode='kernel')
+            run = build_predict_pipeline(self.network, self.config, apply_fn=int8.apply,
+                                         device=self.device)
+            return make_batch_predict(run, Int8Inference.prepare(qparams, mode='kernel'))
         if self._eval_run is None:
             self._eval_run = build_predict_pipeline(
                 self.network, self.config, compute_dtype=self._compute_dtype,
@@ -149,7 +177,9 @@ class Trainer:
         path = os.path.join(self._weights_dir, name)
         save_checkpoint(path, self.network.graph, self.params, self.state,
                         step=self.global_step, cfg_text=self.cfg_text,
-                        ap=None if self.AP is None else self.AP.AP)
+                        ap=None if self.AP is None else self.AP.AP,
+                        ckpt_type='qat' if self._quant else 'normal',
+                        backend='int8' if self._quant else 'none')
         return path
 
     # ----------------------------------------------------------------- train
@@ -260,6 +290,12 @@ class Trainer:
         interval = max(int(self.config.eval.interval), 1)
         for epoch in range(self.init_epoch, self._max_epochs):
             self.AP = None
+            if self._quant:
+                q = self.config.quant
+                flags = (epoch < q.disable_observer_after, epoch >= q.freeze_bn_after)
+                if flags != (self._observing, self._bn_frozen):
+                    self._observing, self._bn_frozen = flags
+                    self.step_fn = self._make_step()[0]
             self.epoch_tt.tic()
             self.train_epoch(epoch)
             self.epoch_tt.toc()
@@ -272,6 +308,8 @@ class Trainer:
 
     def run(self):
         os.makedirs(self._weights_dir, exist_ok=True)
+        if self._quant:
+            print('quantization aware training')
         self.init_all()
         self.train()
 

@@ -11,6 +11,7 @@ import pytest
 import torch
 from flax import serialization
 
+from pqdet_tpu.model.factory import build_detector as jax_build_detector
 from pqdet_tpu.model.network import DetectionNetwork as JaxNetwork
 from pqdet_tpu.train.checkpoint import load_backbone_into as jax_load_backbone_into
 from pqdet_tpu.train.checkpoint import load_checkpoint as jax_load_checkpoint
@@ -21,9 +22,10 @@ from pqdet_tpu.zoo.mobilenetv2 import mobilenetv2_fpn as jax_mobilenetv2_fpn
 from pqdet_tpu_torch.bridge import from_jax_params, to_jax_params
 from pqdet_tpu_torch.model.factory import build_detector, inference_params
 from pqdet_tpu_torch.model.network import DetectionNetwork, fuse_params
-from pqdet_tpu_torch.train.checkpoint import (dumps, load_backbone_into, load_checkpoint,
-                                              load_weights_into, loads, save_checkpoint)
+from pqdet_tpu_torch.train.checkpoint import (load_backbone_into, load_weights_into,
+                                              save_checkpoint)
 from pqdet_tpu_torch.train.step import tree_leaves
+from pqdet_tpu_torch.utils.codec import dumps, load_checkpoint, loads
 from pqdet_tpu_torch.zoo import get_cfg
 
 CFG = get_cfg('mobilenetv2-fpn', num_classes=3, width_mult=0.25)
@@ -185,9 +187,17 @@ def test_build_detector_from_checkpoint(jax_model, tmp_path):
 
 
 def test_build_detector_queued_paths_raise(jax_model, tmp_path):
+    """Named for the paths that raise: a quant checkpoint (int8 weights go
+    through load_quantized), a grouped conv, no cfg. ``qat=True``, which
+    raised before the QAT slice, builds JAX's quant graph with its fresh
+    observers."""
     jnet, params, state = jax_model
-    with pytest.raises(NotImplementedError, match='queue 1, item 5'):
-        build_detector(CFG, qat=True, device='cpu')
+    net, p, s, _ = build_detector(CFG, qat=True, device='cpu')
+    qnet, _, qs, _ = jax_build_detector(CFG, qat=True)
+    assert [n.attrs.get('activation') for n in net.graph.nodes] == \
+        [n.attrs.get('activation') for n in qnet.graph.nodes]
+    assert sorted(s['quant']) == sorted(qs['quant']) and len(s['quant']) > 50
+    assert not any(bool(o['initialized']) for o in s['quant'].values())
     path = str(tmp_path / 'q.ckpt')
     jax_save_checkpoint(path, params, state, step=1, cfg_text=CFG, ckpt_type='quant')
     with pytest.raises(ValueError, match='int8 weights'):

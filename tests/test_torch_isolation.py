@@ -13,6 +13,7 @@ from pqdet_tpu_torch import resolve_device
 from pqdet_tpu_torch.bridge import (from_jax_params, from_jax_qparams,
                                     from_jax_quant_state)
 from pqdet_tpu_torch.cli.predict import predict_image
+from pqdet_tpu_torch.compress.quantized import load_quantized, save_quantized
 from pqdet_tpu_torch.model.factory import build_detector
 from pqdet_tpu_torch.train.trainer import Trainer
 from pqdet_tpu_torch.ops.qconv import make_scalars
@@ -48,7 +49,8 @@ def test_port_imports_no_jax():
                'pqdet_tpu_torch.native.matcher', 'pqdet_tpu_torch.evaluation.evaluator',
                'pqdet_tpu_torch.train.checkpoint', 'pqdet_tpu_torch.model.factory',
                'pqdet_tpu_torch.train.trainer', 'pqdet_tpu_torch.cli.train',
-               'pqdet_tpu_torch.cli.predict'}
+               'pqdet_tpu_torch.cli.predict', 'pqdet_tpu_torch.cli.convert',
+               'pqdet_tpu_torch.cli.bench'}
         print(len(names), bad, sorted(new - set(names)))
         sys.exit(1 if bad or len(names) < 40 or not new <= set(names) else 0)
     """)
@@ -99,12 +101,15 @@ def _no_cuda(monkeypatch):
 @pytest.mark.parametrize('entry', ['resolve_device', 'init', 'pipeline', 'bridge',
                                    'bridge_qparams', 'bridge_quant_state', 'scalars',
                                    'label_assigner', 'train_step_from_config',
-                                   'build_detector', 'trainer', 'predict_image'])
-def test_entry_point_without_device_raises(entry, monkeypatch):
+                                   'build_detector', 'trainer', 'predict_image',
+                                   'load_quantized'])
+def test_entry_point_without_device_raises(entry, monkeypatch, tmp_path):
     """Without ``device="cpu"`` and with no card, an entry point raises
     instead of quietly running on the CPU."""
     _no_cuda(monkeypatch)
     net = DetectionNetwork.from_cfg(get_cfg('mobilenetv2-fpn', width_mult=0.25))
+    qpath = str(tmp_path / 'q.ckpt')
+    save_quantized(qpath, net, {'layers': {}, 'act': {}}, get_cfg('mobilenetv2-fpn'))
     call = {
         'resolve_device': lambda: resolve_device(),
         'init': lambda: net.init(torch.Generator().manual_seed(0)),
@@ -119,6 +124,7 @@ def test_entry_point_without_device_raises(entry, monkeypatch):
         'trainer': lambda: Trainer(Config()),
         'predict_image': lambda: predict_image(Config(), 'x.jpg',
                                                cfg_path='mobilenetv2-fpn'),
+        'load_quantized': lambda: load_quantized(qpath),
     }[entry]
     with pytest.raises(RuntimeError, match='device="cpu"'):
         call()

@@ -190,16 +190,24 @@ def test_predict_pipeline_matches_jax():
 
 
 def test_later_slices_raise(model20):
-    """The space-to-depth stem and the QAT training walk belong to later
-    slices and raise, naming them; an unknown option is a TypeError."""
+    """The space-to-depth stem belongs to a later slice and raises, naming
+    it; an unknown option is a TypeError. The QAT training walk, which
+    raised before its slice, runs: it observes every edge and gives finite
+    losses; with s2d_stem or remat segments it raises ValueError, as JAX's
+    ``apply`` does."""
     from pqdet_tpu_torch.compress.qat import QuantCtx, prepare_qat_state
     *_, net, tp, ts = model20
     x = torch.zeros(1, 32, 32, 3)
     with pytest.raises(NotImplementedError, match='space-to-depth slice comes in a later slice'):
         net(tp, ts, x, s2d_stem=2)
     _, qs = prepare_qat_state(net, tp, ts)
-    with pytest.raises(NotImplementedError, match='QAT training slice comes in a later slice'):
-        net.forward_train(tp, qs, x, quant_ctx=QuantCtx(qs['quant']))
+    for bad in ({'s2d_stem': 2}, {'remat_segments': 2}):
+        with pytest.raises(ValueError, match='quant_ctx'):
+            net.forward_train(tp, qs, x, quant_ctx=QuantCtx(qs['quant']), **bad)
+    ctx = QuantCtx(qs['quant'])
+    preds, new_state = net.forward_train(tp, qs, torch.rand(1, 32, 32, 3), quant_ctx=ctx)
+    assert bool(torch.isfinite(preds).all()) and set(new_state) >= set(ts)
+    assert all(bool(o['initialized']) for o in ctx.new_obs.values())
     with pytest.raises(TypeError):
         net(tp, ts, x, no_such_option=1)
 

@@ -77,19 +77,50 @@ def test_fake_quant_weight_matches_jax(shape):
     np.testing.assert_allclose(out, hwio_to_oihw(ref), rtol=1e-6, atol=1e-6)
 
 
-def test_fake_quant_weight_ste_gradient_matches_jax():
-    """Straight-through: gradient 1 where JAX's is 1 (inside the clip
-    range). Exactly at the +-127 boundary JAX's clip subgradient is 0.5
-    and torch.clamp's is 1; both are harmless there."""
-    w = np.linspace(-1, 1, 64, dtype=np.float32).reshape(1, 1, 4, 16)
-    g_ref = np.asarray(jax.grad(lambda x: jnp.sum(jax_fake_quant_weight(x)))(jnp.asarray(w)))
+@pytest.mark.parametrize('shape', [(1, 1, 4, 16), (3, 3, 16, 32)])
+def test_fake_quant_weight_ste_gradient_matches_jax(shape):
+    """Straight-through, with JAX's clip gradient: an output channel's
+    largest |w| most often lands exactly on +-127, where ``jnp.clip`` passes
+    0.5 (a tie with the bound); the port's gradient equals JAX's exactly."""
+    w = np.random.RandomState(sum(shape)).randn(*shape).astype(np.float32)
+    cot = np.random.RandomState(1).rand(*shape).astype(np.float32)
+    g_ref = np.asarray(jax.grad(lambda x: jnp.sum(jax_fake_quant_weight(x) * cot))(
+        jnp.asarray(w)))
     tw = torch.from_numpy(hwio_to_oihw(w)).requires_grad_(True)
-    fake_quant_weight(tw).sum().backward()
+    (fake_quant_weight(tw) * torch.from_numpy(hwio_to_oihw(cot))).sum().backward()
     g = hwio_to_oihw(g_ref)
-    inside = g == 1.0
-    assert inside.mean() > 0.7
-    np.testing.assert_array_equal(tw.grad.numpy()[inside], 1.0)
-    assert set(np.unique(tw.grad.numpy())) <= {0.0, 1.0}
+    ties = np.isclose(g, 0.5 * hwio_to_oihw(cot), rtol=0, atol=0)
+    assert ties.sum() >= shape[-1] // 2             # ties in most output channels
+    np.testing.assert_array_equal(tw.grad.numpy(), g)
+
+
+def test_fake_quant_act_ste_gradient_matches_jax():
+    """The activation clip at codes 0 and 255: JAX's gradient 0.5 where the
+    rounded code ties with a bound (-0.5 rounds to code 0), 1 inside and 0
+    outside, equal exactly."""
+    o = _obs(-1.0, 254.0, True)                     # scale 1, zero point 1
+    x = np.array([-3.0, -1.0, -0.5, 0.0, 100.0, 254.0, 300.0], np.float32)
+    g_ref = np.asarray(jax.grad(lambda v: jnp.sum(jax_fake_quant_act(v, _j_obs(o))))(
+        jnp.asarray(x)))
+    tx = torch.from_numpy(x).requires_grad_(True)
+    fake_quant_act(tx, _t_obs(o)).sum().backward()
+    assert list(g_ref) == [0.0, 0.5, 0.5, 1.0, 1.0, 0.5, 0.0]
+    np.testing.assert_array_equal(tx.grad.numpy(), g_ref)
+
+
+def test_fake_quant_act_of_bf16_is_f32_as_jax():
+    """A bf16 activation fake-quantises in f32 and comes back f32, as JAX's
+    promotion against the observer's f32 scale gives: the same values as
+    JAX on the same bf16 input (in bf16 the codes of 128-255 would lie only
+    1 apart and round elsewhere)."""
+    o = _obs(-0.4, 9.7, True)
+    x = (np.random.RandomState(2).randn(4, 8, 8, 16) * 4).astype(np.float32)
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    ref = jax_fake_quant_act(xb, _j_obs(o))
+    out = fake_quant_act(torch.from_numpy(np.asarray(xb.astype(jnp.float32))).bfloat16(),
+                         _t_obs(o))
+    assert ref.dtype == jnp.float32 and out.dtype == torch.float32
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
 
 
 def test_quantize_weights_matches_jax():
