@@ -146,7 +146,31 @@ Builds the CUDA kernels from pqdet_tpu_torch/csrc with nvcc (sm_90a), then:
    Prints each epoch's and eval's seconds, the CLIs' seconds, and
    the bf16 QAT step at B=12, 512x512 with observers on and off (ms p50
    and p90, peak memory, a profiled step's launches and idle share)
-   beside phase 10's fp step.
+   beside phase 10's fp step;
+13. device augmentation and the device corpus: (a) ``device_augment`` on
+   the card against the port's CPU run with the same draws, B=16 at
+   512x512, every stage on (flips, zoom-crop, colour jitter, mosaic,
+   mixup), in-batch and with 4B fresh partner rows, each with TF32 allowed
+   for matmuls and not, under ``torch.cuda.set_sync_debug_mode('error')``
+   (no device-to-host sync, the draws' upload included): boxes within
+   1e-4, images bit for bit without the warp (crop_p 0) and within one
+   level on at most 1e-3 of the pixels with it (the share printed);
+   (b) ``cli.train`` on yamls/shapes.yaml as shipped (``augment.device
+   on``; data and weight paths, 3 epochs and eval.after 1 overridden) on
+   phase 11's corpus; (c) ``cli.train`` on yamls/clutter.yaml as shipped
+   (the device corpus, fresh partners, mosaic and mixup 0.5) on 320
+   synth_clutter images at 512 (281 train), printing the corpus's GiB and
+   build seconds and the first batch's partner rows, which must be JAX's
+   ``RandomState(system.seed + 7)`` draw; (d) one QAT epoch of
+   yamls/shapes_quant.yaml with ``augment.device on`` from (b)'s last
+   checkpoint. Gates of (b)-(d): finite losses, params moved, 0 kernel
+   launches in the steps, one decode_heads launch per eval batch; each
+   epoch's seconds and images/s against phase 11's host-augment epochs;
+   phase 11's timed run again with the device chain, from the loader and
+   from the device corpus (images/s against the bare step's and the host
+   chain's). (e) the bf16 step at B=12, 512x512 without device augment and with the
+   shapes.yaml and clutter.yaml chains (ms p50/p90, a profiled step), and
+   each chain alone (ms a call, device busy, launches).
 
 Each phase draws from its own generator, seeded from SEED and the phase
 number. It prints one JSON line of kernels, then the nvidia-smi line, and
@@ -1513,7 +1537,9 @@ def phase11_trainer(dev, tag, bare_ips, tmp):
     print(f'phase 11: {tag} phase seconds {time.perf_counter() - t_phase:.1f}')
     if fails:
         raise AssertionError(f'phase 11 gates failed: {fails}')
-    return {'root': root, 'ckpt': os.path.join(wdir, want[-1]), 'workers': workers}
+    return {'root': root, 'ckpt': os.path.join(wdir, want[-1]), 'workers': workers,
+            'host_epochs': pr['epochs'], 'batch': b, 'bare_ips': bare_ips,
+            'timed': {'train': os.path.join(root2, 'train.txt'), 'ips': ips}}
 
 
 # the QAT arc (phase 12): yamls/shapes_quant.yaml resumed from phase 11's
@@ -2138,6 +2164,418 @@ def phase12_qat(dev, tag, tmp, corpus, fp):
         raise AssertionError(f'phase 12 gates failed: {fails}')
 
 
+# device augmentation and the device corpus (phase 13)
+AUG_BATCH = 16                 # (a): the chain on the card against the CPU, B and size
+AUG_SIZE = 512
+AUG_MAX_GT = 64                # model.max_gt_boxes of the shipped yamls
+AUG_PARAMS = dict(hflip_p=0.5, vflip_p=0.5, crop_p=0.75, color_p=0.5, mosaic_p=0.5,
+                  mixup_p=0.5)   # every stage on
+AUG_WARP_SHARE = 1e-3          # share of pixels allowed one level apart with the warp
+AUG_BOX_ATOL = 1e-4
+DEVICE_EPOCHS = 3              # (b), (c): epochs of each shipped-yaml run
+# (c): a synth_clutter corpus of CLUTTER_IMAGES at 512 px (holdout 0.12: 281
+# train, 18 steps an epoch at B=16): written in ~15 s, where the yaml's 8k
+# images would take minutes; enough for 3x the steps of phase 11's epochs
+CLUTTER_IMAGES = 320
+AUG_TIMING_BATCH = 12          # (e): the step at phase 10's B and size
+AUG_TIMED_STEPS = 20
+AUG_TIMING_CHAINS = {
+    'no device augment': None,
+    'shapes.yaml chain (hflip 0.5, crop 0.75, in-batch)':
+        (dict(hflip_p=0.5, vflip_p=0.0, crop_p=0.75, color_p=0.0, mosaic_p=0.0,
+              mixup_p=0.0), 0),
+    'clutter.yaml chain (hflip 0.5, crop 0.75, mosaic 0.5, mixup 0.5, 4 fresh partners)':
+        (dict(hflip_p=0.5, vflip_p=0.0, crop_p=0.75, color_p=0.0, mosaic_p=0.5,
+              mixup_p=0.5), 4),
+}
+
+
+def phase13_chain_parity(dev, tag, gen):
+    """Phase 13 (a): ``device_augment`` on the card against the port's CPU
+    run on the same inputs and draws, B=16 at 512x512 with every stage on,
+    in-batch and with 4B fresh partner rows; each also with crop_p 0 (no
+    warp), which must be bit for bit. Each card run is under
+    ``torch.cuda.set_sync_debug_mode('error')`` (the draws' upload
+    included), with TF32 allowed for matmuls and not: the warp pins its
+    products to full f32 itself. Returns the failed gates."""
+    import numpy as np
+    import torch
+    from pqdet_tpu_torch.ops.augment_device import AugmentParams, device_augment, draw_augment
+    B, S = AUG_BATCH, AUG_SIZE
+    fails = []
+    host = train_batch(gen, B, S, 'cpu', AUG_MAX_GT)
+    partners = train_batch(gen, 4 * B, S, 'cpu', AUG_MAX_GT)
+    host['gt'][..., 5] = (host['gt'][..., 2] > host['gt'][..., 0]).float()
+    partners['gt'][..., 5] = (partners['gt'][..., 2] > partners['gt'][..., 0]).float()
+    on_card = {k: v.to(dev) for k, v in host.items()}
+    p_card = {k: v.to(dev) for k, v in partners.items()}
+    for mode, rows in (('in-batch', 0), ('fresh', 4)):
+        for crop in (AUG_PARAMS['crop_p'], 0.0):
+            params = AugmentParams(**{**AUG_PARAMS, 'crop_p': crop})
+            draws = draw_augment(np.random.default_rng((SEED, 13, rows, int(crop * 100))),
+                                 B, S, partner_rows=rows)
+            pin, pgt = (partners['image'], partners['gt']) if rows else (None, None)
+            t0 = time.perf_counter()
+            ref_img, ref_gt = device_augment(host['image'], host['gt'], draws, params, pin, pgt)
+            cpu_s = time.perf_counter() - t0
+            applied = {n: int((getattr(draws, n) < getattr(params, f'{n}_p')).sum())
+                       for n in ('hflip', 'vflip', 'crop', 'color', 'mosaic', 'mixup')}
+            for tf32 in (True, False):
+                pin_d, pgt_d = (p_card['image'], p_card['gt']) if rows else (None, None)
+                torch.cuda.synchronize()
+                torch.backends.cuda.matmul.allow_tf32 = tf32
+                torch.cuda.set_sync_debug_mode('error')
+                try:
+                    img, gt = device_augment(on_card['image'], on_card['gt'], draws.to(dev),
+                                             params, pin_d, pgt_d)
+                finally:
+                    torch.cuda.set_sync_debug_mode('default')
+                    torch.backends.cuda.matmul.allow_tf32 = False
+                d = (img.cpu().int() - ref_img.int()).abs()
+                share = float((d > 0).float().mean())
+                box_err = float((gt.cpu() - ref_gt).abs().max())
+                if crop:
+                    ok = int(d.max()) <= 1 and share <= AUG_WARP_SHARE
+                    want = f'within 1 level on <= {AUG_WARP_SHARE} of the pixels'
+                else:
+                    ok = not d.any()
+                    want = 'bit for bit'
+                ok = ok and gt.shape == ref_gt.shape and box_err <= AUG_BOX_ATOL
+                what = (f'chain {mode} B={B} {S}x{S} crop_p {crop} (TF32 for matmuls '
+                        f'{"allowed" if tf32 else "off"}), no device-to-host sync: images '
+                        f'{share:.3g} of the pixels apart, max |d| {int(d.max())} ({want}); '
+                        f'boxes {tuple(gt.shape)} max |d| {box_err:.3g} (<= {AUG_BOX_ATOL})')
+                print(f'phase 13: {tag} {what}: {"ok" if ok else "FAIL"}')
+                if not ok:
+                    fails.append(what)
+            print(f'phase 13: {tag} chain {mode} crop_p {crop}: samples each stage took '
+                  f'{applied} (base chain over {B * (1 + rows)} rows); the CPU run '
+                  f'{cpu_s:.2f} s')
+    return fails
+
+
+def probed_trainer(Trainer, record):
+    """``Trainer`` with probes into ``record``: the trainer, per-epoch step
+    losses, seconds, data-load split and kernel launches, per-eval seconds,
+    AP and launches, the first two gathers from the device corpus, and the
+    params before training."""
+    from pqdet_tpu_torch.train.step import tree_leaves
+
+    class Probed(Trainer):
+        def init_all(self):
+            record.update(trainer=self, loss={}, epochs={}, evals={}, gathers=[])
+            self._epoch = -1
+            super().init_all()
+            record['start'] = [t.detach().clone() for t in tree_leaves(self.params)]
+
+        def _make_step(self):
+            step, opt = super()._make_step()
+
+            def probed(params, state, opt_state, batch, rng=None):
+                out = step(params, state, opt_state, batch, rng)
+                record['loss'].setdefault(self._epoch, []).append(out[3]['loss'])
+                return out
+            return probed, opt
+
+        def _cache_gather(self, size, idx):
+            if len(record['gathers']) < 2:
+                record['gathers'].append((size, idx.tolist()))
+            return super()._cache_gather(size, idx)
+
+        def train_epoch(self, epoch):
+            self._epoch = epoch
+            reset_kernel_launches()
+            t0 = time.perf_counter()
+            split = super().train_epoch(epoch)
+            record['epochs'][epoch] = {'s': time.perf_counter() - t0,
+                                       'launches': kernel_launches(),
+                                       'steps': self.steps_per_epoch, **split}
+            record['loss'][epoch] = [float(x) for x in record['loss'][epoch]]
+            return split
+
+        def evaluate(self):
+            reset_kernel_launches()
+            t0 = time.perf_counter()
+            ap = super().evaluate()
+            record['evals'][self._epoch] = {'s': time.perf_counter() - t0, 'AP': ap.AP,
+                                            'launches': kernel_launches(),
+                                            'batches': len(self.eval_data)}
+            return ap
+    return Probed
+
+
+def run_train_cli(argv, record):
+    """``python -m pqdet_tpu_torch.cli.train`` in this process, its Trainer
+    probed into ``record``; returns the wall seconds."""
+    import torch
+    import pqdet_tpu_torch.cli.train as cli_train
+    saved = cli_train.Trainer
+    cli_train.Trainer = probed_trainer(saved, record)
+    t0 = time.perf_counter()
+    try:
+        cli_train.main(argv)
+    finally:
+        cli_train.Trainer = saved
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def trainer_gates(record, label, tag, gate, host_ips, evals):
+    """Print a probed run's epochs and evals; gate finite losses, moved
+    params, 0 kernel launches in the steps and one decode per eval batch.
+    Returns the images/s of the epochs after the first."""
+    import torch
+    from pqdet_tpu_torch.train.step import tree_leaves
+    trainer = record['trainer']
+    b = trainer.config.train.batch_size
+    for e, ep in sorted(record['epochs'].items()):
+        print(f'phase 13: {tag} {label} epoch {e}: {ep["s"]:.3f} s, {ep["steps"]} steps, data '
+              f'load {ep["data_load_s"]:.3f} s, model {ep["model_s"]:.3f} s, '
+              f'{ep["steps"] * b / ep["s"]:.2f} images/s; losses '
+              f'{[round(x, 3) for x in record["loss"][e]]}; kernel launches {ep["launches"]}')
+    for e, ev in sorted(record['evals'].items()):
+        print(f'phase 13: {tag} {label} eval after epoch {e}: {ev["s"]:.3f} s, {ev["batches"]} '
+              f'batches, AP {ev["AP"]:.6f}, kernel launches {ev["launches"]}')
+    steady = [ep['steps'] * b / ep['s'] for e, ep in record['epochs'].items()
+              if e > min(record['epochs'])]
+    if steady:
+        print(f'phase 13: {tag} {label} images/s of the epochs after the first '
+              f'{statistics.mean(steady):.2f}; phase 11\'s host-augment epochs 1-2 (same card, '
+              f'this run) {host_ips:.2f}')
+    losses = [x for e in record['loss'] for x in record['loss'][e]]
+    gate(losses and all(math.isfinite(x) for x in losses),
+         f'{label}: all {len(losses)} step losses finite')
+    moved = sum(not torch.equal(a, c) for a, c in zip(record['start'],
+                                                      tree_leaves(trainer.params)))
+    n = len(record['start'])
+    gate(moved >= 0.9 * n, f'{label}: {moved} of {n} param leaves moved')
+    gate(all(not any(ep['launches'].values()) for ep in record['epochs'].values()),
+         f'{label}: hand-written kernel launches in the steps: 0')
+    gate(sorted(record['evals']) == evals and all(
+        ev['launches'] == {**dict.fromkeys(ev['launches'], 0), 'decode_heads': ev['batches']}
+        for ev in record['evals'].values()),
+         f'{label}: evals after epochs {sorted(record["evals"])} (want {evals}), one '
+         'decode_heads launch per eval batch and no other kernel')
+    return statistics.mean(steady) if steady else float('nan')
+
+
+def phase13_step_timings(dev, tag, gen):
+    """Phase 13 (e): the bf16 train step of full-width mobilenetv2-fpn at
+    B=12, 512x512 without device augment and with the shapes.yaml and
+    clutter.yaml chains, each step making and uploading its draws as the
+    trainer does: ms p50/p90 over AUG_TIMED_STEPS steps after TRAIN_WARMUP
+    (CUDA events, synchronised each step; the variants take their steps in
+    turns, so a drift of the host's pace falls on each alike), a profiled
+    step of each; the chain alone (ms a call, a profiled call: device busy,
+    launches) and the host's ms to draw and upload one step's draws."""
+    import numpy as np
+    import torch
+    from pqdet_tpu_torch.model.network import DetectionNetwork
+    from pqdet_tpu_torch.ops.augment_device import augmenter_from_config, draw_augment
+    from pqdet_tpu_torch.train.step import train_step_from_config
+    from pqdet_tpu_torch.zoo import get_cfg
+    net = DetectionNetwork.from_cfg(get_cfg('mobilenetv2-fpn'))
+    params, state = net.init(gen, device=dev)
+    seed_bn(params, state, gen, dev)
+    B, S = AUG_TIMING_BATCH, TRAIN_SIZE
+    base = train_batch(gen, B, S, dev, AUG_MAX_GT)
+    partners = train_batch(gen, 4 * B, S, dev, AUG_MAX_GT)
+
+    def batch_of(chain, i):
+        b = dict(base)
+        if chain is not None:
+            rows = chain[1]
+            if rows:
+                b.update(partner_image=partners['image'], partner_gt=partners['gt'])
+            b['draws'] = draw_augment(np.random.default_rng((SEED, 13, i)), B, S,
+                                      partner_rows=rows).to(dev)
+        return b
+
+    variants = []
+    for label, chain in AUG_TIMING_CHAINS.items():
+        cfg = train_config()
+        cfg.augment.device = chain is not None
+        for k, v in (chain[0] if chain else {}).items():
+            setattr(cfg.augment, k, v)
+        step, opt = train_step_from_config(net, cfg, TRAIN_WARMUP, device=dev)
+        variants.append((label, chain, cfg, step, opt.init(params)))
+    ms = {v[0]: [] for v in variants}
+    for i in range(TRAIN_WARMUP + AUG_TIMED_STEPS):
+        for label, chain, _, step, o in variants:
+            s_ev, e_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s_ev.record()
+            step(params, state, o, batch_of(chain, i))
+            e_ev.record()
+            e_ev.synchronize()
+            if i >= TRAIN_WARMUP:
+                ms[label].append(s_ev.elapsed_time(e_ev))
+    out = {}
+    for label, chain, cfg, step, o in variants:
+        t = sorted(ms[label])
+        p50, p90 = statistics.median(t), t[int(0.9 * (len(t) - 1))]
+        out[label] = p50
+        print(f'phase 13: {tag} train step B={B} {S}x{S} bf16, {label}: p50 {p50:.3f} ms, p90 '
+              f'{p90:.3f} ms, {B * 1000.0 / p50:.2f} images/s ({AUG_TIMED_STEPS} steps after '
+              f'{TRAIN_WARMUP}, the variants in turns)')
+        profile_calls(lambda: step(params, state, o, batch_of(chain, 0)), tag, 'phase 13',
+                      f'step B={B} ({label})')
+        if chain is None:
+            continue
+        fn = augmenter_from_config(cfg)
+        d = batch_of(chain, 0)
+        args = (d['image'], d['gt'], d['draws'], d.get('partner_image'), d.get('partner_gt'))
+        print(f'phase 13: {tag} the chain alone, {label}: {cuda_ms(lambda: fn(*args)):.3f} ms '
+              'a call with its launches')
+        profile_calls(lambda: fn(*args), tag, 'phase 13', f'chain B={B} ({label})')
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(20):
+            batch_of(chain, i)
+        torch.cuda.synchronize()
+        print(f'phase 13: {tag} draws of one step, {label}: '
+              f'{(time.perf_counter() - t0) * 1e3 / 20:.3f} ms of host time to draw and upload')
+    return out
+
+
+def phase13_device_augment(dev, tag, tmp, corpus):
+    """Phase 13: device augmentation and the device corpus on the card.
+    (a) the chain against the CPU (``phase13_chain_parity``); (b) ``cli.train``
+    on yamls/shapes.yaml as shipped (``augment.device on``; only the data
+    and weight paths, the epoch count and eval.after overridden) for
+    DEVICE_EPOCHS epochs on phase 11's corpus; (c) ``cli.train`` on
+    yamls/clutter.yaml as shipped (the device corpus, fresh partners,
+    mosaic and mixup 0.5) on a synth_clutter corpus of CLUTTER_IMAGES; (d)
+    one QAT epoch of yamls/shapes_quant.yaml with ``augment.device on``
+    from (b)'s last checkpoint; phase 11's timed run with the device chain,
+    from the host loader and from the device corpus; (e) the step's cost
+    (``phase13_step_timings``). ``corpus``: phase 11's return value, in
+    ``tmp``. Raises on any failed gate."""
+    import numpy as np
+    from pqdet_tpu_torch.data.scripts.synth_clutter import generate
+    from pqdet_tpu_torch.utils.codec import load_checkpoint
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    fails = phase13_chain_parity(dev, tag, phase_gen(13))
+
+    def gate(ok, what):
+        print(f'phase 13: {what}: {"ok" if ok else "FAIL"}')
+        if not ok:
+            fails.append(what)
+
+    host = corpus['host_epochs']
+    host_ips = statistics.mean(ep['steps'] * corpus['batch'] / ep['s']
+                               for e, ep in host.items() if e > 0)
+    wroot = os.path.join(tmp, 'weights_device')
+
+    # (b) yamls/shapes.yaml as shipped
+    root = corpus['root']
+    shapes = {}
+    wall = run_train_cli(['--yaml', os.path.join(here, 'yamls', 'shapes.yaml'),
+                          'dataset.train_txt_file', os.path.join(root, 'train.txt'),
+                          'dataset.eval_txt_file', os.path.join(root, 'test.txt'),
+                          'weight.dir', wroot, 'train.max_epochs', str(DEVICE_EPOCHS),
+                          'eval.after', '1'], shapes)
+    cfg = shapes['trainer'].config
+    print(f'phase 13: {tag} (b) cli.train yamls/shapes.yaml: {wall:.2f} s; augment.device '
+          f'{cfg.augment.device}, batch {cfg.train.batch_size}, sizes {cfg.train.input_sizes}, '
+          f'hflip {cfg.augment.hflip_p}, crop {cfg.augment.crop_p}, mixup '
+          f'{cfg.augment.mixup_p}, mosaic {cfg.augment.mosaic_p}, device_cache '
+          f'{cfg.dataset.device_cache}')
+    gate(cfg.augment.device and not cfg.dataset.device_cache,
+         '(b) shapes.yaml trains with augment.device on')
+    trainer_gates(shapes, '(b) shapes.yaml', tag, gate, host_ips, [1, 2])
+    sdir = os.path.join(wroot, cfg.experiment_name)
+    shapes_ckpt = os.path.join(sdir, sorted(os.listdir(sdir))[-1])
+
+    # (c) yamls/clutter.yaml as shipped, on a synth_clutter corpus
+    croot = os.path.join(tmp, 'clutter')
+    t0 = time.perf_counter()
+    generate(croot, n=CLUTTER_IMAGES, size=AUG_SIZE, seed=SEED)
+    print(f'phase 13: (c) wrote {CLUTTER_IMAGES} synth_clutter images at {AUG_SIZE} in '
+          f'{time.perf_counter() - t0:.2f} s')
+    clutter = {}
+    wall = run_train_cli(['--yaml', os.path.join(here, 'yamls', 'clutter.yaml'),
+                          'dataset.train_txt_file', os.path.join(croot, 'train.txt'),
+                          'dataset.eval_txt_file', os.path.join(croot, 'test.txt'),
+                          'weight.dir', wroot, 'train.max_epochs', str(DEVICE_EPOCHS),
+                          'eval.after', '1'], clutter)
+    trainer = clutter['trainer']
+    cfg = trainer.config
+    info = trainer.cache_info
+    n_train = trainer.train_data.length
+    print(f'phase 13: {tag} (c) cli.train yamls/clutter.yaml: {wall:.2f} s; augment.device '
+          f'{cfg.augment.device}, device_cache {cfg.dataset.device_cache}, fresh_partners '
+          f'{cfg.augment.fresh_partners} ({trainer._partner_rows} partner rows a sample), '
+          f'mosaic {cfg.augment.mosaic_p}, mixup {cfg.augment.mixup_p}, batch '
+          f'{cfg.train.batch_size}, sizes {cfg.train.input_sizes}; the device corpus: '
+          f'{info["images"]} images, {info["gib"]:.4f} GiB, built in {info["s"]:.2f} s')
+    gate(cfg.augment.device and cfg.dataset.device_cache and trainer._partner_rows == 4
+         and info['images'] == n_train,
+         '(c) clutter.yaml trains from the device corpus with 4 fresh partner rows a sample')
+    (s0, rows0), (s1, prow) = clutter['gathers']
+    want = np.random.RandomState(cfg.system.seed + 7).randint(
+        0, n_train, size=4 * cfg.train.batch_size).tolist()
+    print(f'phase 13: {tag} (c) first batch rows {rows0} at {s0}; partner rows {prow[:16]}... '
+          f'(JAX\'s RandomState({cfg.system.seed} + 7) draw {want[:16]}...)')
+    gate(prow == want and s1 == s0, '(c) the first batch\'s partner rows are JAX\'s '
+         f'RandomState(system.seed + 7).randint(0, {n_train}, {len(want)})')
+    trainer_gates(clutter, '(c) clutter.yaml', tag, gate, host_ips, [1, 2])
+
+    # (d) one QAT epoch with the device chain, from (b)'s last checkpoint
+    qat = {}
+    wall = run_train_cli(['--yaml', os.path.join(here, 'yamls', 'shapes_quant.yaml'),
+                          'dataset.train_txt_file', os.path.join(root, 'train.txt'),
+                          'dataset.eval_txt_file', os.path.join(root, 'test.txt'),
+                          'weight.dir', wroot, 'weight.resume', shapes_ckpt,
+                          'augment.device', 'on', 'train.max_epochs', '1'], qat)
+    trainer = qat['trainer']
+    print(f'phase 13: {tag} (d) cli.train yamls/shapes_quant.yaml (augment.device on) from '
+          f'{os.path.basename(shapes_ckpt)}: {wall:.2f} s')
+    gate(trainer._quant and trainer.config.augment.device, '(d) the QAT step augments on the '
+         'device')
+    trainer_gates(qat, '(d) QAT', tag, gate, host_ips, [])
+    qdir = os.path.join(wroot, trainer.config.experiment_name)
+    ck = load_checkpoint(os.path.join(qdir, 'model-0.ckpt'))
+    gate(ck['type'] == 'qat' and ck['step'] == trainer.global_step,
+         f'(d) a qat checkpoint at step {ck["step"]}')
+
+    # the timed runs of phase 11 (its 300-image corpus, B=12 at 512x512,
+    # 25-step epochs) with the device chain: from the loader, which now only
+    # letterboxes, and from the device corpus, which needs no loader
+    timed, bare_ips = corpus['timed'], corpus['bare_ips']
+    for i, (label, extra) in enumerate((('device chain, host loader', []),
+                                        ('device chain, device corpus',
+                                         ['dataset.device_cache', 'on']))):
+        rec = {}
+        run_train_cli(['--yaml', os.path.join(here, 'yamls', 'shapes.yaml'),
+                       'dataset.train_txt_file', timed['train'],
+                       'dataset.eval_txt_file', os.path.join(root, 'test.txt'),
+                       'weight.dir', wroot, 'system.num_workers', corpus['workers'],
+                       'train.batch_size', str(TIMING_BATCH), 'train.input_sizes',
+                       f'[{CORPUS_SIZE}]', 'train.max_epochs', '2', 'eval.after', '2',
+                       'experiment_name', f'shapes_timing_device_{i}', *extra], rec)
+        ep = rec['epochs'][1]
+        ips = ep['steps'] * TIMING_BATCH / ep['s']
+        print(f'phase 13: {tag} timed run, {label} (B={TIMING_BATCH}, {CORPUS_SIZE}x'
+              f'{CORPUS_SIZE}, {ep["steps"]} steps an epoch): epoch 0 '
+              f'{rec["epochs"][0]["s"]:.3f} s; epoch 1 {ep["s"]:.3f} s, data load '
+              f'{ep["data_load_s"]:.3f} s (share {ep["data_load_s"] / ep["s"]:.4f}), model '
+              f'{ep["model_s"]:.3f} s, {ips:.2f} images/s: {ips / bare_ips:.4f} of the bare '
+              f'step\'s {bare_ips:.2f} (phase 11\'s host chain {timed["ips"]:.2f}, '
+              f'{timed["ips"] / bare_ips:.4f})')
+        losses = [x for e in rec['loss'] for x in rec['loss'][e]]
+        gate(all(math.isfinite(x) for x in losses)
+             and not any(ep['launches'].values()),
+             f'the timed run, {label}: {len(losses)} finite step losses, 0 kernel launches')
+
+    # (e) the step's cost
+    phase13_step_timings(dev, tag, phase_gen(13))
+    print(f'phase 13: {tag} phase seconds {time.perf_counter() - t_phase:.1f}')
+    if fails:
+        raise AssertionError(f'phase 13 gates failed: {fails}')
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -2441,7 +2879,9 @@ def main() -> int:
                                  tmp)
         stamp('phase 12 starts')
         phase12_qat(dev, tag, tmp, corpus, tt)
-    stamp('phase 12 ends')
+        stamp('phase 13 starts')
+        phase13_device_augment(dev, tag, tmp, corpus)
+    stamp('phase 13 ends')
 
     kernels = [
         {'name': 'decode_heads', 'route': 'triton',

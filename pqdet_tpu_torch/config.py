@@ -56,6 +56,10 @@ class DatasetConfig:
     classes: List[str] = _field(VOC_CLASSES)
     # keep decoded images (and parsed labels) in RAM, hand out copies
     cache_images: bool = False
+    # the whole train split decoded and letterboxed once at the largest
+    # train.input_sizes into one uint8 tensor on the card; steps gather
+    # their rows there (needs augment.device)
+    device_cache: bool = False
 
 
 @dataclasses.dataclass
@@ -91,15 +95,21 @@ class TrainConfig:
 
 @dataclasses.dataclass
 class AugmentConfig:
-    """The host chain's probabilities (``data/augment.py``)."""
+    """The augment chain's probabilities (``data/augment.py`` on the host,
+    ``ops/augment_device.py`` on the device)."""
     mixup_p: float = 0.5
     color_p: float = 0.0
     hflip_p: float = 0.5
     vflip_p: float = 0.0
     crop_p: float = 0.75
     mosaic_p: float = 0.0
-    # the stochastic chain on the device: not ported (raises when on)
+    # the stochastic chain on the device, in the step (ops/augment_device.py);
+    # the host only letterboxes
     device: bool = False
+    # mosaic and mixup partners as fresh corpus rows of the device cache
+    # instead of in-batch permutations: 'auto' (on exactly with
+    # dataset.device_cache), 'on' (needs the cache) or 'off'
+    fresh_partners: str = 'auto'
 
 
 @dataclasses.dataclass
@@ -170,8 +180,6 @@ LATER_KEYS = {
     'system.data_devices': 'queue 1, item 7 (data parallelism)',
     'train.spatial': 'queue 1, item 7 (data parallelism)',
     'train.unroll_steps': 'queue 1, item 2 (one dispatch per step)',
-    'dataset.device_cache': 'queue 1, item 6 (the GPU-resident corpus)',
-    'augment.fresh_partners': 'queue 1, item 6 (device augmentation)',
     'train.s2d_stem': 'queue 1, item 8 (the space-to-depth stem)',
     'eval.s2d_stem': 'queue 1, item 8 (the space-to-depth stem)',
     'prune': 'queue 1, item 10 (pruning)',

@@ -96,9 +96,11 @@ class BaseSampleGetter:
 
 
 def _standard_train_chain(augment_cfg, input_size):
-    """The host chain; images stay uint8 (normalized on the device)."""
+    """The host chain; images stay uint8 (normalized on the device). With
+    ``augment.device`` every stochastic transform runs in the step
+    (``ops/augment_device.py``) and the host only letterboxes."""
     if augment_cfg.device:
-        raise later('augment.device', 'queue 1, item 6 (device augmentation)')
+        return augment.Compose([augment.Resize(input_size)])
     return augment.Compose([
         augment.RandomHFlip(p=augment_cfg.hflip_p),
         augment.RandomVFlip(p=augment_cfg.vflip_p),
@@ -109,7 +111,10 @@ def _standard_train_chain(augment_cfg, input_size):
 
 
 def _compose_chain(augment_cfg, sampler, input_size):
-    """[Mosaic ->] Mixup, the compose stage; both blend uint8."""
+    """[Mosaic ->] Mixup, the compose stage; both blend uint8. Empty with
+    ``augment.device`` (mosaic and mixup run in the step)."""
+    if augment_cfg.device:
+        return []
     chain = []
     if augment_cfg.mosaic_p > 0:
         chain.append(augment.Mosaic(sampler, size=input_size, p=augment_cfg.mosaic_p))

@@ -7,7 +7,8 @@ the sample indices with replacement and one input size per batch from
 memory high-water mark first). So one config gives both packages the same
 plan. Batches carry uint8 images and the GT boxes zero-padded to
 ``model.max_gt_boxes``; the label grids are built in the step
-(``ops/labels.py``).
+(``ops/labels.py``). With ``augment.device`` the host only letterboxes
+and the GT rows carry a mixup weight of 1.
 
 Each sample augments with its own ``np.random.RandomState``, seeded from
 ``(system.seed, epoch, slot)`` where the slot is the sample's place in the
@@ -37,6 +38,9 @@ class TrainData:
 
     def __init__(self, config):
         mode = config.system.label_assign
+        if config.augment.device and mode != 'device':
+            raise ValueError("augment.device=on needs system.label_assign='device': the "
+                             'host assigner cannot see boxes transformed on device')
         if mode == 'host':
             raise later("system.label_assign='host'",
                         'queue 1, item 3 (host label assignment)')
@@ -98,8 +102,12 @@ class TrainData:
         image, (max_gt, 6) zero-padded GT boxes)."""
         self._tls.input_size = size
         image, bboxes = self.sample_getter(self._imgs[img_index], rng)
-        bboxes = np.asarray(bboxes, np.float32).reshape(-1, 6) if len(bboxes) \
-            else np.zeros((0, 6), np.float32)
+        bboxes = np.asarray(bboxes, np.float32)
+        if len(bboxes) and bboxes.shape[-1] == 5:
+            # the device chain's host part has no Mixup, the producer of the
+            # weight column: weights start at 1 (the step sets them again)
+            bboxes = np.concatenate([bboxes, np.ones((len(bboxes), 1), np.float32)], -1)
+        bboxes = bboxes.reshape(-1, 6) if len(bboxes) else np.zeros((0, 6), np.float32)
         gt = np.zeros((self._max_gt, 6), np.float32)
         n = min(len(bboxes), self._max_gt)
         gt[:n] = bboxes[:n]

@@ -6,7 +6,8 @@ The step is a function of plain dicts, as in JAX: it takes params, BN
 state and optimizer state and returns new ones, writing none of its inputs
 in place. The learning rate is a schedule of the update count inside the
 optimizer; sparse training's BN-gamma L1 subgradient is added to the
-grads before it. The QAT step (``make_qat_train_step``) runs the
+grads before it. With device augmentation the batch is augmented in the
+step before its labels are built. The QAT step (``make_qat_train_step``) runs the
 fake-quant walk of the quant graph with the same Adam. On the card either
 step runs cuDNN convs, PyTorch elementwise kernels and autograd, and
 launches no hand-written kernel: the JAX step reaches no Pallas kernel
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from pqdet_tpu_torch.compress.qat import QuantCtx
+from pqdet_tpu_torch.ops.augment_device import augmenter_from_config
 from pqdet_tpu_torch.ops.labels import label_assigner_from_config
 from pqdet_tpu_torch.ops.preprocess import device_normalize
 from pqdet_tpu_torch.train.schedule import build_schedule
@@ -141,6 +143,21 @@ def make_optimizer(schedule: Callable[[int], float], weight_decay: float = 0.0,
     return Adam(schedule, weight_decay=weight_decay, grad_clip=grad_clip)
 
 
+def _inputs(batch, label_fn, augment_fn=None):
+    """(normalized image, label targets) of a step's batch: augmented on
+    the device first when ``augment_fn`` is given and the batch has
+    ``gt``."""
+    if augment_fn is not None and 'gt' in batch:
+        raw, gt = augment_fn(batch['image'], batch['gt'], batch['draws'],
+                             batch.get('partner_image'), batch.get('partner_gt'))
+        image = device_normalize(raw)
+        return image, label_fn(gt, image.shape[1:3])
+    image = device_normalize(batch['image'])
+    if 'targets' in batch:
+        return image, batch['targets']
+    return image, label_fn(batch['gt'], image.shape[1:3])
+
+
 def make_loss_fn(network, compute_dtype=None, remat: int = 0, label_fn=None,
                  augment_fn=None, probe_heads: bool = False):
     """The (params, state, batch, rng) -> (loss, (losses, new_state, stats))
@@ -152,10 +169,14 @@ def make_loss_fn(network, compute_dtype=None, remat: int = 0, label_fn=None,
     normalized on the host) and either ``gt`` (B, max_gt, 6) padded raw GT
     boxes or ``targets``, the 6-tuple of ``ops/labels.py``. ``remat`` N >= 1
     runs the walk as N checkpointed segments. ``probe_heads``: ``stats``
-    holds the max |activation| of each yolo head's input conv."""
-    if augment_fn is not None:
-        raise NotImplementedError('augment_fn: on-device augmentation comes in the '
-                                  'device-augment slice of the port')
+    holds the max |activation| of each yolo head's input conv.
+
+    ``augment_fn`` (``ops/augment_device.py::augmenter_from_config``)
+    augments a ``gt`` batch on the device first, with the batch's
+    ``draws`` (an ``AugmentDraws``) and its fresh partner rows
+    ``partner_image`` / ``partner_gt`` when it has them; the label grids
+    are then built from the grown GT. The draws are the batch's own, apart
+    from ``rng`` (the dropout generator), as JAX splits the step's key."""
     remat_n = int(remat)
     head_in = tuple(n.index - 1 for n in network.graph.yolo_nodes) if probe_heads else ()
     if head_in and remat_n:
@@ -169,11 +190,7 @@ def make_loss_fn(network, compute_dtype=None, remat: int = 0, label_fn=None,
             def tap(i, t):
                 if i in head_in:
                     stats[i] = t.detach().abs().amax().float()
-        image = device_normalize(batch['image'])
-        if 'targets' in batch:
-            targets = batch['targets']
-        else:
-            targets = label_fn(batch['gt'], image.shape[1:3])
+        image, targets = _inputs(batch, label_fn, augment_fn)
         losses, new_state = network.forward_train(params, state, image, targets=targets,
                                                   rng=rng, compute_dtype=compute_dtype,
                                                   remat_segments=remat_n, tap=tap)
@@ -211,19 +228,15 @@ def make_train_step(network, optimizer: Adam, sparse_ratio: float = 0.0,
 
 
 def make_qat_loss_fn(network, observing: bool = True, bn_frozen: bool = False,
-                     compute_dtype=None, label_fn=None):
+                     compute_dtype=None, label_fn=None, augment_fn=None):
     """The loss function of the QAT step, in ``make_loss_fn``'s contract:
-    normalize and label as there, then the fake-quant walk with
+    augment, normalize and label as there, then the fake-quant walk with
     ``QuantCtx(state['quant'], observing)`` and BN on batch statistics
     unless ``bn_frozen``; the new observers go into the new state's
     ``quant`` (``state``'s own when not ``observing``)."""
     def loss_fn(params, state, batch, rng: Optional[torch.Generator] = None):
         ctx = QuantCtx(state['quant'], observing=observing)
-        image = device_normalize(batch['image'])
-        if 'targets' in batch:
-            targets = batch['targets']
-        else:
-            targets = label_fn(batch['gt'], image.shape[1:3])
+        image, targets = _inputs(batch, label_fn, augment_fn)
         losses, new_state = network.forward_train(params, state, image, targets=targets,
                                                   train=not bn_frozen, rng=rng,
                                                   compute_dtype=compute_dtype, quant_ctx=ctx)
@@ -234,7 +247,8 @@ def make_qat_loss_fn(network, observing: bool = True, bn_frozen: bool = False,
 
 
 def make_qat_train_step(network, optimizer: Adam, observing: bool = True,
-                        bn_frozen: bool = False, compute_dtype=None, label_fn=None):
+                        bn_frozen: bool = False, compute_dtype=None, label_fn=None,
+                        augment_fn=None):
     """The QAT step, the port of the JAX trainer's ``_wrap_quant_step``:
     ``make_train_step``'s contract with the loss of ``make_qat_loss_fn``
     for one phase of the observer and BN-freeze schedule, and the same
@@ -242,7 +256,8 @@ def make_qat_train_step(network, optimizer: Adam, observing: bool = True,
     it launches no hand-written kernel (the fake-quant is PyTorch ops
     under autograd)."""
     loss_fn = make_qat_loss_fn(network, observing=observing, bn_frozen=bn_frozen,
-                               compute_dtype=compute_dtype, label_fn=label_fn)
+                               compute_dtype=compute_dtype, label_fn=label_fn,
+                               augment_fn=augment_fn)
     return _step_of(loss_fn, optimizer)
 
 
@@ -280,22 +295,25 @@ def train_step_from_config(network, cfg, steps_per_epoch: int, device='cuda',
     prunable BN gamma when ``sparse.switch`` is on, ``train.remat`` and
     ``train.head_probe``; or, with ``quant.switch``, the QAT step of the
     phase ``observing``/``bn_frozen`` (of the quant graph's ``network``),
-    which reads none of those three."""
+    which reads none of those three. Either step augments on the device
+    with ``augment.device`` (its batches then carry their ``draws``)."""
     t = cfg.train
     optimizer = make_optimizer(build_schedule(cfg, steps_per_epoch),
                                weight_decay=t.weight_decay, grad_clip=t.grad_clip)
     dtype = COMPUTE_DTYPES[cfg.system.compute_dtype]
     labels = label_assigner_from_config(cfg, device=device)
+    augment = augmenter_from_config(cfg) if cfg.augment.device else None
     if cfg.quant.switch:
         return make_qat_train_step(network, optimizer, observing=observing,
                                    bn_frozen=bn_frozen, compute_dtype=dtype,
-                                   label_fn=labels), optimizer
+                                   label_fn=labels, augment_fn=augment), optimizer
     sparse = bool(cfg.sparse.switch)
     step = make_train_step(network, optimizer,
                            sparse_ratio=cfg.sparse.ratio if sparse else 0.0,
                            sparse_ids=sparse_bn_gamma_ids(network) if sparse else None,
                            compute_dtype=dtype, remat=int(t.remat),
-                           probe_heads=bool(t.head_probe), label_fn=labels)
+                           probe_heads=bool(t.head_probe), label_fn=labels,
+                           augment_fn=augment)
     return step, optimizer
 
 

@@ -5,7 +5,16 @@ Per epoch: the thread loader decodes and augments the epoch plan's
 batches on the host (``data/train_data.py``, one input size per batch);
 each uint8 batch goes to the device (pinned, non-blocking) and through the
 step of ``train_step_from_config`` (device labels, forward and loss,
-backward, Adam); every 1/5 epoch the loss meters are flushed with one
+backward, Adam). With ``augment.device`` the host only letterboxes and the
+step augments on the device (``ops/augment_device.py``) with draws made on
+the host from ``(system.seed, global_step)``, so a resumed run draws what
+an uninterrupted one does. With ``dataset.device_cache`` the whole train
+split is decoded and letterboxed once, at the largest input size, into one
+uint8 tensor on the device; each step gathers its rows there (and resizes
+them bilinearly to a smaller planned size), and with fresh partners
+(``augment.fresh_partners``) also its mosaic and mixup partner rows, drawn
+from ``np.random.RandomState(system.seed + 7)`` anew each epoch as the JAX
+trainer draws them. Every 1/5 epoch the loss meters are flushed with one
 device-to-host copy and printed, and a non-finite loss raises; past
 ``eval.after`` the bf16 predict pipeline and the AP evaluator score the
 eval split; a checkpoint in the JAX package's format is written every
@@ -25,27 +34,30 @@ scores the converted model through ``Int8Inference`` in kernel mode (the
 int8 kernels and the decode kernel on the card), as the JAX trainer scores
 its Pallas int8 path; checkpoints are of type ``qat``.
 
-Not ported yet, and raising: device augmentation, host label assignment,
-the process loader, data parallelism and the GPU-resident corpus, pruning
-and NAS fine-tuning (ROADMAP.md queue 1).
+Not ported yet, and raising: host label assignment, the process loader,
+data parallelism, pruning and NAS fine-tuning (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
 
 import os
+import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from pqdet_tpu_torch import resolve_device
 from pqdet_tpu_torch.compress.quantized import Int8Inference, convert_to_int8
-from pqdet_tpu_torch.config import later, resolve_model_cfg
+from pqdet_tpu_torch.config import later, resolve_model_cfg, sizes_fix
 from pqdet_tpu_torch.data.eval_data import EvalData
 from pqdet_tpu_torch.data.train_data import TrainData, epoch_batches
 from pqdet_tpu_torch.evaluation.evaluator import Evaluator, format_ap_table
 from pqdet_tpu_torch.evaluation.predict import build_predict_pipeline, make_batch_predict
 from pqdet_tpu_torch.model.factory import build_detector, inference_params
+from pqdet_tpu_torch.ops.augment_device import draw_augment, partner_rows_per_sample
 from pqdet_tpu_torch.train.checkpoint import save_checkpoint
 from pqdet_tpu_torch.train.step import (COMPUTE_DTYPES, resume_schedule_step,
                                         sparse_bn_gamma_ids, train_step_from_config)
@@ -59,6 +71,9 @@ class Trainer:
     # steps kept in flight on the card before the oldest is waited for: the
     # host stays ahead of the device while queued input batches stay bounded
     PIPELINE_DEPTH = 4
+    # one corpus on each device per process, kept across trainers: drivers
+    # that build a Trainer per short run upload it once
+    _CACHE_MEMO = {}
 
     def __init__(self, config, device='cuda'):
         self.config = config
@@ -85,6 +100,16 @@ class Trainer:
         self._clear_history = c.weight.clear_history
         self._num_workers = c.system.num_workers
         self._compute_dtype = COMPUTE_DTYPES[c.system.compute_dtype]
+        self._augment = c.augment.device
+        self._partner_rows = partner_rows_per_sample(c) if self._augment else 0
+        self._device_cache = None
+        if str(c.augment.fresh_partners).lower() in ('on', 'true', '1', 'yes') \
+                and not c.dataset.device_cache:
+            raise ValueError('augment.fresh_partners=on gathers partner rows from the '
+                             "device corpus: set dataset.device_cache on ('auto' takes "
+                             'in-batch partners without the cache)')
+        if c.dataset.device_cache and not self._augment:
+            raise ValueError('dataset.device_cache needs augment.device=on')
 
         self.dataload_tt = TicToc()
         self.model_tt = TicToc()
@@ -101,6 +126,9 @@ class Trainer:
         self._print_interval = max(self.steps_per_epoch // 5, 1)
         print(f'{self.train_data.length} images for train.')
         print(f'{self.eval_data.length} images for evaluate.')
+
+        if self.config.dataset.device_cache:
+            self._build_device_cache()
 
         self.network, params, state, info = build_detector(
             self.cfg_text, weight_path=self._resume or None,
@@ -241,16 +269,112 @@ class Trainer:
             out[k] = t
         return out
 
+    # ---------------------------------------------------- the device corpus
+
+    def _build_device_cache(self):
+        """Decode and letterbox every train image once, at the largest input
+        size, into one uint8 tensor on the device, uploaded in ~64 MB chunks
+        (the GT rows beside it); ``cache_info`` holds its images, GiB and
+        build seconds."""
+        data = self.train_data
+        smax = max(h for h, _ in sizes_fix(self.config.train.input_sizes))
+        key = (self.config.dataset.train_txt_file, self.config.dataset.name, smax,
+               data._max_gt, str(self.device))
+        hit = Trainer._CACHE_MEMO.get(key)
+        if hit is not None:
+            self._device_cache, self.cache_info = hit, hit['info']
+            print(f'device cache: reusing the device-resident corpus '
+                  f'({hit["img"].shape[0]} images at {smax}px)')
+            return
+        t0 = time.perf_counter()
+        n = data._num_imgs
+        img = torch.empty((n, smax, smax, 3), dtype=torch.uint8, device=self.device)
+        gt = np.zeros((n, data._max_gt, 6), np.float32)
+        chunk = max(1, (64 << 20) // (smax * smax * 3))
+        with ThreadPoolExecutor(max_workers=max(self._num_workers, 1)) as pool:
+            for lo in range(0, n, chunk):
+                hi = min(lo + chunk, n)
+                imgs = np.empty((hi - lo, smax, smax, 3), np.uint8)
+                for j, (im, g) in enumerate(pool.map(
+                        lambda i: data.build_sample(i, (smax, smax), None), range(lo, hi))):
+                    imgs[j], gt[lo + j] = im, g
+                img[lo:hi].copy_(torch.from_numpy(imgs))
+        self.cache_info = {'images': n, 'gib': img.numel() / 2 ** 30,
+                           's': time.perf_counter() - t0}
+        self._device_cache = {'img': img, 'gt': torch.from_numpy(gt).to(self.device),
+                              'smax': smax, 'info': self.cache_info}
+        Trainer._CACHE_MEMO.clear()     # at most one resident corpus
+        Trainer._CACHE_MEMO[key] = self._device_cache
+        print(f'device cache built: {n} images at {smax}px ({self.cache_info["gib"]:.3f} '
+              f'GiB on {self.device}) in {self.cache_info["s"]:.1f} s')
+
+    def _upload(self, array: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(array)
+        if self.device.type == 'cuda':
+            t = t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def _cache_gather(self, size: int, idx: torch.Tensor) -> dict:
+        """The cache rows ``idx`` at ``size``: a smaller size is resized
+        bilinearly without antialias (cv2's INTER_LINEAR, which the host
+        letterbox uses, does not antialias), rounded and clipped to uint8,
+        and its boxes scaled, as the JAX trainer's ``jax.image.resize``
+        gather does."""
+        cache = self._device_cache
+        imgs = cache['img'].index_select(0, idx)
+        gts = cache['gt'].index_select(0, idx)
+        if size != cache['smax']:
+            r = size / cache['smax']
+            x = F.interpolate(imgs.permute(0, 3, 1, 2).float(), size=(size, size),
+                              mode='bilinear', align_corners=False, antialias=False)
+            imgs = x.round().clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1).contiguous()
+            gts = torch.cat([gts[..., :4] * r, gts[..., 4:]], dim=-1)
+        return {'image': imgs, 'gt': gts}
+
+    def _cached_batches(self):
+        """The epoch's device batches gathered from the device corpus, with
+        ``partner_rows`` fresh partner rows per sample when the chain wants
+        them (uniform corpus rows, the JAX trainer's draws)."""
+        data = self.train_data
+        prng = np.random.RandomState(self.config.system.seed + 7)
+        for k, rows in enumerate(data.batch_indices()):
+            size = int(data._sizes[k][0])
+            idx = np.asarray([data._indexes[i] for i in rows], np.int64)
+            batch = self._cache_gather(size, self._upload(idx))
+            if self._partner_rows:
+                pidx = prng.randint(0, data._num_imgs, size=self._partner_rows * len(rows))
+                pb = self._cache_gather(size, self._upload(pidx.astype(np.int64)))
+                batch.update(partner_image=pb['image'], partner_gt=pb['gt'])
+            yield batch
+
+    def _epoch_batches(self):
+        """The epoch's batches on the device: gathered from the device
+        corpus, or loaded on the host and uploaded."""
+        if self._device_cache is not None:
+            yield from self._cached_batches()
+            return
+        for host_batch in epoch_batches(self.train_data, self._num_workers,
+                                        prefetch=self.config.system.prefetch):
+            yield self._put_batch(host_batch)
+
+    def draws(self, batch: dict, step: int):
+        """The device-augment draws of the batch of global step ``step``,
+        from ``np.random.default_rng((system.seed, step))``, on the device."""
+        B, S = batch['image'].shape[:2]
+        partners = batch['partner_image'].shape[0] // B if 'partner_image' in batch else 0
+        gen = np.random.default_rng((self.config.system.seed, step))
+        return draw_augment(gen, B, S, partner_rows=partners).to(self.device)
+
     def train_epoch(self, epoch: int):
         """One epoch of steps; returns the host seconds spent waiting for
         batches (``data_load_s``) and in the step calls (``model_s``)."""
         pending = []
         in_flight = []
         self.dataload_tt.tic()
-        for host_batch in epoch_batches(self.train_data, self._num_workers,
-                                        prefetch=self.config.system.prefetch):
-            batch = self._put_batch(host_batch)
+        for batch in self._epoch_batches():
             self.global_step += 1
+            if self._augment:
+                batch['draws'] = self.draws(batch, self.global_step)
             self.dataload_tt.toc()
 
             self.model_tt.tic()

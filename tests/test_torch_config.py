@@ -100,7 +100,7 @@ def test_merge_from_list_matches_jax():
     (['train.batch_size', 'many'], TypeError),
     (['augment.device', 'maybe'], TypeError),
     (['train.unroll_steps', '2'], NotImplementedError),
-    (['dataset.device_cache', 'on'], NotImplementedError),
+    (['system.loader', 'process'], NotImplementedError),
     (['prune.ratio', '0.5'], NotImplementedError),
 ])
 def test_bad_overrides_raise(opts, error):

@@ -148,6 +148,26 @@ def test_train_data_matches_jax(voc):
         pd.init_shuffle()
 
 
+def test_device_mode_train_data_matches_jax(voc):
+    """With augment.device the host only letterboxes (the compose chain is
+    empty, mosaic and mixup probabilities notwithstanding): two epochs of
+    samples equal JAX's bit for bit, GT rows with a mixup weight of 1."""
+    opts = _opts(voc, 'augment.device', 'on', 'augment.mosaic_p', '0.5',
+                 'augment.color_p', '0.5', 'system.seed', '5')
+    jd = JaxTrainData(jax_load_config(opts=opts))
+    pd = TrainData(load_config(opts=opts))
+    assert pd.sample_getter.compose_augment.transforms == []
+    for _ in range(2):
+        assert pd._indexes == jd._indexes and pd._sizes == jd._sizes
+        for k in range(len(pd)):
+            got = pd.get(k)
+            _same(got, jd.get(k))
+            real = got[1][..., 2] > got[1][..., 0]
+            assert real.any() and (got[1][real, 5] == 1).all()
+        jd.init_shuffle()
+        pd.init_shuffle()
+
+
 def test_batches_do_not_depend_on_workers(voc):
     """epoch_batches with 1 and 3 loader threads give the same batches as
     make_batch alone: uint8 (B, H, W, 3) at the planned size, GT (B, 16, 6)
@@ -210,7 +230,7 @@ def test_annotation_path_and_queued_getters():
             sample_getter(name, mode='train', classes=CLASSES)
 
 
-@pytest.mark.parametrize('key,value,item', [('augment.device', 'on', 'item 6'),
+@pytest.mark.parametrize('key,value,item', [('system.loader', 'process', 'item 3'),
                                             ('system.label_assign', 'host', 'item 3')])
 def test_queued_loader_modes_raise(voc, key, value, item):
     with pytest.raises(NotImplementedError, match=f'ROADMAP.md queue 1, {item}'):

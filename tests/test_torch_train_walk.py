@@ -214,8 +214,6 @@ def test_train_walk_options():
         net.forward_train(tp, ts, x, remat_segments=2, tap=lambda i, t: None)
     with pytest.raises(ValueError, match='probe_heads'):
         make_loss_fn(net, remat=2, probe_heads=True)
-    with pytest.raises(NotImplementedError, match='device-augment slice'):
-        make_loss_fn(net, augment_fn=lambda *a: a)
 
 
 @pytest.mark.parametrize('case', ['f32_sparse_remat', 'bf16_probe_step_decay'])

@@ -103,8 +103,8 @@ def test_nan_loss_raises(tmp_path):
         trainer._flush_metrics(0, [ok, m])
 
 
-@pytest.mark.parametrize('key,item', [('dataset.device_cache', 'item 6'),
-                                      ('augment.device', 'item 6')])
+@pytest.mark.parametrize('key,item', [('train.unroll_steps', 'item 2'),
+                                      ('system.loader', 'item 3')])
 def test_queued_options_raise(tmp_path, key, item):
     with pytest.raises(NotImplementedError, match=f'queue 1, {item}'):
         Trainer(load_config(opts=_opts(tmp_path, 4, key, 'on')), device='cpu').init_all()
