@@ -426,7 +426,6 @@ class AugmentParams(NamedTuple):
     color_p: float = 0.0
     mosaic_p: float = 0.0
     mixup_p: float = 0.5
-    mixup_beta: float = MIXUP_BETA
 
 
 def _base_chain(img, boxes, d: AugmentDraws, params: AugmentParams):

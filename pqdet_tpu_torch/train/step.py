@@ -7,8 +7,8 @@ state and optimizer state and returns new ones, writing none of its inputs
 in place. The learning rate is a schedule of the update count inside the
 optimizer; sparse training's BN-gamma L1 subgradient is added to the
 grads before it. With device augmentation the batch is augmented in the
-step before its labels are built. The QAT step (``make_qat_train_step``) runs the
-fake-quant walk of the quant graph with the same Adam. On the card either
+step before its labels are built. The QAT step (``make_qat_train_step``)
+runs the fake-quant walk of the quant graph with the same Adam. On the card either
 step runs cuDNN convs, PyTorch elementwise kernels and autograd, and
 launches no hand-written kernel: the JAX step reaches no Pallas kernel
 either.

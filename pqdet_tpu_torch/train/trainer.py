@@ -57,7 +57,8 @@ from pqdet_tpu_torch.data.train_data import TrainData, epoch_batches
 from pqdet_tpu_torch.evaluation.evaluator import Evaluator, format_ap_table
 from pqdet_tpu_torch.evaluation.predict import build_predict_pipeline, make_batch_predict
 from pqdet_tpu_torch.model.factory import build_detector, inference_params
-from pqdet_tpu_torch.ops.augment_device import draw_augment, partner_rows_per_sample
+from pqdet_tpu_torch.ops.augment_device import (draw_augment, fresh_partners_enabled,
+                                                partner_rows_per_sample)
 from pqdet_tpu_torch.train.checkpoint import save_checkpoint
 from pqdet_tpu_torch.train.step import (COMPUTE_DTYPES, resume_schedule_step,
                                         sparse_bn_gamma_ids, train_step_from_config)
@@ -103,8 +104,7 @@ class Trainer:
         self._augment = c.augment.device
         self._partner_rows = partner_rows_per_sample(c) if self._augment else 0
         self._device_cache = None
-        if str(c.augment.fresh_partners).lower() in ('on', 'true', '1', 'yes') \
-                and not c.dataset.device_cache:
+        if fresh_partners_enabled(c) and not c.dataset.device_cache:
             raise ValueError('augment.fresh_partners=on gathers partner rows from the '
                              "device corpus: set dataset.device_cache on ('auto' takes "
                              'in-batch partners without the cache)')
@@ -258,16 +258,16 @@ class Trainer:
                   f'(xy: {vals["giou_loss"]:.2f}, conf: {vals["conf_loss"]:.2f}, '
                   f'cls: {vals["class_loss"]:.2f})')
 
-    def _put_batch(self, batch):
-        """Host batch -> device tensors: pinned host memory and a
+    def _upload(self, array: np.ndarray) -> torch.Tensor:
+        """Host array -> device tensor: pinned host memory and a
         non-blocking copy on the card."""
-        out = {}
-        for k, v in batch.items():
-            t = torch.from_numpy(v)
-            if self.device.type == 'cuda':
-                t = t.pin_memory().to(self.device, non_blocking=True)
-            out[k] = t
-        return out
+        t = torch.from_numpy(array)
+        if self.device.type == 'cuda':
+            t = t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def _put_batch(self, batch):
+        return {k: self._upload(v) for k, v in batch.items()}
 
     # ---------------------------------------------------- the device corpus
 
@@ -307,12 +307,6 @@ class Trainer:
         Trainer._CACHE_MEMO[key] = self._device_cache
         print(f'device cache built: {n} images at {smax}px ({self.cache_info["gib"]:.3f} '
               f'GiB on {self.device}) in {self.cache_info["s"]:.1f} s')
-
-    def _upload(self, array: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(array)
-        if self.device.type == 'cuda':
-            t = t.pin_memory().to(self.device, non_blocking=True)
-        return t
 
     def _cache_gather(self, size: int, idx: torch.Tensor) -> dict:
         """The cache rows ``idx`` at ``size``: a smaller size is resized
@@ -357,7 +351,7 @@ class Trainer:
                                         prefetch=self.config.system.prefetch):
             yield self._put_batch(host_batch)
 
-    def draws(self, batch: dict, step: int):
+    def _draws(self, batch: dict, step: int):
         """The device-augment draws of the batch of global step ``step``,
         from ``np.random.default_rng((system.seed, step))``, on the device."""
         B, S = batch['image'].shape[:2]
@@ -374,7 +368,7 @@ class Trainer:
         for batch in self._epoch_batches():
             self.global_step += 1
             if self._augment:
-                batch['draws'] = self.draws(batch, self.global_step)
+                batch['draws'] = self._draws(batch, self.global_step)
             self.dataload_tt.toc()
 
             self.model_tt.tic()

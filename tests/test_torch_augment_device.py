@@ -268,7 +268,7 @@ def test_config_helpers_match_jax(opts):
     assert ad.partner_rows_per_sample(cfg) == jad.partner_rows_per_sample(jcfg)
     a = jcfg.augment
     assert tuple(ad.augment_params(cfg)) == (a.hflip_p, a.vflip_p, a.crop_p, a.color_p,
-                                             a.mosaic_p, a.mixup_p, 1.5)
+                                             a.mosaic_p, a.mixup_p)
 
 
 def _step_batch(seed, partners):
