@@ -171,7 +171,9 @@ def int8_conv(xq: torch.Tensor, x_scale_zp, wq: torch.Tensor, w_scale, b,
         xs = F.pad(xs.permute(0, 3, 1, 2), (padding,) * 4, value=float(zp - 128))
     else:
         xs = xs.permute(0, 3, 1, 2)
-    acc = F.conv2d(xs, wq.double(), None, stride, 0, 1, groups).permute(0, 2, 3, 1)
+    # contiguous NHWC, as every conv of the walk returns (the decode kernel
+    # takes contiguous heads only)
+    acc = F.conv2d(xs, wq.double(), None, stride, 0, 1, groups).permute(0, 2, 3, 1).contiguous()
     w_sum = wq.to(torch.float64).sum(dim=(1, 2, 3))  # per out channel
     acc = acc + (128 - zp) * w_sum
     return acc.float() * (x_scale * w_scale) + b

@@ -6,7 +6,7 @@ paths (``cfg.dataset.name``, ``cfg.eval.input_size``, ``cfg.train.batch_size``
 fields of the slices ported so far: serving (``dataset``, ``eval``), the
 training step (``model``, ``train``, ``system.compute_dtype``, ``sparse``) and
 the trainer (``experiment_name``, ``weight``, ``augment``, the loaders'
-``dataset``/``system`` fields, ``eval.after`` ...) and QAT (``quant``).
+``dataset``/``system`` fields, ``eval.after`` ...) QAT (``quant``) and pruning (``prune``).
 
 ``load_config(yaml_path, opts)`` merges a yaml file and a flat list of
 dotted overrides into the defaults, typed by each field's default as the
@@ -127,6 +127,15 @@ class SparseConfig:
 
 
 @dataclasses.dataclass
+class PruneConfig:
+    weight: str = ''
+    new_cfg: str = ''
+    ratio: float = 0.3
+    # fine-tune epochs after pruning (the JAX package's default)
+    finetune_epochs: int = 20
+
+
+@dataclasses.dataclass
 class QuantConfig:
     switch: bool = False           # quantization-aware training (fake-quant int8)
     backend: str = 'int8'          # JAX's schema carries it; qat checkpoints name 'int8'
@@ -169,6 +178,7 @@ class Config:
     augment: AugmentConfig = dataclasses.field(default_factory=AugmentConfig)
     weight: WeightConfig = dataclasses.field(default_factory=WeightConfig)
     sparse: SparseConfig = dataclasses.field(default_factory=SparseConfig)
+    prune: PruneConfig = dataclasses.field(default_factory=PruneConfig)
     quant: QuantConfig = dataclasses.field(default_factory=QuantConfig)
     eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
 
@@ -182,7 +192,6 @@ LATER_KEYS = {
     'train.unroll_steps': 'queue 1, item 2 (one dispatch per step)',
     'train.s2d_stem': 'queue 1, item 8 (the space-to-depth stem)',
     'eval.s2d_stem': 'queue 1, item 8 (the space-to-depth stem)',
-    'prune': 'queue 1, item 10 (pruning)',
 }
 
 

@@ -34,12 +34,16 @@ scores the converted model through ``Int8Inference`` in kernel mode (the
 int8 kernels and the decode kernel on the card), as the JAX trainer scores
 its Pallas int8 path; checkpoints are of type ``qat``.
 
+``run_prune`` fine-tunes a pruned checkpoint (``cli/prune.py``) with the
+JAX trainer's preset.
+
 Not ported yet, and raising: host label assignment, the process loader,
-data parallelism, pruning and NAS fine-tuning (ROADMAP.md queue 1).
+data parallelism and NAS fine-tuning (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -432,7 +436,24 @@ class Trainer:
         self.train()
 
     def run_prune(self, prune_weight: str):
-        raise later('Trainer.run_prune', 'queue 1, item 10 (pruning)')
+        """Fine-tune a pruned checkpoint, the JAX trainer's preset: the
+        pruned cfg (``prune.new_cfg``) resumed from ``prune_weight`` with its
+        history cleared, lr x 0.2 without warm-up, ``prune.finetune_epochs``
+        epochs, sparse training off, an eval after every epoch, checkpoints
+        named ``pruned-<ratio in %>-model-<epoch>[-<AP>].ckpt``."""
+        cfg = copy.deepcopy(self.config)
+        cfg.model.cfg_path = cfg.prune.new_cfg
+        cfg.train.learning_rate_init = self.config.train.learning_rate_init * 0.2
+        cfg.train.warmup_epochs = 0.0
+        cfg.train.max_epochs = int(cfg.prune.finetune_epochs)
+        cfg.weight.backbone = ''
+        cfg.weight.resume = prune_weight
+        cfg.weight.clear_history = True
+        cfg.eval.after = 0
+        cfg.sparse.switch = False
+        self.__init__(cfg, device=self.device)
+        self._weight_base_name = f'pruned-{round(cfg.prune.ratio * 100)}-model'
+        self.run()
 
     def run_nas(self, cfg_text: str):
         raise later('Trainer.run_nas', 'queue 1, item 11 (NAS)')

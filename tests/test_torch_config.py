@@ -101,7 +101,7 @@ def test_merge_from_list_matches_jax():
     (['augment.device', 'maybe'], TypeError),
     (['train.unroll_steps', '2'], NotImplementedError),
     (['system.loader', 'process'], NotImplementedError),
-    (['prune.ratio', '0.5'], NotImplementedError),
+    (['train.s2d_stem', '1'], NotImplementedError),
 ])
 def test_bad_overrides_raise(opts, error):
     with pytest.raises(error):

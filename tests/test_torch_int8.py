@@ -43,7 +43,7 @@ from pqdet_tpu.zoo.mobilenetv2 import mobilenetv2_fpn
 from pqdet_tpu_torch.bridge import from_jax_params, from_jax_qparams
 from pqdet_tpu_torch.compress.qat import QuantCtx, prepare_qat_state
 from pqdet_tpu_torch.compress.quantized import (Int8Inference, _quant_s8,
-                                                _stem_im2col, convert_to_int8)
+                                                _stem_im2col, convert_to_int8, int8_conv)
 from pqdet_tpu_torch.config import Config
 from pqdet_tpu_torch.evaluation.predict import (build_predict_pipeline,
                                                 make_batch_predict)
@@ -257,6 +257,27 @@ def test_kernel_mode_unadmitted_conv_raises_off_cpu(calibrated):
         out = inf.apply(qp, torch.from_numpy(np.array(jax_normalize(
             jnp.asarray(_images(4)[:, :63, :63])))), plain=True)
     assert out.shape[0] == 2 and np.isfinite(out.numpy()).all()
+
+
+@pytest.mark.parametrize('k,padding,stride,groups', [(1, 0, 1, 1), (3, 1, 1, 1), (3, 1, 2, 1),
+                                                     (3, 1, 1, 8)])
+def test_int8_conv_returns_contiguous_nhwc(k, padding, stride, groups, monkeypatch):
+    """``int8_conv`` (the ``int`` mode, ``bench eval --int8-exact``) returns
+    contiguous NHWC, as ``layers.conv2d`` does: the decode kernel takes
+    contiguous heads only. On the card the float64 conv comes back
+    NCHW-contiguous (on the CPU it keeps the input's channels-last layout),
+    so its NHWC permutation was a strided view the card refused; the conv
+    is made to return NCHW here as it does there."""
+    conv2d = torch.nn.functional.conv2d
+    monkeypatch.setattr(torch.nn.functional, 'conv2d',
+                        lambda *a, **kw: conv2d(*a, **kw).contiguous())
+    rng = np.random.RandomState(0)
+    xq = torch.from_numpy(rng.randint(0, 256, (2, 9, 9, 8)).astype(np.uint8))
+    wq = torch.from_numpy(rng.randint(-127, 128, (16, 8 // groups, k, k)).astype(np.int8))
+    y = int8_conv(xq, (0.02, 7.0), wq, torch.full((16,), 0.01), torch.zeros(16), stride,
+                  padding, groups)
+    side = 9 if stride == 1 else 5
+    assert y.shape == (2, side, side, 16) and y.is_contiguous()
 
 
 def test_dequant_mode_matches_jax(calibrated):

@@ -12,9 +12,12 @@ import torch
 from pqdet_tpu_torch import resolve_device
 from pqdet_tpu_torch.bridge import (from_jax_params, from_jax_qparams,
                                     from_jax_quant_state)
+from pqdet_tpu_torch.cli import bench as cli_bench
+from pqdet_tpu_torch.cli import prune as cli_prune
 from pqdet_tpu_torch.cli.predict import predict_image
 from pqdet_tpu_torch.compress.quantized import load_quantized, save_quantized
 from pqdet_tpu_torch.model.factory import build_detector
+from pqdet_tpu_torch.train.checkpoint import save_checkpoint
 from pqdet_tpu_torch.train.trainer import Trainer
 from pqdet_tpu_torch.ops.qconv import make_scalars
 from pqdet_tpu_torch.config import Config
@@ -51,7 +54,9 @@ def test_port_imports_no_jax():
                'pqdet_tpu_torch.train.trainer', 'pqdet_tpu_torch.cli.train',
                'pqdet_tpu_torch.cli.predict', 'pqdet_tpu_torch.cli.convert',
                'pqdet_tpu_torch.cli.bench', 'pqdet_tpu_torch.ops.augment_device',
-               'pqdet_tpu_torch.data.scripts.synth_clutter'}
+               'pqdet_tpu_torch.data.scripts.synth_clutter',
+               'pqdet_tpu_torch.compress.prune', 'pqdet_tpu_torch.utils.profiling',
+               'pqdet_tpu_torch.cli.prune'}
         print(len(names), bad, sorted(new - set(names)))
         sys.exit(1 if bad or len(names) < 40 or not new <= set(names) else 0)
     """)
@@ -103,7 +108,7 @@ def _no_cuda(monkeypatch):
                                    'bridge_qparams', 'bridge_quant_state', 'scalars',
                                    'label_assigner', 'train_step_from_config',
                                    'build_detector', 'trainer', 'predict_image',
-                                   'load_quantized'])
+                                   'load_quantized', 'prune_cli', 'bench_time'])
 def test_entry_point_without_device_raises(entry, monkeypatch, tmp_path):
     """Without ``device="cpu"`` and with no card, an entry point raises
     instead of quietly running on the CPU."""
@@ -111,6 +116,11 @@ def test_entry_point_without_device_raises(entry, monkeypatch, tmp_path):
     net = DetectionNetwork.from_cfg(get_cfg('mobilenetv2-fpn', width_mult=0.25))
     qpath = str(tmp_path / 'q.ckpt')
     save_quantized(qpath, net, {'layers': {}, 'act': {}}, get_cfg('mobilenetv2-fpn'))
+    fp_path = str(tmp_path / 'fp.ckpt')
+    if entry == 'prune_cli':
+        save_checkpoint(fp_path, net.graph, *net.init(torch.Generator().manual_seed(0),
+                                                      device='cpu'),
+                        step=0, cfg_text=get_cfg('mobilenetv2-fpn', width_mult=0.25))
     call = {
         'resolve_device': lambda: resolve_device(),
         'init': lambda: net.init(torch.Generator().manual_seed(0)),
@@ -126,6 +136,9 @@ def test_entry_point_without_device_raises(entry, monkeypatch, tmp_path):
         'predict_image': lambda: predict_image(Config(), 'x.jpg',
                                                cfg_path='mobilenetv2-fpn'),
         'load_quantized': lambda: load_quantized(qpath),
+        'prune_cli': lambda: cli_prune.main(['prune.weight', fp_path, 'prune.new_cfg',
+                                             str(tmp_path / 'p.cfg'), '--skip-finetune']),
+        'bench_time': lambda: cli_bench.main(['time', '--size', '64']),
     }[entry]
     with pytest.raises(RuntimeError, match='device="cpu"'):
         call()

@@ -18,7 +18,11 @@ CPU (the kernels themselves run only on the card, in chip_smoke.py):
   channel exactly once, each tile's window holds every tap of its
   outputs, the threads' units cover the tile once, the copies divide C,
   and the shared memory is the C side's layout (``dwlayout`` in
-  csrc/qconv.cu) and fits.
+  csrc/qconv.cu) and fits;
+- all three at every shape of mobilenetv2-fpn pruned at ratio 0.3
+  (``test_torch_prune.pruned_mobilenetv2_cfg``), B=1, 4 and 16, at input
+  sizes 320-608: widths of a multiple of 8 and not of 16 (a half-filled
+  16-channel E block, the int8 kernels' 8-byte copies).
 """
 
 import functools
@@ -39,28 +43,30 @@ SIZE = 512
 
 
 @functools.lru_cache(maxsize=None)
-def chain_shapes():
-    """(h, cin, e, p, expand) of each fused chain at SIZE."""
-    net = DetectionNetwork.from_cfg(get_cfg('mobilenetv2-fpn'))
+def chain_shapes(cfg=None, size=SIZE):
+    """(h, cin, e, p, expand) of each fused chain of ``cfg`` (mobilenetv2-fpn
+    by default) at ``size``."""
+    net = DetectionNetwork.from_cfg(cfg or get_cfg('mobilenetv2-fpn'))
     nodes = {n.index: n for n in net.graph.nodes}
     out = []
     for a, b, c in find_fused_triples(net.graph):
         nb, nc = nodes[b], nodes[c]
         cin = nodes[a].in_channels if a is not None else nb.in_channels
-        out.append((SIZE // nb.stride, cin, nb.in_channels, nc.out_channels, a is not None))
+        out.append((size // nb.stride, cin, nb.in_channels, nc.out_channels, a is not None))
     return out
 
 
 @functools.lru_cache(maxsize=None)
-def pointwise_shapes():
-    """Sorted (h, K, N) the 1x1 kernel sees in the int8 graph at SIZE."""
-    net = DetectionNetwork.from_cfg(get_cfg('mobilenetv2-fpn'), quant=True)
+def pointwise_shapes(cfg=None, size=SIZE):
+    """Sorted (h, K, N) the 1x1 kernel sees in the int8 graph of ``cfg`` at
+    ``size``."""
+    net = DetectionNetwork.from_cfg(cfg or get_cfg('mobilenetv2-fpn'), quant=True)
     shapes = set()
     for n in net.graph.nodes:
         if n.kind != 'convolutional':
             continue
         a = n.attrs
-        h = SIZE * a['stride'] // n.stride
+        h = size * a['stride'] // n.stride
         if a['size'] == 1:
             shapes.add((h, n.in_channels, a['filters']))
         elif a['groups'] == 1:                       # the stem, as im2col patches
@@ -208,11 +214,11 @@ def test_im2col_depth_pads_to_16():
 
 
 @functools.lru_cache(maxsize=None)
-def depthwise_shapes():
-    """Sorted (h, c, stride) the depthwise kernel sees in the int8 graph at
-    SIZE."""
-    net = DetectionNetwork.from_cfg(get_cfg('mobilenetv2-fpn'), quant=True)
-    return sorted({(SIZE * n.attrs['stride'] // n.stride, n.in_channels, n.attrs['stride'])
+def depthwise_shapes(cfg=None, size=SIZE):
+    """Sorted (h, c, stride) the depthwise kernel sees in the int8 graph of
+    ``cfg`` at ``size``."""
+    net = DetectionNetwork.from_cfg(cfg or get_cfg('mobilenetv2-fpn'), quant=True)
+    return sorted({(size * n.attrs['stride'] // n.stride, n.in_channels, n.attrs['stride'])
                    for n in net.graph.nodes if n.kind == 'convolutional'
                    and n.attrs['size'] == 3 and n.attrs['groups'] == n.in_channels > 1})
 
@@ -305,3 +311,50 @@ def test_plan_qdwconv3x3_refuses():
         plan_qdwconv3x3(1, 4, 4, 0, 1)
     with pytest.raises(ValueError, match='even H/W'):
         plan_qdwconv3x3(1, 5, 4, 8, 2)
+
+
+PRUNED_SIZES = tuple(range(320, 609, 32))
+
+
+def _pruned_cfg():
+    from test_torch_prune import pruned_mobilenetv2_cfg
+    return pruned_mobilenetv2_cfg(0.3)
+
+
+def test_pruned_shapes_cover_widths_of_8_mod_16():
+    """The pruned graph has fused chains with E = 8 (mod 16), pointwise K
+    and N and depthwise C = 8 (mod 16), which the unpruned graph has not."""
+    cfg = _pruned_cfg()
+    chains = chain_shapes(cfg)
+    assert 0 < len(chains) < 21
+    assert any(e % 16 == 8 for _, _, e, _, _ in chains)
+    assert not any(e % 16 for _, _, e, _, _ in chain_shapes())
+    pw = pointwise_shapes(cfg)
+    assert any(k % 16 == 8 for _, k, _ in pw) and any(n % 16 == 8 for _, _, n in pw)
+    assert any(c % 16 == 8 for _, c, _ in depthwise_shapes(cfg))
+
+
+@pytest.mark.parametrize('n', [1, 4, 16])
+def test_plan_fused_ir_pruned(n):
+    cfg = _pruned_cfg()
+    for size in PRUNED_SIZES:
+        for h, cin, e, p, expand in chain_shapes(cfg, size):
+            check_fused_plan(plan_fused_ir(n, h, h, cin, e, p, expand), n, h, h, cin, e, p,
+                             expand)
+
+
+@pytest.mark.parametrize('b', [1, 4, 16])
+def test_plan_qconv1x1_pruned(b):
+    cfg = _pruned_cfg()
+    for size in PRUNED_SIZES:
+        for h, k, n in pointwise_shapes(cfg, size):
+            check_qconv_plan(b * h * h, k, n)
+
+
+@pytest.mark.parametrize('b', [1, 4, 16])
+def test_plan_qdwconv3x3_pruned(b):
+    cfg = _pruned_cfg()
+    for size in PRUNED_SIZES:
+        for h, c, stride in depthwise_shapes(cfg, size):
+            plan = check_dw_plan(b, h, h, c, stride)
+            assert plan.cw == (16 if c % 16 == 0 else 8)

@@ -289,4 +289,4 @@ def test_qat_cli_arc(tmp_path, capsys):
     with pytest.raises(NotImplementedError, match='queue 1, item 10'):
         cli_convert.main(['onnx', '--weight', qat, '--out', str(tmp_path / 'm.onnx')])
     with pytest.raises(NotImplementedError, match='queue 1, item 10'):
-        cli_bench.main(['time', '--device', 'cpu'])
+        cli_bench.main(['time', '--shlo', str(tmp_path / 'm.shlo'), '--device', 'cpu'])
