@@ -3,7 +3,7 @@
     python -m pqdet_tpu_torch.cli.bench eval --yaml exp.yaml [--weight m.ckpt] \
         [--int8-exact] [--device cuda|cpu] [key value ...]
     python -m pqdet_tpu_torch.cli.bench benchmark --yaml exp.yaml --weight m.ckpt \
-        [--bf16] [--limit 100]
+        [--limit 100]
     python -m pqdet_tpu_torch.cli.bench summary [--cfg zoo-name|file.cfg] [--size 512]
     python -m pqdet_tpu_torch.cli.bench time [--cfg ...|--weight ...] [--bs 1] \
         [--size 512] [--bf16] [--trace DIR]
@@ -23,7 +23,7 @@ of ``--weight`` (or the config's model, seeded) on a zero batch of
 fused-IR kernel: CUDA events around each call after warm-up on the card,
 the host clock on the CPU; ``--trace DIR`` writes a ``torch.profiler``
 trace of 8 calls. ``benchmark`` times the four stages of a request over
-the eval images (total, forward, convert = box recovery, NMS), each stage
+the eval images (total, the f32 forward, convert = box recovery, NMS), each stage
 ending in a ``torch.cuda.synchronize`` on the card. ``time --shlo`` (an
 exported StableHLO artifact) waits for the exporters.
 """
@@ -41,17 +41,25 @@ from pqdet_tpu_torch.config import later
 MODES = ('eval', 'benchmark', 'summary', 'time')
 
 
+def folded(network, params, state, fused_ir, dtype=None):
+    """(BN-folded params, fused-IR table or None): the inference params of
+    the model, in ``dtype``, and with ``fused_ir`` the chains' table for the
+    fused-IR kernel."""
+    from pqdet_tpu_torch.model.factory import inference_params
+    fused = inference_params(network, params, state, dtype=dtype)
+    if not fused_ir:
+        return fused, None
+    from pqdet_tpu_torch.ops.fused_ir import prepare_fused_ir
+    return fused, prepare_fused_ir(network, fused)
+
+
 def fp_predict(network, params, state, cfg, device):
     """The evaluator's predict function for an fp model: the BN-folded walk
     through the predict pipeline, through the fused-IR kernel when
     ``eval.fused_ir`` is on."""
     from pqdet_tpu_torch.evaluation.predict import build_predict_pipeline, make_batch_predict
-    from pqdet_tpu_torch.model.factory import inference_params
-    fused = inference_params(network, params, state)
-    table = None
-    if cfg.eval.fused_ir:
-        from pqdet_tpu_torch.ops.fused_ir import prepare_fused_ir
-        table = prepare_fused_ir(network, fused)
+    fused, table = folded(network, params, state, cfg.eval.fused_ir)
+    if table is not None:
         print(f'fused_ir: {len(table)} inverted-residual chains through the CUDA kernel')
     run = build_predict_pipeline(network, cfg, fused_ir=table, device=device)
     return make_batch_predict(run, fused)
@@ -100,27 +108,23 @@ def cmd_summary(args, cfg):
 
 
 def build_forward(cfg, weight, device, bf16=False):
-    """(network, forward(x) -> preds) of the BN-folded model of ``weight``
-    (or the config's model, seeded), in f32 or, with ``bf16``, in bf16
-    through the fused-IR kernel; the decode kernel decodes the heads."""
+    """forward(x) -> preds of the BN-folded model of ``weight`` (or the
+    config's model, seeded), in f32 or, with ``bf16``, in bf16 through the
+    fused-IR kernel; the decode kernel decodes the heads."""
     from pqdet_tpu_torch.config import resolve_model_cfg
-    from pqdet_tpu_torch.model.factory import build_detector, inference_params
+    from pqdet_tpu_torch.model.factory import build_detector
     from pqdet_tpu_torch.ops.preprocess import device_normalize
     cfg_text = None if weight else resolve_model_cfg(cfg)
     network, params, state, _ = build_detector(cfg_text, weight_path=weight or None,
                                                device=device)
     dtype = torch.bfloat16 if bf16 else None
-    fused = inference_params(network, params, state, dtype=dtype)
-    table = None
-    if bf16:
-        from pqdet_tpu_torch.ops.fused_ir import prepare_fused_ir
-        table = prepare_fused_ir(network, fused)
+    fused, table = folded(network, params, state, bf16, dtype)
 
     @torch.inference_mode()
     def forward(x):
         return network(fused, {}, device_normalize(x), compute_dtype=dtype, fused_ir=table)
 
-    return network, forward
+    return forward
 
 
 def _sync(device):
@@ -133,7 +137,7 @@ def cmd_time(args, cfg):
         raise later('bench time --shlo', 'queue 1, item 10 (exporters and the '
                     'remaining CLIs)')
     from pqdet_tpu_torch.utils.profiling import forward_latency_ms, trace
-    _, forward = build_forward(cfg, args.weight, args.device, args.bf16)
+    forward = build_forward(cfg, args.weight, args.device, args.bf16)
     x = torch.zeros((args.bs, args.size, args.size, 3), dtype=torch.float32,
                     device=args.device)
     on_card = torch.device(args.device).type == 'cuda'
@@ -150,7 +154,8 @@ def cmd_time(args, cfg):
 
 
 def cmd_benchmark(args, cfg):
-    """Per-stage timing over the eval images: total, forward, convert (box
+    """Per-stage timing over the eval images: total, the f32 forward (as
+    the JAX package's mode, whatever ``--bf16`` says), convert (box
     recovery) and NMS, each stage waited for on the card."""
     from pqdet_tpu_torch.config import size_fix
     from pqdet_tpu_torch.data.eval_data import EvalData
@@ -158,7 +163,7 @@ def cmd_benchmark(args, cfg):
     from pqdet_tpu_torch.ops.postprocess import nms_batch, recover_bboxes
 
     dev = torch.device(args.device)
-    _, forward = build_forward(cfg, args.weight, dev, args.bf16)
+    forward = build_forward(cfg, args.weight, dev)
     affine = RECOVER_AFFINE_REGISTER[cfg.dataset.name.lower()]
     input_size = torch.tensor(size_fix(cfg.eval.input_size), dtype=torch.float32, device=dev)
     ev = cfg.eval

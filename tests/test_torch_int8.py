@@ -280,6 +280,38 @@ def test_int8_conv_returns_contiguous_nhwc(k, padding, stride, groups, monkeypat
     assert y.shape == (2, side, side, 16) and y.is_contiguous()
 
 
+PLANTED = {
+    'bias dropped': lambda xs, ws, b: (xs, ws, b * 0),
+    'scale off by 1e-4': lambda xs, ws, b: (xs, ws * (1 + 1e-4), b),
+    'scale off by 1e-5': lambda xs, ws, b: (xs, ws * (1 + 1e-5), b),
+    'zero point off by 1': lambda xs, ws, b: ((xs[0], xs[1] + 1), ws, b),
+}
+
+
+@pytest.mark.parametrize('fault', [None] + list(PLANTED))
+def test_modes_conv_gate_catches_planted_faults(calibrated, fault, monkeypatch):
+    """chip_smoke's conv-by-conv gate between the int8 modes
+    (``int8_modes_conv_parity``, ``int8_modes_agree``) passes ``int8_conv``
+    as it is and fails it with each planted fault, the subtlest (a scale
+    off by 1e-5, every code at most 1 apart) on the share alone."""
+    import chip_smoke
+    import pqdet_tpu_torch.compress.quantized as quantized
+    if fault:
+        plant = PLANTED[fault]
+
+        def faulty(xq, xs, wq, ws, b, *rest):
+            xs, ws, b = plant(xs, ws, b)
+            return int8_conv(xq, xs, wq, ws, b, *rest)
+        monkeypatch.setattr(quantized, 'int8_conv', faulty)
+    reading = chip_smoke.int8_modes_conv_parity(calibrated['net'], calibrated['qp'],
+                                                torch.from_numpy(calibrated['x']))
+    n_conv, worst, n_diff, n_all, bad_heads = reading
+    print(f'{fault or "as it is"}: {n_conv} convs, {n_diff} of {n_all} codes apart '
+          f'(share {n_diff / n_all:.3g}, max {worst}), heads outside 1e-5: {len(bad_heads)}')
+    assert n_conv == 84
+    assert chip_smoke.int8_modes_agree(*reading[1:]) == (fault is None)
+
+
 def test_dequant_mode_matches_jax(calibrated):
     """Fake-quant edges and bf16 convs on both sides: bf16 rounds at other
     places in the two frameworks, so the bounds are the whole-net ones."""
