@@ -196,7 +196,29 @@ Builds the CUDA kernels from pqdet_tpu_torch/csrc with nvcc (sm_90a), then:
    B=4 in turns, each forward on the device alone (CUDA graph), each
    kernel's device ms per forward at the pruned shapes with its plain
    version, library yardstick and bound, MACs and params, the arc's images/s
-   and CLI seconds, and the phase's seconds.
+   and CLI seconds, and the phase's seconds;
+15. the exporters (``phase15_exporters``, in the same temporary directory),
+   at B=1 and B=4, 512x512, from phase 4's seeded fp weights and phase 7's
+   calibrated int8 model: (a) the fp ``torch.export`` program
+   (``export_stablehlo``) with and without NMS and (b) the int8 programs
+   (``export_stablehlo_quant``) in ``'int'`` and ``'kernel'`` mode, each
+   saved, loaded here and in a fresh process that imports only
+   pqdet_tpu_torch (``load_artifacts``), and held to its eager path bit
+   for bit: the plain f32 walk (and ``nms_batch``), ``Int8Inference(mode=
+   'int').apply(plain=True)``, ``Int8Inference(mode='kernel')``. The fp and
+   ``'int'`` graphs must hold no operator of the port's namespace and
+   launch no kernel; the ``'kernel'`` graph must hold 58 ``qconv1x1_s8``,
+   26 ``qdwconv3x3_s8`` and 1 ``decode_heads`` operators and launch them
+   each call (counted here and in the fresh process; the calls here count
+   in the kernels line); (c) ``cli.convert onnx`` of the two weights saved
+   as checkpoints, run by ``onnx_runtime.run_model`` on the card: fp within
+   1e-4 (rtol = atol) of the eager f32 walk, quant within
+   tests/test_onnx.py's medians of the ``'int'`` mode; (d) ``cli.convert
+   darknet``, read back by ``load_weights_darknet`` into other weights on
+   the card, every array bit for bit, and ``cli.convert partial``; (e)
+   export, load (here and fresh) and ONNX seconds, file sizes, and
+   ``bench time --shlo`` of each artifact beside its eager path (the same
+   CUDA-event timer).
 
 Each phase draws from its own generator, seeded from SEED and the phase
 number. It prints one JSON line of kernels, then the nvidia-smi line, and
@@ -815,7 +837,7 @@ def calibrate_int8(qnet, params, state, batch):
 def phase7_int8_path(gen, dev, cfg, batch, tag, qnet, shapes):
     """Calibrate, convert and serve the int8 quant graph ``qnet`` through the
     kernel path; check launches, node-by-node parity with the plain path,
-    preds and detections. Returns (inf, qprep, predict, launches)."""
+    preds and detections. Returns (inf, qprep, predict, launches, qparams)."""
     import torch
     from pqdet_tpu_torch.compress.quantized import Int8Inference
     from pqdet_tpu_torch.evaluation.predict import (build_predict_pipeline,
@@ -924,7 +946,7 @@ def phase7_int8_path(gen, dev, cfg, batch, tag, qnet, shapes):
           f'scores {(kern[..., 4:] - fp[..., 4:]).abs().median().item():.4g}, boxes '
           f'{(kern[..., :4] - fp[..., :4]).abs().median().item():.4g} px; max |d| scores '
           f'{(kern[..., 4:] - fp[..., 4:]).abs().max().item():.4g}')
-    return inf, qprep, predict, launches
+    return inf, qprep, predict, launches, qparams
 
 
 def phase8_int8_timings(gen, dev, cfg, batch, tag, shapes, inf, qprep, predict, ptx):
@@ -3352,6 +3374,293 @@ def phase14_prune(dev, tag, tmp, corpus, ptx, base):
             'launches': arc['launches']}
 
 
+# ------------------------------------------------------------------ phase 15
+
+EXPORT_BATCHES = (1, BATCH)     # the CLI's default --bs, and the requests' B
+NMS_ARGS = (0.1, 0.45, 256)     # export_stablehlo's defaults
+ONNX_FP_TOL = 1e-4              # tests/test_onnx.py:73, rtol = atol
+ONNX_BOX_MEDIAN = 1.0           # tests/test_onnx.py:112-113: px ...
+ONNX_SCORE_MEDIAN = 0.05        # ... and scores
+INT8_PER_FORWARD = {'qconv1x1_s8': 58, 'qdwconv3x3_s8': 26, 'decode_heads': 1}
+
+
+def load_artifacts(manifest_path):
+    """Phase 15's fresh process: load each artifact of the manifest with
+    ``load_stablehlo``, importing pqdet_tpu_torch and nothing of the JAX
+    package, run it once on its saved input, save the output, and write
+    (to ``<manifest>.report``) each artifact's load and first-call seconds
+    and the kernel launches of its call. TF32 is off as in this script:
+    the program carries no precision flag, its runtime's applies."""
+    t0 = time.perf_counter()
+    import torch
+    from pqdet_tpu_torch.exporters.export import load_stablehlo
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with open(manifest_path) as fr:
+        manifest = json.load(fr)
+    dev = manifest['device']
+    report = {'import_s': time.perf_counter() - t0, 'artifacts': {}}
+    for name, item in manifest['artifacts'].items():
+        t0 = time.perf_counter()
+        with open(item['artifact'], 'rb') as fr:
+            fn = load_stablehlo(fr.read(), device=dev)
+        load_s = time.perf_counter() - t0
+        x = torch.load(item['input'], map_location=dev)
+        reset_kernel_launches()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            out = fn(x)
+        if dev != 'cpu':
+            torch.cuda.synchronize()
+        report['artifacts'][name] = {'load_s': load_s, 'first_call_s': time.perf_counter() - t0,
+                                     'launches': kernel_launches()}
+        torch.save(out, item['output'])
+    report['foreign'] = sorted(m for m in sys.modules
+                               if m.split('.')[0] in ('jax', 'jaxlib', 'pqdet_tpu'))
+    with open(manifest_path + '.report', 'w') as fw:
+        json.dump(report, fw)
+
+
+def same_outputs(got, want) -> bool:
+    """Bit-for-bit equality of a tensor or a tuple of tensors."""
+    import torch
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    return len(got) == len(want) and all(
+        a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b.to(a.device))
+        for a, b in zip(got, want))
+
+
+def phase15_artifacts(dev, tag, out_dir, gen, net, fused, qnet, qparams):
+    """Phase 15 (a), (b), (e): each artifact exported at B=1 and B=4, loaded
+    here and in a fresh process, held to its eager path bit for bit, its
+    graph's operators and launches counted, and timed beside the eager
+    path. Returns the kernel launches of the kernel artifacts' calls
+    here."""
+    import collections
+    import torch
+    from pqdet_tpu_torch.cli import bench as cli_bench
+    from pqdet_tpu_torch.compress.quantized import Int8Inference
+    from pqdet_tpu_torch.exporters.export import (export_stablehlo, export_stablehlo_quant,
+                                                  load_stablehlo)
+    from pqdet_tpu_torch.ops import library
+    from pqdet_tpu_torch.ops.postprocess import nms_batch
+    from pqdet_tpu_torch.utils.profiling import forward_latency_ms
+
+    infs = {m: Int8Inference(qnet, mode=m) for m in ('int', 'kernel')}
+    staged = {m: Int8Inference.prepare(qparams, m) for m in infs}
+    # the eager path each artifact is held to
+    eager = {
+        'fp': lambda x: net(fused, {}, x, plain=True),
+        'fp_nms': lambda x: tuple(nms_batch(net(fused, {}, x, plain=True), *NMS_ARGS))[:4],
+        'int': lambda x: infs['int'].apply(staged['int'], x, plain=True),
+        'kernel': lambda x: infs['kernel'].apply(staged['kernel'], x),
+    }
+    export = {
+        'fp': lambda b: export_stablehlo(net, fused, (SIZE, SIZE), b, device=dev),
+        'fp_nms': lambda b: export_stablehlo(net, fused, (SIZE, SIZE), b, True, *NMS_ARGS,
+                                             device=dev),
+        'int': lambda b: export_stablehlo_quant(qnet, qparams, (SIZE, SIZE), b, 'int',
+                                                device=dev),
+        'kernel': lambda b: export_stablehlo_quant(qnet, qparams, (SIZE, SIZE), b, 'kernel',
+                                                   device=dev),
+    }
+    want_ops = {f'{library.NAMESPACE}.{k}.default': v for k, v in INT8_PER_FORWARD.items()}
+    launches = dict.fromkeys(INT8_PER_FORWARD, 0)
+    refs, items, rows = {}, {}, {}
+    for b in EXPORT_BATCHES:
+        x = torch.rand(b, SIZE, SIZE, 3, generator=gen).to(dev)     # normalized images
+        for kind in export:
+            name = f'{kind}_b{b}'
+            t0 = time.perf_counter()
+            blob = export[kind](b)
+            export_s = time.perf_counter() - t0
+            path = os.path.join(out_dir, f'{name}.pt2')
+            with open(path, 'wb') as fw:
+                fw.write(blob)
+            t0 = time.perf_counter()
+            fn = load_stablehlo(blob, device=dev)
+            load_s = time.perf_counter() - t0
+            ops = dict(collections.Counter(library.graph_ops(fn)))
+            with torch.inference_mode():
+                ref = eager[kind](x)
+                torch.cuda.synchronize()
+                reset_kernel_launches()
+                got = fn(x)
+                torch.cuda.synchronize()
+                counts = kernel_launches()
+            want = INT8_PER_FORWARD if kind == 'kernel' else {}
+            ran = {k: v for k, v in counts.items() if v}
+            ok = ops == (want_ops if kind == 'kernel' else {}) and ran == want \
+                and same_outputs(got, ref)
+            print(f'phase 15: {tag} {name}: exported in {export_s:.2f} s, {len(blob)} bytes, '
+                  f'loaded in {load_s:.2f} s here; graph operators {ops or "none of pqdet"}; '
+                  f'one call launched {ran or "no kernel"}; equal to its eager path bit '
+                  f'for bit: {same_outputs(got, ref)} {"ok" if ok else "FAIL"}')
+            if not ok:
+                raise AssertionError(f'phase 15: the {name} artifact disagrees with its eager '
+                                     'path, or holds or launches the wrong kernels')
+            if kind == 'kernel':
+                for k in launches:
+                    launches[k] += counts[k]
+            refs[name] = ref
+            torch.save(x, os.path.join(out_dir, f'{name}.x'))
+            items[name] = {'artifact': path, 'input': os.path.join(out_dir, f'{name}.x'),
+                           'output': os.path.join(out_dir, f'{name}.y')}
+            rows[name] = {'b': b, 'kind': kind, 'x': x, 'export_s': export_s,
+                          'bytes': len(blob), 'path': path}
+
+    # (a), (b) in a fresh process that imports only the port
+    manifest = os.path.join(out_dir, 'manifest.json')
+    with open(manifest, 'w') as fw:
+        json.dump({'device': str(dev), 'artifacts': items}, fw)
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, '-c', 'import chip_smoke; chip_smoke.load_artifacts('
+                          f'{manifest!r})'], cwd=here, capture_output=True, text=True,
+                         timeout=900)
+    if run.returncode != 0:
+        raise AssertionError(f'phase 15: the fresh process failed:\n{run.stdout}\n{run.stderr}')
+    with open(manifest + '.report') as fr:
+        report = json.load(fr)
+    print(f'phase 15: {tag} fresh process: {time.perf_counter() - t0:.2f} s in all, imports '
+          f'{report["import_s"]:.2f} s, modules of jax or pqdet_tpu loaded: '
+          f'{report["foreign"] or "none"}')
+    bad = list(report['foreign'])
+    for name, r in report['artifacts'].items():
+        ran = {k: v for k, v in r['launches'].items() if v}
+        want = INT8_PER_FORWARD if rows[name]['kind'] == 'kernel' else {}
+        equal = same_outputs(torch.load(items[name]['output'], map_location=dev), refs[name])
+        rows[name]['fresh_load_s'] = r['load_s']
+        print(f'phase 15: {tag} fresh process {name}: loaded in {r["load_s"]:.2f} s, first '
+              f'call {r["first_call_s"]:.2f} s, launched {ran or "no kernel"}; equal to the '
+              f'eager path bit for bit: {equal} {"ok" if equal and ran == want else "FAIL"}')
+        if not (equal and ran == want):
+            bad.append(name)
+    if bad:
+        raise AssertionError(f'phase 15: fresh-process artifacts disagree: {bad}')
+
+    # (e) bench time --shlo against the eager path, the same timer
+    for name, row in rows.items():
+        t_art, text, _, _ = run_cli(cli_bench.main, [
+            'time', '--shlo', row['path'], '--bs', str(row['b']), '--size', str(SIZE),
+            '--device', str(dev)])
+        x = torch.zeros_like(row['x'])
+        with torch.inference_mode():
+            t_eager = forward_latency_ms(lambda: eager[row['kind']](x), dev)
+        print(f'phase 15: {tag} {name}: bench time --shlo mean {t_art["mean"]:.3f} ms, p50 '
+              f'{t_art["p50"]:.3f}, p90 {t_art["p90"]:.3f}; eager mean {t_eager["mean"]:.3f} '
+              f'ms, p50 {t_eager["p50"]:.3f}, p90 {t_eager["p90"]:.3f} (CUDA events around '
+              'each call, 64 calls after 10)')
+    return launches
+
+
+def phase15_files(dev, tag, out_dir, gen, net, params, state, fused, qnet, qparams):
+    """Phase 15 (c), (d), (e): the ONNX files through ``cli.convert onnx``
+    and the port's runtime on the card, and the darknet and partial round
+    trips, from phase 4's and 7's weights saved as checkpoints."""
+    import numpy as np
+    import torch
+    from pqdet_tpu_torch.cli import convert as cli_convert
+    from pqdet_tpu_torch.compress.quantized import Int8Inference, save_quantized
+    from pqdet_tpu_torch.exporters.export import load_weights_darknet
+    from pqdet_tpu_torch.exporters.onnx_runtime import run_model
+    from pqdet_tpu_torch.train.checkpoint import save_checkpoint
+    from pqdet_tpu_torch.utils.codec import load_checkpoint
+    from pqdet_tpu_torch.zoo import get_cfg
+
+    cfg_text = get_cfg('mobilenetv2-fpn')
+    ckpt, qckpt = os.path.join(out_dir, 'fp.ckpt'), os.path.join(out_dir, 'int8.ckpt')
+    save_checkpoint(ckpt, net.graph, params, state, step=0, cfg_text=cfg_text)
+    save_quantized(qckpt, qnet, qparams, cfg_text)
+    int_mode = Int8Inference(qnet, mode='int')
+    int_staged = Int8Inference.prepare(qparams, 'int')
+    dev_arg = ['--device', str(dev)]
+
+    # (c) ONNX: write, run on the card, hold to the eager paths
+    x = torch.rand(1, SIZE, SIZE, 3, generator=gen).to(dev)
+    feeds = {'input': x.permute(0, 3, 1, 2).contiguous()}
+    for kind, weight in (('fp', ckpt), ('quant', qckpt)):
+        path = os.path.join(out_dir, f'{kind}.onnx')
+        _, _, write_s, _ = run_cli(cli_convert.main, [
+            'onnx', '--weight', weight, '--out', path, '--size', str(SIZE), *dev_arg])
+        with open(path, 'rb') as fr:
+            blob = fr.read()
+        out, = run_model(blob, feeds, device=dev)
+        run_ms = cuda_ms(lambda: run_model(blob, feeds, device=dev), iters=3, warmup=1)
+        with torch.inference_mode():
+            if kind == 'fp':
+                ref = net(fused, {}, x, plain=True)
+            else:
+                ref = int_mode.apply(int_staged, x, plain=True)
+        d = (out - ref).abs()
+        if kind == 'fp':
+            worst = (d - ONNX_FP_TOL * ref.abs()).max().item()
+            ok = out.shape == ref.shape and worst <= ONNX_FP_TOL
+            what = (f'max |d| {d.max().item():.4g}, max of |d| - {ONNX_FP_TOL} |r| '
+                    f'{worst:.4g} (<= {ONNX_FP_TOL})')
+        else:
+            box, score = d[..., :4].median().item(), d[..., 4:].median().item()
+            ok = out.shape == ref.shape and box < ONNX_BOX_MEDIAN and score < ONNX_SCORE_MEDIAN
+            what = (f'median |d| boxes {box:.4g} px (< {ONNX_BOX_MEDIAN}), scores {score:.4g} '
+                    f'(< {ONNX_SCORE_MEDIAN}); max |d| boxes {d[..., :4].max().item():.4g}, '
+                    f'scores {d[..., 4:].max().item():.4g}')
+        print(f'phase 15: {tag} ONNX {kind}: convert onnx {write_s:.2f} s, {len(blob)} bytes; '
+              f'run_model on the card {run_ms:.2f} ms a call (B=1, {SIZE}x{SIZE}); against '
+              f'the eager {"f32 walk" if kind == "fp" else "int mode"}: {what} '
+              f'{"ok" if ok else "FAIL"}')
+        if not ok:
+            raise AssertionError(f'phase 15: the {kind} ONNX file disagrees with the port')
+
+    # (d) darknet: write through the CLI, read back into other weights
+    weights = os.path.join(out_dir, 'm.weights')
+    _, _, dk_s, _ = run_cli(cli_convert.main, ['darknet', '--weight', ckpt, '--out', weights,
+                                               *dev_arg])
+    lp, ls = load_weights_darknet(net, weights, *net.init(torch.Generator().manual_seed(99),
+                                                          device=dev))
+    pairs = [(lp[k]['w'], p['w']) for k, p in params.items()]
+    pairs += [(lp[k]['bn'][n], p['bn'][n]) for k, p in params.items() if 'bn' in p
+              for n in ('gamma', 'beta')]
+    pairs += [(lp[k]['b'], p['b']) for k, p in params.items() if 'b' in p]
+    pairs += [(ls[k][n], s[n]) for k, s in state.items() for n in ('mean', 'var')]
+    n_equal = sum(a.device == b.device and torch.equal(a, b) for a, b in pairs)
+    print(f'phase 15: {tag} darknet: convert darknet {dk_s:.2f} s, '
+          f'{os.path.getsize(weights)} bytes; load_weights_darknet on the card gives back '
+          f'{n_equal} of {len(pairs)} arrays bit for bit')
+    if n_equal != len(pairs):
+        raise AssertionError('phase 15: the darknet round trip lost an array')
+
+    # (d) partial: the backbone's nodes, every kept array as it was
+    part = os.path.join(out_dir, 'partial.ckpt')
+    _, _, part_s, _ = run_cli(cli_convert.main, ['partial', '--weight', ckpt, '--out', part,
+                                                 '--layers', '40', *dev_arg])
+    full, kept = load_checkpoint(ckpt), load_checkpoint(part)
+    want = sorted(k for k in full['params'] if int(k) <= 40)
+    same = all(np.array_equal(kept['params'][k]['w'], full['params'][k]['w']) for k in want)
+    ok = sorted(kept['params']) == want and same and kept['cfg'] == cfg_text
+    print(f'phase 15: {tag} partial --layers 40: {part_s:.2f} s, {len(want)} of '
+          f'{len(full["params"])} weighted nodes kept, arrays equal {same} '
+          f'{"ok" if ok else "FAIL"}')
+    if not ok:
+        raise AssertionError('phase 15: the partial checkpoint is wrong')
+
+
+def phase15_exporters(dev, tag, tmp, net, params, state, qnet, qparams):
+    """Phase 15: the exporters on the card ((a)-(e), module docstring).
+    Returns the kernel launches of the kernel artifacts' calls."""
+    from pqdet_tpu_torch.model.network import fuse_params
+    out_dir = os.path.join(tmp, 'exports')
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    gen = phase_gen(15)
+    fused = fuse_params(net, params, state)
+    launches = phase15_artifacts(dev, tag, out_dir, gen, net, fused, qnet, qparams)
+    phase15_files(dev, tag, out_dir, gen, net, params, state, fused, qnet, qparams)
+    print(f'phase 15: {tag} {time.perf_counter() - t0:.1f} s; kernel artifacts launched '
+          f'{launches}')
+    return launches
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -3561,7 +3870,7 @@ def main() -> int:
     shapes = int8_conv_shapes(qnet, SIZE)
     int8_err = phase6_int8_parity(phase_gen(6), dev, shapes)
     gen = phase_gen(7)
-    inf, qprep, qpredict, qlaunches = phase7_int8_path(gen, dev, cfg, request_maker(gen, dev),
+    inf, qprep, qpredict, qlaunches, qparams = phase7_int8_path(gen, dev, cfg, request_maker(gen, dev),
                                                        tag, qnet, shapes)
     gen = phase_gen(8)
     qt = phase8_int8_timings(gen, dev, cfg, request_maker(gen, dev), tag, shapes, inf, qprep,
@@ -3582,14 +3891,17 @@ def main() -> int:
         phase13_device_augment(dev, tag, tmp, corpus)
         stamp('phase 14 starts')
         p14 = phase14_prune(dev, tag, tmp, corpus, ptx, {'fused_ir_conv': fir, **qt})
-    stamp('phase 14 ends')
+        stamp('phase 15 starts')
+        exported = phase15_exporters(dev, tag, tmp, net, params, state, qnet, qparams)
+    stamp('phase 15 ends')
     arc = p14['launches']
 
     kernels = [
         {'name': 'decode_heads', 'route': 'triton',
          'source': 'pqdet_tpu_torch/ops/decode_kernel.py',
          'replaces': 'pqdet_tpu/ops/pallas_decode.py:59',
-         'launches': launches['decode'] + qlaunches['decode'] + arc.get('decode_heads', 0),
+         'launches': launches['decode'] + qlaunches['decode'] + arc.get('decode_heads', 0)
+         + exported['decode_heads'],
          'max_abs_err': decode_err,
          'ms': dec['ms'], 'plain_ms': dec['plain_ms'], 'bound_ms': dec['bound_ms'],
          'bound_by': 'bytes', 'library_ms': None},
@@ -3603,13 +3915,15 @@ def main() -> int:
         {'name': 'qconv1x1_s8', 'route': 'cuda',
          'source': 'pqdet_tpu_torch/csrc/qconv.cu',
          'replaces': 'pqdet_tpu/ops/pallas_qconv.py:121',
-         'launches': qlaunches['qconv1x1_s8'] + arc.get('qconv1x1_s8', 0),
+         'launches': qlaunches['qconv1x1_s8'] + arc.get('qconv1x1_s8', 0)
+         + exported['qconv1x1_s8'],
          'max_abs_err': max(int8_err['qconv1x1_s8'], p14['int8_err']['qconv1x1_s8']),
          **qt['qconv1x1_s8']},
         {'name': 'qdwconv3x3_s8', 'route': 'cuda',
          'source': 'pqdet_tpu_torch/csrc/qconv.cu',
          'replaces': 'pqdet_tpu/ops/pallas_qconv.py:261',
-         'launches': qlaunches['qdwconv3x3_s8'] + arc.get('qdwconv3x3_s8', 0),
+         'launches': qlaunches['qdwconv3x3_s8'] + arc.get('qdwconv3x3_s8', 0)
+         + exported['qdwconv3x3_s8'],
          'max_abs_err': max(int8_err['qdwconv3x3_s8'], p14['int8_err']['qdwconv3x3_s8']),
          **qt['qdwconv3x3_s8']},
     ]

@@ -7,6 +7,7 @@
     python -m pqdet_tpu_torch.cli.bench summary [--cfg zoo-name|file.cfg] [--size 512]
     python -m pqdet_tpu_torch.cli.bench time [--cfg ...|--weight ...] [--bs 1] \
         [--size 512] [--bf16] [--trace DIR]
+    python -m pqdet_tpu_torch.cli.bench time --shlo m.pt2 [--bs 1] [--size 512]
 
 ``eval`` scores the eval split (``dataset.eval_txt_file``) and prints the
 AP table, then ``AP <repr of the float>``. A 'quant' checkpoint runs through ``load_quantized`` and
@@ -24,8 +25,10 @@ fused-IR kernel: CUDA events around each call after warm-up on the card,
 the host clock on the CPU; ``--trace DIR`` writes a ``torch.profiler``
 trace of 8 calls. ``benchmark`` times the four stages of a request over
 the eval images (total, the f32 forward, convert = box recovery, NMS), each stage
-ending in a ``torch.cuda.synchronize`` on the card. ``time --shlo`` (an
-exported StableHLO artifact) waits for the exporters.
+ending in a ``torch.cuda.synchronize`` on the card. ``time --shlo`` times
+an exported program (``convert stablehlo``, a ``torch.export`` ``.pt2``;
+``exporters/export.py``) on a zero batch of ``--bs`` x ``--size``², the
+batch and size it was exported for, the same way.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ import time
 import numpy as np
 import torch
 
-from pqdet_tpu_torch.config import later
+from pqdet_tpu_torch import resolve_device
 
 MODES = ('eval', 'benchmark', 'summary', 'time')
 
@@ -132,16 +135,28 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def _method(on_card: bool) -> str:
+    return 'CUDA events around each call' if on_card else 'host clock'
+
+
 def cmd_time(args, cfg):
-    if args.shlo:
-        raise later('bench time --shlo', 'queue 1, item 10 (exporters and the '
-                    'remaining CLIs)')
     from pqdet_tpu_torch.utils.profiling import forward_latency_ms, trace
-    forward = build_forward(cfg, args.weight, args.device, args.bf16)
+    on_card = resolve_device(args.device).type == 'cuda'
+    counts = (10, 64) if on_card else (2, 8)
     x = torch.zeros((args.bs, args.size, args.size, 3), dtype=torch.float32,
                     device=args.device)
-    on_card = torch.device(args.device).type == 'cuda'
-    t = forward_latency_ms(lambda: forward(x), args.device, *((10, 64) if on_card else (2, 8)))
+    if args.shlo:
+        # time an exported program (the reference's `benchmark --onnx`)
+        from pqdet_tpu_torch.exporters.export import load_stablehlo
+        with open(args.shlo, 'rb') as fr:
+            fn = load_stablehlo(fr.read(), device=args.device)
+        with torch.inference_mode():
+            t = forward_latency_ms(lambda: fn(x), args.device, *counts)
+        print(f'stablehlo: {t["mean"]:.3f}ms (p50 {t["p50"]:.3f}ms) bs={args.bs} '
+              f'size={args.size}  [{_method(on_card)}]')
+        return t
+    forward = build_forward(cfg, args.weight, args.device, args.bf16)
+    t = forward_latency_ms(lambda: forward(x), args.device, *counts)
     if args.trace:
         with trace(args.trace):
             for _ in range(8):
@@ -149,7 +164,7 @@ def cmd_time(args, cfg):
         print(f'profiler trace written to {args.trace}')
     print(f'{t["mean"]:.3f}ms (p50 {t["p50"]:.3f}ms, p90 {t["p90"]:.3f}ms) bs={args.bs} '
           f'size={args.size} {"bf16" if args.bf16 else "f32"}  '
-          f'[{"CUDA events around each call" if on_card else "host clock"}]')
+          f'[{_method(on_card)}]')
     return t
 
 
@@ -223,7 +238,7 @@ def main(argv=None):
     parser.add_argument('--trace', default='',
                         help='write a torch.profiler trace to this directory')
     parser.add_argument('--shlo', default='',
-                        help='time an exported StableHLO artifact (not ported yet)')
+                        help='time an exported program (convert stablehlo, a .pt2)')
     parser.add_argument('--int8-exact', action='store_true',
                         help='evaluate quant checkpoints with exact integer accumulation '
                              'instead of the int8 kernels')

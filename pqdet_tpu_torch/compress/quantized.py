@@ -256,21 +256,28 @@ class Int8Inference:
         return sc
 
     def apply(self, qparams: Dict, x: torch.Tensor, intermediates: bool = False,
-              plain: bool = False):
+              plain: bool = False, kernels=None):
         """Run the quantized graph on normalized NHWC f32 ``x``; returns
         (B, sum HWA, 5+C) f32 preds. With ``intermediates`` the return value
         is ``(preds, {node_key: f32 node output})``, the per-layer view the
         kernel path is held to; a yolo node's entry is its (B, H, W, A, 5+C)
         view of the preds. ``plain`` runs the kernels' plain versions
-        on any device."""
+        on any device. ``kernels`` (``ops.library.Kernels``: the 1x1, the
+        depthwise and the decode entry, with the wrappers' signatures)
+        replaces the wrappers: an exported program walks with
+        ``ops.library.OPS``, the registered operators."""
         act = qparams['act']
         layers = qparams['layers']
         cache: Dict[int, tuple] = {}
         inter: Dict[str, torch.Tensor] = {}
         heads = []                       # (raw f32 head, yolo node)
         kernel = self.mode == 'kernel'
-        pw_fn = qconv1x1_reference if plain else qconv1x1_s8
-        dw_fn = qdwconv3x3_reference if plain else qdwconv3x3_s8
+        if kernels is not None:
+            pw_fn, dw_fn, dec_fn = kernels
+        else:
+            pw_fn = qconv1x1_reference if plain else qconv1x1_s8
+            dw_fn = qdwconv3x3_reference if plain else qdwconv3x3_s8
+            dec_fn = None
 
         if self.mode == 'dequant':
             xq, cur_sz = _fake_quant_edge(x, act['input']), None
@@ -383,7 +390,8 @@ class Int8Inference:
 
         raws = [r for r, _ in heads]
         # no exp_cap, as the JAX package's int8 walk decodes
-        preds = decode_all_heads(raws, [n for _, n in heads], plain, capped=False)
+        preds = decode_all_heads(raws, [n for _, n in heads], plain, capped=False,
+                                 dec=dec_fn)
         if intermediates:
             for (_, node), view in zip(heads, head_views(preds, [r.shape for r in raws])):
                 inter[str(node.index)] = view

@@ -323,14 +323,18 @@ def _exp_cap(node, capped: bool) -> float:
     return node.attrs.get('exp_cap', 0.0) if capped else 0.0
 
 
-def decode_all_heads(raws, nodes, plain: bool, capped: bool = True) -> torch.Tensor:
+def decode_all_heads(raws, nodes, plain: bool, capped: bool = True,
+                     dec=None) -> torch.Tensor:
     """The raw heads of yolo ``nodes`` decoded into the (B, sum HWA, 5+C)
     preds: one kernel launch, or the plain version when ``plain`` (or on
-    CPU tensors). ``capped``: apply each node's ``exp_cap``."""
+    CPU tensors). ``capped``: apply each node's ``exp_cap``. ``dec``, with
+    ``decode_heads``'s signature, replaces both (``ops.library``'s
+    operator in an exported program)."""
     classes = {n.attrs['classes'] for n in nodes}
     if len(classes) != 1:
         raise ValueError(f'yolo heads with different class counts {sorted(classes)}')
-    dec = decode_heads_reference if plain else decode_heads
+    if dec is None:
+        dec = decode_heads_reference if plain else decode_heads
     return dec(raws, classes.pop(), [n.attrs['stride'] for n in nodes],
                [_exp_cap(n, capped) for n in nodes])
 

@@ -118,15 +118,7 @@ def nms_batch(boxes_scores: torch.Tensor, score_threshold: float,
     order = torch.arange(k, device=boxes.device)
     sup = (iou_mat > iou_threshold) & (order[:, None] < order[None, :])
 
-    # exact greedy NMS as a fixed point: keep[i] = valid[i] and no KEPT
-    # higher-ranked j suppresses i. From keep = valid it converges in
-    # O(longest suppression chain) steps; a converged image stays put.
-    def step(keep):
-        return valid & ~(sup & keep[:, :, None]).any(dim=1)
-
-    prev, keep, it = valid, step(valid), 0
-    while it < k and bool((keep != prev).any()):
-        prev, keep, it = keep, step(keep), it + 1
+    keep = _greedy_fixed_point(valid, sup, k)
 
     # compact the kept candidates (already score-descending) into the
     # fixed output size: a stable sort on ~keep moves kept rows first
@@ -134,6 +126,35 @@ def nms_batch(boxes_scores: torch.Tensor, score_threshold: float,
     sel = torch.argsort((~keep).to(torch.int8), dim=1, stable=True)[:, :m]
     return NMSResult(_take(cand, sel), _take(top_scores, sel),
                      _take(classes, sel), _take(keep, sel), overflow)
+
+
+def _greedy_fixed_point(valid, sup, k: int):
+    """Exact greedy NMS as a fixed point: keep[i] = valid[i] and no KEPT
+    higher-ranked j suppresses i. From keep = valid it converges in
+    O(longest suppression chain) steps; a converged image stays put.
+
+    Eagerly the loop reads its condition on the host. ``torch.export``
+    cannot trace that read, so under export the same steps run in a
+    ``while_loop`` over an (it, prev, keep) carry, bounded by ``k`` as the
+    eager loop is."""
+    def step(keep):
+        return valid & ~(sup & keep[:, :, None]).any(dim=1)
+
+    if torch.compiler.is_exporting():
+        from torch._higher_order_ops import while_loop
+
+        def cond(it, prev, keep):
+            return (it < k) & (keep != prev).any()
+
+        def body(it, prev, keep):
+            return it + 1, keep.clone(), step(keep)
+
+        it0 = torch.zeros((), dtype=torch.int64, device=valid.device)
+        return while_loop(cond, body, (it0, valid.clone(), step(valid)))[2]
+    prev, keep, it = valid, step(valid), 0
+    while it < k and bool((keep != prev).any()):
+        prev, keep, it = keep, step(keep), it + 1
+    return keep
 
 
 def _soft_nms_pool(cand, classes, top_scores, valid, overflow,

@@ -13,6 +13,7 @@ from pqdet_tpu_torch import resolve_device
 from pqdet_tpu_torch.bridge import (from_jax_params, from_jax_qparams,
                                     from_jax_quant_state)
 from pqdet_tpu_torch.cli import bench as cli_bench
+from pqdet_tpu_torch.cli import convert as cli_convert
 from pqdet_tpu_torch.cli import prune as cli_prune
 from pqdet_tpu_torch.cli.predict import predict_image
 from pqdet_tpu_torch.compress.quantized import load_quantized, save_quantized
@@ -22,6 +23,8 @@ from pqdet_tpu_torch.train.trainer import Trainer
 from pqdet_tpu_torch.ops.qconv import make_scalars
 from pqdet_tpu_torch.config import Config
 from pqdet_tpu_torch.evaluation.predict import build_predict_pipeline
+from pqdet_tpu_torch.exporters.export import export_stablehlo_quant, load_stablehlo
+from pqdet_tpu_torch.exporters.onnx_runtime import run_model
 from pqdet_tpu_torch.model.network import DetectionNetwork
 from pqdet_tpu_torch.ops.labels import label_assigner_from_config
 from pqdet_tpu_torch.train.step import train_step_from_config
@@ -56,7 +59,11 @@ def test_port_imports_no_jax():
                'pqdet_tpu_torch.cli.bench', 'pqdet_tpu_torch.ops.augment_device',
                'pqdet_tpu_torch.data.scripts.synth_clutter',
                'pqdet_tpu_torch.compress.prune', 'pqdet_tpu_torch.utils.profiling',
-               'pqdet_tpu_torch.cli.prune'}
+               'pqdet_tpu_torch.cli.prune', 'pqdet_tpu_torch.ops.library',
+               'pqdet_tpu_torch.exporters.onnx_proto', 'pqdet_tpu_torch.exporters.onnx_export',
+               'pqdet_tpu_torch.exporters.onnx_runtime', 'pqdet_tpu_torch.exporters.export',
+               'pqdet_tpu_torch.exporters.torch_convert', 'pqdet_tpu_torch.cli.anchors',
+               'pqdet_tpu_torch.cli.diffeval', 'pqdet_tpu_torch.utils.reference_bridge'}
         print(len(names), bad, sorted(new - set(names)))
         sys.exit(1 if bad or len(names) < 40 or not new <= set(names) else 0)
     """)
@@ -100,6 +107,26 @@ def test_chip_smoke_library_probe_imports_nothing():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+def test_exporters_and_operators_import_no_jax():
+    """``ops/library.py`` (which registers the kernels as operators) and the
+    exporters, imported alone in a fresh interpreter, bring in neither jax
+    nor pqdet_tpu."""
+    code = textwrap.dedent("""
+        import sys
+        import pqdet_tpu_torch.ops.library
+        import pqdet_tpu_torch.exporters.export, pqdet_tpu_torch.exporters.onnx_export
+        import pqdet_tpu_torch.exporters.onnx_runtime, pqdet_tpu_torch.exporters.torch_convert
+        import torch
+        ops = [getattr(torch.ops.pqdet, n) for n in pqdet_tpu_torch.ops.library.OP_NAMES]
+        bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pqdet_tpu'))
+        print(bad, ops)
+        sys.exit(1 if bad else 0)
+    """)
+    res = subprocess.run([sys.executable, '-c', code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 def _no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
 
@@ -108,7 +135,10 @@ def _no_cuda(monkeypatch):
                                    'bridge_qparams', 'bridge_quant_state', 'scalars',
                                    'label_assigner', 'train_step_from_config',
                                    'build_detector', 'trainer', 'predict_image',
-                                   'load_quantized', 'prune_cli', 'bench_time'])
+                                   'load_quantized', 'prune_cli', 'bench_time',
+                                   'convert_onnx', 'convert_stablehlo', 'convert_darknet',
+                                   'convert_partial', 'bench_time_shlo',
+                                   'export_stablehlo_quant', 'load_stablehlo', 'run_model'])
 def test_entry_point_without_device_raises(entry, monkeypatch, tmp_path):
     """Without ``device="cpu"`` and with no card, an entry point raises
     instead of quietly running on the CPU."""
@@ -139,6 +169,13 @@ def test_entry_point_without_device_raises(entry, monkeypatch, tmp_path):
         'prune_cli': lambda: cli_prune.main(['prune.weight', fp_path, 'prune.new_cfg',
                                              str(tmp_path / 'p.cfg'), '--skip-finetune']),
         'bench_time': lambda: cli_bench.main(['time', '--size', '64']),
+        'bench_time_shlo': lambda: cli_bench.main(['time', '--shlo', str(tmp_path / 'm.pt2')]),
+        'export_stablehlo_quant': lambda: export_stablehlo_quant(net, {'layers': {}, 'act': {}}),
+        'load_stablehlo': lambda: load_stablehlo(b''),
+        'run_model': lambda: run_model(b'', {}),
+        **{f'convert_{mode}': (lambda mode=mode: cli_convert.main(
+            [mode, '--weight', qpath, '--out', str(tmp_path / 'out')]))
+           for mode in ('onnx', 'stablehlo', 'darknet', 'partial')},
     }[entry]
     with pytest.raises(RuntimeError, match='device="cpu"'):
         call()

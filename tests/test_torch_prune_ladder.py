@@ -142,7 +142,8 @@ def test_prune_matches_jax_on_the_sparse_checkpoint(ladder):
 
 def test_bench_summary_time_benchmark(ladder, capsys, monkeypatch):
     """``summary`` prints JAX's line for the pruned cfg; ``time`` (f32 and
-    bf16) and ``benchmark`` run the pruned fine-tuned checkpoint at 64 px."""
+    bf16, and ``--shlo`` of its exported program) and ``benchmark`` run the
+    pruned fine-tuned checkpoint at 64 px."""
     for size in ('64', '512'):
         monkeypatch.setattr(sys, 'argv', ['bench', 'summary', '--cfg', ladder['new_cfg'],
                                           '--size', size])
@@ -157,8 +158,14 @@ def test_bench_summary_time_benchmark(ladder, capsys, monkeypatch):
                             '--device', 'cpu'] + extra)
         out = capsys.readouterr().out
         assert 'bs=2 size=64' in out and 0 < t['p50'] <= t['p90']
-    with pytest.raises(NotImplementedError, match='queue 1, item 10'):
-        cli_bench.main(['time', '--shlo', 'm.shlo', '--device', 'cpu'])
+    # time --shlo: the pruned model exported by convert stablehlo at 64 px
+    shlo = str(ladder['tmp'] / 'pruned.pt2')
+    cli_convert.main(['stablehlo', '--weight', ladder['pruneft'], '--out', shlo, '--size', '64',
+                      '--bs', '2', '--device', 'cpu'])
+    capsys.readouterr()
+    t = cli_bench.main(['time', '--shlo', shlo, '--size', '64', '--bs', '2', '--device', 'cpu'])
+    out = capsys.readouterr().out
+    assert out.startswith('stablehlo: ') and 'bs=2 size=64' in out and 0 < t['p50'] <= t['p90']
 
     stats = cli_bench.main(['benchmark', '--weight', ladder['pruneft'], '--device', 'cpu']
                            + ladder['base'])

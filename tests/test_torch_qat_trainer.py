@@ -22,6 +22,8 @@ from pqdet_tpu.compress.quantized import load_quantized as jax_load_quantized
 from pqdet_tpu.compress.quantized import save_quantized as jax_save_quantized
 from pqdet_tpu.compress.quantized import convert_to_int8 as jax_convert_to_int8
 from pqdet_tpu.config import load_config as jax_load_config
+from pqdet_tpu.exporters.onnx_export import \
+    export_quantized_to_onnx as jax_export_quantized_to_onnx
 from pqdet_tpu.model.factory import build_detector as jax_build_detector
 from pqdet_tpu.model.network import DetectionNetwork as JaxNetwork
 from pqdet_tpu.train.checkpoint import load_checkpoint as jax_load_checkpoint
@@ -250,7 +252,9 @@ def test_qat_cli_arc(tmp_path, capsys):
     ``load_quantized`` the quant file; the quant file holds the qparams
     the trainer's eval converted in memory bit for bit, so the bench's AP
     (its table and its exact value) is the trainer's last; the exact
-    integer mode evaluates too; the modes not ported raise."""
+    integer mode evaluates too; then ``convert onnx`` writes the JAX
+    writer's bytes of the quant file, and ``convert stablehlo`` a program
+    that ``bench time --shlo`` times."""
     jnet = JaxNetwork.from_cfg(TINY_DET)
     params, state = jax.device_get(jnet.init(jax.random.PRNGKey(7)))
     start = str(tmp_path / 'fp.ckpt')
@@ -286,7 +290,15 @@ def test_qat_cli_arc(tmp_path, capsys):
     assert ap.AP == ckpt['AP']
     exact = cli_bench.main(['eval', '--weight', int8, '--device', 'cpu', '--int8-exact'] + opts)
     assert 0.0 <= exact.AP <= 1.0
-    with pytest.raises(NotImplementedError, match='queue 1, item 10'):
-        cli_convert.main(['onnx', '--weight', qat, '--out', str(tmp_path / 'm.onnx')])
-    with pytest.raises(NotImplementedError, match='queue 1, item 10'):
-        cli_bench.main(['time', '--shlo', str(tmp_path / 'm.shlo'), '--device', 'cpu'])
+    # the arc's last steps: the quant file as ONNX (the JAX writer's bytes)
+    # and as an exported program that bench time --shlo times
+    onnx = tmp_path / 'm.onnx'
+    cli_convert.main(['onnx', '--weight', int8, '--out', str(onnx), '--size', '64',
+                      '--device', 'cpu'])
+    assert onnx.read_bytes() == jax_export_quantized_to_onnx(jnet_q, jq, (64, 64))
+    shlo = str(tmp_path / 'm.pt2')
+    cli_convert.main(['stablehlo', '--weight', int8, '--out', shlo, '--size', '64',
+                      '--device', 'cpu'])
+    capsys.readouterr()
+    t = cli_bench.main(['time', '--shlo', shlo, '--size', '64', '--device', 'cpu'])
+    assert capsys.readouterr().out.startswith('stablehlo: ') and 0 < t['p50'] <= t['p90']
