@@ -218,7 +218,35 @@ Builds the CUDA kernels from pqdet_tpu_torch/csrc with nvcc (sm_90a), then:
    the card, every array bit for bit, and ``cli.convert partial``; (e)
    export, load (here and fresh) and ONNX seconds, file sizes, and
    ``bench time --shlo`` of each artifact beside its eager path (the same
-   CUDA-event timer).
+   CUDA-event timer);
+16. the RegNet zoo and grouped convs (``phase16_regnet``, in the same
+   temporary directory), at 512x512, B=4: (a) every int8 conv shape of the
+   int8 graphs of regnetx-600m-fpn and regnety-400m-fpn (the densified
+   grouped 3x3s as im2col patches into qconv1x1_s8 at K = 9 * Cin up to
+   4752, the SE squeeze and excite 1x1s at M = B) and the depthwise shapes
+   of regnetx-600m-yolo against the plain versions bit for bit (phase 6's
+   check), and its 9 fused chains (Cin to 1024, E 512) at B=1 and 4 with
+   phase 3's tolerance; (b) regnetx-600m-fpn, regnety-400m-fpn and
+   regnetx-600m-yolo with seeded weights (gain REGNET_GAIN) served in bf16
+   (grouped convs densified, the fused-IR table) and in int8 (4 observer
+   passes, convert_to_int8, Int8Inference kernel mode with
+   ``prepare(network=)``), 8 requests of B=4 each: launches per forward
+   equal to the graph's count (int8: one qconv1x1_s8 per conv that is not
+   depthwise, one qdwconv3x3_s8 per depthwise conv, 1 decode; bf16: the
+   chains and 1 decode), node by node against ``plain=True`` (bf16: every
+   node before the first chain bit for bit, preds within phase 4's bounds;
+   int8: phase 7's bounds), finite detections; (c) the regnetx-600m-fpn
+   train step on grouped cuDNN convs: phase 9's f32 card-against-CPU
+   parity, then 10 bf16 steps at B=12 on one batch (finite, loss falling,
+   BN moved, no kernel launched); (d) one epoch of ``cli.train`` on phase
+   11's corpus from a copy of yamls/shapes.yaml with ``model.cfg_path:
+   regnetx-600m-fpn`` at 512 only, evaluated (phase 13's trainer gates),
+   its checkpoint in the JAX package's layout loaded back strictly; (e)
+   request p50/p90 of each model in bf16 and int8, the forward on the
+   device alone (CUDA graph) in bf16 densified, bf16 with grouped cuDNN
+   convs and int8, each kernel's device ms per forward at the RegNet
+   shapes, MACs grouped against densified, and (c)'s step p50 and peak
+   memory.
 
 Each phase draws from its own generator, seeded from SEED and the phase
 number. It prints one JSON line of kernels, then the nvidia-smi line, and
@@ -544,16 +572,17 @@ def fused_bound_ms(n, h, cin, e, p, expand):
     return nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
 
 
-def seed_bn(params, state, gen, dev):
+def seed_bn(params, state, gen, dev, gain=2.0):
     """Gain 2 on every conv weight and BN statistics as a trained model has
     them. The init's fan-in bound shrinks each layer's output by about
     1/sqrt(3), which fades the activations over the depth and leaves every
     score near 0.25; with the gain they keep their scale. At init the BN
     statistics fold into zero biases, and the kernels' bias paths would go
-    untested."""
+    untested. (The RegNets' residual stages grow under a gain of 2 until
+    exp overflows in the decode; phase 16 takes REGNET_GAIN.)"""
     import torch
     for k, p in params.items():
-        p['w'] = p['w'] * 2.0
+        p['w'] = p['w'] * gain
         if 'bn' in p:
             c = p['w'].shape[0]
             u = lambda: (0.8 + 0.4 * torch.rand(c, generator=gen)).to(dev)  # noqa: E731
@@ -653,24 +682,41 @@ def profile_calls(call, tag, label, what):
               for ev in sorted(host_ev, key=lambda e: -e.self_cpu_time_total)[:6]))
 
 
+def out_sides(graph, size):
+    """{node index: side of its output map} at input ``size``: size over the
+    node's cumulative stride, or, below a global avgpool (stride None: the
+    SE squeeze and excite 1x1s), the pooled side."""
+    sides, prev = {}, size
+    for n in graph.nodes:
+        if n.stride is not None:
+            prev = size // n.stride
+        elif n.out_size is not None:
+            prev = n.out_size[0]
+        sides[n.index] = prev
+    return sides
+
+
 def int8_conv_shapes(net, size):
     """{(kind, n_h, n_w, cin, cout, stride, act, requant): count} over the
     convs of the int8 graph at input ``size``, as each kernel sees them:
-    'pw' and 'dw' take the conv's input (H, W, C); 'stem' is the dense 3x3
+    'pw' and 'dw' take the conv's input (H, W, C), a strided 'pw' its every
+    stride-th pixel; 'stem' is the dense 3x3
     as its im2col patches (H/stride, W/stride, im2col_depth(Cin)) into the
     1x1 kernel (9*Cin taps and zero columns up to a multiple of 16).
     ``requant``: the output edge is quantised (it feeds no yolo head)."""
     from pqdet_tpu_torch.compress.quantized import im2col_depth
     feeders = {n.index - 1 for n in net.graph.nodes if n.kind == 'yolo'}
+    sides = out_sides(net.graph, size)
     shapes = {}
     for n in net.graph.nodes:
         if n.kind != 'convolutional':
             continue
         a = n.attrs
-        h = size * a['stride'] // n.stride
+        h = sides[n.index - 1] if n.index else size
         rq = n.index not in feeders
-        if a['size'] == 1:
-            key = ('pw', h, h, n.in_channels, a['filters'], 1, a['activation'], rq)
+        if a['size'] == 1:       # strided: the kernel takes every stride-th pixel
+            ho = -(-h // a['stride'])
+            key = ('pw', ho, ho, n.in_channels, a['filters'], 1, a['activation'], rq)
         elif a['groups'] == n.in_channels == a['filters']:
             key = ('dw', h, h, n.in_channels, n.in_channels, a['stride'], a['activation'], rq)
         else:
@@ -890,29 +936,10 @@ def phase7_int8_path(gen, dev, cfg, batch, tag, qnet, shapes):
     print(f'phase 7: {n_det} int8 detections, all finite')
 
     # node by node: the kernel path against the plain versions on the card
-    act = qparams['act']
     with torch.inference_mode():
         x = device_normalize(requests[0]['image'])
-        kern, ik = inf.apply(qprep, x, intermediates=True)
-        plain, ip = inf.apply(qprep, x, intermediates=True, plain=True)
-    nodes = {str(n.index): n for n in qnet.graph.nodes}
-    bad, n_exact = [], 0
-    for key, a in ik.items():
-        b = ip[key]
-        node = nodes[key]
-        if key in act:                                 # s8 edge: in codes
-            d = ((a - b).abs() / act[key][0]).round()
-            ok = d.max().item() <= 1 and (d > 0).float().mean().item() < 1e-3
-        elif node.kind == 'yolo':
-            raw = ip[str(node.index - 1)]
-            ok = bool(((a - b).abs() <= decode_tolerance(raw, nc, node.attrs['stride'], 0.0))
-                      .all())
-        else:                                          # f32 head conv
-            ok = bool(((a - b).abs() <= 1e-5 * b.abs().clamp_min(1.0)).all())
-        n_exact += int(torch.equal(a, b))
-        if not ok:
-            bad.append(key)
-    print(f'phase 7: kernel path vs plain path on the card, {len(ik)} nodes: '
+    kern, plain, bad, n_exact, n_nodes = int8_node_parity(inf, qprep, qparams, qnet, x)
+    print(f'phase 7: kernel path vs plain path on the card, {n_nodes} nodes: '
           f'{n_exact} equal bit for bit, {len(bad)} outside the bound {bad}')
     rows = sum((SIZE // y.attrs['stride']) ** 2 * 3 for y in qnet.graph.yolo_nodes)
     if tuple(kern.shape) != (BATCH, rows, 5 + nc) or not bool(torch.isfinite(kern).all()):
@@ -1004,15 +1031,17 @@ def int8_kernel_times(gen, dev, shapes, ptx, tag, label):
                                        requant=rq)
             plain = lambda: qconv1x1_reference(x, wq, ws, b, cs, act=act,  # noqa: E731
                                                scalars=sc, requant=rq)
-            # cuBLASLt s8 x s8 -> s32 through torch._int_mm: K and N padded
-            # with zeros to multiples of 8 (its rule), outside the timing
-            kp, np_ = -(-cin // 8) * 8, -(-cout // 8) * 8
-            a2 = F.pad(x.reshape(-1, cin), (0, kp - cin)).contiguous()
+            # cuBLASLt s8 x s8 -> s32 through torch._int_mm: M, K and N
+            # padded with zeros to multiples of 32 (it refuses N 104 at K 48
+            # and M under 17, the SE 1x1s' M = B), outside the timing
+            m = BATCH * h * w
+            mp, kp, np_ = (-(-v // 32) * 32 for v in (m, cin, cout))
+            a2 = F.pad(x.reshape(-1, cin), (0, kp - cin, 0, mp - m)).contiguous()
             b2 = F.pad(wq, (0, np_ - cout, 0, kp - cin)).t().contiguous().t()
             csf = cs.float()
 
             def library():
-                acc = torch._int_mm(a2, b2)[:, :cout]
+                acc = torch._int_mm(a2, b2)[:m, :cout]
                 return _epilogue(acc.float(), s, ws, b, csf, act, rq)
         k_ms = device_ms(kern)
         p_ms = device_ms(plain, iters=5, replays=2)
@@ -1042,6 +1071,8 @@ def int8_kernel_times(gen, dev, shapes, ptx, tag, label):
               f'{how}')
     for name, t in tot.items():
         t['bound_by'] = 'operations' if t.pop('ops_ms') > t.pop('bytes_ms') else 'bytes'
+        if not t['ms']:
+            continue                    # no shape of this kernel in ``shapes``
         print(f'{label}: {tag} {name} per B={BATCH} forward: kernel {t["ms"]:.4f} ms, '
               f'plain {t["plain_ms"]:.4f} ms, library {t["library_ms"]:.4f} ms, bound '
               f'{t["bound_ms"]:.5f} ms ({t["bound_by"]})')
@@ -1143,7 +1174,7 @@ def grad_step_parts(net, params, state, batch, dev, cfg, train):
     return to_device(out, torch.device('cpu'))
 
 
-def phase9_parity(net, params, state, gen, dev, cfg):
+def phase9_parity(net, params, state, gen, dev, cfg, label='phase 9'):
     """Phase 9.1: one f32 step on the card against the same step on the CPU
     (the CPU path is what the tests hold to JAX), at PARITY_SIZE with batch
     statistics in BN, and the loss and grads at PARITY_RUNNING_SIZE with
@@ -1160,7 +1191,7 @@ def phase9_parity(net, params, state, gen, dev, cfg):
 
     def check(name, err, bound):
         ok = err <= bound
-        print(f'phase 9: card vs CPU f32 step B={PARITY_BATCH} {size}x{size}: '
+        print(f'{label}: card vs CPU f32 step B={PARITY_BATCH} {size}x{size}: '
               f'{name} {err:.4g} (bound {bound:g}) {"ok" if ok else "FAIL"}')
         if not ok:
             fails.append(name)
@@ -1176,7 +1207,7 @@ def phase9_parity(net, params, state, gen, dev, cfg):
         host = grad_step_parts(net, params, state, batch, cpu, cfg, train)
         t2 = time.perf_counter()
         mode = 'batch-statistics BN' if train else 'running-statistics BN'
-        print(f'phase 9: {mode}: card {t1 - t0:.2f} s, CPU {t2 - t1:.2f} s (with labels)')
+        print(f'{label}: {mode}: card {t1 - t0:.2f} s, CPU {t2 - t1:.2f} s (with labels)')
         a, b = card['parts'], host['parts']
         parts = ((a - b).abs() / b.abs()).max().item()
         ga, gb = tree_leaves(card['grads']), tree_leaves(host['grads'])
@@ -1188,13 +1219,13 @@ def phase9_parity(net, params, state, gen, dev, cfg):
             check(f'{mode} loss and parts, max rel err', parts, 1e-4)
             check(f'{mode} grads, max |d| - 1e-3 |g| over the largest |g|',
                   max(gerr, 0.0) / top, 1e-4)
-            print(f'phase 9: {mode} grads, largest per-leaf max|d| / max|g|: {leaf:.4g}')
+            print(f'{label}: {mode} grads, largest per-leaf max|d| / max|g|: {leaf:.4g}')
             continue
         # batch statistics: the yardstick is the CPU step on the reversed batch
         t0 = time.perf_counter()
         own = grad_step_parts(net, params, state, {k: v.flip(0) for k, v in batch.items()},
                               cpu, cfg, train)
-        print(f'phase 9: {mode}: CPU on the reversed batch {time.perf_counter() - t0:.2f} s')
+        print(f'{label}: {mode}: CPU on the reversed batch {time.perf_counter() - t0:.2f} s')
         check(f'{mode} loss and parts, max rel err', parts, 1e-3)
         g, h = torch.cat([x.reshape(-1) for x in ga]), torch.cat([y.reshape(-1) for y in gb])
         check(f'{mode} grads, relative L2 distance', ((g - h).norm() / h.norm()).item(), 0.5)
@@ -1207,7 +1238,7 @@ def phase9_parity(net, params, state, gen, dev, cfg):
                   for x, y in zip(ga, gb) if y.norm() > 1e-3 * top)
         check(f'{mode} grads, 1 - smallest leaf cosine (leaves over 1e-3 of the largest '
               'norm)', 1 - cos, 0.1)
-        print(f'phase 9: {mode} grads, largest per-leaf max|d| / max|g|: {leaf:.4g} '
+        print(f'{label}: {mode} grads, largest per-leaf max|d| / max|g|: {leaf:.4g} '
               '(not gated)')
         sa, sb = tree_leaves(card['state']), tree_leaves(host['state'])
         check(f'{mode} new BN state, max |d| / max(1, |s|)',
@@ -2836,9 +2867,10 @@ def kill_channels(graph, params, state, gen):
     return n_dead
 
 
-def bf16_server(net, params, state, dev):
-    """(predict, forward, fused-IR table) of ``net`` served in bf16 through
-    the fused-IR and decode kernels, BN folded, at SIZE."""
+def bf16_server(net, params, state, dev, densify_groups=True):
+    """(predict, forward, fused-IR table, bf16 params) of ``net`` served in
+    bf16 through the fused-IR and decode kernels, BN folded (grouped convs
+    densified unless ``densify_groups`` is False), at SIZE."""
     import torch
     from pqdet_tpu_torch.config import Config
     from pqdet_tpu_torch.evaluation.predict import build_predict_pipeline, make_batch_predict
@@ -2847,7 +2879,7 @@ def bf16_server(net, params, state, dev):
     from pqdet_tpu_torch.ops.fused_ir import prepare_fused_ir
     cfg = Config()
     cfg.eval.input_size = SIZE
-    fused = inference_params(net, params, state)
+    fused = inference_params(net, params, state, densify_groups=densify_groups)
     table = prepare_fused_ir(net, fused)
     fparams = cast_params(fused, torch.bfloat16)
     run = build_predict_pipeline(net, cfg, compute_dtype=torch.bfloat16, fused_ir=table,
@@ -2856,13 +2888,14 @@ def bf16_server(net, params, state, dev):
     def forward(x):
         with torch.inference_mode():
             return net(fparams, {}, x, compute_dtype=torch.bfloat16, fused_ir=table)
-    return make_batch_predict(run, fparams), forward, table
+    return make_batch_predict(run, fparams), forward, table, fparams
 
 
 def int8_server(cfg_text, params, state, batch, dev):
-    """(predict, forward) of the quant graph of ``cfg_text`` with the fp
-    ``params``/``state``, calibrated by ``calibrate_int8`` and served by
-    ``Int8Inference`` in kernel mode at SIZE."""
+    """(predict, forward, executor, staged qparams, qparams) of the quant
+    graph of ``cfg_text`` with the fp ``params``/``state``, calibrated by
+    ``calibrate_int8`` and served by ``Int8Inference`` in kernel mode at
+    SIZE (grouped convs densified: ``prepare(network=)``)."""
     import torch
     from pqdet_tpu_torch.compress.quantized import Int8Inference
     from pqdet_tpu_torch.config import Config
@@ -2873,13 +2906,13 @@ def int8_server(cfg_text, params, state, batch, dev):
     qnet = DetectionNetwork.from_cfg(cfg_text, quant=True)
     _, _, qparams = calibrate_int8(qnet, params, state, batch)
     inf = Int8Inference(qnet, mode='kernel')
-    prep = Int8Inference.prepare(qparams, mode='kernel')
+    prep = Int8Inference.prepare(qparams, mode='kernel', network=qnet)
     run = build_predict_pipeline(qnet, cfg, apply_fn=inf.apply, device=dev)
 
     def forward(x):
         with torch.inference_mode():
             return inf.apply(prep, x)
-    return make_batch_predict(run, prep), forward
+    return make_batch_predict(run, prep), forward, inf, prep, qparams
 
 
 class Tee:
@@ -2986,7 +3019,7 @@ def phase14_preserve(dev, tag, gate):
     outs, launches = {}, {}
     for name, (n, p, s) in (('unpruned', (net, params, state)),
                             ('pruned', (pnet, res.params, res.state))):
-        _, forward, table = bf16_server(n, p, s, dev)
+        _, forward, table, _ = bf16_server(n, p, s, dev)
         forward(x)
         torch.cuda.synchronize()
         reset_kernel_launches()
@@ -3038,7 +3071,8 @@ def int8_modes_conv_parity(net, qparams, x):
     inf = Int8Inference(net, mode='kernel')
     n_conv, worst, n_diff, n_all, bad_heads = 0, 0, 0, 0, []
     with torch.inference_mode():
-        _, inter = inf.apply(Int8Inference.prepare(qparams), x, intermediates=True)
+        _, inter = inf.apply(Int8Inference.prepare(qparams, network=net), x,
+                             intermediates=True)
 
         def codes(view, sz):            # the exact inversion of a dequantised view
             return torch.round(view / sz[0] + sz[1]).to(torch.int32)
@@ -3661,6 +3695,375 @@ def phase15_exporters(dev, tag, tmp, net, params, state, qnet, qparams):
     return launches
 
 
+# ------------------------------------------------------------------ phase 16
+
+# the RegNet zoo and grouped convs (phase 16): the two FPN detectors served
+# in bf16 and int8, the YOLO-neck variant for its fused chains and
+# depthwise convs, the train step and one trainer epoch of REGNET_TRAINED
+REGNET_FPN = ('regnetx-600m-fpn', 'regnety-400m-fpn')
+REGNET_YOLO = 'regnetx-600m-yolo'
+REGNET_TRAINED = 'regnetx-600m-fpn'
+REGNET_GAIN = 1.5              # seed_bn's weight gain: scores 0.24-0.76 at 512, boxes finite
+REGNET_REQUESTS = 8            # (b): requests of each model and mode, launches counted
+REGNET_TIMED_REQUESTS = 20     # (e): requests of each model and mode, p50 and p90
+REGNET_TRAIN_STEPS = 10        # (c): bf16 steps at B=12, 512x512 on one batch ...
+REGNET_TRAIN_WARMUP = 3        # ... the first ones out of the step's p50
+
+
+def grouped_macs(graph, size):
+    """(MACs of one image at ``size`` with grouped convs, with the grouped
+    convs of group width >= 2 densified), thop's convention."""
+    from pqdet_tpu_torch.utils.profiling import count_macs_params
+    macs, _ = count_macs_params(graph, (size, size))
+    sides = out_sides(graph, size)
+    extra = 0
+    for n in graph.nodes:
+        a = n.attrs
+        if n.kind == 'convolutional' and a['groups'] > 1 \
+                and n.in_channels // a['groups'] >= 2:
+            cin_g = n.in_channels // a['groups']
+            extra += sides[n.index] ** 2 * a['filters'] * (n.in_channels - cin_g) * a['size'] ** 2
+    return macs, macs + extra
+
+
+def bf16_node_parity(net, fparams, table, x):
+    """The bf16 walk through the kernels against ``plain=True`` on the same
+    input, node by node (the ``tap`` of each node the walk runs): the
+    nodes before the first fused chain equal bit for bit (they run the same
+    cuDNN ops), the preds within phase 4's bounds. Returns (n tapped,
+    n equal, n before the first chain, n of those equal, scores max |d|,
+    boxes max |d|)."""
+    import torch
+
+    def tapper(store):
+        return lambda i, y: store.__setitem__(i, y.clone())
+    kern_t, plain_t = {}, {}
+    with torch.inference_mode():
+        kern = net(fparams, {}, x, compute_dtype=torch.bfloat16, fused_ir=table,
+                   tap=tapper(kern_t))
+        plain = net(fparams, {}, x, compute_dtype=torch.bfloat16, fused_ir=table, plain=True,
+                    tap=tapper(plain_t))
+    first = min(table) if table else len(net.graph.nodes)
+    seen = sorted(set(kern_t) & set(plain_t))
+    equal = {i for i in seen if torch.equal(kern_t[i], plain_t[i])}
+    before = [i for i in seen if i < first]
+    ds = (kern[..., 4:] - plain[..., 4:]).abs().max().item()
+    db = (kern[..., :4] - plain[..., :4]).abs().max().item()
+    return len(seen), len(equal), len(before), len(equal & set(before)), ds, db
+
+
+def int8_node_parity(inf, qprep, qparams, qnet, x):
+    """The int8 kernel path against ``apply(plain=True)`` on the card node by
+    node: s8 edges in codes (equal or 1 apart on under 1e-3), yolo views to
+    the decode tolerance, f32 head convs to 1e-5 * max(1, |r|). Returns
+    (kernel preds, plain preds, nodes outside the bound, n equal bit for
+    bit, n nodes)."""
+    import torch
+    act = qparams['act']
+    nc = qnet.num_classes
+    with torch.inference_mode():
+        kern, ik = inf.apply(qprep, x, intermediates=True)
+        plain, ip = inf.apply(qprep, x, intermediates=True, plain=True)
+    nodes = {str(n.index): n for n in qnet.graph.nodes}
+    bad, n_exact = [], 0
+    for key, a in ik.items():
+        b = ip[key]
+        node = nodes[key]
+        if key in act:                                 # s8 edge: in codes
+            d = ((a - b).abs() / act[key][0]).round()
+            ok = d.max().item() <= 1 and (d > 0).float().mean().item() < 1e-3
+        elif node.kind == 'yolo':
+            raw = ip[str(node.index - 1)]
+            ok = bool(((a - b).abs() <= decode_tolerance(raw, nc, node.attrs['stride'], 0.0))
+                      .all())
+        else:                                          # f32 head conv
+            ok = bool(((a - b).abs() <= 1e-5 * b.abs().clamp_min(1.0)).all())
+        n_exact += int(torch.equal(a, b))
+        if not ok:
+            bad.append(key)
+    return kern, plain, bad, n_exact, len(ik)
+
+
+def phase16_kernels(dev, tag, qnets):
+    """(a): each int8 conv shape of the int8 graphs of REGNET_FPN and the
+    depthwise shapes of REGNET_YOLO's (phase 6's check: every output bit
+    for bit) and each fused chain of REGNET_YOLO (phase 3's tolerance), at
+    SIZE. Returns the largest errors."""
+    from pqdet_tpu_torch.model.network import DetectionNetwork
+    from pqdet_tpu_torch.zoo import get_cfg
+    gen = phase_gen(16)
+    shapes = {}
+    for name in REGNET_FPN:
+        s = int8_conv_shapes(qnets[name], SIZE)
+        ks = sorted(k[3] for k in s if k[0] == 'stem')
+        se = sorted((k[3], k[4]) for k in s if k[1] == 1)
+        print(f'phase 16 (a): {name} int8 graph: {sum(s.values())} convs in {len(s)} shapes; '
+              f'dense and densified 3x3s through im2col at K {ks}; SE 1x1s at M = B: {se}')
+        for k, c in s.items():
+            shapes[k] = shapes.get(k, 0) + c
+    ydw = {k: c for k, c in int8_conv_shapes(qnets[REGNET_YOLO], SIZE).items() if k[0] == 'dw'}
+    print(f'phase 16 (a): {REGNET_YOLO} depthwise shapes {sorted(ydw)}')
+    shapes.update(ydw)
+    int8_err = phase6_int8_parity(gen, dev, shapes, batches=(BATCH,), edges=False,
+                                  label='phase 16 (a)')
+    chains = chain_shapes(DetectionNetwork.from_cfg(get_cfg(REGNET_YOLO)), SIZE)
+    checks = [(f'{a},{b},{c}', n, h, h, cin, e, p, a is not None, acts, 0.0)
+              for a, b, c, h, cin, e, p, acts in chains for n in (1, BATCH)]
+    fused_err = fused_parity(gen, dev, checks, 'phase 16 (a)')
+    return {'int8_err': int8_err, 'fused_err': fused_err, 'chains': chains, 'qshapes': shapes}
+
+
+def phase16_serving(dev, tag, gate):
+    """(b): REGNET_FPN and REGNET_YOLO (seeded weights, REGNET_GAIN) served in
+    bf16 (grouped convs densified, ``inference_params``' default) and in int8
+    (4 observer passes, ``convert_to_int8``, ``Int8Inference(mode='kernel')``
+    with ``prepare(network=)``), REGNET_REQUESTS requests of B=BATCH each
+    through ``make_batch_predict``: launches per forward against the graph's
+    count, node by node against ``plain=True``, finite detections. Returns
+    the servers, the main path's launches and the models."""
+    import torch
+    from pqdet_tpu_torch.model.network import DetectionNetwork
+    from pqdet_tpu_torch.ops.preprocess import device_normalize
+    from pqdet_tpu_torch.zoo import get_cfg
+    gen = phase_gen(161)
+    batch = request_maker(gen, dev)
+    launches = dict.fromkeys(('decode_heads', 'fused_ir_conv', 'qconv1x1_s8', 'qdwconv3x3_s8'),
+                             0)
+    servers, models = {}, {}
+    for name in REGNET_FPN + (REGNET_YOLO,):
+        cfg_text = get_cfg(name)
+        net = DetectionNetwork.from_cfg(cfg_text)
+        qnet = DetectionNetwork.from_cfg(cfg_text, quant=True)
+        params, state = net.init(gen, device=dev)
+        seed_bn(params, state, gen, dev, gain=REGNET_GAIN)
+        models[name] = (net, params, state, qnet)
+        qs = int8_conv_shapes(qnet, SIZE)
+        n_pw = sum(c for k, c in qs.items() if k[0] != 'dw')
+        n_dw = sum(c for k, c in qs.items() if k[0] == 'dw')
+        bf = bf16_server(net, params, state, dev)
+        q8 = int8_server(cfg_text, params, state, batch, dev)
+        servers[name] = {'bf16': bf, 'int8': q8}
+        per = {'bf16': {'decode_heads': 1, 'fused_ir_conv': len(bf[2])},
+               'int8': {'decode_heads': 1, 'qconv1x1_s8': n_pw, 'qdwconv3x3_s8': n_dw}}
+        requests = [batch(BATCH) for _ in range(REGNET_REQUESTS)]
+        for mode, (predict, *_) in (('bf16', bf), ('int8', q8)):
+            predict(requests[0])                       # warm-up
+            torch.cuda.synchronize()
+            reset_kernel_launches()
+            dets = [predict(r) for r in requests]
+            torch.cuda.synchronize()
+            got = kernel_launches()
+            for k, v in got.items():
+                launches[k] += v
+            want = {**dict.fromkeys(got, 0),
+                    **{k: n * REGNET_REQUESTS for k, n in per[mode].items()}}
+            n_det = sum(len(d) for r in dets for d in r)
+            finite = all(d.shape[1] == 6 and bool(torch.isfinite(torch.from_numpy(d)).all())
+                         for r in dets for d in r)
+            gate(got == want, f'(b) {name} {mode}: {REGNET_REQUESTS} requests of B={BATCH}, '
+                 f'launches {got} (want {want}: per forward {per[mode]})')
+            gate(finite and n_det > 0, f'(b) {name} {mode}: {n_det} detections, all finite')
+        with torch.inference_mode():
+            x = device_normalize(requests[0]['image'])
+        fparams = bf[3]
+        n, n_eq, n_before, n_before_eq, ds, db = bf16_node_parity(net, fparams, bf[2], x)
+        gate(n_before_eq == n_before and ds <= 0.03 and db <= 1.5,
+             f'(b) {name} bf16 against plain=True: {n_eq} of {n} tapped nodes equal bit for '
+             f'bit, {n_before_eq} of the {n_before} before the first fused chain (want all); '
+             f'preds scores max |d| {ds:.4g} (<= 0.03), boxes {db:.4g} px (<= 1.5)')
+        inf, prep, qparams = q8[2], q8[3], q8[4]
+        kern, plain, bad, n_exact, n_nodes = int8_node_parity(inf, prep, qparams, qnet, x)
+        ds = (kern[..., 4:] - plain[..., 4:]).abs().max().item()
+        db = (kern[..., :4] - plain[..., :4]).abs().max().item()
+        gate(not bad and ds <= 0.02 and db <= 1.0,
+             f'(b) {name} int8 against plain=True: {n_exact} of {n_nodes} nodes equal bit for '
+             f'bit, outside the bound {bad}; preds scores max |d| {ds:.4g} (<= 0.02), boxes '
+             f'{db:.4g} px (<= 1)')
+        with torch.inference_mode():
+            fp = bf[1](x)
+        sc = fp[..., 4:]
+        print(f'phase 16 (b): {name} bf16 scores {sc.min().item():.3g}-{sc.max().item():.3g} '
+              f'(std {sc.std().item():.3g}); int8 against bf16, same weights (not gated): '
+              f'median |d| scores {(kern[..., 4:] - sc).abs().median().item():.4g}, boxes '
+              f'{(kern[..., :4] - fp[..., :4]).abs().median().item():.4g} px')
+    return servers, launches, models
+
+
+def phase16_train(dev, tag, gate):
+    """(c): the REGNET_TRAINED train step of ``train_config`` (grouped cuDNN
+    convs): phase 9's f32 card-against-CPU parity, then REGNET_TRAIN_STEPS
+    bf16 steps at B=12, SIZE on one batch (finite, loss falling, BN moved,
+    no kernel launched). Returns the step's ms and peak memory."""
+    import torch
+    from pqdet_tpu_torch.model.network import DetectionNetwork, to_device
+    from pqdet_tpu_torch.train.step import train_step_from_config, tree_leaves
+    from pqdet_tpu_torch.zoo import get_cfg
+    gen = phase_gen(162)
+    cfg = train_config()
+    net = DetectionNetwork.from_cfg(get_cfg(REGNET_TRAINED))
+    params, state = net.init(gen, device='cpu')
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    phase9_parity(net, params, state, gen, dev, cfg, label='phase 16 (c)')
+    print(f'phase 16 (c): card-against-CPU parity {time.perf_counter() - t0:.2f} s')
+    step, opt = train_step_from_config(net, cfg, TRAIN_WARMUP, device=dev)
+    p, s = to_device(params, dev), to_device(state, dev)
+    o = opt.init(p)
+    b = cfg.train.batch_size
+    tb = train_batch(gen, b, SIZE, dev, cfg.model.max_gt_boxes)
+    losses, ms = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in range(REGNET_TRAIN_STEPS):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        p, s, o, m = step(p, s, o, tb)
+        e1.record()
+        e1.synchronize()
+        ms.append(e0.elapsed_time(e1))
+        losses.append(float(m['loss']))
+    peak = torch.cuda.max_memory_allocated(dev)
+    moved = max((s[k]['mean'] - state[k]['mean'].to(dev)).abs().max().item() for k in s)
+    first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+    gate(all(math.isfinite(x) for x in losses) and last < first and moved > 0,
+         f'(c) {REGNET_TRAINED} ({n_params} params) {REGNET_TRAIN_STEPS} '
+         f'{cfg.system.compute_dtype} steps at {SIZE}x{SIZE}, B={b} on one batch: losses '
+         f'{[round(x, 3) for x in losses]}, mean of the last 3 below the first 3\'s, BN '
+         f'running means moved by up to {moved:.4g}')
+    launches = kernel_launches()
+    gate(not any(launches.values()), f'(c) hand-written kernel launches in the steps: '
+         f'{launches} (want all 0)')
+    timed = sorted(ms[REGNET_TRAIN_WARMUP:])
+    p50, p90 = statistics.median(timed), timed[int(0.9 * (len(timed) - 1))]
+    print(f'phase 16 (c): {tag} train step {REGNET_TRAINED} {SIZE}x{SIZE} B={b} '
+          f'{cfg.system.compute_dtype} ({len(timed)} steps after {REGNET_TRAIN_WARMUP}, CUDA '
+          f'events): p50 {p50:.3f} ms, p90 {p90:.3f} ms, {b * 1000.0 / p50:.2f} images/s; the '
+          f'first step {ms[0]:.1f} ms; peak memory {peak / 2**30:.3f} GiB')
+    return {'p50': p50, 'p90': p90, 'peak': peak}
+
+
+def phase16_trainer(dev, tag, tmp, corpus, gate):
+    """(d): one epoch of ``cli.train`` on phase 11's corpus from a copy of
+    yamls/shapes.yaml with ``model.cfg_path: REGNET_TRAINED``, at
+    ``train.input_sizes [SIZE]`` (the yaml's 416-512: each new size pays a
+    first step), evaluated after the epoch. Gates: phase 13's trainer gates
+    and a checkpoint in the JAX package's layout (HWIO grouped weights, the
+    zoo's cfg text) that loads back strictly."""
+    import yaml
+    from pqdet_tpu_torch.model.factory import build_detector
+    from pqdet_tpu_torch.utils.codec import load_checkpoint
+    from pqdet_tpu_torch.zoo import get_cfg
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, 'yamls', 'shapes.yaml')) as fr:
+        y = yaml.safe_load(fr)
+    y['model']['cfg_path'] = REGNET_TRAINED
+    ypath = os.path.join(tmp, 'shapes_regnet.yaml')
+    with open(ypath, 'w') as fw:
+        yaml.safe_dump(y, fw)
+    root = corpus['root']
+    wroot = os.path.join(tmp, 'weights_regnet')
+    rec = {}
+    wall = run_train_cli(['--yaml', ypath,
+                          'dataset.train_txt_file', os.path.join(root, 'train.txt'),
+                          'dataset.eval_txt_file', os.path.join(root, 'test.txt'),
+                          'weight.dir', wroot, 'train.max_epochs', '1', 'eval.after', '0',
+                          'train.input_sizes', f'[{SIZE}]', 'experiment_name',
+                          'shapes_regnet'], rec)
+    trainer = rec['trainer']
+    ep = rec['epochs'][0]
+    print(f'phase 16 (d): {tag} cli.train {os.path.basename(ypath)} (model.cfg_path '
+          f'{trainer.config.model.cfg_path}): {wall:.2f} s; epoch 0 {ep["s"]:.3f} s, '
+          f'{ep["steps"]} steps of B={trainer.config.train.batch_size}')
+    host_ips = statistics.mean(e['steps'] * corpus['batch'] / e['s']
+                               for i, e in corpus['host_epochs'].items() if i > 0)
+    trainer_gates(rec, '(d) RegNet trainer', tag, gate, host_ips, [0], phase='phase 16')
+    wdir = os.path.join(wroot, 'shapes_regnet')
+    path = os.path.join(wdir, sorted(os.listdir(wdir))[-1])
+    ck = load_checkpoint(path)
+    want_cfg = get_cfg(REGNET_TRAINED, num_classes=len(trainer.config.dataset.classes))
+    grouped = [n for n in trainer.network.graph.nodes
+               if n.kind == 'convolutional' and n.attrs['groups'] > 1]
+    hwio = all(tuple(ck['params'][str(n.index)]['w'].shape)
+               == (3, 3, n.in_channels // n.attrs['groups'], n.attrs['filters'])
+               for n in grouped)
+    _, p2, _, _ = build_detector(None, weight_path=path, device=dev)
+    same = all(bool((p2[k]['w'] == trainer.params[k]['w']).all()) for k in p2)
+    gate(ck['type'] == 'normal' and ck['cfg'] == want_cfg and hwio and same,
+         f'(d) {os.path.basename(path)}: type {ck["type"]}, the zoo\'s cfg text, {len(grouped)} '
+         'grouped conv weights in HWIO (3, 3, Cin/G, Cout), loaded back strictly and equal')
+    return wall
+
+
+def phase16_timings(dev, tag, servers, models, kernels, ptx):
+    """(e): request p50/p90 of each model and mode, the forward on the device
+    alone (CUDA graph), bf16 with grouped cuDNN convs against densified,
+    each kernel's device ms per forward, MACs grouped against densified."""
+    import torch
+    from pqdet_tpu_torch.ops.preprocess import device_normalize
+    gen = phase_gen(163)
+    batch = request_maker(gen, dev)
+    with torch.inference_mode():
+        x = device_normalize(batch(BATCH)['image'])
+    for name, sv in servers.items():
+        request_times({f'{name} {m}': v[0] for m, v in sv.items()}, batch, BATCH, tag,
+                      'phase 16 (e)', REGNET_TIMED_REQUESTS)
+        net, params, state, _ = models[name]
+        grouped = bf16_server(net, params, state, dev, densify_groups=False)
+        fwd = {'bf16 densified': sv['bf16'][1], 'bf16 grouped (cuDNN)': grouped[1],
+               'int8': sv['int8'][1]}
+        dms = {k: device_ms(lambda f=f: f(x), iters=3, replays=3) for k, f in fwd.items()}
+        cms = {k: cuda_ms(lambda f=f: f(x), iters=5) for k, f in fwd.items()}
+        macs, dense = grouped_macs(net.graph, SIZE)
+        print(f'phase 16 (e): {tag} {name} B={BATCH} forward on the device alone (CUDA graph): '
+              + ', '.join(f'{k} {v:.4f} ms' for k, v in dms.items())
+              + '; a call with its launches: '
+              + ', '.join(f'{k} {v:.4f} ms' for k, v in cms.items())
+              + f'; MACs an image grouped {macs} against densified {dense} ({dense / macs:.3f}x)')
+    for name in REGNET_FPN:
+        int8_kernel_times(gen, dev, int8_conv_shapes(models[name][3], SIZE), ptx, tag,
+                          f'phase 16 (e) {name}')
+    yq = int8_conv_shapes(models[REGNET_YOLO][3], SIZE)
+    int8_kernel_times(gen, dev, {k: c for k, c in yq.items() if k[0] == 'dw'}, ptx, tag,
+                      f'phase 16 (e) {REGNET_YOLO}')
+    fused_chain_times(gen, dev, kernels['chains'], ptx, tag, f'phase 16 (e) {REGNET_YOLO}')
+
+
+def phase16_regnet(dev, tag, tmp, corpus, ptx):
+    """Phase 16: the RegNet zoo and grouped convs on the card ((a)-(e),
+    module docstring). Raises on any failed gate; returns the kernels'
+    errors and the launches of (b)'s main path."""
+    from pqdet_tpu_torch.model.network import DetectionNetwork
+    from pqdet_tpu_torch.zoo import get_cfg
+    t_phase = time.perf_counter()
+    fails = []
+
+    def gate(ok, what):
+        print(f'phase 16: {what}: {"ok" if ok else "FAIL"}')
+        if not ok:
+            fails.append(what)
+
+    qnets = {name: DetectionNetwork.from_cfg(get_cfg(name), quant=True)
+             for name in REGNET_FPN + (REGNET_YOLO,)}
+    t0 = time.perf_counter()
+    kernels = phase16_kernels(dev, tag, qnets)
+    t1 = time.perf_counter()
+    servers, launches, models = phase16_serving(dev, tag, gate)
+    t2 = time.perf_counter()
+    phase16_train(dev, tag, gate)
+    t3 = time.perf_counter()
+    phase16_trainer(dev, tag, tmp, corpus, gate)
+    t4 = time.perf_counter()
+    phase16_timings(dev, tag, servers, models, kernels, ptx)
+    print(f'phase 16: {tag} seconds: (a) {t1 - t0:.1f}, (b) {t2 - t1:.1f}, (c) {t3 - t2:.1f}, '
+          f'(d) {t4 - t3:.1f}, (e) {time.perf_counter() - t4:.1f}; phase '
+          f'{time.perf_counter() - t_phase:.1f}')
+    if fails:
+        raise AssertionError(f'phase 16 gates failed: {fails}')
+    return {'int8_err': kernels['int8_err'], 'fused_err': kernels['fused_err'],
+            'launches': launches}
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -3893,38 +4296,43 @@ def main() -> int:
         p14 = phase14_prune(dev, tag, tmp, corpus, ptx, {'fused_ir_conv': fir, **qt})
         stamp('phase 15 starts')
         exported = phase15_exporters(dev, tag, tmp, net, params, state, qnet, qparams)
-    stamp('phase 15 ends')
+        stamp('phase 16 starts')
+        p16 = phase16_regnet(dev, tag, tmp, corpus, ptx)
+    stamp('phase 16 ends')
     arc = p14['launches']
+    rn = p16['launches']
 
     kernels = [
         {'name': 'decode_heads', 'route': 'triton',
          'source': 'pqdet_tpu_torch/ops/decode_kernel.py',
          'replaces': 'pqdet_tpu/ops/pallas_decode.py:59',
          'launches': launches['decode'] + qlaunches['decode'] + arc.get('decode_heads', 0)
-         + exported['decode_heads'],
+         + exported['decode_heads'] + rn['decode_heads'],
          'max_abs_err': decode_err,
          'ms': dec['ms'], 'plain_ms': dec['plain_ms'], 'bound_ms': dec['bound_ms'],
          'bound_by': 'bytes', 'library_ms': None},
         {'name': 'fused_ir_conv', 'route': 'cuda',
          'source': 'pqdet_tpu_torch/csrc/fused_ir.cu',
          'replaces': 'pqdet_tpu/ops/pallas_fused.py:135',
-         'launches': launches['fused_ir'] + arc.get('fused_ir_conv', 0),
-         'max_abs_err': max(fused_err, p14['fused_err']),
+         'launches': launches['fused_ir'] + arc.get('fused_ir_conv', 0) + rn['fused_ir_conv'],
+         'max_abs_err': max(fused_err, p14['fused_err'], p16['fused_err']),
          'ms': fir['ms'], 'plain_ms': fir['plain_ms'], 'bound_ms': fir['bound_ms'],
          'bound_by': fir['bound_by'], 'library_ms': fir['library_ms']},
         {'name': 'qconv1x1_s8', 'route': 'cuda',
          'source': 'pqdet_tpu_torch/csrc/qconv.cu',
          'replaces': 'pqdet_tpu/ops/pallas_qconv.py:121',
          'launches': qlaunches['qconv1x1_s8'] + arc.get('qconv1x1_s8', 0)
-         + exported['qconv1x1_s8'],
-         'max_abs_err': max(int8_err['qconv1x1_s8'], p14['int8_err']['qconv1x1_s8']),
+         + exported['qconv1x1_s8'] + rn['qconv1x1_s8'],
+         'max_abs_err': max(int8_err['qconv1x1_s8'], p14['int8_err']['qconv1x1_s8'],
+                            p16['int8_err']['qconv1x1_s8']),
          **qt['qconv1x1_s8']},
         {'name': 'qdwconv3x3_s8', 'route': 'cuda',
          'source': 'pqdet_tpu_torch/csrc/qconv.cu',
          'replaces': 'pqdet_tpu/ops/pallas_qconv.py:261',
          'launches': qlaunches['qdwconv3x3_s8'] + arc.get('qdwconv3x3_s8', 0)
-         + exported['qdwconv3x3_s8'],
-         'max_abs_err': max(int8_err['qdwconv3x3_s8'], p14['int8_err']['qdwconv3x3_s8']),
+         + exported['qdwconv3x3_s8'] + rn['qdwconv3x3_s8'],
+         'max_abs_err': max(int8_err['qdwconv3x3_s8'], p14['int8_err']['qdwconv3x3_s8'],
+                            p16['int8_err']['qdwconv3x3_s8']),
          **qt['qdwconv3x3_s8']},
     ]
     print(json.dumps({'kernels': kernels}))

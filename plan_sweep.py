@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Sweep the launch plans of the port's three CUDA kernels on one NVIDIA GPU.
 
-    python3 plan_sweep.py [fused|qconv|dw|all]
+    python3 plan_sweep.py [fused|qconv|dw|all] [zoo model ...]
 
 - fused: each of the 21 fused-IR chains of mobilenetv2-fpn at 512x512, B=4,
   under the plans ``plan_fused_ir`` makes with the cluster capped at 2, 4
   and 8 ranks (its MAX_CLUSTER), device ms from CUDA graphs;
-- qconv: each pointwise shape of the int8 graph at 512x512, B=4, under
-  every plan the qconv1x1 kernel takes (bm, bn, bk, split, stages), each
-  checked bit for bit against the plain version, device ms from CUDA
+- qconv: each pointwise shape of the int8 graph at 512x512, B=4 (of
+  mobilenetv2-fpn, or of the zoo models named after the mode: the
+  RegNets' densified grouped 3x3s as their im2col shapes, K up to 4752),
+  under every plan the qconv1x1 kernel takes (bm, bn, bk, split, stages),
+  each checked bit for bit against the plain version, device ms from CUDA
   graphs; prints the current plan's time and the best three;
 - dw: each depthwise shape of the int8 graph at 512x512, B=4, under every
   tile (th, tw, cs) the depthwise kernel takes with up to 16 units a
@@ -57,7 +59,7 @@ def sweep_fused(dev, gen):
     print('fused per B=4 forward: ' + ', '.join(f'cap {k}: {v:.4f} ms' for k, v in total.items()))
 
 
-def sweep_qconv(dev, gen):
+def sweep_qconv(dev, gen, models=('mobilenetv2-fpn',)):
     import torch
 
     import chip_smoke as cs
@@ -65,11 +67,12 @@ def sweep_qconv(dev, gen):
     from pqdet_tpu_torch.ops import qconv as qc
     from pqdet_tpu_torch.zoo import get_cfg
     lib = qc._library()
-    net = DetectionNetwork.from_cfg(get_cfg('mobilenetv2-fpn'), quant=True)
     shapes = {}
-    for (kind, h, _, k, n, _, _, rq), count in cs.int8_conv_shapes(net, 512).items():
-        if kind != 'dw':
-            shapes[(h, k, n, rq)] = shapes.get((h, k, n, rq), 0) + count
+    for name in models:
+        net = DetectionNetwork.from_cfg(get_cfg(name), quant=True)
+        for (kind, h, _, k, n, _, _, rq), count in cs.int8_conv_shapes(net, 512).items():
+            if kind != 'dw':
+                shapes[(h, k, n, rq)] = shapes.get((h, k, n, rq), 0) + count
     cur_total = best_total = 0.0
     for (h, k, n, rq), count in sorted(shapes.items()):
         m = 4 * h * h
@@ -109,8 +112,8 @@ def sweep_qconv(dev, gen):
         best_total += count * results[0][0]
         print(f'qconv {h}x{h} {k}->{n} x{count}: current {cur_ms:.4f} ms {cur[:6]}; best '
               + '; '.join(f'{ms:.4f} ms {pl[:6]}' for ms, pl in results[:3]))
-    print(f'qconv per B=4 forward: current plans {cur_total:.4f} ms, best plans '
-          f'{best_total:.4f} ms')
+    print(f'qconv per B=4 forward of {" + ".join(models)}: current plans {cur_total:.4f} ms, '
+          f'best plans {best_total:.4f} ms')
 
 
 def sweep_dw(dev, gen):
@@ -187,7 +190,7 @@ def main() -> int:
     if which in ('fused', 'all'):
         sweep_fused(dev, gen)
     if which in ('qconv', 'all'):
-        sweep_qconv(dev, gen)
+        sweep_qconv(dev, gen, tuple(sys.argv[2:]) or ('mobilenetv2-fpn',))
     if which in ('dw', 'all'):
         sweep_dw(dev, gen)
     return 0

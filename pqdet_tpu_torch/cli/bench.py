@@ -80,7 +80,7 @@ def make_predict(args, cfg):
         network, qparams = load_quantized(args.weight, device=args.device)
         int8 = Int8Inference(network, mode=mode)
         run = build_predict_pipeline(network, cfg, apply_fn=int8.apply, device=args.device)
-        return make_batch_predict(run, Int8Inference.prepare(qparams, mode=mode))
+        return make_batch_predict(run, Int8Inference.prepare(qparams, mode=mode, network=network))
 
     from pqdet_tpu_torch.config import resolve_model_cfg
     from pqdet_tpu_torch.model.factory import build_detector
@@ -226,6 +226,8 @@ def cmd_benchmark(args, cfg):
 
 
 def main(argv=None):
+    from pqdet_tpu_torch.utils.debug import register_stack_dump
+    register_stack_dump()
     parser = argparse.ArgumentParser(description='eval/benchmark CLI')
     parser.add_argument('mode', choices=MODES)
     parser.add_argument('--yaml', default=None)
@@ -245,8 +247,9 @@ def main(argv=None):
     parser.add_argument('--device', default='cuda')
     args, rest = parser.parse_known_args(argv)
 
-    from pqdet_tpu_torch.config import load_config
+    from pqdet_tpu_torch.config import load_config, platform_device
     cfg = load_config(args.yaml, rest)
+    args.device = platform_device(cfg, args.device)
     if args.cfg:
         cfg.model.cfg_path = args.cfg
     return {'eval': cmd_eval, 'benchmark': cmd_benchmark,

@@ -174,8 +174,9 @@ def main(argv=None):
     parser.add_argument('--device', default='cuda')
     args, rest = parser.parse_known_args(argv)
 
-    from pqdet_tpu_torch.config import load_config
+    from pqdet_tpu_torch.config import load_config, platform_device
     cfg = load_config(args.yaml, rest)
+    args.device = platform_device(cfg, args.device)
     report = run_diffeval(cfg, args.weight, args.limit, args.reference, args.device)
     text = json.dumps(report, indent=2)
     print(text)

@@ -74,8 +74,9 @@ def main():
     parser.add_argument('--device', default='cuda')
     args, rest = parser.parse_known_args()
 
-    from pqdet_tpu_torch.config import load_config
+    from pqdet_tpu_torch.config import load_config, platform_device
     cfg = load_config(args.yaml, rest)
+    args.device = platform_device(cfg, args.device)
     image, dets = predict_image(cfg, args.img, weight_path=args.weight or None,
                                 cfg_path=args.cfg or None, device=args.device)
     print(f'{len(dets)} detections')

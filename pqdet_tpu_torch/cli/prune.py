@@ -22,6 +22,8 @@ import argparse
 
 
 def main(argv=None):
+    from pqdet_tpu_torch.utils.debug import register_stack_dump
+    register_stack_dump()
     parser = argparse.ArgumentParser(description='channel pruning')
     parser.add_argument('--yaml', default=None)
     parser.add_argument('--skip-test', action='store_true')
@@ -30,13 +32,14 @@ def main(argv=None):
     args, rest = parser.parse_known_args(argv)
 
     from pqdet_tpu_torch.compress.prune import prune_slimming
-    from pqdet_tpu_torch.config import load_config
+    from pqdet_tpu_torch.config import load_config, platform_device
     from pqdet_tpu_torch.model.factory import build_detector
     from pqdet_tpu_torch.model.graph import Graph
     from pqdet_tpu_torch.train.checkpoint import save_checkpoint
     from pqdet_tpu_torch.utils.profiling import clever_format, count_macs_params
 
     cfg = load_config(args.yaml, rest)
+    args.device = platform_device(cfg, args.device)
     network, params, state, _ = build_detector(None, weight_path=cfg.prune.weight,
                                                device=args.device)
     print(f'load weights from {cfg.prune.weight}')

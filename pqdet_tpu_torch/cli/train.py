@@ -4,16 +4,19 @@
         [--device cuda|cpu] [key value ...]
 
 Trailing ``key value`` pairs override the yaml (dotted keys, e.g.
-``train.max_epochs 3``).
+``train.max_epochs 3``); ``system.platform cpu`` runs on the CPU whatever
+``--device`` says. ``kill -USR1 <pid>`` prints every thread's stack.
 """
 
 import argparse
 
 from pqdet_tpu_torch.config import load_config
 from pqdet_tpu_torch.train.trainer import Trainer
+from pqdet_tpu_torch.utils.debug import register_stack_dump
 
 
 def main(argv=None):
+    register_stack_dump()
     parser = argparse.ArgumentParser(description='trainer configuration')
     parser.add_argument('--yaml', default=None)
     parser.add_argument('--device', default='cuda')

@@ -8,9 +8,12 @@ between a dequant and a requant, as in the JAX package.
 ``Int8Inference`` walks the quant graph in one of three modes:
 
 - ``'kernel'`` (the JAX package's ``'pallas'``): activations in the
-  recentred s8 form, every pointwise conv through ``qconv1x1_s8``, every
-  depthwise 3x3 through ``qdwconv3x3_s8`` (both CUDA kernels on the card,
-  ``csrc/qconv.cu``), and the dense 3x3 stem as im2col patches into
+  recentred s8 form, every pointwise conv through ``qconv1x1_s8`` (a
+  strided one on the input's every stride-th pixel, where the JAX package
+  runs its bf16 dequant conv), every depthwise 3x3 through
+  ``qdwconv3x3_s8`` (both CUDA kernels on the card, ``csrc/qconv.cu``),
+  and the dense 3x3 stem and the densified grouped 3x3s
+  (``prepare(network=)``, K = 9 * Cin up to 4752) as im2col patches into
   ``qconv1x1_s8``; the raw yolo heads are decoded after the walk by one
   launch of the Triton decode kernel into the preds. This is the serving
   path;
@@ -48,8 +51,13 @@ from pqdet_tpu_torch.ops.qconv import (make_scalars, qconv1x1_reference,
 from pqdet_tpu_torch.utils.codec import load_checkpoint, save_pytrees
 
 # widest dense 3x3 input the JAX package stages for its integer-exact
-# paths (Int8Inference.prepare, quantized.py:564-565)
+# paths (Int8Inference.prepare, quantized.py:564-565); densified grouped
+# 3x3s take the im2col route at any width (their sums are exact in s32:
+# K * 127 * 127 < 2^31 up to K = 133,000)
 MAX_DENSE_CIN = 115
+# group widths (input channels per group) that ``prepare(network=)``
+# densifies, the JAX package's range
+DENSE_GROUP_WIDTHS = (2, 115)
 
 
 def im2col_depth(cin: int) -> int:
@@ -214,7 +222,7 @@ class Int8Inference:
         self._scalars: Dict[tuple, torch.Tensor] = {}
 
     @staticmethod
-    def prepare(qparams: Dict, mode: str = 'kernel') -> Dict:
+    def prepare(qparams: Dict, mode: str = 'kernel', network: DetectionNetwork = None) -> Dict:
         """Derive the kernel weight views (``'kernel'`` mode), contiguous on
         the weights' device:
         - 1x1 conv: ``w2d`` (Cin, Cout) int8 and ``colsum`` (Cout,) int32;
@@ -222,19 +230,37 @@ class Int8Inference:
         - dense 3x3 with Cin <= 115: ``wim`` (im2col_depth(Cin), Cout) in
           (kh, kw, cin) order with zero rows after the 9*Cin taps, and
           ``wim_colsum``, for the im2col route into the 1x1 kernel.
-        Other modes stage the qparams as they are."""
+        With ``network`` given, a GROUPED conv of group width 2-115 (the
+        RegNet pattern) whose Cout is a multiple of its groups is first
+        densified to block-diagonal int8 weights
+        (``layers.densify_grouped_weight``, the JAX package's
+        ``_densify_int8_weight``), as its ``prepare(network=)`` does: a
+        grouped 1x1 becomes ``w2d`` and ``colsum``, a grouped 3x3 a dense
+        3x3 whose ``wim`` is staged at any Cin (K up to 9 * 528 = 4752 in
+        the zoo). Without it the views are of the compact weights, which
+        the walk admits for no input: such a conv runs the bf16 dequant
+        conv on the CPU, as in JAX, and kernel mode raises on the card.
+        ``wq`` stays grouped. Other modes stage the qparams as they are."""
+        groups_of = {} if network is None else {
+            str(n.index): n.attrs['groups'] for n in network.graph.nodes
+            if n.kind == 'convolutional'}
         layers = {}
         for key, p in qparams['layers'].items():
             p = dict(p)
             wq = p.get('wq') if mode == 'kernel' else None
             if wq is not None:
+                g = groups_of.get(key, 1)
+                densified = (g > 1 and DENSE_GROUP_WIDTHS[0] <= wq.shape[1]
+                             <= DENSE_GROUP_WIDTHS[1] and wq.shape[0] % g == 0)
+                if densified:
+                    wq = L.densify_grouped_weight(wq, g)
                 cout, cin, kh, kw = wq.shape
                 if (kh, kw) == (1, 1):
                     p['w2d'] = wq.reshape(cout, cin).t().contiguous()
                     p['colsum'] = p['w2d'].to(torch.int32).sum(0).to(torch.int32)
                 elif (cin, kh, kw) == (1, 3, 3):
                     p['wdw'] = wq.reshape(cout, 9).t().reshape(3, 3, cout).contiguous()
-                elif (kh, kw) == (3, 3) and cin <= MAX_DENSE_CIN:
+                elif (kh, kw) == (3, 3) and (cin <= MAX_DENSE_CIN or densified):
                     wim = wq.permute(2, 3, 1, 0).reshape(9 * cin, cout)
                     p['wim'] = F.pad(wim, (0, 0, 0, im2col_depth(cin) - 9 * cin)).contiguous()
                     p['wim_colsum'] = p['wim'].to(torch.int32).sum(0).to(torch.int32)
@@ -310,8 +336,9 @@ class Int8Inference:
                 even = h % stride == 0 and w % stride == 0
                 dw_ok = ('wdw' in p and a['size'] == 3 and padding == 1
                          and a['groups'] == c and a['groups'] == a['filters'] and even)
-                pw_ok = ('w2d' in p and stride == 1 and padding == 0
-                         and p['w2d'].shape[0] == c)
+                # a strided 1x1 (the RegNets' projections) is the 1x1 of
+                # the input's every stride-th row and column
+                pw_ok = 'w2d' in p and padding == 0 and p['w2d'].shape[0] == c
                 im2col_ok = ('wim' in p and a['size'] == 3 and padding == 1
                              and stride in (1, 2) and p['wim'].shape[0] == im2col_depth(c)
                              and even)
@@ -321,8 +348,8 @@ class Int8Inference:
                                   scalars=self._scalar_vector(key, cur_sz, out_edge,
                                                               xq.device))
                     if pw_ok:
-                        y = pw_fn(xq, p['w2d'], p['w_scale'], p['b'], p['colsum'],
-                                  **common)
+                        xs = xq if stride == 1 else xq[:, ::stride, ::stride].contiguous()
+                        y = pw_fn(xs, p['w2d'], p['w_scale'], p['b'], p['colsum'], **common)
                     elif dw_ok:
                         y = dw_fn(xq, p['wdw'], p['w_scale'], p['b'], stride=stride,
                                   **common)

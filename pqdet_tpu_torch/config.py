@@ -35,6 +35,10 @@ def _field(value):
 
 @dataclasses.dataclass
 class SystemConfig:
+    # '' keeps the device the caller asks for (the CLIs' --device); 'cpu'
+    # sends the CLIs and the Trainer to the CPU (JAX's key forces a JAX
+    # platform; the port has the one choice, see platform_device)
+    platform: str = ''
     # bf16 conv compute (f32 accumulation, BN statistics and loss);
     # 'float32' for f32 throughout
     compute_dtype: str = 'bfloat16'
@@ -292,7 +296,21 @@ def load_config(yaml_path: Optional[str] = None, opts: Optional[List[str]] = Non
             merge_dict(cfg, yaml.safe_load(fr) or {})
     if opts:
         merge_from_list(cfg, list(opts))
+    platform_device(cfg, None)      # an unknown system.platform raises here
     return cfg
+
+
+PLATFORMS = ('', 'cpu')
+
+
+def platform_device(cfg: Config, device):
+    """The device a CLI or the Trainer runs on: the CPU when
+    ``system.platform`` is 'cpu', else ``device``; any other platform
+    raises."""
+    if cfg.system.platform not in PLATFORMS:
+        raise ValueError(f'system.platform: {cfg.system.platform!r} is not one of '
+                         f'{PLATFORMS} (the port runs on the card or on the CPU)')
+    return 'cpu' if cfg.system.platform == 'cpu' else device
 
 
 def resolve_model_cfg(cfg: Config) -> str:
@@ -301,8 +319,6 @@ def resolve_model_cfg(cfg: Config) -> str:
     path = cfg.model.cfg_path
     if path in MODEL_ZOO:
         return get_cfg(path, num_classes=len(cfg.dataset.classes))
-    if path.startswith('regnet'):
-        raise later(f'zoo model {path}', 'queue 1, item 9 (the RegNet zoo)')
     with open(path, 'r') as fr:
         return fr.read()
 

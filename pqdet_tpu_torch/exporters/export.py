@@ -147,7 +147,7 @@ def export_stablehlo_quant(network, qparams: Dict, input_size: Tuple[int, int] =
         raise ValueError(f"mode must be 'int' or 'kernel', got {mode!r}")
     dev = resolve_device(device)
     example = _example(batch_size, input_size, dev)
-    staged = Int8Inference.prepare(_on(qparams, dev), mode=mode)
+    staged = Int8Inference.prepare(_on(qparams, dev), mode=mode, network=network)
     return _serialize(Int8Program(network, staged, mode, example), example)
 
 

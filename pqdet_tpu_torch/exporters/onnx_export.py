@@ -24,7 +24,6 @@ import numpy as np
 import torch
 
 from pqdet_tpu_torch.exporters import onnx_proto as P
-from pqdet_tpu_torch.model.factory import check_no_grouped_convs
 from pqdet_tpu_torch.model.graph import Graph, solve_padding
 
 
@@ -235,10 +234,9 @@ def export_quantized_to_onnx(network, qparams: Dict, input_size,
     decode chain. Activations on quantized edges are realised by the
     requant saturation (observers record post-activation ranges; relu
     with zero point 0 clamps exactly), as the int8 executor does. A grouped
-    conv that is not depthwise raises: the port has no densified int8
-    grouped conv before the RegNet zoo (ROADMAP queue 1, item 9).
+    conv is one QLinearConv with ``group=G`` and its original grouped
+    weights, though ``Int8Inference`` serves it densified.
     """
-    check_no_grouped_convs(network)
     graph: Graph = network.graph
     layers, act = qparams['layers'], qparams['act']
     h0, w0 = input_size

@@ -14,21 +14,10 @@ from typing import Dict, Optional
 import torch
 
 from pqdet_tpu_torch.compress.qat import prepare_qat_state
-from pqdet_tpu_torch.config import later
-from pqdet_tpu_torch.model.network import DetectionNetwork, cast_params, fuse_params
+from pqdet_tpu_torch.model.network import (DetectionNetwork, cast_params,
+                                           densify_grouped_convs, fuse_params)
 from pqdet_tpu_torch.train.checkpoint import load_backbone_into, load_weights_into
 from pqdet_tpu_torch.utils.codec import load_checkpoint
-
-
-def check_no_grouped_convs(network) -> None:
-    """Raise for a grouped conv that is not depthwise: the JAX package runs
-    those densified (``densify_grouped_convs``), which comes with the
-    RegNet zoo. Depthwise convs stay grouped in both packages."""
-    for node in network.graph.nodes:
-        if node.kind == 'convolutional' and node.attrs['groups'] > 1 \
-                and node.in_channels // node.attrs['groups'] >= 2:
-            raise later(f'grouped conv {node.index} (groups {node.attrs["groups"]})',
-                        'queue 1, item 9 (grouped-conv densification)')
 
 
 def build_detector(cfg_text: Optional[str] = None,
@@ -71,7 +60,6 @@ def build_detector(cfg_text: Optional[str] = None,
 
     needs_quant_graph = qat or quantized or info['type'] == 'qat'
     network = DetectionNetwork.from_cfg(cfg_text, quant=needs_quant_graph)
-    check_no_grouped_convs(network)
     params, state = network.init(torch.Generator().manual_seed(rng_seed), device=device)
     if backbone_path:
         params, state = load_backbone_into(network.graph, params, state,
@@ -85,10 +73,14 @@ def build_detector(cfg_text: Optional[str] = None,
     return network, params, state, info
 
 
-def inference_params(network, params, state, dtype=None) -> Dict:
-    """BN-folded params for the inference walk, optionally cast to
-    ``dtype``, computed without autograd."""
-    check_no_grouped_convs(network)
+def inference_params(network, params, state, dtype=None, densify_groups: bool = True) -> Dict:
+    """BN-folded params for the inference walk, computed without autograd:
+    grouped convs (group width >= 2, the RegNets) densified to
+    block-diagonal weights (``densify_grouped_convs``) unless
+    ``densify_groups`` is False, as the JAX package's default; optionally
+    cast to ``dtype``."""
     with torch.no_grad():
         fused = fuse_params(network, params, state)
+        if densify_groups:
+            fused = densify_grouped_convs(network, fused)
         return cast_params(fused, dtype) if dtype is not None else fused

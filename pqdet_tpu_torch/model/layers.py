@@ -105,6 +105,24 @@ def _nhwc(x):
     return x.permute(0, 2, 3, 1)
 
 
+def densify_grouped_weight(w: torch.Tensor, groups: int) -> torch.Tensor:
+    """Compact grouped OIHW weights (cout, cin/g, kh, kw) -> block-diagonal
+    dense (cout, cin, kh, kw), as a differentiable op (the port of the JAX
+    package's ``densify_grouped_weight``, which works on HWIO).
+
+    The blocks are written into zeros (+0.0 off the blocks, the bytes of
+    the JAX package's ``densify_grouped_convs``), so under autograd the
+    weight gradient is gathered back from the blocks exactly: a dense conv
+    on these weights computes the grouped conv's function and gradient.
+    Works for any dtype (the int8 weights of ``compress/quantized.py``)."""
+    cout, cin_g, kh, kw = w.shape
+    cpg = cout // groups
+    g = torch.arange(groups, device=w.device)
+    dense = w.new_zeros((groups, cpg, groups, cin_g, kh, kw))
+    dense[g, :, g] = w.reshape(groups, cpg, cin_g, kh, kw)
+    return dense.reshape(cout, groups * cin_g, kh, kw)
+
+
 def conv2d(x, w, b=None, stride: int = 1, padding: int = 0, groups: int = 1,
            compute_dtype: Optional[torch.dtype] = None):
     """2-D convolution, NHWC x OIHW -> NHWC.

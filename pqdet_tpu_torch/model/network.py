@@ -376,6 +376,34 @@ class DetectionNetwork(Network):
         return (sum_scale_losses(losses) if targets is not None else preds), new_state
 
 
+class ClassifierNetwork(Network):
+    """Classifier graph (the zoo's ``CLASSIFIER_ZOO``: a backbone, global
+    avgpool and an fc): ``forward`` returns the (B, classes) logits, the
+    final activation of the walk."""
+
+
+def densify_grouped_convs(network: Network, fused: Dict) -> Dict:
+    """Expand grouped-conv weights to block-diagonal DENSE (Cout, Cin, kh,
+    kw) tensors for inference (the JAX package's ``densify_grouped_convs``
+    on OIHW weights).
+
+    A dense conv whose weights are zero outside the group blocks computes
+    the grouped conv's function; ``layers.conv2d`` detects the dense shape
+    and runs it as one dense conv. Depthwise convs (group width 1) stay
+    grouped."""
+    out = dict(fused)
+    for node in network.graph.nodes:
+        key = str(node.index)
+        if node.kind != 'convolutional' or key not in fused:
+            continue
+        g = node.attrs['groups']
+        p = fused[key]
+        if g <= 1 or p['w'].shape[1] < 2:
+            continue
+        out[key] = {**p, 'w': L.densify_grouped_weight(p['w'], g)}
+    return out
+
+
 def to_device(tree, device):
     """Move every tensor of a nested dict to ``device``."""
     if isinstance(tree, dict):

@@ -55,7 +55,7 @@ import torch.nn.functional as F
 
 from pqdet_tpu_torch import resolve_device
 from pqdet_tpu_torch.compress.quantized import Int8Inference, convert_to_int8
-from pqdet_tpu_torch.config import later, resolve_model_cfg, sizes_fix
+from pqdet_tpu_torch.config import later, platform_device, resolve_model_cfg, sizes_fix
 from pqdet_tpu_torch.data.eval_data import EvalData
 from pqdet_tpu_torch.data.train_data import TrainData, epoch_batches
 from pqdet_tpu_torch.evaluation.evaluator import Evaluator, format_ap_table
@@ -82,7 +82,7 @@ class Trainer:
 
     def __init__(self, config, device='cuda'):
         self.config = config
-        self.device = resolve_device(device)
+        self.device = resolve_device(platform_device(config, device))
         self.cfg_text: Optional[str] = None
         self.AP = None
         self.global_step = 0
@@ -186,7 +186,8 @@ class Trainer:
             int8 = Int8Inference(self.network, mode='kernel')
             run = build_predict_pipeline(self.network, self.config, apply_fn=int8.apply,
                                          device=self.device)
-            return make_batch_predict(run, Int8Inference.prepare(qparams, mode='kernel'))
+            return make_batch_predict(run, Int8Inference.prepare(qparams, mode='kernel',
+                                                                   network=self.network))
         if self._eval_run is None:
             self._eval_run = build_predict_pipeline(
                 self.network, self.config, compute_dtype=self._compute_dtype,

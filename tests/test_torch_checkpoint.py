@@ -188,9 +188,10 @@ def test_build_detector_from_checkpoint(jax_model, tmp_path):
 
 def test_build_detector_queued_paths_raise(jax_model, tmp_path):
     """Named for the paths that raise: a quant checkpoint (int8 weights go
-    through load_quantized), a grouped conv, no cfg. ``qat=True``, which
-    raised before the QAT slice, builds JAX's quant graph with its fresh
-    observers."""
+    through load_quantized), no cfg. ``qat=True``, which raised before the
+    QAT slice, builds JAX's quant graph with its fresh observers; a grouped
+    conv, which raised before the RegNet slice, builds with JAX's params in
+    the port's layout."""
     jnet, params, state = jax_model
     net, p, s, _ = build_detector(CFG, qat=True, device='cpu')
     qnet, _, qs, _ = jax_build_detector(CFG, qat=True)
@@ -202,7 +203,11 @@ def test_build_detector_queued_paths_raise(jax_model, tmp_path):
     jax_save_checkpoint(path, params, state, step=1, cfg_text=CFG, ckpt_type='quant')
     with pytest.raises(ValueError, match='int8 weights'):
         build_detector(weight_path=path, device='cpu')
-    with pytest.raises(NotImplementedError, match='queue 1, item 9'):
-        build_detector(jax_get_cfg('regnetx-600m-fpn', num_classes=3), device='cpu')
+    rcfg = jax_get_cfg('regnetx-600m-fpn', num_classes=3)
+    rnet, rp, rs, _ = build_detector(rcfg, device='cpu')
+    jp, js = JaxNetwork.from_cfg(rcfg).init(jax.random.PRNGKey(0))
+    want_p, want_s = to_jax_params(rp, rs, rnet.graph)
+    assert jax.tree.map(np.shape, want_p) == jax.tree.map(np.shape, jax.tree.map(np.asarray, jp))
+    assert jax.tree.map(np.shape, want_s) == jax.tree.map(np.shape, jax.tree.map(np.asarray, js))
     with pytest.raises(ValueError, match='need a model cfg'):
         build_detector(device='cpu')

@@ -358,3 +358,51 @@ def test_plan_qdwconv3x3_pruned(b):
         for h, c, stride in depthwise_shapes(cfg, size):
             plan = check_dw_plan(b, h, h, c, stride)
             assert plan.cw == (16 if c % 16 == 0 else 8)
+
+
+REGNETS = ('regnetx-600m-fpn', 'regnetx-600m-pan', 'regnetx-600m-rpan', 'regnetx-600m-yolo',
+           'regnety-400m-fpn')
+
+
+@functools.lru_cache(maxsize=None)
+def regnet_int8_shapes(name):
+    """chip_smoke's int8 conv shapes of the RegNet's int8 graph at SIZE:
+    the densified grouped 3x3s as im2col (K = im2col_depth(Cin)), the SE
+    1x1s at H = W = 1, the strided 1x1 projections on every other pixel."""
+    import chip_smoke
+    return chip_smoke.int8_conv_shapes(DetectionNetwork.from_cfg(get_cfg(name), quant=True), SIZE)
+
+
+@pytest.mark.parametrize('b', [1, 4, 16])
+@pytest.mark.parametrize('name', REGNETS)
+def test_plan_regnet_int8_shapes(name, b):
+    """Every int8 conv shape of the five RegNet detectors at 512 plans within
+    the kernels' limits: the 1x1 kernel at K up to 4752 and M = B (SE), the
+    depthwise kernel at C 128-512 (regnetx-600m-yolo)."""
+    ks = []
+    for (kind, h, w, k, n, stride, _, _), _ in regnet_int8_shapes(name).items():
+        if kind == 'dw':
+            check_dw_plan(b, h, w, k, stride)
+        else:
+            check_qconv_plan(b * h * w, k, n)
+            ks.append(k)
+    assert max(ks) == (4752 if name.startswith('regnetx') else 3968)
+
+
+def test_plan_qconv1x1_at_the_widest_densified_conv():
+    """The widest im2col conv (Cin 528 at 16x16, B=4): 128 x 32 tiles, 38 K
+    steps of 128, 136 CTAs without split-K."""
+    plan = check_qconv_plan(4 * 16 * 16, 9 * 528, 528)
+    assert (plan.bm, plan.bn, plan.bk, plan.split) == (128, 32, 128, 1)
+    assert -(-4752 // plan.bk) == 38 and plan.m_blocks * plan.n_blocks == 136
+
+
+@pytest.mark.parametrize('n', [1, 4, 16])
+def test_plan_fused_ir_regnet_yolo(n):
+    """regnetx-600m-yolo's nine chains (Cin 224-1024, E 128-512, P
+    256-1024, two bare pairs) plan within the kernel's limits."""
+    chains = chain_shapes(get_cfg('regnetx-600m-yolo'))
+    assert len(chains) == 9 and sum(not ex for *_, ex in chains) == 2
+    assert {e for _, _, e, _, _ in chains} == {128, 256, 512}
+    for h, cin, e, p, expand in chains:
+        check_fused_plan(plan_fused_ir(n, h, h, cin, e, p, expand), n, h, h, cin, e, p, expand)

@@ -26,6 +26,7 @@ from pqdet_tpu.exporters.onnx_export import export_normal_to_onnx as jax_export_
 from pqdet_tpu.exporters.onnx_export import export_quantized_to_onnx as jax_export_quant
 from pqdet_tpu.exporters.onnx_runtime import run_model as jax_run_model
 from pqdet_tpu.model.network import DetectionNetwork as JaxNetwork
+from pqdet_tpu.model.network import densify_grouped_convs as jax_densify
 from pqdet_tpu.model.network import fuse_params as jax_fuse_params
 from pqdet_tpu_torch.bridge import from_jax_params, from_jax_qparams
 from pqdet_tpu_torch.compress.quantized import Int8Inference, convert_to_int8
@@ -33,6 +34,7 @@ from pqdet_tpu_torch.exporters import onnx_proto as P
 from pqdet_tpu_torch.exporters.onnx_export import (export_normal_to_onnx,
                                                    export_quantized_to_onnx)
 from pqdet_tpu_torch.exporters.onnx_runtime import run_model
+from pqdet_tpu_torch.model.factory import inference_params
 from pqdet_tpu_torch.model.network import DetectionNetwork, fuse_params
 from tests.test_onnx import _fpn_style_cfg, _regnet_style_cfg
 from tests.test_prune import _mobile_style_cfg
@@ -178,10 +180,67 @@ def test_quant_roundtrip_against_port_int8(quant_case):
     assert np.median(np.abs(out[..., 4:] - ref[..., 4:])) < 0.05
 
 
-def test_grouped_quant_export_raises_naming_item_9():
-    """A grouped conv that is not depthwise has no int8 form in the port
-    before the RegNet zoo: the quantized export raises, naming the item."""
-    net = DetectionNetwork.from_cfg(_regnet_style_cfg(), quant=True)
-    with pytest.raises(NotImplementedError, match='item 9'):
-        export_quantized_to_onnx(net, {'layers': {}, 'act': {'input': (0.1, 3.0)}},
-                                 (SIZE, SIZE))
+@pytest.fixture(scope='module')
+def grouped_quant_case():
+    """``quant_case`` on the grouped cfg of tests/test_onnx.py (a group
+    width 8 3x3): (JAX net, port net, JAX qparams, port qparams carried,
+    input)."""
+    cfg = _regnet_style_cfg()
+    jnet = JaxNetwork.from_cfg(cfg, quant=True)
+    params, state = jnet.init(jax.random.PRNGKey(0))
+    params, state = jax_prepare_qat_state(jnet, params, state)
+    x = np.random.RandomState(1).rand(1, SIZE, SIZE, 3).astype(np.float32)
+    ctx = JaxQuantCtx(state['quant'], observing=True)
+    jnet.apply(params, state, jnp.asarray(x), quant_ctx=ctx)
+    jq = jax_convert_to_int8(jnet, params, {**state, 'quant': ctx.new_obs})
+    net = DetectionNetwork.from_cfg(cfg, quant=True)
+    carried = from_jax_qparams(jax.tree.map(np.asarray, jq), net.graph, device='cpu')
+    return jnet, net, jq, carried, x
+
+
+def test_grouped_quant_onnx_bytes_equal_jax(grouped_quant_case):
+    """A grouped conv exports as one QLinearConv with group=G and its
+    original grouped weights, the JAX writer's bytes."""
+    jnet, net, jq, carried, _ = grouped_quant_case
+    blob = export_quantized_to_onnx(net, carried, (SIZE, SIZE), batch_size=1)
+    assert blob == jax_export_quant(jnet, jq, (SIZE, SIZE), batch_size=1)
+    groups = [P.node_attrs(n)['group'] for n in P.decode_model(blob)['graph']['node']
+              if n['op_type'] == 'QLinearConv']
+    assert 4 in groups
+
+
+def test_grouped_quant_roundtrip_against_port_int8(grouped_quant_case):
+    """The grouped file run by the port's evaluator against
+    ``Int8Inference(mode='int')`` (grouped convs) and its kernel mode
+    (densified, plain on the CPU), with tests/test_onnx.py's medians."""
+    _, net, _, carried, x = grouped_quant_case
+    blob = export_quantized_to_onnx(net, carried, (SIZE, SIZE), batch_size=1)
+    out = run_model(blob, {'input': _nchw(x)}, device='cpu')[0].numpy()
+    for mode in ('int', 'kernel'):
+        with torch.inference_mode():
+            ref = Int8Inference(net, mode=mode).apply(
+                Int8Inference.prepare(carried, mode, network=net), torch.from_numpy(x)).numpy()
+        assert out.shape == ref.shape
+        assert np.median(np.abs(out[..., :4] - ref[..., :4])) < 1.0, mode
+        assert np.median(np.abs(out[..., 4:] - ref[..., 4:])) < 0.05, mode
+
+
+@pytest.mark.parametrize('densify', [False, True])
+def test_grouped_fp_onnx_bytes_equal_jax(densify):
+    """The fp export of the grouped cfg from BN-folded weights, grouped or
+    densified (``inference_params``' default; the group then comes from
+    the weight's shape, 1): the JAX writer's bytes from JAX's same form."""
+    cfg = _regnet_style_cfg()
+    jnet = JaxNetwork.from_cfg(cfg)
+    params, state = jnet.init(jax.random.PRNGKey(0))
+    jfused = jax_fuse_params(jnet, params, state)
+    if densify:
+        jfused = jax_densify(jnet, jfused)
+    jfused = jax.tree.map(np.asarray, jfused)
+    net = DetectionNetwork.from_cfg(cfg)
+    carried, _ = from_jax_params(jfused, {}, net.graph, device='cpu')
+    want = jax_export_normal(jnet, jfused, (SIZE, SIZE), batch_size=2)
+    assert export_normal_to_onnx(net, carried, (SIZE, SIZE), batch_size=2) == want
+    if densify:
+        port = inference_params(net, *from_jax_params(params, state, net.graph, device='cpu'))
+        assert export_normal_to_onnx(net, port, (SIZE, SIZE), batch_size=2) == want
