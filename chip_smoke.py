@@ -246,7 +246,31 @@ Builds the CUDA kernels from pqdet_tpu_torch/csrc with nvcc (sm_90a), then:
    device alone (CUDA graph) in bf16 densified, bf16 with grouped cuDNN
    convs and int8, each kernel's device ms per forward at the RegNet
    shapes, MACs grouped against densified, and (c)'s step p50 and peak
-   memory.
+   memory;
+17. learning, NAS search and evolution (``phase17_nas_evolution``, in the
+   same temporary directory): (a) both tasks of tests/test_learning.py
+   through the port's Trainer at the test's sizes (24 squares at 96 px, 14
+   f32 epochs: AP50 > 0.5; 12 sparse epochs, a 30 % prune and 6 fine-tune
+   epochs: AP50 > 0.4) with phase 13's trainer gates; (b) the three
+   candidates of ``generate_candidates(3, seed=0)`` (candidate 1's head
+   has group width 1: 12 fused chains, E 32, 112 and 144) and
+   mobilenetv2-fpn at 352x352 (grids 44/22/11) and the candidates at
+   512x512: every fused chain against fused_ir_reference (phase 3's
+   tolerance), the decode against its plain version with exp_cap 40, each
+   model served in bf16 with seeded weights (4 requests of B=4, launches
+   per forward from the graph, node by node against plain=True as phase
+   16 (b)), and the chains' device ms; (c) ``cli.search`` in process on
+   yamls/nas_clutter.yaml and phase 13's clutter corpus, 3 candidates of
+   seed 0 with every candidate's B=1 latency measured on the card: the
+   log's records with JAX's keys, completed APs in [0, 1], every diverged
+   record a NaN loss (any other error fails the phase), at least one
+   completed, device memory back within 64 MiB after each candidate apart
+   from the corpus memo, the launches (the latency forwards and the evals,
+   one decode each); (d) ``cli.evolute`` in process on
+   yamls/evolute_clutter.yaml (mobilenetv2-fpn, the device corpus and
+   device augmentation), 2 rounds: both recorded with distinct hypers and
+   fitness in [0, 1], the same memory gate, one decode per eval batch (the
+   trainer's eval runs the layer walk, as JAX's does, so no fused chain).
 
 Each phase draws from its own generator, seeded from SEED and the phase
 number. It prints one JSON line of kernels, then the nvidia-smi line, and
@@ -284,13 +308,14 @@ def phase_gen(phase: int):
     return torch.Generator().manual_seed(1000 * SEED + phase)
 
 
-def request_maker(gen, dev):
-    """batch(b): a request of b seeded uint8 images at SIZE and original
-    shapes of 200-900 px, drawn from ``gen``."""
+def request_maker(gen, dev, size=None):
+    """batch(b): a request of b seeded uint8 images at ``size`` (SIZE) and
+    original shapes of 200-900 px, drawn from ``gen``."""
     import torch
+    size = size or SIZE
 
     def batch(b):
-        img = torch.randint(0, 256, (b, SIZE, SIZE, 3), generator=gen, dtype=torch.uint8)
+        img = torch.randint(0, 256, (b, size, size, 3), generator=gen, dtype=torch.uint8)
         hw = torch.randint(200, 900, (b, 2), generator=gen)
         return {'image': img.to(dev), 'shape': hw.to(dev), 'count': b}
     return batch
@@ -2867,10 +2892,10 @@ def kill_channels(graph, params, state, gen):
     return n_dead
 
 
-def bf16_server(net, params, state, dev, densify_groups=True):
+def bf16_server(net, params, state, dev, densify_groups=True, size=None):
     """(predict, forward, fused-IR table, bf16 params) of ``net`` served in
     bf16 through the fused-IR and decode kernels, BN folded (grouped convs
-    densified unless ``densify_groups`` is False), at SIZE."""
+    densified unless ``densify_groups`` is False), at ``size`` (SIZE)."""
     import torch
     from pqdet_tpu_torch.config import Config
     from pqdet_tpu_torch.evaluation.predict import build_predict_pipeline, make_batch_predict
@@ -2878,7 +2903,7 @@ def bf16_server(net, params, state, dev, densify_groups=True):
     from pqdet_tpu_torch.model.network import cast_params
     from pqdet_tpu_torch.ops.fused_ir import prepare_fused_ir
     cfg = Config()
-    cfg.eval.input_size = SIZE
+    cfg.eval.input_size = size or SIZE
     fused = inference_params(net, params, state, densify_groups=densify_groups)
     table = prepare_fused_ir(net, fused)
     fparams = cast_params(fused, torch.bfloat16)
@@ -4063,6 +4088,605 @@ def phase16_regnet(dev, tag, tmp, corpus, ptx):
     return {'int8_err': kernels['int8_err'], 'fused_err': kernels['fused_err'],
             'launches': launches}
 
+# learning, NAS search and hyper-parameter evolution (phase 17): the learning
+# tasks of tests/test_learning.py (a); the kernels at the NAS candidates'
+# shapes and at the 352x352 eval of the NAS and evolution yamls (b);
+# cli.search (c) and cli.evolute (d) on phase 13's clutter corpus
+
+# the port's copy of tests/test_learning.py's net; tests/test_torch_learning.py
+# holds it, write_squares and squares_opts to the JAX test's
+SQUARES_CFG = """
+[net]
+channels=3
+[convolutional]
+filters=16
+size=3
+pad=1
+stride=2
+batch_normalize=1
+activation=leaky
+[convolutional]
+filters=24
+size=3
+pad=1
+stride=2
+batch_normalize=1
+activation=leaky
+[convolutional]
+filters=32
+size=3
+pad=1
+stride=2
+batch_normalize=1
+activation=leaky
+[convolutional]
+filters=18
+size=1
+pad=1
+activation=linear
+[yolo]
+classes=1
+[route]
+layers=-3
+[convolutional]
+filters=48
+size=3
+pad=1
+stride=2
+batch_normalize=1
+activation=leaky
+[convolutional]
+filters=18
+size=1
+pad=1
+activation=linear
+[yolo]
+classes=1
+[route]
+layers=-3
+[convolutional]
+filters=48
+size=3
+pad=1
+stride=2
+batch_normalize=1
+activation=leaky
+[convolutional]
+filters=18
+size=1
+pad=1
+activation=linear
+[yolo]
+classes=1
+"""
+SQUARES_AP50 = 0.5             # tests/test_learning.py:141
+PRUNED_SQUARES_AP50 = 0.4      # tests/test_learning.py:213
+NAS_SIZES = (352, 512)         # (b): eval.input_size of the NAS and evolution yamls, SIZE
+NAS_GAIN = REGNET_GAIN         # (b): seed_bn's weight gain of the RegNet-backbone candidates
+CANDIDATE_REQUESTS = 4         # (b): bf16 requests of B=BATCH per model and size
+NAS_ROUNDS = 3                 # (c): cli.search --rounds (the yaml's recorded run: 8)
+NAS_MAX_MACS = 5e9
+NAS_MAX_LATENCY_MS = 1000.0    # (c): every candidate passes (the yaml's 8 ms is a TPU figure)
+EVOLUTE_ROUNDS = 2             # (d): cli.evolute --rounds (the yaml's recorded run: 6)
+MEMORY_SLACK = 64 << 20        # (c), (d): device bytes a candidate or round may leave behind
+
+
+def write_squares(root, n=24, size=96, seed=0):
+    """tests/test_learning.py's corpus: a VOC-layout directory of ``n`` dark
+    ``size`` px images with one bright square each; returns its list file."""
+    import cv2
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    img_dir = os.path.join(root, 'JPEGImages')
+    ann_dir = os.path.join(root, 'Annotations')
+    os.makedirs(img_dir), os.makedirs(ann_dir)
+    paths = []
+    for i in range(n):
+        img = rng.randint(0, 40, (size, size, 3), np.uint8)
+        side = rng.randint(28, 44)
+        x1 = rng.randint(0, size - side)
+        y1 = rng.randint(0, size - side)
+        img[y1:y1 + side, x1:x1 + side] = rng.randint(200, 255, 3)
+        p = os.path.join(img_dir, f'sq{i}.jpg')
+        cv2.imwrite(p, img)
+        xml = (f'<annotation><object><name>square</name>'
+               f'<difficult>0</difficult><bndbox><xmin>{x1}</xmin>'
+               f'<ymin>{y1}</ymin><xmax>{x1+side}</xmax><ymax>{y1+side}</ymax>'
+               f'</bndbox></object></annotation>')
+        with open(os.path.join(ann_dir, f'sq{i}.xml'), 'w') as fw:
+            fw.write(xml)
+        paths.append(p)
+    txt = os.path.join(root, 'list.txt')
+    with open(txt, 'w') as fw:
+        fw.write('\n'.join(paths))
+    return txt
+
+
+def squares_opts(txt, cfg_path, weight_dir):
+    """The overrides both tests of tests/test_learning.py share."""
+    return ['dataset.train_txt_file', txt, 'dataset.eval_txt_file', txt,
+            'dataset.classes', '[square]', 'model.cfg_path', cfg_path,
+            'model.anchors', '[[36, 36], [36, 36], [36, 36], [36, 36], [36, 36],'
+                             ' [36, 36], [36, 36], [36, 36], [36, 36]]',
+            'model.max_gt_boxes', '4', 'train.batch_size', '8', 'train.input_sizes', '[96]',
+            'train.learning_rate_init', '3e-3', 'augment.mixup_p', '0.0',
+            'augment.crop_p', '0.0', 'eval.batch_size', '8', 'eval.input_size', '96',
+            'eval.score_threshold', '0.3', 'eval.max_detections', '16',
+            'weight.dir', weight_dir, 'system.num_workers', '4',
+            'system.compute_dtype', 'float32']
+
+
+def _squares_task(root):
+    txt = write_squares(root)
+    cfg_file = os.path.join(root, 'sq.cfg')
+    with open(cfg_file, 'w') as fw:
+        fw.write(SQUARES_CFG)
+    return squares_opts(txt, cfg_file, os.path.join(root, 'w'))
+
+
+def learn_squares(root, device='cuda', trainer=None):
+    """tests/test_learning.py::test_detector_learns_synthetic_squares through
+    the port's Trainer (or ``trainer``, a subclass of it) on ``device``, in the
+    new directory ``root``: 14 f32 epochs at 96 px, AP after the last.
+    Returns (AP50, the trainer)."""
+    from pqdet_tpu_torch.config import load_config
+    from pqdet_tpu_torch.train.trainer import Trainer
+    cfg = load_config(opts=_squares_task(root) + [
+        'train.max_epochs', '14', 'train.warmup_epochs', '1', 'augment.hflip_p', '0.5',
+        'eval.after', '13'])
+    t = (trainer or Trainer)(cfg, device=device)
+    t.run()
+    return float(t.AP.raw[0][0]), t
+
+
+def sparse_prune_finetune(root, device='cuda', trainer=None):
+    """tests/test_learning.py::test_sparse_prune_finetune_cycle with the port
+    on ``device``, in the new directory ``root``: 12 sparse epochs, a 30 %
+    slimming prune, 6 fine-tune epochs from the pruned weights. Returns
+    (AP50, params before the prune, after it, the fine-tune's trainer)."""
+    from pqdet_tpu_torch.compress.prune import prune_slimming
+    from pqdet_tpu_torch.config import load_config
+    from pqdet_tpu_torch.model.factory import build_detector
+    from pqdet_tpu_torch.model.graph import Graph
+    from pqdet_tpu_torch.train.checkpoint import save_checkpoint
+    from pqdet_tpu_torch.train.step import tree_leaves
+    from pqdet_tpu_torch.train.trainer import Trainer
+    trainer = trainer or Trainer
+    opts = _squares_task(root)
+    cfg = load_config(opts=opts + [
+        'train.max_epochs', '12', 'train.warmup_epochs', '1',
+        'eval.after', '99', 'sparse.switch', 'true', 'sparse.ratio', '0.005'])
+    trainer(cfg, device=device).run()
+    ckpt_path = os.path.join(root, 'w', 'VOC', 'model-11.ckpt')
+
+    network, params, state, _ = build_detector(None, weight_path=ckpt_path, device=device)
+    result = prune_slimming(network.graph, params, state, prune_ratio=0.3)
+    n0 = sum(t.numel() for t in tree_leaves(params))
+    n1 = sum(t.numel() for t in tree_leaves(result.params))
+    new_cfg = os.path.join(root, 'pruned.cfg')
+    with open(new_cfg, 'w') as fw:
+        fw.write(result.cfg_text)
+    pruned_ckpt = os.path.join(root, 'pruned.ckpt')
+    save_checkpoint(pruned_ckpt, Graph.from_cfg(result.cfg_text), result.params,
+                    result.state, step=0, cfg_text=result.cfg_text)
+
+    cfg2 = load_config(opts=opts + [
+        'train.max_epochs', '6', 'train.warmup_epochs', '0', 'eval.after', '5',
+        'train.learning_rate_init', '1e-3',
+        'weight.resume', pruned_ckpt, 'weight.clear_history', 'true'])
+    cfg2.model.cfg_path = new_cfg
+    t2 = trainer(cfg2, device=device)
+    t2.run()
+    return float(t2.AP.raw[0][0]), n0, n1, t2
+
+
+def phase17_learning(dev, tag, tmp, gate, host_ips):
+    """(a): both tasks of tests/test_learning.py on the card through the
+    port's Trainer at the test's sizes, gated on its AP50 floors and phase
+    13's trainer gates. Returns the kernel launches."""
+    from pqdet_tpu_torch.train.trainer import Trainer
+    reset_kernel_launches()
+    rec = {}
+    t0 = time.perf_counter()
+    ap50, _ = learn_squares(os.path.join(tmp, 'squares'), dev, probed_trainer(Trainer, rec))
+    s = time.perf_counter() - t0
+    launches = kernel_launches()
+    gate(ap50 > SQUARES_AP50, f'(a) {tag} the detector learns the squares (24 images, 96 px, '
+         f'14 f32 epochs): AP50 {ap50:.4f} (> {SQUARES_AP50}) in {s:.2f} s')
+    trainer_gates(rec, '(a) squares', tag, gate, host_ips, [13], phase='phase 17')
+    rec = {}
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    ap50, n0, n1, _ = sparse_prune_finetune(os.path.join(tmp, 'squares_prune'), dev,
+                                            probed_trainer(Trainer, rec))
+    s = time.perf_counter() - t0
+    launches = {k: v + kernel_launches()[k] for k, v in launches.items()}
+    gate(n1 < n0 and ap50 > PRUNED_SQUARES_AP50,
+         f'(a) {tag} sparse 12 epochs, prune 0.3 ({n0} -> {n1} params), fine-tune 6 epochs: '
+         f'AP50 {ap50:.4f} (> {PRUNED_SQUARES_AP50}) in {s:.2f} s')
+    trainer_gates(rec, '(a) pruned squares fine-tune', tag, gate, host_ips, [5],
+                  phase='phase 17')
+    return launches
+
+
+def decode_parity(gen, dev, heads, nc, label):
+    """``decode_heads`` against its plain version on B=BATCH raw heads of
+    ``heads`` ((H, stride) each), bf16 and f32, one launch into the preds:
+    raw values at scale 2 without and with exp_cap 40, and at scale 30 with
+    it (capped box offsets), within ``decode_tolerance``. Raises on a
+    disagreement; returns the largest error."""
+    import torch
+    from pqdet_tpu_torch.ops.decode_kernel import decode_heads, decode_heads_reference
+    strides = [st for _, st in heads]
+    worst = 0.0
+    for dt in (torch.bfloat16, torch.float32):
+        for scale, cap in ((2.0, 0.0), (2.0, 40.0), (30.0, 40.0)):
+            caps = [cap] * len(heads)
+            raws = [(torch.randn(BATCH, h, h, 3 * (5 + nc), generator=gen) * scale).to(dev, dt)
+                    for h, _ in heads]
+            got = decode_heads(raws, nc, strides, caps)
+            ref = decode_heads_reference(raws, nc, strides, caps)
+            torch.cuda.synchronize()
+            err = (got - ref).abs()
+            tol = torch.cat([decode_tolerance(r, nc, st, c).flatten(1, 3)
+                             for r, st, c in zip(raws, strides, caps)], 1)
+            ok = got.shape == ref.shape and bool((err <= tol).all())
+            worst = max(worst, err.max().item())
+            print(f'{label}: decode_heads B={BATCH} heads {[h for h, _ in heads]} {dt} raw '
+                  f'scale {scale} exp_cap {cap}: one launch into {tuple(got.shape)}, max |err| '
+                  f'{err.max().item():.3g} {"ok" if ok else "FAIL"}')
+            if not ok:
+                raise AssertionError(f'{label}: decode kernel disagrees with its plain version')
+    return worst
+
+
+def phase17_kernels(dev, tag, gate, ptx):
+    """(b): ``generate_candidates(3, seed=0)`` (20 classes) and
+    mobilenetv2-fpn: every fused chain against ``fused_ir_reference`` (phase
+    3's tolerance) at B=BATCH and the decode against its plain version, at
+    352x352 and 512x512 (mobilenetv2-fpn at 352: B=1 and BATCH); each
+    model served in bf16 with seeded weights, CANDIDATE_REQUESTS requests
+    at each size, launches per forward from the graph, the walk node by node
+    against ``plain=True`` (phase 16 (b)'s gate); the chains' device ms per
+    forward. Returns the largest errors and the served launches."""
+    import torch
+    from pqdet_tpu_torch.model.network import DetectionNetwork
+    from pqdet_tpu_torch.nas.search import generate_candidates
+    from pqdet_tpu_torch.ops.preprocess import device_normalize
+    from pqdet_tpu_torch.zoo import get_cfg
+    gen = phase_gen(17)
+    models = [(f'candidate {k}', cfg, info['head'], NAS_SIZES, NAS_GAIN)
+              for k, (cfg, info) in enumerate(generate_candidates(3, seed=0, device=dev))]
+    models.append(('mobilenetv2-fpn', get_cfg('mobilenetv2-fpn'), None, NAS_SIZES[:1], 2.0))
+    fused_err = 0.0
+    timed = {}
+    for name, cfg_text, head, sizes, _ in models:
+        net = DetectionNetwork.from_cfg(cfg_text)
+        for size in sizes:
+            chains = chain_shapes(net, size)
+            print(f'phase 17 (b): {name} (head {head}) at {size}x{size}: {len(chains)} fused '
+                  f'chains, (H, Cin, E, P) {sorted({c[3:7] for c in chains})}')
+            if name == 'mobilenetv2-fpn':
+                gate(len(chains) == 21, f'(b) mobilenetv2-fpn has 21 chains at {size}')
+            if chains:
+                batches = (1, BATCH) if name == 'mobilenetv2-fpn' else (BATCH,)
+                checks = [(f'{a},{b},{c}', n, h, h, cin, e, p, a is not None, acts, 0.0)
+                          for a, b, c, h, cin, e, p, acts in chains for n in batches]
+                fused_err = max(fused_err, fused_parity(gen, dev, checks,
+                                                        f'phase 17 (b) {name} {size}'))
+                timed[(name, size)] = chains
+    nc = 20
+    decode_err = 0.0
+    for size in NAS_SIZES:
+        heads = [(size // st, st) for st in (8, 16, 32)]
+        decode_err = max(decode_err, decode_parity(gen, dev, heads, nc, f'phase 17 (b) {size}'))
+
+    launches = dict.fromkeys(('decode_heads', 'fused_ir_conv', 'qconv1x1_s8', 'qdwconv3x3_s8'),
+                             0)
+    for name, cfg_text, head, sizes, gain in models:
+        net = DetectionNetwork.from_cfg(cfg_text)
+        params, state = net.init(gen, device=dev)
+        seed_bn(params, state, gen, dev, gain=gain)
+        for size in sizes:
+            predict, _, table, fparams = bf16_server(net, params, state, dev, size=size)
+            batch = request_maker(gen, dev, size)
+            requests = [batch(BATCH) for _ in range(CANDIDATE_REQUESTS)]
+            predict(requests[0])                       # warm-up
+            torch.cuda.synchronize()
+            reset_kernel_launches()
+            dets = [predict(r) for r in requests]
+            torch.cuda.synchronize()
+            got = kernel_launches()
+            for k, v in got.items():
+                launches[k] += v
+            per = {'decode_heads': 1, 'fused_ir_conv': len(table)}
+            want = {**dict.fromkeys(got, 0),
+                    **{k: n * CANDIDATE_REQUESTS for k, n in per.items()}}
+            n_det = sum(len(d) for r in dets for d in r)
+            finite = all(d.shape[1] == 6 and bool(torch.isfinite(torch.from_numpy(d)).all())
+                         for r in dets for d in r)
+            gate(got == want and finite and n_det > 0,
+                 f'(b) {name} bf16 at {size}x{size}: {CANDIDATE_REQUESTS} requests of B={BATCH}, '
+                 f'launches {got} (want {want}: per forward {per}); {n_det} detections, all '
+                 'finite')
+            with torch.inference_mode():
+                x = device_normalize(requests[0]['image'])
+            n, n_eq, n_before, n_before_eq, ds, db = bf16_node_parity(net, fparams, table, x)
+            gate(n_before_eq == n_before and ds <= 0.03 and db <= 1.5,
+                 f'(b) {name} bf16 at {size} against plain=True: {n_eq} of {n} tapped nodes '
+                 f'equal bit for bit, {n_before_eq} of the {n_before} before the first fused '
+                 f'chain (want all); preds scores max |d| {ds:.4g} (<= 0.03), boxes {db:.4g} px '
+                 '(<= 1.5)')
+    times = {}
+    for (name, size), chains in timed.items():
+        times[(name, size)] = fused_chain_times(gen, dev, chains, ptx, tag,
+                                                f'phase 17 (b) {name} {size}')
+    return {'fused_err': fused_err, 'decode_err': decode_err, 'launches': launches,
+            'times': times}
+
+
+def memo_bytes():
+    """Device bytes of the trainer's device corpus memo."""
+    import torch
+    from pqdet_tpu_torch.train.trainer import Trainer
+    return sum(v.numel() * v.element_size() for hit in Trainer._CACHE_MEMO.values()
+               for v in hit.values() if torch.is_tensor(v))
+
+
+def memory_probe(Trainer, probes):
+    """``Trainer`` whose construction opens a record in ``probes`` (the card's
+    allocated bytes and the corpus memo's after a collection, the clock) and
+    whose epochs and evals record their seconds and kernel launches;
+    ``probed_free`` closes the record when the driver has freed what the
+    candidate or round held. Holds no tensor."""
+    import gc
+    import torch
+
+    def since(before):
+        return {k: v - before[k] for k, v in kernel_launches().items()}
+
+    class Probe(Trainer):
+        def __init__(self, *args, **kwargs):
+            gc.collect()
+            torch.cuda.synchronize()
+            probes.append({'before': torch.cuda.memory_allocated(), 'memo_before': memo_bytes(),
+                           't0': time.perf_counter(), 'epochs': {}, 'evals': {}})
+            super().__init__(*args, **kwargs)
+
+        def train_epoch(self, epoch):
+            l0, t0 = kernel_launches(), time.perf_counter()
+            try:
+                return super().train_epoch(epoch)
+            finally:
+                probes[-1]['epochs'][epoch] = {'s': time.perf_counter() - t0,
+                                               'launches': since(l0),
+                                               'steps': self.steps_per_epoch}
+
+        def evaluate(self):
+            l0, t0 = kernel_launches(), time.perf_counter()
+            ap = super().evaluate()
+            probes[-1]['evals'][len(probes[-1]['evals'])] = {
+                's': time.perf_counter() - t0, 'AP': ap.AP, 'launches': since(l0),
+                'batches': len(self.eval_data)}
+            return ap
+    return Probe
+
+
+def probed_free(free, probes):
+    """The drivers' ``free_device_memory``, then the card's allocated bytes,
+    the memo's and the seconds since the record opened, into the last
+    record of ``probes``."""
+    import torch
+
+    def wrapped(device):
+        free(device)
+        torch.cuda.synchronize()
+        rec = probes[-1]
+        rec.update(after=torch.cuda.memory_allocated(), memo_after=memo_bytes(),
+                   s=time.perf_counter() - rec['t0'])
+    return wrapped
+
+
+def probe_gates(probes, label, gate, per_batch):
+    """Each record of ``probes``: device memory back within MEMORY_SLACK of
+    its level before, apart from the corpus memo's change; 0 launches in its
+    epochs; ``per_batch`` launches per eval batch and no other kernel.
+    Returns the launches the records' evals want in all."""
+    want = {}
+    for i, r in enumerate(probes):
+        left = r['after'] - r['before'] - (r['memo_after'] - r['memo_before'])
+        gate(abs(left) <= MEMORY_SLACK,
+             f'{label} {i}: device memory {r["before"] / 2**20:.1f} MiB before, '
+             f'{r["after"] / 2**20:.1f} MiB after (corpus memo {r["memo_before"] / 2**20:.1f} '
+             f'-> {r["memo_after"] / 2**20:.1f} MiB): {left / 2**20:.2f} MiB left behind '
+             f'(within {MEMORY_SLACK >> 20} MiB)')
+        gate(all(not any(ep['launches'].values()) for ep in r['epochs'].values()),
+             f'{label} {i}: hand-written kernel launches in the steps of epochs '
+             f'{sorted(r["epochs"])}: 0')
+        for ev in r['evals'].values():
+            w = {**dict.fromkeys(ev['launches'], 0),
+                 **{k: n * ev['batches'] for k, n in per_batch.items()}}
+            gate(ev['launches'] == w, f'{label} {i}: eval of {ev["batches"]} batches launched '
+                 f'{ev["launches"]} (want {w})')
+            for k, n in w.items():
+                want[k] = want.get(k, 0) + n
+    return want
+
+
+def phase17_nas(dev, tag, tmp, croot, gate):
+    """(c): ``python -m pqdet_tpu_torch.cli.search`` in this process on
+    yamls/nas_clutter.yaml (the corpus paths and weight.dir overridden),
+    NAS_ROUNDS candidates of seed 0 under NAS_MAX_MACS and NAS_MAX_LATENCY_MS.
+    Gates: the log's records and keys; every completed AP in [0, 1]; every
+    diverged record a NaN loss (any other error, a kernel's or the port's,
+    fails); at least one completed; device memory back after each candidate;
+    the launches: ``measure_latency``'s forwards and the evals, one decode
+    each. Returns the launches."""
+    import inspect
+    import torch
+    import pqdet_tpu_torch.cli.search as cli_search
+    import pqdet_tpu_torch.nas.search as search_mod
+    import pqdet_tpu_torch.train.trainer as trainer_mod
+    here = os.path.dirname(os.path.abspath(__file__))
+    log = os.path.join(tmp, 'nas_search.json')
+    probes = []
+    saved = trainer_mod.Trainer, search_mod.free_device_memory
+    trainer_mod.Trainer._CACHE_MEMO.clear()       # candidate 0 builds the corpus
+    search_mod.free_device_memory(dev)
+    trainer_mod.Trainer = memory_probe(saved[0], probes)
+    search_mod.free_device_memory = probed_free(saved[1], probes)
+    try:
+        records, _, wall, launches = run_cli(cli_search.main, [
+            '--yaml', os.path.join(here, 'yamls', 'nas_clutter.yaml'),
+            '--rounds', str(NAS_ROUNDS), '--seed', '0', '--max-macs', str(NAS_MAX_MACS),
+            '--max-latency-ms', str(NAS_MAX_LATENCY_MS), '--log', log,
+            'dataset.train_txt_file', os.path.join(croot, 'train.txt'),
+            'dataset.eval_txt_file', os.path.join(croot, 'test.txt'),
+            'weight.dir', os.path.join(tmp, 'weights_nas')])
+    finally:
+        trainer_mod.Trainer, search_mod.free_device_memory = saved
+    with open(log) as fr:
+        logged = json.load(fr)
+    print(f'phase 17 (c): {tag} cli.search yamls/nas_clutter.yaml --rounds {NAS_ROUNDS} '
+          f'--seed 0: {wall:.2f} s; meta {logged["meta"]}')
+    data = logged['data']
+    base = {'cfg', 'macs', 'params', 'head', 'latency_ms', 'status', 'ap'}
+    for i, r in enumerate(data):
+        pr = probes[i] if i < len(probes) else {}
+        print(f'phase 17 (c): {tag} candidate {i}: head {r["head"]}, MACs {r["macs"]}, params '
+              f'{r["params"]}, measure_latency p50 {r["latency_ms"]:.4f} ms (B=1, 512x512, '
+              f'f32); {r["status"]}, AP {r["ap"]}, step of death {r.get("step_of_death")}, '
+              f'{pr.get("s", float("nan")):.2f} s; epochs '
+              + ', '.join(f'{e}: {ep["s"]:.2f} s, {ep["steps"]} steps'
+                          for e, ep in sorted(pr.get('epochs', {}).items()))
+              + ''.join(f'; eval {ev["s"]:.2f} s, {ev["batches"]} batches'
+                        for ev in pr.get('evals', {}).values())
+              + (f'; error {r["error"][:200]!r}' if 'error' in r else ''))
+    gate(len(data) == NAS_ROUNDS and data == records and all(
+        set(r) == (base if r['status'] == 'completed'
+                   else base | {'step_of_death', 'error'}) for r in data),
+         f'(c) the log holds {len(data)} records (want {NAS_ROUNDS}) with JAX\'s keys')
+    done = [r for r in data if r['status'] == 'completed']
+    gate(all(0.0 <= r['ap'] <= 1.0 for r in done), '(c) every completed AP in [0, 1]')
+    gate(all(r['status'] == 'completed' or (
+        r['status'] == 'diverged' and 'NaN in loss near step' in r['error']) for r in data),
+         '(c) every diverged record is a NaN loss (no other error)')
+    gate(len(done) >= 1, f'(c) {len(done)} of {len(data)} candidates completed (want >= 1)')
+    gate(len(probes) == len(data) and all('after' in r for r in probes),
+         f'(c) {len(probes)} trainers probed, each closed by the driver')
+    want = probe_gates(probes, '(c) candidate', gate, {'decode_heads': 1})
+    from pqdet_tpu_torch.utils.profiling import forward_latency_ms
+    params = inspect.signature(forward_latency_ms).parameters
+    calls = params['warmup'].default + params['iters'].default
+    want['decode_heads'] = want.get('decode_heads', 0) + calls * len(data)
+    want = {**dict.fromkeys(launches, 0), **want}
+    gate(launches == want, f'(c) launches {launches} (want {want}: {calls} measure_latency '
+         'forwards a candidate and one decode per eval batch)')
+    return launches
+
+
+def phase17_evolute(dev, tag, tmp, croot, gate):
+    """(d): ``python -m pqdet_tpu_torch.cli.evolute`` in this process on
+    yamls/evolute_clutter.yaml (mobilenetv2-fpn, the device corpus and
+    device augmentation; the corpus paths and weight.dir overridden),
+    EVOLUTE_ROUNDS rounds of seed 0. Gates: every round recorded (none
+    dropped) with distinct hypers and fitness in [0, 1]; device memory back
+    after each round; one decode per eval batch and no other launch.
+    Returns the launches."""
+    import pqdet_tpu_torch.cli.evolute as cli_evolute
+    import pqdet_tpu_torch.nas.evolute as evolute_mod
+    here = os.path.dirname(os.path.abspath(__file__))
+    log = os.path.join(tmp, 'evolution.json')
+    probes = []
+    saved = evolute_mod.Trainer, evolute_mod.free_device_memory
+    evolute_mod.Trainer = memory_probe(saved[0], probes)
+    evolute_mod.free_device_memory = probed_free(saved[1], probes)
+    try:
+        records, _, wall, launches = run_cli(cli_evolute.main, [
+            '--yaml', os.path.join(here, 'yamls', 'evolute_clutter.yaml'),
+            '--rounds', str(EVOLUTE_ROUNDS), '--seed', '0', '--log', log,
+            'dataset.train_txt_file', os.path.join(croot, 'train.txt'),
+            'dataset.eval_txt_file', os.path.join(croot, 'test.txt'),
+            'weight.dir', os.path.join(tmp, 'weights_evolute')])
+    finally:
+        evolute_mod.Trainer, evolute_mod.free_device_memory = saved
+    with open(log) as fr:
+        logged = json.load(fr)
+    print(f'phase 17 (d): {tag} cli.evolute yamls/evolute_clutter.yaml --rounds '
+          f'{EVOLUTE_ROUNDS} --seed 0: {wall:.2f} s; exit {logged["exit"]}')
+    for i, r in enumerate(logged['data']):
+        pr = probes[i] if i < len(probes) else {}
+        print(f'phase 17 (d): {tag} round {i}: fitness {r["fitness"]:.6f}, {pr.get("s", 0):.2f} '
+              f's (epoch ' + ', '.join(f'{ep["s"]:.2f} s, {ep["steps"]} steps'
+                                      for ep in pr.get('epochs', {}).values())
+              + ''.join(f'; eval {ev["s"]:.2f} s, {ev["batches"]} batches'
+                        for ev in pr.get('evals', {}).values())
+              + f'); telemetry {r["telemetry"]}; hypers '
+              + json.dumps({k: round(v, 4) for k, v in r['hyper'].items()}))
+    data = logged['data']
+    gate(len(data) == EVOLUTE_ROUNDS and data == records and logged['exit'] == {
+        'status': 'completed', 'completed_rounds': EVOLUTE_ROUNDS,
+        'target_rounds': EVOLUTE_ROUNDS},
+         f'(d) {len(data)} rounds recorded of {EVOLUTE_ROUNDS}, none dropped')
+    gate(len({json.dumps(r['hyper'], sort_keys=True) for r in data}) == len(data)
+         and all(0.0 <= r['fitness'] <= 1.0 for r in data),
+         '(d) distinct hypers, every fitness in [0, 1]')
+    gate(len(probes) == len(data) and all('after' in r for r in probes)
+         and all(abs(r['telemetry']['cuda_allocated'] - p['after']) <= 1 << 20
+                 for r, p in zip(data, probes)),
+         f'(d) {len(probes)} trainers probed, each closed by the driver; the telemetry\'s '
+         'cuda_allocated is the level after each round (within 1 MiB)')
+    want = probe_gates(probes, '(d) round', gate, {'decode_heads': 1})
+    want = {**dict.fromkeys(launches, 0), **want}
+    gate(launches == want, f'(d) launches {launches} (want {want}: one decode per eval batch; '
+         'the trainer\'s eval runs the layer walk, no fused chain, as JAX\'s does)')
+    return launches
+
+
+def phase17_nas_evolution(dev, tag, tmp, corpus, croot, ptx):
+    """Phase 17: learning, the kernels at the NAS shapes, NAS search and
+    evolution on the card ((a)-(d), module docstring). Raises on any failed
+    gate; returns the kernels' errors and the launches of its main paths."""
+    t_phase = time.perf_counter()
+    fails = []
+
+    def gate(ok, what):
+        print(f'phase 17: {what}: {"ok" if ok else "FAIL"}')
+        if not ok:
+            fails.append(what)
+
+    print(f'phase 17: cuts: (a) the learning tasks at tests/test_learning.py\'s sizes (the full '
+          f'30-epoch yamls/shapes.yaml run is not made here); (c), (d) phase 13\'s '
+          f'{CLUTTER_IMAGES}-image synth_clutter corpus at {AUG_SIZE} px for the yamls\' '
+          f'/tmp/clutter8k (8k images); cli.search --rounds {NAS_ROUNDS} (the yaml\'s recorded '
+          f'run 8), --max-latency-ms {NAS_MAX_LATENCY_MS} (the yaml\'s 8 ms is a TPU figure); '
+          f'cli.evolute --rounds {EVOLUTE_ROUNDS} (its recorded run 6)')
+    if not os.path.isfile(os.path.join(croot, 'train.txt')):
+        raise AssertionError(f'phase 17: no clutter corpus at {croot}')
+    host_ips = statistics.mean(e['steps'] * corpus['batch'] / e['s']
+                               for i, e in corpus['host_epochs'].items() if i > 0)
+    t0 = time.perf_counter()
+    learned = phase17_learning(dev, tag, tmp, gate, host_ips)
+    t1 = time.perf_counter()
+    kernels = phase17_kernels(dev, tag, gate, ptx)
+    t2 = time.perf_counter()
+    nas = phase17_nas(dev, tag, tmp, croot, gate)
+    t3 = time.perf_counter()
+    evo = phase17_evolute(dev, tag, tmp, croot, gate)
+    t4 = time.perf_counter()
+    launches = {k: learned[k] + kernels['launches'][k] + nas[k] + evo[k] for k in learned}
+    for (name, size), t in kernels['times'].items():
+        print(f'phase 17: {tag} fused_ir_conv {name} at {size}x{size} B={BATCH} per forward: '
+              f'{t["ms"]:.4f} ms (plain {t["plain_ms"]:.4f}, cuDNN x3 {t["library_ms"]:.4f}, '
+              f'bound {t["bound_ms"]:.5f} ms by {t["bound_by"]})')
+    print(f'phase 17: {tag} launches of its main paths {launches}; seconds: (a) {t1 - t0:.1f}, '
+          f'(b) {t2 - t1:.1f}, (c) {t3 - t2:.1f}, (d) {t4 - t3:.1f}; phase '
+          f'{time.perf_counter() - t_phase:.1f}')
+    if fails:
+        raise AssertionError(f'phase 17 gates failed: {fails}')
+    return {'fused_err': kernels['fused_err'], 'decode_err': kernels['decode_err'],
+            'launches': launches}
+
 
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
@@ -4298,24 +4922,28 @@ def main() -> int:
         exported = phase15_exporters(dev, tag, tmp, net, params, state, qnet, qparams)
         stamp('phase 16 starts')
         p16 = phase16_regnet(dev, tag, tmp, corpus, ptx)
-    stamp('phase 16 ends')
+        stamp('phase 17 starts')
+        p17 = phase17_nas_evolution(dev, tag, tmp, corpus, os.path.join(tmp, 'clutter'), ptx)
+    stamp('phase 17 ends')
     arc = p14['launches']
     rn = p16['launches']
+    nas = p17['launches']
 
     kernels = [
         {'name': 'decode_heads', 'route': 'triton',
          'source': 'pqdet_tpu_torch/ops/decode_kernel.py',
          'replaces': 'pqdet_tpu/ops/pallas_decode.py:59',
          'launches': launches['decode'] + qlaunches['decode'] + arc.get('decode_heads', 0)
-         + exported['decode_heads'] + rn['decode_heads'],
-         'max_abs_err': decode_err,
+         + exported['decode_heads'] + rn['decode_heads'] + nas['decode_heads'],
+         'max_abs_err': max(decode_err, p17['decode_err']),
          'ms': dec['ms'], 'plain_ms': dec['plain_ms'], 'bound_ms': dec['bound_ms'],
          'bound_by': 'bytes', 'library_ms': None},
         {'name': 'fused_ir_conv', 'route': 'cuda',
          'source': 'pqdet_tpu_torch/csrc/fused_ir.cu',
          'replaces': 'pqdet_tpu/ops/pallas_fused.py:135',
-         'launches': launches['fused_ir'] + arc.get('fused_ir_conv', 0) + rn['fused_ir_conv'],
-         'max_abs_err': max(fused_err, p14['fused_err'], p16['fused_err']),
+         'launches': launches['fused_ir'] + arc.get('fused_ir_conv', 0) + rn['fused_ir_conv']
+         + nas['fused_ir_conv'],
+         'max_abs_err': max(fused_err, p14['fused_err'], p16['fused_err'], p17['fused_err']),
          'ms': fir['ms'], 'plain_ms': fir['plain_ms'], 'bound_ms': fir['bound_ms'],
          'bound_by': fir['bound_by'], 'library_ms': fir['library_ms']},
         {'name': 'qconv1x1_s8', 'route': 'cuda',

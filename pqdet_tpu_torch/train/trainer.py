@@ -34,11 +34,14 @@ scores the converted model through ``Int8Inference`` in kernel mode (the
 int8 kernels and the decode kernel on the card), as the JAX trainer scores
 its Pallas int8 path; checkpoints are of type ``qat``.
 
-``run_prune`` fine-tunes a pruned checkpoint (``cli/prune.py``) with the
-JAX trainer's preset.
+``run_prune`` fine-tunes a pruned checkpoint (``cli/prune.py``) and
+``run_nas`` short-trains a NAS candidate (``nas/search.py``), each with the
+JAX trainer's preset. ``close`` releases what a run holds on the device
+(params, optimizer state, the step, the eval pipeline) and the loader's
+threads; the device corpus memo stays for the next trainer.
 
-Not ported yet, and raising: host label assignment, the process loader,
-data parallelism and NAS fine-tuning (ROADMAP.md queue 1).
+Not ported yet, and raising: host label assignment, the process loader and
+data parallelism (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -55,7 +58,7 @@ import torch.nn.functional as F
 
 from pqdet_tpu_torch import resolve_device
 from pqdet_tpu_torch.compress.quantized import Int8Inference, convert_to_int8
-from pqdet_tpu_torch.config import later, platform_device, resolve_model_cfg, sizes_fix
+from pqdet_tpu_torch.config import platform_device, resolve_model_cfg, sizes_fix
 from pqdet_tpu_torch.data.eval_data import EvalData
 from pqdet_tpu_torch.data.train_data import TrainData, epoch_batches
 from pqdet_tpu_torch.evaluation.evaluator import Evaluator, format_ap_table
@@ -88,6 +91,7 @@ class Trainer:
         self.global_step = 0
         self.init_epoch = 0
         self._eval_run = None      # the predict pipeline, built once
+        self._batches = None       # the running epoch's batch iterator
 
         c = config
         self._max_epochs = c.train.max_epochs
@@ -370,7 +374,8 @@ class Trainer:
         pending = []
         in_flight = []
         self.dataload_tt.tic()
-        for batch in self._epoch_batches():
+        self._batches = self._epoch_batches()
+        for batch in self._batches:
             self.global_step += 1
             if self._augment:
                 batch['draws'] = self._draws(batch, self.global_step)
@@ -391,6 +396,7 @@ class Trainer:
             if self.global_step % self._print_interval == 0:
                 self._flush_metrics(epoch, pending)
             self.dataload_tt.tic()
+        self._batches = None
         self._flush_metrics(epoch, pending, final=True)
         if self.device.type == 'cuda':
             torch.cuda.synchronize(self.device)
@@ -456,5 +462,33 @@ class Trainer:
         self._weight_base_name = f'pruned-{round(cfg.prune.ratio * 100)}-model'
         self.run()
 
-    def run_nas(self, cfg_text: str):
-        raise later('Trainer.run_nas', 'queue 1, item 11 (NAS)')
+    def run_nas(self, cfg_text: str) -> float:
+        """Short-train a NAS candidate and return its AP, the JAX trainer's
+        preset: the candidate's cfg text, warm-up 0.5 epochs, epochs 0 to
+        ``eval.after``, then one eval. A non-finite loss raises ``NaN in
+        loss near step N``. What the candidate held is released whatever
+        happens (``close``)."""
+        self.config = copy.deepcopy(self.config)
+        self.config.train.warmup_epochs = 0.5
+        self.cfg_text = cfg_text
+        self.init_all()
+        try:
+            for epoch in range(0, self._eval_after + 1):
+                self.train_epoch(epoch)
+                if epoch >= self._eval_after:
+                    return self.evaluate().AP
+            return 0.0
+        finally:
+            self.close()
+
+    def close(self):
+        """Release what the run holds: the running epoch's loader threads
+        (an epoch left by an exception), the params, BN state, optimizer
+        state, the step and the eval pipeline. The device corpus stays in
+        ``_CACHE_MEMO`` for the next trainer."""
+        batches, self._batches = self._batches, None
+        if batches is not None:
+            batches.close()
+        self.params = self.state = self.opt_state = None
+        self.step_fn = self.optimizer = None
+        self._eval_run = self._device_cache = self._rng = None

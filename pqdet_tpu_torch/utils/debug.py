@@ -14,3 +14,13 @@ def register_stack_dump():
         faulthandler.register(signal.SIGUSR1)
     except (io.UnsupportedOperation, ValueError, AttributeError):
         pass
+
+
+def enable_fault_dump():
+    """A segfault or abort prints every thread's stack to stderr instead of
+    a silent exit (a no-op where stderr has no fileno, e.g. under pytest
+    capture)."""
+    try:
+        faulthandler.enable()
+    except (io.UnsupportedOperation, ValueError, AttributeError):
+        pass

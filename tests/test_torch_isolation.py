@@ -14,7 +14,9 @@ from pqdet_tpu_torch.bridge import (from_jax_params, from_jax_qparams,
                                     from_jax_quant_state)
 from pqdet_tpu_torch.cli import bench as cli_bench
 from pqdet_tpu_torch.cli import convert as cli_convert
+from pqdet_tpu_torch.cli import evolute as cli_evolute
 from pqdet_tpu_torch.cli import prune as cli_prune
+from pqdet_tpu_torch.cli import search as cli_search
 from pqdet_tpu_torch.cli.predict import predict_image
 from pqdet_tpu_torch.compress.quantized import load_quantized, save_quantized
 from pqdet_tpu_torch.model.factory import build_detector
@@ -26,6 +28,7 @@ from pqdet_tpu_torch.evaluation.predict import build_predict_pipeline
 from pqdet_tpu_torch.exporters.export import export_stablehlo_quant, load_stablehlo
 from pqdet_tpu_torch.exporters.onnx_runtime import run_model
 from pqdet_tpu_torch.model.network import DetectionNetwork
+from pqdet_tpu_torch.nas.search import measure_latency
 from pqdet_tpu_torch.ops.labels import label_assigner_from_config
 from pqdet_tpu_torch.train.step import train_step_from_config
 from pqdet_tpu_torch.zoo import get_cfg
@@ -65,7 +68,11 @@ def test_port_imports_no_jax():
                'pqdet_tpu_torch.exporters.torch_convert', 'pqdet_tpu_torch.cli.anchors',
                'pqdet_tpu_torch.cli.diffeval', 'pqdet_tpu_torch.utils.reference_bridge',
                'pqdet_tpu_torch.zoo.regnet', 'pqdet_tpu_torch.zoo.classifier',
-               'pqdet_tpu_torch.utils.debug'}
+               'pqdet_tpu_torch.utils.debug', 'pqdet_tpu_torch.nas.space',
+               'pqdet_tpu_torch.nas.detnet', 'pqdet_tpu_torch.nas.search',
+               'pqdet_tpu_torch.nas.evolute', 'pqdet_tpu_torch.nas.analysis',
+               'pqdet_tpu_torch.utils.draw', 'pqdet_tpu_torch.cli.search',
+               'pqdet_tpu_torch.cli.evolute'}
         print(len(names), bad, sorted(new - set(names)))
         sys.exit(1 if bad or len(names) < 40 or not new <= set(names) else 0)
     """)
@@ -140,7 +147,8 @@ def _no_cuda(monkeypatch):
                                    'load_quantized', 'prune_cli', 'bench_time',
                                    'convert_onnx', 'convert_stablehlo', 'convert_darknet',
                                    'convert_partial', 'bench_time_shlo',
-                                   'export_stablehlo_quant', 'load_stablehlo', 'run_model'])
+                                   'export_stablehlo_quant', 'load_stablehlo', 'run_model',
+                                   'search_cli', 'evolute_cli', 'measure_latency'])
 def test_entry_point_without_device_raises(entry, monkeypatch, tmp_path):
     """Without ``device="cpu"`` and with no card, an entry point raises
     instead of quietly running on the CPU."""
@@ -175,6 +183,11 @@ def test_entry_point_without_device_raises(entry, monkeypatch, tmp_path):
         'export_stablehlo_quant': lambda: export_stablehlo_quant(net, {'layers': {}, 'act': {}}),
         'load_stablehlo': lambda: load_stablehlo(b''),
         'run_model': lambda: run_model(b'', {}),
+        'search_cli': lambda: cli_search.main(['--rounds', '1', '--log',
+                                               str(tmp_path / 'nas.json')]),
+        'evolute_cli': lambda: cli_evolute.main(['--rounds', '1', '--log',
+                                                 str(tmp_path / 'evo.json')]),
+        'measure_latency': lambda: measure_latency(get_cfg('mobilenetv2-fpn', width_mult=0.25)),
         **{f'convert_{mode}': (lambda mode=mode: cli_convert.main(
             [mode, '--weight', qpath, '--out', str(tmp_path / 'out')]))
            for mode in ('onnx', 'stablehlo', 'darknet', 'partial')},

@@ -406,3 +406,35 @@ def test_plan_fused_ir_regnet_yolo(n):
     assert {e for _, _, e, _, _ in chains} == {128, 256, 512}
     for h, cin, e, p, expand in chains:
         check_fused_plan(plan_fused_ir(n, h, h, cin, e, p, expand), n, h, h, cin, e, p, expand)
+
+
+@functools.lru_cache(maxsize=None)
+def nas_candidate_cfgs():
+    """The cfg texts of ``generate_candidates(8, seed=0)`` (20 classes)."""
+    from pqdet_tpu_torch.nas.search import generate_candidates
+    return tuple(cfg for cfg, _ in generate_candidates(8, seed=0, device='cpu'))
+
+
+@pytest.mark.parametrize('n', [1, 4, 16])
+@pytest.mark.parametrize('size', [352, 512])
+def test_plan_fused_ir_nas_candidates(size, n):
+    """Every fused chain of the eight seed-0 NAS candidates at the NAS
+    yamls' eval size 352 (ragged 11x11 and 22x22 grids) and at 512: group
+    width 1 heads fuse 1x1 -> dw 3x3 -> 1x1 at E 32-144, below any zoo
+    chain."""
+    chains = [c for cfg in nas_candidate_cfgs() for c in chain_shapes(cfg, size)]
+    assert len(nas_candidate_cfgs()) == 8 and len(chain_shapes(nas_candidate_cfgs()[1])) == 12
+    assert {32, 112, 144} <= {e for _, _, e, _, _ in chains}
+    assert {size // s for s in (8, 16, 32)} == {h for h, *_ in chains}
+    for h, cin, e, p, expand in chains:
+        check_fused_plan(plan_fused_ir(n, h, h, cin, e, p, expand), n, h, h, cin, e, p, expand)
+
+
+@pytest.mark.parametrize('n', [1, 4, 16])
+def test_plan_fused_ir_mobilenet_at_352(n):
+    """mobilenetv2-fpn's 21 chains at the evolution yaml's eval size 352
+    (grids 88/44/22/11)."""
+    chains = chain_shapes(size=352)
+    assert len(chains) == 21 and {h for h, *_ in chains} == {11, 22, 44, 88}
+    for h, cin, e, p, expand in chains:
+        check_fused_plan(plan_fused_ir(n, h, h, cin, e, p, expand), n, h, h, cin, e, p, expand)

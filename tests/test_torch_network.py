@@ -205,7 +205,12 @@ def test_later_slices_raise(model20):
         with pytest.raises(ValueError, match='quant_ctx'):
             net.forward_train(tp, qs, x, quant_ctx=QuantCtx(qs['quant']), **bad)
     ctx = QuantCtx(qs['quant'])
-    preds, new_state = net.forward_train(tp, qs, torch.rand(1, 32, 32, 3), quant_ctx=ctx)
+    # a seeded input: at head gain 30 the raw box offsets reach ~80, where
+    # exp overflows to inf on about one uniform draw in eight (JAX's walk on
+    # some of the same draws); the global generator made it depend on the
+    # tests that ran before in the process
+    xr = torch.rand(1, 32, 32, 3, generator=torch.Generator().manual_seed(0))
+    preds, new_state = net.forward_train(tp, qs, xr, quant_ctx=ctx)
     assert bool(torch.isfinite(preds).all()) and set(new_state) >= set(ts)
     assert all(bool(o['initialized']) for o in ctx.new_obs.values())
     with pytest.raises(TypeError):

@@ -70,6 +70,8 @@ SLEEPERS = {
     'train': ('pqdet_tpu_torch.cli.train', 'load_config'),
     'prune': ('pqdet_tpu_torch.config', 'load_config'),
     'bench': ('pqdet_tpu_torch.config', 'load_config'),
+    'search': ('pqdet_tpu_torch.config', 'load_config'),
+    'evolute': ('pqdet_tpu_torch.config', 'load_config'),
 }
 
 
