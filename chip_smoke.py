@@ -270,7 +270,38 @@ Builds the CUDA kernels from pqdet_tpu_torch/csrc with nvcc (sm_90a), then:
    yamls/evolute_clutter.yaml (mobilenetv2-fpn, the device corpus and
    device augmentation), 2 rounds: both recorded with distinct hypers and
    fitness in [0, 1], the same memory gate, one decode per eval batch (the
-   trainer's eval runs the layer walk, as JAX's does, so no fused chain).
+   trainer's eval runs the layer walk, as JAX's does, so no fused chain);
+18. the space-to-depth stem, the rest of the host data and the playground
+   (``phase18_s2d_host_data``, in the same temporary directory): (a) phase
+   4's model and weights served with ``eval.s2d_stem 2`` through
+   make_batch_predict, 8 requests at B=1 and B=4: 21 fused_ir_conv + 1
+   decode_heads per forward, the walk node by node against plain=True,
+   the preds against s2d_stem 0's (phase 4's bounds), the chains and the
+   decode at the path's shapes (phases 3 and 2's checks), the folded stem
+   against the stem in f32 (1e-5), request p50/p90, the forward on the
+   device alone and the stem's device ms with and without the fold; (b)
+   the train step with ``train.s2d_stem 2``: card against CPU at 128x128
+   (phase 9's check), the grad of the original stem kernel against
+   s2d_stem 0's (rtol 1e-4, atol 1e-6), 10 bf16 steps of each at B=12,
+   512x512 in turns; (c) VisDrone as shipped: a seeded VisDrone2019-DET
+   corpus at 2000x1500, 1920x1080, 1360x765 and 960x540 (20-300 boxes an
+   image, categories 0-11), ``visdrone_txt --seed 0``, one ``cli.train``
+   epoch of yamls/visdrone.yaml (regnetx-600m-fpn, batch 30, 256 GT boxes,
+   the eval at batch 1 in per-image sizes: one decode_heads launch an
+   image), the decode against its plain version at each eval shape, the
+   trained model's int8 route (observers, convert_to_int8, Int8Inference
+   kernel mode) at each eval image, B=1, conv by conv against plain=True,
+   and the decode's and qconv1x1_s8's device ms at those shapes; (d) COCO
+   as shipped: a seeded 80-class darknet-txt corpus, one ``cli.train``
+   epoch of yamls/coco.yaml (batch 32, the eval at 512, batch 32) and one
+   with ``augment.device on`` from the device corpus; (e) phase 11's corpus
+   with yamls/shapes.yaml: the host label grids against the device
+   assigner's, the process loader's first batches against the thread
+   loader's bit for bit, one epoch each of host labels, the process loader
+   and both with ``device_prefetch 2`` (whose batches, as its steps read
+   them, equal the synchronous epoch's), no worker or /dev/shm slab left
+   after close; (f) ``cli.playground`` grids of a VOC, a COCO and a
+   VisDrone image into OUTPUT_DIR.
 
 Each phase draws from its own generator, seeded from SEED and the phase
 number. It prints one JSON line of kernels, then the nvidia-smi line, and
@@ -723,7 +754,8 @@ def out_sides(graph, size):
 
 def int8_conv_shapes(net, size):
     """{(kind, n_h, n_w, cin, cout, stride, act, requant): count} over the
-    convs of the int8 graph at input ``size``, as each kernel sees them:
+    convs of the int8 graph at input ``size`` (a side, or (h, w)), as each
+    kernel sees them:
     'pw' and 'dw' take the conv's input (H, W, C), a strided 'pw' its every
     stride-th pixel; 'stem' is the dense 3x3
     as its im2col patches (H/stride, W/stride, im2col_depth(Cin)) into the
@@ -731,22 +763,23 @@ def int8_conv_shapes(net, size):
     ``requant``: the output edge is quantised (it feeds no yolo head)."""
     from pqdet_tpu_torch.compress.quantized import im2col_depth
     feeders = {n.index - 1 for n in net.graph.nodes if n.kind == 'yolo'}
-    sides = out_sides(net.graph, size)
+    size_h, size_w = (size, size) if isinstance(size, int) else size
+    sides_h, sides_w = out_sides(net.graph, size_h), out_sides(net.graph, size_w)
     shapes = {}
     for n in net.graph.nodes:
         if n.kind != 'convolutional':
             continue
         a = n.attrs
-        h = sides[n.index - 1] if n.index else size
+        h, w = (sides_h[n.index - 1], sides_w[n.index - 1]) if n.index else (size_h, size_w)
         rq = n.index not in feeders
+        st = a['stride']
         if a['size'] == 1:       # strided: the kernel takes every stride-th pixel
-            ho = -(-h // a['stride'])
-            key = ('pw', ho, ho, n.in_channels, a['filters'], 1, a['activation'], rq)
+            key = ('pw', -(-h // st), -(-w // st), n.in_channels, a['filters'], 1,
+                   a['activation'], rq)
         elif a['groups'] == n.in_channels == a['filters']:
-            key = ('dw', h, h, n.in_channels, n.in_channels, a['stride'], a['activation'], rq)
+            key = ('dw', h, w, n.in_channels, n.in_channels, st, a['activation'], rq)
         else:
-            ho = h // a['stride']
-            key = ('stem', ho, ho, im2col_depth(n.in_channels), a['filters'], 1,
+            key = ('stem', h // st, w // st, im2col_depth(n.in_channels), a['filters'], 1,
                    a['activation'], rq)
         shapes[key] = shapes.get(key, 0) + 1
     return shapes
@@ -1018,8 +1051,8 @@ def phase8_int8_timings(gen, dev, cfg, batch, tag, shapes, inf, qprep, predict, 
     return int8_kernel_times(gen, dev, shapes, ptx, tag, 'phase 8')
 
 
-def int8_kernel_times(gen, dev, shapes, ptx, tag, label):
-    """Per B=BATCH forward at ``shapes`` (``int8_conv_shapes``), each int8
+def int8_kernel_times(gen, dev, shapes, ptx, tag, label, batch=BATCH):
+    """Per forward of ``batch`` images at ``shapes`` (``int8_conv_shapes``), each int8
     kernel's device time from CUDA graphs, its plain version's, a library
     yardstick (torch._int_mm + the epilogue as torch ops; cuDNN's f32
     depthwise conv + the epilogue) and its bound, with the plan and ptxas
@@ -1033,7 +1066,7 @@ def int8_kernel_times(gen, dev, shapes, ptx, tag, label):
     tot = {k: dict.fromkeys(('ms', 'plain_ms', 'library_ms', 'bound_ms', 'bytes_ms',
                              'ops_ms'), 0.0) for k in ('qconv1x1_s8', 'qdwconv3x3_s8')}
     for (kind, h, w, cin, cout, stride, act, rq), count in sorted(shapes.items()):
-        x, wq, ws, b, cs, x_scale, x_zp = int8_inputs(gen, kind, BATCH, h, w, cin, cout, dev)
+        x, wq, ws, b, cs, x_scale, x_zp = int8_inputs(gen, kind, batch, h, w, cin, cout, dev)
         sc = make_scalars(x_scale, x_zp, 0.05 if rq else None, 3.0 if rq else None, dev)
         s = sc.reshape(-1)
         if kind == 'dw':
@@ -1059,7 +1092,7 @@ def int8_kernel_times(gen, dev, shapes, ptx, tag, label):
             # cuBLASLt s8 x s8 -> s32 through torch._int_mm: M, K and N
             # padded with zeros to multiples of 32 (it refuses N 104 at K 48
             # and M under 17, the SE 1x1s' M = B), outside the timing
-            m = BATCH * h * w
+            m = batch * h * w
             mp, kp, np_ = (-(-v // 32) * 32 for v in (m, cin, cout))
             a2 = F.pad(x.reshape(-1, cin), (0, kp - cin, 0, mp - m)).contiguous()
             b2 = F.pad(wq, (0, np_ - cout, 0, kp - cin)).t().contiguous().t()
@@ -1071,7 +1104,7 @@ def int8_kernel_times(gen, dev, shapes, ptx, tag, label):
         k_ms = device_ms(kern)
         p_ms = device_ms(plain, iters=5, replays=2)
         l_ms = device_ms(library)
-        by_ms, op_ms = int8_bound_ms(kind, BATCH, h, w, cin, cout, stride, rq)
+        by_ms, op_ms = int8_bound_ms(kind, batch, h, w, cin, cout, stride, rq)
         t = tot[name]
         t['ms'] += count * k_ms
         t['plain_ms'] += count * p_ms
@@ -1080,16 +1113,16 @@ def int8_kernel_times(gen, dev, shapes, ptx, tag, label):
         t['bytes_ms'] += count * by_ms
         t['ops_ms'] += count * op_ms
         if kind == 'dw':
-            pl = plan_qdwconv3x3(BATCH, h, w, cin, stride)
+            pl = plan_qdwconv3x3(batch, h, w, cin, stride)
             how = (f'plan th={pl.th} tw={pl.tw} cs={pl.cs} cw={pl.cw} smem={pl.smem} B, '
                    f'{pl.grid} CTAs, one a tile; ptxas '
                    f'{ptx.get(f"qdw3x3_kernel<4,{stride}>", "not reported")}')
         else:
-            pl = plan_qconv1x1(BATCH * h * w, cin, cout)
+            pl = plan_qconv1x1(batch * h * w, cin, cout)
             how = (f'plan bm={pl.bm} bn={pl.bn} bk={pl.bk} split={pl.split} kpr={pl.kpr} '
                    f'stages={pl.stages} smem={pl.smem} B; ptxas '
                    f'{ptx.get(f"qconv1x1_kernel<{pl.bk}>", "not reported")}')
-        print(f'{label}: {tag} {name} {kind} x{count} B={BATCH} H={h} W={w} Cin={cin} '
+        print(f'{label}: {tag} {name} {kind} x{count} B={batch} H={h} W={w} Cin={cin} '
               f'Cout={cout} s={stride} {"s8" if rq else "f32"} out: kernel {k_ms:.4f} ms, '
               f'plain {p_ms:.4f} ms, library {l_ms:.4f} ms, bound '
               f'{max(by_ms, op_ms):.5f} ms ({"operations" if op_ms > by_ms else "bytes"}); '
@@ -1098,7 +1131,7 @@ def int8_kernel_times(gen, dev, shapes, ptx, tag, label):
         t['bound_by'] = 'operations' if t.pop('ops_ms') > t.pop('bytes_ms') else 'bytes'
         if not t['ms']:
             continue                    # no shape of this kernel in ``shapes``
-        print(f'{label}: {tag} {name} per B={BATCH} forward: kernel {t["ms"]:.4f} ms, '
+        print(f'{label}: {tag} {name} per B={batch} forward: kernel {t["ms"]:.4f} ms, '
               f'plain {t["plain_ms"]:.4f} ms, library {t["library_ms"]:.4f} ms, bound '
               f'{t["bound_ms"]:.5f} ms ({t["bound_by"]})')
     return tot
@@ -1165,12 +1198,13 @@ def reset_kernel_launches():
         f.launches = 0
 
 
-def grad_step_parts(net, params, state, batch, dev, cfg, train):
+def grad_step_parts(net, params, state, batch, dev, cfg, train, s2d_stem=0):
     """Loss parts, grads, new BN state, and the params and effective grads
     (after sparse-L1, clip and L2: the new first moment / 0.1) of one update
     of the port's step pieces on ``dev`` (f32): sparse-L1 0.01, a clip of 1
     (binding at init), weight decay 1e-4, lr PARITY_LR. ``train``: batch
-    statistics in BN, else running statistics (no update then)."""
+    statistics in BN, else running statistics (no update then); ``s2d_stem``
+    as the walk takes it."""
     import torch
     from pqdet_tpu_torch.model.network import to_device
     from pqdet_tpu_torch.ops.labels import label_assigner_from_config
@@ -1182,7 +1216,7 @@ def grad_step_parts(net, params, state, batch, dev, cfg, train):
 
     def loss_fn(p_, s_, b_, rng=None):
         image = device_normalize(b_['image'])
-        losses, new_state = net.forward_train(p_, s_, image, train=train,
+        losses, new_state = net.forward_train(p_, s_, image, train=train, s2d_stem=s2d_stem,
                                               targets=labels(b_['gt'], image.shape[1:3]))
         return losses['loss'][0], (losses, new_state)
     (_, (losses, new_state)), grads = value_and_grad(loss_fn, p, s, b)
@@ -1199,7 +1233,10 @@ def grad_step_parts(net, params, state, batch, dev, cfg, train):
     return to_device(out, torch.device('cpu'))
 
 
-def phase9_parity(net, params, state, gen, dev, cfg, label='phase 9'):
+PARITY_CASES = ((False, PARITY_RUNNING_SIZE), (True, PARITY_SIZE))
+
+
+def phase9_parity(net, params, state, gen, dev, cfg, label='phase 9', cases=None, s2d_stem=0):
     """Phase 9.1: one f32 step on the card against the same step on the CPU
     (the CPU path is what the tests hold to JAX), at PARITY_SIZE with batch
     statistics in BN, and the loss and grads at PARITY_RUNNING_SIZE with
@@ -1208,7 +1245,9 @@ def phase9_parity(net, params, state, gen, dev, cfg, label='phase 9'):
     (tests/test_torch_train_parity.py), so the grads and params are held to
     a yardstick: the CPU step on the batch with its images reversed (the
     same function, its sums in another order). Prints the largest relative
-    error of each quantity and its bound; raises outside one."""
+    error of each quantity and its bound; raises outside one. ``cases``:
+    (batch statistics, size) pairs, PARITY_CASES by default; ``s2d_stem``
+    as the walk takes it."""
     import torch
     from pqdet_tpu_torch.train.step import tree_leaves
     cpu = torch.device('cpu')
@@ -1224,12 +1263,12 @@ def phase9_parity(net, params, state, gen, dev, cfg, label='phase 9'):
     def rel(a, b):
         return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
 
-    for train, size in ((False, PARITY_RUNNING_SIZE), (True, PARITY_SIZE)):
+    for train, size in cases or PARITY_CASES:
         batch = train_batch(gen, PARITY_BATCH, size, cpu, cfg.model.max_gt_boxes)
         t0 = time.perf_counter()
-        card = grad_step_parts(net, params, state, batch, dev, cfg, train)
+        card = grad_step_parts(net, params, state, batch, dev, cfg, train, s2d_stem)
         t1 = time.perf_counter()
-        host = grad_step_parts(net, params, state, batch, cpu, cfg, train)
+        host = grad_step_parts(net, params, state, batch, cpu, cfg, train, s2d_stem)
         t2 = time.perf_counter()
         mode = 'batch-statistics BN' if train else 'running-statistics BN'
         print(f'{label}: {mode}: card {t1 - t0:.2f} s, CPU {t2 - t1:.2f} s (with labels)')
@@ -1249,7 +1288,7 @@ def phase9_parity(net, params, state, gen, dev, cfg, label='phase 9'):
         # batch statistics: the yardstick is the CPU step on the reversed batch
         t0 = time.perf_counter()
         own = grad_step_parts(net, params, state, {k: v.flip(0) for k, v in batch.items()},
-                              cpu, cfg, train)
+                              cpu, cfg, train, s2d_stem)
         print(f'{label}: {mode}: CPU on the reversed batch {time.perf_counter() - t0:.2f} s')
         check(f'{mode} loss and parts, max rel err', parts, 1e-3)
         g, h = torch.cat([x.reshape(-1) for x in ga]), torch.cat([y.reshape(-1) for y in gb])
@@ -2515,8 +2554,12 @@ def phase13_chain_parity(dev, tag, gen):
 def probed_trainer(Trainer, record):
     """``Trainer`` with probes into ``record``: the trainer, per-epoch step
     losses, seconds, data-load split and kernel launches, per-eval seconds,
-    AP and launches, the first two gathers from the device corpus, and the
-    params before training."""
+    AP and launches, the first two gathers from the device corpus, the
+    params before training, the process pool's worker pids and slab names
+    (``pool``), and, where ``record`` holds a ``sums`` list, each step
+    batch's checksums (the sum of each of its tensors, read on the step's
+    stream)."""
+    import torch
     from pqdet_tpu_torch.train.step import tree_leaves
 
     class Probed(Trainer):
@@ -2525,11 +2568,18 @@ def probed_trainer(Trainer, record):
             self._epoch = -1
             super().init_all()
             record['start'] = [t.detach().clone() for t in tree_leaves(self.params)]
+            loader = self._proc_loader
+            record['pool'] = None if loader is None else (
+                [w.pid for w in loader._pool._pool], loader.slab_names)
 
         def _make_step(self):
             step, opt = super()._make_step()
 
             def probed(params, state, opt_state, batch, rng=None):
+                if 'sums' in record:
+                    record['sums'].append(torch.stack([
+                        t.double().sum() for k in sorted(batch) if k != 'draws'
+                        for t in (batch[k] if isinstance(batch[k], tuple) else (batch[k],))]))
                 out = step(params, state, opt_state, batch, rng)
                 record['loss'].setdefault(self._epoch, []).append(out[3]['loss'])
                 return out
@@ -2567,13 +2617,14 @@ def run_train_cli(argv, record):
     probed into ``record``; returns the wall seconds."""
     import torch
     import pqdet_tpu_torch.cli.train as cli_train
-    saved = cli_train.Trainer
-    cli_train.Trainer = probed_trainer(saved, record)
+    import pqdet_tpu_torch.train.trainer as trainer_mod
+    saved = trainer_mod.Trainer
+    trainer_mod.Trainer = probed_trainer(saved, record)
     t0 = time.perf_counter()
     try:
         cli_train.main(argv)
     finally:
-        cli_train.Trainer = saved
+        trainer_mod.Trainer = saved
     torch.cuda.synchronize()
     return time.perf_counter() - t0
 
@@ -3751,7 +3802,7 @@ def grouped_macs(graph, size):
     return macs, macs + extra
 
 
-def bf16_node_parity(net, fparams, table, x):
+def bf16_node_parity(net, fparams, table, x, s2d_stem=0):
     """The bf16 walk through the kernels against ``plain=True`` on the same
     input, node by node (the ``tap`` of each node the walk runs): the
     nodes before the first fused chain equal bit for bit (they run the same
@@ -3765,9 +3816,9 @@ def bf16_node_parity(net, fparams, table, x):
     kern_t, plain_t = {}, {}
     with torch.inference_mode():
         kern = net(fparams, {}, x, compute_dtype=torch.bfloat16, fused_ir=table,
-                   tap=tapper(kern_t))
+                   tap=tapper(kern_t), s2d_stem=s2d_stem)
         plain = net(fparams, {}, x, compute_dtype=torch.bfloat16, fused_ir=table, plain=True,
-                    tap=tapper(plain_t))
+                    tap=tapper(plain_t), s2d_stem=s2d_stem)
     first = min(table) if table else len(net.graph.nodes)
     seen = sorted(set(kern_t) & set(plain_t))
     equal = {i for i in seen if torch.equal(kern_t[i], plain_t[i])}
@@ -4688,6 +4739,745 @@ def phase17_nas_evolution(dev, tag, tmp, corpus, croot, ptx):
             'launches': launches}
 
 
+# VisDrone2019-DET's image sizes (w, h), the largest first
+VISDRONE_SIZES = ((2000, 1500), (1920, 1080), (1360, 765), (960, 540))
+VISDRONE_SETS = ('VisDrone2019-DET-train', 'VisDrone2019-DET-val', 'VisDrone2019-DET-test')
+COCO_SIZES = ((640, 480), (480, 640), (640, 427), (500, 375))
+
+
+def synth_scene(rng, w, h, boxes, colors):
+    """A smooth RGB background (a gradient and upsampled noise, so the JPEG
+    stays small) with a filled rectangle for each (x, y, w, h, class) box."""
+    import cv2
+    import numpy as np
+    noise = cv2.resize(rng.randint(0, 120, (6, 8, 3)).astype(np.uint8), (w, h),
+                       interpolation=cv2.INTER_LINEAR)
+    ramp = np.linspace(0, 60, w, dtype=np.float32)[None, :, None]
+    img = np.clip(noise + ramp, 0, 255).astype(np.uint8)
+    for x, y, bw, bh, c in boxes:
+        cv2.rectangle(img, (int(x), int(y)), (int(x + bw - 1), int(y + bh - 1)),
+                      colors[int(c)], -1)
+    return img
+
+
+def write_visdrone(root, sizes=VISDRONE_SIZES, per_size=2, seed=SEED, boxes=(20, 300)):
+    """A seeded corpus in VisDrone2019-DET's layout under ``root``: for each
+    (w, h) of ``sizes``, ``per_size`` images split over the train and val
+    sets and one test image, each with ``boxes`` (lo, hi) annotated boxes
+    as VisDrone writes them, ``x,y,w,h,score,category,truncation,
+    occlusion`` over categories 0-11 (0 ignored regions, 11 others), score 0
+    on about one in ten. Returns the number of boxes written."""
+    import cv2
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    colors = [tuple(int(v) for v in rng.randint(60, 256, 3)) for _ in range(12)]
+    for s in VISDRONE_SETS:
+        for sub in ('images', 'annotations'):
+            os.makedirs(os.path.join(root, s, sub), exist_ok=True)
+    n_boxes = 0
+    for k, (w, h) in enumerate(sizes):
+        for j in range(per_size + 1):
+            s = VISDRONE_SETS[2] if j == per_size else VISDRONE_SETS[j % 2]
+            n = rng.randint(boxes[0], boxes[1] + 1)
+            bw = rng.randint(max(2, w // 200), max(3, w // 12), n)
+            bh = rng.randint(max(2, h // 200), max(3, h // 8), n)
+            x = rng.randint(0, w - bw)
+            y = rng.randint(0, h - bh)
+            cat = rng.randint(0, 12, n)
+            score = (rng.rand(n) > 0.1).astype(int)
+            trunc, occ = rng.randint(0, 3, n), rng.randint(0, 3, n)
+            stem = f'{k:02d}_{j:02d}_{w}x{h}'
+            cv2.imwrite(os.path.join(root, s, 'images', stem + '.jpg'),
+                        synth_scene(rng, w, h, zip(x, y, bw, bh, cat), colors))
+            with open(os.path.join(root, s, 'annotations', stem + '.txt'), 'w') as fw:
+                fw.write(''.join(f'{a},{b},{c},{d},{e},{f},{g},{o}\n' for a, b, c, d, e, f, g, o
+                                 in zip(x, y, bw, bh, score, cat, trunc, occ)))
+            n_boxes += n
+    return n_boxes
+
+
+def write_coco(root, n_train, n_val, seed=SEED, classes=80, boxes=(1, 15)):
+    """A seeded corpus in COCO's darknet layout under ``root``: ``images/``
+    and ``labels/`` (one ``class cx cy w h`` line a box, normalized), at
+    COCO's common sizes, ``train.txt`` and ``val.txt`` listing the images.
+    Returns the two list files."""
+    import cv2
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    colors = [tuple(int(v) for v in rng.randint(60, 256, 3)) for _ in range(classes)]
+    for sub in ('images', 'labels'):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    lists = {'train': [], 'val': []}
+    for i in range(n_train + n_val):
+        w, h = COCO_SIZES[rng.randint(len(COCO_SIZES))]
+        n = rng.randint(boxes[0], boxes[1] + 1)
+        bw = rng.randint(w // 16, w // 2, n)
+        bh = rng.randint(h // 16, h // 2, n)
+        x = rng.randint(0, w - bw)
+        y = rng.randint(0, h - bh)
+        cls = rng.randint(0, classes, n)
+        path = os.path.join(root, 'images', f'{i:06d}.jpg')
+        cv2.imwrite(path, synth_scene(rng, w, h, zip(x, y, bw, bh, cls), colors))
+        with open(os.path.join(root, 'labels', f'{i:06d}.txt'), 'w') as fw:
+            fw.write(''.join(f'{c} {(a + bw_ / 2) / w:.6f} {(b + bh_ / 2) / h:.6f} '
+                             f'{bw_ / w:.6f} {bh_ / h:.6f}\n'
+                             for c, a, b, bw_, bh_ in zip(cls, x, y, bw, bh)))
+        lists['train' if i < n_train else 'val'].append(path)
+    out = {}
+    for k, paths in lists.items():
+        out[k] = os.path.join(root, f'{k}.txt')
+        with open(out[k], 'w') as fw:
+            fw.write('\n'.join(paths) + '\n')
+    return out
+
+
+# the space-to-depth stem, the rest of the host data and the playground
+# (phase 18): the stem folded for serving (a) and training (b), VisDrone
+# (c) and COCO (d) as shipped, host labels, the process loader and the
+# upload thread (e), the playground (f)
+S2D = 2                        # (a), (b): eval.s2d_stem and train.s2d_stem
+S2D_REQUESTS = 8               # (a): requests of each B, launches counted
+S2D_TIMED_STEPS = 10           # (b): bf16 steps of each mode at B=12, TRAIN_SIZE, in turns ...
+S2D_TIMED_WARMUP = 3           # ... the first ones out of the p50
+S2D_STEM_TOL = 1e-5            # (a): the folded stem against the stem, f32 (tests/test_s2d.py)
+S2D_GRAD_RTOL, S2D_GRAD_ATOL = 1e-4, 1e-6   # (b): the stem kernel's grad (tests/test_s2d.py)
+VISDRONE_PER_SIZE = 3          # (c): train and val images of each VisDrone size (+1 test)
+VISDRONE_TRAIN_SIZE = 416      # (c): train.input_sizes (one size: each new one pays a first step)
+VISDRONE_TIMED = ((1888, 2528),)  # (c): qconv1x1_s8 timed at this eval input (the largest)
+COCO_TRAIN, COCO_VAL = 64, 32  # (d): 2 steps of the yaml's batch 32, one eval batch of 32
+COCO_SIZE = 512                # (d): train.input_sizes and eval.input_size
+LOADER_BATCHES = 2             # (e): first batches held against the thread loader's
+OUTPUT_DIR = 'chiprun_out'     # (f): the checkout's git-ignored directory for a run's files
+
+
+def phase18_s2d_serving(dev, tag, gate, net, params, state):
+    """(a): phase 4's mobilenetv2-fpn and weights through make_batch_predict
+    with ``eval.s2d_stem`` S2D (bf16, the fused-IR table), S2D_REQUESTS
+    requests at B=1 and B=BATCH: 21 fused_ir_conv + 1 decode_heads per
+    forward, the walk node by node against plain=True (bit for bit before
+    the first chain), the preds against ``s2d_stem`` 0's within phase 4's
+    bounds; the chains and the decode against their plain versions at the
+    path's shapes (phases 3 and 2's checks); the folded stem against the
+    stem in f32. Timings: request p50/p90 with and without the fold, the
+    forward on the device alone (CUDA graph) and the stem's device ms."""
+    import torch
+    from pqdet_tpu_torch.config import Config
+    from pqdet_tpu_torch.evaluation.predict import build_predict_pipeline, make_batch_predict
+    from pqdet_tpu_torch.model import layers as L
+    from pqdet_tpu_torch.model.graph import solve_padding
+    from pqdet_tpu_torch.model.network import cast_params, fuse_params, s2d_stem_input
+    from pqdet_tpu_torch.ops.fused_ir import prepare_fused_ir
+    from pqdet_tpu_torch.ops.preprocess import device_normalize
+    gen = phase_gen(18)
+    bf16 = torch.bfloat16
+    fused = fuse_params(net, params, state)
+    table = prepare_fused_ir(net, fused)
+    fparams = cast_params(fused, bf16)
+    predicts = {}
+    for s2d in (0, S2D):
+        cfg = Config()
+        cfg.eval.input_size, cfg.eval.fused_ir, cfg.eval.s2d_stem = SIZE, True, s2d
+        run = build_predict_pipeline(net, cfg, compute_dtype=bf16, fused_ir=table, device=dev)
+        predicts[s2d] = make_batch_predict(run, fparams)
+    batch = request_maker(gen, dev)
+    launches = dict.fromkeys(('decode_heads', 'fused_ir_conv', 'qconv1x1_s8', 'qdwconv3x3_s8'),
+                             0)
+    for b in (1, BATCH):
+        requests = [batch(b) for _ in range(S2D_REQUESTS)]
+        predicts[S2D](requests[0])                    # warm-up
+        torch.cuda.synchronize()
+        reset_kernel_launches()
+        dets = [predicts[S2D](r) for r in requests]
+        torch.cuda.synchronize()
+        got = kernel_launches()
+        for k, v in got.items():
+            launches[k] += v
+        want = {**dict.fromkeys(got, 0), 'fused_ir_conv': 21 * S2D_REQUESTS,
+                'decode_heads': S2D_REQUESTS}
+        gate(got == want, f'(a) s2d_stem {S2D}, {S2D_REQUESTS} requests of B={b}: launches '
+             f'{got} (want {want}: 21 chains and 1 decode per forward)')
+        n_det = sum(len(d) for r in dets for d in r)
+        gate(n_det > 0 and all(d.shape[1] == 6 and bool(torch.isfinite(torch.from_numpy(d)).all())
+                               for r in dets for d in r),
+             f'(a) B={b}: {n_det} detections, all finite')
+        with torch.inference_mode():
+            x = device_normalize(requests[0]['image'])
+            p2 = net(fparams, {}, x, compute_dtype=bf16, fused_ir=table, s2d_stem=S2D)
+            p0 = net(fparams, {}, x, compute_dtype=bf16, fused_ir=table)
+        ds = (p2[..., 4:] - p0[..., 4:]).abs().max().item()
+        db = (p2[..., :4] - p0[..., :4]).abs().max().item()
+        gate(ds <= 0.03 and db <= 1.5, f'(a) B={b} preds with s2d_stem {S2D} against s2d_stem 0: '
+             f'scores max |d| {ds:.4g} (<= 0.03), boxes {db:.4g} px (<= 1.5)')
+        n, n_eq, n_before, n_before_eq, ds, db = bf16_node_parity(net, fparams, table, x,
+                                                                  s2d_stem=S2D)
+        gate(n_before_eq == n_before and ds <= 0.03 and db <= 1.5,
+             f'(a) B={b} s2d walk against plain=True: {n_eq} of {n} tapped nodes equal bit for '
+             f'bit, {n_before_eq} of the {n_before} before the first fused chain (want all); '
+             f'preds scores max |d| {ds:.4g} (<= 0.03), boxes {db:.4g} px (<= 1.5)')
+    chains = chain_shapes(net, SIZE)
+    checks = [(f'{a},{b},{c}', n, h, h, cin, e, p, a is not None, acts, 0.0)
+              for a, b, c, h, cin, e, p, acts in chains for n in (1, BATCH)]
+    fused_err = fused_parity(gen, dev, checks, 'phase 18 (a)')
+    heads = [(SIZE // y.attrs['stride'], y.attrs['stride']) for y in net.graph.yolo_nodes]
+    decode_err = decode_parity(gen, dev, heads, net.num_classes, 'phase 18 (a)')
+
+    stem = net.graph.nodes[0].attrs
+    pad = solve_padding(stem['size'], stem['padding'], stem['pad'])
+    w0, b0 = fused['0']['w'], fused['0']['b']
+    xb = device_normalize(batch(BATCH)['image'])
+    with torch.inference_mode():
+        ref = L.conv2d(xb, w0, b0, stride=stem['stride'], padding=pad)
+        xs, wf, st, pd = s2d_stem_input(xb, w0, S2D, stem['stride'], pad)
+        got = L.conv2d(xs, wf, b0, stride=st, padding=pd)
+    err = (got - ref).abs()
+    gate(got.shape == ref.shape and bool((err <= S2D_STEM_TOL * (1 + ref.abs())).all()),
+         f'(a) the folded stem ({tuple(wf.shape)} OIHW on {tuple(xs.shape)}) against the stem '
+         f'({tuple(w0.shape)} at stride {stem["stride"]}) on B={BATCH} {SIZE}x{SIZE}, f32, TF32 '
+         f'off: max |d| {err.max().item():.3g} (<= {S2D_STEM_TOL:g} (1 + |y|))')
+
+    times = request_times({'s2d_stem 0': predicts[0], f's2d_stem {S2D}': predicts[S2D]}, batch,
+                          BATCH, tag, 'phase 18 (a)')
+    with torch.inference_mode():
+        fwd = {s2d: device_ms(lambda s2d=s2d: net(fparams, {}, xb, compute_dtype=bf16,
+                                                  fused_ir=table, s2d_stem=s2d),
+                              iters=3, replays=3) for s2d in (0, S2D)}
+        wb, bb = fparams['0']['w'], fparams['0']['b']
+        stem_ms = {0: device_ms(lambda: L.conv2d(xb, wb, bb, stride=stem['stride'],
+                                                 padding=pad, compute_dtype=bf16)),
+                   S2D: device_ms(lambda: L.conv2d(*s2d_stem_input(xb, wb, S2D, stem['stride'],
+                                                                   pad)[:2], bb, stride=1,
+                                                   compute_dtype=bf16))}
+    print(f'phase 18 (a): {tag} B={BATCH} {SIZE}x{SIZE} bf16 forward on the device alone (CUDA '
+          f'graph): s2d_stem 0 {fwd[0]:.4f} ms, s2d_stem {S2D} {fwd[S2D]:.4f} ms (ratio '
+          f'{fwd[S2D] / fwd[0]:.4f}); the stem alone (device ms): conv 3x3 s2 on 3 channels '
+          f'{stem_ms[0]:.4f} ms, s2d reshape + pad + conv 2x2 s1 on 12 channels '
+          f'{stem_ms[S2D]:.4f} ms')
+    return {'launches': launches, 'fused_err': fused_err, 'decode_err': decode_err,
+            'fwd_ms': fwd, 'stem_ms': stem_ms, 'requests': times}
+
+
+def phase18_s2d_train(dev, tag, gate):
+    """(b): the mobilenetv2-fpn train step with ``train.s2d_stem`` S2D
+    (phase 9's weights and config): card against CPU at
+    PARITY_RUNNING_SIZE with running and batch statistics (phase 9's
+    check), the grad of the original stem kernel against ``s2d_stem`` 0's on
+    the card, then S2D_TIMED_STEPS bf16 steps of each at B=12, TRAIN_SIZE in
+    turns (ms p50)."""
+    import copy
+    import torch
+    from pqdet_tpu_torch.model.network import DetectionNetwork, to_device
+    from pqdet_tpu_torch.train.step import train_step_from_config
+    from pqdet_tpu_torch.zoo import get_cfg
+    gen = phase_gen(9)
+    cfg = train_config()
+    cfg.train.s2d_stem = S2D
+    net = DetectionNetwork.from_cfg(get_cfg('mobilenetv2-fpn'))
+    params, state = net.init(gen, device='cpu')
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    phase9_parity(net, params, state, gen, dev, cfg, label='phase 18 (b)',
+                  cases=((False, PARITY_RUNNING_SIZE), (True, PARITY_RUNNING_SIZE)),
+                  s2d_stem=S2D)
+    tb = train_batch(gen, PARITY_BATCH, PARITY_RUNNING_SIZE, torch.device('cpu'),
+                     cfg.model.max_gt_boxes)
+    g = {s2d: grad_step_parts(net, params, state, tb, dev, cfg, False, s2d)['grads']['0']['w']
+         for s2d in (0, S2D)}
+    err = (g[S2D] - g[0]).abs()
+    gate(bool((err <= S2D_GRAD_ATOL + S2D_GRAD_RTOL * g[0].abs()).all()),
+         f'(b) the grad of the original stem kernel {tuple(g[0].shape)} through the fold against '
+         f's2d_stem 0\'s, on the card, f32, B={PARITY_BATCH} {PARITY_RUNNING_SIZE}x'
+         f'{PARITY_RUNNING_SIZE}: max |d| {err.max().item():.3g} (<= {S2D_GRAD_ATOL:g} + '
+         f'{S2D_GRAD_RTOL:g} |g|, max |g| {g[0].abs().max().item():.3g})')
+    print(f'phase 18 (b): {tag} parity and grads {time.perf_counter() - t0:.1f} s')
+
+    steps, p, s, o = {}, {}, {}, {}
+    for s2d in (0, S2D):
+        c = copy.deepcopy(cfg)
+        c.train.s2d_stem = s2d
+        steps[s2d], opt = train_step_from_config(net, c, TRAIN_WARMUP, device=dev)
+        p[s2d], s[s2d] = to_device(params, dev), to_device(state, dev)
+        o[s2d] = opt.init(p[s2d])
+    batch = train_batch(gen, cfg.train.batch_size, TRAIN_SIZE, dev, cfg.model.max_gt_boxes)
+    ms, losses = {0: [], S2D: []}, {0: [], S2D: []}
+    for k in range(S2D_TIMED_STEPS):
+        for s2d in ((0, S2D) if k % 2 == 0 else (S2D, 0)):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            p[s2d], s[s2d], o[s2d], m = steps[s2d](p[s2d], s[s2d], o[s2d], batch)
+            e1.record()
+            e1.synchronize()
+            ms[s2d].append(e0.elapsed_time(e1))
+            losses[s2d].append(float(m['loss']))
+    p50 = {k: statistics.median(v[S2D_TIMED_WARMUP:]) for k, v in ms.items()}
+    gate(all(math.isfinite(x) for v in losses.values() for x in v)
+         and statistics.mean(losses[S2D][-3:]) < statistics.mean(losses[S2D][:3]),
+         f'(b) {S2D_TIMED_STEPS} bf16 steps with s2d_stem {S2D} at B={cfg.train.batch_size} '
+         f'{TRAIN_SIZE}x{TRAIN_SIZE} on one batch: losses {[round(x, 3) for x in losses[S2D]]} '
+         f'finite and falling (s2d_stem 0: {[round(x, 3) for x in losses[0]]})')
+    launches = kernel_launches()
+    gate(not any(launches.values()), f'(b) hand-written kernel launches in the steps: '
+         f'{launches} (want 0)')
+    print(f'phase 18 (b): {tag} bf16 step B={cfg.train.batch_size} {TRAIN_SIZE}x{TRAIN_SIZE}, '
+          f'p50 after {S2D_TIMED_WARMUP} (CUDA events, in turns): s2d_stem 0 {p50[0]:.3f} ms, '
+          f's2d_stem {S2D} {p50[S2D]:.3f} ms (ratio {p50[S2D] / p50[0]:.4f})')
+    return p50
+
+
+def eval_shapes(eval_data):
+    """The distinct (H, W) of the eval batches' images and the images at each."""
+    shapes = {}
+    for i in range(len(eval_data)):
+        hw = eval_data.batch(i)['image'].shape[1:3]
+        shapes[hw] = shapes.get(hw, 0) + 1
+    return shapes
+
+
+def yaml_copy(tmp, name, **changes):
+    """A copy of yamls/<name>.yaml in ``tmp`` with ``changes`` ({group:
+    {key: value}}) merged in; returns its path."""
+    import yaml
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, 'yamls', name)) as fr:
+        y = yaml.safe_load(fr)
+    for group, kv in changes.items():
+        y.setdefault(group, {}).update(kv)
+    path = os.path.join(tmp, name)
+    with open(path, 'w') as fw:
+        yaml.safe_dump(y, fw)
+    return path
+
+
+def phase18_visdrone(dev, tag, tmp, gate, ptx, host_ips):
+    """(c): VisDrone as shipped. A seeded corpus in VisDrone2019-DET's
+    layout at its four resolutions (write_visdrone), ``visdrone_txt --seed
+    0``, one epoch of ``cli.train`` on yamls/visdrone.yaml (regnetx-600m-fpn,
+    batch 30, max_gt_boxes 256, the eval at batch 1 in per-image sizes after
+    it), then the trained checkpoint's int8 route (observers, convert,
+    Int8Inference kernel mode) at each eval image, B=1, conv by conv against
+    plain=True; the decode against its plain version at each eval shape;
+    the decode's and qconv1x1_s8's device ms at those shapes."""
+    import torch
+    from pqdet_tpu_torch.compress.quantized import Int8Inference
+    from pqdet_tpu_torch.config import load_config
+    from pqdet_tpu_torch.data.eval_data import EvalData
+    from pqdet_tpu_torch.data.scripts import visdrone_txt
+    from pqdet_tpu_torch.evaluation.predict import build_predict_pipeline, make_batch_predict
+    from pqdet_tpu_torch.model.network import DetectionNetwork
+    from pqdet_tpu_torch.ops.decode_kernel import decode_heads, decode_heads_reference
+    from pqdet_tpu_torch.ops.preprocess import device_normalize
+    gen = phase_gen(183)
+    root = os.path.join(tmp, 'visdrone')
+    t0 = time.perf_counter()
+    n_boxes = write_visdrone(root, per_size=VISDRONE_PER_SIZE)
+    visdrone_txt.main(['--root', root, '--seed', '0'])
+    train_txt, test_txt = os.path.join(root, 'trainval.txt'), os.path.join(root, 'test.txt')
+    with open(train_txt) as fr:
+        n_train = sum(1 for line in fr if line.strip())
+    print(f'phase 18 (c): wrote {len(VISDRONE_SIZES) * (VISDRONE_PER_SIZE + 1)} VisDrone images '
+          f'at {VISDRONE_SIZES} with {n_boxes} boxes and the lists ({n_train} train entries with '
+          f'the area repeats) in {time.perf_counter() - t0:.2f} s')
+    ypath = yaml_copy(tmp, 'visdrone.yaml')
+    wroot = os.path.join(tmp, 'weights_visdrone')
+    rec = {}
+    wall = run_train_cli(['--yaml', ypath, 'dataset.train_txt_file', train_txt,
+                          'dataset.eval_txt_file', test_txt, 'weight.dir', wroot,
+                          'train.max_epochs', '1', 'eval.after', '0',
+                          'train.input_sizes', f'[{VISDRONE_TRAIN_SIZE}]'], rec)
+    trainer = rec['trainer']
+    c = trainer.config
+    gate((c.train.batch_size, c.model.max_gt_boxes, c.eval.batch_size, c.model.cfg_path)
+         == (30, 256, 1, 'regnetx-600m-fpn'),
+         f'(c) visdrone.yaml as shipped: batch {c.train.batch_size}, max_gt_boxes '
+         f'{c.model.max_gt_boxes}, eval batch {c.eval.batch_size}, {c.model.cfg_path}')
+    n_eval = trainer.eval_data.length
+    ips = trainer_gates(rec, '(c) VisDrone trainer', tag, gate, host_ips, [0],
+                        phase='phase 18')
+    ep, ev = rec['epochs'][0], rec['evals'][0]
+    gate(ev['launches']['decode_heads'] == n_eval == len(VISDRONE_SIZES),
+         f'(c) the eval: {ev["launches"]["decode_heads"]} decode_heads launches for {n_eval} '
+         'images at batch 1')
+    shapes = eval_shapes(trainer.eval_data)
+    print(f'phase 18 (c): {tag} cli.train visdrone.yaml {wall:.2f} s: epoch {ep["s"]:.3f} s '
+          f'({ep["steps"]} steps of B={c.train.batch_size} at {VISDRONE_TRAIN_SIZE}), eval '
+          f'{ev["s"]:.3f} s over {n_eval} images at per-image sizes {sorted(shapes)}; AP '
+          f'{ev["AP"]:.6f}')
+    net, params, state = trainer.network, trainer.params, trainer.state
+    nc = net.num_classes
+    strides = [y.attrs['stride'] for y in net.graph.yolo_nodes]
+    dec = {}
+    worst = 0.0
+    for h, w in sorted(shapes):
+        raws = [(torch.randn(1, h // st, w // st, 3 * (5 + nc), generator=gen) * 2)
+                .to(dev, torch.bfloat16) for st in strides]
+        got = decode_heads(raws, nc, strides, [0.0] * 3)
+        ref = decode_heads_reference(raws, nc, strides, [0.0] * 3)
+        tol = torch.cat([decode_tolerance(r, nc, st, 0.0).flatten(1, 3)
+                         for r, st in zip(raws, strides)], 1)
+        err = (got - ref).abs()
+        worst = max(worst, err.max().item())
+        nbytes = sum(r.numel() for r in raws) * (2 + 4)
+        dec[(h, w)] = {'ms': device_ms(lambda: decode_heads(raws, nc, strides, [0.0] * 3)),
+                       'plain_ms': device_ms(lambda: decode_heads_reference(
+                           raws, nc, strides, [0.0] * 3), iters=5, replays=2),
+                       'bound_ms': nbytes / HBM_BYTES_PER_S * 1e3}
+        gate(bool((err <= tol).all()),
+             f'(c) decode_heads at the eval input {h}x{w}, grids '
+             f'{[(h // st, w // st) for st in strides]}, bf16, B=1: one launch into '
+             f'{tuple(got.shape)}, max |err| {err.max().item():.3g}; device {dec[(h, w)]["ms"]:.4f}'
+             f' ms, plain {dec[(h, w)]["plain_ms"]:.4f} ms, bound {dec[(h, w)]["bound_ms"]:.5f} '
+             'ms (bytes)')
+
+    # the int8 route of the trained checkpoint, at each eval image
+    cfg_text = trainer.cfg_text
+    qnet = DetectionNetwork.from_cfg(cfg_text, quant=True)
+    t0 = time.perf_counter()
+    _, _, qparams = calibrate_int8(qnet, params, state, request_maker(gen, dev))
+    inf = Int8Inference(qnet, mode='kernel')
+    prep = Int8Inference.prepare(qparams, mode='kernel', network=qnet)
+    print(f'phase 18 (c): {tag} int8: {N_CALIB} observer passes, convert_to_int8 and prepare '
+          f'{time.perf_counter() - t0:.2f} s')
+    qcfg = load_config(ypath, ['dataset.eval_txt_file', test_txt])
+    predict = make_batch_predict(build_predict_pipeline(qnet, qcfg, apply_fn=inf.apply,
+                                                        device=dev), prep)
+    eval_data = EvalData(qcfg)
+    n_pw = sum(1 for n in qnet.graph.nodes if n.kind == 'convolutional'
+               and not n.attrs['groups'] == n.in_channels == n.attrs['filters'])
+    launches = dict.fromkeys(('decode_heads', 'fused_ir_conv', 'qconv1x1_s8', 'qdwconv3x3_s8'),
+                             0)
+    first = {}
+    for i in range(len(eval_data)):
+        b = eval_data.batch(i)
+        hw = tuple(b['image'].shape[1:3])
+        torch.cuda.synchronize()
+        reset_kernel_launches()
+        t1 = time.perf_counter()
+        dets = predict(b)
+        torch.cuda.synchronize()
+        first[hw] = time.perf_counter() - t1
+        got = kernel_launches()
+        for k, v in got.items():
+            launches[k] += v
+        t1 = time.perf_counter()
+        predict(b)
+        torch.cuda.synchronize()
+        again = time.perf_counter() - t1
+        want = {**dict.fromkeys(got, 0), 'qconv1x1_s8': n_pw, 'decode_heads': 1}
+        gate(got == want and all(bool(torch.isfinite(torch.from_numpy(d)).all()) for d in dets),
+             f'(c) int8 request at {hw[0]}x{hw[1]} (B=1): launches {got} (want {want}), '
+             f'{sum(len(d) for d in dets)} finite detections; first call {first[hw]:.3f} s, the '
+             f'next {again:.3f} s')
+        with torch.inference_mode():
+            x = device_normalize(torch.as_tensor(b['image'], device=dev))
+        kern, plain, bad, n_exact, n_nodes = int8_node_parity(inf, prep, qparams, qnet, x)
+        ds = (kern[..., 4:] - plain[..., 4:]).abs().max().item()
+        db = (kern[..., :4] - plain[..., :4]).abs().max().item()
+        gate(not bad and ds <= 0.02 and db <= 1.0,
+             f'(c) int8 at {hw[0]}x{hw[1]} against plain=True conv by conv: {n_exact} of '
+             f'{n_nodes} nodes equal bit for bit, outside the bound {bad}; preds scores max |d| '
+             f'{ds:.4g} (<= 0.02), boxes {db:.4g} px (<= 1)')
+    qt = {}
+    for hw in VISDRONE_TIMED:
+        qt[hw] = int8_kernel_times(gen, dev, int8_conv_shapes(qnet, hw), ptx, tag,
+                                   f'phase 18 (c) {hw[0]}x{hw[1]}', batch=1)['qconv1x1_s8']
+    return {'launches': launches, 'decode_err': worst, 'decode': dec, 'qconv': qt,
+            'epoch_s': ep['s'], 'eval_s': ev['s'], 'first_s': first, 'ips': ips}
+
+
+def bce_saturation(trainer, start, gate, label):
+    """The reference's saturated BCE (ROADMAP §3) as the cause of a NaN at
+    step 2: on the trainer's initial params ``start`` (leaves) and its first
+    batch, the loss is finite, some conf or class logit reaches 17 (its f32
+    sigmoid rounds to 1.0, where the -100 log clamp gives a NaN gradient)
+    and grads are non-finite. Returns the initial params."""
+    import torch
+    from pqdet_tpu_torch.data.train_data import make_batch
+    from pqdet_tpu_torch.ops.labels import label_assigner_from_config
+    from pqdet_tpu_torch.train.step import (COMPUTE_DTYPES, make_loss_fn, tree_leaves,
+                                            tree_unflatten, value_and_grad)
+    net, cfg = trainer.network, trainer.config
+    params = tree_unflatten(trainer.params, start)
+    data = trainer.train_data
+    batch = trainer._put_batch(make_batch(data, data.batch_indices()[0]))
+    heads = {n.index - 1: n.attrs['classes'] for n in net.graph.yolo_nodes}
+    top = []
+
+    def tap(i, t):
+        if i in heads:
+            r = t.detach().float().reshape(*t.shape[:3], -1, 5 + heads[i])
+            top.append(r[..., 4:].max().item())
+    walk = net.forward_train
+    loss_fn = make_loss_fn(net, compute_dtype=COMPUTE_DTYPES[cfg.system.compute_dtype],
+                           label_fn=label_assigner_from_config(cfg, device=trainer.device))
+    net.forward_train = lambda *a, **k: walk(*a, **{**k, 'tap': tap})
+    try:
+        (loss, _), grads = value_and_grad(loss_fn, params, trainer.state, batch)
+    finally:
+        net.forward_train = walk
+    n_bad = sum(not bool(torch.isfinite(g).all()) for g in tree_leaves(grads))
+    one = torch.sigmoid(torch.tensor(max(top))).item() == 1.0
+    gate(bool(torch.isfinite(loss)) and max(top) >= 17.0 and one and n_bad > 0,
+         f'{label}: the NaN at step 2 is the reference\'s saturated BCE: on the initial params '
+         f'and the first batch the loss is {float(loss):.2f}, the largest conf/class logit per '
+         f'head {[round(x, 2) for x in top]} (>= 17: f32 sigmoid 1.0), {n_bad} grad leaves '
+         'non-finite')
+    return params
+
+
+def run_train_cli_or_bce_nan(argv, rec):
+    """``run_train_cli``, or the trainer's non-finite-loss error if the run
+    raised it (any other error propagates): (wall seconds, None) or (None,
+    the error's message)."""
+    try:
+        return run_train_cli(argv, rec), None
+    except RuntimeError as e:
+        if not str(e).startswith('NaN in loss near step'):
+            raise
+        return None, str(e)
+
+
+def phase18_coco(dev, tag, tmp, gate, host_ips):
+    """(d): COCO as shipped: a seeded darknet-txt corpus (write_coco, 80
+    classes), one epoch of ``cli.train`` on yamls/coco.yaml
+    (regnetx-600m-fpn, batch 32, the eval at COCO_SIZE, batch 32), and one
+    with ``augment.device on`` from the device corpus (absolute boxes).
+    From the zoo's random init some of the 255 head channels' logits reach
+    17 on this corpus, where the reference's BCE (kept, ROADMAP §3) gives
+    NaN gradients: a run either trains (phase 13's trainer gates) or
+    raises the trainer's NaN at step 2, which ``bce_saturation`` traces to
+    that cause; then the eval of the initial params runs the eval path."""
+    import torch
+    root = os.path.join(tmp, 'coco')
+    t0 = time.perf_counter()
+    lists = write_coco(root, COCO_TRAIN, COCO_VAL)
+    print(f'phase 18 (d): wrote {COCO_TRAIN + COCO_VAL} COCO-layout images in '
+          f'{time.perf_counter() - t0:.2f} s')
+    ypath = yaml_copy(tmp, 'coco.yaml')
+    base = ['--yaml', ypath, 'dataset.train_txt_file', lists['train'],
+            'dataset.eval_txt_file', lists['val'], 'train.max_epochs', '1', 'eval.after', '0',
+            'train.input_sizes', f'[{COCO_SIZE}]', 'eval.input_size', str(COCO_SIZE)]
+    out = {}
+    for name, extra in (('host', []), ('device corpus', ['augment.device', 'on',
+                                                         'dataset.device_cache', 'on'])):
+        rec = {}
+        t0 = time.perf_counter()
+        wall, nan = run_train_cli_or_bce_nan(
+            base + ['weight.dir', os.path.join(tmp, f'weights_coco_{len(out)}'), *extra], rec)
+        trainer = rec['trainer']
+        c = trainer.config
+        gate((c.train.batch_size, c.eval.batch_size, len(c.dataset.classes))
+             == (32, 32, 80), f'(d) coco.yaml as shipped ({name}): batch '
+             f'{c.train.batch_size}, eval batch {c.eval.batch_size}, {len(c.dataset.classes)} '
+             'classes')
+        if nan is None:
+            trainer_gates(rec, f'(d) COCO trainer, {name}', tag, gate, host_ips, [0],
+                          phase='phase 18')
+            ep, ev = rec['epochs'][0], rec['evals'][0]
+            print(f'phase 18 (d): {tag} cli.train coco.yaml ({name}) {wall:.2f} s: epoch '
+                  f'{ep["s"]:.3f} s, {ep["steps"]} steps, eval {ev["s"]:.3f} s, AP '
+                  f'{ev["AP"]:.6f}')
+            out[name] = {'trained': True, 'wall': wall, 'epoch_s': ep['s'], 'eval_s': ev['s']}
+        else:
+            losses = [float(x) for x in rec['loss'].get(0, [])]
+            print(f'phase 18 (d): {tag} cli.train coco.yaml ({name}) raised after '
+                  f'{time.perf_counter() - t0:.2f} s: {nan}; step losses {losses}')
+            gate(nan.startswith('NaN in loss near step 2') and len(losses) == 2
+                 and math.isfinite(losses[0]),
+                 f'(d) {name}: step 1 finite ({losses[:1]}), the NaN at step 2')
+            trainer.params = bce_saturation(trainer, rec['start'], gate, f'(d) {name}')
+            reset_kernel_launches()
+            t1 = time.perf_counter()
+            ap = trainer.evaluate()
+            torch.cuda.synchronize()
+            eval_s = time.perf_counter() - t1
+            got = kernel_launches()
+            n_b = len(trainer.eval_data)
+            gate(got == {**dict.fromkeys(got, 0), 'decode_heads': n_b} and 0 <= ap.AP <= 1,
+                 f'(d) {name}: the eval of the initial params at {COCO_SIZE}, {n_b} batches of '
+                 f'{c.eval.batch_size}: launches {got}, AP {ap.AP:.6f}, {eval_s:.3f} s')
+            out[name] = {'trained': False, 'eval_s': eval_s}
+        if name == 'device corpus':
+            cache = trainer._device_cache
+            gt = cache['gt']
+            real = gt[..., 2] > gt[..., 0]
+            gate(bool(real.any()) and gt[real][:, :4].max().item() > 2.0
+                 and gt[real][:, 2:4].max().item() <= COCO_SIZE,
+                 f'(d) the device corpus holds absolute boxes: {int(real.sum())} boxes, largest '
+                 f'coordinate {gt[real][:, :4].max().item():.1f} px at {cache["smax"]}')
+        trainer.close()
+    return out
+
+
+def phase18_loaders(dev, tag, tmp, corpus, gate):
+    """(e): phase 11's corpus with a copy of yamls/shapes.yaml, one epoch
+    each of ``label_assign host`` (thread loader), ``loader process``
+    (device labels) and ``loader process`` with ``label_assign host`` and
+    ``device_prefetch 2``. Gates: the host grids equal the device
+    assigner's on the card for one batch; the process loader's first
+    batches equal the thread loader's bit for bit; the prefetched epoch's
+    batches, as its steps read them, equal the synchronous host-label
+    epoch's; no worker process and no /dev/shm slab after close."""
+    import numpy as np
+    import torch
+    from pqdet_tpu_torch.config import load_config
+    from pqdet_tpu_torch.data.train_data import (ProcessLoader, TrainData, epoch_batches,
+                                                 make_batch)
+    from pqdet_tpu_torch.ops.labels import label_assigner_from_config
+    root = corpus['root']
+    ypath = yaml_copy(tmp, 'shapes.yaml')
+    base = ['dataset.train_txt_file', os.path.join(root, 'train.txt'),
+            'dataset.eval_txt_file', os.path.join(root, 'test.txt'), 'train.max_epochs', '1',
+            'eval.after', '5', 'train.input_sizes', f'[{SIZE}]']
+    host = ['system.label_assign', 'host', 'augment.device', 'off']
+
+    # the host assigner against the device's, on one batch of the same samples
+    cfg_h = load_config(ypath, base + host)
+    cfg_d = load_config(ypath, base + ['augment.device', 'off'])
+    dh, dd = TrainData(cfg_h), TrainData(cfg_d)
+    idx = dh.batch_indices()[0]
+    bh, bd = make_batch(dh, idx), make_batch(dd, idx)
+    gate(np.array_equal(bh['image'], bd['image']), '(e) host- and device-label samples: the same '
+         'images')
+    size = bh['image'].shape[1:3]
+    grids = label_assigner_from_config(cfg_d, device=dev)(
+        torch.from_numpy(bd['gt']).to(dev), size)
+    same = [torch.equal(torch.from_numpy(a).to(dev), b) for a, b in zip(bh['targets'], grids)]
+    gate(all(same), f'(e) the host grids and boxes against the device assigner\'s on the card, '
+         f'B={len(idx)} {size[0]}x{size[1]}: {sum(same)} of 6 equal bit for bit')
+
+    # the process loader's first batches against the thread loader's
+    for name, cfg in (('device labels', cfg_d), ('host labels', cfg_h)):
+        data = TrainData(cfg)
+        n = min(LOADER_BATCHES, data.batches_per_epoch)
+        t0 = time.perf_counter()
+        loader = ProcessLoader(data, int(corpus['workers']), prefetch=2)
+        try:
+            it = loader.epoch()
+            got = [next(it) for _ in range(n)]
+            spawn_s = time.perf_counter() - t0
+            it.close()
+        finally:
+            loader.close()
+        want = [make_batch(data, i) for i in data.batch_indices()[:n]]
+        eq = all(np.array_equal(x, y) for g, w in zip(got, want) for k in g
+                 for x, y in zip(*((g[k], w[k]) if isinstance(g[k], tuple)
+                                   else ((g[k],), (w[k],)))))
+        gate(eq, f'(e) ProcessLoader ({name}, {corpus["workers"]} workers): its first {n} '
+             f'batches equal the thread loader\'s bit for bit ({spawn_s:.2f} s from the pool\'s '
+             'start to the last of them)')
+
+    runs = (('host labels, thread loader', host),
+            ('process loader, device labels', ['system.loader', 'process']),
+            ('process loader, host labels, device_prefetch 2',
+             host + ['system.loader', 'process', 'system.device_prefetch', '2']))
+    recs, out = {}, {}
+    for name, extra in runs:
+        rec = {'sums': []}
+        wall = run_train_cli(['--yaml', ypath, *base, *extra, 'weight.dir',
+                              os.path.join(tmp, f'weights_loader_{len(recs)}')], rec)
+        recs[name] = rec
+        ep = rec['epochs'][0]
+        b = rec['trainer'].config.train.batch_size
+        out[name] = ep['steps'] * b / ep['s']
+        print(f'phase 18 (e): {tag} {name}: cli.train {wall:.2f} s, epoch {ep["s"]:.3f} s, '
+              f'data load {ep["data_load_s"]:.3f} s, {out[name]:.2f} images/s; losses '
+              f'{[round(x, 3) for x in rec["loss"][0]]}')
+        losses = rec['loss'][0]
+        gate(all(math.isfinite(x) for x in losses) and not any(ep['launches'].values()),
+             f'(e) {name}: {len(losses)} finite losses, 0 kernel launches in the steps')
+        trainer = rec['trainer']
+        pool = rec['pool']
+        trainer.close()
+        if pool is not None:
+            pids, slabs = pool
+            alive = [pid for pid in pids if os.path.exists(f'/proc/{pid}')
+                     and open(f'/proc/{pid}/stat').read().split()[2] != 'Z']
+            left = [n for n in slabs if os.path.exists(os.path.join('/dev/shm', n))]
+            gate(not alive and not left, f'(e) {name}: after close, worker processes alive '
+                 f'{alive} of {len(pids)}, slabs left in /dev/shm {left} of {len(slabs)}')
+    a, b = (recs[runs[0][0]]['sums'], recs[runs[2][0]]['sums'])
+    eq = len(a) == len(b) > 0 and all(torch.equal(x, y) for x, y in zip(a, b))
+    gate(eq, f'(e) the prefetched epoch\'s {len(b)} batches, as its steps read them on the card '
+         f'(the sum of each tensor), equal the synchronous thread-loader epoch\'s ({len(a)})')
+    print(f'phase 18 (e): {tag} images/s of one epoch at B={corpus["batch"]}, {SIZE}x{SIZE}: '
+          + ', '.join(f'{k} {v:.2f}' for k, v in out.items())
+          + f'; phase 11\'s thread loader, host augment, epochs 1-2: '
+          f'{statistics.mean(e["steps"] * corpus["batch"] / e["s"] for i, e in corpus["host_epochs"].items() if i > 0):.2f}')
+    return out
+
+
+def phase18_playground(tmp, corpus, gate):
+    """(f): ``cli.playground`` writes a grid of 8 views for a VOC (phase
+    11's corpus), a COCO and a VisDrone image into OUTPUT_DIR."""
+    from pqdet_tpu_torch.cli import playground
+    here = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(here, OUTPUT_DIR)
+    os.makedirs(out_dir, exist_ok=True)
+
+    def first(txt):
+        with open(txt) as fr:
+            return next(line.strip() for line in fr if line.strip())
+    vd = os.path.join(tmp, 'visdrone')
+    cases = {
+        'voc': (first(os.path.join(corpus['root'], 'train.txt')),
+                ['dataset.classes', '[square, circle, triangle]']),
+        'coco': (first(os.path.join(tmp, 'coco', 'train.txt')),
+                 ['--yaml', yaml_copy(tmp, 'coco.yaml')]),
+        'visdrone': (first(os.path.join(vd, 'trainval.txt')),
+                     ['--yaml', yaml_copy(tmp, 'visdrone.yaml')]),
+    }
+    for name, (img, extra) in cases.items():
+        path = os.path.join(out_dir, f'playground_{name}.jpg')
+        grid = playground.main(['--img', img, '--n', '8', '--seed', str(SEED), '--out', path,
+                                'augment.mixup_p', '0.5', 'augment.color_p', '0.5', *extra])
+        gate(os.path.getsize(path) > 0 and grid.shape == (2 * 420, 4 * 420, 3),
+             f'(f) playground {name}: {path} {grid.shape}')
+
+
+def phase18_s2d_host_data(dev, tag, tmp, corpus, net, params, state, ptx):
+    """Phase 18: the space-to-depth stem, the rest of the host data and the
+    playground on the card ((a)-(f), module docstring). Raises on any
+    failed gate; returns the kernels' errors, the main path's launches and
+    the timings the kernels line and PERF.md read."""
+    t_phase = time.perf_counter()
+    fails = []
+
+    def gate(ok, what):
+        print(f'phase 18: {what}: {"ok" if ok else "FAIL"}')
+        if not ok:
+            fails.append(what)
+
+    host_ips = statistics.mean(e['steps'] * corpus['batch'] / e['s']
+                               for i, e in corpus['host_epochs'].items() if i > 0)
+    secs = {}
+    t0 = time.perf_counter()
+    a = phase18_s2d_serving(dev, tag, gate, net, params, state)
+    secs['a'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b = phase18_s2d_train(dev, tag, gate)
+    secs['b'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c = phase18_visdrone(dev, tag, tmp, gate, ptx, host_ips)
+    secs['c'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    d = phase18_coco(dev, tag, tmp, gate, host_ips)
+    secs['d'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    e = phase18_loaders(dev, tag, tmp, corpus, gate)
+    secs['e'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase18_playground(tmp, corpus, gate)
+    secs['f'] = time.perf_counter() - t0
+    print(f'phase 18: {tag} seconds: '
+          + ', '.join(f'({k}) {v:.1f}' for k, v in secs.items())
+          + f'; phase {time.perf_counter() - t_phase:.1f}')
+    if fails:
+        raise AssertionError(f'phase 18 gates failed: {fails}')
+    launches = {k: a['launches'][k] + c['launches'][k] for k in a['launches']}
+    return {'launches': launches, 'fused_err': a['fused_err'],
+            'decode_err': max(a['decode_err'], c['decode_err']), 'visdrone': c,
+            's2d_train': b, 'coco': d, 'loaders': e}
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -4924,33 +5714,38 @@ def main() -> int:
         p16 = phase16_regnet(dev, tag, tmp, corpus, ptx)
         stamp('phase 17 starts')
         p17 = phase17_nas_evolution(dev, tag, tmp, corpus, os.path.join(tmp, 'clutter'), ptx)
-    stamp('phase 17 ends')
+        stamp('phase 18 starts')
+        p18 = phase18_s2d_host_data(dev, tag, tmp, corpus, net, params, state, ptx)
+    stamp('phase 18 ends')
     arc = p14['launches']
     rn = p16['launches']
     nas = p17['launches']
+    hd = p18['launches']
 
     kernels = [
         {'name': 'decode_heads', 'route': 'triton',
          'source': 'pqdet_tpu_torch/ops/decode_kernel.py',
          'replaces': 'pqdet_tpu/ops/pallas_decode.py:59',
          'launches': launches['decode'] + qlaunches['decode'] + arc.get('decode_heads', 0)
-         + exported['decode_heads'] + rn['decode_heads'] + nas['decode_heads'],
-         'max_abs_err': max(decode_err, p17['decode_err']),
+         + exported['decode_heads'] + rn['decode_heads'] + nas['decode_heads']
+         + hd['decode_heads'],
+         'max_abs_err': max(decode_err, p17['decode_err'], p18['decode_err']),
          'ms': dec['ms'], 'plain_ms': dec['plain_ms'], 'bound_ms': dec['bound_ms'],
          'bound_by': 'bytes', 'library_ms': None},
         {'name': 'fused_ir_conv', 'route': 'cuda',
          'source': 'pqdet_tpu_torch/csrc/fused_ir.cu',
          'replaces': 'pqdet_tpu/ops/pallas_fused.py:135',
          'launches': launches['fused_ir'] + arc.get('fused_ir_conv', 0) + rn['fused_ir_conv']
-         + nas['fused_ir_conv'],
-         'max_abs_err': max(fused_err, p14['fused_err'], p16['fused_err'], p17['fused_err']),
+         + nas['fused_ir_conv'] + hd['fused_ir_conv'],
+         'max_abs_err': max(fused_err, p14['fused_err'], p16['fused_err'], p17['fused_err'],
+                            p18['fused_err']),
          'ms': fir['ms'], 'plain_ms': fir['plain_ms'], 'bound_ms': fir['bound_ms'],
          'bound_by': fir['bound_by'], 'library_ms': fir['library_ms']},
         {'name': 'qconv1x1_s8', 'route': 'cuda',
          'source': 'pqdet_tpu_torch/csrc/qconv.cu',
          'replaces': 'pqdet_tpu/ops/pallas_qconv.py:121',
          'launches': qlaunches['qconv1x1_s8'] + arc.get('qconv1x1_s8', 0)
-         + exported['qconv1x1_s8'] + rn['qconv1x1_s8'],
+         + exported['qconv1x1_s8'] + rn['qconv1x1_s8'] + hd['qconv1x1_s8'],
          'max_abs_err': max(int8_err['qconv1x1_s8'], p14['int8_err']['qconv1x1_s8'],
                             p16['int8_err']['qconv1x1_s8']),
          **qt['qconv1x1_s8']},
@@ -4958,7 +5753,7 @@ def main() -> int:
          'source': 'pqdet_tpu_torch/csrc/qconv.cu',
          'replaces': 'pqdet_tpu/ops/pallas_qconv.py:261',
          'launches': qlaunches['qdwconv3x3_s8'] + arc.get('qdwconv3x3_s8', 0)
-         + exported['qdwconv3x3_s8'] + rn['qdwconv3x3_s8'],
+         + exported['qdwconv3x3_s8'] + rn['qdwconv3x3_s8'] + hd['qdwconv3x3_s8'],
          'max_abs_err': max(int8_err['qdwconv3x3_s8'], p14['int8_err']['qdwconv3x3_s8'],
                             p16['int8_err']['qdwconv3x3_s8']),
          **qt['qdwconv3x3_s8']},

@@ -12,14 +12,15 @@ version, because the tensor it was given lies on the CPU.
 
 from __future__ import annotations
 
-import torch
-
 __version__ = "0.1.0"
 
 
-def resolve_device(device="cuda") -> torch.device:
+def resolve_device(device="cuda"):
     """``device`` as a ``torch.device``; raises when CUDA is asked for and
-    this machine has none (there is no silent CPU fallback)."""
+    this machine has none (there is no silent CPU fallback). torch is
+    imported here, not with the package: the host loader's worker
+    processes import the data modules without it."""
+    import torch
     dev = torch.device(device)
     if dev.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError(

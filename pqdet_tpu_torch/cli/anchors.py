@@ -46,7 +46,8 @@ def kmeans_anchors(whs: np.ndarray, k: int = 9, iters: int = 100,
 
 def collect_whs(txt_file: str, dataset: str, classes) -> np.ndarray:
     """(N, 2) widths and heights of every GT box of the images listed in
-    ``txt_file`` (the COCO and VisDrone getters are queued: they raise)."""
+    ``txt_file``, in pixels (COCO's normalized boxes scaled by the image's
+    size)."""
     from pqdet_tpu_torch.data.samples import sample_getter
     getter = sample_getter(dataset, mode='train', classes=classes)
     whs = []
@@ -54,6 +55,8 @@ def collect_whs(txt_file: str, dataset: str, classes) -> np.ndarray:
         paths = [l.strip() for l in fr if l.strip()]
     for p in paths:
         bboxes = getter.label(p)
+        if dataset.lower() == 'coco' and len(bboxes):
+            bboxes = getter.to_absolute(bboxes, getter.shape(getter.image(p)))
         if len(bboxes):
             whs.append(bboxes[:, 2:4] - bboxes[:, 0:2])
     return np.concatenate(whs, axis=0)

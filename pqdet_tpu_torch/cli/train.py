@@ -11,7 +11,6 @@ Trailing ``key value`` pairs override the yaml (dotted keys, e.g.
 import argparse
 
 from pqdet_tpu_torch.config import load_config
-from pqdet_tpu_torch.train.trainer import Trainer
 from pqdet_tpu_torch.utils.debug import register_stack_dump
 
 
@@ -23,7 +22,10 @@ def main(argv=None):
     args, rest = parser.parse_known_args(argv)
     cfg = load_config(args.yaml, rest)
     print(cfg)
-    Trainer(cfg, device=args.device).run()
+    # imported here: with system.loader process the spawned workers import
+    # this module as their main one, and need neither torch nor the trainer
+    from pqdet_tpu_torch.train import trainer
+    trainer.Trainer(cfg, device=args.device).run()
 
 
 if __name__ == '__main__':

@@ -42,10 +42,17 @@ class SystemConfig:
     # bf16 conv compute (f32 accumulation, BN statistics and loss);
     # 'float32' for f32 throughout
     compute_dtype: str = 'bfloat16'
-    num_workers: int = 4           # host loader threads (decode and augment)
+    num_workers: int = 4           # host loader workers (decode and augment)
+    # 'thread' (cv2 and numpy release the GIL) or 'process' (spawned workers
+    # writing batches into shared-memory slabs; scales past the GIL)
+    loader: str = 'thread'
     prefetch: int = 2              # batches assembled ahead of the consumer
+    # uploaded batches kept ahead of the step by a background thread that
+    # copies the next N to the device (0 = upload in the step loop)
+    device_prefetch: int = 0
     # 'device': batches carry padded GT boxes, the label grids are built in
-    # the step (ops/labels.py); 'host' assignment is not ported
+    # the step (ops/labels.py); 'host': the loader builds the grids
+    # (data/train_data.py::assign_labels) and batches carry 'targets'
     label_assign: str = 'device'
     # seed of the epoch plan (sample indices, input sizes) and of each
     # sample's augment generator
@@ -95,6 +102,9 @@ class TrainConfig:
     # activation recomputation for the backward pass: N >= 1 runs the walk
     # as N checkpointed segments; 0 = off
     remat: int = 0
+    # space-to-depth stem ingest in the step (see eval.s2d_stem); the fold
+    # is differentiable, so the grads reach the stem's own kernel
+    s2d_stem: int = 0
 
 
 @dataclasses.dataclass
@@ -170,6 +180,10 @@ class EvalConfig:
     # serve the inverted-residual chains through the fused CUDA kernel
     # (ops/fused_ir.py) instead of the layer walk
     fused_ir: bool = False
+    # space-to-depth stem ingest factor of the default forward (0 = off; 2
+    # folds the stride-2 stem onto an (H/2, W/2, 12) input, function-
+    # preserving: ops/space_to_depth.py)
+    s2d_stem: int = 0
 
 
 @dataclasses.dataclass
@@ -189,13 +203,9 @@ class Config:
 
 # keys of the JAX schema whose slice of the port is still queued
 LATER_KEYS = {
-    'system.loader': 'queue 1, item 3 (the process loader)',
-    'system.device_prefetch': 'queue 1, item 3 (the upload thread)',
     'system.data_devices': 'queue 1, item 7 (data parallelism)',
     'train.spatial': 'queue 1, item 7 (data parallelism)',
     'train.unroll_steps': 'queue 1, item 2 (one dispatch per step)',
-    'train.s2d_stem': 'queue 1, item 8 (the space-to-depth stem)',
-    'eval.s2d_stem': 'queue 1, item 8 (the space-to-depth stem)',
 }
 
 

@@ -16,7 +16,21 @@ from typing import Callable, Sequence, Tuple, Union
 import cv2
 import numpy as np
 
-from pqdet_tpu_torch.ops.preprocess import NORM_BIAS, NORM_SCALE
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def fold_norm_affine(mean, std):
+    """(x/255 - mean)/std == x*scale + bias, with the constants computed in
+    numpy f32 exactly as the JAX package computes them: the one definition
+    ``Normalize`` here and ``ops/preprocess.py::device_normalize`` share."""
+    mean = np.asarray(mean, np.float32)
+    std = np.asarray(std, np.float32)
+    return ((1.0 / (255.0 * std)).astype(np.float32),
+            (-mean / std).astype(np.float32))
+
+
+NORM_SCALE, NORM_BIAS = fold_norm_affine(IMAGENET_MEAN, IMAGENET_STD)
 
 SizeT = Union[Tuple[int, int], Callable[[], Tuple[int, int]]]
 
@@ -48,6 +62,32 @@ class Compose:
         for t in self.transforms:
             img, bboxes = t(img, bboxes, rng)
         return img, bboxes
+
+
+class RandomCrop:
+    """Fixed-size random crop, boxes clipped to it and the degenerate ones
+    dropped."""
+
+    def __init__(self, size: Tuple[int, int], p=0.5, iou_threshold=0.3,
+                 area_threshold=56, ratio_threshold=10):
+        self.size = size
+        self.p = p
+        self.filter_args = (iou_threshold, area_threshold, ratio_threshold)
+
+    def __call__(self, img, bboxes, rng):
+        if rng.random() > self.p:
+            return img, bboxes
+        h, w = img.shape[:2]
+        ch, cw = self.size
+        x0 = rng.randint(0, max(w - cw, 0) + 1)
+        y0 = rng.randint(0, max(h - ch, 0) + 1)
+        img = img[y0:min(y0 + ch, h), x0:min(x0 + cw, w), :]
+        if len(bboxes) == 0:
+            return img, bboxes
+        new = bboxes.copy()
+        new[:, [0, 2]] = np.clip(new[:, [0, 2]] - x0, 0, cw)
+        new[:, [1, 3]] = np.clip(new[:, [1, 3]] - y0, 0, ch)
+        return img, filter_degenerate_boxes(bboxes, new, *self.filter_args)
 
 
 class RandomSafeCrop:
@@ -150,6 +190,15 @@ class Normalize:
         return img, bboxes
 
 
+class DeNormalize:
+    """The inverse of ``Normalize``: float32 in, uint8 out (clipped)."""
+
+    def __call__(self, img, bboxes, rng=None):
+        std = np.asarray(IMAGENET_STD, np.float32)
+        img = np.clip((img * std + np.asarray(IMAGENET_MEAN, np.float32)) * 255.0, 0, 255)
+        return img.astype(np.uint8), bboxes
+
+
 class Resize:
     """Letterbox: aspect-preserving resize + center pad to target size."""
 
@@ -174,6 +223,43 @@ class Resize:
         if len(bboxes) != 0:
             bboxes[:, [0, 2]] = bboxes[:, [0, 2]] * ratio + dl
             bboxes[:, [1, 3]] = bboxes[:, [1, 3]] * ratio + du
+        return img, bboxes
+
+
+class ResizeRatio:
+    """Resize by a fixed ratio (one float, or (h, w) ratios), boxes scaled."""
+
+    def __init__(self, ratio: Union[float, Tuple[float, float]]):
+        self.ratio = (ratio, ratio) if np.isscalar(ratio) else tuple(ratio)
+
+    def __call__(self, img, bboxes, rng=None):
+        th = round(self.ratio[0] * img.shape[0])
+        tw = round(self.ratio[1] * img.shape[1])
+        img = cv2.resize(img, (tw, th), interpolation=cv2.INTER_LINEAR)
+        if len(bboxes) != 0:
+            bboxes[:, [0, 2]] *= self.ratio[1]
+            bboxes[:, [1, 3]] *= self.ratio[0]
+        return img, bboxes
+
+
+class PadNearestDivisor:
+    """Center-pad H and W up to the next multiple of ``divisor``."""
+
+    def __init__(self, pad_val=128, divisor=32):
+        self.pad_val = pad_val
+        self.divisor = divisor
+
+    def __call__(self, img, bboxes, rng=None):
+        ih, iw = img.shape[:2]
+        th = -(-ih // self.divisor) * self.divisor
+        tw = -(-iw // self.divisor) * self.divisor
+        dl = (tw - iw) // 2
+        du = (th - ih) // 2
+        img = np.pad(img, ((du, th - ih - du), (dl, tw - iw - dl), (0, 0)),
+                     'constant', constant_values=self.pad_val)
+        if len(bboxes) != 0:
+            bboxes[:, [0, 2]] += dl
+            bboxes[:, [1, 3]] += du
         return img, bboxes
 
 

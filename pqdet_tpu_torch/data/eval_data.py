@@ -1,7 +1,8 @@
-"""Evaluation data: batches of letterboxed images and their GT (the port of
+"""Evaluation data: batches of preprocessed images and their GT (the port of
 ``pqdet_tpu/data/eval_data.py``). The last, ragged batch is zero-padded
 to the full batch size so that the forward sees one shape; ``count``
-marks the real rows."""
+marks the real rows. A dataset whose eval chain keeps each image's size
+(VisDrone's) evaluates at batch 1, and its batches differ in shape."""
 
 from __future__ import annotations
 
@@ -20,10 +21,10 @@ class EvalData:
 
     def __init__(self, config):
         self._batch_size = config.eval.batch_size
+        self._input_size = size_fix(config.eval.input_size)
         self.sample_getter = sample_getter(
             config.dataset.name, mode='eval', classes=list(config.dataset.classes),
-        ).set_eval_augment(size_fix(config.eval.input_size),
-                           normalize=config.eval.host_normalize)
+        ).set_eval_augment(self._input_size, normalize=config.eval.host_normalize)
 
         with open(config.dataset.eval_txt_file, 'r') as fr:
             imgs = [line.strip() for line in fr if line.strip()]
@@ -34,6 +35,11 @@ class EvalData:
     @property
     def length(self):
         return self._num_imgs
+
+    @property
+    def input_size(self):
+        """``eval.input_size`` as (h, w)."""
+        return self._input_size
 
     def __len__(self):
         return ceil(self._num_imgs / self._batch_size)

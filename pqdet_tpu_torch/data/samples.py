@@ -1,12 +1,19 @@
-"""The VOC sample getter (the port of the VOC part of
-``pqdet_tpu/data/samples.py``): per-image XML labels under
-``Annotations/`` beside ``JPEGImages/``, the difficult flag honoured, and
-the train and eval augment chains. The COCO and VisDrone getters are
-queued (ROADMAP.md queue 1, item 3).
+"""The per-dataset sample getters (the port of ``pqdet_tpu/data/samples.py``):
+each parses a dataset's labels and wires its train and eval augment chains.
 
-The annotation of ``.../JPEGImages/<stem>.<ext>`` is
-``.../Annotations/<stem>.xml`` for any image extension; the JAX getter
-replaces only ``.jpg``.
+- VOC: per-image XML under ``Annotations/`` beside ``JPEGImages/``, the
+  difficult flag honoured. The annotation of ``.../JPEGImages/<stem>.<ext>``
+  is ``.../Annotations/<stem>.xml`` for any image extension; the JAX getter
+  replaces only ``.jpg``, as it does for the other two.
+- COCO: darknet txt under ``labels/`` beside ``images/``, one normalized
+  ``class cx cy w h`` line per box, made absolute by the image's size in
+  ``base_train`` and ``eval``.
+- VisDrone: comma lines ``x,y,w,h,score,category,truncation,occlusion``
+  under ``annotations/`` beside ``images/``; categories 0 (ignored
+  regions) and 11 (others) are dropped, score 0 marks a box difficult and
+  train mode drops it. Its train chain is its own (a 416 random crop, the
+  flips, colour jitter, letterbox) and its eval chain keeps each image's
+  size: resize by 1.25, pad to a multiple of 32.
 """
 
 from __future__ import annotations
@@ -18,7 +25,6 @@ from xml.etree.ElementTree import parse as xml_parse
 import cv2
 import numpy as np
 
-from pqdet_tpu_torch.config import later
 from pqdet_tpu_torch.data import augment
 
 
@@ -94,6 +100,19 @@ class BaseSampleGetter:
         bboxes, diffs = self.label(img_path)
         return image, os.path.basename(img_path), shape, bboxes, diffs
 
+    def train_chain(self, augment_cfg, input_size):
+        """The per-sample train chain: the standard one (VOC's and COCO's)."""
+        return _standard_train_chain(augment_cfg, input_size)
+
+    def set_train_augment(self, augment_cfg, input_size, img_path_sampler):
+        """The train chain, then the compose stage; ``img_path_sampler(rng)``
+        draws a mixup or mosaic partner's path."""
+        self.train_augment = self.train_chain(augment_cfg, input_size)
+        sampler = lambda rng: self.base_train(img_path_sampler(rng), rng)  # noqa: E731
+        self.compose_augment = augment.Compose(
+            _compose_chain(augment_cfg, sampler, input_size))
+        return self
+
 
 def _standard_train_chain(augment_cfg, input_size):
     """The host chain; images stay uint8 (normalized on the device). With
@@ -122,9 +141,13 @@ def _compose_chain(augment_cfg, sampler, input_size):
     return chain
 
 
+def _label_path(img_path: str, images: str, labels: str, ext: str) -> str:
+    return os.path.splitext(img_path.replace(images, labels))[0] + ext
+
+
 def annotation_path(img_path: str) -> str:
     """``.../JPEGImages/<stem>.<ext>`` -> ``.../Annotations/<stem>.xml``."""
-    return os.path.splitext(img_path.replace('JPEGImages', 'Annotations'))[0] + '.xml'
+    return _label_path(img_path, 'JPEGImages', 'Annotations', '.xml')
 
 
 class VOCSampleGetter(BaseSampleGetter):
@@ -146,14 +169,6 @@ class VOCSampleGetter(BaseSampleGetter):
             return bbs
         return bbs, np.array(diffs)
 
-    def set_train_augment(self, augment_cfg, input_size, img_path_sampler):
-        """``img_path_sampler(rng)`` draws a mixup or mosaic partner's path."""
-        self.train_augment = _standard_train_chain(augment_cfg, input_size)
-        sampler = lambda rng: self.base_train(img_path_sampler(rng), rng)  # noqa: E731
-        self.compose_augment = augment.Compose(
-            _compose_chain(augment_cfg, sampler, input_size))
-        return self
-
     def set_eval_augment(self, input_size, normalize=False):
         self.eval_augment = eval_augment_voc(input_size, normalize)
         return self
@@ -168,14 +183,107 @@ def eval_augment_voc(input_size, normalize=False):
     return augment.Compose(chain)
 
 
-SAMPLE_GETTER_REGISTER = {'voc': VOCSampleGetter}
-EVAL_AUGMENT_REGISTER = {'voc': eval_augment_voc}
+class COCOSampleGetter(BaseSampleGetter):
+
+    def label(self, img_path: str):
+        bbs = []
+        with open(_label_path(img_path, 'images', 'labels', '.txt'), 'r') as fr:
+            for line in fr:
+                parts = line.split()
+                if not parts:
+                    continue
+                cls_idx = int(parts[0])
+                cx, cy, w, h = map(float, parts[1:5])
+                bbs.append([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2, cls_idx])
+        bbs = np.array(bbs, np.float32).reshape(-1, 5)
+        if self.is_train:
+            return bbs
+        return bbs, np.zeros(len(bbs))
+
+    @staticmethod
+    def to_absolute(bboxes, shape):
+        """Normalized boxes -> pixels of an image of ``shape`` (h, w)."""
+        bboxes[:, :4] *= np.tile(shape[[1, 0]], 2)
+        return bboxes
+
+    def base_train(self, img_path: str, rng):
+        image = self.image(img_path)
+        bboxes = self.to_absolute(self._cached_label(img_path), self.shape(image))
+        return self.train_augment(image, bboxes, rng)
+
+    def set_eval_augment(self, input_size, normalize=False):
+        self.eval_augment = eval_augment_coco(input_size, normalize)
+        return self
+
+    def eval(self, img_path: str):
+        image = self.image(img_path)
+        shape = self.shape(image)
+        bboxes, diffs = self.label(img_path)
+        bboxes = self.to_absolute(bboxes, shape)
+        image, _ = self.eval_augment(image, [], None)
+        return image, os.path.basename(img_path), shape, bboxes, diffs
+
+
+eval_augment_coco = eval_augment_voc
+
+
+class VisDroneSampleGetter(BaseSampleGetter):
+
+    def label(self, img_path: str):
+        bbs, diffs = [], []
+        with open(_label_path(img_path, 'images', 'annotations', '.txt'), 'r') as fr:
+            for line in fr:
+                ann = line.split(',')
+                if len(ann) < 6 or int(ann[5]) in (0, 11):
+                    continue        # ignored regions, others
+                diff = 0 if int(ann[4]) == 1 else 1
+                if self.is_train and diff == 1:
+                    continue
+                x, y, w, h = (int(ann[i]) for i in range(4))
+                bbs.append([float(x), float(y), float(x + w), float(y + h), int(ann[5]) - 1])
+                diffs.append(diff)
+        bbs = np.array(bbs, np.float32).reshape(-1, 5)
+        if self.is_train:
+            return bbs
+        return bbs, np.array(diffs)
+
+    def train_chain(self, augment_cfg, input_size):
+        """VisDrone's own chain, with or without ``augment.device`` (as in
+        the JAX package)."""
+        return augment.Compose([
+            augment.RandomCrop((416, 416), p=1.0),
+            augment.RandomHFlip(p=augment_cfg.hflip_p),
+            augment.RandomVFlip(p=augment_cfg.vflip_p),
+            augment.ColorJitter(p=augment_cfg.color_p),
+            augment.Resize(input_size),
+        ])
+
+    def set_eval_augment(self, input_size, normalize=False):
+        self.eval_augment = eval_augment_visdrone(input_size, normalize)
+        return self
+
+
+def eval_augment_visdrone(_input_size, normalize=False):
+    """Per-image sizes: resize by 1.25, pad to a multiple of 32 (the input
+    size is not read)."""
+    chain = [augment.ResizeRatio(1.25), augment.PadNearestDivisor()]
+    if normalize:
+        chain.append(augment.Normalize())
+    return augment.Compose(chain)
+
+
+SAMPLE_GETTER_REGISTER = {
+    'voc': VOCSampleGetter,
+    'coco': COCOSampleGetter,
+    'visdrone': VisDroneSampleGetter,
+}
+EVAL_AUGMENT_REGISTER = {
+    'voc': eval_augment_voc,
+    'coco': eval_augment_coco,
+    'visdrone': eval_augment_visdrone,
+}
 
 
 def sample_getter(name: str, **kwargs) -> BaseSampleGetter:
-    """The getter of dataset ``name``; the COCO and VisDrone getters are
-    queued."""
-    name = name.lower()
-    if name in ('coco', 'visdrone'):
-        raise later(f'the {name} sample getter', 'queue 1, item 3 (host loaders)')
-    return SAMPLE_GETTER_REGISTER[name](**kwargs)
+    """The getter of dataset ``name`` (voc, coco or visdrone, any case)."""
+    return SAMPLE_GETTER_REGISTER[name.lower()](**kwargs)

@@ -34,9 +34,11 @@ def build_predict_pipeline(network, cfg, compute_dtype=None,
 
     ``images``: (B, H, W, 3) uint8 (normalized on the device) or already
     normalized float; ``shapes``: (B, 2) original (h, w). ``apply_fn(params,
-    images) -> (B, N, 5+C)`` overrides the forward; the default is the
-    network's walk, through the fused-IR kernel when ``fused_ir`` (the
-    table of ``ops.fused_ir.prepare_fused_ir``) is given. Runs under
+    images) -> (B, N, 5+C)`` overrides the forward (and ignores
+    ``eval.s2d_stem``, as the JAX pipeline's does); the default is the
+    network's walk with the stem folded by ``eval.s2d_stem``, through the
+    fused-IR kernel when ``fused_ir`` (the table of
+    ``ops.fused_ir.prepare_fused_ir``) is given. Runs under
     ``torch.inference_mode()``.
     """
     dev = resolve_device(device)
@@ -46,9 +48,11 @@ def build_predict_pipeline(network, cfg, compute_dtype=None,
     ev = cfg.eval
 
     if apply_fn is None:
+        s2d = int(cfg.eval.s2d_stem)
+
         def apply_fn(params, images):
             return network(params, {}, images, compute_dtype=compute_dtype,
-                           fused_ir=fused_ir)
+                           fused_ir=fused_ir, s2d_stem=s2d)
 
     @torch.inference_mode()
     def run(params, images, shapes) -> NMSResult:

@@ -43,6 +43,10 @@ segments over ``np.linspace`` bounds: only the activations that cross a
 boundary are kept for the backward pass, the rest is recomputed. A segment
 returns its BN state updates, so the recompute never applies them twice,
 and replays its dropout draws from the state ``rng`` had when it began.
+``s2d_stem`` r runs the stem folded onto space-to-depth(|r|) input
+(``ops/space_to_depth.py``; r < 0: the caller ships that layout), in
+either walk; it raises ``ValueError`` with a ``quant_ctx`` or for a stem
+that does not fold.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -62,23 +67,14 @@ from pqdet_tpu_torch.model.loss import loss_per_scale, sum_scale_losses
 from pqdet_tpu_torch.ops.decode_kernel import (decode_heads, decode_heads_reference,
                                                head_views)
 from pqdet_tpu_torch.ops.fused_ir import fused_ir_conv, fused_ir_reference
+from pqdet_tpu_torch.ops.space_to_depth import (fold_stem_weight_t, space_to_depth,
+                                                stem_foldable)
 
 # stride -> (grid-label index, raw-box index) in the 6-tuple of targets
 TARGET_MAP = {8: (0, 3), 16: (1, 4), 32: (2, 5)}
 # optional evolved loss hyperparameters, read from the yolo attrs
 LOSS_ATTRS = ('bbox_loss_gain', 'conf_loss_gain', 'cls_loss_gain', 'conf_loss_alpha',
               'cls_loss_alpha', 'conf_loss_beta', 'cls_loss_beta')
-
-# what the JAX walk does that belongs to later slices of the port
-LATER_SLICES = {
-    's2d_stem': 'the space-to-depth slice',
-}
-
-
-def _later(what: str):
-    return NotImplementedError(f'{what}: {LATER_SLICES[what]} comes in a later slice '
-                               'of the port')
-
 
 def _generator_at(rng: Optional[torch.Generator], gen_state):
     """A new generator on ``rng``'s device set to ``gen_state`` (None for
@@ -170,13 +166,17 @@ class Network(nn.Module):
             raise ValueError('s2d_stem does not combine with quant_ctx: the stem observer '
                              'would see folded weights')
         if s2d_stem:
-            raise _later('s2d_stem')
+            stem = self.graph.nodes[0]
+            if not stem_foldable(stem) or stem.attrs['stride'] != abs(s2d_stem):
+                raise ValueError(f's2d_stem={s2d_stem} needs a 3-channel ungrouped '
+                                 f'stride-{abs(s2d_stem)} stem conv as node 0')
         if remat_segments and (quant_ctx is not None or tap is not None):
             raise ValueError('remat_segments does not combine with quant_ctx or tap: the '
                              'recompute would observe each node twice')
         if quant_ctx is not None:
             x = quant_ctx.quantize_input(x)
-        kw = dict(compute_dtype=compute_dtype, plain=plain, targets=targets, train=train)
+        kw = dict(compute_dtype=compute_dtype, plain=plain, targets=targets, train=train,
+                  s2d_stem=s2d_stem)
         if remat_segments:
             x, updates, losses, heads = self._segments(params, state, x, rng,
                                                        remat_segments, kw)
@@ -219,7 +219,7 @@ class Network(nn.Module):
 
     def _walk(self, nodes, params, state, x, cache, gen, compute_dtype=None,
               fused_ir=None, plain=False, quant_ctx=None, targets=None, train=False,
-              tap=None):
+              tap=None, s2d_stem=0):
         """Run a contiguous span of graph nodes. Returns (x, live cache, BN
         state updates, per-head losses, [(raw head, yolo node)] to decode)."""
         cache = dict(cache)
@@ -253,7 +253,10 @@ class Network(nn.Module):
                 a = node.attrs
                 padding = solve_padding(a['size'], a['padding'], a['pad'])
                 w = p['w'] if quant_ctx is None else quant_ctx.fake_weights(str(i), p['w'])
-                x = L.conv2d(x, w, p.get('b'), stride=a['stride'],
+                stride = a['stride']
+                if s2d_stem and i == 0:
+                    x, w, stride, padding = s2d_stem_input(x, w, s2d_stem, stride, padding)
+                x = L.conv2d(x, w, p.get('b'), stride=stride,
                              padding=padding, groups=a['groups'],
                              compute_dtype=compute_dtype)
                 if 'bn' in p:
@@ -317,6 +320,19 @@ class Network(nn.Module):
                 del cache[j]
 
         return x, cache, updates, losses, heads
+
+
+def s2d_stem_input(x, w, s2d_stem: int, stride: int, padding: int):
+    """The stem on space-to-depth input: (input, folded OIHW kernel,
+    stride 1, padding 0), the folded kernel's asymmetric padding applied to
+    the input. ``s2d_stem`` r > 0 reshapes NHWC ``x`` here; r < 0 means the
+    caller ships it in the s2d(|r|) layout already."""
+    r = abs(s2d_stem)
+    if s2d_stem > 0:
+        x = space_to_depth(x, r)
+    w, (ph_lo, ph_hi), (pw_lo, pw_hi) = fold_stem_weight_t(w, r, stride, padding)
+    x = F.pad(x, (0, 0, pw_lo, pw_hi, ph_lo, ph_hi))
+    return x, w, 1, 0
 
 
 def _exp_cap(node, capped: bool) -> float:

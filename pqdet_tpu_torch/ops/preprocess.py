@@ -7,23 +7,12 @@ float input means the host already normalized and passes through.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-IMAGENET_MEAN = (0.485, 0.456, 0.406)
-IMAGENET_STD = (0.229, 0.224, 0.225)
-
-
-def fold_norm_affine(mean, std):
-    """(x/255 - mean)/std == x*scale + bias, with the constants computed in
-    numpy f32 exactly as the JAX package computes them."""
-    mean = np.asarray(mean, np.float32)
-    std = np.asarray(std, np.float32)
-    return ((1.0 / (255.0 * std)).astype(np.float32),
-            (-mean / std).astype(np.float32))
-
-
-NORM_SCALE, NORM_BIAS = fold_norm_affine(IMAGENET_MEAN, IMAGENET_STD)
+# the folded affine lives with the host chain (as in the JAX package), so
+# the loader's workers build batches without importing torch
+from pqdet_tpu_torch.data.augment import (IMAGENET_MEAN, IMAGENET_STD,  # noqa: F401
+                                          NORM_BIAS, NORM_SCALE, fold_norm_affine)
 
 
 def device_normalize(images: torch.Tensor) -> torch.Tensor:

@@ -128,6 +128,7 @@ def _check_common(fn, x, w_scale, b, scalars, act, cout):
 SMALL_M = 512        # below this many rows a CTA takes 64 of them, else 128
 WIDE_TILES = 400     # more tiles than this at bn 32: take bn 64
 SPLIT_CTAS = 256     # split K until the CTAs are about this many
+MAX_M_BLOCKS = 65535  # the grid's y extent (M tiles): the card's limit
 
 
 class QconvPlan(NamedTuple):
@@ -186,6 +187,9 @@ def plan_qconv1x1(m: int, k: int, n: int) -> QconvPlan:
         raise ValueError(f'plan_qconv1x1: empty shape {(m, k, n)}')
     bm = 128 if m >= SMALL_M else 64
     m_blocks = -(-m // bm)
+    if m_blocks > MAX_M_BLOCKS:
+        raise ValueError(f'plan_qconv1x1: M={m} needs {m_blocks} row tiles, over the grid\'s '
+                         f'{MAX_M_BLOCKS}')
     bn = 32 if bm == 128 and (n <= 32 or m_blocks * -(-n // 32) <= WIDE_TILES) else 64
     bk = 32 if k <= 32 else 64 if k <= 64 else 128
     n_blocks = -(-n // bn)

@@ -159,7 +159,7 @@ def _inputs(batch, label_fn, augment_fn=None):
 
 
 def make_loss_fn(network, compute_dtype=None, remat: int = 0, label_fn=None,
-                 augment_fn=None, probe_heads: bool = False):
+                 augment_fn=None, probe_heads: bool = False, s2d_stem: int = 0):
     """The (params, state, batch, rng) -> (loss, (losses, new_state, stats))
     function of the step: normalize a uint8 batch on the device, build the
     label grids from its padded GT boxes with ``label_fn`` (or take its
@@ -176,7 +176,9 @@ def make_loss_fn(network, compute_dtype=None, remat: int = 0, label_fn=None,
     ``draws`` (an ``AugmentDraws``) and its fresh partner rows
     ``partner_image`` / ``partner_gt`` when it has them; the label grids
     are then built from the grown GT. The draws are the batch's own, apart
-    from ``rng`` (the dropout generator), as JAX splits the step's key."""
+    from ``rng`` (the dropout generator), as JAX splits the step's key.
+    ``s2d_stem`` runs the stem folded onto space-to-depth input; the fold
+    is differentiable, so the grads reach the stem's own kernel."""
     remat_n = int(remat)
     head_in = tuple(n.index - 1 for n in network.graph.yolo_nodes) if probe_heads else ()
     if head_in and remat_n:
@@ -193,7 +195,8 @@ def make_loss_fn(network, compute_dtype=None, remat: int = 0, label_fn=None,
         image, targets = _inputs(batch, label_fn, augment_fn)
         losses, new_state = network.forward_train(params, state, image, targets=targets,
                                                   rng=rng, compute_dtype=compute_dtype,
-                                                  remat_segments=remat_n, tap=tap)
+                                                  remat_segments=remat_n, tap=tap,
+                                                  s2d_stem=s2d_stem)
         return losses['loss'][0], (losses, new_state, stats)
 
     return loss_fn
@@ -213,17 +216,17 @@ def value_and_grad(loss_fn, params, state, batch, rng=None):
 def make_train_step(network, optimizer: Adam, sparse_ratio: float = 0.0,
                     sparse_ids: Optional[Set[str]] = None, compute_dtype=None,
                     remat: int = 0, label_fn=None, augment_fn=None,
-                    probe_heads: bool = False):
+                    probe_heads: bool = False, s2d_stem: int = 0):
     """The (params, state, opt_state, batch, rng) -> (params, new_state,
-    opt_state, metrics) step. ``batch``, ``remat`` and ``probe_heads`` as
-    in ``make_loss_fn``; ``rng`` is the generator of the dropout draws (on
+    opt_state, metrics) step. ``batch``, ``remat``, ``probe_heads`` and
+    ``s2d_stem`` as in ``make_loss_fn``; ``rng`` is the generator of the dropout draws (on
     the batch's device). Metrics: ``loss`` and its parts ``giou_loss``,
     ``conf_loss``, ``class_loss`` (0-d), ``loss_per_branch`` (one per
     head), and with ``probe_heads`` ``head_max`` (one per head), all
     detached on the device."""
     loss_fn = make_loss_fn(network, compute_dtype=compute_dtype, remat=remat,
                            label_fn=label_fn, augment_fn=augment_fn,
-                           probe_heads=probe_heads)
+                           probe_heads=probe_heads, s2d_stem=s2d_stem)
     return _step_of(loss_fn, optimizer, sparse_ratio, sparse_ids, probe_heads)
 
 
@@ -292,10 +295,10 @@ def train_step_from_config(network, cfg, steps_per_epoch: int, device='cuda',
     ``steps_per_epoch``, ``train.weight_decay`` and ``train.grad_clip``,
     ``system.compute_dtype`` and device labels from ``cfg.model`` with their
     anchors on ``device``; then sparse-L1 of ``sparse.ratio`` on every
-    prunable BN gamma when ``sparse.switch`` is on, ``train.remat`` and
-    ``train.head_probe``; or, with ``quant.switch``, the QAT step of the
-    phase ``observing``/``bn_frozen`` (of the quant graph's ``network``),
-    which reads none of those three. Either step augments on the device
+    prunable BN gamma when ``sparse.switch`` is on, ``train.remat``,
+    ``train.head_probe`` and ``train.s2d_stem``; or, with ``quant.switch``,
+    the QAT step of the phase ``observing``/``bn_frozen`` (of the quant
+    graph's ``network``), which reads none of those four. Either step augments on the device
     with ``augment.device`` (its batches then carry their ``draws``)."""
     t = cfg.train
     optimizer = make_optimizer(build_schedule(cfg, steps_per_epoch),
@@ -313,7 +316,7 @@ def train_step_from_config(network, cfg, steps_per_epoch: int, device='cuda',
                            sparse_ids=sparse_bn_gamma_ids(network) if sparse else None,
                            compute_dtype=dtype, remat=int(t.remat),
                            probe_heads=bool(t.head_probe), label_fn=labels,
-                           augment_fn=augment)
+                           augment_fn=augment, s2d_stem=int(t.s2d_stem))
     return step, optimizer
 
 

@@ -34,20 +34,32 @@ scores the converted model through ``Int8Inference`` in kernel mode (the
 int8 kernels and the decode kernel on the card), as the JAX trainer scores
 its Pallas int8 path; checkpoints are of type ``qat``.
 
+The host loader is ``system.loader``: a pool of threads, or of spawned
+processes (``data/train_data.py::ProcessLoader``, started in ``init_all``
+so that the workers' start-up overlaps the model's build); either gives
+the same batches. With ``system.device_prefetch`` N a background thread
+uploads the next N batches while the step runs: on the card it copies on
+a side stream and the step's stream waits on each batch's event. With
+``system.label_assign host`` the loader builds the label grids and the
+batches carry them as ``targets``.
+
 ``run_prune`` fine-tunes a pruned checkpoint (``cli/prune.py``) and
 ``run_nas`` short-trains a NAS candidate (``nas/search.py``), each with the
 JAX trainer's preset. ``close`` releases what a run holds on the device
-(params, optimizer state, the step, the eval pipeline) and the loader's
-threads; the device corpus memo stays for the next trainer.
+(params, optimizer state, the step, the eval pipeline), the loader's
+threads, the upload thread and the process pool with its shared-memory
+slabs; the device corpus memo stays for the next trainer.
 
-Not ported yet, and raising: host label assignment, the process loader and
-data parallelism (ROADMAP.md queue 1).
+Not ported yet, and raising: data parallelism and unrolled steps
+(ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
 
 import copy
 import os
+import queue
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
@@ -60,7 +72,7 @@ from pqdet_tpu_torch import resolve_device
 from pqdet_tpu_torch.compress.quantized import Int8Inference, convert_to_int8
 from pqdet_tpu_torch.config import platform_device, resolve_model_cfg, sizes_fix
 from pqdet_tpu_torch.data.eval_data import EvalData
-from pqdet_tpu_torch.data.train_data import TrainData, epoch_batches
+from pqdet_tpu_torch.data.train_data import ProcessLoader, TrainData, epoch_batches
 from pqdet_tpu_torch.evaluation.evaluator import Evaluator, format_ap_table
 from pqdet_tpu_torch.evaluation.predict import build_predict_pipeline, make_batch_predict
 from pqdet_tpu_torch.model.factory import build_detector, inference_params
@@ -92,6 +104,7 @@ class Trainer:
         self.init_epoch = 0
         self._eval_run = None      # the predict pipeline, built once
         self._batches = None       # the running epoch's batch iterator
+        self._proc_loader = None   # the process pool (system.loader process)
 
         c = config
         self._max_epochs = c.train.max_epochs
@@ -108,6 +121,9 @@ class Trainer:
         self._backbone = c.weight.backbone
         self._clear_history = c.weight.clear_history
         self._num_workers = c.system.num_workers
+        if c.system.loader not in ('thread', 'process'):
+            raise ValueError(f"system.loader must be 'thread' or 'process', got "
+                             f'{c.system.loader!r}')
         self._compute_dtype = COMPUTE_DTYPES[c.system.compute_dtype]
         self._augment = c.augment.device
         self._partner_rows = partner_rows_per_sample(c) if self._augment else 0
@@ -137,6 +153,9 @@ class Trainer:
 
         if self.config.dataset.device_cache:
             self._build_device_cache()
+        elif self.config.system.loader == 'process' and self._proc_loader is None:
+            self._proc_loader = ProcessLoader(self.train_data, self._num_workers,
+                                              prefetch=max(self.config.system.prefetch, 2))
 
         self.network, params, state, info = build_detector(
             self.cfg_text, weight_path=self._resume or None,
@@ -276,7 +295,8 @@ class Trainer:
         return t
 
     def _put_batch(self, batch):
-        return {k: self._upload(v) for k, v in batch.items()}
+        return {k: tuple(self._upload(a) for a in v) if isinstance(v, tuple)
+                else self._upload(v) for k, v in batch.items()}
 
     # ---------------------------------------------------- the device corpus
 
@@ -350,15 +370,97 @@ class Trainer:
                 batch.update(partner_image=pb['image'], partner_gt=pb['gt'])
             yield batch
 
+    def _host_batches(self):
+        """The epoch's host batches from the configured loader."""
+        if self._proc_loader is not None:
+            return self._proc_loader.epoch()
+        return epoch_batches(self.train_data, self._num_workers,
+                             prefetch=self.config.system.prefetch)
+
     def _epoch_batches(self):
         """The epoch's batches on the device: gathered from the device
-        corpus, or loaded on the host and uploaded."""
+        corpus, or loaded on the host and uploaded, in the step loop or by
+        the upload thread (``system.device_prefetch``)."""
         if self._device_cache is not None:
             yield from self._cached_batches()
             return
-        for host_batch in epoch_batches(self.train_data, self._num_workers,
-                                        prefetch=self.config.system.prefetch):
-            yield self._put_batch(host_batch)
+        depth = self.config.system.device_prefetch
+        if depth > 0:
+            yield from self._prefetched(self._host_batches(), depth)
+            return
+        host_batches = self._host_batches()
+        try:
+            for host_batch in host_batches:
+                yield self._put_batch(host_batch)
+        finally:
+            host_batches.close()
+
+    def _prefetched(self, host_batches, depth: int):
+        """Device batches uploaded by a background thread, at most ``depth``
+        ahead of the consumer. On the card the copies run on a side stream;
+        each batch carries the event recorded after its copies, the
+        consumer's stream waits on it and the batch's memory is marked as
+        used there, so the step never reads a half-copied batch and the
+        allocator never hands the memory back early. An abandoned consumer
+        sets the stop event, drains the queue and joins the thread, and the
+        host loader is closed."""
+        q = queue.Queue(maxsize=depth)
+        stop = threading.Event()
+        err = []
+        cuda = self.device.type == 'cuda'
+        side = torch.cuda.Stream(self.device) if cuda else None
+
+        def put(item):
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def work():
+            try:
+                for host_batch in host_batches:
+                    if cuda:
+                        with torch.cuda.stream(side):
+                            batch = self._put_batch(host_batch)
+                            done = torch.cuda.Event()
+                            done.record(side)
+                    else:
+                        batch, done = self._put_batch(host_batch), None
+                    if not put((batch, done)):
+                        return
+            except BaseException as e:      # raised again in the consumer
+                err.append(e)
+            finally:
+                put(None)
+
+        t = threading.Thread(target=work, daemon=True, name='device-prefetch')
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    break
+                batch, done = item
+                if cuda:
+                    stream = torch.cuda.current_stream(self.device)
+                    stream.wait_event(done)
+                    for v in batch.values():
+                        for tensor in v if isinstance(v, tuple) else (v,):
+                            tensor.record_stream(stream)
+                yield batch
+        finally:
+            stop.set()
+            while t.is_alive():
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    t.join(timeout=0.1)
+            host_batches.close()
+        if err:
+            raise err[0]
 
     def _draws(self, batch: dict, step: int):
         """The device-augment draws of the batch of global step ``step``,
@@ -436,11 +538,16 @@ class Trainer:
             self.save(epoch)
 
     def run(self):
+        """init_all and train; the loaders' threads and processes end with
+        the run (the params stay, for the caller to read)."""
         os.makedirs(self._weights_dir, exist_ok=True)
         if self._quant:
             print('quantization aware training')
         self.init_all()
-        self.train()
+        try:
+            self.train()
+        finally:
+            self._close_loaders()
 
     def run_prune(self, prune_weight: str):
         """Fine-tune a pruned checkpoint, the JAX trainer's preset: the
@@ -481,14 +588,23 @@ class Trainer:
         finally:
             self.close()
 
-    def close(self):
-        """Release what the run holds: the running epoch's loader threads
-        (an epoch left by an exception), the params, BN state, optimizer
-        state, the step and the eval pipeline. The device corpus stays in
-        ``_CACHE_MEMO`` for the next trainer."""
+    def _close_loaders(self):
+        """End the running epoch's loader and upload threads and the
+        process pool with its slabs."""
         batches, self._batches = self._batches, None
         if batches is not None:
             batches.close()
+        loader, self._proc_loader = self._proc_loader, None
+        if loader is not None:
+            loader.close()
+
+    def close(self):
+        """Release what the run holds: the running epoch's loader threads
+        and upload thread (an epoch left by an exception), the process pool
+        and its slabs, the params, BN state, optimizer state, the step and
+        the eval pipeline. The device corpus stays in ``_CACHE_MEMO`` for
+        the next trainer."""
+        self._close_loaders()
         self.params = self.state = self.opt_state = None
         self.step_fn = self.optimizer = None
         self._eval_run = self._device_cache = self._rng = None

@@ -100,9 +100,23 @@ def test_merge_from_list_matches_jax():
     (['train.batch_size', 'many'], TypeError),
     (['augment.device', 'maybe'], TypeError),
     (['train.unroll_steps', '2'], NotImplementedError),
-    (['system.loader', 'process'], NotImplementedError),
-    (['train.s2d_stem', '1'], NotImplementedError),
+    (['system.data_devices', '2'], NotImplementedError),
+    (['train.spatial', '2'], NotImplementedError),
 ])
 def test_bad_overrides_raise(opts, error):
     with pytest.raises(error):
         merge_from_list(Config(), opts)
+
+
+@pytest.mark.parametrize('key,value', [('system.loader', 'process'),
+                                       ('system.device_prefetch', '2'),
+                                       ('system.label_assign', 'host'),
+                                       ('train.s2d_stem', '2'), ('eval.s2d_stem', '2')])
+def test_ported_keys_load(key, value):
+    """The loader, upload-thread and space-to-depth keys, once queued, load
+    as JAX's do; only the data-parallel and unroll keys stay queued."""
+    opts = [key, value]
+    cfg = load_config(opts=opts)
+    assert str(getattr(getattr(cfg, key.split('.')[0]), key.split('.')[1])) == value
+    assert _assert_same(cfg, jax_load_config(opts=opts)) >= 50
+    assert sorted(LATER_KEYS) == ['system.data_devices', 'train.spatial', 'train.unroll_steps']

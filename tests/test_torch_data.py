@@ -223,15 +223,32 @@ def test_synth_shapes_matches_jax(tmp_path):
 
 
 def test_annotation_path_and_queued_getters():
+    """VOC's annotation path for any extension; the COCO and VisDrone
+    getters, queued before this slice, are built by name in any case."""
+    from pqdet_tpu_torch.data.samples import COCOSampleGetter, VisDroneSampleGetter
     assert annotation_path('/d/JPEGImages/a.b.png') == '/d/Annotations/a.b.xml'
     assert annotation_path('/d/JPEGImages/x.jpg') == '/d/Annotations/x.xml'
-    for name in ('coco', 'VisDrone'):
-        with pytest.raises(NotImplementedError, match='ROADMAP.md queue 1, item 3'):
-            sample_getter(name, mode='train', classes=CLASSES)
+    for name, cls in (('coco', COCOSampleGetter), ('VisDrone', VisDroneSampleGetter)):
+        assert type(sample_getter(name, mode='train', classes=CLASSES)) is cls
 
 
-@pytest.mark.parametrize('key,value,item', [('system.loader', 'process', 'item 3'),
-                                            ('system.label_assign', 'host', 'item 3')])
-def test_queued_loader_modes_raise(voc, key, value, item):
-    with pytest.raises(NotImplementedError, match=f'ROADMAP.md queue 1, {item}'):
-        TrainData(load_config(opts=_opts(voc, key, value)))
+@pytest.mark.parametrize('key,value', [('system.loader', 'process'),
+                                       ('system.label_assign', 'host')],
+                         ids=['system.loader-process-item 3', 'system.label_assign-host-item 3'])
+def test_queued_loader_modes_raise(voc, key, value):
+    """The loader modes queued before this slice build their TrainData:
+    the process loader's samples are the thread loader's (TrainData does
+    not read system.loader), host labels give the label grids and padded
+    boxes of each scale; with augment.device, host labels still raise."""
+    data = TrainData(load_config(opts=_opts(voc, key, value)))
+    sample = data.get(0)
+    h, w = data._sizes[0]
+    if key == 'system.loader':
+        assert len(sample) == 2 and sample[1].shape == (16, 6)
+        return
+    image, labels, boxes = sample
+    assert image.shape == (h, w, 3) and image.dtype == np.uint8
+    assert [lab.shape for lab in labels] == [(h // s, w // s, 3, 9) for s in (8, 16, 32)]
+    assert [b.shape for b in boxes] == [(16, 4)] * 3
+    with pytest.raises(ValueError, match="needs system.label_assign='device'"):
+        TrainData(load_config(opts=_opts(voc, key, value, 'augment.device', 'on')))

@@ -438,3 +438,29 @@ def test_plan_fused_ir_mobilenet_at_352(n):
     assert len(chains) == 21 and {h for h, *_ in chains} == {11, 22, 44, 88}
     for h, cin, e, p, expand in chains:
         check_fused_plan(plan_fused_ir(n, h, h, cin, e, p, expand), n, h, h, cin, e, p, expand)
+
+
+# VisDrone's eval inputs: each of its four resolutions resized by 1.25 and
+# padded to a multiple of 32 (h, w)
+VISDRONE_INPUTS = [(1888, 2528), (1376, 2400), (960, 1728), (704, 1216)]
+
+
+@pytest.mark.parametrize('hw', VISDRONE_INPUTS)
+def test_plan_qconv1x1_at_visdrone_sizes(hw):
+    """Every 1x1 and im2col shape of regnetx-600m-fpn's int8 graph at a
+    VisDrone eval input (B=1, non-square) plans within the kernel's limits;
+    the stem's im2col at 2528x1888 is the largest M, 944 x 1264 rows, well
+    inside the grid's y extent, which the plan rule refuses past."""
+    import chip_smoke
+    from pqdet_tpu_torch.ops.qconv import MAX_M_BLOCKS
+    net = DetectionNetwork.from_cfg(get_cfg('regnetx-600m-fpn'), quant=True)
+    shapes = chip_smoke.int8_conv_shapes(net, hw)
+    ms = []
+    for (kind, h, w, k, n, *_), _ in shapes.items():
+        assert kind != 'dw'
+        check_qconv_plan(h * w, k, n)
+        ms.append(h * w)
+    assert max(ms) == (hw[0] // 2) * (hw[1] // 2)
+    assert any(h != w for _, h, w, *_ in shapes)
+    with pytest.raises(ValueError, match='row tiles'):
+        plan_qconv1x1(128 * MAX_M_BLOCKS + 1, 32, 32)

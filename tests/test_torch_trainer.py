@@ -103,11 +103,23 @@ def test_nan_loss_raises(tmp_path):
         trainer._flush_metrics(0, [ok, m])
 
 
-@pytest.mark.parametrize('key,item', [('train.unroll_steps', 'item 2'),
-                                      ('system.loader', 'item 3')])
-def test_queued_options_raise(tmp_path, key, item):
-    with pytest.raises(NotImplementedError, match=f'queue 1, {item}'):
-        Trainer(load_config(opts=_opts(tmp_path, 4, key, 'on')), device='cpu').init_all()
+@pytest.mark.parametrize('key,value,item', [('train.unroll_steps', 'on', 'item 2'),
+                                            ('system.loader', 'process', None)],
+                         ids=['train.unroll_steps-item 2', 'system.loader-item 3'])
+def test_queued_options_raise(tmp_path, key, value, item):
+    """train.unroll_steps is still queued and raises naming its item;
+    system.loader, queued until the process loader was ported, now starts
+    the pool in init_all, and close ends it."""
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=f'queue 1, {item}'):
+            Trainer(load_config(opts=_opts(tmp_path, 4, key, value)), device='cpu').init_all()
+        return
+    trainer = Trainer(load_config(opts=_opts(tmp_path, 4, key, value)), device='cpu')
+    trainer.init_all()
+    pool = trainer._proc_loader._pool
+    assert len(pool._pool) == 2
+    trainer.close()
+    assert trainer._proc_loader is None and all(not p.is_alive() for p in pool._pool)
 
 
 def test_one_epoch_matches_jax_trainer(tmp_path):
