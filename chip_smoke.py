@@ -301,7 +301,34 @@ Builds the CUDA kernels from pqdet_tpu_torch/csrc with nvcc (sm_90a), then:
    and both with ``device_prefetch 2`` (whose batches, as its steps read
    them, equal the synchronous epoch's), no worker or /dev/shm slab left
    after close; (f) ``cli.playground`` grids of a VOC, a COCO and a
-   VisDrone image into OUTPUT_DIR.
+   VisDrone image into OUTPUT_DIR;
+19. data-parallel training (``phase19_data_parallel``, in the same
+   temporary directory; ``parallel/mesh.py``), full-width mobilenetv2-fpn
+   at 512x512, global B=12: (a) ``init_process_group('nccl')`` at world
+   size 1 on the card: the step gets no group, and 3 bf16 steps of phase
+   9's config equal the one-process steps bit for bit (params, BN state,
+   Adam moments, metrics; cuDNN's deterministic algorithms on); (b) two
+   gloo ranks sharing the card (``launch``, 6 images each, f32 with TF32
+   off, sparse-L1 and a binding clip): after each of 3 steps the ranks'
+   params, BN state, moments and metrics identical bit for bit, the params
+   after 3 steps within 2x the one-process step's own drift on the reversed
+   batches (the largest relative differences printed), and each rank's bf16
+   step p50 beside the one-process step's (information only: two ranks on
+   one card say nothing of scaling); (c) ``cli.train --dist-backend gloo``
+   as two ranks of one f32 epoch of yamls/shapes.yaml on phase 11's corpus
+   from its last checkpoint (history cleared), rank 1 a torchrun-style
+   subprocess and rank 0 this process: rank 1 exits 0 and prints no config
+   or AP table, phase 13's trainer gates on rank 0 (one decode_heads launch
+   per eval batch, none in the steps), one checkpoint, rank 0's params
+   within 2x of a one-process ``cli.train`` epoch's own drift (its rows
+   reversed) from that epoch's, the AP and the detections of a one-process
+   eval of the checkpoint equal to rank 0's, rank 0's eval
+   against the plain decode (phase 11's bound) with every decode_heads call
+   held to its plain version on the eval batches; (d) the device-augmented
+   rows of (b)'s ranks (mosaic and mixup partners from the global batch)
+   equal the one-process augmented batch's bit for bit; (e) (b) with NCCL
+   over two cards when the machine has two, else a line that says it was
+   not run.
 
 Each phase draws from its own generator, seeded from SEED and the phase
 number. It prints one JSON line of kernels, then the nvidia-smi line, and
@@ -5078,12 +5105,17 @@ def phase18_visdrone(dev, tag, tmp, gate, ptx, host_ips):
           f'the area repeats) in {time.perf_counter() - t0:.2f} s')
     ypath = yaml_copy(tmp, 'visdrone.yaml')
     wroot = os.path.join(tmp, 'weights_visdrone')
-    rec = {}
+    rec = {'sums': []}
     wall = run_train_cli(['--yaml', ypath, 'dataset.train_txt_file', train_txt,
                           'dataset.eval_txt_file', test_txt, 'weight.dir', wroot,
                           'train.max_epochs', '1', 'eval.after', '0',
                           'train.input_sizes', f'[{VISDRONE_TRAIN_SIZE}]'], rec)
     trainer = rec['trainer']
+    # the epoch's inputs, to hold one run against another: the same seeded
+    # corpus and init give the same numbers on any machine
+    print(f'phase 18 (c): the init\'s param sum '
+          f'{float(sum(t.double().sum() for t in rec["start"]))!r}, each step batch\'s '
+          f'checksums {[[float(x) for x in s] for s in rec["sums"]]}')
     c = trainer.config
     gate((c.train.batch_size, c.model.max_gt_boxes, c.eval.batch_size, c.model.cfg_path)
          == (30, 256, 1, 'regnetx-600m-fpn'),
@@ -5221,6 +5253,7 @@ def bce_saturation(trainer, start, gate, label):
          f'head {[round(x, 2) for x in top]} (>= 17: f32 sigmoid 1.0), {n_bad} grad leaves '
          'non-finite')
     return params
+
 
 
 def run_train_cli_or_bce_nan(argv, rec):
@@ -5478,6 +5511,511 @@ def phase18_s2d_host_data(dev, tag, tmp, corpus, net, params, state, ptx):
             's2d_train': b, 'coco': d, 'loaders': e}
 
 
+DP_SIZE = 512                  # phase 19: the data-parallel step's input size ...
+DP_BATCH = 12                  # ... and global batch (two ranks of 6 in (b))
+DP_WORLD = 2
+DP_STEPS = 3                   # (a), (b): steps held for equality
+DP_TIMED = 10                  # (b): timed bf16 steps after ...
+DP_WARMUP = 3                  # ... these
+DP_DRIFT_FACTOR = 2.0          # (b): the ranks' params within this x the step's own drift
+DP_TIMEOUT_S = 600.0           # a collective's longest wait before the run fails
+# (c): rank 1 of cli.train, run as torchrun would start it, with the
+# precision flags of this script's rank 0 (TF32 off, cuDNN deterministic)
+DP_RANK1 = ('import runpy, torch; '
+            'torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False; '
+            'torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False; '
+            'runpy.run_module("pqdet_tpu_torch.cli.train", run_name="__main__")')
+
+
+def dp_config(dtype='float32'):
+    """Phase 19's step config: ``train_config`` (phases 9-10) in ``dtype``,
+    with sparse-L1 0.01 and a binding global-norm clip of 1 on, which an
+    all-reduce in the wrong place (after the L1 term, after the clip)
+    would show."""
+    cfg = train_config()
+    cfg.system.compute_dtype = dtype
+    cfg.sparse.switch, cfg.sparse.ratio = True, 0.01
+    cfg.train.grad_clip = 1.0
+    return cfg
+
+
+def dp_batch(k, dev):
+    """Global batch k of phase 19: DP_BATCH seeded uint8 images at DP_SIZE
+    and their padded GT (train_batch), the same in every process."""
+    import torch
+    gen = torch.Generator().manual_seed(SEED * 1000 + 1900 + k)
+    return train_batch(gen, DP_BATCH, DP_SIZE, dev, train_config().model.max_gt_boxes)
+
+
+def dp_rows(batch, r, world):
+    """Rank r's contiguous shard of a global batch."""
+    lb = DP_BATCH // world
+    return {k: v[r * lb:(r + 1) * lb] for k, v in batch.items()}
+
+
+def step_ms(dev, fn) -> float:
+    """Milliseconds of one call of ``fn``: CUDA events on the card."""
+    import torch
+    if dev.type != 'cuda':
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1)
+
+
+def dp_steps(net, params, state, cfg, dev, group=None, rank=0, world=1, n=DP_STEPS,
+             reverse=False):
+    """``n`` steps of ``train_step_from_config`` from (params, state) on
+    phase 19's global batches, or on rank ``rank``'s rows of them with the
+    data-parallel ``group`` (``reverse``: each batch's rows in reverse
+    order, the same step with its sums in another order). Returns the flat
+    params, the flat BN state, Adam's flat moments and the metrics after
+    each step, on the CPU."""
+    import torch
+    from pqdet_tpu_torch.model.network import to_device
+    from pqdet_tpu_torch.parallel.mesh import broadcast_tree
+    from pqdet_tpu_torch.train.step import train_step_from_config, tree_leaves
+    step, opt = train_step_from_config(net, cfg, TRAIN_WARMUP, device=dev, group=group)
+    p, s = to_device(params, dev), to_device(state, dev)
+    o = opt.init(p)
+    for tree in (p, s, o):
+        broadcast_tree(tree, group=group)
+    out = []
+    for k in range(n):
+        b = dp_batch(k, dev)
+        if reverse:
+            b = {key: v.flip(0) for key, v in b.items()}
+        if world > 1:
+            b = dp_rows(b, rank, world)
+        p, s, o, m = step(p, s, o, b)
+        out.append({'params': torch.cat([t.reshape(-1) for t in tree_leaves(p)]).cpu(),
+                    'state': torch.cat([t.reshape(-1) for t in tree_leaves(s)]).cpu(),
+                    'opt': torch.cat([o['mu'], o['nu']]).cpu(),
+                    'metrics': {key: v.cpu() for key, v in m.items()}})
+    return out
+
+
+def dp_step_p50(net, params, state, dev, group=None, rank=0, world=1):
+    """p50 ms of DP_TIMED bf16 steps (after DP_WARMUP) at DP_SIZE on one
+    fixed global batch, or on this rank's rows of it."""
+    from pqdet_tpu_torch.model.network import to_device
+    from pqdet_tpu_torch.train.step import train_step_from_config
+    step, opt = train_step_from_config(net, dp_config('bfloat16'), TRAIN_WARMUP, device=dev,
+                                       group=group)
+    p, s = to_device(params, dev), to_device(state, dev)
+    o = opt.init(p)
+    b = dp_batch(0, dev)
+    if world > 1:
+        b = dp_rows(b, rank, world)
+    ms = []
+    for k in range(DP_WARMUP + DP_TIMED):
+        def run():
+            nonlocal p, s, o
+            p, s, o, _ = step(p, s, o, b)
+        t = step_ms(dev, run)
+        if k >= DP_WARMUP:
+            ms.append(t)
+    return statistics.median(ms)
+
+
+def dp_augment_config():
+    """The device chain of (d): flips, zoom-crop, colour jitter, and
+    mosaic and mixup with in-batch partners (which span the global batch)."""
+    from pqdet_tpu_torch.config import Config
+    cfg = Config()
+    a = cfg.augment
+    a.device, a.hflip_p, a.vflip_p, a.crop_p, a.color_p, a.mosaic_p, a.mixup_p = \
+        True, 0.5, 0.5, 0.75, 0.5, 0.5, 0.5
+    return cfg
+
+
+def dp_augmented(dev, group=None, rank=0, world=1):
+    """(normalized image, GT) of the train step's device augmentation of
+    global batch 0 with its global draws, or this rank's rows of it."""
+    import numpy as np
+    from pqdet_tpu_torch.ops.augment_device import augmenter_from_config, draw_augment
+    from pqdet_tpu_torch.train.step import _inputs
+    b = dp_batch(0, dev)
+    if world > 1:
+        b = dp_rows(b, rank, world)
+    draws = draw_augment(np.random.default_rng((SEED, 19)), DP_BATCH, DP_SIZE).to(dev)
+    image, gt = _inputs({**b, 'draws': draws}, lambda g, size: g,
+                        augmenter_from_config(dp_augment_config()), group)
+    return image.cpu(), gt.cpu()
+
+
+def deterministic_cudnn(torch, on=True):
+    """cuDNN's deterministic algorithms (and no autotuning) on or off: the
+    equality checks of phase 19 compare runs whose only difference is the
+    code path, so the convs must not pick atomics that reorder sums."""
+    torch.backends.cudnn.deterministic = on
+    torch.backends.cudnn.benchmark = False
+
+
+def phase19_rank(dev, params, state, out):
+    """One rank of phase 19 (b) (or (e)): f32 steps with TF32 off, the
+    device-augmented rows, the bf16 step's p50, written to ``out.<rank>``."""
+    import torch
+    from pqdet_tpu_torch.model.network import DetectionNetwork
+    from pqdet_tpu_torch.parallel import mesh
+    from pqdet_tpu_torch.zoo import get_cfg
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    deterministic_cudnn(torch)
+    r, w, group = mesh.rank(), mesh.world(), mesh.active_group()
+    net = DetectionNetwork.from_cfg(get_cfg('mobilenetv2-fpn'))
+    res = {'world': w, 'device': str(dev), 'backend': torch.distributed.get_backend(),
+           'steps': dp_steps(net, params, state, dp_config(), dev, group, r, w),
+           'augment': dp_augmented(dev, group, r, w)}
+    deterministic_cudnn(torch, False)
+    res['p50'] = dp_step_p50(net, params, state, dev, group, r, w)
+    torch.save(res, f'{out}.{r}')
+
+
+def dp_ranks_gates(label, tag, gate, ranks, one, rev, aug, world):
+    """Phase 19 (b)/(e)'s gates on the ranks' results against the one
+    process's ``one`` (and its reversed-batch drift ``rev``) and augmented
+    batch ``aug``; prints the largest relative differences."""
+    import torch
+    r0 = ranks[0]
+    gate(all(r['world'] == world for r in ranks),
+         f'{label}: {world} ranks ({[r["device"] for r in ranks]}, {r0["backend"]})')
+    same = all(torch.equal(r['steps'][k][key], r0['steps'][k][key])
+               for r in ranks[1:] for k in range(DP_STEPS) for key in ('params', 'state', 'opt'))
+    same_m = all(torch.equal(r['steps'][k]['metrics'][n], r0['steps'][k]['metrics'][n])
+                 for r in ranks[1:] for k in range(DP_STEPS) for n in r0['steps'][k]['metrics'])
+    gate(same and same_m, f'{label}: params, BN state, Adam moments and metrics identical on '
+                          f'every rank after each of {DP_STEPS} steps')
+    for k in range(DP_STEPS):
+        rel = {n: ((r0['steps'][k]['metrics'][n] - one[k]['metrics'][n]).abs().max()
+                   / one[k]['metrics'][n].abs().max().clamp_min(1e-12)).item()
+               for n in ('loss', 'giou_loss', 'conf_loss', 'class_loss', 'loss_per_branch')}
+        dp = (r0['steps'][k]['params'] - one[k]['params']).abs().max().item()
+        ds = ((r0['steps'][k]['state'] - one[k]['state']).abs().max()
+              / one[k]['state'].abs().max()).item()
+        print(f'phase 19: {tag} {label} step {k}: largest relative difference from one process: '
+              f'{ {n: float(f"{v:.3g}") for n, v in rel.items()} }, BN state {ds:.3g}; params '
+              f'max |d| {dp:.3g} (lr {PARITY_LR})')
+    gap = (r0['steps'][-1]['params'] - one[-1]['params']).norm().item()
+    drift = (rev[-1]['params'] - one[-1]['params']).norm().item()
+    loss_rel = abs(float(r0['steps'][0]['metrics']['loss'] / one[0]['metrics']['loss']) - 1)
+    print(f'phase 19: {tag} {label}: params after {DP_STEPS} steps {gap:.4g} (L2) from one '
+          f'process; one process on the batches reversed {drift:.4g} from itself; first loss '
+          f'rel {loss_rel:.3g}')
+    gate(gap <= DP_DRIFT_FACTOR * drift and loss_rel <= 1e-4,
+         f'{label}: the ranks\' params within {DP_DRIFT_FACTOR}x the one-process step\'s own '
+         'drift on the reversed batches, the first loss within 1e-4')
+    lb = DP_BATCH // world
+    gate(all(torch.equal(r['augment'][0], aug[0][i * lb:(i + 1) * lb])
+             and torch.equal(r['augment'][1], aug[1][i * lb:(i + 1) * lb])
+             for i, r in enumerate(ranks)),
+         f'{label}: (d) each rank\'s device-augmented rows (mosaic and mixup partners from the '
+         'global batch) equal the one-process augmented batch\'s bit for bit')
+
+
+def phase19_steps(dev, tag, tmp, gate):
+    """Phase 19 (a), (b), (d), (e): the data-parallel step at world size 1
+    through NCCL against the one-process step; two gloo ranks sharing the
+    card against one process; NCCL over two cards where there are two."""
+    import torch
+    from pqdet_tpu_torch.model.network import DetectionNetwork
+    from pqdet_tpu_torch.parallel import mesh
+    from pqdet_tpu_torch.zoo import get_cfg
+    gen = phase_gen(19)
+    net = DetectionNetwork.from_cfg(get_cfg('mobilenetv2-fpn'))
+    params, state = net.init(gen, device='cpu')
+    deterministic_cudnn(torch)
+
+    # (a) world size 1 through init_process_group('nccl'): the step gets no
+    # group and must be phase 9's one-process step (train_config, bf16)
+    t0 = time.perf_counter()
+    one_bf16 = dp_steps(net, params, state, train_config(), dev)
+    backend = 'nccl' if dev.type == 'cuda' else 'gloo'
+    rank_dev = mesh.init_process_group(backend, rank=0, world_size=1,
+                                       master_port=mesh.free_port(), device=dev.type,
+                                       local_rank=0, timeout_s=DP_TIMEOUT_S)
+    try:
+        group, world = mesh.active_group(), mesh.world()
+        got = dp_steps(net, params, state, train_config(), rank_dev, group)
+    finally:
+        mesh.destroy_process_group()
+    same = all(torch.equal(a[key], b[key]) for a, b in zip(got, one_bf16)
+               for key in ('params', 'state', 'opt')) and all(
+        torch.equal(a['metrics'][n], b['metrics'][n]) for a, b in zip(got, one_bf16)
+        for n in a['metrics'])
+    print(f'phase 19: {tag} (a) {backend} group of {world} on {rank_dev}: step group {group}; '
+          f'{DP_STEPS} bf16 steps at {DP_SIZE}x{DP_SIZE}, B={DP_BATCH}, losses '
+          f'{[round(float(x["metrics"]["loss"]), 6) for x in got]}; '
+          f'{time.perf_counter() - t0:.1f} s')
+    gate(world == 1 and group is None and same,
+         f'(a) world size 1 through {backend}: {DP_STEPS} steps equal the one-process steps '
+         '(params, BN state, Adam moments, metrics) bit for bit')
+
+    # (b) two gloo ranks sharing the card, (d) their augmented rows
+    t0 = time.perf_counter()
+    one = dp_steps(net, params, state, dp_config(), dev)
+    rev = dp_steps(net, params, state, dp_config(), dev, reverse=True)
+    aug = dp_augmented(dev)
+    deterministic_cudnn(torch, False)
+    one_p50 = dp_step_p50(net, params, state, dev)
+    deterministic_cudnn(torch)
+    out = os.path.join(tmp, 'phase19_rank')
+    t1 = time.perf_counter()
+    mesh.launch(phase19_rank, DP_WORLD, dev.type, 'gloo', (params, state, out),
+                timeout_s=DP_TIMEOUT_S)
+    ranks = [torch.load(f'{out}.{r}', weights_only=False) for r in range(DP_WORLD)]
+    print(f'phase 19: {tag} (b) {DP_WORLD} gloo ranks on one card: {time.perf_counter() - t1:.1f} '
+          f's for the spawn, {DP_STEPS} f32 steps, the augmented rows and the timed steps; '
+          f'bf16 step p50 {[round(r["p50"], 2) for r in ranks]} ms per rank at B='
+          f'{DP_BATCH // DP_WORLD} (both on the one card at once; says nothing of scaling) '
+          f'against the one-process step {one_p50:.2f} ms at B={DP_BATCH}')
+    dp_ranks_gates('(b)', tag, gate, ranks, one, rev, aug, DP_WORLD)
+
+    # (e) NCCL across two cards, where the machine has them
+    n_cards = torch.cuda.device_count() if dev.type == 'cuda' else 0
+    if n_cards >= 2:
+        mesh.launch(phase19_rank, DP_WORLD, 'cuda', 'nccl', (params, state, out + '_nccl'),
+                    timeout_s=DP_TIMEOUT_S)
+        ranks = [torch.load(f'{out}_nccl.{r}', weights_only=False) for r in range(DP_WORLD)]
+        dp_ranks_gates('(e) nccl', tag, gate, ranks, one, rev, aug, DP_WORLD)
+    else:
+        print(f'phase 19: (e) NCCL across two cards not run: this machine has {n_cards} card(s)')
+    deterministic_cudnn(torch, False)
+    print(f'phase 19: (a), (b), (d), (e) took {time.perf_counter() - t0:.1f} s')
+
+
+def checking_decode(worst):
+    """``model.network.decode_heads`` replaced by the kernel held against
+    its plain version on every call (``decode_tolerance``); ``worst``
+    collects the largest error and whether every call was within bounds.
+    Returns the function that puts the kernel back."""
+    import pqdet_tpu_torch.model.network as netmod
+    from pqdet_tpu_torch.ops.decode_kernel import decode_heads_reference
+    kernel = netmod.decode_heads
+
+    def held(raws, nc, strides, caps):
+        import torch
+        got = kernel(raws, nc, strides, caps)
+        ref = decode_heads_reference(raws, nc, strides, caps)
+        err = (got - ref).abs()
+        tol = torch.cat([decode_tolerance(r, nc, st, c).flatten(1, 3)
+                         for r, st, c in zip(raws, strides, caps)], 1)
+        worst['err'] = max(worst['err'], err.max().item())
+        worst['ok'] = worst['ok'] and got.shape == ref.shape and bool((err <= tol).all())
+        worst['calls'] += 1
+        return got
+    netmod.decode_heads = held
+
+    def restore():
+        netmod.decode_heads = kernel
+    return restore
+
+
+def reversed_rows():
+    """``train.step._inputs`` with each step's normalized image and label
+    rows in reverse order, after any device augmentation: the same step
+    with its batch sums in another order. Returns the function that puts
+    it back."""
+    import pqdet_tpu_torch.train.step as step_mod
+    inputs = step_mod._inputs
+
+    def flipped(*args, **kwargs):
+        image, targets = inputs(*args, **kwargs)
+        return image.flip(0), tuple(t.flip(0) for t in targets)
+    step_mod._inputs = flipped
+
+    def restore():
+        step_mod._inputs = inputs
+    return restore
+
+
+def phase19_cli(dev, tag, tmp, corpus, gate):
+    """Phase 19 (c): ``cli.train --dist-backend gloo`` as two ranks sharing
+    the card, one f32 epoch of yamls/shapes.yaml on phase 11's corpus from
+    its last checkpoint (``corpus['ckpt']``, history cleared): rank 1 a
+    torchrun-style subprocess, rank 0 this process (its Trainer probed, its
+    eval's launches counted). Rank 0's params after the epoch are held
+    against one-process ``cli.train`` epochs on the same corpus, to within
+    DP_DRIFT_FACTOR of the one-process epoch's own drift on its batches'
+    rows reversed. Returns the decode kernel's launches in rank 0's eval
+    and its largest error against its plain version on the eval batches."""
+    import subprocess
+    import torch
+    from pqdet_tpu_torch.config import load_config
+    from pqdet_tpu_torch.evaluation.predict import build_predict_pipeline, make_batch_predict
+    from pqdet_tpu_torch.model.factory import inference_params
+    from pqdet_tpu_torch.parallel import mesh
+    from pqdet_tpu_torch.train.step import tree_leaves
+    from pqdet_tpu_torch.train.trainer import Trainer
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = corpus['root']
+    yaml = os.path.join(here, 'yamls', 'shapes.yaml')
+    data = ['dataset.train_txt_file', os.path.join(root, 'train.txt'),
+            'dataset.eval_txt_file', os.path.join(root, 'test.txt')]
+    # from phase 11's last checkpoint (its history cleared: one epoch from
+    # step 0); f32 (TF32 off) and cuDNN's deterministic algorithms, so that
+    # the runs differ only by their sums' order
+    base = ['--yaml', yaml, '--device', dev.type] + data + [
+        'weight.resume', corpus['ckpt'], 'weight.clear_history', 'on',
+        'train.max_epochs', '1', 'eval.after', '0', 'system.compute_dtype', 'float32']
+    wroot = os.path.join(tmp, 'weights_dp')
+    argv = base + ['--dist-backend', 'gloo', 'weight.dir', wroot]
+    env = {'WORLD_SIZE': str(DP_WORLD), 'LOCAL_WORLD_SIZE': str(DP_WORLD),
+           'MASTER_ADDR': 'localhost', 'MASTER_PORT': str(mesh.free_port())}
+    log_path = os.path.join(tmp, 'phase19_rank1.log')
+    deterministic_cudnn(torch)
+    t0 = time.perf_counter()
+    with open(log_path, 'w') as log:
+        peer = subprocess.Popen([sys.executable, '-c', DP_RANK1] + argv,
+                                cwd=here, env={**os.environ, **env, 'RANK': '1',
+                                               'LOCAL_RANK': '1'},
+                                stdout=log, stderr=subprocess.STDOUT)
+    saved = {k: os.environ.get(k) for k in [*env, 'RANK', 'LOCAL_RANK']}
+    os.environ.update(env, RANK='0', LOCAL_RANK='0')
+    rec = {}
+    try:
+        wall = run_train_cli(argv, rec)
+        rc = peer.wait(timeout=DP_TIMEOUT_S)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        if peer.poll() is None:
+            peer.kill()
+            peer.wait()
+    with open(log_path) as f:
+        peer_log = f.read()
+    print(f'phase 19: {tag} (c) cli.train --dist-backend gloo, {DP_WORLD} ranks on one card: '
+          f'{wall:.1f} s (rank 0), rank 1 exit {rc}; rank 1 printed {len(peer_log)} bytes')
+    gate(rc == 0, f'(c) rank 1 exits 0 (its log: {peer_log[-2000:]!r})' if rc else
+         '(c) rank 1 exits 0')
+    gate('mAPs' not in peer_log and 'Config(experiment_name' not in peer_log,
+         '(c) rank 1 prints no config and no AP table')
+    trainer = rec['trainer']
+    gate(trainer._world == DP_WORLD and trainer._rank == 0
+         and trainer.train_data.local_batch_size * DP_WORLD == trainer.config.train.batch_size,
+         f'(c) rank 0 of {trainer._world}, {trainer.train_data.local_batch_size} of each global '
+         f'batch of {trainer.config.train.batch_size}')
+    host_ips = statistics.mean(ep['steps'] * corpus['batch'] / ep['s']
+                               for e, ep in corpus['host_epochs'].items() if e > 0)
+    trainer_gates(rec, '(c) 2-rank shapes.yaml', tag, gate, host_ips, [0], phase='phase 19')
+    cfg = trainer.config
+    wdir = os.path.join(wroot, cfg.experiment_name)
+    names = sorted(os.listdir(wdir))
+    ap = rec['evals'][0]['AP']
+    gate(names == [f'model-0-{ap:.4f}.ckpt'], f'(c) one checkpoint, by rank 0: {names}')
+
+    # the same epoch in one process (world size 1 now), and with its rows reversed
+    def flat(tree):
+        return torch.cat([t.detach().reshape(-1).double().cpu() for t in tree_leaves(tree)])
+    ones = {}
+    for name in ('one', 'reversed'):
+        r1 = {}
+        restore = reversed_rows() if name == 'reversed' else (lambda: None)
+        try:
+            run_train_cli(base + ['weight.dir', os.path.join(tmp, f'weights_dp_{name}')], r1)
+        finally:
+            restore()
+        gate(r1['trainer']._world == 1, f'(c) the {name} epoch runs in one process')
+        ones[name] = r1
+    p_start = torch.cat([t.reshape(-1).double().cpu() for t in rec['start']])
+    p_one = flat(ones['one']['trainer'].params)
+    d_dp = (flat(trainer.params) - p_one).norm().item()
+    d_rev = (flat(ones['reversed']['trainer'].params) - p_one).norm().item()
+    l_dp, l_one = rec['loss'][0], ones['one']['loss'][0]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(l_dp, l_one))
+    print(f'phase 19: {tag} (c) rank 0\'s params after the 2-rank epoch {d_dp:.6g} (L2) from the '
+          f'one-process epoch\'s, which moved {(p_one - p_start).norm().item():.6g}; the '
+          f'one-process epoch on its rows reversed {d_rev:.6g} from it ({d_dp / d_rev:.4f}x); '
+          f'step losses' f' {[round(x, 4) for x in l_dp]} against {[round(x, 4) for x in l_one]}'
+          f' (largest relative difference {rel:.3g}); one-process AP '
+          f'{ones["one"]["evals"][0]["AP"]:.6f}, 2-rank {ap:.6f}')
+    gate(len(l_dp) == len(l_one) and d_dp <= DP_DRIFT_FACTOR * d_rev
+         and abs(l_dp[0] / l_one[0] - 1) <= 1e-4,
+         f'(c) the 2-rank CLI epoch trains what one process does: params within '
+         f'{DP_DRIFT_FACTOR}x the one-process epoch\'s own drift on its rows reversed, the '
+         f'first loss (the same global batch: loading, augmentation, sync-BN) within 1e-4')
+    for r1 in ones.values():
+        r1['trainer'].close()
+    deterministic_cudnn(torch, False)
+
+    # the same checkpoint evaluated in one process
+    one = Trainer(load_config(yaml, data + [
+        'system.compute_dtype', 'float32', 'weight.resume', os.path.join(wdir, names[0]),
+        'weight.dir', os.path.join(tmp, 'weights_dp1')]), device=dev)
+    one.init_all()
+    ap1 = one.evaluate().AP
+    gate(ap1 == ap, f'(c) AP of one process evaluating the checkpoint {ap1!r} == rank 0\'s '
+                    f'{ap!r}')
+    n_same, n_img, n_det, n_found, _ = eval_agreement(trainer.make_predict_fn(),
+                                                      one.make_predict_fn(), trainer.eval_data,
+                                                      cfg)
+    gate(n_same == n_img and n_found == n_det,
+         f'(c) one process on the checkpoint gives rank 0\'s eval detections: {n_same}/{n_img} '
+         f'images the same, {n_found}/{n_det} detections found, to {EVAL_AGREEMENT_ATOL}')
+    one.close()
+
+    # rank 0's eval (the decode kernel) against the plain decode on its params,
+    # each decode launch held to its plain version on the eval batches
+    net, dtype = trainer.network, trainer._compute_dtype
+    plain_predict = make_batch_predict(build_predict_pipeline(
+        net, cfg, compute_dtype=dtype, device=dev,
+        apply_fn=lambda p, im: net(p, {}, im, compute_dtype=dtype, plain=True)),
+        inference_params(net, trainer.params, trainer.state))
+    worst = {'err': 0.0, 'ok': True, 'calls': 0}
+    restore = checking_decode(worst)
+    try:
+        n_same, n_img, n_det, n_found, _ = eval_agreement(trainer.make_predict_fn(),
+                                                          plain_predict, trainer.eval_data, cfg)
+    finally:
+        restore()
+    share = n_found / max(n_det, 1)
+    print(f'phase 19: {tag} (c) rank 0\'s eval (decode kernel) against the plain decode: '
+          f'{n_found}/{n_det} detections found (share {share:.6f}), {n_same}/{n_img} images '
+          f'the same; decode_heads against its plain version on {worst["calls"]} eval batches: '
+          f'max |err| {worst["err"]:.3g}')
+    gate(n_det > 0 and share >= EVAL_AGREEMENT and worst['ok']
+         and worst['calls'] == len(trainer.eval_data),
+         f'(c) decode_heads within decode_tolerance of its plain version on every eval batch, '
+         f'the eval {share:.6f} >= {EVAL_AGREEMENT} of the plain decode\'s detections')
+    print(f'phase 19: (c) took {time.perf_counter() - t0:.1f} s')
+    return {'decode_heads': rec['evals'][0]['launches']['decode_heads'],
+            'decode_err': worst['err']}
+
+
+def phase19_data_parallel(dev, tag, tmp, corpus):
+    """Phase 19: data-parallel training (``parallel/mesh.py``): (a) world
+    size 1 through NCCL, bit for bit against the one-process step; (b) two
+    gloo ranks sharing the card (6 images each, f32, TF32 off) identical
+    to each other and within DP_DRIFT_FACTOR of one process; (c) the
+    training CLI as two ranks against one process, rank 0's eval and its
+    decode launches; (d)
+    the ranks' device-augmented rows; (e) NCCL over two cards where there
+    are two. Raises on any failed gate; returns (c)'s decode launches and
+    error."""
+    t_phase = time.perf_counter()
+    fails = []
+
+    def gate(ok, what):
+        print(f'phase 19: {what}: {"ok" if ok else "FAIL"}')
+        if not ok:
+            fails.append(what)
+
+    phase19_steps(dev, tag, tmp, gate)
+    out = phase19_cli(dev, tag, tmp, corpus, gate)
+    print(f'phase 19: {tag} took {time.perf_counter() - t_phase:.1f} s')
+    if fails:
+        raise AssertionError(f'phase 19: {len(fails)} gate(s) failed: {fails}')
+    return out
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -5716,7 +6254,9 @@ def main() -> int:
         p17 = phase17_nas_evolution(dev, tag, tmp, corpus, os.path.join(tmp, 'clutter'), ptx)
         stamp('phase 18 starts')
         p18 = phase18_s2d_host_data(dev, tag, tmp, corpus, net, params, state, ptx)
-    stamp('phase 18 ends')
+        stamp('phase 19 starts')
+        p19 = phase19_data_parallel(dev, tag, tmp, corpus)
+    stamp('phase 19 ends')
     arc = p14['launches']
     rn = p16['launches']
     nas = p17['launches']
@@ -5728,8 +6268,9 @@ def main() -> int:
          'replaces': 'pqdet_tpu/ops/pallas_decode.py:59',
          'launches': launches['decode'] + qlaunches['decode'] + arc.get('decode_heads', 0)
          + exported['decode_heads'] + rn['decode_heads'] + nas['decode_heads']
-         + hd['decode_heads'],
-         'max_abs_err': max(decode_err, p17['decode_err'], p18['decode_err']),
+         + hd['decode_heads'] + p19['decode_heads'],
+         'max_abs_err': max(decode_err, p17['decode_err'], p18['decode_err'],
+                            p19['decode_err']),
          'ms': dec['ms'], 'plain_ms': dec['plain_ms'], 'bound_ms': dec['bound_ms'],
          'bound_by': 'bytes', 'library_ms': None},
         {'name': 'fused_ir_conv', 'route': 'cuda',

@@ -6,7 +6,8 @@
 
 Trailing ``key value`` pairs override the yaml. A segfault or abort prints
 every thread's stack (``faulthandler``), and ``kill -USR1 <pid>`` prints
-them on demand.
+them on demand. Evolution runs one rank: ``system.data_devices`` above 1
+raises (ROADMAP.md queue 1, item 7).
 """
 
 import argparse
@@ -24,9 +25,10 @@ def main(argv=None):
     parser.add_argument('--device', default='cuda')
     args, rest = parser.parse_known_args(argv)
 
-    from pqdet_tpu_torch.config import load_config, platform_device
+    from pqdet_tpu_torch.config import load_config, one_rank, platform_device
     from pqdet_tpu_torch.nas.evolute import Evoluter
     cfg = load_config(args.yaml, rest)
+    one_rank(cfg, 'cli.evolute')
     return Evoluter(cfg, rounds=args.rounds, log_path=args.log, seed=args.seed,
                     device=platform_device(cfg, args.device)).run()
 

@@ -6,7 +6,9 @@
 
 Trailing ``key value`` pairs override the yaml; ``model.cfg_path`` is
 supplied per candidate by the search. ``--max-latency-ms`` filters on the
-candidate's B=1, 512x512 forward timed on ``--device``.
+candidate's B=1, 512x512 forward timed on ``--device``. The search runs
+one rank: ``system.data_devices`` above 1 raises (ROADMAP.md queue 1,
+item 7).
 """
 
 import argparse
@@ -30,9 +32,10 @@ def main(argv=None):
     parser.add_argument('--device', default='cuda')
     args, rest = parser.parse_known_args(argv)
 
-    from pqdet_tpu_torch.config import load_config, platform_device
+    from pqdet_tpu_torch.config import load_config, one_rank, platform_device
     from pqdet_tpu_torch.nas.search import search
     cfg = load_config(args.yaml, rest)
+    one_rank(cfg, 'cli.search')
     return search(cfg, rounds=args.rounds, max_macs=args.max_macs,
                   log_path=args.log, max_latency_ms=args.max_latency_ms,
                   seed=args.seed, exp_cap=args.exp_cap,

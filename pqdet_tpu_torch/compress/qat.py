@@ -33,6 +33,7 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
+import torch.distributed as dist
 
 ACT_QMIN, ACT_QMAX = 0, 255       # uint8 activations
 W_QMIN, W_QMAX = -127, 127        # symmetric int8 weights
@@ -80,10 +81,17 @@ def fake_quant_weight(w: torch.Tensor) -> torch.Tensor:
     return q * scale
 
 
-def observe(obs: Dict, x: torch.Tensor) -> Dict:
-    """Moving-average min/max observer update; returns a new dict."""
+def observe(obs: Dict, x: torch.Tensor, group=None) -> Dict:
+    """Moving-average min/max observer update; returns a new dict. With a
+    process ``group`` (data parallelism) ``x`` is this rank's shard and the
+    min and max are the global batch's, as ``jnp.min`` over JAX's sharded
+    batch: one MIN all-reduce of (min, -max), exact."""
     x32 = x.detach().float()
     mn, mx = torch.amin(x32), torch.amax(x32)
+    if group is not None:
+        both = torch.stack([mn, -mx])
+        dist.all_reduce(both, op=dist.ReduceOp.MIN, group=group)
+        mn, mx = both[0], -both[1]
     m = OBSERVER_MOMENTUM
     init = obs['initialized']
     new_min = torch.where(init, (1 - m) * obs['min'] + m * mn, mn)
@@ -150,12 +158,14 @@ class QuantCtx:
 
     ``observing``: update the observers on this pass. The new observer
     states collect in ``self.new_obs``; the caller merges them back into
-    ``state['quant']``.
+    ``state['quant']``. ``group``: the process group of data-parallel
+    ranks, whose observers then see the global batch (``observe``).
     """
 
-    def __init__(self, quant_state: Dict, observing: bool = True):
+    def __init__(self, quant_state: Dict, observing: bool = True, group=None):
         self.quant_state = quant_state
         self.observing = observing
+        self.group = group
         self.new_obs = dict(quant_state)
 
     def quantize_input(self, x):
@@ -172,6 +182,6 @@ class QuantCtx:
             return x
         obs = self.quant_state[key]
         if self.observing:
-            obs = observe(obs, x)
+            obs = observe(obs, x, self.group)
             self.new_obs[key] = obs
         return fake_quant_act(x, obs)

@@ -57,6 +57,10 @@ class SystemConfig:
     # seed of the epoch plan (sample indices, input sizes) and of each
     # sample's augment generator
     seed: int = 0
+    # data-parallel ranks, one process each (parallel/mesh.py): on the card
+    # GPUs, 0 = every visible one; on the CPU gloo processes, 0 = one;
+    # capped by the largest count that divides train.batch_size
+    data_devices: int = 0
 
 
 @dataclasses.dataclass
@@ -203,8 +207,7 @@ class Config:
 
 # keys of the JAX schema whose slice of the port is still queued
 LATER_KEYS = {
-    'system.data_devices': 'queue 1, item 7 (data parallelism)',
-    'train.spatial': 'queue 1, item 7 (data parallelism)',
+    'train.spatial': 'queue 1, item 7 (spatial partitioning)',
     'train.unroll_steps': 'queue 1, item 2 (one dispatch per step)',
 }
 
@@ -212,6 +215,14 @@ LATER_KEYS = {
 def later(what: str, item: str):
     """The error for a part of the JAX package whose slice is queued."""
     return NotImplementedError(f'{what}: not ported yet (ROADMAP.md {item})')
+
+
+def one_rank(cfg, what: str):
+    """Raise for an entry point that runs one rank when the config asks
+    for more (``system.data_devices`` > 1)."""
+    if cfg.system.data_devices > 1:
+        raise later(f'{what} at system.data_devices={cfg.system.data_devices}',
+                    'queue 1, item 7 (data-parallel NAS search and evolution)')
 
 
 def _coerce(key: str, old, new):

@@ -7,8 +7,11 @@
 and ``-val`` under the root, ``images/*.jpg``) area / smallest area times,
 the fractional part of a repeat resolved by a Bernoulli draw from
 ``np.random.RandomState(seed)``; ``test.txt`` lists the test images once.
-The files are taken in ``glob`` order and the draws made in that order,
-as the JAX script does, so one seed on one directory gives its list.
+The files are taken in sorted order and the draws made in that order, so
+one seed on one directory gives one list on any filesystem. The JAX
+script takes ``glob`` order, which is the directory's listing order and
+differs between filesystems (ext4 hashes names with a per-filesystem
+seed); on a directory whose listing is sorted the two lists are equal.
 Image sizes are read from the JPEG headers (``jpeg_size``, no decode).
 """
 
@@ -61,8 +64,8 @@ def write_lists(root: str, seed=None):
     root = os.path.abspath(root)
     trainval = []
     for s in SETS[:2]:
-        trainval.extend(glob.glob(os.path.join(root, s, 'images/*.jpg')))
-    test = glob.glob(os.path.join(root, SETS[2], 'images/*.jpg'))
+        trainval.extend(sorted(glob.glob(os.path.join(root, s, 'images/*.jpg'))))
+    test = sorted(glob.glob(os.path.join(root, SETS[2], 'images/*.jpg')))
     areas = {}
     for p in trainval:
         w, h = jpeg_size(p)

@@ -22,6 +22,12 @@ mixup and mosaic partners' paths from the global ``random``.
 Two loaders: ``epoch_batches`` (``system.loader thread``), a pool of
 threads; ``ProcessLoader`` (``process``), a pool of spawned workers that
 write each batch into a shared-memory slab, which the parent copies out.
+
+Data parallelism (``parallel/mesh.py``): every rank draws the same plan,
+and ``TrainData(num_hosts=W, host_id=r)`` loads only rank r's contiguous
+slice, rows [r*B/W, (r+1)*B/W), of each global batch of B, as the JAX
+package's multi-host loading does. The slots stay global, so rank r's rows
+equal those rows of the one-process batch bit for bit on either loader.
 """
 
 from __future__ import annotations
@@ -131,9 +137,11 @@ def assign_labels(bboxes: np.ndarray, input_size: Tuple[int, int], strides: np.n
 
 
 class TrainData:
-    """Epoch-planned training data source (one sample at a time)."""
+    """Epoch-planned training data source (one sample at a time); with
+    ``num_hosts`` W > 1, host (rank) ``host_id``'s slice of each global
+    batch (the module docstring)."""
 
-    def __init__(self, config):
+    def __init__(self, config, num_hosts: int = 1, host_id: int = 0):
         mode = config.system.label_assign
         if mode not in ('device', 'host'):
             raise ValueError(f"system.label_assign must be 'device' or 'host', got {mode!r}")
@@ -144,6 +152,11 @@ class TrainData:
         self._device_labels = mode == 'device'
         self._input_sizes = sizes_fix(config.train.input_sizes)
         self._batch_size = config.train.batch_size
+        if self._batch_size % num_hosts:
+            raise ValueError(f'train.batch_size={self._batch_size} must be divisible by '
+                             f'num_hosts={num_hosts}')
+        self._num_hosts = num_hosts
+        self._host_id = host_id
         self._max_gt = config.model.max_gt_boxes
         self._strides = np.array(config.model.strides)
         self._anchors = np.array(config.model.anchors, np.float32)
@@ -232,9 +245,17 @@ class TrainData:
         size = self._sizes[index // self._batch_size]
         return self.build_sample(self._indexes[index], size, self.sample_rng(index))
 
+    @property
+    def local_batch_size(self) -> int:
+        """Rows of each global batch this host loads."""
+        return self._batch_size // self._num_hosts
+
     def batch_indices(self) -> List[List[int]]:
-        b = self._batch_size
-        return [list(range(i * b, (i + 1) * b)) for i in range(self.batches_per_epoch)]
+        """This host's slots of each global batch (the whole batches on one
+        host)."""
+        b, lb = self._batch_size, self.local_batch_size
+        lo = self._host_id * lb
+        return [list(range(i * b + lo, i * b + lo + lb)) for i in range(self.batches_per_epoch)]
 
 
 def make_batch(data: TrainData, indices: List[int], pool=None) -> dict:
@@ -355,7 +376,7 @@ class ProcessLoader:
         self._data = data
         self._prefetch = max(prefetch, 1)
         biggest = max(data._input_sizes, key=lambda hw: hw[0] * hw[1])
-        _, slab_bytes = _batch_layout(data, data._batch_size, biggest)
+        _, slab_bytes = _batch_layout(data, data.local_batch_size, biggest)
         self._slabs = {}
         try:
             for _ in range(self._prefetch + 2):

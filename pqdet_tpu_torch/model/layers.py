@@ -20,6 +20,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 BN_EPS = 1e-5       # torch nn.BatchNorm2d default
@@ -165,24 +166,55 @@ def _bn_moments(x):
     return s + dm, var
 
 
-def batch_norm(x, params, state, train: bool = False):
+def _bn_moments_synced(x, group):
+    """``_bn_moments`` of the global batch whose local shard each rank of
+    ``group`` holds (sync-BN, as JAX's sharded step computes it): the
+    shift s is the mean of the global strided subsample (its sums
+    all-reduced, detached); the sums of d and d^2 go through a
+    differentiable all-reduce, so the backward pass all-reduces the BN
+    backward sums, as the transpose of GSPMD's psum does. The shards are
+    equal (``TrainData`` enforces it), so the global counts are the local
+    ones times the world. Returns (mean, biased var, global element
+    count)."""
+    from pqdet_tpu_torch.parallel.mesh import all_reduce_sum
+    w = dist.get_world_size(group)
+    dims = tuple(range(x.dim() - 1))
+    sub = x[:, ::8, ::8, :].float()
+    s = sub.sum(dim=dims).detach()
+    dist.all_reduce(s, group=group)
+    s = s / (w * (sub.numel() // x.shape[-1]))
+    n = w * (x.numel() // x.shape[-1])
+    d = x.float() - s
+    c = x.shape[-1]
+    sums = all_reduce_sum(torch.cat([d.sum(dim=dims), torch.square(d).sum(dim=dims)]), group)
+    dm = sums[:c] / n
+    var = torch.clamp_min(sums[c:] / n - torch.square(dm), 0.0)
+    return s + dm, var, n
+
+
+def batch_norm(x, params, state, train: bool = False, group=None):
     """BatchNorm over (N, H, W) of NHWC ``x``; returns (y, new state).
 
     Train mode normalises with the batch's moments (biased variance) and
     returns new running statistics, the unbiased variance mixed in with
     ``BN_MOMENTUM``, as torch.nn.BatchNorm2d; ``state`` is not written.
-    Eval mode normalises with the running statistics and returns ``state``.
-    ``y`` is in ``x.dtype``."""
+    With a process ``group`` (data parallelism, ``parallel/mesh.py``) the
+    batch is the global one, whose shards the ranks hold: its moments and
+    element count (``_bn_moments_synced``). Eval mode normalises with the
+    running statistics, returns ``state`` and never communicates. ``y`` is
+    in ``x.dtype``."""
     gamma, beta = params['gamma'], params['beta']
-    if train:
-        mean, var = _bn_moments(x)
-    else:
+    if not train:
         mean, var = state['mean'], state['var']
+    elif group is None:
+        mean, var = _bn_moments(x)
+        n = x.numel() // x.shape[-1]
+    else:
+        mean, var, n = _bn_moments_synced(x, group)
     inv = torch.rsqrt(var + BN_EPS) * gamma
     y = (x - mean.to(x.dtype)) * inv.to(x.dtype) + beta.to(x.dtype)
     if not train:
         return y, state
-    n = x.numel() // x.shape[-1]
     unbiased = (var * (n / max(n - 1, 1))).detach()
     return y, {'mean': (1 - BN_MOMENTUM) * state['mean'] + BN_MOMENTUM * mean.detach(),
                'var': (1 - BN_MOMENTUM) * state['var'] + BN_MOMENTUM * unbiased}

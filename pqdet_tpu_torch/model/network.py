@@ -140,7 +140,7 @@ class Network(nn.Module):
                       targets: Optional[tuple] = None, train: bool = True,
                       rng: Optional[torch.Generator] = None,
                       compute_dtype: Optional[torch.dtype] = None, remat_segments: int = 0,
-                      tap=None, quant_ctx=None, s2d_stem: int = 0):
+                      tap=None, quant_ctx=None, s2d_stem: int = 0, group=None):
         """The training walk: (outputs, new_state), always. Outputs are the
         per-head loss 4-tuples of ``loss_per_scale`` with ``targets`` (the
         6-tuple of ``ops/labels.py``), else the decoded heads or final
@@ -149,17 +149,19 @@ class Network(nn.Module):
         running statistics a ``train`` walk computed (``state`` itself
         without ``train``: BN on its running statistics, e.g. for the loss at
         eval statistics). ``rng`` is the generator of the dropout draws;
-        ``remat_segments`` as in the module docstring; the other arguments
-        as in ``forward``."""
+        ``remat_segments`` as in the module docstring; ``group``, a process
+        group of data-parallel ranks, makes train-mode BN take the moments
+        of the global batch whose shards the ranks hold (sync-BN,
+        ``parallel/mesh.py``); the other arguments as in ``forward``."""
         x, losses, preds, shapes, new_state = self._run(
             params, state, x, compute_dtype, None, True, quant_ctx, targets, train, rng,
-            remat_segments, tap, s2d_stem)
+            remat_segments, tap, s2d_stem, group)
         if targets is not None:
             return losses, new_state
         return (head_views(preds, shapes) if shapes else x), new_state
 
     def _run(self, params, state, x, compute_dtype, fused_ir, plain, quant_ctx, targets,
-             train, rng, remat_segments, tap, s2d_stem):
+             train, rng, remat_segments, tap, s2d_stem, group=None):
         """(last activation, per-head losses, preds or None, raw head
         shapes, new state) of one walk."""
         if s2d_stem and quant_ctx is not None:
@@ -176,7 +178,7 @@ class Network(nn.Module):
         if quant_ctx is not None:
             x = quant_ctx.quantize_input(x)
         kw = dict(compute_dtype=compute_dtype, plain=plain, targets=targets, train=train,
-                  s2d_stem=s2d_stem)
+                  s2d_stem=s2d_stem, group=group)
         if remat_segments:
             x, updates, losses, heads = self._segments(params, state, x, rng,
                                                        remat_segments, kw)
@@ -219,7 +221,7 @@ class Network(nn.Module):
 
     def _walk(self, nodes, params, state, x, cache, gen, compute_dtype=None,
               fused_ir=None, plain=False, quant_ctx=None, targets=None, train=False,
-              tap=None, s2d_stem=0):
+              tap=None, s2d_stem=0, group=None):
         """Run a contiguous span of graph nodes. Returns (x, live cache, BN
         state updates, per-head losses, [(raw head, yolo node)] to decode)."""
         cache = dict(cache)
@@ -260,7 +262,7 @@ class Network(nn.Module):
                              padding=padding, groups=a['groups'],
                              compute_dtype=compute_dtype)
                 if 'bn' in p:
-                    x, bn_s = L.batch_norm(x, p['bn'], state[str(i)], train)
+                    x, bn_s = L.batch_norm(x, p['bn'], state[str(i)], train, group)
                     if train:
                         updates[str(i)] = bn_s
                 x = L.apply_activation(a['activation'], x)
@@ -385,10 +387,10 @@ class DetectionNetwork(Network):
 
     def forward_train(self, params, state, x, targets=None, train: bool = True, rng=None,
                       compute_dtype=None, remat_segments: int = 0, tap=None, quant_ctx=None,
-                      s2d_stem: int = 0):
+                      s2d_stem: int = 0, group=None):
         _, losses, preds, _, new_state = self._run(
             params, state, x, compute_dtype, None, True, quant_ctx, targets, train, rng,
-            remat_segments, tap, s2d_stem)
+            remat_segments, tap, s2d_stem, group)
         return (sum_scale_losses(losses) if targets is not None else preds), new_state
 
 

@@ -1,6 +1,5 @@
 """The training step: loss -> grads (autograd) -> Adam (the port of
-``pqdet_tpu/train/step.py``, single device; the data-parallel step comes
-with its own slice).
+``pqdet_tpu/train/step.py``).
 
 The step is a function of plain dicts, as in JAX: it takes params, BN
 state and optimizer state and returns new ones, writing none of its inputs
@@ -12,6 +11,19 @@ runs the fake-quant walk of the quant graph with the same Adam. On the card eith
 step runs cuDNN convs, PyTorch elementwise kernels and autograd, and
 launches no hand-written kernel: the JAX step reaches no Pallas kernel
 either.
+
+Data parallelism (``parallel/mesh.py``): built with a process ``group``,
+the step runs on this rank's shard of the global batch and computes what
+the one-process step computes on the whole batch, as JAX's sharded step
+does: sync-BN in the walk, the QAT observers of the global batch, the
+grads averaged by one all-reduce of their flat f32 vector before sparse-L1
+(which is of the replicated params, added once) and before the
+global-norm clip (which must see the global gradient), and the metrics
+all-reduced (the loss and its parts are batch means, so with equal local
+batches the mean of the ranks' means is the global mean; ``head_max`` by
+MAX). Device augmentation gathers the global batch, augments it with the
+global draws (in-batch partners span the global batch) and keeps this
+rank's rows. Without a group (world size 1) none of this runs.
 """
 
 from __future__ import annotations
@@ -25,6 +37,7 @@ from pqdet_tpu_torch.compress.qat import QuantCtx
 from pqdet_tpu_torch.ops.augment_device import augmenter_from_config
 from pqdet_tpu_torch.ops.labels import label_assigner_from_config
 from pqdet_tpu_torch.ops.preprocess import device_normalize
+from pqdet_tpu_torch.parallel.mesh import all_gather_batch, all_reduce_mean_, rank
 from pqdet_tpu_torch.train.schedule import build_schedule
 
 COMPUTE_DTYPES = {'float32': None, 'bfloat16': torch.bfloat16}
@@ -143,13 +156,20 @@ def make_optimizer(schedule: Callable[[int], float], weight_decay: float = 0.0,
     return Adam(schedule, weight_decay=weight_decay, grad_clip=grad_clip)
 
 
-def _inputs(batch, label_fn, augment_fn=None):
+def _inputs(batch, label_fn, augment_fn=None, group=None):
     """(normalized image, label targets) of a step's batch: augmented on
     the device first when ``augment_fn`` is given and the batch has
-    ``gt``."""
+    ``gt``; with a ``group``, as this rank's rows of the augmented global
+    batch (the draws are the global batch's)."""
     if augment_fn is not None and 'gt' in batch:
-        raw, gt = augment_fn(batch['image'], batch['gt'], batch['draws'],
+        image, gt = batch['image'], batch['gt']
+        if group is not None:
+            image, gt = all_gather_batch(image, group), all_gather_batch(gt, group)
+        raw, gt = augment_fn(image, gt, batch['draws'],
                              batch.get('partner_image'), batch.get('partner_gt'))
+        if group is not None:
+            b, r = batch['image'].shape[0], rank(group)
+            raw, gt = raw[r * b:(r + 1) * b], gt[r * b:(r + 1) * b]
         image = device_normalize(raw)
         return image, label_fn(gt, image.shape[1:3])
     image = device_normalize(batch['image'])
@@ -159,7 +179,8 @@ def _inputs(batch, label_fn, augment_fn=None):
 
 
 def make_loss_fn(network, compute_dtype=None, remat: int = 0, label_fn=None,
-                 augment_fn=None, probe_heads: bool = False, s2d_stem: int = 0):
+                 augment_fn=None, probe_heads: bool = False, s2d_stem: int = 0,
+                 group=None):
     """The (params, state, batch, rng) -> (loss, (losses, new_state, stats))
     function of the step: normalize a uint8 batch on the device, build the
     label grids from its padded GT boxes with ``label_fn`` (or take its
@@ -178,7 +199,8 @@ def make_loss_fn(network, compute_dtype=None, remat: int = 0, label_fn=None,
     are then built from the grown GT. The draws are the batch's own, apart
     from ``rng`` (the dropout generator), as JAX splits the step's key.
     ``s2d_stem`` runs the stem folded onto space-to-depth input; the fold
-    is differentiable, so the grads reach the stem's own kernel."""
+    is differentiable, so the grads reach the stem's own kernel. ``group``:
+    this rank's shard of a data-parallel batch (the module docstring)."""
     remat_n = int(remat)
     head_in = tuple(n.index - 1 for n in network.graph.yolo_nodes) if probe_heads else ()
     if head_in and remat_n:
@@ -192,11 +214,11 @@ def make_loss_fn(network, compute_dtype=None, remat: int = 0, label_fn=None,
             def tap(i, t):
                 if i in head_in:
                     stats[i] = t.detach().abs().amax().float()
-        image, targets = _inputs(batch, label_fn, augment_fn)
+        image, targets = _inputs(batch, label_fn, augment_fn, group)
         losses, new_state = network.forward_train(params, state, image, targets=targets,
                                                   rng=rng, compute_dtype=compute_dtype,
                                                   remat_segments=remat_n, tap=tap,
-                                                  s2d_stem=s2d_stem)
+                                                  s2d_stem=s2d_stem, group=group)
         return losses['loss'][0], (losses, new_state, stats)
 
     return loss_fn
@@ -216,33 +238,35 @@ def value_and_grad(loss_fn, params, state, batch, rng=None):
 def make_train_step(network, optimizer: Adam, sparse_ratio: float = 0.0,
                     sparse_ids: Optional[Set[str]] = None, compute_dtype=None,
                     remat: int = 0, label_fn=None, augment_fn=None,
-                    probe_heads: bool = False, s2d_stem: int = 0):
+                    probe_heads: bool = False, s2d_stem: int = 0, group=None):
     """The (params, state, opt_state, batch, rng) -> (params, new_state,
     opt_state, metrics) step. ``batch``, ``remat``, ``probe_heads`` and
     ``s2d_stem`` as in ``make_loss_fn``; ``rng`` is the generator of the dropout draws (on
     the batch's device). Metrics: ``loss`` and its parts ``giou_loss``,
     ``conf_loss``, ``class_loss`` (0-d), ``loss_per_branch`` (one per
     head), and with ``probe_heads`` ``head_max`` (one per head), all
-    detached on the device."""
+    detached on the device; with a ``group`` the global batch's (the
+    module docstring)."""
     loss_fn = make_loss_fn(network, compute_dtype=compute_dtype, remat=remat,
                            label_fn=label_fn, augment_fn=augment_fn,
-                           probe_heads=probe_heads, s2d_stem=s2d_stem)
-    return _step_of(loss_fn, optimizer, sparse_ratio, sparse_ids, probe_heads)
+                           probe_heads=probe_heads, s2d_stem=s2d_stem, group=group)
+    return _step_of(loss_fn, optimizer, sparse_ratio, sparse_ids, probe_heads, group)
 
 
 def make_qat_loss_fn(network, observing: bool = True, bn_frozen: bool = False,
-                     compute_dtype=None, label_fn=None, augment_fn=None):
+                     compute_dtype=None, label_fn=None, augment_fn=None, group=None):
     """The loss function of the QAT step, in ``make_loss_fn``'s contract:
     augment, normalize and label as there, then the fake-quant walk with
     ``QuantCtx(state['quant'], observing)`` and BN on batch statistics
     unless ``bn_frozen``; the new observers go into the new state's
     ``quant`` (``state``'s own when not ``observing``)."""
     def loss_fn(params, state, batch, rng: Optional[torch.Generator] = None):
-        ctx = QuantCtx(state['quant'], observing=observing)
-        image, targets = _inputs(batch, label_fn, augment_fn)
+        ctx = QuantCtx(state['quant'], observing=observing, group=group)
+        image, targets = _inputs(batch, label_fn, augment_fn, group)
         losses, new_state = network.forward_train(params, state, image, targets=targets,
                                                   train=not bn_frozen, rng=rng,
-                                                  compute_dtype=compute_dtype, quant_ctx=ctx)
+                                                  compute_dtype=compute_dtype, quant_ctx=ctx,
+                                                  group=group)
         new_state = {**new_state, 'quant': ctx.new_obs}
         return losses['loss'][0], (losses, new_state, {})
 
@@ -251,7 +275,7 @@ def make_qat_loss_fn(network, observing: bool = True, bn_frozen: bool = False,
 
 def make_qat_train_step(network, optimizer: Adam, observing: bool = True,
                         bn_frozen: bool = False, compute_dtype=None, label_fn=None,
-                        augment_fn=None):
+                        augment_fn=None, group=None):
     """The QAT step, the port of the JAX trainer's ``_wrap_quant_step``:
     ``make_train_step``'s contract with the loss of ``make_qat_loss_fn``
     for one phase of the observer and BN-freeze schedule, and the same
@@ -260,17 +284,44 @@ def make_qat_train_step(network, optimizer: Adam, observing: bool = True,
     under autograd)."""
     loss_fn = make_qat_loss_fn(network, observing=observing, bn_frozen=bn_frozen,
                                compute_dtype=compute_dtype, label_fn=label_fn,
-                               augment_fn=augment_fn)
-    return _step_of(loss_fn, optimizer)
+                               augment_fn=augment_fn, group=group)
+    return _step_of(loss_fn, optimizer, group=group)
+
+
+def average_grads(grads, group):
+    """``grads`` averaged over the ranks of ``group``: one all-reduce of
+    their flat f32 vector."""
+    leaves = tree_leaves(grads)
+    flat = all_reduce_mean_(torch.cat([t.reshape(-1).float() for t in leaves]), group)
+    return tree_unflatten(grads, [part.view(t.shape) for part, t in
+                                  zip(torch.split(flat, [t.numel() for t in leaves]), leaves)])
+
+
+def reduce_metrics(metrics: dict, group) -> dict:
+    """The step's metrics of the global batch: the means all-reduced to
+    their mean over the ranks in one collective, ``head_max`` to its
+    maximum."""
+    names = [k for k in metrics if k != 'head_max']
+    flat = all_reduce_mean_(torch.cat([metrics[k].reshape(-1).float() for k in names]),
+                            group)
+    out = {k: part.view(metrics[k].shape) for k, part in
+           zip(names, torch.split(flat, [metrics[k].numel() for k in names]))}
+    if 'head_max' in metrics:
+        out['head_max'] = metrics['head_max'].clone()
+        torch.distributed.all_reduce(out['head_max'], op=torch.distributed.ReduceOp.MAX,
+                                     group=group)
+    return out
 
 
 def _step_of(loss_fn, optimizer: Adam, sparse_ratio: float = 0.0,
-             sparse_ids: Optional[Set[str]] = None, probe_heads: bool = False):
-    """The train step around ``loss_fn``: grads, sparse-L1, the update and
-    the metrics."""
+             sparse_ids: Optional[Set[str]] = None, probe_heads: bool = False, group=None):
+    """The train step around ``loss_fn``: grads (averaged over ``group``'s
+    ranks), sparse-L1, the update and the metrics."""
     def train_step(params, state, opt_state, batch, rng=None):
         (_, (losses, new_state, stats)), grads = value_and_grad(
             loss_fn, params, state, batch, rng)
+        if group is not None:
+            grads = average_grads(grads, group)
         if sparse_ratio and sparse_ids:
             grads = add_sparse_l1(grads, params, sparse_ids, sparse_ratio)
         params, opt_state = optimizer.update(grads, opt_state, params)
@@ -283,13 +334,15 @@ def _step_of(loss_fn, optimizer: Adam, sparse_ratio: float = 0.0,
         }
         if probe_heads:     # the head inputs in graph order, as the yolo nodes
             metrics['head_max'] = torch.stack([stats[i] for i in sorted(stats)])
+        if group is not None:
+            metrics = reduce_metrics(metrics, group)
         return params, new_state, opt_state, metrics
 
     return train_step
 
 
 def train_step_from_config(network, cfg, steps_per_epoch: int, device='cuda',
-                           observing: bool = True, bn_frozen: bool = False):
+                           observing: bool = True, bn_frozen: bool = False, group=None):
     """(train_step, optimizer) as the config sets them, the way the JAX
     trainer builds its step: the lr schedule of ``build_schedule`` over
     ``steps_per_epoch``, ``train.weight_decay`` and ``train.grad_clip``,
@@ -299,7 +352,8 @@ def train_step_from_config(network, cfg, steps_per_epoch: int, device='cuda',
     ``train.head_probe`` and ``train.s2d_stem``; or, with ``quant.switch``,
     the QAT step of the phase ``observing``/``bn_frozen`` (of the quant
     graph's ``network``), which reads none of those four. Either step augments on the device
-    with ``augment.device`` (its batches then carry their ``draws``)."""
+    with ``augment.device`` (its batches then carry their ``draws``). ``group``: the
+    data-parallel step of this rank (the module docstring); None at world size 1."""
     t = cfg.train
     optimizer = make_optimizer(build_schedule(cfg, steps_per_epoch),
                                weight_decay=t.weight_decay, grad_clip=t.grad_clip)
@@ -309,14 +363,14 @@ def train_step_from_config(network, cfg, steps_per_epoch: int, device='cuda',
     if cfg.quant.switch:
         return make_qat_train_step(network, optimizer, observing=observing,
                                    bn_frozen=bn_frozen, compute_dtype=dtype,
-                                   label_fn=labels, augment_fn=augment), optimizer
+                                   label_fn=labels, augment_fn=augment, group=group), optimizer
     sparse = bool(cfg.sparse.switch)
     step = make_train_step(network, optimizer,
                            sparse_ratio=cfg.sparse.ratio if sparse else 0.0,
                            sparse_ids=sparse_bn_gamma_ids(network) if sparse else None,
                            compute_dtype=dtype, remat=int(t.remat),
                            probe_heads=bool(t.head_probe), label_fn=labels,
-                           augment_fn=augment, s2d_stem=int(t.s2d_stem))
+                           augment_fn=augment, s2d_stem=int(t.s2d_stem), group=group)
     return step, optimizer
 
 

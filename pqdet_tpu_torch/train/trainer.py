@@ -1,5 +1,5 @@
-"""The trainer: whole epochs of the training step on one device (the port of
-``pqdet_tpu/train/trainer.py``, single device).
+"""The trainer: whole epochs of the training step (the port of
+``pqdet_tpu/train/trainer.py``).
 
 Per epoch: the thread loader decodes and augments the epoch plan's
 batches on the host (``data/train_data.py``, one input size per batch);
@@ -50,8 +50,20 @@ JAX trainer's preset. ``close`` releases what a run holds on the device
 threads, the upload thread and the process pool with its shared-memory
 slabs; the device corpus memo stays for the next trainer.
 
-Not ported yet, and raising: data parallelism and unrolled steps
-(ROADMAP.md queue 1).
+Data parallelism (``parallel/mesh.py``): a Trainer runs in the process
+group it is started in (``cli.train`` and ``cli.prune`` launch one rank
+per GPU for ``system.data_devices``, or join torchrun's group). Rank r of
+W loads its slice of every global batch (``TrainData(num_hosts=W,
+host_id=r)``), the params, BN and optimizer state are broadcast from rank
+0 at init, and the step is the data-parallel one (sync-BN, averaged
+grads, global device-augment draws). Every rank flushes the all-reduced
+metrics (a non-finite loss raises on every rank at once) and rank 0 alone
+prints, evaluates and writes checkpoints, the others waiting at a
+barrier. A resume loads the same checkpoint on every rank. The dropout
+generator is seeded per rank, where JAX draws one mask for the global
+batch. ``dataset.device_cache`` takes a single rank, as JAX's does.
+
+Not ported yet, and raising: unrolled steps (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -78,6 +90,7 @@ from pqdet_tpu_torch.evaluation.predict import build_predict_pipeline, make_batc
 from pqdet_tpu_torch.model.factory import build_detector, inference_params
 from pqdet_tpu_torch.ops.augment_device import (draw_augment, fresh_partners_enabled,
                                                 partner_rows_per_sample)
+from pqdet_tpu_torch.parallel.mesh import active_group, barrier, broadcast_tree, rank, world
 from pqdet_tpu_torch.train.checkpoint import save_checkpoint
 from pqdet_tpu_torch.train.step import (COMPUTE_DTYPES, resume_schedule_step,
                                         sparse_bn_gamma_ids, train_step_from_config)
@@ -105,6 +118,9 @@ class Trainer:
         self._eval_run = None      # the predict pipeline, built once
         self._batches = None       # the running epoch's batch iterator
         self._proc_loader = None   # the process pool (system.loader process)
+        # the data-parallel group (None at world size 1) and this rank
+        self._group = active_group()
+        self._world, self._rank = world(), rank()
 
         c = config
         self._max_epochs = c.train.max_epochs
@@ -134,22 +150,30 @@ class Trainer:
                              'in-batch partners without the cache)')
         if c.dataset.device_cache and not self._augment:
             raise ValueError('dataset.device_cache needs augment.device=on')
+        if c.dataset.device_cache and self._world > 1:
+            raise ValueError(f'dataset.device_cache needs a single rank, not {self._world} '
+                             '(system.data_devices)')
 
         self.dataload_tt = TicToc()
         self.model_tt = TicToc()
         self.epoch_tt = TicToc()
+
+    def _log(self, *args):
+        """print on rank 0 only."""
+        if self._rank == 0:
+            print(*args)
 
     # ------------------------------------------------------------------ init
 
     def init_all(self):
         if self.cfg_text is None:
             self.cfg_text = resolve_model_cfg(self.config)
-        self.train_data = TrainData(self.config)
+        self.train_data = TrainData(self.config, num_hosts=self._world, host_id=self._rank)
         self.eval_data = EvalData(self.config)
         self.steps_per_epoch = self.train_data.batches_per_epoch
         self._print_interval = max(self.steps_per_epoch // 5, 1)
-        print(f'{self.train_data.length} images for train.')
-        print(f'{self.eval_data.length} images for evaluate.')
+        self._log(f'{self.train_data.length} images for train.')
+        self._log(f'{self.eval_data.length} images for evaluate.')
 
         if self.config.dataset.device_cache:
             self._build_device_cache()
@@ -164,7 +188,7 @@ class Trainer:
         self.global_step = info['step']
         self.init_epoch = self.global_step // self.steps_per_epoch
         if self._resume:
-            print(f'resumed at {self.global_step} steps from {self._resume}')
+            self._log(f'resumed at {self.global_step} steps from {self._resume}')
         # the data of the resumed epoch is that of an uninterrupted run: the
         # epoch plan and the per-sample augment seeds move on to init_epoch
         for _ in range(self.init_epoch):
@@ -175,11 +199,13 @@ class Trainer:
         opt_state = self.optimizer.init(params)
         if self.global_step:
             opt_state = resume_schedule_step(opt_state, self.global_step)
+        for tree in (params, state, opt_state):     # replicated from rank 0
+            broadcast_tree(tree, group=self._group)
         self._sparse_ids = sorted(sparse_bn_gamma_ids(self.network), key=int) \
             if self._sparse else None
         if self._sparse:
             n_all = sum(1 for n in self.network.graph.nodes if n.has_bn)
-            print(f'sparse mode: {len(self._sparse_ids)}/{n_all} BN layers will be sparsed.')
+            self._log(f'sparse mode: {len(self._sparse_ids)}/{n_all} BN layers will be sparsed.')
 
         self.params, self.state, self.opt_state = params, state, opt_state
         self.losses = {
@@ -187,14 +213,14 @@ class Trainer:
             'conf_loss': AverageMeter(), 'class_loss': AverageMeter(),
             'loss_per_branch': [AverageMeter() for _ in range(3)],
         }
-        self._rng = torch.Generator(device=self.device).manual_seed(42)
+        self._rng = torch.Generator(device=self.device).manual_seed(42 + self._rank)
 
     def _make_step(self):
         """(step, optimizer) of the config, for the QAT phase the trainer is
         in."""
         return train_step_from_config(self.network, self.config, self.steps_per_epoch,
                                       device=self.device, observing=self._observing,
-                                      bn_frozen=self._bn_frozen)
+                                      bn_frozen=self._bn_frozen, group=self._group)
 
     # ----------------------------------------------------------------- eval
 
@@ -222,7 +248,7 @@ class Trainer:
         evaluator = Evaluator(self.make_predict_fn(), self.eval_data, self.config)
         ap = evaluator.evaluate()
         self.AP = ap
-        print(format_ap_table(ap, verbose=False))
+        self._log(format_ap_table(ap, verbose=False))
         return ap
 
     # ------------------------------------------------------------------ save
@@ -279,7 +305,7 @@ class Trainer:
                     if not isinstance(v, list)}
             branch = [b.get_avg_reset() for b in self.losses['loss_per_branch']]
             lr = float(self.schedule(self.global_step))
-            print(f'lr: {lr:.6f}\tepoch: {epoch}/{self._max_epochs}\t'
+            self._log(f'lr: {lr:.6f}\tepoch: {epoch}/{self._max_epochs}\t'
                   f'step: {self.global_step}\t'
                   f'train_loss: {vals["loss"]:.2f}='
                   f'{branch[0]:.2f}+{branch[1]:.2f}+{branch[2]:.2f}'
@@ -312,7 +338,7 @@ class Trainer:
         hit = Trainer._CACHE_MEMO.get(key)
         if hit is not None:
             self._device_cache, self.cache_info = hit, hit['info']
-            print(f'device cache: reusing the device-resident corpus '
+            self._log(f'device cache: reusing the device-resident corpus '
                   f'({hit["img"].shape[0]} images at {smax}px)')
             return
         t0 = time.perf_counter()
@@ -334,7 +360,7 @@ class Trainer:
                               'smax': smax, 'info': self.cache_info}
         Trainer._CACHE_MEMO.clear()     # at most one resident corpus
         Trainer._CACHE_MEMO[key] = self._device_cache
-        print(f'device cache built: {n} images at {smax}px ({self.cache_info["gib"]:.3f} '
+        self._log(f'device cache built: {n} images at {smax}px ({self.cache_info["gib"]:.3f} '
               f'GiB on {self.device}) in {self.cache_info["s"]:.1f} s')
 
     def _cache_gather(self, size: int, idx: torch.Tensor) -> dict:
@@ -463,9 +489,10 @@ class Trainer:
             raise err[0]
 
     def _draws(self, batch: dict, step: int):
-        """The device-augment draws of the batch of global step ``step``,
-        from ``np.random.default_rng((system.seed, step))``, on the device."""
-        B, S = batch['image'].shape[:2]
+        """The device-augment draws of the global batch of global step
+        ``step`` (this rank's batch is a 1/W slice of it), from
+        ``np.random.default_rng((system.seed, step))``, on the device."""
+        B, S = batch['image'].shape[0] * self._world, batch['image'].shape[1]
         partners = batch['partner_image'].shape[0] // B if 'partner_image' in batch else 0
         gen = np.random.default_rng((self.config.system.seed, step))
         return draw_augment(gen, B, S, partner_rows=partners).to(self.device)
@@ -509,11 +536,11 @@ class Trainer:
             gammas = np.sort(np.concatenate([
                 self.params[i]['bn']['gamma'].abs().cpu().numpy() for i in self._sparse_ids]))
             idx = [round(i / 5 * len(gammas)) - 1 for i in range(1, 6)]
-            print('sparse level: {}'.format(gammas[idx].tolist()))
+            self._log('sparse level: {}'.format(gammas[idx].tolist()))
 
         split = {'data_load_s': self.dataload_tt.sum_reset() / 1e9,
                  'model_s': self.model_tt.sum_reset() / 1e9}
-        print('data load time: {data_load_s:.3f}s, model train time: {model_s:.3f}s'.format(
+        self._log('data load time: {data_load_s:.3f}s, model train time: {model_s:.3f}s'.format(
             **split))
         return split
 
@@ -530,19 +557,22 @@ class Trainer:
             self.epoch_tt.tic()
             self.train_epoch(epoch)
             self.epoch_tt.toc()
-            print('{:.3f}s per epoch'.format(self.epoch_tt.sum_reset() / 1e9))
+            self._log('{:.3f}s per epoch'.format(self.epoch_tt.sum_reset() / 1e9))
 
-            due = epoch >= self._eval_after and (epoch - self._eval_after) % interval == 0
-            if due or (epoch == self._max_epochs - 1 and epoch >= self._eval_after):
-                self.evaluate()
-            self.save(epoch)
+            # eval and checkpoints on rank 0; the params are the same on all
+            if self._rank == 0:
+                due = epoch >= self._eval_after and (epoch - self._eval_after) % interval == 0
+                if due or (epoch == self._max_epochs - 1 and epoch >= self._eval_after):
+                    self.evaluate()
+                self.save(epoch)
+            barrier(self._group)
 
     def run(self):
         """init_all and train; the loaders' threads and processes end with
         the run (the params stay, for the caller to read)."""
         os.makedirs(self._weights_dir, exist_ok=True)
         if self._quant:
-            print('quantization aware training')
+            self._log('quantization aware training')
         self.init_all()
         try:
             self.train()

@@ -413,17 +413,27 @@ def test_voc_txt_matches_jax(tmp_path, monkeypatch):
     assert (tmp_path / 'port' / 'train.txt').read_text().count('\n') == 8
 
 
-def test_visdrone_txt_matches_jax(visdrone, tmp_path, monkeypatch):
-    """visdrone_txt --seed 0 gives JAX's lists (PIL reads JAX's sizes, the
-    port parses the JPEG headers): the same lines, repeats included."""
+def _visdrone_copy(visdrone, root):
+    """The fixture's images and annotations under ``root``, no lists."""
     import shutil
-    import sys
-    from pqdet_tpu.data.scripts import visdrone_txt as jax_visdrone_txt
-    root = tmp_path / 'vd'
     shutil.copytree(visdrone, root, ignore=shutil.ignore_patterns('*.txt'))
     for s in chip_smoke.VISDRONE_SETS:
         shutil.copytree(os.path.join(visdrone, s, 'annotations'), root / s / 'annotations',
                         dirs_exist_ok=True)
+
+
+def test_visdrone_txt_matches_jax(visdrone, tmp_path, monkeypatch):
+    """visdrone_txt --seed 0 gives JAX's lists (PIL reads JAX's sizes, the
+    port parses the JPEG headers): the same lines, repeats included, on a
+    directory whose listing is sorted (JAX takes the listing's order, the
+    port sorts)."""
+    import glob
+    import sys
+    from pqdet_tpu.data.scripts import visdrone_txt as jax_visdrone_txt
+    root = tmp_path / 'vd'
+    _visdrone_copy(visdrone, root)
+    listing = glob.glob
+    monkeypatch.setattr(glob, 'glob', lambda pattern: sorted(listing(pattern)))
     monkeypatch.setattr(sys, 'argv', ['visdrone_txt', '--root', str(root), '--seed', '0'])
     jax_visdrone_txt.main()
     want = {f: (root / f).read_text() for f in ('trainval.txt', 'test.txt')}
@@ -434,6 +444,29 @@ def test_visdrone_txt_matches_jax(visdrone, tmp_path, monkeypatch):
     assert len(set(lines)) == 2 * len(TINY_VISDRONE) < len(lines)
     for p in lines:
         assert visdrone_txt.jpeg_size(p) == cv2.imread(p).shape[1::-1]
+
+
+@pytest.mark.parametrize('order', ['reversed', 'shuffled'])
+def test_visdrone_txt_ignores_listing_order(visdrone, tmp_path, monkeypatch, order):
+    """One seed gives one list whatever order the filesystem lists the
+    images in: the lists written under a reversed or shuffled listing
+    equal those under the sorted one."""
+    import glob
+    root = tmp_path / 'vd'
+    _visdrone_copy(visdrone, root)
+    visdrone_txt.main(['--root', str(root), '--seed', '0'])
+    want = {f: (root / f).read_text() for f in ('trainval.txt', 'test.txt')}
+    listing = glob.glob
+    rng = np.random.RandomState(0)
+
+    def relisted(pattern):
+        paths = sorted(listing(pattern))
+        return paths[::-1] if order == 'reversed' else list(rng.permutation(paths))
+    monkeypatch.setattr(glob, 'glob', relisted)
+    visdrone_txt.main(['--root', str(root), '--seed', '0'])
+    for f, text in want.items():
+        assert (root / f).read_text() == text
+    assert len(set(want['trainval.txt'].split())) == 2 * len(TINY_VISDRONE)
 
 
 # ------------------------------------------------------------ the playground

@@ -74,7 +74,7 @@ def test_port_imports_no_jax():
                'pqdet_tpu_torch.utils.draw', 'pqdet_tpu_torch.cli.search',
                'pqdet_tpu_torch.cli.evolute', 'pqdet_tpu_torch.ops.space_to_depth',
                'pqdet_tpu_torch.cli.playground', 'pqdet_tpu_torch.data.scripts.voc_txt',
-               'pqdet_tpu_torch.data.scripts.visdrone_txt'}
+               'pqdet_tpu_torch.data.scripts.visdrone_txt', 'pqdet_tpu_torch.parallel.mesh'}
         print(len(names), bad, sorted(new - set(names)))
         sys.exit(1 if bad or len(names) < 40 or not new <= set(names) else 0)
     """)
