@@ -198,7 +198,7 @@ Builds the CUDA kernels from pqdet_tpu_torch/csrc with nvcc (sm_90a), then:
    version, library yardstick and bound, MACs and params, the arc's images/s
    and CLI seconds, and the phase's seconds;
 15. the exporters (``phase15_exporters``, in the same temporary directory),
-   at B=1 and B=4, 512x512, from phase 4's seeded fp weights and phase 7's
+   at B=4 (EXPORT_BATCHES), 512x512, from phase 4's seeded fp weights and phase 7's
    calibrated int8 model: (a) the fp ``torch.export`` program
    (``export_stablehlo``) with and without NMS and (b) the int8 programs
    (``export_stablehlo_quant``) in ``'int'`` and ``'kernel'`` mode, each
@@ -328,7 +328,27 @@ Builds the CUDA kernels from pqdet_tpu_torch/csrc with nvcc (sm_90a), then:
    rows of (b)'s ranks (mosaic and mixup partners from the global batch)
    equal the one-process augmented batch's bit for bit; (e) (b) with NCCL
    over two cards when the machine has two, else a line that says it was
-   not run.
+   not run. (c) trains at shapes.yaml's sizes 448 and 512 (SP_INPUT_SIZES)
+   and its rank 1 prints its decode launches, which must be 0;
+20. spatial partitioning and NAS across ranks (``phase20_spatial``, in the
+   same temporary directory; ``train.spatial``, ``parallel/halo.py``): (a)
+   full-width mobilenetv2-fpn at 512x512, global B=4 as 1 data x 2 space,
+   two gloo ranks sharing the card (f32, TF32 off, cuDNN deterministic,
+   sparse-L1 and a binding clip): after each of 3 steps the ranks identical
+   bit for bit, the first loss within 1e-4 of one process and the params
+   within 2x the one-process step's own reversed-batch drift; one
+   regnety-400m-fpn step (grouped convs, the SE's band sums), its first loss
+   within 1e-4; each rank's peak memory and bf16 step p50 against one
+   process at the same batch; (b) ``cli.train --dist-backend gloo
+   train.spatial 2 system.data_devices 2`` as two ranks of one f32 epoch,
+   with phase 19 (c)'s checks against phase 19 (c)'s one-process epochs
+   (rank 0's eval: one decode_heads launch per batch, held to its plain
+   version; rank 1 none); (c) ``cli.search`` (2 candidates of seed 0) and
+   ``cli.evolute`` (1 round) at ``system.data_devices 2`` as spawned gloo
+   ranks on yamls/nas_clutter.yaml and evolute_clutter.yaml (phase 13's
+   clutter corpus, its first 64 train images, ``dataset.device_cache off``,
+   one epoch a candidate): one log each, the candidates of a one-process
+   sampling of seed 0, no diverged record but a NaN loss.
 
 Each phase draws from its own generator, seeded from SEED and the phase
 number. It prints one JSON line of kernels, then the nvidia-smi line, and
@@ -3513,7 +3533,9 @@ def phase14_prune(dev, tag, tmp, corpus, ptx, base):
 
 # ------------------------------------------------------------------ phase 15
 
-EXPORT_BATCHES = (1, BATCH)     # the CLI's default --bs, and the requests' B
+# the requests' B only (not also the CLI's default --bs of 1), to keep the
+# script well inside its time limit
+EXPORT_BATCHES = (BATCH,)
 NMS_ARGS = (0.1, 0.45, 256)     # export_stablehlo's defaults
 ONNX_FP_TOL = 1e-4              # tests/test_onnx.py:73, rtol = atol
 ONNX_BOX_MEDIAN = 1.0           # tests/test_onnx.py:112-113: px ...
@@ -3569,7 +3591,7 @@ def same_outputs(got, want) -> bool:
 
 
 def phase15_artifacts(dev, tag, out_dir, gen, net, fused, qnet, qparams):
-    """Phase 15 (a), (b), (e): each artifact exported at B=1 and B=4, loaded
+    """Phase 15 (a), (b), (e): each artifact exported at EXPORT_BATCHES, loaded
     here and in a fresh process, held to its eager path bit for bit, its
     graph's operators and launches counted, and timed beside the eager
     path. Returns the kernel launches of the kernel artifacts' calls
@@ -5519,12 +5541,20 @@ DP_TIMED = 10                  # (b): timed bf16 steps after ...
 DP_WARMUP = 3                  # ... these
 DP_DRIFT_FACTOR = 2.0          # (b): the ranks' params within this x the step's own drift
 DP_TIMEOUT_S = 600.0           # a collective's longest wait before the run fails
+# (c) and phase 20 (b): shapes.yaml's input sizes that 2 bands x the total
+# stride 32 divide (its 416 and 480 do not: a spatial run refuses them), so
+# that phase 20 (b) holds its bands to phase 19 (c)'s one-process epochs
+SP_INPUT_SIZES = ('train.input_sizes', '[448, 512]')
 # (c): rank 1 of cli.train, run as torchrun would start it, with the
 # precision flags of this script's rank 0 (TF32 off, cuDNN deterministic)
+# It prints its decode launches last (RANK1_LAUNCHES): it evaluates nothing.
+RANK1_LAUNCHES = 'rank 1 decode_heads launches'
 DP_RANK1 = ('import runpy, torch; '
             'torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False; '
             'torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False; '
-            'runpy.run_module("pqdet_tpu_torch.cli.train", run_name="__main__")')
+            'runpy.run_module("pqdet_tpu_torch.cli.train", run_name="__main__"); '
+            'from pqdet_tpu_torch.ops.decode_kernel import decode_heads; '
+            f'print("{RANK1_LAUNCHES}", decode_heads.launches)')
 
 
 def dp_config(dtype='float32'):
@@ -5834,7 +5864,8 @@ def reversed_rows():
     return restore
 
 
-def phase19_cli(dev, tag, tmp, corpus, gate):
+def phase19_cli(dev, tag, tmp, corpus, gate, phase='phase 19', label='(c)', extra=(),
+                name='dp', over=SP_INPUT_SIZES, ones=None):
     """Phase 19 (c): ``cli.train --dist-backend gloo`` as two ranks sharing
     the card, one f32 epoch of yamls/shapes.yaml on phase 11's corpus from
     its last checkpoint (``corpus['ckpt']``, history cleared): rank 1 a
@@ -5842,8 +5873,14 @@ def phase19_cli(dev, tag, tmp, corpus, gate):
     eval's launches counted). Rank 0's params after the epoch are held
     against one-process ``cli.train`` epochs on the same corpus, to within
     DP_DRIFT_FACTOR of the one-process epoch's own drift on its batches'
-    rows reversed. Returns the decode kernel's launches in rank 0's eval
-    and its largest error against its plain version on the eval batches."""
+    rows reversed. Rank 1 reports its decode launches, which must be 0.
+    ``extra`` overrides go to the two ranks only (phase 20 (b): ``train.spatial
+    2``), ``over`` to every run (input sizes that two bands divide, so that
+    phase 20 (b) reuses these one-process epochs, ``ones``); ``phase``,
+    ``label`` and ``name`` tag the prints and files. Returns the decode
+    kernel's launches in rank 0's eval, its largest error against its plain
+    version on the eval batches, and the one-process epochs' params, losses
+    and AP (``ones``)."""
     import subprocess
     import torch
     from pqdet_tpu_torch.config import load_config
@@ -5862,12 +5899,13 @@ def phase19_cli(dev, tag, tmp, corpus, gate):
     # the runs differ only by their sums' order
     base = ['--yaml', yaml, '--device', dev.type] + data + [
         'weight.resume', corpus['ckpt'], 'weight.clear_history', 'on',
-        'train.max_epochs', '1', 'eval.after', '0', 'system.compute_dtype', 'float32']
-    wroot = os.path.join(tmp, 'weights_dp')
-    argv = base + ['--dist-backend', 'gloo', 'weight.dir', wroot]
+        'train.max_epochs', '1', 'eval.after', '0', 'system.compute_dtype', 'float32',
+        *over]
+    wroot = os.path.join(tmp, f'weights_{name}')
+    argv = base + ['--dist-backend', 'gloo', 'weight.dir', wroot] + list(extra)
     env = {'WORLD_SIZE': str(DP_WORLD), 'LOCAL_WORLD_SIZE': str(DP_WORLD),
            'MASTER_ADDR': 'localhost', 'MASTER_PORT': str(mesh.free_port())}
-    log_path = os.path.join(tmp, 'phase19_rank1.log')
+    log_path = os.path.join(tmp, f'{name}_rank1.log')
     deterministic_cudnn(torch)
     t0 = time.perf_counter()
     with open(log_path, 'w') as log:
@@ -5892,73 +5930,82 @@ def phase19_cli(dev, tag, tmp, corpus, gate):
             peer.wait()
     with open(log_path) as f:
         peer_log = f.read()
-    print(f'phase 19: {tag} (c) cli.train --dist-backend gloo, {DP_WORLD} ranks on one card: '
-          f'{wall:.1f} s (rank 0), rank 1 exit {rc}; rank 1 printed {len(peer_log)} bytes')
-    gate(rc == 0, f'(c) rank 1 exits 0 (its log: {peer_log[-2000:]!r})' if rc else
-         '(c) rank 1 exits 0')
+    peer_launches = [line for line in peer_log.splitlines() if line.startswith(RANK1_LAUNCHES)]
+    print(f'{phase}: {tag} {label} cli.train --dist-backend gloo {" ".join(extra)}, {DP_WORLD} '
+          f'ranks on one card: {wall:.1f} s (rank 0), rank 1 exit {rc}; rank 1 printed '
+          f'{len(peer_log)} bytes; {peer_launches}')
+    gate(rc == 0, f'{label} rank 1 exits 0 (its log: {peer_log[-2000:]!r})' if rc else
+         f'{label} rank 1 exits 0')
     gate('mAPs' not in peer_log and 'Config(experiment_name' not in peer_log,
-         '(c) rank 1 prints no config and no AP table')
+         f'{label} rank 1 prints no config and no AP table')
+    gate(peer_launches == [f'{RANK1_LAUNCHES} 0'],
+         f'{label} rank 1 launches no decode_heads (it does not evaluate): {peer_launches}')
     trainer = rec['trainer']
     gate(trainer._world == DP_WORLD and trainer._rank == 0
-         and trainer.train_data.local_batch_size * DP_WORLD == trainer.config.train.batch_size,
-         f'(c) rank 0 of {trainer._world}, {trainer.train_data.local_batch_size} of each global '
-         f'batch of {trainer.config.train.batch_size}')
+         and trainer.train_data.local_batch_size * trainer._n_data
+         == trainer.config.train.batch_size,
+         f'{label} rank 0 of {trainer._world} ({trainer._n_data} data shard(s)), '
+         f'{trainer.train_data.local_batch_size} of each global batch of '
+         f'{trainer.config.train.batch_size}')
     host_ips = statistics.mean(ep['steps'] * corpus['batch'] / ep['s']
                                for e, ep in corpus['host_epochs'].items() if e > 0)
-    trainer_gates(rec, '(c) 2-rank shapes.yaml', tag, gate, host_ips, [0], phase='phase 19')
+    trainer_gates(rec, f'{label} 2-rank shapes.yaml', tag, gate, host_ips, [0], phase=phase)
     cfg = trainer.config
     wdir = os.path.join(wroot, cfg.experiment_name)
     names = sorted(os.listdir(wdir))
     ap = rec['evals'][0]['AP']
-    gate(names == [f'model-0-{ap:.4f}.ckpt'], f'(c) one checkpoint, by rank 0: {names}')
+    gate(names == [f'model-0-{ap:.4f}.ckpt'], f'{label} one checkpoint, by rank 0: {names}')
 
-    # the same epoch in one process (world size 1 now), and with its rows reversed
+    # the same epoch in one process (world size 1 now), and with its rows
+    # reversed: run here, or handed in by an earlier call on the same base
     def flat(tree):
         return torch.cat([t.detach().reshape(-1).double().cpu() for t in tree_leaves(tree)])
-    ones = {}
-    for name in ('one', 'reversed'):
-        r1 = {}
-        restore = reversed_rows() if name == 'reversed' else (lambda: None)
-        try:
-            run_train_cli(base + ['weight.dir', os.path.join(tmp, f'weights_dp_{name}')], r1)
-        finally:
-            restore()
-        gate(r1['trainer']._world == 1, f'(c) the {name} epoch runs in one process')
-        ones[name] = r1
+    if ones is None:
+        ones = {}
+        for run in ('one', 'reversed'):
+            r1 = {}
+            restore = reversed_rows() if run == 'reversed' else (lambda: None)
+            try:
+                run_train_cli(base + ['weight.dir', os.path.join(tmp, f'weights_{name}_{run}')],
+                              r1)
+            finally:
+                restore()
+            gate(r1['trainer']._world == 1, f'{label} the {run} epoch runs in one process')
+            ones[run] = {'params': flat(r1['trainer'].params), 'loss': r1['loss'][0],
+                         'AP': r1['evals'][0]['AP']}
+            r1['trainer'].close()
     p_start = torch.cat([t.reshape(-1).double().cpu() for t in rec['start']])
-    p_one = flat(ones['one']['trainer'].params)
+    p_one = ones['one']['params']
     d_dp = (flat(trainer.params) - p_one).norm().item()
-    d_rev = (flat(ones['reversed']['trainer'].params) - p_one).norm().item()
-    l_dp, l_one = rec['loss'][0], ones['one']['loss'][0]
+    d_rev = (ones['reversed']['params'] - p_one).norm().item()
+    l_dp, l_one = rec['loss'][0], ones['one']['loss']
     rel = max(abs(a - b) / abs(b) for a, b in zip(l_dp, l_one))
-    print(f'phase 19: {tag} (c) rank 0\'s params after the 2-rank epoch {d_dp:.6g} (L2) from the '
-          f'one-process epoch\'s, which moved {(p_one - p_start).norm().item():.6g}; the '
+    print(f'{phase}: {tag} {label} rank 0\'s params after the 2-rank epoch {d_dp:.6g} (L2) from '
+          f'the one-process epoch\'s, which moved {(p_one - p_start).norm().item():.6g}; the '
           f'one-process epoch on its rows reversed {d_rev:.6g} from it ({d_dp / d_rev:.4f}x); '
-          f'step losses' f' {[round(x, 4) for x in l_dp]} against {[round(x, 4) for x in l_one]}'
+          f'step losses {[round(x, 4) for x in l_dp]} against {[round(x, 4) for x in l_one]}'
           f' (largest relative difference {rel:.3g}); one-process AP '
-          f'{ones["one"]["evals"][0]["AP"]:.6f}, 2-rank {ap:.6f}')
+          f'{ones["one"]["AP"]:.6f}, 2-rank {ap:.6f}')
     gate(len(l_dp) == len(l_one) and d_dp <= DP_DRIFT_FACTOR * d_rev
          and abs(l_dp[0] / l_one[0] - 1) <= 1e-4,
-         f'(c) the 2-rank CLI epoch trains what one process does: params within '
+         f'{label} the 2-rank CLI epoch trains what one process does: params within '
          f'{DP_DRIFT_FACTOR}x the one-process epoch\'s own drift on its rows reversed, the '
          f'first loss (the same global batch: loading, augmentation, sync-BN) within 1e-4')
-    for r1 in ones.values():
-        r1['trainer'].close()
     deterministic_cudnn(torch, False)
 
     # the same checkpoint evaluated in one process
     one = Trainer(load_config(yaml, data + [
         'system.compute_dtype', 'float32', 'weight.resume', os.path.join(wdir, names[0]),
-        'weight.dir', os.path.join(tmp, 'weights_dp1')]), device=dev)
+        'weight.dir', os.path.join(tmp, f'weights_{name}1')]), device=dev)
     one.init_all()
     ap1 = one.evaluate().AP
-    gate(ap1 == ap, f'(c) AP of one process evaluating the checkpoint {ap1!r} == rank 0\'s '
+    gate(ap1 == ap, f'{label} AP of one process evaluating the checkpoint {ap1!r} == rank 0\'s '
                     f'{ap!r}')
     n_same, n_img, n_det, n_found, _ = eval_agreement(trainer.make_predict_fn(),
                                                       one.make_predict_fn(), trainer.eval_data,
                                                       cfg)
     gate(n_same == n_img and n_found == n_det,
-         f'(c) one process on the checkpoint gives rank 0\'s eval detections: {n_same}/{n_img} '
+         f'{label} one process on the checkpoint gives rank 0\'s eval detections: {n_same}/{n_img} '
          f'images the same, {n_found}/{n_det} detections found, to {EVAL_AGREEMENT_ATOL}')
     one.close()
 
@@ -5977,17 +6024,17 @@ def phase19_cli(dev, tag, tmp, corpus, gate):
     finally:
         restore()
     share = n_found / max(n_det, 1)
-    print(f'phase 19: {tag} (c) rank 0\'s eval (decode kernel) against the plain decode: '
+    print(f'{phase}: {tag} {label} rank 0\'s eval (decode kernel) against the plain decode: '
           f'{n_found}/{n_det} detections found (share {share:.6f}), {n_same}/{n_img} images '
           f'the same; decode_heads against its plain version on {worst["calls"]} eval batches: '
           f'max |err| {worst["err"]:.3g}')
     gate(n_det > 0 and share >= EVAL_AGREEMENT and worst['ok']
          and worst['calls'] == len(trainer.eval_data),
-         f'(c) decode_heads within decode_tolerance of its plain version on every eval batch, '
+         f'{label} decode_heads within decode_tolerance of its plain version on every eval batch, '
          f'the eval {share:.6f} >= {EVAL_AGREEMENT} of the plain decode\'s detections')
-    print(f'phase 19: (c) took {time.perf_counter() - t0:.1f} s')
+    print(f'{phase}: {label} took {time.perf_counter() - t0:.1f} s')
     return {'decode_heads': rec['evals'][0]['launches']['decode_heads'],
-            'decode_err': worst['err']}
+            'decode_err': worst['err'], 'ones': ones}
 
 
 def phase19_data_parallel(dev, tag, tmp, corpus):
@@ -6013,6 +6060,295 @@ def phase19_data_parallel(dev, tag, tmp, corpus):
     print(f'phase 19: {tag} took {time.perf_counter() - t_phase:.1f} s')
     if fails:
         raise AssertionError(f'phase 19: {len(fails)} gate(s) failed: {fails}')
+    return out
+
+
+SP_SIZE = 512                  # phase 20 (a): the spatial step's input size ...
+SP_BATCH = 4                   # ... and global batch (1 data shard x SP_SPACE bands)
+SP_SPACE = 2
+SP_STEPS = 3                   # (a): f32 steps held for equality
+SP_TIMED = 5                   # (a): timed bf16 steps after ...
+SP_WARMUP = 2                  # ... these
+SP_REGNET = 'regnety-400m-fpn'  # (a): one step, its SE's band sums gated
+SP_NAS_IMAGES = 64             # (c): train images of the clutter corpus a candidate sees
+SP_NAS_ROUNDS = 2              # (c): cli.search --rounds
+SP_EVOLUTE_ROUNDS = 1          # (c): cli.evolute --rounds
+
+
+def sp_batch(k, dev):
+    """Global batch k of phase 20 (a): SP_BATCH seeded uint8 images at
+    SP_SIZE and their padded GT (train_batch), the same in every process."""
+    import torch
+    gen = torch.Generator().manual_seed(SEED * 1000 + 2000 + k)
+    return train_batch(gen, SP_BATCH, SP_SIZE, dev, train_config().model.max_gt_boxes)
+
+
+def sp_steps(net, params, state, cfg, dev, spatial=None, n=SP_STEPS, reverse=False,
+             peak=None):
+    """``n`` steps of ``train_step_from_config`` on phase 20's global
+    batches (``reverse``: each batch's rows in reverse order), with
+    ``spatial`` this rank's band of them. ``peak``: filled with the first
+    step's peak device bytes, absolute and above the level before it (the
+    walk's activations and grads). Returns dp_steps's records."""
+    import torch
+    from pqdet_tpu_torch.model.network import to_device
+    from pqdet_tpu_torch.parallel.mesh import broadcast_tree
+    from pqdet_tpu_torch.train.step import train_step_from_config, tree_leaves
+    step, opt = train_step_from_config(net, cfg, TRAIN_WARMUP, device=dev, spatial=spatial)
+    p, s = to_device(params, dev), to_device(state, dev)
+    o = opt.init(p)
+    for tree in (p, s, o):
+        broadcast_tree(tree, group=None if spatial is None else spatial.world)
+    out = []
+    for k in range(n):
+        b = sp_batch(k, dev)
+        if reverse:
+            b = {key: v.flip(0) for key, v in b.items()}
+        if k == 0 and peak is not None:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        p, s, o, m = step(p, s, o, b)
+        if k == 0 and peak is not None:
+            torch.cuda.synchronize()
+            peak['peak'] = torch.cuda.max_memory_allocated()
+            peak['walk'] = peak['peak'] - base
+        out.append({'params': torch.cat([t.reshape(-1) for t in tree_leaves(p)]).cpu(),
+                    'state': torch.cat([t.reshape(-1) for t in tree_leaves(s)]).cpu(),
+                    'opt': torch.cat([o['mu'], o['nu']]).cpu(),
+                    'metrics': {key: v.cpu() for key, v in m.items()}})
+    return out
+
+
+def sp_step_p50(net, params, state, dev, spatial=None):
+    """p50 ms of SP_TIMED bf16 steps (after SP_WARMUP) at SP_SIZE, B=SP_BATCH
+    on one fixed global batch, or on this rank's band of it."""
+    from pqdet_tpu_torch.model.network import to_device
+    from pqdet_tpu_torch.train.step import train_step_from_config
+    step, opt = train_step_from_config(net, dp_config('bfloat16'), TRAIN_WARMUP, device=dev,
+                                       spatial=spatial)
+    p, s = to_device(params, dev), to_device(state, dev)
+    o = opt.init(p)
+    b = sp_batch(0, dev)
+    ms = []
+    for k in range(SP_WARMUP + SP_TIMED):
+        def run():
+            nonlocal p, s, o
+            p, s, o, _ = step(p, s, o, b)
+        t = step_ms(dev, run)
+        if k >= SP_WARMUP:
+            ms.append(t)
+    return statistics.median(ms)
+
+
+def phase20_rank(dev, models, out):
+    """One rank of phase 20 (a): a (1 x SP_SPACE) mesh; SP_STEPS f32 steps
+    of mobilenetv2-fpn (TF32 off, cuDNN deterministic) with the first
+    step's peak memory, one f32 step of SP_REGNET, the bf16 step's p50,
+    written to ``out.<rank>``."""
+    import torch
+    from pqdet_tpu_torch.model.network import DetectionNetwork
+    from pqdet_tpu_torch.parallel import mesh
+    from pqdet_tpu_torch.zoo import get_cfg
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    deterministic_cudnn(torch)
+    ctx = mesh.make_mesh_2d(1, SP_SPACE)
+    nets = {name: DetectionNetwork.from_cfg(get_cfg(name)) for name in models}
+    peak = {}
+    params, state = models['mobilenetv2-fpn']
+    res = {'world': mesh.world(), 'mesh': (ctx.d, ctx.s), 'device': str(dev),
+           'backend': torch.distributed.get_backend(),
+           'steps': sp_steps(nets['mobilenetv2-fpn'], params, state, dp_config(), dev, ctx,
+                             peak=peak)}
+    res['peak'] = peak
+    rp, rs = models[SP_REGNET]
+    res['regnet'] = sp_steps(nets[SP_REGNET], rp, rs, dp_config(), dev, ctx, n=1)
+    deterministic_cudnn(torch, False)
+    res['p50'] = sp_step_p50(nets['mobilenetv2-fpn'], params, state, dev, ctx)
+    torch.save(res, f'{out}.{mesh.rank()}')
+
+
+def phase20_steps(dev, tag, tmp, gate):
+    """Phase 20 (a): two gloo ranks sharing the card as one data shard of
+    SP_BATCH images cut into SP_SPACE bands of rows, against one process."""
+    import torch
+    from pqdet_tpu_torch.model.network import DetectionNetwork
+    from pqdet_tpu_torch.parallel import mesh
+    from pqdet_tpu_torch.zoo import get_cfg
+    gen = phase_gen(20)
+    models = {}
+    for name in ('mobilenetv2-fpn', SP_REGNET):
+        models[name] = DetectionNetwork.from_cfg(get_cfg(name)).init(gen, device='cpu')
+    net = DetectionNetwork.from_cfg(get_cfg('mobilenetv2-fpn'))
+    rnet = DetectionNetwork.from_cfg(get_cfg(SP_REGNET))
+    params, state = models['mobilenetv2-fpn']
+    t0 = time.perf_counter()
+    deterministic_cudnn(torch)
+    peak = {}
+    one = sp_steps(net, params, state, dp_config(), dev, peak=peak)
+    rev = sp_steps(net, params, state, dp_config(), dev, reverse=True)
+    rone = sp_steps(rnet, *models[SP_REGNET], dp_config(), dev, n=1)
+    deterministic_cudnn(torch, False)
+    one_p50 = sp_step_p50(net, params, state, dev)
+    deterministic_cudnn(torch)
+    out = os.path.join(tmp, 'phase20_rank')
+    t1 = time.perf_counter()
+    mesh.launch(phase20_rank, SP_SPACE, dev.type, 'gloo', (models, out), timeout_s=DP_TIMEOUT_S)
+    ranks = [torch.load(f'{out}.{r}', weights_only=False) for r in range(SP_SPACE)]
+    r0 = ranks[0]
+    gib = 2.0 ** 30
+    print(f'phase 20: {tag} (a) {SP_SPACE} gloo ranks on one card as 1 data x {SP_SPACE} space '
+          f'(bands of {SP_SIZE // SP_SPACE} rows): {time.perf_counter() - t1:.1f} s for the '
+          f'spawn, {SP_STEPS} f32 steps, one {SP_REGNET} step and the timed steps')
+    for r in ranks:
+        print(f'phase 20: {tag} (a) rank {r["mesh"]}: first f32 step\'s peak device memory '
+              f'{r["peak"]["peak"] / gib:.4f} GiB, {r["peak"]["walk"] / gib:.4f} GiB above the '
+              f'level before it; bf16 step p50 {r["p50"]:.2f} ms at B={SP_BATCH}, '
+              f'{SP_SIZE // SP_SPACE}x{SP_SIZE} band')
+    print(f'phase 20: {tag} (a) one process at B={SP_BATCH}, {SP_SIZE}x{SP_SIZE}: peak '
+          f'{peak["peak"] / gib:.4f} GiB, {peak["walk"] / gib:.4f} GiB above the level before '
+          f'the step; bf16 step p50 {one_p50:.2f} ms; per rank walk / one process walk '
+          f'{[round(r["peak"]["walk"] / peak["walk"], 4) for r in ranks]} (both ranks on one '
+          'card at once: the times say nothing of speed across cards)')
+    gate(all(r['world'] == SP_SPACE and r['backend'] == 'gloo' for r in ranks)
+         and [r['mesh'] for r in ranks] == [(0, s) for s in range(SP_SPACE)],
+         f'(a) {SP_SPACE} gloo ranks, bands {[r["mesh"] for r in ranks]} '
+         f'({[r["device"] for r in ranks]})')
+    same = all(torch.equal(r['steps'][k][key], r0['steps'][k][key])
+               for r in ranks[1:] for k in range(SP_STEPS) for key in ('params', 'state', 'opt'))
+    same_m = all(torch.equal(r['steps'][k]['metrics'][n], r0['steps'][k]['metrics'][n])
+                 for r in ranks[1:] for k in range(SP_STEPS) for n in r0['steps'][k]['metrics'])
+    gate(same and same_m, f'(a) params, BN state, Adam moments and metrics identical on every '
+                          f'rank after each of {SP_STEPS} steps')
+    for k in range(SP_STEPS):
+        rel = {n: ((r0['steps'][k]['metrics'][n] - one[k]['metrics'][n]).abs().max()
+                   / one[k]['metrics'][n].abs().max().clamp_min(1e-12)).item()
+               for n in ('loss', 'giou_loss', 'conf_loss', 'class_loss', 'loss_per_branch')}
+        print(f'phase 20: {tag} (a) step {k}: largest relative difference from one process: '
+              f'{ {n: float(f"{v:.3g}") for n, v in rel.items()} }')
+    gap = (r0['steps'][-1]['params'] - one[-1]['params']).norm().item()
+    drift = (rev[-1]['params'] - one[-1]['params']).norm().item()
+    loss_rel = abs(float(r0['steps'][0]['metrics']['loss'] / one[0]['metrics']['loss']) - 1)
+    print(f'phase 20: {tag} (a) params after {SP_STEPS} steps {gap:.4g} (L2) from one process; '
+          f'one process on the batches reversed {drift:.4g} from itself; first loss rel '
+          f'{loss_rel:.3g}')
+    gate(loss_rel <= 1e-4, f'(a) the first loss within 1e-4 of one process ({loss_rel:.3g})')
+    gate(gap <= DP_DRIFT_FACTOR * drift,
+         f'(a) the bands\' params within {DP_DRIFT_FACTOR}x the one-process step\'s own drift '
+         f'on the reversed batches ({gap:.4g} against {drift:.4g})')
+    r_rel = abs(float(r0['regnet'][0]['metrics']['loss'] / rone[0]['metrics']['loss']) - 1)
+    print(f'phase 20: {tag} (a) {SP_REGNET}: first loss {float(r0["regnet"][0]["metrics"]["loss"]):.6f}'
+          f' on the bands, {float(rone[0]["metrics"]["loss"]):.6f} in one process (rel '
+          f'{r_rel:.3g}); params after the step '
+          f'{(r0["regnet"][0]["params"] - rone[0]["params"]).norm().item():.4g} (L2) apart')
+    gate(r_rel <= 1e-4 and all(torch.equal(r['regnet'][0]['params'], r0['regnet'][0]['params'])
+                               for r in ranks[1:]),
+         f'(a) {SP_REGNET} (grouped convs, the SE\'s band sums): first loss within 1e-4 of one '
+         'process, the ranks identical')
+    deterministic_cudnn(torch, False)
+    print(f'phase 20: (a) took {time.perf_counter() - t0:.1f} s')
+
+
+def phase20_nas(dev, tag, tmp, croot, gate):
+    """Phase 20 (c): ``cli.search`` and ``cli.evolute`` at
+    ``system.data_devices 2 --dist-backend gloo`` (two spawned ranks sharing
+    the card) on the clutter yamls, against the one-process sampling of
+    the same seed."""
+    import numpy as np
+    import pqdet_tpu_torch.cli.evolute as cli_evolute
+    import pqdet_tpu_torch.cli.search as cli_search
+    from pqdet_tpu_torch.config import load_config
+    from pqdet_tpu_torch.nas.evolute import sample_hypers
+    from pqdet_tpu_torch.nas.search import generate_candidates
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(croot, 'train.txt')) as f:
+        lines = f.readlines()[:SP_NAS_IMAGES]
+    sub = os.path.join(tmp, 'clutter_sub.txt')
+    with open(sub, 'w') as f:
+        f.writelines(lines)
+    over = ['dataset.train_txt_file', sub, 'dataset.eval_txt_file',
+            os.path.join(croot, 'test.txt'), 'dataset.device_cache', 'off',
+            'system.data_devices', '2', 'eval.after', '0']
+    common = ['--seed', '0', '--dist-backend', 'gloo', '--device', dev.type]
+    t0 = time.perf_counter()
+    log = os.path.join(tmp, 'nas_ranks.json')
+    nas_yaml = os.path.join(here, 'yamls', 'nas_clutter.yaml')
+    cli_search.main(['--yaml', nas_yaml, '--rounds', str(SP_NAS_ROUNDS), '--log', log] + common
+                    + over + ['weight.dir', os.path.join(tmp, 'weights_nas_ranks')])
+    t1 = time.perf_counter()
+    evo_log = os.path.join(tmp, 'evolution_ranks.json')
+    cli_evolute.main(['--yaml', os.path.join(here, 'yamls', 'evolute_clutter.yaml'),
+                      '--rounds', str(SP_EVOLUTE_ROUNDS), '--log', evo_log] + common + over
+                     + ['weight.dir', os.path.join(tmp, 'weights_evolute_ranks')])
+    t2 = time.perf_counter()
+    with open(log) as f:
+        data = json.load(f)['data']
+    with open(evo_log) as f:
+        evo = json.load(f)
+    cfg = load_config(nas_yaml, over)
+    want = list(generate_candidates(SP_NAS_ROUNDS, num_classes=len(cfg.dataset.classes),
+                                    seed=0, device=dev))
+    for i, r in enumerate(data):
+        print(f'phase 20: {tag} (c) candidate {i} on 2 ranks: head {r["head"]}, MACs '
+              f'{r["macs"]}; {r["status"]}, AP {r["ap"]}'
+              + (f'; error {r["error"][:200]!r}' if 'error' in r else ''))
+    for r in evo['data']:
+        print(f'phase 20: {tag} (c) evolution round on 2 ranks: fitness {r["fitness"]:.6f}, '
+              f'hypers {json.dumps({k: round(v, 4) for k, v in r["hyper"].items()})}')
+    print(f'phase 20: {tag} (c) cli.search --rounds {SP_NAS_ROUNDS} {t1 - t0:.1f} s, cli.evolute '
+          f'--rounds {SP_EVOLUTE_ROUNDS} {t2 - t1:.1f} s, each as 2 spawned gloo ranks; exit '
+          f'{evo["exit"]}')
+    gate(len(data) == len(want) == SP_NAS_ROUNDS and all(
+        r['cfg'] == c and r['macs'] == info['macs'] and r['head'] == info['head']
+        for r, (c, info) in zip(data, want)),
+         f'(c) one search log of {len(data)} records, the candidates of a one-process search of '
+         'seed 0')
+    gate(all(r['status'] == 'completed' or (
+        r['status'] == 'diverged' and 'NaN in loss near step' in r['error']) for r in data),
+         '(c) every diverged record is a NaN loss (no other error)')
+    gate(len(evo['data']) == SP_EVOLUTE_ROUNDS and evo['exit']['completed_rounds'] ==
+         SP_EVOLUTE_ROUNDS and evo['data'][0]['hyper'] == sample_hypers(np.random.RandomState(0))
+         and 0.0 <= evo['data'][0]['fitness'] <= 1.0,
+         '(c) one evolution log, its round recorded with the hypers of seed 0 and a fitness '
+         'in [0, 1]')
+
+
+def phase20_spatial(dev, tag, tmp, corpus, ones=None):
+    """Phase 20: spatial partitioning (``train.spatial``, ``parallel/halo.py``)
+    and NAS across ranks: (a) the spatial step of two gloo ranks sharing the
+    card against one process, with each rank's peak memory; (b) ``cli.train
+    train.spatial 2 system.data_devices 2`` as two ranks against one-process
+    epochs (phase 19 (c)'s checks); (c) ``cli.search`` and ``cli.evolute`` at
+    ``system.data_devices 2``. ``ones``: phase 19 (c)'s one-process epochs,
+    which (b) holds the ranks to (run here when None). Raises on any failed
+    gate; returns (b)'s decode launches and error."""
+    t_phase = time.perf_counter()
+    fails = []
+
+    def gate(ok, what):
+        print(f'phase 20: {what}: {"ok" if ok else "FAIL"}')
+        if not ok:
+            fails.append(what)
+
+    print(f'phase 20: cuts: (a) global B={SP_BATCH} at {SP_SIZE} (one data shard of '
+          f'{SP_SPACE} bands); (b) {" ".join(SP_INPUT_SIZES)} (the spatial ranks and the '
+          f'one-process epochs); (c) the first {SP_NAS_IMAGES} train images of phase 13\'s clutter '
+          f'corpus, eval.after 0 (1 epoch a candidate), dataset.device_cache off (the device '
+          'corpus takes one rank), cli.search --rounds '
+          f'{SP_NAS_ROUNDS}, cli.evolute --rounds {SP_EVOLUTE_ROUNDS}')
+    t0 = time.perf_counter()
+    phase20_steps(dev, tag, tmp, gate)
+    t1 = time.perf_counter()
+    out = phase19_cli(dev, tag, tmp, corpus, gate, phase='phase 20', label='(b)',
+                      extra=('train.spatial', str(SP_SPACE), 'system.data_devices',
+                             str(SP_SPACE)), name='spatial', ones=ones)
+    t2 = time.perf_counter()
+    phase20_nas(dev, tag, tmp, os.path.join(tmp, 'clutter'), gate)
+    print(f'phase 20: {tag} seconds: (a) {t1 - t0:.1f}, (b) {t2 - t1:.1f}, (c) '
+          f'{time.perf_counter() - t2:.1f}; phase {time.perf_counter() - t_phase:.1f}')
+    if fails:
+        raise AssertionError(f'phase 20: {len(fails)} gate(s) failed: {fails}')
     return out
 
 
@@ -6256,7 +6592,9 @@ def main() -> int:
         p18 = phase18_s2d_host_data(dev, tag, tmp, corpus, net, params, state, ptx)
         stamp('phase 19 starts')
         p19 = phase19_data_parallel(dev, tag, tmp, corpus)
-    stamp('phase 19 ends')
+        stamp('phase 20 starts')
+        p20 = phase20_spatial(dev, tag, tmp, corpus, p19['ones'])
+    stamp('phase 20 ends')
     arc = p14['launches']
     rn = p16['launches']
     nas = p17['launches']
@@ -6268,9 +6606,9 @@ def main() -> int:
          'replaces': 'pqdet_tpu/ops/pallas_decode.py:59',
          'launches': launches['decode'] + qlaunches['decode'] + arc.get('decode_heads', 0)
          + exported['decode_heads'] + rn['decode_heads'] + nas['decode_heads']
-         + hd['decode_heads'] + p19['decode_heads'],
+         + hd['decode_heads'] + p19['decode_heads'] + p20['decode_heads'],
          'max_abs_err': max(decode_err, p17['decode_err'], p18['decode_err'],
-                            p19['decode_err']),
+                            p19['decode_err'], p20['decode_err']),
          'ms': dec['ms'], 'plain_ms': dec['plain_ms'], 'bound_ms': dec['bound_ms'],
          'bound_by': 'bytes', 'library_ms': None},
         {'name': 'fused_ir_conv', 'route': 'cuda',

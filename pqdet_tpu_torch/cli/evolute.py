@@ -6,11 +6,22 @@
 
 Trailing ``key value`` pairs override the yaml. A segfault or abort prints
 every thread's stack (``faulthandler``), and ``kill -USR1 <pid>`` prints
-them on demand. Evolution runs one rank: ``system.data_devices`` above 1
-raises (ROADMAP.md queue 1, item 7).
+them on demand.
+
+With ``system.data_devices`` (x ``train.spatial``) resolving to more than
+one rank, or under torchrun, every round trains across the ranks as
+``cli.train`` does (``--dist-backend``; ranks sharing a card take gloo):
+the ranks draw the same hypers, rank 0 evaluates, and rank 0 alone prints
+and writes the log (``nas/evolute.py``).
 """
 
 import argparse
+
+
+def _evolute_rank(device, cfg, args):
+    from pqdet_tpu_torch.nas.evolute import Evoluter
+    return Evoluter(cfg, rounds=args.rounds, log_path=args.log, seed=args.seed,
+                    device=device).run()
 
 
 def main(argv=None):
@@ -23,14 +34,14 @@ def main(argv=None):
     parser.add_argument('--log', default='evolution.json')
     parser.add_argument('--seed', type=int, default=None)
     parser.add_argument('--device', default='cuda')
+    from pqdet_tpu_torch.parallel.mesh import add_dist_args, run_ranks
+    add_dist_args(parser)
     args, rest = parser.parse_known_args(argv)
 
-    from pqdet_tpu_torch.config import load_config, one_rank, platform_device
-    from pqdet_tpu_torch.nas.evolute import Evoluter
+    from pqdet_tpu_torch.config import load_config, platform_device
     cfg = load_config(args.yaml, rest)
-    one_rank(cfg, 'cli.evolute')
-    return Evoluter(cfg, rounds=args.rounds, log_path=args.log, seed=args.seed,
-                    device=platform_device(cfg, args.device)).run()
+    return run_ranks(_evolute_rank, cfg, platform_device(cfg, args.device),
+                     args.dist_backend, (args,))
 
 
 if __name__ == '__main__':

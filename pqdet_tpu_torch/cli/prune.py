@@ -15,9 +15,10 @@ embedded), and prints the MACs and params at 512² before and after. Unless
 kernel always); unless ``--skip-finetune``, it fine-tunes it
 (``Trainer.run_prune``).
 
-With ``system.data_devices`` resolving to W > 1 ranks, or under torchrun,
-the fine-tune trains data-parallel as ``cli.train`` does: rank 0 prunes,
-writes and scores the pruned model, and every rank then fine-tunes it.
+With ``system.data_devices`` (x ``train.spatial``) resolving to W > 1
+ranks, or under torchrun, the fine-tune trains across the ranks as
+``cli.train`` does: rank 0 prunes, writes and scores the pruned model, and
+every rank then fine-tunes it.
 """
 
 from __future__ import annotations

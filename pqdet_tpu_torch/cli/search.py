@@ -6,12 +6,23 @@
 
 Trailing ``key value`` pairs override the yaml; ``model.cfg_path`` is
 supplied per candidate by the search. ``--max-latency-ms`` filters on the
-candidate's B=1, 512x512 forward timed on ``--device``. The search runs
-one rank: ``system.data_devices`` above 1 raises (ROADMAP.md queue 1,
-item 7).
+candidate's B=1, 512x512 forward timed on ``--device``.
+
+With ``system.data_devices`` (x ``train.spatial``) resolving to more than
+one rank, or under torchrun, every candidate trains across the ranks as
+``cli.train`` does (``--dist-backend``; ranks sharing a card take gloo):
+the ranks sample the same candidates, rank 0 times them and evaluates,
+and rank 0 alone prints and writes the log (``nas/search.py``).
 """
 
 import argparse
+
+
+def _search_rank(device, cfg, args):
+    from pqdet_tpu_torch.nas.search import search
+    return search(cfg, rounds=args.rounds, max_macs=args.max_macs,
+                  log_path=args.log, max_latency_ms=args.max_latency_ms,
+                  seed=args.seed, exp_cap=args.exp_cap, device=device)
 
 
 def main(argv=None):
@@ -30,16 +41,14 @@ def main(argv=None):
                              'yolo sections (0 = bare exp, reference '
                              'semantics; see model/decode.py)')
     parser.add_argument('--device', default='cuda')
+    from pqdet_tpu_torch.parallel.mesh import add_dist_args, run_ranks
+    add_dist_args(parser)
     args, rest = parser.parse_known_args(argv)
 
-    from pqdet_tpu_torch.config import load_config, one_rank, platform_device
-    from pqdet_tpu_torch.nas.search import search
+    from pqdet_tpu_torch.config import load_config, platform_device
     cfg = load_config(args.yaml, rest)
-    one_rank(cfg, 'cli.search')
-    return search(cfg, rounds=args.rounds, max_macs=args.max_macs,
-                  log_path=args.log, max_latency_ms=args.max_latency_ms,
-                  seed=args.seed, exp_cap=args.exp_cap,
-                  device=platform_device(cfg, args.device))
+    return run_ranks(_search_rank, cfg, platform_device(cfg, args.device), args.dist_backend,
+                     (args,))
 
 
 if __name__ == '__main__':

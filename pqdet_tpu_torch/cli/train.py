@@ -15,7 +15,9 @@ CPU), each training its slice of every global batch. Under torchrun
 rank per process, which is how several hosts train together.
 ``--dist-backend`` is nccl on the card and gloo on the CPU by default;
 ranks that share a card need gloo. Only rank 0 prints the config and the
-metrics, evaluates and writes checkpoints.
+metrics, evaluates and writes checkpoints. ``train.spatial N`` cuts each
+image's rows into N bands across the ranks as well (``n_data x N`` ranks,
+``system.data_devices`` the total budget; ``train/trainer.py``).
 """
 
 import argparse

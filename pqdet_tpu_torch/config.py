@@ -59,7 +59,8 @@ class SystemConfig:
     seed: int = 0
     # data-parallel ranks, one process each (parallel/mesh.py): on the card
     # GPUs, 0 = every visible one; on the CPU gloo processes, 0 = one;
-    # capped by the largest count that divides train.batch_size
+    # capped by the largest count that divides train.batch_size. With
+    # train.spatial N it is the total budget of n_data x N ranks
     data_devices: int = 0
 
 
@@ -109,6 +110,13 @@ class TrainConfig:
     # space-to-depth stem ingest in the step (see eval.s2d_stem); the fold
     # is differentiable, so the grads reach the stem's own kernel
     s2d_stem: int = 0
+    # spatial partitioning: shard the image HEIGHT axis over this many
+    # ranks (0/1 = off). The ranks form a (data x spatial) mesh and every
+    # conv and max pool exchanges halo rows with its neighbours
+    # (parallel/mesh.py make_mesh_2d, parallel/halo.py): the model-parallel
+    # axis for very large inputs. Needs the default system.label_assign
+    # device batch format; excludes dataset.device_cache.
+    spatial: int = 0
 
 
 @dataclasses.dataclass
@@ -207,7 +215,6 @@ class Config:
 
 # keys of the JAX schema whose slice of the port is still queued
 LATER_KEYS = {
-    'train.spatial': 'queue 1, item 7 (spatial partitioning)',
     'train.unroll_steps': 'queue 1, item 2 (one dispatch per step)',
 }
 
@@ -215,14 +222,6 @@ LATER_KEYS = {
 def later(what: str, item: str):
     """The error for a part of the JAX package whose slice is queued."""
     return NotImplementedError(f'{what}: not ported yet (ROADMAP.md {item})')
-
-
-def one_rank(cfg, what: str):
-    """Raise for an entry point that runs one rank when the config asks
-    for more (``system.data_devices`` > 1)."""
-    if cfg.system.data_devices > 1:
-        raise later(f'{what} at system.data_devices={cfg.system.data_devices}',
-                    'queue 1, item 7 (data-parallel NAS search and evolution)')
 
 
 def _coerce(key: str, old, new):

@@ -16,25 +16,29 @@ from __future__ import annotations
 import torch
 
 
-def center_grid(height: int, width: int, device=None):
+def center_grid(height: int, width: int, device=None, row_offset: int = 0):
     """(H, W, 1, 2) grid of cell centres; [..., 0] is x (column), [..., 1]
-    is y (row)."""
-    ys = torch.arange(height, dtype=torch.float32, device=device) + 0.5
+    is y (row). ``row_offset``: the grid's first row is that row of a
+    taller grid (a band of rows under spatial partitioning)."""
+    ys = torch.arange(row_offset, row_offset + height, dtype=torch.float32,
+                      device=device) + 0.5
     xs = torch.arange(width, dtype=torch.float32, device=device) + 0.5
     gy, gx = torch.meshgrid(ys, xs, indexing='ij')
     return torch.stack([gx, gy], dim=-1)[:, :, None, :]
 
 
 def decode(conv: torch.Tensor, num_classes: int, stride: int,
-           exp_cap: float = 0.0) -> torch.Tensor:
+           exp_cap: float = 0.0, row_offset: int = 0) -> torch.Tensor:
     """(B, H, W, A*(5+C)) raw head -> (B, H, W, A, 5+C) decoded boxes, f32.
 
     ``exp_cap`` > 0 clamps the raw box offsets at that value before the
-    exp (a NAS survival knob; 0 is a bare exp)."""
+    exp (a NAS survival knob; 0 is a bare exp). ``row_offset``: the head is
+    a band of rows starting at that row of the whole grid, whose cell
+    centres it takes."""
     b, h, w, ch = conv.shape
     a = ch // (5 + num_classes)
     conv = conv.reshape(b, h, w, a, 5 + num_classes).float()
-    grid = center_grid(h, w, conv.device)
+    grid = center_grid(h, w, conv.device, row_offset)
     raw_d1 = conv[..., 0:2]
     raw_d2 = conv[..., 2:4]
     if exp_cap:

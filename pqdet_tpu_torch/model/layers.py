@@ -23,6 +23,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from pqdet_tpu_torch.parallel.halo import band_rows, halo_pad
+
 BN_EPS = 1e-5       # torch nn.BatchNorm2d default
 BN_MOMENTUM = 0.1   # torch nn.BatchNorm2d default
 
@@ -125,7 +127,7 @@ def densify_grouped_weight(w: torch.Tensor, groups: int) -> torch.Tensor:
 
 
 def conv2d(x, w, b=None, stride: int = 1, padding: int = 0, groups: int = 1,
-           compute_dtype: Optional[torch.dtype] = None):
+           compute_dtype: Optional[torch.dtype] = None, spatial=None, what: str = 'conv'):
     """2-D convolution, NHWC x OIHW -> NHWC.
 
     A grouped conv whose weights are already block-diagonal DENSE (the JAX
@@ -133,6 +135,12 @@ def conv2d(x, w, b=None, stride: int = 1, padding: int = 0, groups: int = 1,
     conv. Without ``compute_dtype`` the conv runs in f32; with it, inputs
     and weights are cast and the output stays in that dtype (cuDNN
     accumulates in f32 internally), the bias added in the output dtype.
+
+    With ``spatial`` (a ``parallel.mesh.SpatialCtx``) ``x`` is this rank's
+    band of rows: the rows the window needs from the neighbouring bands
+    come by halo exchange (``parallel/halo.py``, zeros at the image's
+    edges), the conv runs with no row padding and returns this band's rows
+    of the unsharded output; ``what`` names the layer in its errors.
     """
     if groups > 1 and w.shape[1] == x.shape[-1]:
         groups = 1
@@ -142,10 +150,18 @@ def conv2d(x, w, b=None, stride: int = 1, padding: int = 0, groups: int = 1,
     else:
         x = x.float()
         w = w.float()
+    h_out = None
+    if spatial is not None:
+        top, bottom, h_out = band_rows(x.shape[1], w.shape[2], stride, padding,
+                                       spatial.n_space, what)
+        x = halo_pad(x, top, bottom, 0.0, spatial)
+        padding = (0, padding)
     xc = _nchw(x)
     if not xc.is_contiguous(memory_format=torch.channels_last):
         xc = xc.contiguous(memory_format=torch.channels_last)
     out = _nhwc(F.conv2d(xc, w, None, stride, padding, 1, groups))
+    if h_out is not None:
+        out = out[:, :h_out]
     if b is not None:
         out = out + b.to(out.dtype)
     return out.contiguous()
@@ -166,7 +182,7 @@ def _bn_moments(x):
     return s + dm, var
 
 
-def _bn_moments_synced(x, group):
+def _bn_moments_synced(x, group, spatial=None):
     """``_bn_moments`` of the global batch whose local shard each rank of
     ``group`` holds (sync-BN, as JAX's sharded step computes it): the
     shift s is the mean of the global strided subsample (its sums
@@ -174,15 +190,23 @@ def _bn_moments_synced(x, group):
     differentiable all-reduce, so the backward pass all-reduces the BN
     backward sums, as the transpose of GSPMD's psum does. The shards are
     equal (``TrainData`` enforces it), so the global counts are the local
-    ones times the world. Returns (mean, biased var, global element
-    count)."""
+    ones times the world. With ``spatial`` each rank holds a band of rows
+    of its data shard: the subsample takes the band's rows at global rows
+    0 mod 8 (the band's offset), so the shift is the one-process shift.
+    Returns (mean, biased var, global element count)."""
     from pqdet_tpu_torch.parallel.mesh import all_reduce_sum
     w = dist.get_world_size(group)
     dims = tuple(range(x.dim() - 1))
-    sub = x[:, ::8, ::8, :].float()
+    if spatial is None:
+        sub = x[:, ::8, ::8, :].float()
+        n_sub = w * (sub.numel() // x.shape[-1])
+    else:
+        b, h, wd = x.shape[:3]
+        sub = x[:, (-spatial.offset(h)) % 8::8, ::8, :].float()
+        n_sub = b * spatial.n_data * -(-h * spatial.n_space // 8) * -(-wd // 8)
     s = sub.sum(dim=dims).detach()
     dist.all_reduce(s, group=group)
-    s = s / (w * (sub.numel() // x.shape[-1]))
+    s = s / n_sub
     n = w * (x.numel() // x.shape[-1])
     d = x.float() - s
     c = x.shape[-1]
@@ -192,7 +216,7 @@ def _bn_moments_synced(x, group):
     return s + dm, var, n
 
 
-def batch_norm(x, params, state, train: bool = False, group=None):
+def batch_norm(x, params, state, train: bool = False, group=None, spatial=None):
     """BatchNorm over (N, H, W) of NHWC ``x``; returns (y, new state).
 
     Train mode normalises with the batch's moments (biased variance) and
@@ -200,9 +224,10 @@ def batch_norm(x, params, state, train: bool = False, group=None):
     ``BN_MOMENTUM``, as torch.nn.BatchNorm2d; ``state`` is not written.
     With a process ``group`` (data parallelism, ``parallel/mesh.py``) the
     batch is the global one, whose shards the ranks hold: its moments and
-    element count (``_bn_moments_synced``). Eval mode normalises with the
-    running statistics, returns ``state`` and never communicates. ``y`` is
-    in ``x.dtype``."""
+    element count (``_bn_moments_synced``); with ``spatial`` as well, the
+    shards are bands of rows of the data shards (``group`` is then the
+    world). Eval mode normalises with the running statistics, returns
+    ``state`` and never communicates. ``y`` is in ``x.dtype``."""
     gamma, beta = params['gamma'], params['beta']
     if not train:
         mean, var = state['mean'], state['var']
@@ -210,7 +235,7 @@ def batch_norm(x, params, state, train: bool = False, group=None):
         mean, var = _bn_moments(x)
         n = x.numel() // x.shape[-1]
     else:
-        mean, var, n = _bn_moments_synced(x, group)
+        mean, var, n = _bn_moments_synced(x, group, spatial)
     inv = torch.rsqrt(var + BN_EPS) * gamma
     y = (x - mean.to(x.dtype)) * inv.to(x.dtype) + beta.to(x.dtype)
     if not train:
@@ -236,18 +261,40 @@ def fold_bn_into_conv(conv_params: dict, bn_params: dict, bn_state: dict) -> dic
     return {'w': new_w, 'b': new_b}
 
 
-def max_pool(x, size: int, stride: int, padding: int):
+def max_pool(x, size: int, stride: int, padding: int, spatial=None, what: str = 'maxpool'):
     """NHWC max pool. Padding uses -inf so padded cells never win (any
-    padding width, unlike ``F.max_pool2d``'s own limit of size/2)."""
+    padding width, unlike ``F.max_pool2d``'s own limit of size/2). With
+    ``spatial`` ``x`` is a band of rows, as for ``conv2d``: the halo rows
+    come from the neighbouring bands (-inf at the image's edges)."""
+    h_out, pad_h = None, padding
+    if spatial is not None:
+        top, bottom, h_out = band_rows(x.shape[1], size, stride, padding, spatial.n_space,
+                                       what)
+        x = halo_pad(x, top, bottom, float('-inf'), spatial)
+        pad_h = 0
     xc = _nchw(x)
     if padding:
-        xc = F.pad(xc, (padding,) * 4, value=float('-inf'))
-    return _nhwc(F.max_pool2d(xc, size, stride)).contiguous()
+        xc = F.pad(xc, (padding, padding, pad_h, pad_h), value=float('-inf'))
+    out = _nhwc(F.max_pool2d(xc, size, stride))
+    if h_out is not None:
+        out = out[:, :h_out]
+    return out.contiguous()
 
 
-def adaptive_avg_pool(x, out_h: int, out_w: int):
-    """AdaptiveAvgPool2d with torch's bucket edges, on NHWC."""
+def adaptive_avg_pool(x, out_h: int, out_w: int, spatial=None):
+    """AdaptiveAvgPool2d with torch's bucket edges, on NHWC. With
+    ``spatial`` ``x`` is a band of rows and only the global pool (1, 1)
+    runs: the band sums are all-reduced over the space group, through the
+    differentiable ``all_reduce_sum``, and divided by the global H*W; the
+    result is replicated over the bands."""
     n, h, w, c = x.shape
+    if spatial is not None:
+        if (out_h, out_w) != (1, 1):
+            raise ValueError(f'avgpool to {(out_h, out_w)} under train.spatial: only the global '
+                             'pool (1, 1) runs on bands of rows')
+        from pqdet_tpu_torch.parallel.mesh import all_reduce_sum
+        sums = all_reduce_sum(x.float().sum(dim=(1, 2), keepdim=True), spatial.space)
+        return (sums / (h * spatial.n_space * w)).to(x.dtype)
     if (out_h, out_w) == (1, 1):
         return x.mean(dim=(1, 2), keepdim=True)
     if h % out_h == 0 and w % out_w == 0:

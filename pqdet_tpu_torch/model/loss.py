@@ -70,19 +70,25 @@ def loss_per_scale(pred: torch.Tensor, label: torch.Tensor, gt_boxes: torch.Tens
                    conf_loss_alpha: float = CONF_LOSS_ALPHA,
                    cls_loss_alpha: float = CLS_LOSS_ALPHA,
                    conf_loss_beta: float = CONF_LOSS_BETA,
-                   cls_loss_beta: float = CLS_LOSS_BETA):
+                   cls_loss_beta: float = CLS_LOSS_BETA, grid_h: int = 0):
     """(loss, bbox_loss, conf_loss, prob_loss) of one scale, each of shape (1,).
 
     pred:     (B, H, W, A, 5+C) decoded predictions
     label:    (B, H, W, A, 6+C) [x1 y1 x2 y2, objectness, C smoothed one-hot,
               mixup weight]
     gt_boxes: (B, N, 4) zero-padded raw GT corner boxes of this scale
+    grid_h:   the whole grid's height when ``pred`` and ``label`` are a band
+              of its rows (spatial partitioning; 0: H). The input area of
+              ``bbox_loss_scale`` is the whole image's; every other term is
+              per cell, so a band's loss is its share of the sum over the
+              grid.
     """
     pred = pred.float()
     label = label.float()
     gt_boxes = gt_boxes.float()
 
     h, w = pred.shape[1:3]
+    h = grid_h or h
     in_area = float(stride * h) * float(stride * w)
 
     pred_coor = pred[..., 0:4]

@@ -47,6 +47,20 @@ and replays its dropout draws from the state ``rng`` had when it began.
 (``ops/space_to_depth.py``; r < 0: the caller ships that layout), in
 either walk; it raises ``ValueError`` with a ``quant_ctx`` or for a stem
 that does not fold.
+
+Spatial partitioning (``train.spatial``): ``forward_train`` with
+``spatial`` (a ``parallel.mesh.SpatialCtx``) walks this rank's band of
+rows of the input. Each conv and max pool takes its halo rows from the
+neighbouring bands (``parallel/halo.py``), the s2d stem's row padding
+included; the global average pool (the SE squeeze) all-reduces its band
+sums; BN takes the moments of the whole batch over the world group; each
+head decodes at its band's global cell centres and takes its band's share
+of the loss, whose box scale is the whole image's. Upsample, route,
+shortcut and scale_channels stay band-local. A node fed only by the
+replicated squeeze is replicated too and runs unbanded (its BN, if it had
+one, over the data group). ``fc`` and ``dropout`` raise: a band holds no
+whole feature vector, and a per-band mask would not be the one-process
+mask.
 """
 
 from __future__ import annotations
@@ -69,6 +83,7 @@ from pqdet_tpu_torch.ops.decode_kernel import (decode_heads, decode_heads_refere
 from pqdet_tpu_torch.ops.fused_ir import fused_ir_conv, fused_ir_reference
 from pqdet_tpu_torch.ops.space_to_depth import (fold_stem_weight_t, space_to_depth,
                                                 stem_foldable)
+from pqdet_tpu_torch.parallel.halo import halo_pad
 
 # stride -> (grid-label index, raw-box index) in the 6-tuple of targets
 TARGET_MAP = {8: (0, 3), 16: (1, 4), 32: (2, 5)}
@@ -140,7 +155,7 @@ class Network(nn.Module):
                       targets: Optional[tuple] = None, train: bool = True,
                       rng: Optional[torch.Generator] = None,
                       compute_dtype: Optional[torch.dtype] = None, remat_segments: int = 0,
-                      tap=None, quant_ctx=None, s2d_stem: int = 0, group=None):
+                      tap=None, quant_ctx=None, s2d_stem: int = 0, group=None, spatial=None):
         """The training walk: (outputs, new_state), always. Outputs are the
         per-head loss 4-tuples of ``loss_per_scale`` with ``targets`` (the
         6-tuple of ``ops/labels.py``), else the decoded heads or final
@@ -152,18 +167,24 @@ class Network(nn.Module):
         ``remat_segments`` as in the module docstring; ``group``, a process
         group of data-parallel ranks, makes train-mode BN take the moments
         of the global batch whose shards the ranks hold (sync-BN,
-        ``parallel/mesh.py``); the other arguments as in ``forward``."""
+        ``parallel/mesh.py``); ``spatial``, this rank's ``SpatialCtx``,
+        makes ``x`` and ``targets``' grids its band of rows (the module
+        docstring; ``group`` is then the world); the other arguments as in
+        ``forward``."""
         x, losses, preds, shapes, new_state = self._run(
             params, state, x, compute_dtype, None, True, quant_ctx, targets, train, rng,
-            remat_segments, tap, s2d_stem, group)
+            remat_segments, tap, s2d_stem, group, spatial)
         if targets is not None:
             return losses, new_state
         return (head_views(preds, shapes) if shapes else x), new_state
 
     def _run(self, params, state, x, compute_dtype, fused_ir, plain, quant_ctx, targets,
-             train, rng, remat_segments, tap, s2d_stem, group=None):
+             train, rng, remat_segments, tap, s2d_stem, group=None, spatial=None):
         """(last activation, per-head losses, preds or None, raw head
         shapes, new state) of one walk."""
+        if spatial is not None and targets is None:
+            raise ValueError('a spatial walk takes targets: its heads are bands of rows, '
+                             'whose loss it sums, not whole heads to decode')
         if s2d_stem and quant_ctx is not None:
             raise ValueError('s2d_stem does not combine with quant_ctx: the stem observer '
                              'would see folded weights')
@@ -178,7 +199,7 @@ class Network(nn.Module):
         if quant_ctx is not None:
             x = quant_ctx.quantize_input(x)
         kw = dict(compute_dtype=compute_dtype, plain=plain, targets=targets, train=train,
-                  s2d_stem=s2d_stem, group=group)
+                  s2d_stem=s2d_stem, group=group, spatial=spatial)
         if remat_segments:
             x, updates, losses, heads = self._segments(params, state, x, rng,
                                                        remat_segments, kw)
@@ -219,9 +240,29 @@ class Network(nn.Module):
             heads += hs
         return x, updates, losses, heads
 
+    def replicated_nodes(self) -> frozenset:
+        """Indices of the nodes whose output a spatial walk holds whole on
+        every band (the global average pool, and what only it feeds)."""
+        if getattr(self, '_replicated', None) is None:
+            rep = set()
+            for node in self.graph.nodes:
+                i = node.index
+                if node.kind == 'avgpool':
+                    rep.add(i)
+                elif node.kind == 'route':
+                    if all(r in rep for r in node.refs):
+                        rep.add(i)
+                elif node.kind in ('shortcut', 'scale_channels'):
+                    if i - 1 in rep and node.refs[0] in rep:
+                        rep.add(i)
+                elif i - 1 in rep:
+                    rep.add(i)
+            self._replicated = frozenset(rep)
+        return self._replicated
+
     def _walk(self, nodes, params, state, x, cache, gen, compute_dtype=None,
               fused_ir=None, plain=False, quant_ctx=None, targets=None, train=False,
-              tap=None, s2d_stem=0, group=None):
+              tap=None, s2d_stem=0, group=None, spatial=None):
         """Run a contiguous span of graph nodes. Returns (x, live cache, BN
         state updates, per-head losses, [(raw head, yolo node)] to decode)."""
         cache = dict(cache)
@@ -230,12 +271,20 @@ class Network(nn.Module):
         last_use = self.graph.last_use
         skip = set()
         fused_fn = fused_ir_reference if plain else fused_ir_conv
+        rep = self.replicated_nodes() if spatial is not None else frozenset()
 
         for node in nodes:
             i = node.index
             kind = node.kind
             if i in skip:
                 continue
+            # this node's band context: None when its input is replicated
+            band = spatial if spatial is not None and i - 1 not in rep else None
+            if spatial is not None and kind in ('fc', 'dropout'):
+                raise ValueError(f'{kind} node {i} under train.spatial: a band of rows holds '
+                                 'no whole feature vector' if kind == 'fc' else
+                                 f'{kind} node {i} under train.spatial: a mask drawn per band '
+                                 'would not be the one-process mask')
             if fused_ir is not None and i in fused_ir:
                 f = fused_ir[i]
                 x = fused_fn(x.to(torch.bfloat16).contiguous(), f['we'], f['be'],
@@ -256,13 +305,18 @@ class Network(nn.Module):
                 padding = solve_padding(a['size'], a['padding'], a['pad'])
                 w = p['w'] if quant_ctx is None else quant_ctx.fake_weights(str(i), p['w'])
                 stride = a['stride']
+                conv_band = band
                 if s2d_stem and i == 0:
-                    x, w, stride, padding = s2d_stem_input(x, w, s2d_stem, stride, padding)
+                    x, w, stride, padding = s2d_stem_input(x, w, s2d_stem, stride, padding,
+                                                           band)
+                    conv_band = None        # its halo rows are in place
                 x = L.conv2d(x, w, p.get('b'), stride=stride,
                              padding=padding, groups=a['groups'],
-                             compute_dtype=compute_dtype)
+                             compute_dtype=compute_dtype, spatial=conv_band,
+                             what=f'conv node {i}')
                 if 'bn' in p:
-                    x, bn_s = L.batch_norm(x, p['bn'], state[str(i)], train, group)
+                    bn_group = group if spatial is None or band is not None else spatial.data
+                    x, bn_s = L.batch_norm(x, p['bn'], state[str(i)], train, bn_group, band)
                     if train:
                         updates[str(i)] = bn_s
                 x = L.apply_activation(a['activation'], x)
@@ -280,9 +334,10 @@ class Network(nn.Module):
             elif kind == 'maxpool':
                 a = node.attrs
                 padding = solve_padding(a['size'], a['padding'], a['pad'])
-                x = L.max_pool(x, a['size'], a['stride'], padding)
+                x = L.max_pool(x, a['size'], a['stride'], padding, spatial=band,
+                               what=f'maxpool node {i}')
             elif kind == 'avgpool':
-                x = L.adaptive_avg_pool(x, *node.out_size)
+                x = L.adaptive_avg_pool(x, *node.out_size, spatial=band)
             elif kind == 'upsample':
                 x = L.upsample_nearest(x, node.attrs['stride'])
             elif kind == 'yolo':
@@ -292,12 +347,15 @@ class Network(nn.Module):
                         x = decode_consumed_head(x, node, plain)
                 else:
                     a = node.attrs
-                    x = decode(x, a['classes'], a['stride'], exp_cap=a.get('exp_cap', 0.0))
+                    h = x.shape[1]
+                    x = decode(x, a['classes'], a['stride'], exp_cap=a.get('exp_cap', 0.0),
+                               row_offset=band.offset(h) if band is not None else 0)
                     gi, bi = TARGET_MAP[a['stride']]
                     losses.append(loss_per_scale(
                         x, targets[gi], targets[bi], stride=a['stride'],
                         num_classes=a['classes'], bbox_loss_type=a['bbox_loss'],
                         ignore_thresh=a['ignore_thresh'], l1_loss_gain=a['l1_loss_gain'],
+                        grid_h=h * band.n_space if band is not None else 0,
                         **{k: a[k] for k in LOSS_ATTRS if k in a}))
             elif kind == 'dropout':
                 x = L.dropout(x, node.attrs['probability'], gen, train)
@@ -324,15 +382,26 @@ class Network(nn.Module):
         return x, cache, updates, losses, heads
 
 
-def s2d_stem_input(x, w, s2d_stem: int, stride: int, padding: int):
+def s2d_stem_input(x, w, s2d_stem: int, stride: int, padding: int, spatial=None):
     """The stem on space-to-depth input: (input, folded OIHW kernel,
     stride 1, padding 0), the folded kernel's asymmetric padding applied to
     the input. ``s2d_stem`` r > 0 reshapes NHWC ``x`` here; r < 0 means the
-    caller ships it in the s2d(|r|) layout already."""
+    caller ships it in the s2d(|r|) layout already. With ``spatial`` ``x``
+    is a band of rows (its height a multiple of r): the row padding is a
+    halo from the neighbouring bands, zeros at the image's edges."""
     r = abs(s2d_stem)
     if s2d_stem > 0:
+        if spatial is not None and x.shape[1] % r:
+            raise ValueError(f's2d_stem {r}: a band of {x.shape[1]} rows is not a multiple '
+                             f'of {r}')
         x = space_to_depth(x, r)
     w, (ph_lo, ph_hi), (pw_lo, pw_hi) = fold_stem_weight_t(w, r, stride, padding)
+    if spatial is not None:
+        if max(ph_lo, ph_hi) > x.shape[1]:
+            raise ValueError(f's2d stem: a halo of {max(ph_lo, ph_hi)} rows is deeper than '
+                             f'the neighbouring band of {x.shape[1]} rows')
+        x = halo_pad(x, ph_lo, ph_hi, 0.0, spatial)
+        ph_lo = ph_hi = 0
     x = F.pad(x, (0, 0, pw_lo, pw_hi, ph_lo, ph_hi))
     return x, w, 1, 0
 
@@ -387,10 +456,10 @@ class DetectionNetwork(Network):
 
     def forward_train(self, params, state, x, targets=None, train: bool = True, rng=None,
                       compute_dtype=None, remat_segments: int = 0, tap=None, quant_ctx=None,
-                      s2d_stem: int = 0, group=None):
+                      s2d_stem: int = 0, group=None, spatial=None):
         _, losses, preds, _, new_state = self._run(
             params, state, x, compute_dtype, None, True, quant_ctx, targets, train, rng,
-            remat_segments, tap, s2d_stem, group)
+            remat_segments, tap, s2d_stem, group, spatial)
         return (sum_scale_losses(losses) if targets is not None else preds), new_state
 
 

@@ -8,6 +8,13 @@ telemetry} to JSON. The port's walk reads the yolo attrs on every call
 (``model/network.py``), so the injected loss hypers reach the loss. As in
 the JAX package a round whose training or eval raises is printed and left
 out of the log.
+
+Across ranks (``system.data_devices`` > 1, ``cli/evolute.py`` launching
+them) every rank runs the same rounds, as ``nas/search.py`` runs its
+candidates: the hypers come from one seed (rank 0's draw, broadcast, for
+a ``seed`` of None), the fitness is rank 0's AP, broadcast, a round that
+failed on any rank is left out on every rank, and rank 0 alone prints and
+writes the log.
 """
 
 from __future__ import annotations
@@ -18,8 +25,9 @@ from typing import Dict
 
 import numpy as np
 
-from pqdet_tpu_torch.nas.search import free_device_memory
-from pqdet_tpu_torch.train.trainer import Trainer
+from pqdet_tpu_torch.nas.search import free_device_memory, shared_failure, shared_seed
+from pqdet_tpu_torch.parallel.mesh import is_main
+from pqdet_tpu_torch.train.trainer import Trainer, shared_ap
 
 BASE_HYPERS = {
     'hflip_p': 0.5,
@@ -72,9 +80,10 @@ class Evoluter:
         self.base_config = config
         self.rounds = rounds
         self.log_path = log_path
-        self.rng = np.random.RandomState(seed)
+        self.rng = np.random.RandomState(shared_seed(seed))
         self.device = device
         self.records = []
+        self._main = is_main()
 
     def _round_config(self, hypers: Dict[str, float]):
         cfg = copy.deepcopy(self.base_config)
@@ -87,6 +96,8 @@ class Evoluter:
         return cfg
 
     def _write(self, status: str):
+        if not self._main:
+            return
         with open(self.log_path, 'w') as fw:
             json.dump({'data': self.records,
                        'exit': {'status': status,
@@ -94,26 +105,31 @@ class Evoluter:
                                 'target_rounds': self.rounds}}, fw)
 
     def run(self):
+        log = print if self._main else (lambda *args: None)
         for i in range(self.rounds):
             hypers = sample_hypers(self.rng)
-            print(i, hypers)
+            log(i, hypers)
             cfg = self._round_config(hypers)
             trainer = Trainer(cfg, device=self.device)
             # identical init weights every round (build_detector's fixed seed)
             trainer.init_all()
             inject_loss_hypers(trainer.network, hypers)
+            error = None
             try:
                 trainer.train_epoch(0)
-                fitness = trainer.evaluate().AP
+                fitness = shared_ap(trainer)
             except Exception as exc:
-                print(f'round {i} failed: {exc}')
-                continue
+                error = str(exc)
             finally:
                 # one Trainer per round: release its device memory (the
                 # device corpus memo stays for the next round)
                 trainer.close()
                 free_device_memory(self.device)
-            print(fitness)
+            error = shared_failure(error)
+            if error is not None:
+                log(f'round {i} failed: {error}')
+                continue
+            log(fitness)
             self.records.append({'hyper': hypers, 'fitness': float(fitness),
                                  'telemetry': _telemetry(self.device)})
             self._write('running')

@@ -7,6 +7,16 @@ package every exception of a candidate's run is caught and logged as
 ``diverged``, with the step of a ``NaN in loss near step N`` error, and
 the log's records read the same in ``nas/analysis.py`` whichever package
 wrote them.
+
+Across ranks (``system.data_devices`` > 1, ``cli/search.py`` launching
+them) every rank runs the same loop and each candidate trains in the
+process group, one ``Trainer`` per candidate. The ranks take every
+decision together, or one would wait at a collective the others never
+reach: a ``seed`` of None is drawn on rank 0 and broadcast, rank 0 alone
+measures the latency and broadcasts it before the filter, rank 0
+evaluates and broadcasts the AP (``train.trainer.shared_ap``), and a
+candidate that failed on any rank is ``diverged`` on all, with the first
+failing rank's error. Rank 0 alone prints and writes the log.
 """
 
 from __future__ import annotations
@@ -25,6 +35,8 @@ import numpy as np
 from pqdet_tpu_torch import resolve_device
 from pqdet_tpu_torch.model.graph import Graph
 from pqdet_tpu_torch.nas.detnet import detnet_600m
+from pqdet_tpu_torch.parallel.mesh import (any_rank, broadcast_object, gather_objects,
+                                           is_main, world)
 from pqdet_tpu_torch.utils.profiling import count_macs_params
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -76,7 +88,9 @@ def generate_candidates(n: int, max_macs: float = 5e9, min_macs: float = 0.0,
             continue
         info = {'macs': macs, 'params': params, 'head': head}
         if max_latency_ms is not None:
-            latency = measure_latency(cfg_text, device=device)
+            # measured once, on rank 0: every rank filters on the same number
+            latency = broadcast_object(measure_latency(cfg_text, device=device)
+                                       if is_main() else None)
             if latency > max_latency_ms:
                 continue
             info['latency_ms'] = latency
@@ -97,6 +111,23 @@ def _log_meta(rounds, max_macs, max_latency_ms, seed, exp_cap):
             'date': time.strftime('%Y-%m-%d %H:%M UTC', time.gmtime())}
 
 
+def shared_seed(seed: Optional[int]) -> Optional[int]:
+    """``seed``, or at world size > 1 for a ``seed`` of None one drawn on
+    rank 0 and broadcast, so that every rank samples the same candidates
+    or hypers (one process keeps None: fresh OS entropy, as JAX)."""
+    if seed is not None or world() == 1:
+        return seed
+    return broadcast_object(int(np.random.randint(2 ** 31)) if is_main() else None)
+
+
+def shared_failure(error: Optional[str]) -> Optional[str]:
+    """The first failing rank's error (``error`` is this rank's, None when
+    it did not fail), the same on every rank; None when no rank failed."""
+    if not any_rank(error is not None):
+        return None
+    return next(e for e in gather_objects(error) if e is not None)
+
+
 def search(config, rounds: int = 50, max_macs: float = 5e9,
            log_path: str = 'nas_search.json',
            max_latency_ms: Optional[float] = None,
@@ -106,12 +137,14 @@ def search(config, rounds: int = 50, max_macs: float = 5e9,
     with ``status='diverged'``, ``ap=None``, its step of death and the
     error, so the EDF analysis sees an unbiased sample. Appends to the
     records of an existing log. A ``device`` this machine lacks raises
-    here, before the first candidate (it would be logged as diverged)."""
+    here, before the first candidate (it would be logged as diverged).
+    Across ranks: the module docstring."""
     from pqdet_tpu_torch.train.trainer import Trainer
 
     resolve_device(device)
+    main = is_main()
     records = []
-    if os.path.exists(log_path):
+    if main and os.path.exists(log_path):
         with open(log_path) as fr:
             records = json.load(fr).get('data', [])
 
@@ -119,25 +152,32 @@ def search(config, rounds: int = 50, max_macs: float = 5e9,
             generate_candidates(rounds, max_macs=max_macs,
                                 max_latency_ms=max_latency_ms,
                                 num_classes=len(config.dataset.classes),
-                                seed=seed, exp_cap=exp_cap, device=device)):
-        print(f'=== candidate {i}: {info}')
+                                seed=shared_seed(seed), exp_cap=exp_cap, device=device)):
+        if main:
+            print(f'=== candidate {i}: {info}')
         rec = {'cfg': cfg_text, **info}
+        error = None
         try:
             trainer = Trainer(config, device=device)
             ap = trainer.run_nas(cfg_text)
-            rec.update(status='completed', ap=float(ap))
         except Exception as e:
             traceback.print_exc()
-            m = re.search(r'near step (\d+)', str(e))
-            rec.update(status='diverged', ap=None,
-                       step_of_death=int(m.group(1)) if m else None,
-                       error=str(e)[:800])
+            error = str(e)
         finally:
             free_device_memory(device)
+        error = shared_failure(error)
+        if error is None:
+            rec.update(status='completed', ap=float(ap))
+        else:
+            m = re.search(r'near step (\d+)', error)
+            rec.update(status='diverged', ap=None,
+                       step_of_death=int(m.group(1)) if m else None,
+                       error=error[:800])
         records.append(rec)
-        with open(log_path, 'w') as fw:
-            json.dump({'meta': _log_meta(rounds, max_macs, max_latency_ms,
-                                         seed, exp_cap),
-                       'data': records}, fw)
-        print(f'candidate {i}: {rec["status"]} AP={rec["ap"]}')
+        if main:
+            with open(log_path, 'w') as fw:
+                json.dump({'meta': _log_meta(rounds, max_macs, max_latency_ms,
+                                             seed, exp_cap),
+                           'data': records}, fw)
+            print(f'candidate {i}: {rec["status"]} AP={rec["ap"]}')
     return records

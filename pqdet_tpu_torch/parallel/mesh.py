@@ -33,8 +33,15 @@ JAX's names and their counterparts here:
   (device augmentation's in-batch partners);
 - ``replicated``, ``replicate_pytree``: ``broadcast_tree`` from rank 0;
 - ``fit_mesh_to_batch``, ``pad_batch_to_devices``: as they are;
-- ``make_mesh_2d``, ``spatial_batch_shardings`` (spatial partitioning):
-  not ported yet, they raise.
+- ``make_mesh_2d(n_data, n_space)`` (spatial partitioning,
+  ``train.spatial``): the (data x space) layout of the ranks, rank
+  ``r = d * n_space + s``, as a ``SpatialCtx`` holding its three kinds of
+  group: the world (BN moments, QAT observers, grads), one ``space``
+  group per data shard ``d`` (halo exchanges, band sums) and one ``data``
+  group per band ``s`` (device augmentation's in-batch gather). Each rank
+  holds its data shard's rows at full height and cuts its band of rows in
+  the step; ``spatial_batch_shardings`` gives those slices. The halo
+  exchanges are ``parallel/halo.py``.
 
 NCCL takes one GPU per rank; ranks that share a card (two ranks on one
 H100) use gloo, which takes CUDA tensors.
@@ -42,6 +49,7 @@ H100) use gloo, which takes CUDA tensors.
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 import socket
@@ -49,8 +57,6 @@ from typing import Callable, Optional, Sequence
 
 import torch
 import torch.distributed as dist
-
-from pqdet_tpu_torch.config import later
 
 # a hung rank fails the others' collectives after this long instead of
 # hanging them (rank 0's eval runs while the others wait at a barrier);
@@ -77,22 +83,91 @@ def pad_batch_to_devices(batch_size: int, n_devices: int) -> int:
     return batch_size if rem == 0 else batch_size + (n_devices - rem)
 
 
-def resolve_world(data_devices: int, batch_size: int, device='cuda') -> int:
-    """The ranks of ``system.data_devices``: on the card it counts GPUs (0:
-    every visible one), on the CPU gloo processes (0: one); either is capped
-    by ``fit_mesh_to_batch``."""
-    if torch.device(device).type == 'cuda':
-        return fit_mesh_to_batch(batch_size, data_devices or torch.cuda.device_count())
-    return fit_mesh_to_batch(batch_size, data_devices or 1)
+def mesh_shape(data_devices: int, batch_size: int, spatial: int, avail: int):
+    """(n_data, n_space) of a run, JAX's budget: ``system.data_devices`` (0:
+    ``avail``) is the TOTAL rank count, the data axis takes the largest
+    count <= it / ``train.spatial`` that divides the batch, and the space
+    axis ``train.spatial`` (0 or 1: no spatial axis)."""
+    n_space = max(int(spatial), 1)
+    budget = data_devices or avail
+    return fit_mesh_to_batch(batch_size, max(budget // n_space, 1)), n_space
 
 
-def make_mesh_2d(*args, **kwargs):
-    raise later('parallel.mesh.make_mesh_2d', 'queue 1, item 7 (spatial partitioning)')
+def resolve_world(data_devices: int, batch_size: int, device='cuda', spatial: int = 0) -> int:
+    """The ranks of ``system.data_devices`` x ``train.spatial``: on the card
+    it counts GPUs (0: every visible one), on the CPU gloo processes (0:
+    one); the data axis is capped by ``fit_mesh_to_batch``."""
+    avail = torch.cuda.device_count() if torch.device(device).type == 'cuda' else 1
+    n_data, n_space = mesh_shape(data_devices, batch_size, spatial, avail)
+    return n_data * n_space
 
 
-def spatial_batch_shardings(*args, **kwargs):
-    raise later('parallel.mesh.spatial_batch_shardings',
-                'queue 1, item 7 (spatial partitioning)')
+@dataclasses.dataclass
+class SpatialCtx:
+    """This rank's place in a (data x space) mesh and its groups: rank
+    ``d * n_space + s`` holds rows [d*B/n_data, (d+1)*B/n_data) of every
+    global batch and band ``s`` of its rows. Every band has the same
+    height, so a band of ``h`` rows lies at global rows [s*h, (s+1)*h) of
+    an activation ``n_space * h`` rows high."""
+    n_data: int
+    n_space: int
+    d: int
+    s: int
+    world: object       # every rank: BN moments, QAT observers, grads, metrics
+    space: object       # the ranks of data shard d: halos, band sums
+    data: object        # the ranks of band s: the in-batch gather of augmentation
+
+    def offset(self, h: int) -> int:
+        """Global row of this band's first row, for a band of ``h`` rows."""
+        return self.s * h
+
+    def check_height(self, height: int, total_stride: int):
+        """Raise ``ValueError`` unless an input ``height`` rows high cuts
+        into ``n_space`` bands that stay aligned to every stride of a graph
+        of ``total_stride``."""
+        if height % (self.n_space * total_stride):
+            raise ValueError(
+                f'train.spatial {self.n_space}: input height {height} must be a multiple of '
+                f'{self.n_space} bands x the graph\'s total stride {total_stride} '
+                f'(= {self.n_space * total_stride}), so that every band stays aligned to '
+                'every stride')
+
+
+_MESHES = {}
+_TIMEOUT = [None]       # the world's collective timeout, which the mesh's groups take
+
+
+def make_mesh_2d(n_data: int, n_space: int) -> SpatialCtx:
+    """The (data x space) mesh of the process group's ranks: rank ``r =
+    d * n_space + s``. Every rank makes every group in the same order
+    (``new_group`` is collective), once per process group and shape.
+    Raises ``ValueError`` without a process group of ``n_data * n_space``
+    ranks: a spatial run never falls back to one process."""
+    need = n_data * n_space
+    if not dist.is_initialized():
+        raise ValueError(f'mesh {n_data}x{n_space} needs a process group of {need} ranks '
+                         '(launch, run_ranks or torchrun); none is initialised')
+    if world() != need:
+        raise ValueError(f'mesh {n_data}x{n_space} needs {need} ranks, the process group has '
+                         f'{world()}')
+    key = (n_data, n_space)
+    if key not in _MESHES:
+        spaces = [dist.new_group([d * n_space + s for s in range(n_space)],
+                                 timeout=_TIMEOUT[0]) for d in range(n_data)]
+        datas = [dist.new_group([d * n_space + s for d in range(n_data)],
+                                timeout=_TIMEOUT[0]) for s in range(n_space)]
+        d, s = divmod(rank(), n_space)
+        _MESHES[key] = SpatialCtx(n_data, n_space, d, s, dist.group.WORLD, spaces[d], datas[s])
+    return _MESHES[key]
+
+
+def spatial_batch_shardings(mesh: SpatialCtx, batch_size: int, height: int) -> dict:
+    """This rank's slices of a global gt-mode batch, the port of JAX's
+    per-leaf shardings: ``image`` (B, H, W, C) by data rows and band rows,
+    ``gt`` (B, G, 6) by data rows only (replicated over the space axis)."""
+    lb, hb = batch_size // mesh.n_data, height // mesh.n_space
+    rows = slice(mesh.d * lb, (mesh.d + 1) * lb)
+    return {'image': (rows, slice(mesh.s * hb, (mesh.s + 1) * hb)), 'gt': (rows,)}
 
 
 # ------------------------------------------------------------- the group
@@ -125,6 +200,12 @@ def barrier(group=None):
 def in_torchrun() -> bool:
     """Whether torchrun (or another launcher) set this process's rank."""
     return 'RANK' in os.environ and 'WORLD_SIZE' in os.environ
+
+
+def single_host() -> bool:
+    """Whether every rank of the group runs on this host (torchrun's
+    ``LOCAL_WORLD_SIZE`` equals the world; ``launch`` spawns on one host)."""
+    return int(os.environ.get('LOCAL_WORLD_SIZE', world())) == world()
 
 
 def _rank_device(device, local_rank: int) -> torch.device:
@@ -181,27 +262,32 @@ def init_process_group(backend: Optional[str] = None, rank: Optional[int] = None
     dev = _rank_device(device, local_rank)
     if dev.type == 'cuda':
         torch.cuda.set_device(dev)
+    timeout = datetime.timedelta(seconds=DEFAULT_TIMEOUT_S if timeout_s is None else timeout_s)
     dist.init_process_group(backend, init_method=f'tcp://{master_addr}:{master_port}',
-                            rank=rank, world_size=world_size,
-                            timeout=datetime.timedelta(
-                                seconds=DEFAULT_TIMEOUT_S if timeout_s is None else timeout_s))
+                            rank=rank, world_size=world_size, timeout=timeout)
+    _TIMEOUT[0] = timeout
     return dev
 
 
 def destroy_process_group():
+    _MESHES.clear()
     if dist.is_initialized():
         dist.destroy_process_group()
 
 
 # ------------------------------------------------------------ collectives
 
-def all_reduce_mean_(flat: torch.Tensor, group=None) -> torch.Tensor:
-    """``flat`` replaced in place by its mean over the ranks of ``group``
-    (one all-reduce); no collective at world size 1."""
+def all_reduce_mean_(flat: torch.Tensor, group=None,
+                     shards: Optional[int] = None) -> torch.Tensor:
+    """``flat`` replaced in place by its sum over the ranks of ``group``
+    divided by ``shards`` (one all-reduce): the mean over the ranks by
+    default, over the data shards under spatial partitioning, where the
+    bands of a shard each hold a part of its sum. No collective at world
+    size 1."""
     w = world(group)
     if w > 1:
         dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
-        flat.div_(w)
+        flat.div_(w if shards is None else shards)
     return flat
 
 
@@ -227,6 +313,43 @@ def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
     """``t`` summed over the ranks of ``group``, differentiable: under
     autograd the backward pass all-reduces the grads it receives."""
     return _AllReduceSum.apply(t, group) if world(group) > 1 else t
+
+
+def _flag_device():
+    """Where a small collective's tensor lives: the current GPU under NCCL
+    (which takes CUDA tensors only), the CPU under gloo."""
+    if dist.get_backend() == 'nccl':
+        return torch.device('cuda', torch.cuda.current_device())
+    return torch.device('cpu')
+
+
+def any_rank(flag: bool, group=None) -> bool:
+    """Whether ``flag`` is set on any rank of ``group`` (one MAX
+    all-reduce); ``flag`` itself at world size 1."""
+    if world(group) == 1:
+        return bool(flag)
+    t = torch.tensor([1.0 if flag else 0.0], device=_flag_device())
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return bool(t.item())
+
+
+def broadcast_object(obj, src: int = 0, group=None):
+    """Rank ``src``'s ``obj`` (any picklable value) on every rank of
+    ``group``; ``obj`` itself at world size 1."""
+    if world(group) == 1:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src, group=group, device=_flag_device())
+    return box[0]
+
+
+def gather_objects(obj, group=None) -> list:
+    """Every rank's ``obj``, in rank order, on every rank of ``group``."""
+    if world(group) == 1:
+        return [obj]
+    out = [None] * world(group)
+    dist.all_gather_object(out, obj, group=group)
+    return out
 
 
 def _tensor_leaves(tree) -> list:
@@ -319,14 +442,16 @@ def run_ranks(rank_fn: Callable, cfg, device, backend: Optional[str] = None,
     """``rank_fn(device, cfg, *args)`` as an entry point runs it: in this
     process, joined to torchrun's group when its environment is set, or in
     one spawned rank per GPU (per process on the CPU) when
-    ``system.data_devices`` resolves to more than one (``launch``)."""
+    ``system.data_devices`` x ``train.spatial`` resolves to more than one
+    (``launch``)."""
     if in_torchrun():
         dev = init_process_group(backend, device=device)
         try:
             return rank_fn(dev, cfg, *args)
         finally:
             destroy_process_group()
-    world_size = resolve_world(cfg.system.data_devices, cfg.train.batch_size, device)
+    world_size = resolve_world(cfg.system.data_devices, cfg.train.batch_size, device,
+                               cfg.train.spatial)
     if world_size > 1:
         return launch(rank_fn, world_size, device, backend, (cfg, *args))
     return rank_fn(device, cfg, *args)

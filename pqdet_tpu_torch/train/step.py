@@ -24,6 +24,18 @@ batches the mean of the ranks' means is the global mean; ``head_max`` by
 MAX). Device augmentation gathers the global batch, augments it with the
 global draws (in-batch partners span the global batch) and keeps this
 rank's rows. Without a group (world size 1) none of this runs.
+
+Spatial partitioning (``train.spatial``): built with a ``spatial`` context
+(``parallel/mesh.py::SpatialCtx``), rank (d, s) holds data shard d's rows
+at full height. The step labels the whole image (the grids of the global
+input size), then cuts band s of the image's rows and of each label grid's
+rows (the GT box lists stay whole), and walks the band
+(``model/network.py``). Each rank's loss is its band's share of its data
+shard's loss, so the global loss is the sum over the world divided by the
+data shards: the grads and the loss metrics are all-reduced by SUM and
+divided by ``n_data`` (the mean over the world at ``n_space`` 1). With
+device augmentation each rank gathers the global batch over its ``data``
+group, augments it, keeps its data rows and only then cuts its band.
 """
 
 from __future__ import annotations
@@ -37,7 +49,7 @@ from pqdet_tpu_torch.compress.qat import QuantCtx
 from pqdet_tpu_torch.ops.augment_device import augmenter_from_config
 from pqdet_tpu_torch.ops.labels import label_assigner_from_config
 from pqdet_tpu_torch.ops.preprocess import device_normalize
-from pqdet_tpu_torch.parallel.mesh import all_gather_batch, all_reduce_mean_, rank
+from pqdet_tpu_torch.parallel.mesh import all_gather_batch, all_reduce_mean_, rank, world
 from pqdet_tpu_torch.train.schedule import build_schedule
 
 COMPUTE_DTYPES = {'float32': None, 'bfloat16': torch.bfloat16}
@@ -156,6 +168,35 @@ def make_optimizer(schedule: Callable[[int], float], weight_decay: float = 0.0,
     return Adam(schedule, weight_decay=weight_decay, grad_clip=grad_clip)
 
 
+def _band(t, spatial):
+    """Band ``spatial.s`` of NHWC-like ``t``'s rows (dim 1)."""
+    hb = t.shape[1] // spatial.n_space
+    return t[:, spatial.s * hb:(spatial.s + 1) * hb]
+
+
+def _spatial_inputs(batch, label_fn, augment_fn, spatial, total_stride):
+    """``_inputs`` of a spatial step: the full-height rows of this rank's
+    data shard augmented (in-batch partners gathered over the ``data``
+    group) and labelled as the whole image, then band ``spatial.s`` of the
+    image's rows and of each label grid's rows; the box lists stay whole."""
+    if 'gt' not in batch:
+        raise ValueError("train.spatial needs system.label_assign 'device': the step labels "
+                         'the whole image before it cuts the bands')
+    image, gt = batch['image'], batch['gt']
+    spatial.check_height(image.shape[1], total_stride)
+    if augment_fn is not None:
+        b = image.shape[0]
+        image, gt = augment_fn(all_gather_batch(image, spatial.data),
+                               all_gather_batch(gt, spatial.data), batch['draws'],
+                               batch.get('partner_image'), batch.get('partner_gt'))
+        rows = slice(spatial.d * b, (spatial.d + 1) * b)
+        image, gt = image[rows], gt[rows]
+    targets = label_fn(gt, image.shape[1:3])
+    k = len(targets) // 2
+    return (device_normalize(_band(image, spatial)),
+            tuple(_band(t, spatial) for t in targets[:k]) + tuple(targets[k:]))
+
+
 def _inputs(batch, label_fn, augment_fn=None, group=None):
     """(normalized image, label targets) of a step's batch: augmented on
     the device first when ``augment_fn`` is given and the batch has
@@ -180,7 +221,7 @@ def _inputs(batch, label_fn, augment_fn=None, group=None):
 
 def make_loss_fn(network, compute_dtype=None, remat: int = 0, label_fn=None,
                  augment_fn=None, probe_heads: bool = False, s2d_stem: int = 0,
-                 group=None):
+                 group=None, spatial=None):
     """The (params, state, batch, rng) -> (loss, (losses, new_state, stats))
     function of the step: normalize a uint8 batch on the device, build the
     label grids from its padded GT boxes with ``label_fn`` (or take its
@@ -200,8 +241,10 @@ def make_loss_fn(network, compute_dtype=None, remat: int = 0, label_fn=None,
     from ``rng`` (the dropout generator), as JAX splits the step's key.
     ``s2d_stem`` runs the stem folded onto space-to-depth input; the fold
     is differentiable, so the grads reach the stem's own kernel. ``group``:
-    this rank's shard of a data-parallel batch (the module docstring)."""
+    this rank's shard of a data-parallel batch; ``spatial``: this rank's
+    band of it (the module docstring; ``group`` is then the world)."""
     remat_n = int(remat)
+    inputs = _make_inputs(network, label_fn, augment_fn, group, spatial)
     head_in = tuple(n.index - 1 for n in network.graph.yolo_nodes) if probe_heads else ()
     if head_in and remat_n:
         raise ValueError('probe_heads does not combine with remat: the head taps would '
@@ -214,14 +257,25 @@ def make_loss_fn(network, compute_dtype=None, remat: int = 0, label_fn=None,
             def tap(i, t):
                 if i in head_in:
                     stats[i] = t.detach().abs().amax().float()
-        image, targets = _inputs(batch, label_fn, augment_fn, group)
+        image, targets = inputs(batch)
         losses, new_state = network.forward_train(params, state, image, targets=targets,
                                                   rng=rng, compute_dtype=compute_dtype,
                                                   remat_segments=remat_n, tap=tap,
-                                                  s2d_stem=s2d_stem, group=group)
+                                                  s2d_stem=s2d_stem, group=group,
+                                                  spatial=spatial)
         return losses['loss'][0], (losses, new_state, stats)
 
     return loss_fn
+
+
+def _make_inputs(network, label_fn, augment_fn, group, spatial):
+    """The batch -> (image, targets) function of a step: ``_inputs``, or
+    ``_spatial_inputs`` with the graph's total stride. It looks ``_inputs``
+    up at each call, so a caller may wrap it."""
+    if spatial is None:
+        return lambda batch: _inputs(batch, label_fn, augment_fn, group)
+    total_stride = max(n.stride for n in network.graph.nodes if n.stride is not None)
+    return lambda batch: _spatial_inputs(batch, label_fn, augment_fn, spatial, total_stride)
 
 
 def value_and_grad(loss_fn, params, state, batch, rng=None):
@@ -238,35 +292,49 @@ def value_and_grad(loss_fn, params, state, batch, rng=None):
 def make_train_step(network, optimizer: Adam, sparse_ratio: float = 0.0,
                     sparse_ids: Optional[Set[str]] = None, compute_dtype=None,
                     remat: int = 0, label_fn=None, augment_fn=None,
-                    probe_heads: bool = False, s2d_stem: int = 0, group=None):
+                    probe_heads: bool = False, s2d_stem: int = 0, group=None,
+                    spatial=None):
     """The (params, state, opt_state, batch, rng) -> (params, new_state,
     opt_state, metrics) step. ``batch``, ``remat``, ``probe_heads`` and
     ``s2d_stem`` as in ``make_loss_fn``; ``rng`` is the generator of the dropout draws (on
     the batch's device). Metrics: ``loss`` and its parts ``giou_loss``,
     ``conf_loss``, ``class_loss`` (0-d), ``loss_per_branch`` (one per
     head), and with ``probe_heads`` ``head_max`` (one per head), all
-    detached on the device; with a ``group`` the global batch's (the
-    module docstring)."""
+    detached on the device; with a ``group`` the global batch's, with
+    ``spatial`` (a ``SpatialCtx``; the world is its group) the global
+    batch's over the bands too (the module docstring)."""
+    group = spatial.world if spatial is not None else group
     loss_fn = make_loss_fn(network, compute_dtype=compute_dtype, remat=remat,
                            label_fn=label_fn, augment_fn=augment_fn,
-                           probe_heads=probe_heads, s2d_stem=s2d_stem, group=group)
-    return _step_of(loss_fn, optimizer, sparse_ratio, sparse_ids, probe_heads, group)
+                           probe_heads=probe_heads, s2d_stem=s2d_stem, group=group,
+                           spatial=spatial)
+    return _step_of(loss_fn, optimizer, sparse_ratio, sparse_ids, probe_heads, group,
+                    _shards(group, spatial))
+
+
+def _shards(group, spatial) -> int:
+    """The divisor of the summed grads and metrics: the data shards."""
+    return spatial.n_data if spatial is not None else world(group)
 
 
 def make_qat_loss_fn(network, observing: bool = True, bn_frozen: bool = False,
-                     compute_dtype=None, label_fn=None, augment_fn=None, group=None):
+                     compute_dtype=None, label_fn=None, augment_fn=None, group=None,
+                     spatial=None):
     """The loss function of the QAT step, in ``make_loss_fn``'s contract:
     augment, normalize and label as there, then the fake-quant walk with
     ``QuantCtx(state['quant'], observing)`` and BN on batch statistics
     unless ``bn_frozen``; the new observers go into the new state's
-    ``quant`` (``state``'s own when not ``observing``)."""
+    ``quant`` (``state``'s own when not ``observing``). Under ``spatial``
+    the observers take the min and max over the world: the whole image."""
+    inputs = _make_inputs(network, label_fn, augment_fn, group, spatial)
+
     def loss_fn(params, state, batch, rng: Optional[torch.Generator] = None):
         ctx = QuantCtx(state['quant'], observing=observing, group=group)
-        image, targets = _inputs(batch, label_fn, augment_fn, group)
+        image, targets = inputs(batch)
         losses, new_state = network.forward_train(params, state, image, targets=targets,
                                                   train=not bn_frozen, rng=rng,
                                                   compute_dtype=compute_dtype, quant_ctx=ctx,
-                                                  group=group)
+                                                  group=group, spatial=spatial)
         new_state = {**new_state, 'quant': ctx.new_obs}
         return losses['loss'][0], (losses, new_state, {})
 
@@ -275,35 +343,38 @@ def make_qat_loss_fn(network, observing: bool = True, bn_frozen: bool = False,
 
 def make_qat_train_step(network, optimizer: Adam, observing: bool = True,
                         bn_frozen: bool = False, compute_dtype=None, label_fn=None,
-                        augment_fn=None, group=None):
+                        augment_fn=None, group=None, spatial=None):
     """The QAT step, the port of the JAX trainer's ``_wrap_quant_step``:
     ``make_train_step``'s contract with the loss of ``make_qat_loss_fn``
     for one phase of the observer and BN-freeze schedule, and the same
     Adam. Like JAX's it has no sparse L1, no remat and no head probe, and
     it launches no hand-written kernel (the fake-quant is PyTorch ops
     under autograd)."""
+    group = spatial.world if spatial is not None else group
     loss_fn = make_qat_loss_fn(network, observing=observing, bn_frozen=bn_frozen,
                                compute_dtype=compute_dtype, label_fn=label_fn,
-                               augment_fn=augment_fn, group=group)
-    return _step_of(loss_fn, optimizer, group=group)
+                               augment_fn=augment_fn, group=group, spatial=spatial)
+    return _step_of(loss_fn, optimizer, group=group, shards=_shards(group, spatial))
 
 
-def average_grads(grads, group):
-    """``grads`` averaged over the ranks of ``group``: one all-reduce of
-    their flat f32 vector."""
+def average_grads(grads, group, shards: int):
+    """``grads`` summed over the ranks of ``group`` and divided by
+    ``shards`` (the ranks: the mean; the data shards under spatial
+    partitioning, where the bands' grads are parts of one shard's grad):
+    one all-reduce of their flat f32 vector."""
     leaves = tree_leaves(grads)
-    flat = all_reduce_mean_(torch.cat([t.reshape(-1).float() for t in leaves]), group)
+    flat = all_reduce_mean_(torch.cat([t.reshape(-1).float() for t in leaves]), group, shards)
     return tree_unflatten(grads, [part.view(t.shape) for part, t in
                                   zip(torch.split(flat, [t.numel() for t in leaves]), leaves)])
 
 
-def reduce_metrics(metrics: dict, group) -> dict:
-    """The step's metrics of the global batch: the means all-reduced to
-    their mean over the ranks in one collective, ``head_max`` to its
-    maximum."""
+def reduce_metrics(metrics: dict, group, shards: int) -> dict:
+    """The step's metrics of the global batch: the loss and its parts
+    summed over the ranks in one collective and divided by ``shards`` (as
+    ``average_grads``), ``head_max`` to its maximum."""
     names = [k for k in metrics if k != 'head_max']
     flat = all_reduce_mean_(torch.cat([metrics[k].reshape(-1).float() for k in names]),
-                            group)
+                            group, shards)
     out = {k: part.view(metrics[k].shape) for k, part in
            zip(names, torch.split(flat, [metrics[k].numel() for k in names]))}
     if 'head_max' in metrics:
@@ -314,14 +385,15 @@ def reduce_metrics(metrics: dict, group) -> dict:
 
 
 def _step_of(loss_fn, optimizer: Adam, sparse_ratio: float = 0.0,
-             sparse_ids: Optional[Set[str]] = None, probe_heads: bool = False, group=None):
-    """The train step around ``loss_fn``: grads (averaged over ``group``'s
-    ranks), sparse-L1, the update and the metrics."""
+             sparse_ids: Optional[Set[str]] = None, probe_heads: bool = False, group=None,
+             shards: int = 1):
+    """The train step around ``loss_fn``: grads (summed over ``group``'s
+    ranks, divided by ``shards``), sparse-L1, the update and the metrics."""
     def train_step(params, state, opt_state, batch, rng=None):
         (_, (losses, new_state, stats)), grads = value_and_grad(
             loss_fn, params, state, batch, rng)
         if group is not None:
-            grads = average_grads(grads, group)
+            grads = average_grads(grads, group, shards)
         if sparse_ratio and sparse_ids:
             grads = add_sparse_l1(grads, params, sparse_ids, sparse_ratio)
         params, opt_state = optimizer.update(grads, opt_state, params)
@@ -335,14 +407,15 @@ def _step_of(loss_fn, optimizer: Adam, sparse_ratio: float = 0.0,
         if probe_heads:     # the head inputs in graph order, as the yolo nodes
             metrics['head_max'] = torch.stack([stats[i] for i in sorted(stats)])
         if group is not None:
-            metrics = reduce_metrics(metrics, group)
+            metrics = reduce_metrics(metrics, group, shards)
         return params, new_state, opt_state, metrics
 
     return train_step
 
 
 def train_step_from_config(network, cfg, steps_per_epoch: int, device='cuda',
-                           observing: bool = True, bn_frozen: bool = False, group=None):
+                           observing: bool = True, bn_frozen: bool = False, group=None,
+                           spatial=None):
     """(train_step, optimizer) as the config sets them, the way the JAX
     trainer builds its step: the lr schedule of ``build_schedule`` over
     ``steps_per_epoch``, ``train.weight_decay`` and ``train.grad_clip``,
@@ -353,7 +426,8 @@ def train_step_from_config(network, cfg, steps_per_epoch: int, device='cuda',
     the QAT step of the phase ``observing``/``bn_frozen`` (of the quant
     graph's ``network``), which reads none of those four. Either step augments on the device
     with ``augment.device`` (its batches then carry their ``draws``). ``group``: the
-    data-parallel step of this rank (the module docstring); None at world size 1."""
+    data-parallel step of this rank (the module docstring); None at world size 1.
+    ``spatial``: this rank's ``SpatialCtx`` under ``train.spatial``."""
     t = cfg.train
     optimizer = make_optimizer(build_schedule(cfg, steps_per_epoch),
                                weight_decay=t.weight_decay, grad_clip=t.grad_clip)
@@ -363,14 +437,16 @@ def train_step_from_config(network, cfg, steps_per_epoch: int, device='cuda',
     if cfg.quant.switch:
         return make_qat_train_step(network, optimizer, observing=observing,
                                    bn_frozen=bn_frozen, compute_dtype=dtype,
-                                   label_fn=labels, augment_fn=augment, group=group), optimizer
+                                   label_fn=labels, augment_fn=augment, group=group,
+                                   spatial=spatial), optimizer
     sparse = bool(cfg.sparse.switch)
     step = make_train_step(network, optimizer,
                            sparse_ratio=cfg.sparse.ratio if sparse else 0.0,
                            sparse_ids=sparse_bn_gamma_ids(network) if sparse else None,
                            compute_dtype=dtype, remat=int(t.remat),
                            probe_heads=bool(t.head_probe), label_fn=labels,
-                           augment_fn=augment, s2d_stem=int(t.s2d_stem), group=group)
+                           augment_fn=augment, s2d_stem=int(t.s2d_stem), group=group,
+                           spatial=spatial)
     return step, optimizer
 
 

@@ -63,6 +63,22 @@ barrier. A resume loads the same checkpoint on every rank. The dropout
 generator is seeded per rank, where JAX draws one mask for the global
 batch. ``dataset.device_cache`` takes a single rank, as JAX's does.
 
+Spatial partitioning (``train.spatial`` N > 1): the ranks form a (data x
+space) mesh (``parallel/mesh.py::make_mesh_2d``) of ``n_data x N`` ranks,
+``system.data_devices`` (0: the world) being the total budget as in JAX.
+The N ranks of data shard d load the same rows (``TrainData(num_hosts=
+n_data, host_id=d)``; the uint8 images are small beside the activations
+the bands split) and the step cuts each its band. It needs device labels
+(``system.label_assign device``) and one host, excludes
+``dataset.device_cache``, and every input size must be a multiple of N x
+the graph's total stride: each raises ``ValueError`` here, and so does a
+world that is not the mesh (no process group included). Rank 0 evaluates
+whole images without bands.
+
+``shared_ap`` is the eval of a run whose every rank needs the AP (NAS
+search and evolution across ranks): rank 0 evaluates and broadcasts the
+AP, or the failure, to the others.
+
 Not ported yet, and raising: unrolled steps (ROADMAP.md queue 1).
 """
 
@@ -90,7 +106,9 @@ from pqdet_tpu_torch.evaluation.predict import build_predict_pipeline, make_batc
 from pqdet_tpu_torch.model.factory import build_detector, inference_params
 from pqdet_tpu_torch.ops.augment_device import (draw_augment, fresh_partners_enabled,
                                                 partner_rows_per_sample)
-from pqdet_tpu_torch.parallel.mesh import active_group, barrier, broadcast_tree, rank, world
+from pqdet_tpu_torch.parallel.mesh import (active_group, barrier, broadcast_object,
+                                           broadcast_tree, make_mesh_2d, mesh_shape, rank,
+                                           single_host, world)
 from pqdet_tpu_torch.train.checkpoint import save_checkpoint
 from pqdet_tpu_torch.train.step import (COMPUTE_DTYPES, resume_schedule_step,
                                         sparse_bn_gamma_ids, train_step_from_config)
@@ -121,6 +139,9 @@ class Trainer:
         # the data-parallel group (None at world size 1) and this rank
         self._group = active_group()
         self._world, self._rank = world(), rank()
+        # spatial partitioning: the (data x space) mesh, or None
+        self._spatial = None
+        self._n_data, self._data_rank = self._world, self._rank
 
         c = config
         self._max_epochs = c.train.max_epochs
@@ -153,10 +174,35 @@ class Trainer:
         if c.dataset.device_cache and self._world > 1:
             raise ValueError(f'dataset.device_cache needs a single rank, not {self._world} '
                              '(system.data_devices)')
+        if c.train.spatial > 1:
+            self._init_spatial(c)
 
         self.dataload_tt = TicToc()
         self.model_tt = TicToc()
         self.epoch_tt = TicToc()
+
+    def _init_spatial(self, c):
+        """Check a ``train.spatial`` config (JAX's checks, and the band
+        heights) and join the (data x space) mesh of the process group."""
+        n = c.train.spatial
+        if c.system.label_assign != 'device':
+            raise ValueError("train.spatial needs system.label_assign='device'")
+        if c.dataset.device_cache:
+            raise ValueError('dataset.device_cache excludes train.spatial partitioning')
+        if not single_host():
+            raise ValueError('train.spatial is single-host scoped')
+        from pqdet_tpu_torch.model.graph import Graph
+        stride = max(x.stride for x in Graph.from_cfg(resolve_model_cfg(c)).nodes
+                     if x.stride is not None)
+        bad = [h for h, _ in sizes_fix(c.train.input_sizes) if h % (n * stride)]
+        if bad:
+            raise ValueError(f'train.spatial {n}: input heights {bad} are not multiples of '
+                             f'{n} bands x the total stride {stride} (= {n * stride})')
+        n_data, n_space = mesh_shape(c.system.data_devices, c.train.batch_size, n,
+                                     self._world)
+        self._spatial = make_mesh_2d(n_data, n_space)
+        self._group = self._spatial.world
+        self._n_data, self._data_rank = n_data, self._spatial.d
 
     def _log(self, *args):
         """print on rank 0 only."""
@@ -168,7 +214,8 @@ class Trainer:
     def init_all(self):
         if self.cfg_text is None:
             self.cfg_text = resolve_model_cfg(self.config)
-        self.train_data = TrainData(self.config, num_hosts=self._world, host_id=self._rank)
+        self.train_data = TrainData(self.config, num_hosts=self._n_data,
+                                    host_id=self._data_rank)
         self.eval_data = EvalData(self.config)
         self.steps_per_epoch = self.train_data.batches_per_epoch
         self._print_interval = max(self.steps_per_epoch // 5, 1)
@@ -220,7 +267,8 @@ class Trainer:
         in."""
         return train_step_from_config(self.network, self.config, self.steps_per_epoch,
                                       device=self.device, observing=self._observing,
-                                      bn_frozen=self._bn_frozen, group=self._group)
+                                      bn_frozen=self._bn_frozen, group=self._group,
+                                      spatial=self._spatial)
 
     # ----------------------------------------------------------------- eval
 
@@ -250,6 +298,7 @@ class Trainer:
         self.AP = ap
         self._log(format_ap_table(ap, verbose=False))
         return ap
+
 
     # ------------------------------------------------------------------ save
 
@@ -492,7 +541,7 @@ class Trainer:
         """The device-augment draws of the global batch of global step
         ``step`` (this rank's batch is a 1/W slice of it), from
         ``np.random.default_rng((system.seed, step))``, on the device."""
-        B, S = batch['image'].shape[0] * self._world, batch['image'].shape[1]
+        B, S = batch['image'].shape[0] * self._n_data, batch['image'].shape[1]
         partners = batch['partner_image'].shape[0] // B if 'partner_image' in batch else 0
         gen = np.random.default_rng((self.config.system.seed, step))
         return draw_augment(gen, B, S, partner_rows=partners).to(self.device)
@@ -613,7 +662,7 @@ class Trainer:
             for epoch in range(0, self._eval_after + 1):
                 self.train_epoch(epoch)
                 if epoch >= self._eval_after:
-                    return self.evaluate().AP
+                    return shared_ap(self)
             return 0.0
         finally:
             self.close()
@@ -638,3 +687,22 @@ class Trainer:
         self.params = self.state = self.opt_state = None
         self.step_fn = self.optimizer = None
         self._eval_run = self._device_cache = self._rng = None
+
+
+def shared_ap(trainer) -> float:
+    """``trainer.evaluate().AP`` on every rank of the process group: rank 0
+    evaluates and broadcasts it (the params are the same on all); an eval
+    that raises on rank 0 raises ``RuntimeError`` with its message on every
+    rank."""
+    if world() == 1:
+        return trainer.evaluate().AP
+    ap, err = None, None
+    if rank() == 0:
+        try:
+            ap = float(trainer.evaluate().AP)
+        except Exception as e:      # raised below, on every rank
+            err = f'{type(e).__name__}: {e}'
+    ap, err = broadcast_object((ap, err))
+    if err is not None:
+        raise RuntimeError(f"rank 0's eval failed: {err}")
+    return ap

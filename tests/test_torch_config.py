@@ -101,7 +101,7 @@ def test_merge_from_list_matches_jax():
     (['augment.device', 'maybe'], TypeError),
     (['train.unroll_steps', '2'], NotImplementedError),
     (['system.data_devices', 'all'], TypeError),
-    (['train.spatial', '2'], NotImplementedError),
+    (['train.spatial', 'two'], TypeError),
 ])
 def test_bad_overrides_raise(opts, error):
     with pytest.raises(error):
@@ -112,13 +112,14 @@ def test_bad_overrides_raise(opts, error):
                                        ('system.device_prefetch', '2'),
                                        ('system.label_assign', 'host'),
                                        ('train.s2d_stem', '2'), ('eval.s2d_stem', '2'),
-                                       ('system.data_devices', '2')])
+                                       ('system.data_devices', '2'),
+                                       ('train.spatial', '2')])
 def test_ported_keys_load(key, value):
-    """The loader, upload-thread, space-to-depth and data-parallel keys,
-    once queued, load as JAX's do; only the spatial-partitioning and unroll
-    keys stay queued."""
+    """The loader, upload-thread, space-to-depth, data-parallel and
+    spatial-partitioning keys, once queued, load as JAX's do; only the
+    unroll key stays queued."""
     opts = [key, value]
     cfg = load_config(opts=opts)
     assert str(getattr(getattr(cfg, key.split('.')[0]), key.split('.')[1])) == value
     assert _assert_same(cfg, jax_load_config(opts=opts)) >= 50
-    assert sorted(LATER_KEYS) == ['train.spatial', 'train.unroll_steps']
+    assert sorted(LATER_KEYS) == ['train.unroll_steps']

@@ -338,8 +338,9 @@ def test_evoluter_log_equals_jax(tmp_path, monkeypatch):
 @pytest.mark.parametrize('cli,jax_cli', [(cli_search, jax_cli_search),
                                          (cli_evolute, jax_cli_evolute)])
 def test_cli_help_has_jax_flags(cli, jax_cli, capsys, monkeypatch):
-    """Each CLI takes JAX's flags and ``--device``; the evolution CLIs enable
-    ``faulthandler`` first (recorded here: pytest's stderr has no fileno)."""
+    """Each CLI takes JAX's flags, ``--device`` and ``--dist-backend`` (its
+    ranks' collective backend); the evolution CLIs enable ``faulthandler``
+    first (recorded here: pytest's stderr has no fileno)."""
     enabled = []
     monkeypatch.setattr('faulthandler.enable', lambda *a, **k: enabled.append(1))
 
@@ -351,7 +352,7 @@ def test_cli_help_has_jax_flags(cli, jax_cli, capsys, monkeypatch):
     got = flags(lambda: cli.main(['--help']))
     monkeypatch.setattr('sys.argv', ['prog', '--help'])
     want = flags(jax_cli.main)
-    assert got == want | {'--device'}
+    assert got == want | {'--device', '--dist-backend'}
     assert len(enabled) == (2 if cli is cli_evolute else 0)
 
 

@@ -272,8 +272,9 @@ def test_fit_and_pad_match_jax(batch, devices):
 def test_world_resolution_and_guards(monkeypatch):
     """system.data_devices on the CPU counts gloo processes (0 = one),
     capped by the batch; NCCL refuses the CPU and ranks sharing a GPU
-    before any group exists; spatial partitioning raises naming its item;
-    without a group nothing communicates."""
+    before any group exists; the spatial mesh raises without a process
+    group, never falling back to one process; without a group nothing
+    communicates."""
     assert mesh.resolve_world(0, 12, 'cpu') == 1
     assert mesh.resolve_world(5, 12, 'cpu') == 4 and mesh.resolve_world(2, 4, 'cpu') == 2
     assert (mesh.world(), mesh.rank(), mesh.is_main(), mesh.active_group()) == (1, 0, True, None)
@@ -287,28 +288,33 @@ def test_world_resolution_and_guards(monkeypatch):
         mesh.launch(_rank_work, 2, 'cuda', 'nccl')
     with pytest.raises(ValueError, match='not one of'):
         mesh.check_backend('mpi', 'cpu', 1)
-    for fn in (mesh.make_mesh_2d, mesh.spatial_batch_shardings):
-        with pytest.raises(NotImplementedError, match='item 7 \\(spatial partitioning\\)'):
-            fn(2, 2)
+    with pytest.raises(ValueError, match='needs a process group of 4 ranks'):
+        mesh.make_mesh_2d(2, 2)
+    ctx = mesh.SpatialCtx(2, 2, 0, 1, None, None, None)
+    assert mesh.spatial_batch_shardings(ctx, 4, 64) == {'image': (slice(0, 2), slice(32, 64)),
+                                                        'gt': (slice(0, 2),)}
 
 
 def test_config_keys():
-    """system.data_devices loads with JAX's default; train.spatial and
-    train.unroll_steps still raise naming their items; cli.search and
-    cli.evolute run one rank."""
+    """system.data_devices and train.spatial load with JAX's defaults and
+    values; train.unroll_steps still raises naming its item; cli.search and
+    cli.evolute launch their ranks as cli.train does (a world the batch
+    and data_devices resolve, with spatial ranks counted)."""
     from pqdet_tpu.config import load_config as jax_load_config
-    from pqdet_tpu_torch.config import one_rank
     cfg = load_config(opts=['system.data_devices', '2'])
     assert cfg.system.data_devices == 2 == jax_load_config(
         opts=['system.data_devices', '2']).system.data_devices
     assert Config().system.data_devices == 0
-    assert sorted(LATER_KEYS) == ['train.spatial', 'train.unroll_steps']
-    for key, item in (('train.spatial', 'item 7 \\(spatial'), ('train.unroll_steps', 'item 2')):
-        with pytest.raises(NotImplementedError, match=item):
-            load_config(opts=[key, '2'])
-    one_rank(load_config(opts=['system.data_devices', '1']), 'cli.search')
-    with pytest.raises(NotImplementedError, match='item 7'):
-        one_rank(cfg, 'cli.search')
+    spatial = load_config(opts=['train.spatial', '2'])
+    assert spatial.train.spatial == 2 == jax_load_config(
+        opts=['train.spatial', '2']).train.spatial
+    assert Config().train.spatial == 0 == jax_load_config().train.spatial
+    assert sorted(LATER_KEYS) == ['train.unroll_steps']
+    with pytest.raises(NotImplementedError, match='item 2'):
+        load_config(opts=['train.unroll_steps', '2'])
+    assert mesh.resolve_world(cfg.system.data_devices, cfg.train.batch_size, 'cpu',
+                              cfg.train.spatial) == 2
+    assert mesh.resolve_world(0, 12, 'cpu', spatial.train.spatial) == 2
 
 
 @pytest.fixture(scope='module')
