@@ -260,7 +260,7 @@ Builds the CUDA kernels from pqdet_tpu_torch/csrc with nvcc (sm_90a), then:
    model served in bf16 with seeded weights (4 requests of B=4, launches
    per forward from the graph, node by node against plain=True as phase
    16 (b)), and the chains' device ms; (c) ``cli.search`` in process on
-   yamls/nas_clutter.yaml and phase 13's clutter corpus, 3 candidates of
+   yamls/nas_clutter.yaml and phase 13's clutter corpus, 2 candidates of
    seed 0 with every candidate's B=1 latency measured on the card: the
    log's records with JAX's keys, completed APs in [0, 1], every diverged
    record a NaN loss (any other error fails the phase), at least one
@@ -326,13 +326,23 @@ Builds the CUDA kernels from pqdet_tpu_torch/csrc with nvcc (sm_90a), then:
    against the plain decode (phase 11's bound) with every decode_heads call
    held to its plain version on the eval batches; (d) the device-augmented
    rows of (b)'s ranks (mosaic and mixup partners from the global batch)
-   equal the one-process augmented batch's bit for bit; (e) (b) with NCCL
-   over two cards when the machine has two, else a line that says it was
-   not run. (c) trains at shapes.yaml's sizes 448 and 512 (SP_INPUT_SIZES)
-   and its rank 1 prints its decode launches, which must be 0;
+   equal the one-process augmented batch's bit for bit, and so do those
+   of yamls/clutter.yaml's device corpus with fresh partners (the first 32
+   train images of phase 13's clutter corpus, each rank holding the whole
+   corpus and every rank the global batch's partner rows), with the first
+   loss within 1e-4; (e) (b) with NCCL over two cards when the machine has
+   two, else a line that says it was not run; (f) ``cli.train`` of
+   yamls/shapes.yaml with ``train.unroll_steps 2`` (one f32 epoch on phase
+   11's corpus from its checkpoint): the steps the plan's batches rounded
+   up to whole groups, one size a group, the params equal to the same
+   batches replayed through single steps bit for bit, the eval's
+   decode_heads held to its plain version. (c) trains at shapes.yaml's
+   own sizes (416 to 512) and its rank 1 prints its decode launches, which
+   must be 0;
 20. spatial partitioning and NAS across ranks (``phase20_spatial``, in the
    same temporary directory; ``train.spatial``, ``parallel/halo.py``): (a)
-   full-width mobilenetv2-fpn at 512x512, global B=4 as 1 data x 2 space,
+   full-width mobilenetv2-fpn at 416x416 (13 stride-32 rows: 2 bands of a
+   448-row padded image), global B=4 as 1 data x 2 space,
    two gloo ranks sharing the card (f32, TF32 off, cuDNN deterministic,
    sparse-L1 and a binding clip): after each of 3 steps the ranks identical
    bit for bit, the first loss within 1e-4 of one process and the params
@@ -341,14 +351,19 @@ Builds the CUDA kernels from pqdet_tpu_torch/csrc with nvcc (sm_90a), then:
    within 1e-4; each rank's peak memory and bf16 step p50 against one
    process at the same batch; (b) ``cli.train --dist-backend gloo
    train.spatial 2 system.data_devices 2`` as two ranks of one f32 epoch,
-   with phase 19 (c)'s checks against phase 19 (c)'s one-process epochs
-   (rank 0's eval: one decode_heads launch per batch, held to its plain
-   version; rank 1 none); (c) ``cli.search`` (2 candidates of seed 0) and
-   ``cli.evolute`` (1 round) at ``system.data_devices 2`` as spawned gloo
-   ranks on yamls/nas_clutter.yaml and evolute_clutter.yaml (phase 13's
-   clutter corpus, its first 64 train images, ``dataset.device_cache off``,
-   one epoch a candidate): one log each, the candidates of a one-process
-   sampling of seed 0, no diverged record but a NaN loss.
+   with phase 19 (c)'s checks against phase 19 (c)'s one-process epochs at
+   shapes.yaml's own sizes (416 and 480 walked padded; rank 0's eval: one
+   decode_heads launch per batch, held to its plain version; rank 1 none);
+   (c) ``cli.search`` (1 candidate of seed 0) and ``cli.evolute`` (1
+   round) at ``system.data_devices 2`` as two gloo ranks (rank 1 a
+   torchrun-style subprocess) on yamls/nas_clutter.yaml and
+   evolute_clutter.yaml as shipped (the device corpus on; phase 13's
+   clutter corpus, its first 64 train images, one epoch a candidate, f32):
+   one log each, the candidates of a one-process sampling of seed 0, no
+   diverged record but a NaN loss, and what each candidate and round
+   trained against the same CLIs in one process (``nas_ranks_agree``: the
+   first loss within 1e-4, the params within 2x the one-process run's own
+   drift on its rows reversed).
 
 Each phase draws from its own generator, seeded from SEED and the phase
 number. It prints one JSON line of kernels, then the nvidia-smi line, and
@@ -1882,7 +1897,7 @@ QAT_EPOCHS = 3
 QAT_OBSERVE_EPOCHS = 1         # quant.disable_observer_after
 QAT_BN_EPOCHS = 2              # quant.freeze_bn_after
 QAT_WARMUP = 3                 # the timed QAT steps: after these ...
-QAT_TIMED_STEPS = 10           # ... these, at B=TIMING_BATCH, TRAIN_SIZE, bf16
+QAT_TIMED_STEPS = 6            # ... these, at B=TIMING_BATCH, TRAIN_SIZE, bf16
 # the card's QAT step against the CPU's (f32, TF32 off, B=PARITY_BATCH),
 # with BN and observers frozen (PARITY_RUNNING_SIZE) and with batch
 # statistics and observers updating (PARITY_SIZE). The whole walk is chaotic
@@ -2522,7 +2537,7 @@ DEVICE_EPOCHS = 3              # (b), (c): epochs of each shipped-yaml run
 # images would take minutes; enough for 3x the steps of phase 11's epochs
 CLUTTER_IMAGES = 320
 AUG_TIMING_BATCH = 12          # (e): the step at phase 10's B and size
-AUG_TIMED_STEPS = 20
+AUG_TIMED_STEPS = 10
 AUG_TIMING_CHAINS = {
     'no device augment': None,
     'shapes.yaml chain (hflip 0.5, crop 0.75, in-batch)':
@@ -2602,10 +2617,14 @@ def probed_trainer(Trainer, record):
     """``Trainer`` with probes into ``record``: the trainer, per-epoch step
     losses, seconds, data-load split and kernel launches, per-eval seconds,
     AP and launches, the first two gathers from the device corpus, the
-    params before training, the process pool's worker pids and slab names
-    (``pool``), and, where ``record`` holds a ``sums`` list, each step
+    params and BN state before training (``start``, ``start_state``), the
+    epoch plan's sizes (``plan``), the process pool's worker pids and slab
+    names (``pool``), and, where ``record`` holds a ``sums`` list, each step
     batch's checksums (the sum of each of its tensors, read on the step's
-    stream)."""
+    stream), where it holds a ``groups`` list, a copy of each step call's
+    batch (a group of stacked batches under ``train.unroll_steps``). The
+    losses of a group's steps are recorded one by one."""
+    import copy
     import torch
     from pqdet_tpu_torch.train.step import tree_leaves
 
@@ -2615,6 +2634,8 @@ def probed_trainer(Trainer, record):
             self._epoch = -1
             super().init_all()
             record['start'] = [t.detach().clone() for t in tree_leaves(self.params)]
+            record['start_state'] = [t.detach().clone() for t in tree_leaves(self.state)]
+            record['plan'] = [tuple(hw) for hw in self.train_data._sizes]
             loader = self._proc_loader
             record['pool'] = None if loader is None else (
                 [w.pid for w in loader._pool._pool], loader.slab_names)
@@ -2627,6 +2648,8 @@ def probed_trainer(Trainer, record):
                     record['sums'].append(torch.stack([
                         t.double().sum() for k in sorted(batch) if k != 'draws'
                         for t in (batch[k] if isinstance(batch[k], tuple) else (batch[k],))]))
+                if 'groups' in record:
+                    record['groups'].append(copy.deepcopy(batch))
                 out = step(params, state, opt_state, batch, rng)
                 record['loss'].setdefault(self._epoch, []).append(out[3]['loss'])
                 return out
@@ -2645,7 +2668,8 @@ def probed_trainer(Trainer, record):
             record['epochs'][epoch] = {'s': time.perf_counter() - t0,
                                        'launches': kernel_launches(),
                                        'steps': self.steps_per_epoch, **split}
-            record['loss'][epoch] = [float(x) for x in record['loss'][epoch]]
+            record['loss'][epoch] = [float(v) for x in record['loss'][epoch]
+                                     for v in x.reshape(-1)]
             return split
 
         def evaluate(self):
@@ -4264,7 +4288,7 @@ PRUNED_SQUARES_AP50 = 0.4      # tests/test_learning.py:213
 NAS_SIZES = (352, 512)         # (b): eval.input_size of the NAS and evolution yamls, SIZE
 NAS_GAIN = REGNET_GAIN         # (b): seed_bn's weight gain of the RegNet-backbone candidates
 CANDIDATE_REQUESTS = 4         # (b): bf16 requests of B=BATCH per model and size
-NAS_ROUNDS = 3                 # (c): cli.search --rounds (the yaml's recorded run: 8)
+NAS_ROUNDS = 2                 # (c): cli.search --rounds (the yaml's recorded run: 8)
 NAS_MAX_MACS = 5e9
 NAS_MAX_LATENCY_MS = 1000.0    # (c): every candidate passes (the yaml's 8 ms is a TPU figure)
 EVOLUTE_ROUNDS = 2             # (d): cli.evolute --rounds (the yaml's recorded run: 6)
@@ -4886,7 +4910,7 @@ def write_coco(root, n_train, n_val, seed=SEED, classes=80, boxes=(1, 15)):
 # upload thread (e), the playground (f)
 S2D = 2                        # (a), (b): eval.s2d_stem and train.s2d_stem
 S2D_REQUESTS = 8               # (a): requests of each B, launches counted
-S2D_TIMED_STEPS = 10           # (b): bf16 steps of each mode at B=12, TRAIN_SIZE, in turns ...
+S2D_TIMED_STEPS = 6            # (b): bf16 steps of each mode at B=12, TRAIN_SIZE, in turns ...
 S2D_TIMED_WARMUP = 3           # ... the first ones out of the p50
 S2D_STEM_TOL = 1e-5            # (a): the folded stem against the stem, f32 (tests/test_s2d.py)
 S2D_GRAD_RTOL, S2D_GRAD_ATOL = 1e-4, 1e-6   # (b): the stem kernel's grad (tests/test_s2d.py)
@@ -5537,24 +5561,61 @@ DP_SIZE = 512                  # phase 19: the data-parallel step's input size .
 DP_BATCH = 12                  # ... and global batch (two ranks of 6 in (b))
 DP_WORLD = 2
 DP_STEPS = 3                   # (a), (b): steps held for equality
-DP_TIMED = 10                  # (b): timed bf16 steps after ...
-DP_WARMUP = 3                  # ... these
+DP_TIMED = 5                   # (b): timed bf16 steps after ...
+DP_WARMUP = 2                  # ... these
 DP_DRIFT_FACTOR = 2.0          # (b): the ranks' params within this x the step's own drift
 DP_TIMEOUT_S = 600.0           # a collective's longest wait before the run fails
-# (c) and phase 20 (b): shapes.yaml's input sizes that 2 bands x the total
-# stride 32 divide (its 416 and 480 do not: a spatial run refuses them), so
-# that phase 20 (b) holds its bands to phase 19 (c)'s one-process epochs
-SP_INPUT_SIZES = ('train.input_sizes', '[448, 512]')
-# (c): rank 1 of cli.train, run as torchrun would start it, with the
-# precision flags of this script's rank 0 (TF32 off, cuDNN deterministic)
-# It prints its decode launches last (RANK1_LAUNCHES): it evaluates nothing.
+DP_CORPUS_IMAGES = 32          # (d): phase 13's clutter train images in the device corpus
+UNROLL_STEPS = 2               # (f): train.unroll_steps of the unrolled cli.train epoch
+# (c) and phase 20 (c): rank 1 of a CLI, run as torchrun would start it,
+# with the precision flags of this script's rank 0 (TF32 off, cuDNN
+# deterministic). It prints its decode launches last (RANK1_LAUNCHES): it
+# evaluates nothing.
 RANK1_LAUNCHES = 'rank 1 decode_heads launches'
-DP_RANK1 = ('import runpy, torch; '
-            'torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False; '
-            'torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False; '
-            'runpy.run_module("pqdet_tpu_torch.cli.train", run_name="__main__"); '
-            'from pqdet_tpu_torch.ops.decode_kernel import decode_heads; '
-            f'print("{RANK1_LAUNCHES}", decode_heads.launches)')
+RANK1 = ('import runpy, torch; '
+         'torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False; '
+         'torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False; '
+         'runpy.run_module("{module}", run_name="__main__"); '
+         'from pqdet_tpu_torch.ops.decode_kernel import decode_heads; '
+         f'print("{RANK1_LAUNCHES}", decode_heads.launches)')
+
+
+def torchrun_pair(module, argv, log_path, rank0):
+    """A CLI as two ranks sharing the card, started as torchrun starts
+    them: rank 1 ``python -m module argv`` in a subprocess (``RANK1``, its
+    output to ``log_path``), rank 0 ``rank0()`` in this process (which runs
+    the same CLI in process, so that its objects can be probed). Returns
+    (rank 0's wall seconds, rank 0's result, rank 1's exit code, its log,
+    its decode-launch lines)."""
+    from pqdet_tpu_torch.parallel import mesh
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {'WORLD_SIZE': str(DP_WORLD), 'LOCAL_WORLD_SIZE': str(DP_WORLD),
+           'MASTER_ADDR': 'localhost', 'MASTER_PORT': str(mesh.free_port())}
+    with open(log_path, 'w') as log:
+        peer = subprocess.Popen([sys.executable, '-c', RANK1.format(module=module)] + argv,
+                                cwd=here, env={**os.environ, **env, 'RANK': '1',
+                                               'LOCAL_RANK': '1'},
+                                stdout=log, stderr=subprocess.STDOUT)
+    saved = {k: os.environ.get(k) for k in [*env, 'RANK', 'LOCAL_RANK']}
+    os.environ.update(env, RANK='0', LOCAL_RANK='0')
+    t0 = time.perf_counter()
+    try:
+        out = rank0()
+        wall = time.perf_counter() - t0
+        rc = peer.wait(timeout=DP_TIMEOUT_S)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        if peer.poll() is None:
+            peer.kill()
+            peer.wait()
+    with open(log_path) as f:
+        peer_log = f.read()
+    launches = [line for line in peer_log.splitlines() if line.startswith(RANK1_LAUNCHES)]
+    return wall, out, rc, peer_log, launches
 
 
 def dp_config(dtype='float32'):
@@ -5679,6 +5740,53 @@ def dp_augmented(dev, group=None, rank=0, world=1):
     return image.cpu(), gt.cpu()
 
 
+def dp_corpus_rows(dev, croot, tmp, world=1):
+    """Phase 19 (d) with the device corpus: ``yamls/clutter.yaml`` as
+    shipped (the device corpus, fresh partners for mosaic and mixup) on the
+    first DP_CORPUS_IMAGES train images of phase 13's clutter corpus
+    (``croot``; the list written to ``tmp`` by ``dp_corpus_list``) at
+    ``system.data_devices`` ``world`` (the process group's), f32: this
+    rank's first batch gathered from the corpus, its fresh partner rows
+    (the global batch's), its rows of the device-augmented global batch
+    (normalized image and GT), the first step's all-reduced loss, and the
+    images the corpus holds."""
+    import torch
+    from pqdet_tpu_torch.config import load_config
+    from pqdet_tpu_torch.ops.augment_device import augmenter_from_config
+    from pqdet_tpu_torch.parallel import mesh
+    from pqdet_tpu_torch.train.step import _inputs
+    from pqdet_tpu_torch.train.trainer import Trainer
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_config(os.path.join(here, 'yamls', 'clutter.yaml'), [
+        'dataset.train_txt_file', os.path.join(tmp, 'clutter_dp.txt'),
+        'dataset.eval_txt_file', os.path.join(croot, 'test.txt'),
+        'system.data_devices', str(world), 'system.compute_dtype', 'float32',
+        'weight.dir', os.path.join(tmp, 'weights_dp_corpus')])
+    t = Trainer(cfg, device=dev)
+    t.init_all()
+    batches = t._epoch_batches()
+    batch = next(batches)
+    batches.close()
+    batch['draws'] = t._draws(batch, 1)
+    image, gt = _inputs(batch, lambda g, size: g, augmenter_from_config(cfg),
+                        mesh.active_group())
+    loss = float(t.step_fn(t.params, t.state, t.opt_state, batch, t._rng)[3]['loss'])
+    out = {'rows': batch['image'].cpu(), 'partners': batch['partner_image'].cpu(),
+           'image': image.cpu(), 'gt': gt.cpu(), 'loss': loss, 'n_data': t._n_data,
+           'corpus': t._device_cache['img'].shape[0]}
+    t.close()
+    return out
+
+
+def dp_corpus_list(croot, tmp):
+    """The first DP_CORPUS_IMAGES lines of the clutter corpus's train list,
+    written for ``dp_corpus_rows``."""
+    with open(os.path.join(croot, 'train.txt')) as f:
+        lines = f.readlines()[:DP_CORPUS_IMAGES]
+    with open(os.path.join(tmp, 'clutter_dp.txt'), 'w') as f:
+        f.writelines(lines)
+
+
 def deterministic_cudnn(torch, on=True):
     """cuDNN's deterministic algorithms (and no autotuning) on or off: the
     equality checks of phase 19 compare runs whose only difference is the
@@ -5687,9 +5795,10 @@ def deterministic_cudnn(torch, on=True):
     torch.backends.cudnn.benchmark = False
 
 
-def phase19_rank(dev, params, state, out):
+def phase19_rank(dev, params, state, out, croot, tmp):
     """One rank of phase 19 (b) (or (e)): f32 steps with TF32 off, the
-    device-augmented rows, the bf16 step's p50, written to ``out.<rank>``."""
+    device-augmented rows, those of the device corpus (``dp_corpus_rows``),
+    the bf16 step's p50, written to ``out.<rank>``."""
     import torch
     from pqdet_tpu_torch.model.network import DetectionNetwork
     from pqdet_tpu_torch.parallel import mesh
@@ -5701,13 +5810,14 @@ def phase19_rank(dev, params, state, out):
     net = DetectionNetwork.from_cfg(get_cfg('mobilenetv2-fpn'))
     res = {'world': w, 'device': str(dev), 'backend': torch.distributed.get_backend(),
            'steps': dp_steps(net, params, state, dp_config(), dev, group, r, w),
-           'augment': dp_augmented(dev, group, r, w)}
+           'augment': dp_augmented(dev, group, r, w),
+           'corpus': dp_corpus_rows(dev, croot, tmp, w)}
     deterministic_cudnn(torch, False)
     res['p50'] = dp_step_p50(net, params, state, dev, group, r, w)
     torch.save(res, f'{out}.{r}')
 
 
-def dp_ranks_gates(label, tag, gate, ranks, one, rev, aug, world):
+def dp_ranks_gates(label, tag, gate, ranks, one, rev, aug, world, corpus):
     """Phase 19 (b)/(e)'s gates on the ranks' results against the one
     process's ``one`` (and its reversed-batch drift ``rev``) and augmented
     batch ``aug``; prints the largest relative differences."""
@@ -5746,6 +5856,24 @@ def dp_ranks_gates(label, tag, gate, ranks, one, rev, aug, world):
              for i, r in enumerate(ranks)),
          f'{label}: (d) each rank\'s device-augmented rows (mosaic and mixup partners from the '
          'global batch) equal the one-process augmented batch\'s bit for bit')
+    cb = corpus['rows'].shape[0] // world
+    rel = max(abs(r['corpus']['loss'] / corpus['loss'] - 1) for r in ranks)
+    print(f'phase 19: {tag} {label} (d) the device corpus at {world} ranks: '
+          f'{[r["corpus"]["corpus"] for r in ranks]} images on each rank, '
+          f'{[tuple(r["corpus"]["rows"].shape) for r in ranks]} rows and '
+          f'{[tuple(r["corpus"]["partners"].shape) for r in ranks]} fresh partner rows a rank; '
+          f'first loss {[r["corpus"]["loss"] for r in ranks]} against one process\'s '
+          f'{corpus["loss"]!r} (rel {rel:.3g})')
+    gate(all(r['corpus']['n_data'] == world and r['corpus']['corpus'] == corpus['corpus']
+             and torch.equal(r['corpus']['rows'], corpus['rows'][i * cb:(i + 1) * cb])
+             and torch.equal(r['corpus']['partners'], corpus['partners'])
+             and torch.equal(r['corpus']['image'], corpus['image'][i * cb:(i + 1) * cb])
+             and torch.equal(r['corpus']['gt'], corpus['gt'][i * cb:(i + 1) * cb])
+             for i, r in enumerate(ranks)) and rel <= 1e-4,
+         f'{label}: (d) the device corpus with fresh partners at {world} ranks: each rank holds '
+         'the whole corpus, gathers its rows of the global batch and all its fresh partner rows, '
+         'and its device-augmented rows equal one process\'s bit for bit; the first loss within '
+         '1e-4')
 
 
 def phase19_steps(dev, tag, tmp, gate):
@@ -5786,17 +5914,21 @@ def phase19_steps(dev, tag, tmp, gate):
          f'(a) world size 1 through {backend}: {DP_STEPS} steps equal the one-process steps '
          '(params, BN state, Adam moments, metrics) bit for bit')
 
-    # (b) two gloo ranks sharing the card, (d) their augmented rows
+    # (b) two gloo ranks sharing the card, (d) their augmented rows, also
+    # from the device corpus
     t0 = time.perf_counter()
     one = dp_steps(net, params, state, dp_config(), dev)
     rev = dp_steps(net, params, state, dp_config(), dev, reverse=True)
     aug = dp_augmented(dev)
+    croot = os.path.join(tmp, 'clutter')
+    dp_corpus_list(croot, tmp)
+    corpus = dp_corpus_rows(dev, croot, tmp)
     deterministic_cudnn(torch, False)
     one_p50 = dp_step_p50(net, params, state, dev)
     deterministic_cudnn(torch)
     out = os.path.join(tmp, 'phase19_rank')
     t1 = time.perf_counter()
-    mesh.launch(phase19_rank, DP_WORLD, dev.type, 'gloo', (params, state, out),
+    mesh.launch(phase19_rank, DP_WORLD, dev.type, 'gloo', (params, state, out, croot, tmp),
                 timeout_s=DP_TIMEOUT_S)
     ranks = [torch.load(f'{out}.{r}', weights_only=False) for r in range(DP_WORLD)]
     print(f'phase 19: {tag} (b) {DP_WORLD} gloo ranks on one card: {time.perf_counter() - t1:.1f} '
@@ -5804,15 +5936,15 @@ def phase19_steps(dev, tag, tmp, gate):
           f'bf16 step p50 {[round(r["p50"], 2) for r in ranks]} ms per rank at B='
           f'{DP_BATCH // DP_WORLD} (both on the one card at once; says nothing of scaling) '
           f'against the one-process step {one_p50:.2f} ms at B={DP_BATCH}')
-    dp_ranks_gates('(b)', tag, gate, ranks, one, rev, aug, DP_WORLD)
+    dp_ranks_gates('(b)', tag, gate, ranks, one, rev, aug, DP_WORLD, corpus)
 
     # (e) NCCL across two cards, where the machine has them
     n_cards = torch.cuda.device_count() if dev.type == 'cuda' else 0
     if n_cards >= 2:
-        mesh.launch(phase19_rank, DP_WORLD, 'cuda', 'nccl', (params, state, out + '_nccl'),
-                    timeout_s=DP_TIMEOUT_S)
+        mesh.launch(phase19_rank, DP_WORLD, 'cuda', 'nccl',
+                    (params, state, out + '_nccl', croot, tmp), timeout_s=DP_TIMEOUT_S)
         ranks = [torch.load(f'{out}_nccl.{r}', weights_only=False) for r in range(DP_WORLD)]
-        dp_ranks_gates('(e) nccl', tag, gate, ranks, one, rev, aug, DP_WORLD)
+        dp_ranks_gates('(e) nccl', tag, gate, ranks, one, rev, aug, DP_WORLD, corpus)
     else:
         print(f'phase 19: (e) NCCL across two cards not run: this machine has {n_cards} card(s)')
     deterministic_cudnn(torch, False)
@@ -5864,8 +5996,69 @@ def reversed_rows():
     return restore
 
 
+def trained_probe(records):
+    """``Trainer._flush_metrics`` and ``Trainer.close`` wrapped so that each
+    trainer closed (a NAS candidate, an evolution round) appends to
+    ``records`` what it trained: its step losses (f64) and its params (one
+    flat f64 CPU vector). Returns the function that puts both back."""
+    import torch
+    from pqdet_tpu_torch.train.step import tree_leaves
+    from pqdet_tpu_torch.train.trainer import Trainer
+    flush, close = Trainer._flush_metrics, Trainer.close
+
+    def flushed(self, epoch, pending, final=False):
+        self.__dict__.setdefault('_probe_losses', []).extend(float(m['loss']) for m in pending)
+        return flush(self, epoch, pending, final)
+
+    def closed(self):
+        if self.params is not None:
+            records.append({'loss': list(self.__dict__.get('_probe_losses', [])),
+                            'params': torch.cat([t.detach().reshape(-1).double().cpu()
+                                                 for t in tree_leaves(self.params)])})
+        return close(self)
+    Trainer._flush_metrics, Trainer.close = flushed, closed
+
+    def restore():
+        Trainer._flush_metrics, Trainer.close = flush, close
+    return restore
+
+
+def nas_ranks_agree(ranks, one, rev, factor=DP_DRIFT_FACTOR, loss_rtol=1e-4):
+    """Whether what the ranks trained (``trained_probe`` records of rank 0,
+    one per candidate or round) is what one process trains (``one``), held
+    as phase 19 (c) holds an epoch: per record the same number of steps and
+    the first loss (the same global batch, loading, augmentation and
+    sync-BN) within ``loss_rtol``; and the params of all records, as one
+    vector, within ``factor`` x the one-process run's own drift on its
+    batches' rows reversed (``rev``). A short training's distances are a
+    few sign flips of Adam's first steps, so they are pooled over the
+    records as a net's are pooled over its layers. A record whose
+    one-process losses turn non-finite must turn so at the same step on the
+    ranks (its params are left out). Returns (ok, per record (steps,
+    first-loss relative difference, params distance, drift), pooled
+    (distance, drift))."""
+    import math
+    ok, rows, gaps, drifts = len(ranks) == len(one) == len(rev) > 0, [], [], []
+    for a, b, c in zip(ranks, one, rev):
+        la, lb = a['loss'], b['loss']
+        rel = abs(la[0] - lb[0]) / max(abs(lb[0]), 1e-12) if la and lb else float('inf')
+        bad = [k for k, v in enumerate(lb) if not math.isfinite(v)]
+        if bad:
+            ok = ok and len(la) > bad[0] and not math.isfinite(la[bad[0]]) and \
+                all(math.isfinite(v) for v in la[:bad[0]])
+            rows.append((len(la), rel, float('nan'), float('nan')))
+            continue
+        ok = ok and len(la) == len(lb) > 0 and rel <= loss_rtol
+        gaps.append((a['params'] - b['params']).norm().item())
+        drifts.append((c['params'] - b['params']).norm().item())
+        rows.append((len(la), rel, gaps[-1], drifts[-1]))
+    pooled = (math.sqrt(sum(g * g for g in gaps)), math.sqrt(sum(d * d for d in drifts)))
+    ok = ok and pooled[0] <= factor * pooled[1]
+    return ok, rows, pooled
+
+
 def phase19_cli(dev, tag, tmp, corpus, gate, phase='phase 19', label='(c)', extra=(),
-                name='dp', over=SP_INPUT_SIZES, ones=None):
+                name='dp', ones=None):
     """Phase 19 (c): ``cli.train --dist-backend gloo`` as two ranks sharing
     the card, one f32 epoch of yamls/shapes.yaml on phase 11's corpus from
     its last checkpoint (``corpus['ckpt']``, history cleared): rank 1 a
@@ -5874,19 +6067,18 @@ def phase19_cli(dev, tag, tmp, corpus, gate, phase='phase 19', label='(c)', extr
     against one-process ``cli.train`` epochs on the same corpus, to within
     DP_DRIFT_FACTOR of the one-process epoch's own drift on its batches'
     rows reversed. Rank 1 reports its decode launches, which must be 0.
-    ``extra`` overrides go to the two ranks only (phase 20 (b): ``train.spatial
-    2``), ``over`` to every run (input sizes that two bands divide, so that
-    phase 20 (b) reuses these one-process epochs, ``ones``); ``phase``,
-    ``label`` and ``name`` tag the prints and files. Returns the decode
+    The yaml's own input sizes (416 to 512) serve every run; ``extra``
+    overrides go to the two ranks only (phase 20 (b): ``train.spatial 2``,
+    which walks 416 and 480 padded: 13 and 15 stride-32 rows on 2 bands),
+    so that phase 20 (b) reuses these one-process epochs (``ones``);
+    ``phase``, ``label`` and ``name`` tag the prints and files. Returns the decode
     kernel's launches in rank 0's eval, its largest error against its plain
     version on the eval batches, and the one-process epochs' params, losses
     and AP (``ones``)."""
-    import subprocess
     import torch
     from pqdet_tpu_torch.config import load_config
     from pqdet_tpu_torch.evaluation.predict import build_predict_pipeline, make_batch_predict
     from pqdet_tpu_torch.model.factory import inference_params
-    from pqdet_tpu_torch.parallel import mesh
     from pqdet_tpu_torch.train.step import tree_leaves
     from pqdet_tpu_torch.train.trainer import Trainer
     here = os.path.dirname(os.path.abspath(__file__))
@@ -5899,38 +6091,15 @@ def phase19_cli(dev, tag, tmp, corpus, gate, phase='phase 19', label='(c)', extr
     # the runs differ only by their sums' order
     base = ['--yaml', yaml, '--device', dev.type] + data + [
         'weight.resume', corpus['ckpt'], 'weight.clear_history', 'on',
-        'train.max_epochs', '1', 'eval.after', '0', 'system.compute_dtype', 'float32',
-        *over]
+        'train.max_epochs', '1', 'eval.after', '0', 'system.compute_dtype', 'float32']
     wroot = os.path.join(tmp, f'weights_{name}')
     argv = base + ['--dist-backend', 'gloo', 'weight.dir', wroot] + list(extra)
-    env = {'WORLD_SIZE': str(DP_WORLD), 'LOCAL_WORLD_SIZE': str(DP_WORLD),
-           'MASTER_ADDR': 'localhost', 'MASTER_PORT': str(mesh.free_port())}
-    log_path = os.path.join(tmp, f'{name}_rank1.log')
     deterministic_cudnn(torch)
     t0 = time.perf_counter()
-    with open(log_path, 'w') as log:
-        peer = subprocess.Popen([sys.executable, '-c', DP_RANK1] + argv,
-                                cwd=here, env={**os.environ, **env, 'RANK': '1',
-                                               'LOCAL_RANK': '1'},
-                                stdout=log, stderr=subprocess.STDOUT)
-    saved = {k: os.environ.get(k) for k in [*env, 'RANK', 'LOCAL_RANK']}
-    os.environ.update(env, RANK='0', LOCAL_RANK='0')
     rec = {}
-    try:
-        wall = run_train_cli(argv, rec)
-        rc = peer.wait(timeout=DP_TIMEOUT_S)
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-        if peer.poll() is None:
-            peer.kill()
-            peer.wait()
-    with open(log_path) as f:
-        peer_log = f.read()
-    peer_launches = [line for line in peer_log.splitlines() if line.startswith(RANK1_LAUNCHES)]
+    _, wall, rc, peer_log, peer_launches = torchrun_pair(
+        'pqdet_tpu_torch.cli.train', argv, os.path.join(tmp, f'{name}_rank1.log'),
+        lambda: run_train_cli(argv, rec))
     print(f'{phase}: {tag} {label} cli.train --dist-backend gloo {" ".join(extra)}, {DP_WORLD} '
           f'ranks on one card: {wall:.1f} s (rank 0), rank 1 exit {rc}; rank 1 printed '
           f'{len(peer_log)} bytes; {peer_launches}')
@@ -5972,7 +6141,7 @@ def phase19_cli(dev, tag, tmp, corpus, gate, phase='phase 19', label='(c)', extr
                 restore()
             gate(r1['trainer']._world == 1, f'{label} the {run} epoch runs in one process')
             ones[run] = {'params': flat(r1['trainer'].params), 'loss': r1['loss'][0],
-                         'AP': r1['evals'][0]['AP']}
+                         'AP': r1['evals'][0]['AP'], 'epoch': r1['epochs'][0]}
             r1['trainer'].close()
     p_start = torch.cat([t.reshape(-1).double().cpu() for t in rec['start']])
     p_one = ones['one']['params']
@@ -6037,16 +6206,102 @@ def phase19_cli(dev, tag, tmp, corpus, gate, phase='phase 19', label='(c)', extr
             'decode_err': worst['err'], 'ones': ones}
 
 
+def phase19_unroll(dev, tag, tmp, corpus, gate, ones):
+    """Phase 19 (f): ``cli.train`` on yamls/shapes.yaml (its device augment
+    and input sizes) with ``train.unroll_steps`` UNROLL_STEPS, one f32 epoch
+    on phase 11's corpus from its last checkpoint (history cleared), TF32
+    off and cuDNN deterministic: the step count is the plan's batches
+    rounded up to whole groups, each group of batches has one planned size,
+    the params equal a replay of the same batches (with their augment
+    draws) through the single step bit for bit, and the eval launches
+    ``decode_heads``, each launch held against its plain version. Its
+    epoch's seconds are printed beside (c)'s one-process epochs at K = 1
+    (``ones``: the first at batch 16 pays cuDNN's first calls at each
+    shape, the reversed one runs warm). Returns the eval's decode launches and largest error."""
+    import torch
+    from pqdet_tpu_torch.train.step import (_index, train_step_from_config, tree_leaves,
+                                            tree_unflatten)
+    here = os.path.dirname(os.path.abspath(__file__))
+    root, k = corpus['root'], UNROLL_STEPS
+    argv = ['--yaml', os.path.join(here, 'yamls', 'shapes.yaml'), '--device', dev.type,
+            'dataset.train_txt_file', os.path.join(root, 'train.txt'),
+            'dataset.eval_txt_file', os.path.join(root, 'test.txt'),
+            'weight.resume', corpus['ckpt'], 'weight.clear_history', 'on',
+            'train.max_epochs', '1', 'eval.after', '0', 'system.compute_dtype', 'float32',
+            'train.unroll_steps', str(k), 'weight.dir', os.path.join(tmp, 'weights_unroll')]
+    t0 = time.perf_counter()
+    deterministic_cudnn(torch)
+    rec, worst = {'groups': []}, {'err': 0.0, 'ok': True, 'calls': 0}
+    restore = checking_decode(worst)
+    try:
+        wall = run_train_cli(argv, rec)
+    finally:
+        restore()
+    trainer, groups, plan = rec['trainer'], rec['groups'], rec['plan']
+    n = trainer.train_data.length
+    b = trainer.config.train.batch_size
+    want_steps = -(-(-(-n // b)) // k) * k
+    sizes = [tuple(g['image'].shape[2:4]) for g in groups]
+    print(f'phase 19: {tag} (f) cli.train shapes.yaml train.unroll_steps {k}: {wall:.1f} s, '
+          f'{n} images at batch {b}: {trainer.global_step} steps in {len(groups)} groups of '
+          f'{k}, group sizes {sizes}, plan {plan}')
+    gate(trainer.global_step == trainer.steps_per_epoch == want_steps == k * len(groups)
+         and all(tuple(g['image'].shape[:2]) == (k, b) for g in groups),
+         f'(f) global_step {trainer.global_step} = the {want_steps} batches of the plan rounded '
+         f'up to whole groups of {k}, one call of the step a group')
+    gate(plan == [hw for hw in sizes for _ in range(k)],
+         f'(f) each group\'s {k} batches share the one size the plan gives them')
+    # the same batches, one single step each, from the same start
+    step, opt = train_step_from_config(trainer.network, trainer.config, trainer.steps_per_epoch,
+                                       device=dev)
+    p = tree_unflatten(trainer.params, [t.clone() for t in rec['start']])
+    st = tree_unflatten(trainer.state, [t.clone() for t in rec['start_state']])
+    o = opt.init(p)
+    losses = []
+    for g in groups:
+        for j in range(k):
+            p, st, o, m = step(p, st, o, _index(g, j), trainer._rng)
+            losses.append(float(m['loss']))
+    same = all(torch.equal(x, y) for x, y in zip(tree_leaves(p) + tree_leaves(st),
+                                                  tree_leaves(trainer.params)
+                                                  + tree_leaves(trainer.state)))
+    print(f'phase 19: {tag} (f) the replay through the single step: losses {losses} against '
+          f'the groups\' {rec["loss"][0]}; params and BN state the same bit for bit: {same}')
+    gate(same and losses == rec['loss'][0],
+         f'(f) the {len(groups)} groups equal their {trainer.global_step} batches replayed '
+         'through single steps bit for bit (params, BN state, each step\'s loss)')
+    host_ips = statistics.mean(ep['steps'] * corpus['batch'] / ep['s']
+                               for e, ep in corpus['host_epochs'].items() if e > 0)
+    trainer_gates(rec, '(f) unrolled shapes.yaml', tag, gate, host_ips, [0], phase='phase 19')
+    ep = rec['epochs'][0]
+    for run, what in (('one', 'the first at its batch shapes'),
+                      ('reversed', 'the same plan again, its rows reversed')):
+        ep1 = ones[run]['epoch']
+        print(f'phase 19: {tag} (f) the unrolled epoch {ep["s"]:.3f} s ({ep["steps"]} steps, '
+              f'model {ep["model_s"]:.3f} s) against (c)\'s one-process epoch at unroll_steps 1, '
+              f'{what}: {ep1["s"]:.3f} s ({ep1["steps"]} steps, model {ep1["model_s"]:.3f} s): '
+              f'{ep["s"] / ep1["s"]:.4f}x')
+    print(f'phase 19: {tag} (f) decode_heads against its plain version on {worst["calls"]} eval '
+          f'batches: max |err| {worst["err"]:.3g}')
+    gate(worst['ok'] and worst['calls'] == len(trainer.eval_data) > 0,
+         '(f) decode_heads within decode_tolerance of its plain version on every eval batch')
+    deterministic_cudnn(torch, False)
+    trainer.close()
+    print(f'phase 19: (f) took {time.perf_counter() - t0:.1f} s')
+    return {'decode_heads': rec['evals'][0]['launches']['decode_heads'],
+            'decode_err': worst['err']}
+
+
 def phase19_data_parallel(dev, tag, tmp, corpus):
     """Phase 19: data-parallel training (``parallel/mesh.py``): (a) world
     size 1 through NCCL, bit for bit against the one-process step; (b) two
     gloo ranks sharing the card (6 images each, f32, TF32 off) identical
     to each other and within DP_DRIFT_FACTOR of one process; (c) the
     training CLI as two ranks against one process, rank 0's eval and its
-    decode launches; (d)
-    the ranks' device-augmented rows; (e) NCCL over two cards where there
-    are two. Raises on any failed gate; returns (c)'s decode launches and
-    error."""
+    decode launches; (d) the ranks' device-augmented rows, also from the
+    device corpus with fresh partners; (e) NCCL over two cards where there
+    are two; (f) an unrolled cli.train epoch (``phase19_unroll``). Raises on
+    any failed gate; returns (c)'s and (f)'s decode launches and error."""
     t_phase = time.perf_counter()
     fails = []
 
@@ -6057,21 +6312,26 @@ def phase19_data_parallel(dev, tag, tmp, corpus):
 
     phase19_steps(dev, tag, tmp, gate)
     out = phase19_cli(dev, tag, tmp, corpus, gate)
+    unrolled = phase19_unroll(dev, tag, tmp, corpus, gate, out['ones'])
+    out = {**out, 'decode_heads': out['decode_heads'] + unrolled['decode_heads'],
+           'decode_err': max(out['decode_err'], unrolled['decode_err'])}
     print(f'phase 19: {tag} took {time.perf_counter() - t_phase:.1f} s')
     if fails:
         raise AssertionError(f'phase 19: {len(fails)} gate(s) failed: {fails}')
     return out
 
 
-SP_SIZE = 512                  # phase 20 (a): the spatial step's input size ...
+SP_SIZE = 416                  # phase 20 (a): the spatial step's input size (13 stride-32
+                               # rows: 2 bands of 224 rows of a 448-row padded image) ...
 SP_BATCH = 4                   # ... and global batch (1 data shard x SP_SPACE bands)
 SP_SPACE = 2
+SP_BAND = -(-SP_SIZE // (SP_SPACE * 32)) * 32   # (a): a band's rows, mobilenetv2-fpn's stride 32
 SP_STEPS = 3                   # (a): f32 steps held for equality
-SP_TIMED = 5                   # (a): timed bf16 steps after ...
-SP_WARMUP = 2                  # ... these
+SP_TIMED = 3                   # (a): timed bf16 steps after ...
+SP_WARMUP = 1                  # ... these
 SP_REGNET = 'regnety-400m-fpn'  # (a): one step, its SE's band sums gated
 SP_NAS_IMAGES = 64             # (c): train images of the clutter corpus a candidate sees
-SP_NAS_ROUNDS = 2              # (c): cli.search --rounds
+SP_NAS_ROUNDS = 1              # (c): cli.search --rounds
 SP_EVOLUTE_ROUNDS = 1          # (c): cli.evolute --rounds
 
 
@@ -6199,13 +6459,14 @@ def phase20_steps(dev, tag, tmp, gate):
     r0 = ranks[0]
     gib = 2.0 ** 30
     print(f'phase 20: {tag} (a) {SP_SPACE} gloo ranks on one card as 1 data x {SP_SPACE} space '
-          f'(bands of {SP_SIZE // SP_SPACE} rows): {time.perf_counter() - t1:.1f} s for the '
+          f'(bands of {SP_BAND} rows of a {SP_BAND * SP_SPACE}-row padded image): '
+          f'{time.perf_counter() - t1:.1f} s for the '
           f'spawn, {SP_STEPS} f32 steps, one {SP_REGNET} step and the timed steps')
     for r in ranks:
         print(f'phase 20: {tag} (a) rank {r["mesh"]}: first f32 step\'s peak device memory '
               f'{r["peak"]["peak"] / gib:.4f} GiB, {r["peak"]["walk"] / gib:.4f} GiB above the '
               f'level before it; bf16 step p50 {r["p50"]:.2f} ms at B={SP_BATCH}, '
-              f'{SP_SIZE // SP_SPACE}x{SP_SIZE} band')
+              f'{SP_BAND}x{SP_SIZE} band')
     print(f'phase 20: {tag} (a) one process at B={SP_BATCH}, {SP_SIZE}x{SP_SIZE}: peak '
           f'{peak["peak"] / gib:.4f} GiB, {peak["walk"] / gib:.4f} GiB above the level before '
           f'the step; bf16 step p50 {one_p50:.2f} ms; per rank walk / one process walk '
@@ -6250,14 +6511,61 @@ def phase20_steps(dev, tag, tmp, gate):
     print(f'phase 20: (a) took {time.perf_counter() - t0:.1f} s')
 
 
-def phase20_nas(dev, tag, tmp, croot, gate):
-    """Phase 20 (c): ``cli.search`` and ``cli.evolute`` at
-    ``system.data_devices 2 --dist-backend gloo`` (two spawned ranks sharing
-    the card) on the clutter yamls, against the one-process sampling of
-    the same seed."""
-    import numpy as np
+def nas_clis(dev, tmp, name, over, pair=False, reverse=False):
+    """``cli.search`` (SP_NAS_ROUNDS candidates of seed 0) and ``cli.evolute``
+    (SP_EVOLUTE_ROUNDS rounds) on yamls/nas_clutter.yaml and
+    yamls/evolute_clutter.yaml with the overrides ``over``: in this process,
+    or (``pair``) as two ranks sharing the card (``torchrun_pair``, rank 0
+    here); ``reverse``: each step's rows reversed (``reversed_rows``).
+    Returns what each candidate and round trained here (rank 0's:
+    ``trained_probe``), the two logs, the seconds of each CLI and, for a
+    pair, rank 1's (exit code, decode-launch lines) of each."""
     import pqdet_tpu_torch.cli.evolute as cli_evolute
     import pqdet_tpu_torch.cli.search as cli_search
+    here = os.path.dirname(os.path.abspath(__file__))
+    common = ['--seed', '0', '--device', dev.type] + (['--dist-backend', 'gloo'] if pair else [])
+    runs = {'search': (cli_search, 'nas_clutter.yaml', SP_NAS_ROUNDS),
+            'evolute': (cli_evolute, 'evolute_clutter.yaml', SP_EVOLUTE_ROUNDS)}
+    trained, logs, secs, peers = [], {}, {}, {}
+    restore = trained_probe(trained)
+    flip = reversed_rows() if reverse else (lambda: None)
+    try:
+        for cli, (mod, yaml, rounds) in runs.items():
+            logs[cli] = os.path.join(tmp, f'{cli}_{name}.json')
+            argv = ['--yaml', os.path.join(here, 'yamls', yaml), '--rounds', str(rounds),
+                    '--log', logs[cli]] + common + over + [
+                'weight.dir', os.path.join(tmp, f'weights_{cli}_{name}')]
+            t0 = time.perf_counter()
+            if pair:
+                _, _, rc, _, launches = torchrun_pair(
+                    mod.__name__, argv, os.path.join(tmp, f'{cli}_{name}_rank1.log'),
+                    lambda: mod.main(argv))
+                peers[cli] = (rc, launches)
+            else:
+                mod.main(argv)
+            secs[cli] = time.perf_counter() - t0
+    finally:
+        flip()
+        restore()
+    out = {}
+    for cli, path in logs.items():
+        with open(path) as f:
+            out[cli] = json.load(f)
+    return trained, out, secs, peers
+
+
+def phase20_nas(dev, tag, tmp, croot, gate):
+    """Phase 20 (c): ``cli.search`` and ``cli.evolute`` on the NAS yamls as
+    shipped (the device corpus and its fresh partners on) at
+    ``system.data_devices 2 --dist-backend gloo``, two ranks sharing the
+    card (rank 1 a torchrun-style subprocess, rank 0 this process), against
+    the same CLIs in one process: the candidates of seed 0, and what each
+    candidate and round trained (``nas_ranks_agree``: the first loss and
+    the params against one process and its own drift on its rows
+    reversed). In f32 with TF32 off and cuDNN deterministic, so that the
+    runs differ only by their sums' order."""
+    import numpy as np
+    import torch
     from pqdet_tpu_torch.config import load_config
     from pqdet_tpu_torch.nas.evolute import sample_hypers
     from pqdet_tpu_torch.nas.search import generate_candidates
@@ -6268,37 +6576,35 @@ def phase20_nas(dev, tag, tmp, croot, gate):
     with open(sub, 'w') as f:
         f.writelines(lines)
     over = ['dataset.train_txt_file', sub, 'dataset.eval_txt_file',
-            os.path.join(croot, 'test.txt'), 'dataset.device_cache', 'off',
-            'system.data_devices', '2', 'eval.after', '0']
-    common = ['--seed', '0', '--dist-backend', 'gloo', '--device', dev.type]
+            os.path.join(croot, 'test.txt'), 'eval.after', '0', 'system.compute_dtype', 'float32']
+    deterministic_cudnn(torch)
     t0 = time.perf_counter()
-    log = os.path.join(tmp, 'nas_ranks.json')
-    nas_yaml = os.path.join(here, 'yamls', 'nas_clutter.yaml')
-    cli_search.main(['--yaml', nas_yaml, '--rounds', str(SP_NAS_ROUNDS), '--log', log] + common
-                    + over + ['weight.dir', os.path.join(tmp, 'weights_nas_ranks')])
+    trained, out, secs, peers = nas_clis(dev, tmp, 'ranks', over + ['system.data_devices', '2'],
+                                         pair=True)
     t1 = time.perf_counter()
-    evo_log = os.path.join(tmp, 'evolution_ranks.json')
-    cli_evolute.main(['--yaml', os.path.join(here, 'yamls', 'evolute_clutter.yaml'),
-                      '--rounds', str(SP_EVOLUTE_ROUNDS), '--log', evo_log] + common + over
-                     + ['weight.dir', os.path.join(tmp, 'weights_evolute_ranks')])
+    one, out1, secs1, _ = nas_clis(dev, tmp, 'one', over + ['system.data_devices', '1'])
+    rev, _, secs2, _ = nas_clis(dev, tmp, 'reversed', over + ['system.data_devices', '1'],
+                                reverse=True)
     t2 = time.perf_counter()
-    with open(log) as f:
-        data = json.load(f)['data']
-    with open(evo_log) as f:
-        evo = json.load(f)
-    cfg = load_config(nas_yaml, over)
+    deterministic_cudnn(torch, False)
+    data, evo = out['search']['data'], out['evolute']
+    cfg = load_config(os.path.join(here, 'yamls', 'nas_clutter.yaml'), over)
     want = list(generate_candidates(SP_NAS_ROUNDS, num_classes=len(cfg.dataset.classes),
                                     seed=0, device=dev))
     for i, r in enumerate(data):
         print(f'phase 20: {tag} (c) candidate {i} on 2 ranks: head {r["head"]}, MACs '
-              f'{r["macs"]}; {r["status"]}, AP {r["ap"]}'
+              f'{r["macs"]}; {r["status"]}, AP {r["ap"]} (one process: '
+              f'{out1["search"]["data"][i]["ap"]})'
               + (f'; error {r["error"][:200]!r}' if 'error' in r else ''))
     for r in evo['data']:
         print(f'phase 20: {tag} (c) evolution round on 2 ranks: fitness {r["fitness"]:.6f}, '
               f'hypers {json.dumps({k: round(v, 4) for k, v in r["hyper"].items()})}')
-    print(f'phase 20: {tag} (c) cli.search --rounds {SP_NAS_ROUNDS} {t1 - t0:.1f} s, cli.evolute '
-          f'--rounds {SP_EVOLUTE_ROUNDS} {t2 - t1:.1f} s, each as 2 spawned gloo ranks; exit '
-          f'{evo["exit"]}')
+    print(f'phase 20: {tag} (c) as 2 ranks (the device corpus on each): cli.search --rounds '
+          f'{SP_NAS_ROUNDS} {secs["search"]:.1f} s, cli.evolute --rounds {SP_EVOLUTE_ROUNDS} '
+          f'{secs["evolute"]:.1f} s; rank 1 {peers}; in one process {secs1}, on the rows '
+          f'reversed {secs2}; exit {evo["exit"]}')
+    gate(all(rc == 0 and launches == [f'{RANK1_LAUNCHES} 0'] for rc, launches in peers.values()),
+         f'(c) rank 1 of each CLI exits 0 and launches no decode_heads: {peers}')
     gate(len(data) == len(want) == SP_NAS_ROUNDS and all(
         r['cfg'] == c and r['macs'] == info['macs'] and r['head'] == info['head']
         for r, (c, info) in zip(data, want)),
@@ -6312,6 +6618,16 @@ def phase20_nas(dev, tag, tmp, croot, gate):
          and 0.0 <= evo['data'][0]['fitness'] <= 1.0,
          '(c) one evolution log, its round recorded with the hypers of seed 0 and a fitness '
          'in [0, 1]')
+    ok, rows, pooled = nas_ranks_agree(trained, one, rev)
+    print(f'phase 20: {tag} (c) what the 2 ranks trained against one process, per candidate and '
+          f'round (steps, first-loss rel, params L2, one process on its rows reversed L2): '
+          f'{rows}; pooled {pooled[0]:.6g} against {pooled[1]:.6g} '
+          f'({pooled[0] / max(pooled[1], 1e-300):.4f}x); {t1 - t0:.1f} s the ranks, '
+          f'{t2 - t1:.1f} s one process')
+    gate(ok and len(trained) == SP_NAS_ROUNDS + SP_EVOLUTE_ROUNDS,
+         f'(c) every candidate and round trains across ranks what one process trains: the same '
+         f'steps, the first loss within 1e-4, the params within {DP_DRIFT_FACTOR}x the one-process '
+         'run\'s own drift on its rows reversed (nas_ranks_agree)')
 
 
 def phase20_spatial(dev, tag, tmp, corpus, ones=None):
@@ -6332,10 +6648,8 @@ def phase20_spatial(dev, tag, tmp, corpus, ones=None):
             fails.append(what)
 
     print(f'phase 20: cuts: (a) global B={SP_BATCH} at {SP_SIZE} (one data shard of '
-          f'{SP_SPACE} bands); (b) {" ".join(SP_INPUT_SIZES)} (the spatial ranks and the '
-          f'one-process epochs); (c) the first {SP_NAS_IMAGES} train images of phase 13\'s clutter '
-          f'corpus, eval.after 0 (1 epoch a candidate), dataset.device_cache off (the device '
-          'corpus takes one rank), cli.search --rounds '
+          f'{SP_SPACE} bands); (c) the first {SP_NAS_IMAGES} train images of phase 13\'s clutter '
+          f'corpus, eval.after 0 (1 epoch a candidate), f32, cli.search --rounds '
           f'{SP_NAS_ROUNDS}, cli.evolute --rounds {SP_EVOLUTE_ROUNDS}')
     t0 = time.perf_counter()
     phase20_steps(dev, tag, tmp, gate)

@@ -85,9 +85,14 @@ def observe(obs: Dict, x: torch.Tensor, group=None) -> Dict:
     """Moving-average min/max observer update; returns a new dict. With a
     process ``group`` (data parallelism) ``x`` is this rank's shard and the
     min and max are the global batch's, as ``jnp.min`` over JAX's sharded
-    batch: one MIN all-reduce of (min, -max), exact."""
+    batch: one MIN all-reduce of (min, -max), exact. A shard with no
+    element (a band wholly past a padded input's real rows) takes +inf and
+    -inf, which the reduction drops."""
     x32 = x.detach().float()
-    mn, mx = torch.amin(x32), torch.amax(x32)
+    if x32.numel():
+        mn, mx = torch.amin(x32), torch.amax(x32)
+    else:
+        mn, mx = x32.new_full((), float('inf')), x32.new_full((), float('-inf'))
     if group is not None:
         both = torch.stack([mn, -mx])
         dist.all_reduce(both, op=dist.ReduceOp.MIN, group=group)
@@ -168,20 +173,22 @@ class QuantCtx:
         self.group = group
         self.new_obs = dict(quant_state)
 
-    def quantize_input(self, x):
-        return self._fq('input', x)
+    def quantize_input(self, x, rows=None):
+        return self._fq('input', x, rows)
 
     def fake_weights(self, node_id: str, w):
         return fake_quant_weight(w)
 
-    def observe_output(self, node_id: str, x):
-        return self._fq(node_id, x)
+    def observe_output(self, node_id: str, x, rows=None):
+        return self._fq(node_id, x, rows)
 
-    def _fq(self, key: str, x):
+    def _fq(self, key: str, x, rows=None):
+        """``rows``: the observer sees only ``x``'s first ``rows`` rows (a
+        band's real rows of a padded input under ``train.spatial``)."""
         if key not in self.quant_state:
             return x
         obs = self.quant_state[key]
         if self.observing:
-            obs = observe(obs, x, self.group)
+            obs = observe(obs, x if rows is None else x[:, :rows], self.group)
             self.new_obs[key] = obs
         return fake_quant_act(x, obs)

@@ -115,8 +115,14 @@ class TrainConfig:
     # conv and max pool exchanges halo rows with its neighbours
     # (parallel/mesh.py make_mesh_2d, parallel/halo.py): the model-parallel
     # axis for very large inputs. Needs the default system.label_assign
-    # device batch format; excludes dataset.device_cache.
+    # device batch format; excludes dataset.device_cache and unroll_steps > 1.
+    # An input height need not divide by the bands: the bands of a padded
+    # image are walked and the padding is masked out (parallel/halo.py).
     spatial: int = 0
+    # K train steps per dispatch (train/step.py make_multi_step) on K
+    # same-size batches: the epoch plan draws one input size per group of K
+    # batches and rounds the epoch up to whole groups
+    unroll_steps: int = 1
 
 
 @dataclasses.dataclass
@@ -182,6 +188,7 @@ class EvalConfig:
     host_normalize: bool = False
     score_threshold: float = 0.1
     iou_threshold: float = 0.45
+    map_iou: float = 0.5           # carried for the JAX schema; read by neither package
     max_detections: int = 256      # static NMS output size
     # NMS candidate pool = max_detections * pool_factor top-scored
     # (box, class) pairs; NMSResult.overflow fires when more clear the
@@ -213,10 +220,8 @@ class Config:
     eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
 
 
-# keys of the JAX schema whose slice of the port is still queued
-LATER_KEYS = {
-    'train.unroll_steps': 'queue 1, item 2 (one dispatch per step)',
-}
+# keys of the JAX schema whose slice of the port is still queued: none is
+LATER_KEYS = {}
 
 
 def later(what: str, item: str):

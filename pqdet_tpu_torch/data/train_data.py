@@ -2,10 +2,11 @@
 loaders (the port of ``pqdet_tpu/data/train_data.py``).
 
 The epoch plan is the JAX package's: ``random.Random(system.seed)`` draws
-the sample indices with replacement and one input size per batch from
-``train.input_sizes``, and the first batch takes the largest size (the
-memory high-water mark first). So one config gives both packages the same
-plan. Batches carry uint8 images and either the GT boxes zero-padded to
+the sample indices with replacement and one input size per group of
+``train.unroll_steps`` batches (one per batch at 1) from
+``train.input_sizes``, the epoch rounded up to whole groups, and the first
+group takes the largest size (the memory high-water mark first). So one
+config gives both packages the same plan. Batches carry uint8 images and either the GT boxes zero-padded to
 ``model.max_gt_boxes`` (``system.label_assign device``: the label grids
 are built in the step, ``ops/labels.py``) or the grids themselves
 (``host``: ``assign_labels`` here, the batch's ``targets``). With
@@ -152,6 +153,7 @@ class TrainData:
         self._device_labels = mode == 'device'
         self._input_sizes = sizes_fix(config.train.input_sizes)
         self._batch_size = config.train.batch_size
+        self._size_group = max(int(config.train.unroll_steps), 1)
         if self._batch_size % num_hosts:
             raise ValueError(f'train.batch_size={self._batch_size} must be divisible by '
                              f'num_hosts={num_hosts}')
@@ -187,19 +189,29 @@ class TrainData:
 
     @property
     def batches_per_epoch(self):
-        return ceil(self._num_imgs / self._batch_size)
+        """Batches per epoch, rounded up to whole groups of
+        ``train.unroll_steps`` same-size batches (the plan samples with
+        replacement, so the extra batches are more samples)."""
+        n = ceil(self._num_imgs / self._batch_size)
+        return ceil(n / self._size_group) * self._size_group
 
     def __len__(self):
         return self._length
 
     def init_shuffle(self):
-        """Plan the next epoch: sample indices and one size per batch."""
+        """Plan the next epoch: sample indices and one size per group of
+        ``train.unroll_steps`` batches (JAX's draws), the first group at the
+        largest size."""
         self._epoch += 1
         n_batches = self.batches_per_epoch
+        g = self._size_group
         self._length = n_batches * self._batch_size
         self._indexes = self._plan_rng.choices(range(self._num_imgs), k=self._length)
-        self._sizes = self._plan_rng.choices(self._input_sizes, k=n_batches)
-        self._sizes[0] = max(self._input_sizes, key=lambda hw: hw[0] * hw[1])
+        group_sizes = self._plan_rng.choices(self._input_sizes, k=ceil(n_batches / g))
+        self._sizes = [group_sizes[i // g] for i in range(n_batches)]
+        largest = max(self._input_sizes, key=lambda hw: hw[0] * hw[1])
+        for i in range(min(g, n_batches)):
+            self._sizes[i] = largest
 
     def _current_input_size(self):
         return self._tls.input_size

@@ -23,7 +23,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from pqdet_tpu_torch.parallel.halo import band_rows, halo_pad
+from pqdet_tpu_torch.parallel.halo import band_rows, fill_rows, halo_pad
 
 BN_EPS = 1e-5       # torch nn.BatchNorm2d default
 BN_MOMENTUM = 0.1   # torch nn.BatchNorm2d default
@@ -182,7 +182,7 @@ def _bn_moments(x):
     return s + dm, var
 
 
-def _bn_moments_synced(x, group, spatial=None):
+def _bn_moments_synced(x, group, spatial=None, rows=None):
     """``_bn_moments`` of the global batch whose local shard each rank of
     ``group`` holds (sync-BN, as JAX's sharded step computes it): the
     shift s is the mean of the global strided subsample (its sums
@@ -193,22 +193,30 @@ def _bn_moments_synced(x, group, spatial=None):
     ones times the world. With ``spatial`` each rank holds a band of rows
     of its data shard: the subsample takes the band's rows at global rows
     0 mod 8 (the band's offset), so the shift is the one-process shift.
+    ``rows``: the activation's real global rows when the walk's input was
+    padded (``parallel/halo.py``); the rows past it count nowhere.
     Returns (mean, biased var, global element count)."""
     from pqdet_tpu_torch.parallel.mesh import all_reduce_sum
     w = dist.get_world_size(group)
     dims = tuple(range(x.dim() - 1))
+    n = w * (x.numel() // x.shape[-1])
     if spatial is None:
         sub = x[:, ::8, ::8, :].float()
         n_sub = w * (sub.numel() // x.shape[-1])
     else:
         b, h, wd = x.shape[:3]
-        sub = x[:, (-spatial.offset(h)) % 8::8, ::8, :].float()
-        n_sub = b * spatial.n_data * -(-h * spatial.n_space // 8) * -(-wd // 8)
+        off = spatial.offset(h)
+        real = h * spatial.n_space if rows is None else rows
+        sub = x[:, (-off) % 8:max(real - off, 0):8, ::8, :].float()
+        n_sub = b * spatial.n_data * -(-real // 8) * -(-wd // 8)
+        if rows is not None:
+            n = b * spatial.n_data * rows * wd
     s = sub.sum(dim=dims).detach()
     dist.all_reduce(s, group=group)
     s = s / n_sub
-    n = w * (x.numel() // x.shape[-1])
     d = x.float() - s
+    if rows is not None:
+        d = fill_rows(d, rows, 0.0, spatial)
     c = x.shape[-1]
     sums = all_reduce_sum(torch.cat([d.sum(dim=dims), torch.square(d).sum(dim=dims)]), group)
     dm = sums[:c] / n
@@ -216,7 +224,7 @@ def _bn_moments_synced(x, group, spatial=None):
     return s + dm, var, n
 
 
-def batch_norm(x, params, state, train: bool = False, group=None, spatial=None):
+def batch_norm(x, params, state, train: bool = False, group=None, spatial=None, rows=None):
     """BatchNorm over (N, H, W) of NHWC ``x``; returns (y, new state).
 
     Train mode normalises with the batch's moments (biased variance) and
@@ -226,7 +234,8 @@ def batch_norm(x, params, state, train: bool = False, group=None, spatial=None):
     batch is the global one, whose shards the ranks hold: its moments and
     element count (``_bn_moments_synced``); with ``spatial`` as well, the
     shards are bands of rows of the data shards (``group`` is then the
-    world). Eval mode normalises with the running statistics, returns
+    world), whose real global rows are ``rows`` when the walk's input was
+    padded. Eval mode normalises with the running statistics, returns
     ``state`` and never communicates. ``y`` is in ``x.dtype``."""
     gamma, beta = params['gamma'], params['beta']
     if not train:
@@ -235,7 +244,7 @@ def batch_norm(x, params, state, train: bool = False, group=None, spatial=None):
         mean, var = _bn_moments(x)
         n = x.numel() // x.shape[-1]
     else:
-        mean, var, n = _bn_moments_synced(x, group, spatial)
+        mean, var, n = _bn_moments_synced(x, group, spatial, rows)
     inv = torch.rsqrt(var + BN_EPS) * gamma
     y = (x - mean.to(x.dtype)) * inv.to(x.dtype) + beta.to(x.dtype)
     if not train:
@@ -261,13 +270,16 @@ def fold_bn_into_conv(conv_params: dict, bn_params: dict, bn_state: dict) -> dic
     return {'w': new_w, 'b': new_b}
 
 
-def max_pool(x, size: int, stride: int, padding: int, spatial=None, what: str = 'maxpool'):
+def max_pool(x, size: int, stride: int, padding: int, spatial=None, what: str = 'maxpool',
+             rows=None):
     """NHWC max pool. Padding uses -inf so padded cells never win (any
     padding width, unlike ``F.max_pool2d``'s own limit of size/2). With
     ``spatial`` ``x`` is a band of rows, as for ``conv2d``: the halo rows
-    come from the neighbouring bands (-inf at the image's edges)."""
+    come from the neighbouring bands (-inf at the image's edges, and at
+    the global rows from ``rows`` on, the padding past the real height)."""
     h_out, pad_h = None, padding
     if spatial is not None:
+        x = fill_rows(x, rows, float('-inf'), spatial)
         top, bottom, h_out = band_rows(x.shape[1], size, stride, padding, spatial.n_space,
                                        what)
         x = halo_pad(x, top, bottom, float('-inf'), spatial)
@@ -281,12 +293,13 @@ def max_pool(x, size: int, stride: int, padding: int, spatial=None, what: str = 
     return out.contiguous()
 
 
-def adaptive_avg_pool(x, out_h: int, out_w: int, spatial=None):
+def adaptive_avg_pool(x, out_h: int, out_w: int, spatial=None, rows=None):
     """AdaptiveAvgPool2d with torch's bucket edges, on NHWC. With
     ``spatial`` ``x`` is a band of rows and only the global pool (1, 1)
     runs: the band sums are all-reduced over the space group, through the
-    differentiable ``all_reduce_sum``, and divided by the global H*W; the
-    result is replicated over the bands."""
+    differentiable ``all_reduce_sum``, and divided by the global H*W (the
+    real ``rows`` x W when the input was padded, its padded rows being 0);
+    the result is replicated over the bands."""
     n, h, w, c = x.shape
     if spatial is not None:
         if (out_h, out_w) != (1, 1):
@@ -294,7 +307,7 @@ def adaptive_avg_pool(x, out_h: int, out_w: int, spatial=None):
                              'pool (1, 1) runs on bands of rows')
         from pqdet_tpu_torch.parallel.mesh import all_reduce_sum
         sums = all_reduce_sum(x.float().sum(dim=(1, 2), keepdim=True), spatial.space)
-        return (sums / (h * spatial.n_space * w)).to(x.dtype)
+        return (sums / ((h * spatial.n_space if rows is None else rows) * w)).to(x.dtype)
     if (out_h, out_w) == (1, 1):
         return x.mean(dim=(1, 2), keepdim=True)
     if h % out_h == 0 and w % out_w == 0:

@@ -60,7 +60,11 @@ shortcut and scale_channels stay band-local. A node fed only by the
 replicated squeeze is replicated too and runs unbanded (its BN, if it had
 one, over the data group). ``fc`` and ``dropout`` raise: a band holds no
 whole feature vector, and a per-band mask would not be the one-process
-mask.
+mask. A padded input (``SpatialCtx.rows``, ``parallel/halo.py``): every
+banded node's output is set to 0 past its real height (``real_rows``), a
+max pool reads -inf there, and BN, the squeeze, the QAT observers and the
+loss (whose padded label cells are all zero, mixup weight included) count
+real rows only.
 """
 
 from __future__ import annotations
@@ -83,7 +87,7 @@ from pqdet_tpu_torch.ops.decode_kernel import (decode_heads, decode_heads_refere
 from pqdet_tpu_torch.ops.fused_ir import fused_ir_conv, fused_ir_reference
 from pqdet_tpu_torch.ops.space_to_depth import (fold_stem_weight_t, space_to_depth,
                                                 stem_foldable)
-from pqdet_tpu_torch.parallel.halo import halo_pad
+from pqdet_tpu_torch.parallel.halo import band_real_rows, fill_rows, halo_pad
 
 # stride -> (grid-label index, raw-box index) in the 6-tuple of targets
 TARGET_MAP = {8: (0, 3), 16: (1, 4), 32: (2, 5)}
@@ -196,10 +200,12 @@ class Network(nn.Module):
         if remat_segments and (quant_ctx is not None or tap is not None):
             raise ValueError('remat_segments does not combine with quant_ctx or tap: the '
                              'recompute would observe each node twice')
+        rows = self.real_rows(spatial.rows) if spatial is not None and spatial.rows else None
         if quant_ctx is not None:
-            x = quant_ctx.quantize_input(x)
+            x = quant_ctx.quantize_input(
+                x, None if rows is None else band_real_rows(x.shape[1], spatial.rows, spatial))
         kw = dict(compute_dtype=compute_dtype, plain=plain, targets=targets, train=train,
-                  s2d_stem=s2d_stem, group=group, spatial=spatial)
+                  s2d_stem=s2d_stem, group=group, spatial=spatial, rows=rows)
         if remat_segments:
             x, updates, losses, heads = self._segments(params, state, x, rng,
                                                        remat_segments, kw)
@@ -240,6 +246,30 @@ class Network(nn.Module):
             heads += hs
         return x, updates, losses, heads
 
+    def real_rows(self, height: int) -> Dict[int, Optional[int]]:
+        """The real rows of each node's output for an input ``height`` rows
+        high (the unpadded walk's heights; None for a replicated node), by
+        the shape rules of each node kind."""
+        memo = self.__dict__.setdefault('_real_rows', {})
+        if height not in memo:
+            rep, out, prev = self.replicated_nodes(), {}, height
+            for node in self.graph.nodes:
+                i, a, kind = node.index, node.attrs, node.kind
+                if i in rep:
+                    r = None
+                elif kind in ('convolutional', 'maxpool'):
+                    pad = solve_padding(a['size'], a['padding'], a['pad'])
+                    r = (prev + 2 * pad - a['size']) // a['stride'] + 1
+                elif kind == 'upsample':
+                    r = prev * a['stride']
+                elif kind in ('route', 'scale_channels'):
+                    r = next((out[j] for j in node.refs if out.get(j) is not None), prev)
+                else:
+                    r = prev
+                out[i] = prev = r
+            memo[height] = out
+        return memo[height]
+
     def replicated_nodes(self) -> frozenset:
         """Indices of the nodes whose output a spatial walk holds whole on
         every band (the global average pool, and what only it feeds)."""
@@ -262,9 +292,11 @@ class Network(nn.Module):
 
     def _walk(self, nodes, params, state, x, cache, gen, compute_dtype=None,
               fused_ir=None, plain=False, quant_ctx=None, targets=None, train=False,
-              tap=None, s2d_stem=0, group=None, spatial=None):
+              tap=None, s2d_stem=0, group=None, spatial=None, rows=None):
         """Run a contiguous span of graph nodes. Returns (x, live cache, BN
-        state updates, per-head losses, [(raw head, yolo node)] to decode)."""
+        state updates, per-head losses, [(raw head, yolo node)] to decode).
+        ``rows``: ``real_rows`` of a padded spatial input (None: not
+        padded)."""
         cache = dict(cache)
         updates: Dict[str, dict] = {}
         losses, heads = [], []
@@ -280,6 +312,10 @@ class Network(nn.Module):
                 continue
             # this node's band context: None when its input is replicated
             band = spatial if spatial is not None and i - 1 not in rep else None
+            # the real rows of its input and output (None: all rows real)
+            r_in = r_out = None
+            if rows is not None:
+                r_in, r_out = rows.get(i - 1, spatial.rows), rows[i]
             if spatial is not None and kind in ('fc', 'dropout'):
                 raise ValueError(f'{kind} node {i} under train.spatial: a band of rows holds '
                                  'no whole feature vector' if kind == 'fc' else
@@ -316,7 +352,8 @@ class Network(nn.Module):
                              what=f'conv node {i}')
                 if 'bn' in p:
                     bn_group = group if spatial is None or band is not None else spatial.data
-                    x, bn_s = L.batch_norm(x, p['bn'], state[str(i)], train, bn_group, band)
+                    x, bn_s = L.batch_norm(x, p['bn'], state[str(i)], train, bn_group, band,
+                                           None if band is None else r_out)
                     if train:
                         updates[str(i)] = bn_s
                 x = L.apply_activation(a['activation'], x)
@@ -335,9 +372,9 @@ class Network(nn.Module):
                 a = node.attrs
                 padding = solve_padding(a['size'], a['padding'], a['pad'])
                 x = L.max_pool(x, a['size'], a['stride'], padding, spatial=band,
-                               what=f'maxpool node {i}')
+                               what=f'maxpool node {i}', rows=r_in)
             elif kind == 'avgpool':
-                x = L.adaptive_avg_pool(x, *node.out_size, spatial=band)
+                x = L.adaptive_avg_pool(x, *node.out_size, spatial=band, rows=r_in)
             elif kind == 'upsample':
                 x = L.upsample_nearest(x, node.attrs['stride'])
             elif kind == 'yolo':
@@ -355,15 +392,21 @@ class Network(nn.Module):
                         x, targets[gi], targets[bi], stride=a['stride'],
                         num_classes=a['classes'], bbox_loss_type=a['bbox_loss'],
                         ignore_thresh=a['ignore_thresh'], l1_loss_gain=a['l1_loss_gain'],
-                        grid_h=h * band.n_space if band is not None else 0,
+                        grid_h=(r_out or h * band.n_space) if band is not None else 0,
                         **{k: a[k] for k in LOSS_ATTRS if k in a}))
             elif kind == 'dropout':
                 x = L.dropout(x, node.attrs['probability'], gen, train)
             else:
                 raise ValueError(f'unknown layer kind: {kind}')
 
+            real = None
+            if r_out is not None and kind != 'yolo':
+                # the rows past the real height read as a conv's padding
+                x = fill_rows(x, r_out, 0.0, spatial)
+                real = band_real_rows(x.shape[1], r_out, spatial)
+
             if quant_ctx is not None and kind != 'yolo':
-                x = quant_ctx.observe_output(str(i), x)
+                x = quant_ctx.observe_output(str(i), x, real)
 
             # keep inter-layer activations in the compute dtype
             if compute_dtype is not None and kind != 'yolo' \

@@ -10,6 +10,16 @@ pool) at the image's top and bottom edges. The backward sends each halo
 row's gradient to the rank that owns the row and adds it there: the
 transpose of the forward.
 
+An input height that the bands x the graph's total stride do not divide
+(GSPMD pads such uneven shards) is walked padded: the step pads the image
+and its label grids with zero rows up to ``padded_height``, so that every
+op still maps whole bands and the halos stay neighbour-only, and carries
+the real height in ``SpatialCtx.rows``. The walk keeps every activation's
+rows past its real height (``Network.real_rows``) at the reading op's own
+padding value (``fill_rows``: 0 before a conv, -inf before a max pool) and
+counts real rows only in BN's moments, the band-sum average pool, the
+QAT observers and the loss, so the result is the unpadded computation's.
+
 One exchange is one ``all_gather`` over the space group of every rank's
 (first ``bottom`` rows, last ``top`` rows); each rank then takes what its
 neighbours sent. Point-to-point ``send``/``recv`` would move less, but
@@ -42,12 +52,47 @@ def band_rows(h: int, size: int, stride: int, pad: int, n_space: int,
     if h_out_all % n_space or h_out * stride != h:
         raise ValueError(f'{what}: a band of {h} rows does not map onto whole output bands '
                          f'(size {size}, stride {stride}, padding {pad}, {n_space} bands); '
-                         'the input height must be a multiple of the bands x the total stride')
+                         'the walk\'s input must be padded to a multiple of the bands x the '
+                         'total stride (padded_height)')
     top, bottom = pad, max(0, (h_out - 1) * stride + size - pad - h)
     if max(top, bottom) > h:
         raise ValueError(f'{what}: a halo of {max(top, bottom)} rows is deeper than the '
                          f'neighbouring band of {h} rows; use fewer bands or a larger input')
     return top, bottom, h_out
+
+
+def padded_height(height: int, n_space: int, total_stride: int) -> int:
+    """The rows an input ``height`` rows high is walked at on ``n_space``
+    bands: the next multiple of the bands x ``total_stride``. Raises
+    ``ValueError`` unless ``total_stride`` divides ``height``: the whole
+    image's label grids (``height // stride`` rows) would not line up with
+    its heads, in one process as on bands."""
+    if height % total_stride:
+        raise ValueError(f'input height {height} is not a multiple of the graph\'s total '
+                         f'stride {total_stride}: its label grids would not match its heads')
+    unit = n_space * total_stride
+    return -(-height // unit) * unit
+
+
+def band_real_rows(h: int, rows, spatial) -> int:
+    """How many of band ``spatial.s``'s ``h`` rows lie above global row
+    ``rows`` (the real rows of a padded activation; all ``h`` when ``rows``
+    is None)."""
+    if rows is None:
+        return h
+    return min(max(rows - spatial.offset(h), 0), h)
+
+
+def fill_rows(x: torch.Tensor, rows, fill: float, spatial) -> torch.Tensor:
+    """Band ``x`` (NHWC-like, rows on dim 1) with its rows at global row
+    ``rows`` and past set to ``fill``, without gradient there; ``x`` itself
+    when ``rows`` is None or the band holds no such row."""
+    h = x.shape[1]
+    k = band_real_rows(h, rows, spatial)
+    if k == h:
+        return x
+    keep = (torch.arange(h, device=x.device) < k).view((1, h) + (1,) * (x.dim() - 2))
+    return torch.where(keep, x, x.new_full((), fill))
 
 
 def _gather(t: torch.Tensor, group, n: int) -> list:

@@ -58,6 +58,8 @@ from typing import Callable, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from pqdet_tpu_torch.parallel.halo import padded_height
+
 # a hung rank fails the others' collectives after this long instead of
 # hanging them (rank 0's eval runs while the others wait at a barrier);
 # ``init_process_group`` and ``launch`` take another as ``timeout_s``
@@ -108,7 +110,8 @@ class SpatialCtx:
     ``d * n_space + s`` holds rows [d*B/n_data, (d+1)*B/n_data) of every
     global batch and band ``s`` of its rows. Every band has the same
     height, so a band of ``h`` rows lies at global rows [s*h, (s+1)*h) of
-    an activation ``n_space * h`` rows high."""
+    an activation ``n_space * h`` rows high (padded past its real height
+    when ``rows`` is set)."""
     n_data: int
     n_space: int
     d: int
@@ -117,20 +120,18 @@ class SpatialCtx:
     space: object       # the ranks of data shard d: halos, band sums
     data: object        # the ranks of band s: the in-batch gather of augmentation
 
+    # the real height of the walk's input when the step padded it to
+    # ``padded_height`` (0: not padded); the step sets it per batch on a copy
+    rows: int = 0
+
     def offset(self, h: int) -> int:
         """Global row of this band's first row, for a band of ``h`` rows."""
         return self.s * h
 
-    def check_height(self, height: int, total_stride: int):
-        """Raise ``ValueError`` unless an input ``height`` rows high cuts
-        into ``n_space`` bands that stay aligned to every stride of a graph
-        of ``total_stride``."""
-        if height % (self.n_space * total_stride):
-            raise ValueError(
-                f'train.spatial {self.n_space}: input height {height} must be a multiple of '
-                f'{self.n_space} bands x the graph\'s total stride {total_stride} '
-                f'(= {self.n_space * total_stride}), so that every band stays aligned to '
-                'every stride')
+    def padded_height(self, height: int, total_stride: int) -> int:
+        """The rows an input ``height`` rows high is walked at: the next
+        multiple of the bands x ``total_stride`` (``parallel/halo.py``)."""
+        return padded_height(height, self.n_space, total_stride)
 
 
 _MESHES = {}

@@ -35,11 +35,18 @@ shard's loss, so the global loss is the sum over the world divided by the
 data shards: the grads and the loss metrics are all-reduced by SUM and
 divided by ``n_data`` (the mean over the world at ``n_space`` 1). With
 device augmentation each rank gathers the global batch over its ``data``
-group, augments it, keeps its data rows and only then cuts its band.
+group, augments it, keeps its data rows and only then cuts its band. An
+image height that the bands x the total stride do not divide is padded
+(``_spatial_inputs``, ``parallel/halo.py``): the walk masks the padding
+out and the step computes the unpadded image's loss and grads.
+
+Unrolled steps (``train.unroll_steps``): ``make_multi_step`` runs K steps
+on K stacked same-size batches as a plain loop, where JAX scans them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional, Set
 
 import numpy as np
@@ -168,22 +175,37 @@ def make_optimizer(schedule: Callable[[int], float], weight_decay: float = 0.0,
     return Adam(schedule, weight_decay=weight_decay, grad_clip=grad_clip)
 
 
-def _band(t, spatial):
-    """Band ``spatial.s`` of NHWC-like ``t``'s rows (dim 1)."""
-    hb = t.shape[1] // spatial.n_space
-    return t[:, spatial.s * hb:(spatial.s + 1) * hb]
+def _band(t, spatial, height=None, fn=None):
+    """Band ``spatial.s`` of NHWC-like ``t``'s rows (dim 1) as a tensor
+    ``height`` rows high (default: ``t``'s) would cut it: ``fn`` (if any)
+    applied to the band's rows of ``t``, then zero rows where the band
+    reaches past ``t``."""
+    hb = (height or t.shape[1]) // spatial.n_space
+    part = t[:, spatial.s * hb:(spatial.s + 1) * hb]
+    if fn is not None:
+        part = fn(part)
+    if part.shape[1] < hb:
+        part = torch.cat([part, part.new_zeros((part.shape[0], hb - part.shape[1])
+                                               + part.shape[2:])], 1)
+    return part
 
 
 def _spatial_inputs(batch, label_fn, augment_fn, spatial, total_stride):
-    """``_inputs`` of a spatial step: the full-height rows of this rank's
-    data shard augmented (in-batch partners gathered over the ``data``
-    group) and labelled as the whole image, then band ``spatial.s`` of the
-    image's rows and of each label grid's rows; the box lists stay whole."""
+    """(normalized image band, targets, ``SpatialCtx``) of a spatial step:
+    the full-height rows of this rank's data shard augmented (in-batch
+    partners gathered over the ``data`` group) and labelled as the whole
+    image, then band ``spatial.s`` of the image's rows and of each label
+    grid's rows; the box lists stay whole. An image height that the bands x
+    ``total_stride`` do not divide is padded with zero rows (after the
+    normalization: a conv's padding) to ``padded_height``, its label
+    grids with all-zero cells (no loss term counts them: the mixup weight
+    is 0), and the context returned carries the real height (``rows``)."""
     if 'gt' not in batch:
         raise ValueError("train.spatial needs system.label_assign 'device': the step labels "
                          'the whole image before it cuts the bands')
     image, gt = batch['image'], batch['gt']
-    spatial.check_height(image.shape[1], total_stride)
+    height = image.shape[1]
+    padded = spatial.padded_height(height, total_stride)
     if augment_fn is not None:
         b = image.shape[0]
         image, gt = augment_fn(all_gather_batch(image, spatial.data),
@@ -193,8 +215,11 @@ def _spatial_inputs(batch, label_fn, augment_fn, spatial, total_stride):
         image, gt = image[rows], gt[rows]
     targets = label_fn(gt, image.shape[1:3])
     k = len(targets) // 2
-    return (device_normalize(_band(image, spatial)),
-            tuple(_band(t, spatial) for t in targets[:k]) + tuple(targets[k:]))
+    if padded != height:
+        spatial = dataclasses.replace(spatial, rows=height)
+    grids = tuple(_band(t, spatial, padded * t.shape[1] // height) for t in targets[:k])
+    return (_band(image, spatial, padded, device_normalize), grids + tuple(targets[k:]),
+            spatial)
 
 
 def _inputs(batch, label_fn, augment_fn=None, group=None):
@@ -257,23 +282,24 @@ def make_loss_fn(network, compute_dtype=None, remat: int = 0, label_fn=None,
             def tap(i, t):
                 if i in head_in:
                     stats[i] = t.detach().abs().amax().float()
-        image, targets = inputs(batch)
+        image, targets, band = inputs(batch)
         losses, new_state = network.forward_train(params, state, image, targets=targets,
                                                   rng=rng, compute_dtype=compute_dtype,
                                                   remat_segments=remat_n, tap=tap,
                                                   s2d_stem=s2d_stem, group=group,
-                                                  spatial=spatial)
+                                                  spatial=band)
         return losses['loss'][0], (losses, new_state, stats)
 
     return loss_fn
 
 
 def _make_inputs(network, label_fn, augment_fn, group, spatial):
-    """The batch -> (image, targets) function of a step: ``_inputs``, or
-    ``_spatial_inputs`` with the graph's total stride. It looks ``_inputs``
-    up at each call, so a caller may wrap it."""
+    """The batch -> (image, targets, spatial context of the walk) function
+    of a step: ``_inputs`` (no context), or ``_spatial_inputs`` with the
+    graph's total stride. It looks ``_inputs`` up at each call, so a caller
+    may wrap it."""
     if spatial is None:
-        return lambda batch: _inputs(batch, label_fn, augment_fn, group)
+        return lambda batch: (*_inputs(batch, label_fn, augment_fn, group), None)
     total_stride = max(n.stride for n in network.graph.nodes if n.stride is not None)
     return lambda batch: _spatial_inputs(batch, label_fn, augment_fn, spatial, total_stride)
 
@@ -330,11 +356,11 @@ def make_qat_loss_fn(network, observing: bool = True, bn_frozen: bool = False,
 
     def loss_fn(params, state, batch, rng: Optional[torch.Generator] = None):
         ctx = QuantCtx(state['quant'], observing=observing, group=group)
-        image, targets = inputs(batch)
+        image, targets, band = inputs(batch)
         losses, new_state = network.forward_train(params, state, image, targets=targets,
                                                   train=not bn_frozen, rng=rng,
                                                   compute_dtype=compute_dtype, quant_ctx=ctx,
-                                                  group=group, spatial=spatial)
+                                                  group=group, spatial=band)
         new_state = {**new_state, 'quant': ctx.new_obs}
         return losses['loss'][0], (losses, new_state, {})
 
@@ -455,12 +481,33 @@ def _index(tree, k):
         return {key: _index(v, k) for key, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_index(v, k) for v in tree)
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{f.name: _index(getattr(tree, f.name), k)
+                                            for f in dataclasses.fields(tree)})
     return tree[k]
 
 
+def stack_batches(batches: list):
+    """K batches of one structure (dicts, tuples, tensors, dataclasses such
+    as ``AugmentDraws``) as one, each tensor stacked on a new leading (K,
+    ...) axis: ``make_multi_step``'s input."""
+    first = batches[0]
+    if isinstance(first, dict):
+        return {key: stack_batches([b[key] for b in batches]) for key in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(stack_batches(list(vs)) for vs in zip(*batches))
+    if dataclasses.is_dataclass(first):
+        return dataclasses.replace(first, **{
+            f.name: stack_batches([getattr(b, f.name) for b in batches])
+            for f in dataclasses.fields(first)})
+    return torch.stack(batches)
+
+
 def make_multi_step(train_step, unroll: int):
-    """``unroll`` train steps as a plain loop. Batches arrive stacked with a
-    leading (K, ...) axis, ``rngs`` is K generators (or None); metrics
+    """``unroll`` train steps as a plain loop (JAX scans them in one
+    program; here each step is its own launches, so a group of K is K
+    single steps in order). Batches arrive stacked with a leading (K, ...)
+    axis (``stack_batches``), ``rngs`` is K generators (or None); metrics
     come back stacked."""
     def multi_step(params, state, opt_state, batches, rngs=None):
         out = []

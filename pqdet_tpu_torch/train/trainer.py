@@ -61,7 +61,10 @@ metrics (a non-finite loss raises on every rank at once) and rank 0 alone
 prints, evaluates and writes checkpoints, the others waiting at a
 barrier. A resume loads the same checkpoint on every rank. The dropout
 generator is seeded per rank, where JAX draws one mask for the global
-batch. ``dataset.device_cache`` takes a single rank, as JAX's does.
+batch. With ``dataset.device_cache`` every rank holds the whole corpus on
+its own device (JAX replicates it over its mesh), gathers its rows of each
+global batch and, with fresh partners, all of the global batch's partner
+rows, which every rank draws alike.
 
 Spatial partitioning (``train.spatial`` N > 1): the ranks form a (data x
 space) mesh (``parallel/mesh.py::make_mesh_2d``) of ``n_data x N`` ranks,
@@ -70,16 +73,24 @@ The N ranks of data shard d load the same rows (``TrainData(num_hosts=
 n_data, host_id=d)``; the uint8 images are small beside the activations
 the bands split) and the step cuts each its band. It needs device labels
 (``system.label_assign device``) and one host, excludes
-``dataset.device_cache``, and every input size must be a multiple of N x
-the graph's total stride: each raises ``ValueError`` here, and so does a
+``dataset.device_cache`` and ``train.unroll_steps`` > 1, and every input
+size must be a multiple of the graph's total stride (as the whole-image
+step needs); a size that N x the stride does not divide is walked padded
+(``parallel/halo.py``). Each raises ``ValueError`` here, and so does a
 world that is not the mesh (no process group included). Rank 0 evaluates
 whole images without bands.
+
+Unrolled steps (``train.unroll_steps`` K > 1): the epoch plan gives each
+group of K batches one size and rounds the epoch up to whole groups
+(``TrainData``); each group runs as one call of ``make_multi_step`` (a
+plain loop of K steps), each sub-step with the augment draws of its own
+global step, so a group equals K single steps on the same batches;
+``global_step`` moves by K and the metrics flush when it crosses a
+multiple of the print interval.
 
 ``shared_ap`` is the eval of a run whose every rank needs the AP (NAS
 search and evolution across ranks): rank 0 evaluates and broadcasts the
 AP, or the failure, to the others.
-
-Not ported yet, and raising: unrolled steps (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -110,8 +121,9 @@ from pqdet_tpu_torch.parallel.mesh import (active_group, barrier, broadcast_obje
                                            broadcast_tree, make_mesh_2d, mesh_shape, rank,
                                            single_host, world)
 from pqdet_tpu_torch.train.checkpoint import save_checkpoint
-from pqdet_tpu_torch.train.step import (COMPUTE_DTYPES, resume_schedule_step,
-                                        sparse_bn_gamma_ids, train_step_from_config)
+from pqdet_tpu_torch.train.step import (COMPUTE_DTYPES, make_multi_step, resume_schedule_step,
+                                        sparse_bn_gamma_ids, stack_batches,
+                                        train_step_from_config)
 from pqdet_tpu_torch.utils.meters import AverageMeter, TicToc
 
 CORE_METRICS = ('loss', 'giou_loss', 'conf_loss', 'class_loss', 'loss_per_branch')
@@ -165,15 +177,15 @@ class Trainer:
         self._augment = c.augment.device
         self._partner_rows = partner_rows_per_sample(c) if self._augment else 0
         self._device_cache = None
+        self._unroll = max(int(c.train.unroll_steps), 1)
         if fresh_partners_enabled(c) and not c.dataset.device_cache:
             raise ValueError('augment.fresh_partners=on gathers partner rows from the '
                              "device corpus: set dataset.device_cache on ('auto' takes "
                              'in-batch partners without the cache)')
-        if c.dataset.device_cache and not self._augment:
-            raise ValueError('dataset.device_cache needs augment.device=on')
-        if c.dataset.device_cache and self._world > 1:
-            raise ValueError(f'dataset.device_cache needs a single rank, not {self._world} '
-                             '(system.data_devices)')
+        if c.dataset.device_cache and (not self._augment or not single_host()
+                                       or self._unroll > 1 or c.train.spatial > 1):
+            raise ValueError('dataset.device_cache needs augment.device=on, a single host, '
+                             'and no unroll/spatial partitioning')
         if c.train.spatial > 1:
             self._init_spatial(c)
 
@@ -182,22 +194,22 @@ class Trainer:
         self.epoch_tt = TicToc()
 
     def _init_spatial(self, c):
-        """Check a ``train.spatial`` config (JAX's checks, and the band
-        heights) and join the (data x space) mesh of the process group."""
+        """Check a ``train.spatial`` config (JAX's checks, and input heights
+        that the total stride divides) and join the (data x space) mesh of
+        the process group."""
         n = c.train.spatial
-        if c.system.label_assign != 'device':
-            raise ValueError("train.spatial needs system.label_assign='device'")
-        if c.dataset.device_cache:
-            raise ValueError('dataset.device_cache excludes train.spatial partitioning')
         if not single_host():
             raise ValueError('train.spatial is single-host scoped')
+        if c.system.label_assign != 'device':
+            raise ValueError("train.spatial needs system.label_assign='device'")
+        if self._unroll > 1:
+            raise ValueError('train.spatial excludes unroll_steps > 1')
         from pqdet_tpu_torch.model.graph import Graph
+        from pqdet_tpu_torch.parallel.halo import padded_height
         stride = max(x.stride for x in Graph.from_cfg(resolve_model_cfg(c)).nodes
                      if x.stride is not None)
-        bad = [h for h, _ in sizes_fix(c.train.input_sizes) if h % (n * stride)]
-        if bad:
-            raise ValueError(f'train.spatial {n}: input heights {bad} are not multiples of '
-                             f'{n} bands x the total stride {stride} (= {n * stride})')
+        for h, _ in sizes_fix(c.train.input_sizes):
+            padded_height(h, n, stride)
         n_data, n_space = mesh_shape(c.system.data_devices, c.train.batch_size, n,
                                      self._world)
         self._spatial = make_mesh_2d(n_data, n_space)
@@ -264,11 +276,15 @@ class Trainer:
 
     def _make_step(self):
         """(step, optimizer) of the config, for the QAT phase the trainer is
-        in."""
-        return train_step_from_config(self.network, self.config, self.steps_per_epoch,
-                                      device=self.device, observing=self._observing,
-                                      bn_frozen=self._bn_frozen, group=self._group,
-                                      spatial=self._spatial)
+        in; at ``train.unroll_steps`` K > 1 the step takes a group of K
+        stacked batches (``make_multi_step``)."""
+        step, optimizer = train_step_from_config(
+            self.network, self.config, self.steps_per_epoch, device=self.device,
+            observing=self._observing, bn_frozen=self._bn_frozen, group=self._group,
+            spatial=self._spatial)
+        if self._unroll > 1:
+            step = make_multi_step(step, self._unroll)
+        return step, optimizer
 
     # ----------------------------------------------------------------- eval
 
@@ -430,9 +446,11 @@ class Trainer:
         return {'image': imgs, 'gt': gts}
 
     def _cached_batches(self):
-        """The epoch's device batches gathered from the device corpus, with
-        ``partner_rows`` fresh partner rows per sample when the chain wants
-        them (uniform corpus rows, the JAX trainer's draws)."""
+        """The epoch's device batches gathered from the device corpus: this
+        rank's rows of each global batch, with ``partner_rows`` fresh
+        partner rows per sample of the GLOBAL batch when the chain wants
+        them (uniform corpus rows, the JAX trainer's draws; every rank draws
+        and gathers them all, since the step augments the global batch)."""
         data = self.train_data
         prng = np.random.RandomState(self.config.system.seed + 7)
         for k, rows in enumerate(data.batch_indices()):
@@ -440,7 +458,8 @@ class Trainer:
             idx = np.asarray([data._indexes[i] for i in rows], np.int64)
             batch = self._cache_gather(size, self._upload(idx))
             if self._partner_rows:
-                pidx = prng.randint(0, data._num_imgs, size=self._partner_rows * len(rows))
+                pidx = prng.randint(0, data._num_imgs,
+                                    size=self._partner_rows * len(rows) * self._n_data)
                 pb = self._cache_gather(size, self._upload(pidx.astype(np.int64)))
                 batch.update(partner_image=pb['image'], partner_gt=pb['gt'])
             yield batch
@@ -546,23 +565,47 @@ class Trainer:
         gen = np.random.default_rng((self.config.system.seed, step))
         return draw_augment(gen, B, S, partner_rows=partners).to(self.device)
 
+    def _grouped_batches(self):
+        """The epoch's device batches in groups of ``train.unroll_steps``
+        (the plan gives a group one size), each batch with its
+        device-augment draws, those of its own global step; a ragged last
+        group is padded with its last batch, as the JAX trainer does
+        (defensively: the plan rounds the epoch up to whole groups)."""
+        group = []
+        for batch in self._batches:
+            if self._augment:
+                batch['draws'] = self._draws(batch, self.global_step + len(group) + 1)
+            group.append(batch)
+            if len(group) == self._unroll:
+                yield group
+                group = []
+        if group:
+            yield group + group[-1:] * (self._unroll - len(group))
+
     def train_epoch(self, epoch: int):
-        """One epoch of steps; returns the host seconds spent waiting for
-        batches (``data_load_s``) and in the step calls (``model_s``)."""
+        """One epoch of steps (of groups of ``train.unroll_steps`` steps,
+        each group one call of the step); returns the host seconds spent
+        waiting for batches (``data_load_s``) and in the step calls
+        (``model_s``)."""
         pending = []
         in_flight = []
+        k = self._unroll
         self.dataload_tt.tic()
         self._batches = self._epoch_batches()
-        for batch in self._batches:
-            self.global_step += 1
-            if self._augment:
-                batch['draws'] = self._draws(batch, self.global_step)
+        for group in self._grouped_batches():
+            self.global_step += k
             self.dataload_tt.toc()
 
             self.model_tt.tic()
-            self.params, self.state, self.opt_state, metrics = self.step_fn(
-                self.params, self.state, self.opt_state, batch, self._rng)
-            pending.append(metrics)
+            if k == 1:
+                self.params, self.state, self.opt_state, metrics = self.step_fn(
+                    self.params, self.state, self.opt_state, group[0], self._rng)
+                pending.append(metrics)
+            else:
+                self.params, self.state, self.opt_state, metrics = self.step_fn(
+                    self.params, self.state, self.opt_state, stack_batches(group),
+                    [self._rng] * k)
+                pending.extend({n: v[j] for n, v in metrics.items()} for j in range(k))
             if self.device.type == 'cuda':
                 done = torch.cuda.Event()
                 done.record()
@@ -571,7 +614,7 @@ class Trainer:
                     in_flight.pop(0).synchronize()
             self.model_tt.toc()
 
-            if self.global_step % self._print_interval == 0:
+            if self.global_step % self._print_interval < k:
                 self._flush_metrics(epoch, pending)
             self.dataload_tt.tic()
         self._batches = None

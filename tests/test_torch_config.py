@@ -99,7 +99,7 @@ def test_merge_from_list_matches_jax():
     (['nogroup.key', '1'], KeyError),
     (['train.batch_size', 'many'], TypeError),
     (['augment.device', 'maybe'], TypeError),
-    (['train.unroll_steps', '2'], NotImplementedError),
+    (['train.unroll_steps', 'two'], TypeError),
     (['system.data_devices', 'all'], TypeError),
     (['train.spatial', 'two'], TypeError),
 ])
@@ -113,13 +113,15 @@ def test_bad_overrides_raise(opts, error):
                                        ('system.label_assign', 'host'),
                                        ('train.s2d_stem', '2'), ('eval.s2d_stem', '2'),
                                        ('system.data_devices', '2'),
-                                       ('train.spatial', '2')])
+                                       ('train.spatial', '2'), ('train.unroll_steps', '2'),
+                                       ('eval.map_iou', '0.75')])
 def test_ported_keys_load(key, value):
-    """The loader, upload-thread, space-to-depth, data-parallel and
-    spatial-partitioning keys, once queued, load as JAX's do; only the
-    unroll key stays queued."""
+    """The loader, upload-thread, space-to-depth, data-parallel,
+    spatial-partitioning and unroll keys, once queued, load as JAX's do,
+    and so does ``eval.map_iou``, which neither package reads: no key of
+    JAX's schema is queued any more."""
     opts = [key, value]
     cfg = load_config(opts=opts)
     assert str(getattr(getattr(cfg, key.split('.')[0]), key.split('.')[1])) == value
     assert _assert_same(cfg, jax_load_config(opts=opts)) >= 50
-    assert sorted(LATER_KEYS) == ['train.unroll_steps']
+    assert LATER_KEYS == {}

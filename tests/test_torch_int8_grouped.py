@@ -50,6 +50,19 @@ CASES = {'grouped': (_grouped_cfg, 32),
          'regnety-400m-fpn': (lambda: get_cfg('regnety-400m-fpn'), 64)}
 
 
+@pytest.fixture(scope='module', autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this module's small CPU ops: beside the
+    suite's other workers, an op split over all cores waits at its barrier
+    for threads those workers hold (a 64 px int8 walk of
+    ``test_kernel_mode_plain_flag_and_launches`` took 0.2 s alone and 35 s
+    beside five busy processes, 0.8 s on one thread)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.lru_cache(maxsize=None)
 def _calibrate(name):
     cfg_fn, size = CASES[name]

@@ -46,6 +46,19 @@ LR, WD, CLIP, SPARSE = 1e-3, 0.0, 1.0, 0.01
 ANCHORS = np.array(Config().model.anchors, np.float32)
 
 
+@pytest.fixture(scope='module', autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this module's small CPU ops: beside the
+    suite's other workers, an op split over all cores waits at its barrier
+    for threads those workers hold (a 64 px int8 walk of
+    ``test_kernel_mode_plain_flag_and_launches`` took 0.2 s alone and 35 s
+    beside five busy processes, 0.8 s on one thread)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def schedule(k):
     return LR * (k + 1)
 
@@ -194,11 +207,11 @@ def _rank_trainer(dev, root, res):
                        for i in rd.batch_indices() for k in ('image', 'gt'))}
     resumed.close()
     try:
-        Trainer(load_config(opts=opts + ['augment.device', 'on', 'dataset.device_cache', 'on']),
-                device=dev)
+        Trainer(load_config(opts=opts + ['augment.device', 'on', 'dataset.device_cache', 'on',
+                                         'train.unroll_steps', '2']), device=dev)
         res['cache_raises'] = False
     except ValueError as e:
-        res['cache_raises'] = 'single rank' in str(e)
+        res['cache_raises'] = 'no unroll/spatial partitioning' in str(e)
 
 
 def _clone(tree):
@@ -296,8 +309,8 @@ def test_world_resolution_and_guards(monkeypatch):
 
 
 def test_config_keys():
-    """system.data_devices and train.spatial load with JAX's defaults and
-    values; train.unroll_steps still raises naming its item; cli.search and
+    """system.data_devices, train.spatial and train.unroll_steps load with
+    JAX's defaults and values, and no key is queued any more; cli.search and
     cli.evolute launch their ranks as cli.train does (a world the batch
     and data_devices resolve, with spatial ranks counted)."""
     from pqdet_tpu.config import load_config as jax_load_config
@@ -309,9 +322,10 @@ def test_config_keys():
     assert spatial.train.spatial == 2 == jax_load_config(
         opts=['train.spatial', '2']).train.spatial
     assert Config().train.spatial == 0 == jax_load_config().train.spatial
-    assert sorted(LATER_KEYS) == ['train.unroll_steps']
-    with pytest.raises(NotImplementedError, match='item 2'):
-        load_config(opts=['train.unroll_steps', '2'])
+    assert LATER_KEYS == {}
+    assert load_config(opts=['train.unroll_steps', '2']).train.unroll_steps == 2 == \
+        jax_load_config(opts=['train.unroll_steps', '2']).train.unroll_steps
+    assert Config().train.unroll_steps == 1 == jax_load_config().train.unroll_steps
     assert mesh.resolve_world(cfg.system.data_devices, cfg.train.batch_size, 'cpu',
                               cfg.train.spatial) == 2
     assert mesh.resolve_world(0, 12, 'cpu', spatial.train.spatial) == 2
@@ -528,7 +542,8 @@ def test_trainer_ranks(ranks):
     with the same params and BN state; a resume from the epoch-1 checkpoint
     starts at step 4 with the schedule there, the checkpoint's params, and
     each rank's rows of the uninterrupted run's next epoch; the device
-    corpus refuses a second rank, as JAX's does."""
+    corpus, which now runs at two ranks, still refuses unrolled steps, as
+    JAX's does."""
     from pqdet_tpu.train.checkpoint import load_checkpoint as jax_load_checkpoint
     (r0, r1), root = ranks
     assert r0['calls'] == ['save 0', 'evaluate', 'save 1'] and r1['calls'] == []

@@ -7,9 +7,10 @@ step (``tests/conftest.py`` forces 8 host devices).
 One spawn of four ranks (``ranks``, module scope) runs every rank-side
 check: each op kind on bands, forward and backward; three spatial steps
 with sparse-L1 and a binding global-norm clip; the QAT step's observers;
-a step with the s2d stem and one with ``remat_segments``; the errors of a
-halo deeper than a band and of an input height the bands do not divide;
-and a Trainer (eval and checkpoints on rank 0). The tests compare what
+a step with the s2d stem and one with ``remat_segments``; a step at an
+input height the bands do not divide (walked padded); the errors of a
+halo deeper than a band and of an input height the total stride does not
+divide; and a Trainer (eval and checkpoints on rank 0). The tests compare what
 the ranks wrote. The rank side of this module imports no JAX: the spawned
 ranks import this module, so JAX is imported inside the tests that run in
 the parent.
@@ -43,6 +44,19 @@ B, SIZE, MAX_GT, STEPS = 4, 128, 16, 3
 LR, WD, CLIP, SPARSE = 1e-3, 0.0, 1.0, 0.01
 ANCHORS = np.array(Config().model.anchors, np.float32)
 OP_SHAPE = (B, 32, 16, 6)
+
+
+@pytest.fixture(scope='module', autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this module's small CPU ops: beside the
+    suite's other workers, an op split over all cores waits at its barrier
+    for threads those workers hold (a 64 px int8 walk of
+    ``test_kernel_mode_plain_flag_and_launches`` took 0.2 s alone and 35 s
+    beside five busy processes, 0.8 s on one thread)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def schedule(k):
@@ -184,17 +198,18 @@ def _labels():
     return label_assigner_from_config(Config(), device='cpu')
 
 
-def _steps(net, params, state, spatial=None, n=STEPS, **kw):
+def _steps(net, params, state, spatial=None, n=STEPS, size=SIZE, **kw):
     """``n`` steps of the port's step (sparse-L1, clip) on the global
-    batches, or on this rank's data rows of them with ``spatial``; the
-    flat params, flat state, Adam's moments and the metrics after each."""
+    batches at ``size``, or on this rank's data rows of them with
+    ``spatial``; the flat params, flat state, Adam's moments and the
+    metrics after each."""
     opt = make_optimizer(schedule, weight_decay=WD, grad_clip=CLIP)
     step = make_train_step(net, opt, sparse_ratio=SPARSE, sparse_ids=sparse_bn_gamma_ids(net),
                            label_fn=_labels(), spatial=spatial, **kw)
     p, s, o = params, state, opt.init(params)
     out = []
     for k in range(n):
-        b = _batch(k)
+        b = _batch(k, size)
         b = {key: torch.from_numpy(v) for key, v in b.items()} if spatial is None \
             else _data_rows(b, spatial.d)
         p, s, o, m = step(p, s, o, b)
@@ -275,10 +290,11 @@ def _rank_work(dev, net_cfg, params, state, root):
                   for phase in ((True, False), (True, True))}
     x = torch.zeros(1, 2, 8, 4)
     res['deep_halo'] = _error(lambda: L.max_pool(x, 13, 1, 6, spatial=ctx, what='maxpool 9'))
+    res['uneven'] = _steps(net, params, state, ctx, n=1, size=96)[0]
     res['bad_height'] = _error(lambda: make_train_step(
         net, make_optimizer(schedule), label_fn=_labels(), spatial=ctx)(
             params, state, make_optimizer(schedule).init(params),
-            _data_rows(_batch(0, size=96), ctx.d)))
+            _data_rows(_batch(0, size=80), ctx.d)))
     _rank_trainer(dev, root, res)
     torch.save(res, os.path.join(root, f'rank{r}.pt'))
 
@@ -473,14 +489,32 @@ def test_qat_observers_see_the_whole_image(model, ranks):
                     assert abs(float(a - one[key][f])) <= tol * span, (phase, key, f)
 
 
-def test_spatial_errors_on_the_ranks(ranks):
+def test_spatial_errors_on_the_ranks(model, ranks):
     """A halo deeper than a band raises naming the layer and the band
-    height; a step on an input height the bands do not divide (96 px at 2
-    bands and total stride 32) raises."""
+    height; a step on an input height the total stride does not divide (80
+    px at total stride 32) raises, as the whole-image step cannot label
+    it; a step on an input height the bands do not divide (96 px: 3
+    stride-32 rows on 2 bands, walked padded to 128) is identical on every
+    rank and gives the one-process step's loss parts within 1e-4, its BN
+    state within 1e-4 and its params within 1e-3 of the step's movement
+    (L2): the padding adds nothing to BN, the squeeze, the max pool or the
+    loss."""
     rs, _ = ranks
+    *_, net, tp, ts = model
     for res in rs:
         assert 'maxpool 9' in res['deep_halo'] and 'band of 2 rows' in res['deep_halo']
-        assert 'multiple of 2 bands' in res['bad_height'] and '96' in res['bad_height']
+        assert 'multiple of the graph\'s total stride 32' in res['bad_height'] \
+            and '80' in res['bad_height']
+        assert torch.equal(res['uneven']['params'], rs[0]['uneven']['params'])
+    one = _steps(net, tp, ts, n=1, size=96)[0]
+    for name in ('loss', 'giou_loss', 'conf_loss', 'class_loss', 'loss_per_branch'):
+        torch.testing.assert_close(rs[0]['uneven']['metrics'][name], one['metrics'][name],
+                                   rtol=1e-4, atol=0.0, msg=name)
+    torch.testing.assert_close(rs[0]['uneven']['state'], one['state'], rtol=1e-4, atol=1e-5)
+    start = _flat(tp)
+    moved = (one['params'] - start).norm().item()
+    gap = (rs[0]['uneven']['params'] - one['params']).norm().item()
+    assert gap <= 1e-3 * moved, (gap, moved)
 
 
 def test_trainer_spatial_ranks(ranks):
@@ -507,19 +541,21 @@ def test_trainer_spatial_ranks(ranks):
 
 def test_trainer_validates_spatial_config(tmp_path):
     """JAX's ``test_trainer_validates_spatial_config`` in the port, raised
-    at construction: host labels, the device corpus, an input height the
-    bands do not divide; and no process group at all (no fallback to one
-    process). ``train.unroll_steps`` still raises at load, queued."""
+    at construction: ``train.unroll_steps`` 2 (JAX's message), host labels,
+    the device corpus, an input height the total stride does not divide;
+    and no process group at all (no fallback to one process), which is also
+    all that an input height the bands do not divide (320 on 4 bands of
+    stride 32) meets now: it is walked padded."""
     from pqdet_tpu_torch.train.trainer import Trainer
     base = ['dataset.classes', '[a,b,c]', 'model.cfg_path', 'mobilenetv2-fpn',
             'train.spatial', '4', 'dataset.train_txt_file', '/nonexistent',
             'train.input_sizes', '[512]']
-    with pytest.raises(NotImplementedError, match='item 2'):
-        load_config(opts=base + ['train.unroll_steps', '2'])
-    for extra, match in ((['system.label_assign', 'host'], 'label_assign'),
+    for extra, match in ((['train.unroll_steps', '2'], 'train.spatial excludes unroll_steps'),
+                         (['system.label_assign', 'host'], 'label_assign'),
                          (['augment.device', 'on', 'dataset.device_cache', 'on'],
                           'device_cache'),
-                         (['train.input_sizes', '[320]'], 'not multiples of 4 bands'),
+                         (['train.input_sizes', '[336]'], 'not a multiple of the graph'),
+                         (['train.input_sizes', '[320]'], 'needs a process group of 4 ranks'),
                          ([], 'needs a process group of 4 ranks')):
         with pytest.raises(ValueError, match=match):
             Trainer(load_config(opts=base + extra), device='cpu')
@@ -529,8 +565,9 @@ def test_mesh_layout_and_guards():
     """``mesh_shape`` and ``resolve_world`` take JAX's device budget
     (``system.data_devices`` is the total, the data axis fits the batch);
     ``make_mesh_2d`` raises without a process group; ``spatial_batch_shardings``
-    gives rank (d, s)'s data rows and band rows; ``SpatialCtx.check_height``
-    names the multiple."""
+    gives rank (d, s)'s data rows and band rows; ``SpatialCtx.padded_height``
+    rounds a height up to the bands x the total stride and refuses one the
+    stride does not divide."""
     assert mesh.mesh_shape(0, 12, 2, 8) == (4, 2)      # JAX: avail 8 // 2, fit to 12
     assert mesh.mesh_shape(4, 4, 2, 1) == (2, 2)
     assert mesh.mesh_shape(0, 4, 2, 1) == (1, 2)
@@ -542,6 +579,7 @@ def test_mesh_layout_and_guards():
     ctx = mesh.SpatialCtx(2, 2, 1, 0, None, None, None)
     sh = mesh.spatial_batch_shardings(ctx, 8, 64)
     assert sh == {'image': (slice(4, 8), slice(0, 32)), 'gt': (slice(4, 8),)}
-    ctx.check_height(128, 32)
-    with pytest.raises(ValueError, match='multiple of 2 bands'):
-        ctx.check_height(96, 32)
+    assert ctx.padded_height(128, 32) == 128 and ctx.padded_height(96, 32) == 128
+    assert ctx.padded_height(416, 32) == 448 and ctx.padded_height(480, 32) == 512
+    with pytest.raises(ValueError, match='total stride 32'):
+        ctx.padded_height(80, 32)

@@ -103,16 +103,23 @@ def test_nan_loss_raises(tmp_path):
         trainer._flush_metrics(0, [ok, m])
 
 
-@pytest.mark.parametrize('key,value,item', [('train.unroll_steps', 'on', 'item 2'),
+@pytest.mark.parametrize('key,value,item', [('train.unroll_steps', '3', 'item 2'),
                                             ('system.loader', 'process', None)],
                          ids=['train.unroll_steps-item 2', 'system.loader-item 3'])
 def test_queued_options_raise(tmp_path, key, value, item):
-    """train.unroll_steps is still queued and raises naming its item;
-    system.loader, queued until the process loader was ported, now starts
-    the pool in init_all, and close ends it."""
+    """Both options, once queued, run: train.unroll_steps 3 (item 2) rounds
+    the epoch up to whole groups of 3 batches of one size and builds the
+    3-step dispatch; system.loader (item 3) starts the pool in init_all, and
+    close ends it."""
     if item is not None:
-        with pytest.raises(NotImplementedError, match=f'queue 1, {item}'):
-            Trainer(load_config(opts=_opts(tmp_path, 4, key, value)), device='cpu').init_all()
+        trainer = Trainer(load_config(opts=_opts(tmp_path, 4, key, value, 'train.input_sizes',
+                                                 '[64, 96]')), device='cpu')
+        trainer.init_all()
+        sizes = trainer.train_data._sizes
+        assert trainer.steps_per_epoch % 3 == 0 and len(sizes) == trainer.steps_per_epoch
+        assert all(len(set(sizes[g:g + 3])) == 1 for g in range(0, len(sizes), 3))
+        assert trainer.step_fn.__name__ == 'multi_step'
+        trainer.close()
         return
     trainer = Trainer(load_config(opts=_opts(tmp_path, 4, key, value)), device='cpu')
     trainer.init_all()
