@@ -48,6 +48,7 @@ from pqdet_tpu_torch.ops.decode_kernel import head_views
 from pqdet_tpu_torch.ops.qconv import (make_scalars, qconv1x1_reference,
                                        qconv1x1_s8, qdwconv3x3_reference,
                                        qdwconv3x3_s8)
+from pqdet_tpu_torch.utils import tracing
 from pqdet_tpu_torch.utils.codec import load_checkpoint, save_pytrees
 
 # widest dense 3x3 input the JAX package stages for its integer-exact
@@ -305,13 +306,6 @@ class Int8Inference:
             dw_fn = qdwconv3x3_reference if plain else qdwconv3x3_s8
             dec_fn = None
 
-        if self.mode == 'dequant':
-            xq, cur_sz = _fake_quant_edge(x, act['input']), None
-        elif kernel:
-            xq, cur_sz = _quant_s8(x, act['input']), act['input']
-        else:
-            xq, cur_sz = _quant(x, act['input']), act['input']
-
         def as_fp(val, sz):
             if sz is None:
                 return val
@@ -321,6 +315,17 @@ class Int8Inference:
             if self.mode == 'dequant':
                 return _fake_quant_edge(y, sz), None
             return (_quant_s8(y, sz), sz) if kernel else (_quant(y, sz), sz)
+
+        def edge(key, y):
+            if key in act:  # requantise this edge
+                return requant(y, act[key])
+            return y, None  # f32 edge (feeds a yolo head)
+
+        # spans (utils/tracing.py): int8.sandwich around a quantisation or a
+        # node's dequant, f32 op and requant; int8.im2col, int8.kernel and
+        # int8.decode around the patches, the int8 kernels and the decode
+        with tracing.span('int8.sandwich'):
+            xq, cur_sz = requant(x, act['input'])
 
         for node in self.graph.nodes:
             i, kind = node.index, node.kind
@@ -348,15 +353,23 @@ class Int8Inference:
                                   scalars=self._scalar_vector(key, cur_sz, out_edge,
                                                               xq.device))
                     if pw_ok:
-                        xs = xq if stride == 1 else xq[:, ::stride, ::stride].contiguous()
-                        y = pw_fn(xs, p['w2d'], p['w_scale'], p['b'], p['colsum'], **common)
+                        xs = xq
+                        if stride != 1:
+                            with tracing.span('int8.im2col'):
+                                xs = xq[:, ::stride, ::stride].contiguous()
+                        with tracing.span('int8.kernel'):
+                            y = pw_fn(xs, p['w2d'], p['w_scale'], p['b'], p['colsum'],
+                                      **common)
                     elif dw_ok:
-                        y = dw_fn(xq, p['wdw'], p['w_scale'], p['b'], stride=stride,
-                                  **common)
+                        with tracing.span('int8.kernel'):
+                            y = dw_fn(xq, p['wdw'], p['w_scale'], p['b'], stride=stride,
+                                      **common)
                     else:
-                        patches = _stem_im2col(xq, stride, round(cur_sz[1]) - 128)
-                        y = pw_fn(patches, p['wim'], p['w_scale'], p['b'],
-                                  p['wim_colsum'], **common)
+                        with tracing.span('int8.im2col'):
+                            patches = _stem_im2col(xq, stride, round(cur_sz[1]) - 128)
+                        with tracing.span('int8.kernel'):
+                            y = pw_fn(patches, p['wim'], p['w_scale'], p['b'],
+                                      p['wim_colsum'], **common)
                     xq, cur_sz = y, out_edge
                     self._keep(i, xq, cur_sz, cache, inter, intermediates, as_fp)
                     continue
@@ -377,53 +390,56 @@ class Int8Inference:
                                  padding=padding, groups=a['groups'],
                                  compute_dtype=torch.bfloat16).float()
                 y = L.apply_activation(a['activation'], y)
-            elif kind == 'shortcut':
-                y = as_fp(xq, cur_sz) + as_fp(*cache[node.refs[0]])
-                y = L.apply_activation(a['activation'], y)
-            elif kind == 'scale_channels':
-                y = as_fp(*cache[node.refs[0]]) * as_fp(xq, cur_sz)
-            elif kind == 'route':
-                srcs = [as_fp(*cache[r]) for r in node.refs]
-                y = srcs[0] if len(srcs) == 1 else torch.cat(srcs, dim=-1)
-            elif kind == 'maxpool':
-                padding = solve_padding(a['size'], a['padding'], a['pad'])
-                y = L.max_pool(as_fp(xq, cur_sz), a['size'], a['stride'], padding)
-            elif kind == 'avgpool':
-                y = L.adaptive_avg_pool(as_fp(xq, cur_sz), *node.out_size)
+                with tracing.span('int8.sandwich'):
+                    xq, cur_sz = edge(key, y)
             elif kind == 'upsample':
                 # replication commutes with quantisation: stay int8
                 xq = L.upsample_nearest(xq, a['stride'])
-                self._keep(i, xq, cur_sz, cache, inter, intermediates, as_fp)
-                continue
-            elif kind == 'fc':
-                p = layers[key]
-                y = L.linear(as_fp(xq, cur_sz).reshape(xq.shape[0], -1), p)
-                y = L.apply_activation(a['activation'], y)
             elif kind == 'yolo':
                 xq, cur_sz = as_fp(xq, cur_sz), None
                 heads.append((xq, node))
                 if i in self.graph.last_use:
-                    xq = decode_consumed_head(xq, node, plain, capped=False)
-                self._keep(i, xq, cur_sz, cache, inter, intermediates, as_fp)
-                continue
+                    with tracing.span('int8.decode'):
+                        xq = decode_consumed_head(xq, node, plain, capped=False)
             else:
-                raise ValueError(kind)
-
-            if key in act:  # requantise this edge
-                xq, cur_sz = requant(y, act[key])
-            else:           # f32 edge (feeds a yolo head)
-                xq, cur_sz = y, None
+                with tracing.span('int8.sandwich'):
+                    y = self._f32_node(node, xq, cur_sz, cache, layers, as_fp)
+                    xq, cur_sz = edge(key, y)
             self._keep(i, xq, cur_sz, cache, inter, intermediates, as_fp)
 
         raws = [r for r, _ in heads]
         # no exp_cap, as the JAX package's int8 walk decodes
-        preds = decode_all_heads(raws, [n for _, n in heads], plain, capped=False,
-                                 dec=dec_fn)
+        with tracing.span('int8.decode'):
+            preds = decode_all_heads(raws, [n for _, n in heads], plain, capped=False,
+                                     dec=dec_fn)
         if intermediates:
             for (_, node), view in zip(heads, head_views(preds, [r.shape for r in raws])):
                 inter[str(node.index)] = view
             return preds, inter
         return preds
+
+    @staticmethod
+    def _f32_node(node, xq, cur_sz, cache, layers, as_fp):
+        """The f32 output of a node that runs between a dequant and a
+        requant: shortcut, scale, route, pool or fc."""
+        kind, a = node.kind, node.attrs
+        if kind == 'shortcut':
+            y = as_fp(xq, cur_sz) + as_fp(*cache[node.refs[0]])
+            return L.apply_activation(a['activation'], y)
+        if kind == 'scale_channels':
+            return as_fp(*cache[node.refs[0]]) * as_fp(xq, cur_sz)
+        if kind == 'route':
+            srcs = [as_fp(*cache[r]) for r in node.refs]
+            return srcs[0] if len(srcs) == 1 else torch.cat(srcs, dim=-1)
+        if kind == 'maxpool':
+            padding = solve_padding(a['size'], a['padding'], a['pad'])
+            return L.max_pool(as_fp(xq, cur_sz), a['size'], a['stride'], padding)
+        if kind == 'avgpool':
+            return L.adaptive_avg_pool(as_fp(xq, cur_sz), *node.out_size)
+        if kind == 'fc':
+            y = L.linear(as_fp(xq, cur_sz).reshape(xq.shape[0], -1), layers[str(node.index)])
+            return L.apply_activation(a['activation'], y)
+        raise ValueError(kind)
 
     def _keep(self, i, val, sz, cache, inter, intermediates, as_fp):
         """Record node ``i``'s output, cache it for its later consumers and

@@ -18,6 +18,7 @@ from pqdet_tpu_torch.ops.postprocess import (NMSResult, letterbox_affine,
                                              nms_batch, nms_to_numpy,
                                              ratio_pad_affine, recover_bboxes)
 from pqdet_tpu_torch.ops.preprocess import device_normalize
+from pqdet_tpu_torch.utils import tracing
 
 # dataset name -> on-device inverse affine of its eval resize
 RECOVER_AFFINE_REGISTER = {
@@ -56,13 +57,19 @@ def build_predict_pipeline(network, cfg, compute_dtype=None,
 
     @torch.inference_mode()
     def run(params, images, shapes) -> NMSResult:
-        images = torch.as_tensor(images, device=dev)
-        shapes = torch.as_tensor(shapes, device=dev).to(torch.float32)
-        preds = apply_fn(params, device_normalize(images))
-        recovered = recover_bboxes(preds, input_size, shapes, affine=affine)
-        return nms_batch(recovered, ev.score_threshold, ev.iou_threshold,
-                         ev.max_detections, ev.pool_factor, ev.nms_method,
-                         ev.nms_sigma)
+        with tracing.span('predict.upload'):
+            images = torch.as_tensor(images, device=dev)
+            shapes = torch.as_tensor(shapes, device=dev).to(torch.float32)
+        with tracing.span('predict.normalize'):
+            images = device_normalize(images)
+        with tracing.span('predict.forward'):
+            preds = apply_fn(params, images)
+        with tracing.span('predict.recover'):
+            recovered = recover_bboxes(preds, input_size, shapes, affine=affine)
+        with tracing.span('predict.nms'):
+            return nms_batch(recovered, ev.score_threshold, ev.iou_threshold,
+                             ev.max_detections, ev.pool_factor, ev.nms_method,
+                             ev.nms_sigma)
 
     return run
 
@@ -83,18 +90,26 @@ def make_batch_predict(run, params) -> Callable[[Dict], List[np.ndarray]]:
     warned = {'overflow': False, 'saturated': False}
 
     def predict(batch):
-        res = run(params, batch['image'], batch['shape'])
-        res = NMSResult(*(t.cpu().numpy() for t in res))
-        n = batch['count']
+        with tracing.span('predict.request'):
+            res = run(params, batch['image'], batch['shape'])
+            with tracing.span('predict.copy_home'):
+                res = NMSResult(*(t.cpu().numpy() for t in res))
+            with tracing.span('predict.to_numpy'):
+                return to_numpy(res, batch['count'])
+
+    def to_numpy(res, n):
         max_det = res.valid.shape[1]
         n_over = int(res.overflow[:n].sum())
+        n_sat = int((res.valid[:n].sum(axis=1) == max_det).sum())
+        tracing.count('predict.images', n)
+        tracing.count('predict.overflow_images', n_over)
+        tracing.count('predict.saturated_images', n_sat)
         if n_over and not warned['overflow']:
             warned['overflow'] = True
             print(f'WARNING: NMS candidate pool overflowed on {n_over} '
                   f'image(s) in a batch (pool = eval.max_detections * '
                   f'eval.pool_factor top-scored candidates; the rest '
                   f'never enter NMS). Double eval.pool_factor.')
-        n_sat = int((res.valid[:n].sum(axis=1) == max_det).sum())
         if n_sat and not warned['saturated']:
             warned['saturated'] = True
             print(f'WARNING: NMS output saturated on {n_sat} image(s) in '

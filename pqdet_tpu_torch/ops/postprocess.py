@@ -14,6 +14,7 @@ from typing import NamedTuple
 import torch
 
 from pqdet_tpu_torch.ops.boxes import iou
+from pqdet_tpu_torch.utils import tracing
 
 
 # ----------------------------------------------------------------- recovery
@@ -133,7 +134,8 @@ def _greedy_fixed_point(valid, sup, k: int):
     higher-ranked j suppresses i. From keep = valid it converges in
     O(longest suppression chain) steps; a converged image stays put.
 
-    Eagerly the loop reads its condition on the host. ``torch.export``
+    Eagerly the loop reads its condition on the host, each read counted in
+    ``nms.rounds`` (``utils/tracing.py``). ``torch.export``
     cannot trace that read, so under export the same steps run in a
     ``while_loop`` over an (it, prev, keep) carry, bounded by ``k`` as the
     eager loop is."""
@@ -154,6 +156,7 @@ def _greedy_fixed_point(valid, sup, k: int):
     prev, keep, it = valid, step(valid), 0
     while it < k and bool((keep != prev).any()):
         prev, keep, it = keep, step(keep), it + 1
+    tracing.count('nms.rounds', min(it + 1, k))
     return keep
 
 

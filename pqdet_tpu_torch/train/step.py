@@ -58,6 +58,7 @@ from pqdet_tpu_torch.ops.labels import label_assigner_from_config
 from pqdet_tpu_torch.ops.preprocess import device_normalize
 from pqdet_tpu_torch.parallel.mesh import all_gather_batch, all_reduce_mean_, rank, world
 from pqdet_tpu_torch.train.schedule import build_schedule
+from pqdet_tpu_torch.utils import tracing
 
 COMPUTE_DTYPES = {'float32': None, 'bfloat16': torch.bfloat16}
 
@@ -282,12 +283,14 @@ def make_loss_fn(network, compute_dtype=None, remat: int = 0, label_fn=None,
             def tap(i, t):
                 if i in head_in:
                     stats[i] = t.detach().abs().amax().float()
-        image, targets, band = inputs(batch)
-        losses, new_state = network.forward_train(params, state, image, targets=targets,
-                                                  rng=rng, compute_dtype=compute_dtype,
-                                                  remat_segments=remat_n, tap=tap,
-                                                  s2d_stem=s2d_stem, group=group,
-                                                  spatial=band)
+        with tracing.span('step.inputs'):
+            image, targets, band = inputs(batch)
+        with tracing.span('step.forward'):
+            losses, new_state = network.forward_train(params, state, image, targets=targets,
+                                                      rng=rng, compute_dtype=compute_dtype,
+                                                      remat_segments=remat_n, tap=tap,
+                                                      s2d_stem=s2d_stem, group=group,
+                                                      spatial=band)
         return losses['loss'][0], (losses, new_state, stats)
 
     return loss_fn
@@ -310,7 +313,8 @@ def value_and_grad(loss_fn, params, state, batch, rng=None):
     reach)."""
     leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
     loss, aux = loss_fn(tree_unflatten(params, leaves), state, batch, rng)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    with tracing.span('step.backward'):
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(t) if g is None else g for g, t in zip(grads, leaves)]
     return (loss.detach(), _detach(aux)), tree_unflatten(params, grads)
 
@@ -356,11 +360,13 @@ def make_qat_loss_fn(network, observing: bool = True, bn_frozen: bool = False,
 
     def loss_fn(params, state, batch, rng: Optional[torch.Generator] = None):
         ctx = QuantCtx(state['quant'], observing=observing, group=group)
-        image, targets, band = inputs(batch)
-        losses, new_state = network.forward_train(params, state, image, targets=targets,
-                                                  train=not bn_frozen, rng=rng,
-                                                  compute_dtype=compute_dtype, quant_ctx=ctx,
-                                                  group=group, spatial=band)
+        with tracing.span('step.inputs'):
+            image, targets, band = inputs(batch)
+        with tracing.span('step.forward'):
+            losses, new_state = network.forward_train(params, state, image, targets=targets,
+                                                      train=not bn_frozen, rng=rng,
+                                                      compute_dtype=compute_dtype,
+                                                      quant_ctx=ctx, group=group, spatial=band)
         new_state = {**new_state, 'quant': ctx.new_obs}
         return losses['loss'][0], (losses, new_state, {})
 
@@ -416,13 +422,18 @@ def _step_of(loss_fn, optimizer: Adam, sparse_ratio: float = 0.0,
     """The train step around ``loss_fn``: grads (summed over ``group``'s
     ranks, divided by ``shards``), sparse-L1, the update and the metrics."""
     def train_step(params, state, opt_state, batch, rng=None):
+        with tracing.span('step'):
+            return step(params, state, opt_state, batch, rng)
+
+    def step(params, state, opt_state, batch, rng):
         (_, (losses, new_state, stats)), grads = value_and_grad(
             loss_fn, params, state, batch, rng)
         if group is not None:
             grads = average_grads(grads, group, shards)
         if sparse_ratio and sparse_ids:
             grads = add_sparse_l1(grads, params, sparse_ids, sparse_ratio)
-        params, opt_state = optimizer.update(grads, opt_state, params)
+        with tracing.span('step.update'):
+            params, opt_state = optimizer.update(grads, opt_state, params)
         metrics = {
             'loss': losses['loss'][0],
             'giou_loss': losses['giou_loss'][0],

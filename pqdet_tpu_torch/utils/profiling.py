@@ -4,6 +4,7 @@
 
 from __future__ import annotations
 
+import json
 import os
 import time
 from contextlib import contextmanager
@@ -101,16 +102,45 @@ def forward_latency_ms(fn: Callable[[], object], device, warmup: int = 10,
 def trace(log_dir: str):
     """``torch.profiler`` over the block, host and (on the card) device
     activity, written to ``log_dir`` as a Chrome trace
-    (``trace.json``, which chrome://tracing and Perfetto read). Yields
-    ``log_dir``, as the JAX package's ``trace`` does."""
+    (``trace.json``, which chrome://tracing and Perfetto read), with the
+    program's spans (``utils/tracing.py``) on a row of their own and its
+    counters under ``programCounters``. Yields ``log_dir``, as the JAX
+    package's ``trace`` does."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from pqdet_tpu_torch.utils import tracing
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir, 'trace.json')
     with profile(activities=activities) as prof:
+        tracing.clear()
         yield log_dir
         if torch.cuda.is_available():
             torch.cuda.synchronize()
-    prof.export_chrome_trace(os.path.join(log_dir, 'trace.json'))
+    prof.export_chrome_trace(path)
+    merge_spans(path, tracing.records())
+
+
+def merge_spans(path: str, recs: Dict):
+    """Add ``recs`` (``tracing.records()``) to the Chrome trace at
+    ``path``: each closed span a complete event on a row of its own,
+    'program spans', on the trace's time base (µs after its
+    ``baseTimeNanoseconds``), and the counters as ``programCounters``."""
+    with open(path) as f:
+        doc = json.load(f)
+    base = int(doc.get('baseTimeNanoseconds', 0))
+    events = doc.setdefault('traceEvents', [])
+    pid = 1 + max([e['pid'] for e in events if isinstance(e.get('pid'), int)], default=0)
+    events.append({'ph': 'M', 'name': 'process_name', 'pid': pid, 'tid': 0,
+                   'args': {'name': 'program spans'}})
+    for i, (name, start, end, parent, root) in enumerate(recs['spans']):
+        if end is not None:
+            events.append({'ph': 'X', 'cat': 'program', 'name': name, 'pid': pid, 'tid': 0,
+                           'ts': (start - base) / 1e3, 'dur': (end - start) / 1e3,
+                           'args': {'id': i, 'parent': parent, 'root': root}})
+    doc['programCounters'] = recs['counters']
+    with open(path, 'w') as f:
+        json.dump(doc, f)
