@@ -58,7 +58,9 @@ Builds the CUDA kernels from pqdet_tpu_torch/csrc with nvcc (sm_90a), then:
    build_predict_pipeline(apply_fn=...): 16 requests of 4 images. The
    launch counts are set to 0 just before and read just after; per
    forward they must be exactly 58 qconv1x1_s8 (57 pointwise + the stem),
-   26 qdwconv3x3_s8 and 1 decode. The kernel path is held to apply(...,
+   26 qdwconv3x3_s8, 1 decode and 15 int8_sandwich (the input, 10
+   shortcuts, 4 routes; phase 6 holds the sandwich kernel to the walk's
+   chain at each of their shapes, byte for byte). The kernel path is held to apply(...,
    plain=True) node by node (the phase 6 bound) and on the preds (scores
    0.02, boxes 1 px); every detection must be finite. The int8 preds
    against the bf16 fp path on the same weights are printed, not gated;
@@ -208,7 +210,8 @@ Builds the CUDA kernels from pqdet_tpu_torch/csrc with nvcc (sm_90a), then:
    'int').apply(plain=True)``, ``Int8Inference(mode='kernel')``. The fp and
    ``'int'`` graphs must hold no operator of the port's namespace and
    launch no kernel; the ``'kernel'`` graph must hold 58 ``qconv1x1_s8``,
-   26 ``qdwconv3x3_s8`` and 1 ``decode_heads`` operators and launch them
+   26 ``qdwconv3x3_s8``, 15 ``int8_sandwich`` and 1 ``decode_heads``
+   operators and launch them
    each call (counted here and in the fresh process; the calls here count
    in the kernels line); (c) ``cli.convert onnx`` of the two weights saved
    as checkpoints, run by ``onnx_runtime.run_model`` on the card: fp within
@@ -884,6 +887,127 @@ def int8_bound_ms(kind, n, h, w, cin, cout, stride, requant):
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OP_PER_S * 1e3
 
 
+def sandwich_launches(qnet) -> int:
+    """``int8_sandwich`` launches of one kernel-mode forward of the quant
+    graph ``qnet``: the input's quantisation, each shortcut and each route
+    (the zoo's graphs quantise every such output, from s8 sources)."""
+    return 1 + sum(n.kind in ('shortcut', 'route') for n in qnet.graph.nodes)
+
+
+def sandwich_shapes(qnet, size):
+    """{(form, H, W, channels of each source, act): count} of the
+    ``int8_sandwich`` launches of one forward of ``qnet`` at input side
+    ``size``, as the kernel sees them."""
+    nodes, sides = qnet.graph.nodes, out_sides(qnet.graph, size)
+    shapes = {('input', size, size, (nodes[0].in_channels,), 'linear'): 1}
+    for n in nodes:
+        side = sides[n.index]
+        if n.kind == 'shortcut':
+            key = ('shortcut', side, side, (n.out_channels,) * 2, n.attrs['activation'])
+        elif n.kind == 'route':
+            key = ('route', side, side, tuple(nodes[r].out_channels for r in n.refs), 'linear')
+        else:
+            continue
+        shapes[key] = shapes.get(key, 0) + 1
+    return shapes
+
+
+def sandwich_inputs(gen, form, n, h, w, chans, ties, dev):
+    """Sources, (scale, zp) source edges and out edge of one sandwich.
+    ``ties``: source scales 3 and 1 and an out scale of 2, so y / 2 lands on
+    .5 ties wherever y is odd and saturates; else unequal random scales."""
+    import torch
+    n_q = 0 if form == 'input' else len(chans)
+    zp = lambda lo, hi: float(torch.randint(lo, hi, (), generator=gen))  # noqa: E731
+    if ties:
+        edges = [((3.0, 1.0)[j % 2], zp(96, 161)) for j in range(n_q)]
+        out = (2.0, zp(112, 145))
+    else:
+        scale = lambda: float(torch.rand((), generator=gen) * 0.056 + 0.004)  # noqa: E731
+        edges = [(scale(), zp(0, 256)) for _ in range(n_q)]
+        out = (scale(), zp(0, 256))
+    if form == 'input':
+        if ties:
+            x = (torch.randint(-300, 300, (n, h, w, chans[0]), generator=gen) + 0.5) * out[0]
+        else:
+            x = torch.randn((n, h, w, chans[0]), generator=gen) * 2.0
+        return [x.float().to(dev)], edges, out
+    return [torch.randint(-128, 128, (n, h, w, c), generator=gen, dtype=torch.int8).to(dev)
+            for c in chans], edges, out
+
+
+def sandwich_chain(srcs, edges, out, form, act):
+    """The walk's PyTorch chain of one sandwich node (``Int8Inference.apply``),
+    the edges as Python floats: no host read, so a CUDA graph can hold it."""
+    import torch
+    from pqdet_tpu_torch.compress.quantized import _dequant_s8, _quant_s8
+    from pqdet_tpu_torch.model import layers as L
+    if form == 'input':
+        return _quant_s8(srcs[0], out)
+    ys = [_dequant_s8(t, e) for t, e in zip(srcs, edges)]
+    if form == 'shortcut':
+        return _quant_s8(L.apply_activation(act, ys[0] + ys[1]), out)
+    return _quant_s8(ys[0] if len(ys) == 1 else torch.cat(ys, dim=-1), out)
+
+
+def sandwich_parity(gen, dev, shapes, batches, label):
+    """``int8_sandwich`` against the walk's chain on the same CUDA tensors at
+    each of ``shapes`` (``sandwich_shapes``) and ``batches``, on random codes
+    with random edges and on edges that give .5 ties and saturation: every
+    code equal. Returns the number of codes apart (0; raises otherwise)."""
+    import torch
+    from pqdet_tpu_torch.ops.qconv import int8_sandwich, sandwich_scalars
+    bad, n_codes = [], 0
+    for (form, h, w, chans, act), n in ((k, b) for k in sorted(shapes) for b in batches):
+        for ties in (False, True):
+            srcs, edges, out = sandwich_inputs(gen, form, n, h, w, chans, ties, dev)
+            with torch.inference_mode():
+                got = int8_sandwich(srcs, sandwich_scalars(edges, out, dev), form=form, act=act)
+                want = sandwich_chain(srcs, edges, out, form, act)
+            n_diff = int((got != want).sum())
+            n_codes += got.numel()
+            if n_diff or got.shape != want.shape:
+                bad.append((form, n, h, w, chans, act, ties, n_diff))
+    print(f'{label}: int8_sandwich at {len(shapes)} node shapes x B {batches}, random edges and '
+          f'.5 ties: {n_codes} codes, {sum(b[-1] for b in bad)} apart '
+          f'{"ok" if not bad else f"FAIL {bad}"}')
+    if bad:
+        raise AssertionError(f'{label}: int8_sandwich disagrees with the walk\'s chain: {bad}')
+    return 0
+
+
+def sandwich_bytes(form, n, h, w, chans) -> int:
+    """Bytes an int8_sandwich launch must move: each source read once (f32
+    for the input), each output byte written once."""
+    m = n * h * w * sum(chans)
+    return {'input': 5 * m, 'shortcut': 3 * m // 2, 'route': 2 * m}[form]
+
+
+def sandwich_times(gen, dev, shapes, tag, label, batch=BATCH):
+    """Per forward of ``batch`` images at ``shapes`` (``sandwich_shapes``):
+    the kernel's device time from CUDA graphs, the walk's chain's, and the
+    bytes bound. Returns {'ms', 'plain_ms', 'library_ms', 'bound_ms',
+    'bound_by'}."""
+    from pqdet_tpu_torch.ops.qconv import int8_sandwich, sandwich_scalars
+    tot = {'ms': 0.0, 'plain_ms': 0.0, 'library_ms': None, 'bound_ms': 0.0, 'bound_by': 'bytes'}
+    for (form, h, w, chans, act), count in sorted(shapes.items()):
+        srcs, edges, out = sandwich_inputs(gen, form, batch, h, w, chans, False, dev)
+        sc = sandwich_scalars(edges, out, dev)
+        k_ms = device_ms(lambda: int8_sandwich(srcs, sc, form=form, act=act))
+        p_ms = device_ms(lambda: sandwich_chain(srcs, edges, out, form, act), iters=5, replays=2)
+        b_ms = sandwich_bytes(form, batch, h, w, chans) / HBM_BYTES_PER_S * 1e3
+        tot['ms'] += count * k_ms
+        tot['plain_ms'] += count * p_ms
+        tot['bound_ms'] += count * b_ms
+        print(f'{label}: {tag} int8_sandwich {form} x{count} B={batch} H={h} W={w} C={chans} '
+              f'{act}: kernel {k_ms:.4f} ms, chain {p_ms:.4f} ms, bound {b_ms:.5f} ms (bytes; '
+              f'{100 * b_ms / k_ms:.1f} % of it)')
+    print(f'{label}: {tag} int8_sandwich per B={batch} forward ({sum(shapes.values())} launches): '
+          f'kernel {tot["ms"]:.4f} ms, chain {tot["plain_ms"]:.4f} ms, bound '
+          f'{tot["bound_ms"]:.5f} ms (bytes; {100 * tot["bound_ms"] / tot["ms"]:.1f} % of it)')
+    return tot
+
+
 # depthwise shapes beyond the graph's, whose C are all multiples of 16:
 # C 27 and 75 (one channel a thread, byte copies), C 20 (4-byte copies and
 # stores, a partly masked channel slice), W not a multiple of the tile, a
@@ -1012,10 +1136,11 @@ def phase7_int8_path(gen, dev, cfg, batch, tag, qnet, shapes):
     from pqdet_tpu_torch.ops.decode_kernel import decode_heads
     from pqdet_tpu_torch.ops.fused_ir import prepare_fused_ir
     from pqdet_tpu_torch.ops.preprocess import device_normalize
-    from pqdet_tpu_torch.ops.qconv import qconv1x1_s8, qdwconv3x3_s8
+    from pqdet_tpu_torch.ops.qconv import int8_sandwich, qconv1x1_s8, qdwconv3x3_s8
 
     n_pw = sum(c for k, c in shapes.items() if k[0] in ('pw', 'stem'))
     n_dw = sum(c for k, c in shapes.items() if k[0] == 'dw')
+    n_sw = sandwich_launches(qnet)
     params, state = qnet.init(gen, device=dev)
     seed_bn(params, state, gen, dev)
     t0 = time.perf_counter()
@@ -1034,15 +1159,17 @@ def phase7_int8_path(gen, dev, cfg, batch, tag, qnet, shapes):
     predict(requests[0])                      # warm-up
     torch.cuda.synchronize()
     qconv1x1_s8.launches = qdwconv3x3_s8.launches = decode_heads.launches = 0
+    int8_sandwich.launches = 0
     dets = [predict(r) for r in requests]
     torch.cuda.synchronize()
     launches = {'qconv1x1_s8': qconv1x1_s8.launches,
-                'qdwconv3x3_s8': qdwconv3x3_s8.launches, 'decode': decode_heads.launches}
+                'qdwconv3x3_s8': qdwconv3x3_s8.launches, 'decode': decode_heads.launches,
+                'int8_sandwich': int8_sandwich.launches}
     want = {'qconv1x1_s8': n_pw * N_REQUESTS, 'qdwconv3x3_s8': n_dw * N_REQUESTS,
-            'decode': N_REQUESTS}
+            'decode': N_REQUESTS, 'int8_sandwich': n_sw * N_REQUESTS}
     print(f'phase 7: served {N_REQUESTS} int8 requests of {BATCH} images at {SIZE}x{SIZE}; '
-          f'launches {launches} (want {want}: {n_pw} + {n_dw} + 1 per forward)')
-    if (n_pw, n_dw) != (58, 26) or launches != want:
+          f'launches {launches} (want {want}: {n_pw} + {n_dw} + 1 + {n_sw} per forward)')
+    if (n_pw, n_dw, n_sw) != (58, 26, 15) or launches != want:
         raise AssertionError(f'int8 kernel launches {launches} != {want}')
     nc = qnet.num_classes
     n_det = 0
@@ -1247,16 +1374,16 @@ def train_batch(gen, b, size, dev, max_gt, classes=20):
 def kernel_launches():
     from pqdet_tpu_torch.ops.decode_kernel import decode_heads
     from pqdet_tpu_torch.ops.fused_ir import fused_ir_conv
-    from pqdet_tpu_torch.ops.qconv import qconv1x1_s8, qdwconv3x3_s8
+    from pqdet_tpu_torch.ops.qconv import int8_sandwich, qconv1x1_s8, qdwconv3x3_s8
     return {f.__name__: f.launches
-            for f in (decode_heads, fused_ir_conv, qconv1x1_s8, qdwconv3x3_s8)}
+            for f in (decode_heads, fused_ir_conv, qconv1x1_s8, qdwconv3x3_s8, int8_sandwich)}
 
 
 def reset_kernel_launches():
     from pqdet_tpu_torch.ops.decode_kernel import decode_heads
     from pqdet_tpu_torch.ops.fused_ir import fused_ir_conv
-    from pqdet_tpu_torch.ops.qconv import qconv1x1_s8, qdwconv3x3_s8
-    for f in (decode_heads, fused_ir_conv, qconv1x1_s8, qdwconv3x3_s8):
+    from pqdet_tpu_torch.ops.qconv import int8_sandwich, qconv1x1_s8, qdwconv3x3_s8
+    for f in (decode_heads, fused_ir_conv, qconv1x1_s8, qdwconv3x3_s8, int8_sandwich):
         f.launches = 0
 
 
@@ -1925,7 +2052,8 @@ QAT_NODE_GRAD_L2 = 1e-4        # relative L2 of each grad (an input's, a param's
 QAT_WALK_PARTS_RTOL = 1e-4
 QAT_DRIFT_FACTOR = 2.0
 # per int8 eval forward (phase 7's count)
-INT8_FORWARD_LAUNCHES = {'qconv1x1_s8': 58, 'qdwconv3x3_s8': 26, 'decode_heads': 1}
+INT8_FORWARD_LAUNCHES = {'qconv1x1_s8': 58, 'qdwconv3x3_s8': 26, 'decode_heads': 1,
+                         'int8_sandwich': 15}
 INT8_EVAL_SAME_IMAGES = 30     # of the 32 eval images, identical to the plain versions'
 INT8_EVAL_AGREEMENT = 0.999    # share of the plain versions' detections found
 
@@ -3360,7 +3488,7 @@ def phase14_arc(dev, tag, tmp, corpus, gate):
     qshapes = int8_conv_shapes(qnet, PRUNE_SIZE)
     per_forward = {'qconv1x1_s8': sum(c for k, c in qshapes.items() if k[0] != 'dw'),
                    'qdwconv3x3_s8': sum(c for k, c in qshapes.items() if k[0] == 'dw'),
-                   'decode_heads': 1}
+                   'decode_heads': 1, 'int8_sandwich': sandwich_launches(qnet)}
     recs['qat'] = {}
     times['qat'] = run_train_cli(['--yaml', quant_yaml] + devarg + data + [
         'experiment_name', 'shapes_pruned_qat', 'weight.resume', ft_ckpt,
@@ -3564,7 +3692,8 @@ NMS_ARGS = (0.1, 0.45, 256)     # export_stablehlo's defaults
 ONNX_FP_TOL = 1e-4              # tests/test_onnx.py:73, rtol = atol
 ONNX_BOX_MEDIAN = 1.0           # tests/test_onnx.py:112-113: px ...
 ONNX_SCORE_MEDIAN = 0.05        # ... and scores
-INT8_PER_FORWARD = {'qconv1x1_s8': 58, 'qdwconv3x3_s8': 26, 'decode_heads': 1}
+INT8_PER_FORWARD = {'qconv1x1_s8': 58, 'qdwconv3x3_s8': 26, 'decode_heads': 1,
+                    'int8_sandwich': 15}
 
 
 def load_artifacts(manifest_path):
@@ -3855,6 +3984,7 @@ REGNET_TRAINED = 'regnetx-600m-fpn'
 REGNET_GAIN = 1.5              # seed_bn's weight gain: scores 0.24-0.76 at 512, boxes finite
 REGNET_REQUESTS = 8            # (b): requests of each model and mode, launches counted
 REGNET_TIMED_REQUESTS = 20     # (e): requests of each model and mode, p50 and p90
+SANDWICH_CELL_BATCH = 80       # (e): int8_sandwich also at the rx600-serve-int8-b80 cell's batch
 REGNET_TRAIN_STEPS = 10        # (c): bf16 steps at B=12, 512x512 on one batch ...
 REGNET_TRAIN_WARMUP = 3        # ... the first ones out of the step's p50
 
@@ -3955,6 +4085,9 @@ def phase16_kernels(dev, tag, qnets):
     shapes.update(ydw)
     int8_err = phase6_int8_parity(gen, dev, shapes, batches=(BATCH,), edges=False,
                                   label='phase 16 (a)')
+    for name in REGNET_FPN:
+        sandwich_parity(phase_gen(164), dev, sandwich_shapes(qnets[name], SIZE), (BATCH,),
+                        f'phase 16 (a) {name}')
     chains = chain_shapes(DetectionNetwork.from_cfg(get_cfg(REGNET_YOLO)), SIZE)
     checks = [(f'{a},{b},{c}', n, h, h, cin, e, p, a is not None, acts, 0.0)
               for a, b, c, h, cin, e, p, acts in chains for n in (1, BATCH)]
@@ -3976,8 +4109,8 @@ def phase16_serving(dev, tag, gate):
     from pqdet_tpu_torch.zoo import get_cfg
     gen = phase_gen(161)
     batch = request_maker(gen, dev)
-    launches = dict.fromkeys(('decode_heads', 'fused_ir_conv', 'qconv1x1_s8', 'qdwconv3x3_s8'),
-                             0)
+    launches = dict.fromkeys(('decode_heads', 'fused_ir_conv', 'qconv1x1_s8', 'qdwconv3x3_s8',
+                              'int8_sandwich'), 0)
     servers, models = {}, {}
     for name in REGNET_FPN + (REGNET_YOLO,):
         cfg_text = get_cfg(name)
@@ -3993,7 +4126,8 @@ def phase16_serving(dev, tag, gate):
         q8 = int8_server(cfg_text, params, state, batch, dev)
         servers[name] = {'bf16': bf, 'int8': q8}
         per = {'bf16': {'decode_heads': 1, 'fused_ir_conv': len(bf[2])},
-               'int8': {'decode_heads': 1, 'qconv1x1_s8': n_pw, 'qdwconv3x3_s8': n_dw}}
+               'int8': {'decode_heads': 1, 'qconv1x1_s8': n_pw, 'qdwconv3x3_s8': n_dw,
+                        'int8_sandwich': sandwich_launches(qnet)}}
         requests = [batch(BATCH) for _ in range(REGNET_REQUESTS)]
         for mode, (predict, *_) in (('bf16', bf), ('int8', q8)):
             predict(requests[0])                       # warm-up
@@ -4172,6 +4306,10 @@ def phase16_timings(dev, tag, servers, models, kernels, ptx):
     for name in REGNET_FPN:
         int8_kernel_times(gen, dev, int8_conv_shapes(models[name][3], SIZE), ptx, tag,
                           f'phase 16 (e) {name}')
+        sandwich_times(gen, dev, sandwich_shapes(models[name][3], SIZE), tag,
+                       f'phase 16 (e) {name}')
+    sandwich_times(gen, dev, sandwich_shapes(models[REGNET_TRAINED][3], SIZE), tag,
+                   f'phase 16 (e) {REGNET_TRAINED}', batch=SANDWICH_CELL_BATCH)
     yq = int8_conv_shapes(models[REGNET_YOLO][3], SIZE)
     int8_kernel_times(gen, dev, {k: c for k, c in yq.items() if k[0] == 'dw'}, ptx, tag,
                       f'phase 16 (e) {REGNET_YOLO}')
@@ -4505,8 +4643,8 @@ def phase17_kernels(dev, tag, gate, ptx):
         heads = [(size // st, st) for st in (8, 16, 32)]
         decode_err = max(decode_err, decode_parity(gen, dev, heads, nc, f'phase 17 (b) {size}'))
 
-    launches = dict.fromkeys(('decode_heads', 'fused_ir_conv', 'qconv1x1_s8', 'qdwconv3x3_s8'),
-                             0)
+    launches = dict.fromkeys(('decode_heads', 'fused_ir_conv', 'qconv1x1_s8', 'qdwconv3x3_s8',
+                              'int8_sandwich'), 0)
     for name, cfg_text, head, sizes, gain in models:
         net = DetectionNetwork.from_cfg(cfg_text)
         params, state = net.init(gen, device=dev)
@@ -4953,8 +5091,8 @@ def phase18_s2d_serving(dev, tag, gate, net, params, state):
         run = build_predict_pipeline(net, cfg, compute_dtype=bf16, fused_ir=table, device=dev)
         predicts[s2d] = make_batch_predict(run, fparams)
     batch = request_maker(gen, dev)
-    launches = dict.fromkeys(('decode_heads', 'fused_ir_conv', 'qconv1x1_s8', 'qdwconv3x3_s8'),
-                             0)
+    launches = dict.fromkeys(('decode_heads', 'fused_ir_conv', 'qconv1x1_s8', 'qdwconv3x3_s8',
+                              'int8_sandwich'), 0)
     for b in (1, BATCH):
         requests = [batch(b) for _ in range(S2D_REQUESTS)]
         predicts[S2D](requests[0])                    # warm-up
@@ -5220,8 +5358,8 @@ def phase18_visdrone(dev, tag, tmp, gate, ptx, host_ips):
     eval_data = EvalData(qcfg)
     n_pw = sum(1 for n in qnet.graph.nodes if n.kind == 'convolutional'
                and not n.attrs['groups'] == n.in_channels == n.attrs['filters'])
-    launches = dict.fromkeys(('decode_heads', 'fused_ir_conv', 'qconv1x1_s8', 'qdwconv3x3_s8'),
-                             0)
+    launches = dict.fromkeys(('decode_heads', 'fused_ir_conv', 'qconv1x1_s8', 'qdwconv3x3_s8',
+                              'int8_sandwich'), 0)
     first = {}
     for i in range(len(eval_data)):
         b = eval_data.batch(i)
@@ -5239,7 +5377,8 @@ def phase18_visdrone(dev, tag, tmp, gate, ptx, host_ips):
         predict(b)
         torch.cuda.synchronize()
         again = time.perf_counter() - t1
-        want = {**dict.fromkeys(got, 0), 'qconv1x1_s8': n_pw, 'decode_heads': 1}
+        want = {**dict.fromkeys(got, 0), 'qconv1x1_s8': n_pw, 'decode_heads': 1,
+                'int8_sandwich': sandwich_launches(qnet)}
         gate(got == want and all(bool(torch.isfinite(torch.from_numpy(d)).all()) for d in dets),
              f'(c) int8 request at {hw[0]}x{hw[1]} (B=1): launches {got} (want {want}), '
              f'{sum(len(d) for d in dets)} finite detections; first call {first[hw]:.3f} s, the '
@@ -6874,12 +7013,14 @@ def main() -> int:
     qnet = DetectionNetwork.from_cfg(get_cfg('mobilenetv2-fpn'), quant=True)
     shapes = int8_conv_shapes(qnet, SIZE)
     int8_err = phase6_int8_parity(phase_gen(6), dev, shapes)
+    sandwich_parity(phase_gen(64), dev, sandwich_shapes(qnet, SIZE), (1, BATCH), 'phase 6')
     gen = phase_gen(7)
     inf, qprep, qpredict, qlaunches, qparams = phase7_int8_path(gen, dev, cfg, request_maker(gen, dev),
                                                        tag, qnet, shapes)
     gen = phase_gen(8)
     qt = phase8_int8_timings(gen, dev, cfg, request_maker(gen, dev), tag, shapes, inf, qprep,
                              qpredict, ptx)
+    swt = sandwich_times(phase_gen(84), dev, sandwich_shapes(qnet, SIZE), tag, 'phase 8')
 
     stamp('phase 9 starts')
     # ---- phases 9-10: the training step
@@ -6950,6 +7091,12 @@ def main() -> int:
          'max_abs_err': max(int8_err['qdwconv3x3_s8'], p14['int8_err']['qdwconv3x3_s8'],
                             p16['int8_err']['qdwconv3x3_s8']),
          **qt['qdwconv3x3_s8']},
+        {'name': 'int8_sandwich', 'route': 'cuda',
+         'source': 'pqdet_tpu_torch/csrc/qconv.cu',
+         'replaces': 'none: the JAX package leaves these f32 chains to XLA, which fuses them',
+         'launches': qlaunches['int8_sandwich'] + arc.get('int8_sandwich', 0)
+         + exported['int8_sandwich'] + rn['int8_sandwich'] + hd['int8_sandwich'],
+         'max_abs_err': 0, **swt},
     ]
     print(json.dumps({'kernels': kernels}))
     print(card)

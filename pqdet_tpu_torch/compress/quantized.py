@@ -45,9 +45,10 @@ from pqdet_tpu_torch.model.graph import solve_padding
 from pqdet_tpu_torch.model.network import (DetectionNetwork, decode_all_heads,
                                            decode_consumed_head, fuse_params)
 from pqdet_tpu_torch.ops.decode_kernel import head_views
-from pqdet_tpu_torch.ops.qconv import (make_scalars, qconv1x1_reference,
-                                       qconv1x1_s8, qdwconv3x3_reference,
-                                       qdwconv3x3_s8)
+from pqdet_tpu_torch.ops.qconv import (SANDWICH_ACTS, SANDWICH_MAX_SOURCES, dequant_s8,
+                                       int8_sandwich, make_scalars, qconv1x1_reference,
+                                       qconv1x1_s8, qdwconv3x3_reference, qdwconv3x3_s8,
+                                       quant_s8, sandwich_scalars)
 from pqdet_tpu_torch.utils import tracing
 from pqdet_tpu_torch.utils.codec import load_checkpoint, save_pytrees
 
@@ -146,12 +147,12 @@ def _quant_s8(x, scale_zp):
     """Affine-quantise to the RECENTRED signed form s = q_u8 - 128, which the
     int8 kernels take and give, so no layer needs a recentre op."""
     scale, zp = scale_zp
-    return torch.clamp(torch.round(x / scale + (zp - 128.0)), -128, 127).to(torch.int8)
+    return quant_s8(x, scale, zp - 128.0)
 
 
 def _dequant_s8(s, scale_zp):
     scale, zp = scale_zp
-    return (s.float() - (zp - 128.0)) * scale
+    return dequant_s8(s, scale, zp - 128.0)
 
 
 def _fake_quant_edge(x, scale_zp):
@@ -290,9 +291,18 @@ class Int8Inference:
         kernel path is held to; a yolo node's entry is its (B, H, W, A, 5+C)
         view of the preds. ``plain`` runs the kernels' plain versions
         on any device. ``kernels`` (``ops.library.Kernels``: the 1x1, the
-        depthwise and the decode entry, with the wrappers' signatures)
+        depthwise, the decode and the sandwich entry, with the wrappers'
+        signatures)
         replaces the wrappers: an exported program walks with
-        ``ops.library.OPS``, the registered operators."""
+        ``ops.library.OPS``, the registered operators.
+
+        In kernel mode the input's quantisation, each shortcut (of an
+        activation in SANDWICH_ACTS) and each route whose sources are all
+        s8 and whose output edge is quantised run as one ``int8_sandwich``
+        launch from s8 to s8; ``plain`` and a ``kernels`` without a
+        sandwich entry keep their PyTorch chain, as do every other node
+        between a dequant and a requant (pool, scale, fc) and the other
+        modes."""
         act = qparams['act']
         layers = qparams['layers']
         cache: Dict[int, tuple] = {}
@@ -300,11 +310,12 @@ class Int8Inference:
         heads = []                       # (raw f32 head, yolo node)
         kernel = self.mode == 'kernel'
         if kernels is not None:
-            pw_fn, dw_fn, dec_fn = kernels
+            pw_fn, dw_fn, dec_fn, sw_fn = kernels
         else:
             pw_fn = qconv1x1_reference if plain else qconv1x1_s8
             dw_fn = qdwconv3x3_reference if plain else qdwconv3x3_s8
             dec_fn = None
+            sw_fn = None if plain else int8_sandwich
 
         def as_fp(val, sz):
             if sz is None:
@@ -321,11 +332,27 @@ class Int8Inference:
                 return requant(y, act[key])
             return y, None  # f32 edge (feeds a yolo head)
 
+        def sandwich(key, srcs, form, act_name, chain):
+            """Sandwich node ``key`` as one ``int8_sandwich`` of ``srcs``
+            ((values, their edges); None where the kernel does not take the
+            node), or as ``chain()`` where it does not or ``plain``."""
+            if srcs is not None:
+                vals, edges = srcs
+                sc = self._sandwich_vector(key, edges, act[key], vals[0].device)
+                if sw_fn is not None:
+                    tracing.count('int8.sandwich_fused')
+                    return sw_fn(vals, sc, form=form, act=act_name), act[key]
+            tracing.count('int8.sandwich_plain')
+            return chain()
+
         # spans (utils/tracing.py): int8.sandwich around a quantisation or a
-        # node's dequant, f32 op and requant; int8.im2col, int8.kernel and
+        # node's dequant, f32 op and requant (counting the sandwich nodes
+        # that took the kernel and the chain); int8.im2col, int8.kernel and
         # int8.decode around the patches, the int8 kernels and the decode
         with tracing.span('int8.sandwich'):
-            xq, cur_sz = requant(x, act['input'])
+            srcs = ([x.contiguous()], ()) if kernel and x.dtype == torch.float32 else None
+            xq, cur_sz = sandwich('input', srcs, 'input', 'linear',
+                                  lambda: requant(x, act['input']))
 
         for node in self.graph.nodes:
             i, kind = node.index, node.kind
@@ -403,8 +430,12 @@ class Int8Inference:
                         xq = decode_consumed_head(xq, node, plain, capped=False)
             else:
                 with tracing.span('int8.sandwich'):
-                    y = self._f32_node(node, xq, cur_sz, cache, layers, as_fp)
-                    xq, cur_sz = edge(key, y)
+                    srcs = self._sandwich_sources(node, xq, cur_sz, cache) \
+                        if kernel and key in act else None
+                    xq, cur_sz = sandwich(
+                        key, srcs, kind, a['activation'] if kind == 'shortcut' else 'linear',
+                        lambda: edge(key, self._f32_node(node, xq, cur_sz, cache, layers,
+                                                         as_fp)))
             self._keep(i, xq, cur_sz, cache, inter, intermediates, as_fp)
 
         raws = [r for r, _ in heads]
@@ -417,6 +448,31 @@ class Int8Inference:
                 inter[str(node.index)] = view
             return preds, inter
         return preds
+
+    def _sandwich_vector(self, key, src_edges, out_edge, device):
+        """The sandwich's scalar vector of node ``key`` (or 'input'), made once
+        per edge qparams and device, in the cache of ``_scalar_vector``."""
+        k = (key, src_edges, out_edge, str(device))
+        sc = self._scalars.get(k)
+        if sc is None:
+            sc = self._scalars[k] = sandwich_scalars(src_edges, out_edge, device)
+        return sc
+
+    @staticmethod
+    def _sandwich_sources(node, xq, cur_sz, cache):
+        """([s8 values], (their edges)) of a node that ``int8_sandwich``
+        takes: a shortcut of an activation in SANDWICH_ACTS, or a route of
+        at most SANDWICH_MAX_SOURCES sources; None for any other node and
+        where a source is f32."""
+        if node.kind == 'shortcut' and node.attrs['activation'] in SANDWICH_ACTS:
+            srcs = [(xq, cur_sz), cache[node.refs[0]]]
+        elif node.kind == 'route' and len(node.refs) <= SANDWICH_MAX_SOURCES:
+            srcs = [cache[r] for r in node.refs]
+        else:
+            return None
+        if any(sz is None for _, sz in srcs):
+            return None
+        return [v for v, _ in srcs], tuple(sz for _, sz in srcs)
 
     @staticmethod
     def _f32_node(node, xq, cur_sz, cache, layers, as_fp):

@@ -965,6 +965,134 @@ int qlayout(QParams& p, int bk) {
   return p.off_ab + 8 * p.bn;
 }
 
+
+// ---------------------------------------------------------------------------
+// int8_sandwich: the f32 work of the int8 walk between a dequant and a
+// requant (compress/quantized.py, Int8Inference in kernel mode), one launch
+// a node, s8 in (f32 for the input) and s8 out. The f32 values stay in
+// registers. It replaces no TPU kernel: the JAX package leaves these chains
+// to XLA, which fuses them, while eager PyTorch runs each step as a launch
+// that writes f32 (13 launches a shortcut). Three forms:
+//
+//   SW_INPUT     out = q(x)                                 x f32
+//   SW_SHORTCUT  out = q(act(d0(a) + d1(b)))      act linear, relu or leaky
+//   SW_ROUTE     out[..., off_j : off_j + C_j] = q(d_j(src_j)), j < nsrc
+//
+//   d_j(s) = (s - zo_j) * scale_j
+//   q(y)   = clip(rint(y * (1 / scale_o) + zo_o), -128, 127)
+//
+// with zo = zp - 128. These are the steps of the PyTorch chain it replaces
+// (ops/qconv.py::int8_sandwich_reference), each one rounded operation in
+// the chain's order (__fsub_rn/__fmul_rn/__fadd_rn keep nvcc from
+// contracting a multiply and an add into one FMA). The chain's division by
+// the out scale, an f32 tensor over a Python scalar, runs on the card as a
+// multiply by the f32 reciprocal of the f32 scalar (PyTorch's CUDA
+// true-division kernel takes a CPU scalar so), which __frcp_rn gives bit
+// for bit. The scalars ride in a device vector s = (scale_j, zo_j for each
+// s8 source, then scale_o, zo_o) (ops/qconv.py::sandwich_scalars).
+//
+// What bounds it: bytes. Each input byte is read once and each output byte
+// written once; a thread takes V output bytes a step, 16 where the element
+// count (a route: every source's channel count) and the pointers allow,
+// else 8, 4, 2 or 1 (a concat of 88 + 96 channels takes 8). A route of two
+// or more sources finds its source by the output channel of the step's
+// first byte (V divides every C_j, so a step never straddles two sources).
+// Grid-stride loop over the steps, 32-bit indices (the wrapper keeps the
+// element count under 2^31).
+constexpr int SW_MAX_SRC = 8;
+enum SwForm { SW_INPUT = 0, SW_SHORTCUT = 1, SW_ROUTE = 2 };
+
+struct SwParams {
+  const void* src[SW_MAX_SRC];
+  int c[SW_MAX_SRC];     // channels of each source (route)
+  int off[SW_MAX_SRC];   // its first channel in the output (route)
+  int nsrc, ctot, act;
+  unsigned steps;        // output bytes / V
+  const float* s;
+  int8_t* out;
+};
+
+template <int V> struct SwWord;
+template <> struct SwWord<16> { using T = uint4; };
+template <> struct SwWord<8> { using T = uint2; };
+template <> struct SwWord<4> { using T = unsigned int; };
+template <> struct SwWord<2> { using T = unsigned short; };
+template <> struct SwWord<1> { using T = unsigned char; };
+
+template <int V>
+union SwBytes {
+  typename SwWord<V>::T w;
+  int8_t b[V];
+};
+
+template <int V>
+__device__ __forceinline__ SwBytes<V> sw_load(const void* base, unsigned step) {
+  SwBytes<V> v;
+  v.w = __ldg(static_cast<const typename SwWord<V>::T*>(base) + step);
+  return v;
+}
+
+__device__ __forceinline__ float sw_dequant(int8_t s, float scale, float zo) {
+  return __fmul_rn(__fsub_rn(static_cast<float>(s), zo), scale);
+}
+
+template <int V, int FORM>
+__global__ void __launch_bounds__(256) sandwich_kernel(const SwParams p) {
+  const int nq = FORM == SW_INPUT ? 0 : FORM == SW_SHORTCUT ? 2 : p.nsrc;
+  const float rcp = __frcp_rn(__ldg(p.s + 2 * nq)), zo_o = __ldg(p.s + 2 * nq + 1);
+  for (unsigned step = blockIdx.x * blockDim.x + threadIdx.x; step < p.steps;
+       step += gridDim.x * blockDim.x) {
+    SwBytes<V> o;
+    if constexpr (FORM == SW_INPUT) {
+      const float* x = static_cast<const float*>(p.src[0]) + static_cast<size_t>(step) * V;
+      float f[V];
+      if constexpr (V >= 4) {
+#pragma unroll
+        for (int k = 0; k < V / 4; ++k) {
+          const float4 q = __ldg(reinterpret_cast<const float4*>(x) + k);
+          f[4 * k] = q.x; f[4 * k + 1] = q.y; f[4 * k + 2] = q.z; f[4 * k + 3] = q.w;
+        }
+      } else if constexpr (V == 2) {
+        const float2 q = __ldg(reinterpret_cast<const float2*>(x));
+        f[0] = q.x; f[1] = q.y;
+      } else {
+        f[0] = __ldg(x);
+      }
+#pragma unroll
+      for (int i = 0; i < V; ++i) o.b[i] = requant_code(f[i], rcp, zo_o);
+    } else if constexpr (FORM == SW_SHORTCUT) {
+      const SwBytes<V> a = sw_load<V>(p.src[0], step), b = sw_load<V>(p.src[1], step);
+      const float sa = __ldg(p.s), za = __ldg(p.s + 1), sb = __ldg(p.s + 2),
+                  zb = __ldg(p.s + 3);
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const float y = __fadd_rn(sw_dequant(a.b[i], sa, za), sw_dequant(b.b[i], sb, zb));
+        o.b[i] = requant_code(apply_act(p.act, y), rcp, zo_o);
+      }
+    } else {
+      int j = 0;
+      unsigned at = step;
+      if (p.nsrc > 1) {
+        const unsigned e = step * V, pixel = e / p.ctot, c = e - pixel * p.ctot;
+        while (j + 1 < p.nsrc && c >= static_cast<unsigned>(p.off[j + 1])) ++j;
+        at = (pixel * p.c[j] + (c - p.off[j])) / V;
+      }
+      const SwBytes<V> a = sw_load<V>(p.src[j], at);
+      const float sj = __ldg(p.s + 2 * j), zj = __ldg(p.s + 2 * j + 1);
+#pragma unroll
+      for (int i = 0; i < V; ++i) o.b[i] = requant_code(sw_dequant(a.b[i], sj, zj), rcp, zo_o);
+    }
+    reinterpret_cast<typename SwWord<V>::T*>(p.out)[step] = o.w;
+  }
+}
+
+template <int FORM>
+void (*sandwich_of(int v))(SwParams) {
+  return v == 16 ? sandwich_kernel<16, FORM> : v == 8 ? sandwich_kernel<8, FORM>
+         : v == 4 ? sandwich_kernel<4, FORM> : v == 2 ? sandwich_kernel<2, FORM>
+                  : sandwich_kernel<1, FORM>;
+}
+
 }  // namespace
 
 extern "C" int qconv1x1_launch(const void* x, const void* w, const void* wscale,
@@ -1066,5 +1194,72 @@ extern "C" int qdw3x3_launch(const void* x, const void* w, const void* wscale,
   }
   kern<<<static_cast<unsigned>(grid), 256, static_cast<size_t>(smem),
          static_cast<cudaStream_t>(stream)>>>(prm);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// form (SwForm), nsrc sources src[j] of rows x chans[j] (the input and the
+// shortcut's sources: chans[j] = the output's channels), act (Act), the
+// scalar vector, out (rows x sum chans int8 for a route, rows x chans[0]
+// else). The step width V is the widest of 16, 8, 4, 2, 1 that divides
+// the element count (every chans[j] for a route of two or more) and every
+// pointer's alignment in elements.
+extern "C" int sandwich_launch(int form, int nsrc, const void* const* src, const int* chans,
+                               long long rows, int act, const void* scalars, void* out,
+                               void* stream) {
+  SwParams prm{};
+  if (form < SW_INPUT || form > SW_ROUTE || nsrc < 1 || nsrc > SW_MAX_SRC || rows < 1 ||
+      (form == SW_INPUT && nsrc != 1) || (form == SW_SHORTCUT && nsrc != 2) ||
+      (act != ACT_LINEAR && act != ACT_RELU && act != ACT_LEAKY))
+    return static_cast<int>(cudaErrorInvalidValue);
+  long long ctot = 0;
+  // the widest step each pointer's alignment allows: an s8 pointer's
+  // alignment in bytes; the input's f32 loads are float4 for V >= 4, float2
+  // for V = 2
+  auto widest = [](uintptr_t a, bool f32) {
+    if (f32) return a % 16 == 0 ? 16 : a % 8 == 0 ? 2 : 1;
+    int v = 16;
+    while (a % v) v /= 2;
+    return v;
+  };
+  int v = widest(reinterpret_cast<uintptr_t>(out), false);
+  for (int j = 0; j < nsrc; ++j) {
+    if (chans[j] < 1) return static_cast<int>(cudaErrorInvalidValue);
+    prm.src[j] = src[j];
+    prm.c[j] = chans[j];
+    prm.off[j] = static_cast<int>(ctot);
+    ctot += chans[j];
+    const int w = widest(reinterpret_cast<uintptr_t>(src[j]), form == SW_INPUT);
+    v = w < v ? w : v;
+    if (form == SW_ROUTE && nsrc > 1)
+      while (chans[j] % v) v /= 2;
+  }
+  if (form != SW_ROUTE) {
+    ctot = chans[0];
+    if (form == SW_SHORTCUT && chans[1] != chans[0]) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long total = rows * ctot;
+  if (total >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  while (total % v) v /= 2;
+  prm.nsrc = nsrc;
+  prm.ctot = static_cast<int>(ctot);
+  prm.act = act;
+  prm.steps = static_cast<unsigned>(total / v);
+  prm.s = static_cast<const float*>(scalars);
+  prm.out = static_cast<int8_t*>(out);
+  // enough CTAs to fill the card several times over, each looping over
+  // steps; the process uses one device
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const long long need = (static_cast<long long>(prm.steps) + 255) / 256;
+  const unsigned grid = static_cast<unsigned>(need < 8LL * sms ? need : 8LL * sms);
+  void (*kern)(SwParams) = form == SW_INPUT ? sandwich_of<SW_INPUT>(v)
+                           : form == SW_SHORTCUT ? sandwich_of<SW_SHORTCUT>(v)
+                                                 : sandwich_of<SW_ROUTE>(v);
+  kern<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(prm);
   return static_cast<int>(cudaGetLastError());
 }

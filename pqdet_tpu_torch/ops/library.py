@@ -2,15 +2,16 @@
 ``torch.export`` program can carry them (the counterpart of the Pallas
 calls that ``jax.export`` embeds as custom calls).
 
-``decode_heads``, ``qconv1x1_s8`` and ``qdwconv3x3_s8`` are registered in
-the ``pqdet`` namespace with ``torch.library.custom_op``. Each op is
-opaque to the tracer: its implementation is the kernel's wrapper, looked
+``decode_heads``, ``qconv1x1_s8``, ``qdwconv3x3_s8`` and ``int8_sandwich``
+are registered in the ``pqdet`` namespace with ``torch.library.custom_op``.
+Each op is opaque to the tracer: its implementation is the kernel's wrapper, looked
 up in its module at call time, which launches the kernel for a CUDA tensor
 (counting the launch) or raises, and runs the plain version for a CPU
 tensor. Nothing falls back: an artifact whose kernels cannot build raises
 where the wrapper raises. Each op has a fake (shape) function that mirrors
 the wrapper's output: int8 when ``requant``, f32 otherwise; H/2 x W/2 at
-stride 2; the (B, sum HWA, 5+C) f32 preds of the decode. The decode is a
+stride 2; the (B, sum HWA, 5+C) f32 preds of the decode; the sandwich's
+int8 (N, H, W, C), C summed over a route's sources. The decode is a
 ``custom_op`` too, not a ``triton_op``, so the Triton kernel stays out of
 the traced graph.
 
@@ -29,7 +30,7 @@ import torch
 from pqdet_tpu_torch.ops import decode_kernel, qconv
 
 NAMESPACE = 'pqdet'
-OP_NAMES = ('decode_heads', 'qconv1x1_s8', 'qdwconv3x3_s8')
+OP_NAMES = ('decode_heads', 'qconv1x1_s8', 'qdwconv3x3_s8', 'int8_sandwich')
 
 
 @torch.library.custom_op(f'{NAMESPACE}::qconv1x1_s8', mutates_args=())
@@ -75,6 +76,20 @@ def _(raws, num_classes, strides, exp_caps):
     return raws[0].new_empty((raws[0].shape[0], rows, ch), dtype=torch.float32)
 
 
+@torch.library.custom_op(f'{NAMESPACE}::int8_sandwich', mutates_args=())
+def _int8_sandwich_op(srcs: List[torch.Tensor], scalars: torch.Tensor, form: str,
+                      act: str) -> torch.Tensor:
+    return qconv.int8_sandwich(srcs, scalars, form=form, act=act)
+
+
+@_int8_sandwich_op.register_fake
+def _(srcs, scalars, form, act):
+    n, h, w, c = srcs[0].shape
+    if form == 'route':
+        c = sum(t.shape[3] for t in srcs)
+    return srcs[0].new_empty((n, h, w, c), dtype=torch.int8)
+
+
 def qconv1x1_s8(x, w, w_scale, b, colsum, *, act: str, scalars, requant: bool):
     """``ops.qconv.qconv1x1_s8`` through ``torch.ops.pqdet``."""
     return torch.ops.pqdet.qconv1x1_s8(x, w, w_scale, b, colsum, scalars, act, requant)
@@ -92,14 +107,21 @@ def decode_heads(raws: Sequence[torch.Tensor], num_classes: int, strides: Sequen
                                         [float(c) for c in exp_caps])
 
 
+def int8_sandwich(srcs: Sequence[torch.Tensor], scalars, *, form: str, act: str = 'linear'):
+    """``ops.qconv.int8_sandwich`` through ``torch.ops.pqdet``."""
+    return torch.ops.pqdet.int8_sandwich(list(srcs), scalars, form, act)
+
+
 class Kernels(NamedTuple):
-    """The int8 walk's three kernel entries (``Int8Inference.apply``)."""
+    """The int8 walk's four kernel entries (``Int8Inference.apply``); a
+    ``sandwich`` of None keeps the walk's PyTorch chain."""
     qconv1x1: object
     qdwconv3x3: object
     decode: object
+    sandwich: object
 
 
-OPS = Kernels(qconv1x1_s8, qdwconv3x3_s8, decode_heads)
+OPS = Kernels(qconv1x1_s8, qdwconv3x3_s8, decode_heads, int8_sandwich)
 
 
 def graph_ops(graph_module) -> List[str]:

@@ -18,7 +18,10 @@ The scalars ride in one (1, 4) f32 tensor from ``make_scalars``.
 - ``qdwconv3x3_s8``: depthwise 3x3, pad 1 with the recentred zero point,
   stride 1 or 2 (``csrc/qconv.cu``, CUDA cores: one CTA per output tile
   with its input window in shared memory; ``plan_qdwconv3x3`` picks the
-  tiles from the shapes).
+  tiles from the shapes);
+- ``int8_sandwich``: the f32 work between a dequant and a requant of the
+  int8 walk (the input's quantisation, a shortcut, a route), one launch
+  from s8 to s8 (``csrc/qconv.cu``, an elementwise pass bound by bytes).
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
 version for a CPU tensor; it raises on any other device. The plain
@@ -38,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from pqdet_tpu_torch import resolve_device
+from pqdet_tpu_torch.model import layers as L
 from pqdet_tpu_torch.ops import refuse_autograd
 from pqdet_tpu_torch.ops.fused_ir import ACT_CODES, MAX_CLUSTER, SMEM_TWO, _apply_act
 
@@ -287,6 +291,9 @@ def _library():
     lib.qdw3x3_launch.restype = ctypes.c_int
     lib.qdw3x3_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 \
         + [ctypes.c_void_p]
+    lib.sandwich_launch.restype = ctypes.c_int
+    lib.sandwich_launch.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 \
+        + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 3
     return lib
 
 
@@ -370,3 +377,109 @@ def qdwconv3x3_s8(x, w, w_scale, b, *, act: str, stride: int, scalars,
 
 
 qdwconv3x3_s8.launches = 0
+
+
+# the int8 sandwich: forms (codes of csrc/qconv.cu's SwForm), the
+# activations it applies after a shortcut's add, and a route's most sources
+SANDWICH_FORMS = {'input': 0, 'shortcut': 1, 'route': 2}
+SANDWICH_ACTS = ('linear', 'relu', 'leaky')
+SANDWICH_MAX_SOURCES = 8
+
+
+def dequant_s8(s, scale, zo):
+    """f32 of recentred s8 codes ``s`` on an edge of ``scale`` and zero
+    point ``zo + 128``: (s - zo) * scale."""
+    return (s.float() - zo) * scale
+
+
+def quant_s8(y, scale, zo):
+    """The recentred s8 codes of f32 ``y`` on an edge of ``scale`` and zero
+    point ``zo + 128``: clip(round(y / scale + zo), -128, 127)."""
+    return torch.clamp(torch.round(y / scale + zo), -128, 127).to(torch.int8)
+
+
+def sandwich_scalars(src_edges, out_edge, device='cuda'):
+    """The sandwich's f32 scalar vector on ``device``: (scale, zp - 128) of
+    each s8 source edge of ``src_edges``, then of ``out_edge``; each entry
+    the f32 rounding of the Python float that the chain hands to torch."""
+    vals = [v for scale, zp in (*src_edges, out_edge) for v in (scale, zp - 128.0)]
+    return torch.from_numpy(np.array(vals, np.float32)).to(resolve_device(device))
+
+
+def int8_sandwich_reference(srcs, scalars, *, form: str, act: str = 'linear'):
+    """Plain version of ``int8_sandwich``: the walk's PyTorch chain, one torch
+    op a step. Same arguments and output."""
+    s = scalars.tolist()
+    scale_o, zo_o = s[-2], s[-1]
+    if form == 'input':
+        return quant_s8(srcs[0], scale_o, zo_o)
+    ys = [dequant_s8(t, s[2 * j], s[2 * j + 1]) for j, t in enumerate(srcs)]
+    if form == 'shortcut':
+        y = L.apply_activation(act, ys[0] + ys[1])
+    else:
+        y = ys[0] if len(ys) == 1 else torch.cat(ys, dim=-1)
+    return quant_s8(y, scale_o, zo_o)
+
+
+def _check_sandwich(srcs, scalars, form, act):
+    fn = 'int8_sandwich'
+    if form not in SANDWICH_FORMS:
+        raise ValueError(f'{fn}: form must be one of {tuple(SANDWICH_FORMS)}, got {form!r}')
+    if act not in SANDWICH_ACTS or (form != 'shortcut' and act != 'linear'):
+        raise ValueError(f'{fn}: activation {act!r} is not taken by the {form} form')
+    n_src = {'input': (1,), 'shortcut': (2,)}.get(form, range(1, SANDWICH_MAX_SOURCES + 1))
+    if len(srcs) not in n_src:
+        raise ValueError(f'{fn}: the {form} form takes {tuple(n_src)} sources, got {len(srcs)}')
+    if any(t.dim() != 4 for t in srcs):
+        raise ValueError(f'{fn}: the sources must be NHWC, got shapes '
+                         f'{[tuple(t.shape) for t in srcs]}')
+    dev, lead = srcs[0].device, tuple(srcs[0].shape[:3])
+    dtype = torch.float32 if form == 'input' else torch.int8
+    for j, t in enumerate(srcs):
+        shape = srcs[0].shape if form == 'shortcut' else (*lead, t.shape[3])
+        _check(fn, f'srcs[{j}]', t, dtype, shape, dev)
+    n_q = 0 if form == 'input' else len(srcs)
+    _check(fn, 'scalars', scalars, torch.float32, (2 * n_q + 2,), dev)
+
+
+def int8_sandwich(srcs, scalars, *, form: str, act: str = 'linear'):
+    """One sandwich node of the int8 walk from s8 to s8, NHWC.
+
+    ``form`` 'input': srcs = [x], the normalized (N, H, W, C) f32 batch,
+    out = its s8 codes; 'shortcut': srcs = [a, b], two (N, H, W, C) int8,
+    out = the codes of act(deq(a) + deq(b)) (``act`` one of
+    SANDWICH_ACTS); 'route': srcs = 1 to SANDWICH_MAX_SOURCES (N, H, W,
+    C_j) int8, out (N, H, W, sum C_j) the codes of their concatenated
+    dequants. scalars: (2 * s8 sources + 2,) f32 from ``sandwich_scalars``.
+    Launches the CUDA kernel for a CUDA tensor (RuntimeError when grad
+    mode is on and an input requires grad), runs
+    ``int8_sandwich_reference`` for a CPU tensor, and gives a meta tensor
+    the output's shape only."""
+    srcs = list(srcs)
+    if srcs[0].device.type == 'cpu':
+        return int8_sandwich_reference(srcs, scalars, form=form, act=act)
+    refuse_autograd('int8_sandwich', *srcs, scalars)
+    if srcs[0].device.type not in ('cuda', 'meta'):
+        raise ValueError(f'int8_sandwich: no kernel for device {srcs[0].device}')
+    _check_sandwich(srcs, scalars, form, act)
+    n, h, w, _ = srcs[0].shape
+    chans = [t.shape[3] for t in srcs]
+    out = torch.empty((n, h, w, sum(chans) if form == 'route' else chans[0]),
+                      dtype=torch.int8, device=srcs[0].device)
+    if out.numel() == 0 or out.device.type == 'meta':
+        return out
+    if out.numel() >= 1 << 31:
+        raise ValueError(f'int8_sandwich: {out.numel()} output elements, over the '
+                         'kernel\'s 2^31 - 1')
+    ptrs = (ctypes.c_void_p * len(srcs))(*(t.data_ptr() for t in srcs))
+    rc = _library().sandwich_launch(
+        SANDWICH_FORMS[form], len(srcs), ptrs, (ctypes.c_int * len(srcs))(*chans), n * h * w,
+        ACT_CODES[act], scalars.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(out.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f'int8_sandwich: kernel launch failed with CUDA error {rc}')
+    int8_sandwich.launches += 1
+    return out
+
+
+int8_sandwich.launches = 0

@@ -39,7 +39,8 @@ from tests.test_prune import _mobile_style_cfg
 REPO = Path(__file__).resolve().parent.parent
 SIZE = 32
 NMS_ARGS = (0.1, 0.45, 64)
-KERNELS = ((qconv, 'qconv1x1_s8'), (qconv, 'qdwconv3x3_s8'), (decode_kernel, 'decode_heads'))
+KERNELS = ((qconv, 'qconv1x1_s8'), (qconv, 'qdwconv3x3_s8'), (decode_kernel, 'decode_heads'),
+           (qconv, 'int8_sandwich'))
 
 
 @pytest.fixture(scope='module')
@@ -95,7 +96,7 @@ def int8_artifacts(int8_model):
 
 @pytest.fixture
 def counted(monkeypatch):
-    """The three kernel wrappers replaced by counting ones in their modules
+    """The four kernel wrappers replaced by counting ones in their modules
     (and where the eager walk imported them): {name: calls}."""
     from pqdet_tpu_torch.compress import quantized
     from pqdet_tpu_torch.model import network
@@ -197,14 +198,16 @@ def test_int8_artifacts_equal_int8_inference(int8_model, int8_artifacts, counted
 
 def test_artifact_graph_ops(fp_artifacts, int8_artifacts):
     """The fp and ``'int'`` programs hold no operator of the port's
-    namespace; ``'kernel'`` holds the three: eight convs through the 1x1
+    namespace; ``'kernel'`` holds the four: eight convs through the 1x1
     kernel (the stem and the two dense 3x3s as im2col patches, the five
-    1x1s with the head), the depthwise conv, one decode."""
+    1x1s with the head), the depthwise conv, one decode, and three
+    sandwiches (the input's quantisation, the shortcut, the route; the SE's
+    scale keeps its chain)."""
     for _, fn in (*fp_artifacts.values(), int8_artifacts['int']):
         assert library.graph_ops(fn) == []
     ops = collections.Counter(library.graph_ops(int8_artifacts['kernel'][1]))
     assert ops == {'pqdet.qconv1x1_s8.default': 8, 'pqdet.qdwconv3x3_s8.default': 1,
-                   'pqdet.decode_heads.default': 1}
+                   'pqdet.decode_heads.default': 1, 'pqdet.int8_sandwich.default': 3}
 
 
 def test_kernel_artifact_loads_in_a_fresh_process(int8_model, int8_artifacts, tmp_path):
