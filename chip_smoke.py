@@ -229,16 +229,20 @@ Builds the CUDA kernels from pqdet_tpu_torch/csrc with nvcc (sm_90a), then:
    4752, the SE squeeze and excite 1x1s at M = B) and the depthwise shapes
    of regnetx-600m-yolo against the plain versions bit for bit (phase 6's
    check), and its 9 fused chains (Cin to 1024, E 512) at B=1 and 4 with
-   phase 3's tolerance; (b) regnetx-600m-fpn, regnety-400m-fpn and
-   regnetx-600m-yolo with seeded weights (gain REGNET_GAIN) served in bf16
-   (grouped convs densified, the fused-IR table) and in int8 (4 observer
-   passes, convert_to_int8, Int8Inference kernel mode with
-   ``prepare(network=)``), 8 requests of B=4 each: launches per forward
-   equal to the graph's count (int8: one qconv1x1_s8 per conv that is not
-   depthwise, one qdwconv3x3_s8 per depthwise conv, 1 decode; bf16: the
-   chains and 1 decode), node by node against ``plain=True`` (bf16: every
-   node before the first chain bit for bit, preds within phase 4's bounds;
-   int8: phase 7's bounds), finite detections; (c) the regnetx-600m-fpn
+   phase 3's tolerance; YOLOv3's int8 conv shapes at 608 (its dense 3x3s
+   as im2col patches at K up to 9 * 512) at B=1 and its stem at B=32 (one
+   launch past 65,535 row tiles), bit for bit; (b) regnetx-600m-fpn,
+   regnety-400m-fpn and regnetx-600m-yolo with seeded weights (gain
+   REGNET_GAIN) served in bf16 (grouped convs densified, the fused-IR
+   table) and in int8 (4 observer passes, convert_to_int8, Int8Inference
+   kernel mode with ``prepare(network=)``), 8 requests of B=4 each, and
+   YOLOv3 (80 classes) so in int8 at 608: launches per forward equal to
+   the graph's count (int8: one qconv1x1_s8 per conv that is not
+   depthwise, one qdwconv3x3_s8 per depthwise conv, one int8_sandwich for
+   the input and each shortcut and route, 1 decode; bf16: the chains and 1
+   decode), node by node against ``plain=True`` (bf16: every node before
+   the first chain bit for bit, preds within phase 4's bounds; int8: phase
+   7's bounds), finite detections; (c) the regnetx-600m-fpn
    train step on grouped cuDNN convs: phase 9's f32 card-against-CPU
    parity, then 10 bf16 steps at B=12 on one batch (finite, loss falling,
    BN moved, no kernel launched); (d) one epoch of ``cli.train`` on phase
@@ -3166,18 +3170,18 @@ def bf16_server(net, params, state, dev, densify_groups=True, size=None):
     return make_batch_predict(run, fparams), forward, table, fparams
 
 
-def int8_server(cfg_text, params, state, batch, dev):
+def int8_server(cfg_text, params, state, batch, dev, size=SIZE):
     """(predict, forward, executor, staged qparams, qparams) of the quant
     graph of ``cfg_text`` with the fp ``params``/``state``, calibrated by
     ``calibrate_int8`` and served by ``Int8Inference`` in kernel mode at
-    SIZE (grouped convs densified: ``prepare(network=)``)."""
+    ``size`` (grouped convs densified: ``prepare(network=)``)."""
     import torch
     from pqdet_tpu_torch.compress.quantized import Int8Inference
     from pqdet_tpu_torch.config import Config
     from pqdet_tpu_torch.evaluation.predict import build_predict_pipeline, make_batch_predict
     from pqdet_tpu_torch.model.network import DetectionNetwork
     cfg = Config()
-    cfg.eval.input_size = SIZE
+    cfg.eval.input_size = size
     qnet = DetectionNetwork.from_cfg(cfg_text, quant=True)
     _, _, qparams = calibrate_int8(qnet, params, state, batch)
     inf = Int8Inference(qnet, mode='kernel')
@@ -3987,6 +3991,13 @@ REGNET_TIMED_REQUESTS = 20     # (e): requests of each model and mode, p50 and p
 SANDWICH_CELL_BATCH = 80       # (e): int8_sandwich also at the rx600-serve-int8-b80 cell's batch
 REGNET_TRAIN_STEPS = 10        # (c): bf16 steps at B=12, 512x512 on one batch ...
 REGNET_TRAIN_WARMUP = 3        # ... the first ones out of the step's p50
+# YOLOv3 (Darknet-53) in int8 at the yolov3-serve-int8-b32-608 cell's side:
+# (a) its int8 conv shapes at B=1 and its stem at the cell's B=32, past
+# 65,535 row tiles; (b) served in int8 at B=BATCH, launches counted
+YOLOV3 = 'yolov3'
+YOLOV3_CLASSES = 80
+YOLOV3_SIZE = 608
+YOLOV3_STEM_BATCH = 32
 
 
 def grouped_macs(graph, size):
@@ -4067,7 +4078,8 @@ def phase16_kernels(dev, tag, qnets):
     """(a): each int8 conv shape of the int8 graphs of REGNET_FPN and the
     depthwise shapes of REGNET_YOLO's (phase 6's check: every output bit
     for bit) and each fused chain of REGNET_YOLO (phase 3's tolerance), at
-    SIZE. Returns the largest errors."""
+    SIZE; YOLOv3's int8 conv shapes at YOLOV3_SIZE (``yolov3_int8_parity``).
+    Returns the largest errors."""
     from pqdet_tpu_torch.model.network import DetectionNetwork
     from pqdet_tpu_torch.zoo import get_cfg
     gen = phase_gen(16)
@@ -4085,6 +4097,8 @@ def phase16_kernels(dev, tag, qnets):
     shapes.update(ydw)
     int8_err = phase6_int8_parity(gen, dev, shapes, batches=(BATCH,), edges=False,
                                   label='phase 16 (a)')
+    for name, err in yolov3_int8_parity(gen, dev, qnets[YOLOV3]).items():
+        int8_err[name] = max(int8_err[name], err)
     for name in REGNET_FPN:
         sandwich_parity(phase_gen(164), dev, sandwich_shapes(qnets[name], SIZE), (BATCH,),
                         f'phase 16 (a) {name}')
@@ -4093,6 +4107,31 @@ def phase16_kernels(dev, tag, qnets):
               for a, b, c, h, cin, e, p, acts in chains for n in (1, BATCH)]
     fused_err = fused_parity(gen, dev, checks, 'phase 16 (a)')
     return {'int8_err': int8_err, 'fused_err': fused_err, 'chains': chains, 'qshapes': shapes}
+
+
+def yolov3_int8_parity(gen, dev, qnet):
+    """(a) for YOLOv3: each int8 conv shape of its int8 graph ``qnet`` at
+    YOLOV3_SIZE (38 dense 3x3s as im2col patches into qconv1x1_s8 at K up
+    to 9 * 512) at B=1, and its stem at YOLOV3_STEM_BATCH, one launch past
+    65,535 row tiles, against the plain versions bit for bit (phase 6's
+    check). Returns the largest error of each kernel."""
+    from pqdet_tpu_torch.ops.qconv import plan_qconv1x1
+    shapes = int8_conv_shapes(qnet, YOLOV3_SIZE)
+    ks = sorted({k[3] for k in shapes if k[0] == 'stem'})
+    print(f'phase 16 (a): {YOLOV3} int8 graph at {YOLOV3_SIZE}: {sum(shapes.values())} convs in '
+          f'{len(shapes)} shapes; dense 3x3s through im2col at K {ks}')
+    err = phase6_int8_parity(gen, dev, shapes, batches=(1,), edges=False,
+                             label=f'phase 16 (a) {YOLOV3}')
+    stem = {k: c for k, c in shapes.items() if k[0] == 'stem' and k[1] == YOLOV3_SIZE}
+    (_, h, w, k, n, *_), = stem
+    m_blocks = plan_qconv1x1(YOLOV3_STEM_BATCH * h * w, k, n).m_blocks
+    if m_blocks <= 65535:
+        raise AssertionError(f'phase 16 (a): {YOLOV3} stem at B={YOLOV3_STEM_BATCH} plans '
+                             f'{m_blocks} row tiles, not past 65,535')
+    print(f'phase 16 (a): {YOLOV3} stem at B={YOLOV3_STEM_BATCH}: {m_blocks} row tiles, one launch')
+    stem_err = phase6_int8_parity(gen, dev, stem, batches=(YOLOV3_STEM_BATCH,), edges=False,
+                                  label=f'phase 16 (a) {YOLOV3} stem')
+    return {name: max(v, stem_err[name]) for name, v in err.items()}
 
 
 def phase16_serving(dev, tag, gate):
@@ -4170,6 +4209,58 @@ def phase16_serving(dev, tag, gate):
               f'median |d| scores {(kern[..., 4:] - sc).abs().median().item():.4g}, boxes '
               f'{(kern[..., :4] - fp[..., :4]).abs().median().item():.4g} px')
     return servers, launches, models
+
+
+def phase16_yolov3(dev, gate):
+    """(b) for YOLOv3: seeded weights (REGNET_GAIN, the benchmark config's
+    gain) served in int8 at YOLOV3_SIZE as ``int8_server`` serves the
+    RegNets, REGNET_REQUESTS requests of B=BATCH: launches per forward
+    equal to the graph's count (75 qconv1x1_s8, no qdwconv3x3_s8, 28
+    int8_sandwich, 1 decode), node by node against ``plain=True`` (phase
+    7's bounds), finite detections. Returns the launches."""
+    import torch
+    from pqdet_tpu_torch.model.network import DetectionNetwork
+    from pqdet_tpu_torch.ops.preprocess import device_normalize
+    from pqdet_tpu_torch.zoo import get_cfg
+    gen = phase_gen(165)
+    batch = request_maker(gen, dev, size=YOLOV3_SIZE)
+    cfg_text = get_cfg(YOLOV3, num_classes=YOLOV3_CLASSES)
+    net = DetectionNetwork.from_cfg(cfg_text)
+    qnet = DetectionNetwork.from_cfg(cfg_text, quant=True)
+    params, state = net.init(gen, device=dev)
+    seed_bn(params, state, gen, dev, gain=REGNET_GAIN)
+    predict, _, inf, prep, qparams = int8_server(cfg_text, params, state, batch, dev,
+                                                 size=YOLOV3_SIZE)
+    qs = int8_conv_shapes(qnet, YOLOV3_SIZE)
+    per = {'decode_heads': 1, 'qconv1x1_s8': sum(c for k, c in qs.items() if k[0] != 'dw'),
+           'qdwconv3x3_s8': sum(c for k, c in qs.items() if k[0] == 'dw'),
+           'int8_sandwich': sandwich_launches(qnet)}
+    requests = [batch(BATCH) for _ in range(REGNET_REQUESTS)]
+    predict(requests[0])                               # warm-up
+    torch.cuda.synchronize()
+    reset_kernel_launches()
+    dets = [predict(r) for r in requests]
+    torch.cuda.synchronize()
+    got = kernel_launches()
+    want = {**dict.fromkeys(got, 0), **{k: n * REGNET_REQUESTS for k, n in per.items()}}
+    counts = (per['qconv1x1_s8'], per['qdwconv3x3_s8'], per['int8_sandwich'])
+    gate(got == want and counts == (75, 0, 28),
+         f'(b) {YOLOV3} int8 at {YOLOV3_SIZE}: {REGNET_REQUESTS} requests of B={BATCH}, launches '
+         f'{got} (want {want}: per forward {per}, the graph\'s 75, 0 and 28)')
+    n_det = sum(len(d) for r in dets for d in r)
+    finite = all(d.shape[1] == 6 and bool(torch.isfinite(torch.from_numpy(d)).all())
+                 for r in dets for d in r)
+    gate(finite and n_det > 0, f'(b) {YOLOV3} int8: {n_det} detections, all finite')
+    with torch.inference_mode():
+        x = device_normalize(requests[0]['image'])
+    kern, plain, bad, n_exact, n_nodes = int8_node_parity(inf, prep, qparams, qnet, x)
+    ds = (kern[..., 4:] - plain[..., 4:]).abs().max().item()
+    db = (kern[..., :4] - plain[..., :4]).abs().max().item()
+    gate(not bad and ds <= 0.02 and db <= 1.0,
+         f'(b) {YOLOV3} int8 against plain=True: {n_exact} of {n_nodes} nodes equal bit for bit, '
+         f'outside the bound {bad}; preds scores max |d| {ds:.4g} (<= 0.02), boxes {db:.4g} px '
+         f'(<= 1)')
+    return got
 
 
 def phase16_train(dev, tag, gate):
@@ -4332,10 +4423,14 @@ def phase16_regnet(dev, tag, tmp, corpus, ptx):
 
     qnets = {name: DetectionNetwork.from_cfg(get_cfg(name), quant=True)
              for name in REGNET_FPN + (REGNET_YOLO,)}
+    qnets[YOLOV3] = DetectionNetwork.from_cfg(get_cfg(YOLOV3, num_classes=YOLOV3_CLASSES),
+                                              quant=True)
     t0 = time.perf_counter()
     kernels = phase16_kernels(dev, tag, qnets)
     t1 = time.perf_counter()
     servers, launches, models = phase16_serving(dev, tag, gate)
+    for k, v in phase16_yolov3(dev, gate).items():
+        launches[k] = launches.get(k, 0) + v
     t2 = time.perf_counter()
     phase16_train(dev, tag, gate)
     t3 = time.perf_counter()

@@ -9,14 +9,18 @@ between a dequant and a requant, as in the JAX package.
 
 - ``'kernel'`` (the JAX package's ``'pallas'``): activations in the
   recentred s8 form, every pointwise conv through ``qconv1x1_s8`` (a
-  strided one on the input's every stride-th pixel, where the JAX package
-  runs its bf16 dequant conv), every depthwise 3x3 through
-  ``qdwconv3x3_s8`` (both CUDA kernels on the card, ``csrc/qconv.cu``),
-  and the dense 3x3 stem and the densified grouped 3x3s
-  (``prepare(network=)``, K = 9 * Cin up to 4752) as im2col patches into
-  ``qconv1x1_s8``; the raw yolo heads are decoded after the walk by one
-  launch of the Triton decode kernel into the preds. This is the serving
-  path;
+  strided one on the input's every stride-th pixel), every depthwise 3x3
+  through ``qdwconv3x3_s8`` (both CUDA kernels on the card,
+  ``csrc/qconv.cu``),
+  and every dense 3x3 and densified grouped 3x3 (``prepare(network=)``)
+  as im2col patches into ``qconv1x1_s8`` (K = 9 * Cin up to 4752 in the
+  zoo: regnetx-600m's densified Cin 528; 4608 for YOLOv3's dense Cin
+  512); the raw yolo heads are decoded after the walk by one launch of
+  the Triton decode kernel into the preds. This is the serving path.
+  It departs from the JAX package in two places, on the CPU and in the
+  plain walk too: a strided 1x1 and a dense 3x3 wider than Cin 115 run
+  exactly through those routes, where the JAX package runs its bf16
+  dequant conv;
 - ``'int'``: uint8 activations and ``int8_conv``, the exact integer
   reference, plain PyTorch (the sum in float64: torch has no integer
   conv);
@@ -53,9 +57,12 @@ from pqdet_tpu_torch.utils import tracing
 from pqdet_tpu_torch.utils.codec import load_checkpoint, save_pytrees
 
 # widest dense 3x3 input the JAX package stages for its integer-exact
-# paths (Int8Inference.prepare, quantized.py:564-565); densified grouped
-# 3x3s take the im2col route at any width (their sums are exact in s32:
-# K * 127 * 127 < 2^31 up to K = 133,000)
+# paths (its Int8Inference.prepare); it gates nothing here: the port takes
+# every dense 3x3 through im2col, and only counts those wider
+# (``int8.im2col_wide``), where it departs from the JAX package.
+# The s32 sum of a patch row stays exact at any zoo width: |s8 code| <= 128
+# and |weight code| <= 127, so |sum| <= K * 128 * 127, under 2^31 up to
+# K = 132,104 (Cin 14,678); YOLOv3's widest, K = 9 * 512, sums below 7.5e7
 MAX_DENSE_CIN = 115
 # group widths (input channels per group) that ``prepare(network=)``
 # densifies, the JAX package's range
@@ -229,8 +236,8 @@ class Int8Inference:
         the weights' device:
         - 1x1 conv: ``w2d`` (Cin, Cout) int8 and ``colsum`` (Cout,) int32;
         - depthwise 3x3 (one input channel per group): ``wdw`` (3, 3, C);
-        - dense 3x3 with Cin <= 115: ``wim`` (im2col_depth(Cin), Cout) in
-          (kh, kw, cin) order with zero rows after the 9*Cin taps, and
+        - any other 3x3: ``wim`` (im2col_depth(Cin), Cout) in (kh, kw,
+          cin) order with zero rows after the 9*Cin taps, and
           ``wim_colsum``, for the im2col route into the 1x1 kernel.
         With ``network`` given, a GROUPED conv of group width 2-115 (the
         RegNet pattern) whose Cout is a multiple of its groups is first
@@ -238,10 +245,10 @@ class Int8Inference:
         (``layers.densify_grouped_weight``, the JAX package's
         ``_densify_int8_weight``), as its ``prepare(network=)`` does: a
         grouped 1x1 becomes ``w2d`` and ``colsum``, a grouped 3x3 a dense
-        3x3 whose ``wim`` is staged at any Cin (K up to 9 * 528 = 4752 in
-        the zoo). Without it the views are of the compact weights, which
-        the walk admits for no input: such a conv runs the bf16 dequant
-        conv on the CPU, as in JAX, and kernel mode raises on the card.
+        3x3 (K up to 9 * 528 = 4752 in the RegNets). Without it the views
+        are of the compact weights, which the walk admits for no input:
+        such a conv runs the bf16 dequant conv on the CPU, as in JAX, and
+        kernel mode raises on the card.
         ``wq`` stays grouped. Other modes stage the qparams as they are."""
         groups_of = {} if network is None else {
             str(n.index): n.attrs['groups'] for n in network.graph.nodes
@@ -262,7 +269,7 @@ class Int8Inference:
                     p['colsum'] = p['w2d'].to(torch.int32).sum(0).to(torch.int32)
                 elif (cin, kh, kw) == (1, 3, 3):
                     p['wdw'] = wq.reshape(cout, 9).t().reshape(3, 3, cout).contiguous()
-                elif (kh, kw) == (3, 3) and (cin <= MAX_DENSE_CIN or densified):
+                elif (kh, kw) == (3, 3):
                     wim = wq.permute(2, 3, 1, 0).reshape(9 * cin, cout)
                     p['wim'] = F.pad(wim, (0, 0, 0, im2col_depth(cin) - 9 * cin)).contiguous()
                     p['wim_colsum'] = p['wim'].to(torch.int32).sum(0).to(torch.int32)
@@ -348,7 +355,10 @@ class Int8Inference:
         # spans (utils/tracing.py): int8.sandwich around a quantisation or a
         # node's dequant, f32 op and requant (counting the sandwich nodes
         # that took the kernel and the chain); int8.im2col, int8.kernel and
-        # int8.decode around the patches, the int8 kernels and the decode
+        # int8.decode around the patches, the int8 kernels and the decode;
+        # int8.conv3x3 around a 3x3's patches and GEMM (counting the patch
+        # bytes, int8.im2col_bytes, and the dense 3x3s wider than the JAX
+        # package stages, int8.im2col_wide)
         with tracing.span('int8.sandwich'):
             srcs = ([x.contiguous()], ()) if kernel and x.dtype == torch.float32 else None
             xq, cur_sz = sandwich('input', srcs, 'input', 'linear',
@@ -392,18 +402,24 @@ class Int8Inference:
                             y = dw_fn(xq, p['wdw'], p['w_scale'], p['b'], stride=stride,
                                       **common)
                     else:
-                        with tracing.span('int8.im2col'):
-                            patches = _stem_im2col(xq, stride, round(cur_sz[1]) - 128)
-                        with tracing.span('int8.kernel'):
-                            y = pw_fn(patches, p['wim'], p['w_scale'], p['b'],
-                                      p['wim_colsum'], **common)
+                        with tracing.span('int8.conv3x3'):
+                            with tracing.span('int8.im2col'):
+                                patches = _stem_im2col(xq, stride, round(cur_sz[1]) - 128)
+                            tracing.count('int8.im2col_bytes', patches.numel())
+                            if a['groups'] == 1 and c > MAX_DENSE_CIN:
+                                tracing.count('int8.im2col_wide')
+                            with tracing.span('int8.kernel'):
+                                y = pw_fn(patches, p['wim'], p['w_scale'], p['b'],
+                                          p['wim_colsum'], **common)
                     xq, cur_sz = y, out_edge
                     self._keep(i, xq, cur_sz, cache, inter, intermediates, as_fp)
                     continue
                 if kernel and not plain and xq.device.type != 'cpu':
                     # off the CPU the kernel path runs its kernels or raises;
-                    # the JAX package's bf16 dequant conv stays the CPU's
-                    # and the plain walk's
+                    # on the CPU and in the plain walk a conv that no route
+                    # admits (a compact grouped conv, a stride-2 3x3 on odd
+                    # H or W, a kernel size other than 1 and 3) runs the JAX
+                    # package's bf16 dequant conv
                     raise ValueError(
                         f'Int8Inference kernel mode: conv {key} (size {a["size"]}, '
                         f'stride {stride}, groups {a["groups"]}, input {tuple(xq.shape)}, '

@@ -227,7 +227,12 @@ __global__ void __launch_bounds__(NT, 3) qconv1x1_kernel(const QParams p) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int m0 = blockIdx.y * p.bm, n0 = (blockIdx.x / p.split) * p.bn;
+  // one grid axis: the split CTAs of a tile neighbours, the row tiles
+  // outermost (2^31 - 1 CTAs, past the 65,535 row tiles a y axis holds)
+  const int per_row = ((p.N + p.bn - 1) / p.bn) * p.split;
+  const int tile_m = static_cast<int>(blockIdx.x / per_row);
+  const int m0 = tile_m * p.bm,
+            n0 = ((static_cast<int>(blockIdx.x) - tile_m * per_row) / p.split) * p.bn;
   const int wm_n = p.bm / 32, wn_n = (NT / 32) / wm_n;
   const int wm = warp / wn_n, wn = warp - wm * wn_n;
   const int wtile = p.bn / wn_n, nt8 = wtile / 8;   // warp tile 32 x wtile
@@ -1128,8 +1133,9 @@ extern "C" int qconv1x1_launch(const void* x, const void* w, const void* wscale,
     g = smem;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(((n + bn - 1) / bn) * split),
-                     static_cast<unsigned>((m + bm - 1) / bm), 1);
+  const long long ctas = static_cast<long long>((m + bm - 1) / bm) * ((n + bn - 1) / bn) * split;
+  if (ctas > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  cfg.gridDim = dim3(static_cast<unsigned>(ctas), 1, 1);
   cfg.blockDim = dim3(NT, 1, 1);
   cfg.dynamicSmemBytes = static_cast<size_t>(smem);
   cfg.stream = static_cast<cudaStream_t>(stream);

@@ -132,7 +132,8 @@ def _check_common(fn, x, w_scale, b, scalars, act, cout):
 SMALL_M = 512        # below this many rows a CTA takes 64 of them, else 128
 WIDE_TILES = 400     # more tiles than this at bn 32: take bn 64
 SPLIT_CTAS = 256     # split K until the CTAs are about this many
-MAX_M_BLOCKS = 65535  # the grid's y extent (M tiles): the card's limit
+MAX_GRID_X = 2 ** 31 - 1   # the grid's x extent, which holds every CTA
+MAX_M = 2 ** 31 - 128      # rows: the kernel's 32-bit row index of a tile's last row
 
 
 class QconvPlan(NamedTuple):
@@ -141,7 +142,10 @@ class QconvPlan(NamedTuple):
     CTAs of a cluster share one tile's K steps, ``kpr`` steps each, and
     add their s32 partials through distributed shared memory (1: no
     split); ``stages`` cp.async buffers; ``smem`` dynamic shared-memory
-    bytes. The grid is (n_blocks * split, m_blocks)."""
+    bytes. The grid is one axis of m_blocks * n_blocks * split CTAs, the
+    split CTAs of a tile neighbours and the row tiles outermost (the order
+    of a 2-D grid of (n_blocks * split, m_blocks)), so one launch takes M
+    up to MAX_M rows while the CTAs fit the axis."""
     bm: int
     bn: int
     bk: int
@@ -189,11 +193,10 @@ def plan_qconv1x1(m: int, k: int, n: int) -> QconvPlan:
     Plans are cached: a forward asks for the same ones every time."""
     if min(m, k, n) < 1:
         raise ValueError(f'plan_qconv1x1: empty shape {(m, k, n)}')
+    if m > MAX_M:
+        raise ValueError(f'plan_qconv1x1: M={m} rows, over the kernel\'s {MAX_M}')
     bm = 128 if m >= SMALL_M else 64
     m_blocks = -(-m // bm)
-    if m_blocks > MAX_M_BLOCKS:
-        raise ValueError(f'plan_qconv1x1: M={m} needs {m_blocks} row tiles, over the grid\'s '
-                         f'{MAX_M_BLOCKS}')
     bn = 32 if bm == 128 and (n <= 32 or m_blocks * -(-n // 32) <= WIDE_TILES) else 64
     bk = 32 if k <= 32 else 64 if k <= 64 else 128
     n_blocks = -(-n // bn)
@@ -202,6 +205,9 @@ def plan_qconv1x1(m: int, k: int, n: int) -> QconvPlan:
     kpr = -(-ksteps // split)
     split = -(-ksteps // kpr)
     stages = 3 if qconv1x1_smem_bytes(bm, bn, bk, 3) <= SMEM_TWO else 2
+    if m_blocks * n_blocks * split > MAX_GRID_X:
+        raise ValueError(f'plan_qconv1x1: {(m, k, n)} needs {m_blocks * n_blocks * split} '
+                         f'CTAs, over the grid\'s {MAX_GRID_X}')
     return QconvPlan(bm, bn, bk, split, kpr, stages,
                      qconv1x1_smem_bytes(bm, bn, bk, stages), m_blocks, n_blocks)
 

@@ -2,11 +2,14 @@
 
 The port's copy of ``pqdet_tpu/zoo``: ``mobilenetv2-fpn``, the five RegNet
 detectors (``zoo/regnet.py``) and the backbone-pretraining classifiers
-(``zoo/classifier.py``), which build ``ClassifierNetwork`` graphs.
+(``zoo/classifier.py``), which build ``ClassifierNetwork`` graphs. One
+entry has no counterpart in the JAX package: ``yolov3``, YOLOv3 with its
+Darknet-53 backbone (``zoo/darknet.py``).
 """
 
 from pqdet_tpu_torch.zoo import classifier as _classifier
 from pqdet_tpu_torch.zoo.builder import CfgBuilder
+from pqdet_tpu_torch.zoo.darknet import yolov3
 from pqdet_tpu_torch.zoo.mobilenetv2 import mobilenetv2_fpn
 from pqdet_tpu_torch.zoo.regnet import (regnetx_600m_fpn, regnetx_600m_pan,
                                         regnetx_600m_rpan, regnetx_600m_yolo,
@@ -20,6 +23,7 @@ MODEL_ZOO = {
     # experimental neck variants the reference ships as cfg files only
     'regnetx-600m-rpan': regnetx_600m_rpan,
     'regnetx-600m-yolo': regnetx_600m_yolo,
+    'yolov3': yolov3,
 }
 
 CLASSIFIER_ZOO = {

@@ -68,6 +68,7 @@ def test_port_imports_no_jax():
                'pqdet_tpu_torch.exporters.torch_convert', 'pqdet_tpu_torch.cli.anchors',
                'pqdet_tpu_torch.cli.diffeval', 'pqdet_tpu_torch.utils.reference_bridge',
                'pqdet_tpu_torch.zoo.regnet', 'pqdet_tpu_torch.zoo.classifier',
+               'pqdet_tpu_torch.zoo.darknet',
                'pqdet_tpu_torch.utils.debug', 'pqdet_tpu_torch.nas.space',
                'pqdet_tpu_torch.nas.detnet', 'pqdet_tpu_torch.nas.search',
                'pqdet_tpu_torch.nas.evolute', 'pqdet_tpu_torch.nas.analysis',

@@ -450,9 +450,9 @@ def test_plan_qconv1x1_at_visdrone_sizes(hw):
     """Every 1x1 and im2col shape of regnetx-600m-fpn's int8 graph at a
     VisDrone eval input (B=1, non-square) plans within the kernel's limits;
     the stem's im2col at 2528x1888 is the largest M, 944 x 1264 rows, well
-    inside the grid's y extent, which the plan rule refuses past."""
+    inside the kernel's 32-bit rows, which the plan rule refuses past."""
     import chip_smoke
-    from pqdet_tpu_torch.ops.qconv import MAX_M_BLOCKS
+    from pqdet_tpu_torch.ops.qconv import MAX_M
     net = DetectionNetwork.from_cfg(get_cfg('regnetx-600m-fpn'), quant=True)
     shapes = chip_smoke.int8_conv_shapes(net, hw)
     ms = []
@@ -462,5 +462,5 @@ def test_plan_qconv1x1_at_visdrone_sizes(hw):
         ms.append(h * w)
     assert max(ms) == (hw[0] // 2) * (hw[1] // 2)
     assert any(h != w for _, h, w, *_ in shapes)
-    with pytest.raises(ValueError, match='row tiles'):
-        plan_qconv1x1(128 * MAX_M_BLOCKS + 1, 32, 32)
+    with pytest.raises(ValueError, match='rows, over the kernel'):
+        plan_qconv1x1(MAX_M + 1, 32, 32)

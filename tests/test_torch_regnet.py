@@ -63,7 +63,8 @@ def seeded(jnet, seed=0):
 
 
 def test_zoo_names_match_jax():
-    assert sorted(MODEL_ZOO) == sorted(JAX_MODEL_ZOO)
+    # the port's zoo is JAX's and yolov3 (zoo/darknet.py), which JAX lacks
+    assert sorted(MODEL_ZOO) == sorted([*JAX_MODEL_ZOO, 'yolov3'])
     assert sorted(CLASSIFIER_ZOO) == sorted(JAX_CLASSIFIER_ZOO)
 
 

@@ -252,7 +252,13 @@ def test_int8_walk_spans(model):
     assert got.count('int8.kernel') == convs
     sandwiches = sum(n.kind in ('shortcut', 'route') for n in qnet.graph.nodes)
     assert got.count('int8.sandwich') >= sandwiches + 1
-    assert all(s[3] == 0 and s[4] == 0 for s in r['spans'][1:])
+    # one level under the root, but a 3x3's patches and kernel, which nest
+    # in its int8.conv3x3
+    conv3x3 = {i for i, s in enumerate(r['spans']) if s[0] == 'int8.conv3x3'}
+    assert conv3x3 and all(s[4] == 0 for s in r['spans'][1:])
+    assert all(s[3] == 0 or (s[3] in conv3x3 and s[0] in ('int8.im2col', 'int8.kernel'))
+               for s in r['spans'][1:])
+    assert all(r['spans'][i][3] == 0 for i in conv3x3)
 
 
 def test_train_step_spans(model):
