@@ -45,7 +45,8 @@ Builds the CUDA kernels from pqdet_tpu_torch/csrc with nvcc (sm_90a), then:
    13 depthwise shapes at strides 1 and 2), at QCONV_EDGE_SHAPES (M below
    a tile, ragged M, N 75, the raw K 27, split-K with a ragged M) and
    DW_EDGE_SHAPES (C 27, 75 and 20 at both strides, W not a multiple of
-   the tile, a 2x2 stride-2 input), at B=1 and B=4, with f32 output and
+   the tile, a 2x2 stride-2 input) and, for qconv3x3_s8, C3_EDGE_SHAPES
+   (Cout 75 and 24, Cin 16, odd sides, one output pixel), at B=1 and B=4, with f32 output and
    requantised output, with integer zero points: every output equal to
    its plain version bit for bit; each line names its plan. Fractional
    zero points (the depthwise kernel's exact-order path) are held to s8
@@ -229,16 +230,18 @@ Builds the CUDA kernels from pqdet_tpu_torch/csrc with nvcc (sm_90a), then:
    4752, the SE squeeze and excite 1x1s at M = B) and the depthwise shapes
    of regnetx-600m-yolo against the plain versions bit for bit (phase 6's
    check), and its 9 fused chains (Cin to 1024, E 512) at B=1 and 4 with
-   phase 3's tolerance; YOLOv3's int8 conv shapes at 608 (its dense 3x3s
-   as im2col patches at K up to 9 * 512) at B=1 and its stem at B=32 (one
-   launch past 65,535 row tiles), bit for bit; (b) regnetx-600m-fpn,
+   phase 3's tolerance; YOLOv3's int8 conv shapes at 608 (its 37 dense
+   3x3s past the stem through qconv3x3_s8 in 10 shapes, the Cin-3 stem as
+   im2col patches) at B=1 and its stem at B=32 (one launch past 65,535 row
+   tiles), bit for bit; (b) regnetx-600m-fpn,
    regnety-400m-fpn and regnetx-600m-yolo with seeded weights (gain
    REGNET_GAIN) served in bf16 (grouped convs densified, the fused-IR
    table) and in int8 (4 observer passes, convert_to_int8, Int8Inference
    kernel mode with ``prepare(network=)``), 8 requests of B=4 each, and
    YOLOv3 (80 classes) so in int8 at 608: launches per forward equal to
-   the graph's count (int8: one qconv1x1_s8 per conv that is not
-   depthwise, one qdwconv3x3_s8 per depthwise conv, one int8_sandwich for
+   the graph's count (int8: one qconv3x3_s8 per dense 3x3 of Cin a
+   multiple of 16, one qconv1x1_s8 per other conv that is not depthwise,
+   one qdwconv3x3_s8 per depthwise conv, one int8_sandwich for
    the input and each shortcut and route, 1 decode; bf16: the chains and 1
    decode), node by node against ``plain=True`` (bf16: every node before
    the first chain bit for bit, preds within phase 4's bounds; int8: phase
@@ -825,12 +828,15 @@ def int8_conv_shapes(net, size):
     """{(kind, n_h, n_w, cin, cout, stride, act, requant): count} over the
     convs of the int8 graph at input ``size`` (a side, or (h, w)), as each
     kernel sees them:
-    'pw' and 'dw' take the conv's input (H, W, C), a strided 'pw' its every
-    stride-th pixel; 'stem' is the dense 3x3
-    as its im2col patches (H/stride, W/stride, im2col_depth(Cin)) into the
-    1x1 kernel (9*Cin taps and zero columns up to a multiple of 16).
+    'pw', 'dw' and 'c3' take the conv's input (H, W, C), a strided 'pw' its
+    every stride-th pixel; 'c3' is a dense 3x3 that ``qconv3x3_s8`` takes
+    (groups 1, Cin a multiple of 16); 'stem' is any other dense or
+    densified 3x3 as its im2col patches (H/stride, W/stride,
+    im2col_depth(Cin)) into the 1x1 kernel (9*Cin taps and zero columns up
+    to a multiple of 16).
     ``requant``: the output edge is quantised (it feeds no yolo head)."""
     from pqdet_tpu_torch.compress.quantized import im2col_depth
+    from pqdet_tpu_torch.ops.qconv import C3_CIN_STEP
     feeders = {n.index - 1 for n in net.graph.nodes if n.kind == 'yolo'}
     size_h, size_w = (size, size) if isinstance(size, int) else size
     sides_h, sides_w = out_sides(net.graph, size_h), out_sides(net.graph, size_w)
@@ -847,6 +853,8 @@ def int8_conv_shapes(net, size):
                    a['activation'], rq)
         elif a['groups'] == n.in_channels == a['filters']:
             key = ('dw', h, w, n.in_channels, n.in_channels, st, a['activation'], rq)
+        elif a['groups'] == 1 and n.in_channels % C3_CIN_STEP == 0:
+            key = ('c3', h, w, n.in_channels, a['filters'], st, a['activation'], rq)
         else:
             key = ('stem', h // st, w // st, im2col_depth(n.in_channels), a['filters'], 1,
                    a['activation'], rq)
@@ -855,15 +863,17 @@ def int8_conv_shapes(net, size):
 
 
 def int8_inputs(gen, kind, n, h, w, cin, cout, dev):
-    """Seeded recentred s8 input, int8 weights, per-channel scale and bias,
-    and an integer zero point in [1, 254]."""
+    """Seeded recentred s8 input, int8 weights ((3, 3, C) for 'dw', (Cout, 9 *
+    Cin) for 'c3', else (Cin, Cout)), per-channel scale and bias, and an
+    integer zero point in [1, 254]."""
     import torch
     x = torch.randint(-128, 128, (n, h, w, cin), generator=gen, dtype=torch.int8)
-    wshape = (3, 3, cin) if kind == 'dw' else (cin, cout)
+    wshape = {'dw': (3, 3, cin), 'c3': (cout, 9 * cin)}.get(kind, (cin, cout))
     wq = torch.randint(-127, 128, wshape, generator=gen, dtype=torch.int8)
     w_scale = torch.rand(cout, generator=gen) * 0.01 + 0.001
     b = torch.randn(cout, generator=gen) * 0.5
-    colsum = wq.to(torch.int32).sum(0).to(torch.int32) if kind != 'dw' else None
+    colsum = None if kind == 'dw' else \
+        wq.to(torch.int32).sum(1 if kind == 'c3' else 0).to(torch.int32)
     x_zp = float(torch.randint(1, 255, (), generator=gen))
     to = lambda t: None if t is None else t.to(dev).contiguous()  # noqa: E731
     return to(x), to(wq), to(w_scale), to(b), to(colsum), 0.02, x_zp
@@ -1036,23 +1046,34 @@ QCONV_EDGE_SHAPES = [
     ('pw', 7, 11, 1280, 512, 1, 'leaky', True),
 ]
 
+# dense 3x3 shapes for qconv3x3_s8 beyond YOLOv3's: Cout 75 (a partly
+# filled column tile, byte stores), Cin 16 and Cout 24 at stride 2 with f32
+# out, odd sides (M not a multiple of the 128-pixel tile), one output pixel
+C3_EDGE_SHAPES = [
+    ('c3', 20, 36, 48, 75, 1, 'relu', True),
+    ('c3', 10, 14, 16, 24, 2, 'linear', False),
+    ('c3', 7, 9, 32, 256, 1, 'leaky', True),
+    ('c3', 2, 2, 64, 128, 2, 'relu6', True),
+]
+
 
 def phase6_int8_parity(gen, dev, shapes, batches=(1, BATCH), edges=True, label='phase 6'):
     """Each int8 kernel against its plain version at every shape of
-    ``shapes``, and with ``edges`` at ``QCONV_EDGE_SHAPES`` and
-    ``DW_EDGE_SHAPES``, at each of ``batches``, f32 then requantised output,
+    ``shapes``, and with ``edges`` at ``QCONV_EDGE_SHAPES``,
+    ``DW_EDGE_SHAPES`` and ``C3_EDGE_SHAPES``, at each of ``batches``, f32 then requantised output,
     every output bit for bit; then (``edges``) the depthwise kernel at
     ``DW_FRACTIONAL_ZP``, to the s8/f32 bound. Widths of 8 (mod 16), the
     8-byte copy paths, are flagged. Returns the largest error of each
     kernel: |f32 err| or s8 code difference."""
     import torch
-    from pqdet_tpu_torch.ops.qconv import (make_scalars, plan_qconv1x1, plan_qdwconv3x3,
-                                           qconv1x1_reference, qconv1x1_s8,
+    from pqdet_tpu_torch.ops.qconv import (make_scalars, plan_qconv1x1, plan_qconv3x3,
+                                           plan_qdwconv3x3, qconv1x1_reference, qconv1x1_s8,
+                                           qconv3x3_reference, qconv3x3_s8,
                                            qdwconv3x3_reference, qdwconv3x3_s8)
-    worst = {'qconv1x1_s8': 0.0, 'qdwconv3x3_s8': 0.0}
+    worst = {'qconv1x1_s8': 0.0, 'qdwconv3x3_s8': 0.0, 'qconv3x3_s8': 0.0}
     failures = []
     n_exact = n_checks = 0
-    extra = QCONV_EDGE_SHAPES + DW_EDGE_SHAPES if edges else []
+    extra = QCONV_EDGE_SHAPES + DW_EDGE_SHAPES + C3_EDGE_SHAPES if edges else []
     cases = [(k, n, 0.0) for k in sorted(shapes) + extra for n in batches]
     cases += [(k, BATCH, f) for k, f in DW_FRACTIONAL_ZP] if edges else []
     for (kind, h, w, cin, cout, stride, act, _), n, frac in cases:
@@ -1064,6 +1085,12 @@ def phase6_int8_parity(gen, dev, shapes, batches=(1, BATCH), edges=True, label='
                 x, wq, ws, b, act=act, stride=stride, scalars=sc, requant=rq)
             ref = lambda sc, rq: qdwconv3x3_reference(  # noqa: E731
                 x, wq, ws, b, act=act, stride=stride, scalars=sc, requant=rq)
+        elif kind == 'c3':
+            name = 'qconv3x3_s8'
+            kern = lambda sc, rq: qconv3x3_s8(  # noqa: E731
+                x, wq, ws, b, cs, act=act, stride=stride, scalars=sc, requant=rq)
+            ref = lambda sc, rq: qconv3x3_reference(  # noqa: E731
+                x, wq, ws, b, cs, act=act, stride=stride, scalars=sc, requant=rq)
         else:
             name = 'qconv1x1_s8'
             kern = lambda sc, rq: qconv1x1_s8(  # noqa: E731
@@ -1093,6 +1120,8 @@ def phase6_int8_parity(gen, dev, shapes, batches=(1, BATCH), edges=True, label='
         if kind == 'dw':
             pl = plan_qdwconv3x3(n, h, w, cin, stride)
             plan = f' plan th={pl.th} tw={pl.tw} cs={pl.cs} cw={pl.cw} grid={pl.grid}'
+        elif kind == 'c3':
+            plan = f' plan {tuple(plan_qconv3x3(n, h, w, cin, cout, stride))[:2]}'
         else:
             plan = f' plan {tuple(plan_qconv1x1(n * h * w, cin, cout))[:6]}'
         odd = ' (8 mod 16)' if cin % 16 == 8 or cout % 16 == 8 else ''
@@ -1375,19 +1404,21 @@ def train_batch(gen, b, size, dev, max_gt, classes=20):
     return {'image': img.to(dev), 'gt': gt.to(dev)}
 
 
-def kernel_launches():
+def counted_kernels():
+    """The wrappers of the hand-written kernels, each counting its launches."""
     from pqdet_tpu_torch.ops.decode_kernel import decode_heads
     from pqdet_tpu_torch.ops.fused_ir import fused_ir_conv
-    from pqdet_tpu_torch.ops.qconv import int8_sandwich, qconv1x1_s8, qdwconv3x3_s8
-    return {f.__name__: f.launches
-            for f in (decode_heads, fused_ir_conv, qconv1x1_s8, qdwconv3x3_s8, int8_sandwich)}
+    from pqdet_tpu_torch.ops.qconv import (int8_sandwich, qconv1x1_s8, qconv3x3_s8,
+                                           qdwconv3x3_s8)
+    return (decode_heads, fused_ir_conv, qconv1x1_s8, qdwconv3x3_s8, int8_sandwich, qconv3x3_s8)
+
+
+def kernel_launches():
+    return {f.__name__: f.launches for f in counted_kernels()}
 
 
 def reset_kernel_launches():
-    from pqdet_tpu_torch.ops.decode_kernel import decode_heads
-    from pqdet_tpu_torch.ops.fused_ir import fused_ir_conv
-    from pqdet_tpu_torch.ops.qconv import int8_sandwich, qconv1x1_s8, qdwconv3x3_s8
-    for f in (decode_heads, fused_ir_conv, qconv1x1_s8, qdwconv3x3_s8, int8_sandwich):
+    for f in counted_kernels():
         f.launches = 0
 
 
@@ -3490,7 +3521,7 @@ def phase14_arc(dev, tag, tmp, corpus, gate):
     # 3. QAT on the pruned cfg, resumed from the fine-tuned checkpoint
     qnet = DetectionNetwork.from_cfg(res.cfg_text, quant=True)
     qshapes = int8_conv_shapes(qnet, PRUNE_SIZE)
-    per_forward = {'qconv1x1_s8': sum(c for k, c in qshapes.items() if k[0] != 'dw'),
+    per_forward = {'qconv1x1_s8': sum(c for k, c in qshapes.items() if k[0] in ('pw', 'stem')),
                    'qdwconv3x3_s8': sum(c for k, c in qshapes.items() if k[0] == 'dw'),
                    'decode_heads': 1, 'int8_sandwich': sandwich_launches(qnet)}
     recs['qat'] = {}
@@ -4111,15 +4142,18 @@ def phase16_kernels(dev, tag, qnets):
 
 def yolov3_int8_parity(gen, dev, qnet):
     """(a) for YOLOv3: each int8 conv shape of its int8 graph ``qnet`` at
-    YOLOV3_SIZE (38 dense 3x3s as im2col patches into qconv1x1_s8 at K up
-    to 9 * 512) at B=1, and its stem at YOLOV3_STEM_BATCH, one launch past
-    65,535 row tiles, against the plain versions bit for bit (phase 6's
-    check). Returns the largest error of each kernel."""
+    YOLOV3_SIZE (the 37 dense 3x3s past the stem, Cin 32-512, in 10 shapes
+    through qconv3x3_s8; the Cin-3 stem as im2col patches into qconv1x1_s8)
+    at B=1, and its stem at YOLOV3_STEM_BATCH, one launch past 65,535 row
+    tiles, against the plain versions bit for bit (phase 6's check).
+    Returns the largest error of each kernel."""
     from pqdet_tpu_torch.ops.qconv import plan_qconv1x1
     shapes = int8_conv_shapes(qnet, YOLOV3_SIZE)
     ks = sorted({k[3] for k in shapes if k[0] == 'stem'})
+    c3 = sorted((k[1], k[3], k[4], k[5]) for k in shapes if k[0] == 'c3')
     print(f'phase 16 (a): {YOLOV3} int8 graph at {YOLOV3_SIZE}: {sum(shapes.values())} convs in '
-          f'{len(shapes)} shapes; dense 3x3s through im2col at K {ks}')
+          f'{len(shapes)} shapes; the stem through im2col at K {ks}; dense 3x3s through '
+          f'qconv3x3_s8 at {len(c3)} shapes (side, Cin, Cout, stride) {c3}')
     err = phase6_int8_parity(gen, dev, shapes, batches=(1,), edges=False,
                              label=f'phase 16 (a) {YOLOV3}')
     stem = {k: c for k, c in shapes.items() if k[0] == 'stem' and k[1] == YOLOV3_SIZE}
@@ -4148,8 +4182,7 @@ def phase16_serving(dev, tag, gate):
     from pqdet_tpu_torch.zoo import get_cfg
     gen = phase_gen(161)
     batch = request_maker(gen, dev)
-    launches = dict.fromkeys(('decode_heads', 'fused_ir_conv', 'qconv1x1_s8', 'qdwconv3x3_s8',
-                              'int8_sandwich'), 0)
+    launches = dict.fromkeys(kernel_launches(), 0)
     servers, models = {}, {}
     for name in REGNET_FPN + (REGNET_YOLO,):
         cfg_text = get_cfg(name)
@@ -4159,7 +4192,7 @@ def phase16_serving(dev, tag, gate):
         seed_bn(params, state, gen, dev, gain=REGNET_GAIN)
         models[name] = (net, params, state, qnet)
         qs = int8_conv_shapes(qnet, SIZE)
-        n_pw = sum(c for k, c in qs.items() if k[0] != 'dw')
+        n_pw = sum(c for k, c in qs.items() if k[0] in ('pw', 'stem'))
         n_dw = sum(c for k, c in qs.items() if k[0] == 'dw')
         bf = bf16_server(net, params, state, dev)
         q8 = int8_server(cfg_text, params, state, batch, dev)
@@ -4215,9 +4248,10 @@ def phase16_yolov3(dev, gate):
     """(b) for YOLOv3: seeded weights (REGNET_GAIN, the benchmark config's
     gain) served in int8 at YOLOV3_SIZE as ``int8_server`` serves the
     RegNets, REGNET_REQUESTS requests of B=BATCH: launches per forward
-    equal to the graph's count (75 qconv1x1_s8, no qdwconv3x3_s8, 28
-    int8_sandwich, 1 decode), node by node against ``plain=True`` (phase
-    7's bounds), finite detections. Returns the launches."""
+    equal to the graph's count (38 qconv1x1_s8, 37 qconv3x3_s8, no
+    qdwconv3x3_s8, 28 int8_sandwich, 1 decode), node by node against
+    ``plain=True`` (phase 7's bounds), finite detections. Returns the
+    launches."""
     import torch
     from pqdet_tpu_torch.model.network import DetectionNetwork
     from pqdet_tpu_torch.ops.preprocess import device_normalize
@@ -4232,7 +4266,9 @@ def phase16_yolov3(dev, gate):
     predict, _, inf, prep, qparams = int8_server(cfg_text, params, state, batch, dev,
                                                  size=YOLOV3_SIZE)
     qs = int8_conv_shapes(qnet, YOLOV3_SIZE)
-    per = {'decode_heads': 1, 'qconv1x1_s8': sum(c for k, c in qs.items() if k[0] != 'dw'),
+    per = {'decode_heads': 1,
+           'qconv1x1_s8': sum(c for k, c in qs.items() if k[0] in ('pw', 'stem')),
+           'qconv3x3_s8': sum(c for k, c in qs.items() if k[0] == 'c3'),
            'qdwconv3x3_s8': sum(c for k, c in qs.items() if k[0] == 'dw'),
            'int8_sandwich': sandwich_launches(qnet)}
     requests = [batch(BATCH) for _ in range(REGNET_REQUESTS)]
@@ -4243,10 +4279,11 @@ def phase16_yolov3(dev, gate):
     torch.cuda.synchronize()
     got = kernel_launches()
     want = {**dict.fromkeys(got, 0), **{k: n * REGNET_REQUESTS for k, n in per.items()}}
-    counts = (per['qconv1x1_s8'], per['qdwconv3x3_s8'], per['int8_sandwich'])
-    gate(got == want and counts == (75, 0, 28),
+    counts = (per['qconv1x1_s8'], per['qconv3x3_s8'], per['qdwconv3x3_s8'],
+              per['int8_sandwich'])
+    gate(got == want and counts == (38, 37, 0, 28),
          f'(b) {YOLOV3} int8 at {YOLOV3_SIZE}: {REGNET_REQUESTS} requests of B={BATCH}, launches '
-         f'{got} (want {want}: per forward {per}, the graph\'s 75, 0 and 28)')
+         f'{got} (want {want}: per forward {per}, the graph\'s 38, 37, 0 and 28)')
     n_det = sum(len(d) for r in dets for d in r)
     finite = all(d.shape[1] == 6 and bool(torch.isfinite(torch.from_numpy(d)).all())
                  for r in dets for d in r)
@@ -4738,8 +4775,7 @@ def phase17_kernels(dev, tag, gate, ptx):
         heads = [(size // st, st) for st in (8, 16, 32)]
         decode_err = max(decode_err, decode_parity(gen, dev, heads, nc, f'phase 17 (b) {size}'))
 
-    launches = dict.fromkeys(('decode_heads', 'fused_ir_conv', 'qconv1x1_s8', 'qdwconv3x3_s8',
-                              'int8_sandwich'), 0)
+    launches = dict.fromkeys(kernel_launches(), 0)
     for name, cfg_text, head, sizes, gain in models:
         net = DetectionNetwork.from_cfg(cfg_text)
         params, state = net.init(gen, device=dev)
@@ -5186,8 +5222,7 @@ def phase18_s2d_serving(dev, tag, gate, net, params, state):
         run = build_predict_pipeline(net, cfg, compute_dtype=bf16, fused_ir=table, device=dev)
         predicts[s2d] = make_batch_predict(run, fparams)
     batch = request_maker(gen, dev)
-    launches = dict.fromkeys(('decode_heads', 'fused_ir_conv', 'qconv1x1_s8', 'qdwconv3x3_s8',
-                              'int8_sandwich'), 0)
+    launches = dict.fromkeys(kernel_launches(), 0)
     for b in (1, BATCH):
         requests = [batch(b) for _ in range(S2D_REQUESTS)]
         predicts[S2D](requests[0])                    # warm-up
@@ -5453,8 +5488,7 @@ def phase18_visdrone(dev, tag, tmp, gate, ptx, host_ips):
     eval_data = EvalData(qcfg)
     n_pw = sum(1 for n in qnet.graph.nodes if n.kind == 'convolutional'
                and not n.attrs['groups'] == n.in_channels == n.attrs['filters'])
-    launches = dict.fromkeys(('decode_heads', 'fused_ir_conv', 'qconv1x1_s8', 'qdwconv3x3_s8',
-                              'int8_sandwich'), 0)
+    launches = dict.fromkeys(kernel_launches(), 0)
     first = {}
     for i in range(len(eval_data)):
         b = eval_data.batch(i)

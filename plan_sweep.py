@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Sweep the launch plans of the port's three CUDA kernels on one NVIDIA GPU.
 
-    python3 plan_sweep.py [fused|qconv|dw|all] [zoo model ...]
+    python3 plan_sweep.py [fused|qconv|dw|conv3x3|all] [zoo model ...]
 
 - fused: each of the 21 fused-IR chains of mobilenetv2-fpn at 512x512, B=4,
   under the plans ``plan_fused_ir`` makes with the cluster capped at 2, 4
@@ -16,7 +16,13 @@
   tile (th, tw, cs) the depthwise kernel takes with up to 16 units a
   thread, each checked bit for bit against the plain version, device ms
   from CUDA graphs; prints the current plan's time, the best three and
-  the bytes bound.
+  the bytes bound;
+- conv3x3: each dense 3x3 shape that qconv3x3_s8 takes in YOLOv3's int8
+  graph at 608x608, B=32 (the yolov3-serve-int8-b32-608 cell's), under
+  every plan the kernel takes (bn, stages), each checked bit for bit
+  against the im2col route (qconv1x1_s8 on the patches), device ms from
+  CUDA graphs; prints the route's time, the current plan's and the best
+  three, and the operations bound.
 
 The plans' rules (ops/fused_ir.py, ops/qconv.py) were read off these
 sweeps; PERF.md keeps the numbers. Needs a card; prints the card's name and
@@ -172,6 +178,65 @@ def sweep_dw(dev, gen):
           f'{best_total:.4f} ms, bound {bound_total:.5f} ms')
 
 
+def sweep_conv3x3(dev, gen, batch=32, size=608):
+    import torch
+
+    import chip_smoke as cs
+    from pqdet_tpu_torch.compress.quantized import _stem_im2col, im2col_depth
+    from pqdet_tpu_torch.model.network import DetectionNetwork
+    from pqdet_tpu_torch.ops import qconv as qc
+    from pqdet_tpu_torch.zoo import get_cfg
+    lib = qc._library()
+    net = DetectionNetwork.from_cfg(get_cfg('yolov3', num_classes=80), quant=True)
+    shapes = {k: n for k, n in cs.int8_conv_shapes(net, size).items() if k[0] == 'c3'}
+    tot = dict.fromkeys(('route', 'cur', 'best', 'bound'), 0.0)
+    for (kind, h, w, cin, cout, s, act, rq), count in sorted(shapes.items()):
+        x, wq, ws, b, cs_, x_scale, x_zp = cs.int8_inputs(gen, kind, batch, h, w, cin, cout, dev)
+        sc = qc.make_scalars(x_scale, x_zp, 0.05 if rq else None, 3.0 if rq else None, dev)
+        wim = torch.nn.functional.pad(wq.t(), (0, 0, 0, im2col_depth(cin) - 9 * cin)).contiguous()
+        pad = round(x_zp) - 128
+        kw = dict(act=act, scalars=sc, requant=rq)
+        route = lambda: qc.qconv1x1_s8(_stem_im2col(x, s, pad), wim, ws, b, cs_, **kw)  # noqa
+        ref = route()
+        out = torch.empty_like(ref)
+        ho, wo = h // s, w // s
+        results = []
+        for bn, stages in itertools.product((64, 128), range(3, 7)):
+            smem = qc.qconv3x3_smem_bytes(bn, stages)
+            if smem > 232448 or bn > 2 * max(64, cout):
+                continue
+
+            def run():
+                rc = lib.qconv3x3_launch(
+                    x.data_ptr(), wq.data_ptr(), ws.data_ptr(), b.data_ptr(), cs_.data_ptr(),
+                    sc.data_ptr(), out.data_ptr(), batch, h, w, cin, s, cout,
+                    qc.ACT_CODES[act], int(rq), bn, stages, smem,
+                    torch.cuda.current_stream().cuda_stream)
+                if rc != 0:
+                    raise RuntimeError(f'qconv3x3 plan {(bn, stages)} failed with CUDA error {rc}')
+            out.fill_(0)
+            run()
+            torch.cuda.synchronize()
+            if not torch.equal(out, ref):
+                raise AssertionError(f'qconv3x3 {h}x{w} {cin}->{cout} s={s} plan {(bn, stages)} '
+                                     'disagrees with the im2col route')
+            results.append((cs.device_ms(run, iters=5, replays=3), (bn, stages)))
+        results.sort()
+        r_ms = cs.device_ms(route, iters=5, replays=3)
+        cur = qc.plan_qconv3x3(batch, h, w, cin, cout, s).c_args[:2]
+        cur_ms = next((ms for ms, pl in results if pl == cur), float('nan'))
+        bound = 2 * batch * ho * wo * 9 * cin * cout / cs.INT8_OP_PER_S * 1e3
+        for k, v in (('route', r_ms), ('cur', cur_ms), ('best', results[0][0]), ('bound', bound)):
+            tot[k] += count * v
+        print(f'conv3x3 {h}x{w} {cin}->{cout} s={s} x{count}: route {r_ms:.4f} ms; current '
+              f'{cur_ms:.4f} ms {cur}; best ' + '; '.join(f'{ms:.4f} ms {pl}' for ms, pl in
+                                                       results[:3])
+              + f'; operations bound {bound:.4f} ms ({100 * bound / cur_ms:.1f} % of current)')
+    print(f'conv3x3 per B={batch} forward of yolov3 at {size}: route {tot["route"]:.4f} ms, '
+          f'current plans {tot["cur"]:.4f} ms, best plans {tot["best"]:.4f} ms, operations '
+          f'bound {tot["bound"]:.4f} ms')
+
+
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
@@ -193,6 +258,8 @@ def main() -> int:
         sweep_qconv(dev, gen, tuple(sys.argv[2:]) or ('mobilenetv2-fpn',))
     if which in ('dw', 'all'):
         sweep_dw(dev, gen)
+    if which in ('conv3x3', 'all'):
+        sweep_conv3x3(dev, gen)
     return 0
 
 

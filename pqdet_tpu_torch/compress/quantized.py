@@ -11,16 +11,17 @@ between a dequant and a requant, as in the JAX package.
   recentred s8 form, every pointwise conv through ``qconv1x1_s8`` (a
   strided one on the input's every stride-th pixel), every depthwise 3x3
   through ``qdwconv3x3_s8`` (both CUDA kernels on the card,
-  ``csrc/qconv.cu``),
-  and every dense 3x3 and densified grouped 3x3 (``prepare(network=)``)
-  as im2col patches into ``qconv1x1_s8`` (K = 9 * Cin up to 4752 in the
-  zoo: regnetx-600m's densified Cin 528; 4608 for YOLOv3's dense Cin
-  512); the raw yolo heads are decoded after the walk by one launch of
-  the Triton decode kernel into the preds. This is the serving path.
-  It departs from the JAX package in two places, on the CPU and in the
-  plain walk too: a strided 1x1 and a dense 3x3 wider than Cin 115 run
-  exactly through those routes, where the JAX package runs its bf16
-  dequant conv;
+  ``csrc/qconv.cu``), every dense 3x3 whose Cin is a multiple of 16
+  through ``qconv3x3_s8`` (an implicit GEMM that reads its input window
+  directly: YOLOv3's 37 dense 3x3s past its stem), and every other dense
+  3x3 and densified grouped 3x3 (``prepare(network=)``) as im2col patches
+  into ``qconv1x1_s8`` (K = 9 * Cin up to 4752 in the zoo: regnetx-600m's
+  densified Cin 528); the raw yolo heads are decoded after the walk by
+  one launch of the Triton decode kernel into the preds. This is the
+  serving path. It departs from the JAX package in two places, on the CPU
+  and in the plain walk too: a strided 1x1 and a dense 3x3 wider than Cin
+  115 run exactly through those routes, where the JAX package runs its
+  bf16 dequant conv;
 - ``'int'``: uint8 activations and ``int8_conv``, the exact integer
   reference, plain PyTorch (the sum in float64: torch has no integer
   conv);
@@ -49,17 +50,19 @@ from pqdet_tpu_torch.model.graph import solve_padding
 from pqdet_tpu_torch.model.network import (DetectionNetwork, decode_all_heads,
                                            decode_consumed_head, fuse_params)
 from pqdet_tpu_torch.ops.decode_kernel import head_views
-from pqdet_tpu_torch.ops.qconv import (SANDWICH_ACTS, SANDWICH_MAX_SOURCES, dequant_s8,
-                                       int8_sandwich, make_scalars, qconv1x1_reference,
-                                       qconv1x1_s8, qdwconv3x3_reference, qdwconv3x3_s8,
-                                       quant_s8, sandwich_scalars)
+from pqdet_tpu_torch.ops.qconv import (C3_CIN_STEP, SANDWICH_ACTS, SANDWICH_MAX_SOURCES,
+                                       dequant_s8, int8_sandwich, make_scalars,
+                                       qconv1x1_reference, qconv1x1_s8, qconv3x3_s8,
+                                       qdwconv3x3_reference, qdwconv3x3_s8, quant_s8,
+                                       sandwich_scalars)
 from pqdet_tpu_torch.utils import tracing
 from pqdet_tpu_torch.utils.codec import load_checkpoint, save_pytrees
 
 # widest dense 3x3 input the JAX package stages for its integer-exact
 # paths (its Int8Inference.prepare); it gates nothing here: the port takes
-# every dense 3x3 through im2col, and only counts those wider
-# (``int8.im2col_wide``), where it departs from the JAX package.
+# every dense 3x3 through qconv3x3_s8 or im2col, and only counts those
+# wider that take im2col (``int8.im2col_wide``), where it departs from the
+# JAX package.
 # The s32 sum of a patch row stays exact at any zoo width: |s8 code| <= 128
 # and |weight code| <= 127, so |sum| <= K * 128 * 127, under 2^31 up to
 # K = 132,104 (Cin 14,678); YOLOv3's widest, K = 9 * 512, sums below 7.5e7
@@ -238,7 +241,10 @@ class Int8Inference:
         - depthwise 3x3 (one input channel per group): ``wdw`` (3, 3, C);
         - any other 3x3: ``wim`` (im2col_depth(Cin), Cout) in (kh, kw,
           cin) order with zero rows after the 9*Cin taps, and
-          ``wim_colsum``, for the im2col route into the 1x1 kernel.
+          ``wim_colsum``, for the im2col route into the 1x1 kernel; a
+          dense one (groups 1) whose Cin is a multiple of C3_CIN_STEP also
+          ``w3`` (Cout, 9*Cin), the same weights K-major for
+          ``qconv3x3_s8`` (whose colsum is ``wim_colsum``).
         With ``network`` given, a GROUPED conv of group width 2-115 (the
         RegNet pattern) whose Cout is a multiple of its groups is first
         densified to block-diagonal int8 weights
@@ -273,6 +279,8 @@ class Int8Inference:
                     wim = wq.permute(2, 3, 1, 0).reshape(9 * cin, cout)
                     p['wim'] = F.pad(wim, (0, 0, 0, im2col_depth(cin) - 9 * cin)).contiguous()
                     p['wim_colsum'] = p['wim'].to(torch.int32).sum(0).to(torch.int32)
+                    if g == 1 and cin % C3_CIN_STEP == 0:
+                        p['w3'] = wq.permute(0, 2, 3, 1).reshape(cout, 9 * cin).contiguous()
             layers[key] = {k: v.contiguous() if isinstance(v, torch.Tensor) else v
                            for k, v in p.items()}
         return {'layers': layers, 'act': qparams['act']}
@@ -298,10 +306,15 @@ class Int8Inference:
         kernel path is held to; a yolo node's entry is its (B, H, W, A, 5+C)
         view of the preds. ``plain`` runs the kernels' plain versions
         on any device. ``kernels`` (``ops.library.Kernels``: the 1x1, the
-        depthwise, the decode and the sandwich entry, with the wrappers'
-        signatures)
-        replaces the wrappers: an exported program walks with
-        ``ops.library.OPS``, the registered operators.
+        depthwise, the decode, the sandwich and the dense 3x3 entry, with
+        the wrappers' signatures) replaces the wrappers: an exported
+        program walks with ``ops.library.OPS``, the registered operators.
+
+        In kernel mode a dense 3x3 (groups 1, padding 1, stride 1 or 2,
+        even H and W at stride 2) whose Cin is a multiple of C3_CIN_STEP
+        runs as one ``qconv3x3_s8`` launch; ``plain`` and a ``kernels``
+        without a qconv3x3 entry take it through im2col patches into the
+        1x1 entry, as every other 3x3 that is not depthwise.
 
         In kernel mode the input's quantisation, each shortcut (of an
         activation in SANDWICH_ACTS) and each route whose sources are all
@@ -317,12 +330,13 @@ class Int8Inference:
         heads = []                       # (raw f32 head, yolo node)
         kernel = self.mode == 'kernel'
         if kernels is not None:
-            pw_fn, dw_fn, dec_fn, sw_fn = kernels
+            pw_fn, dw_fn, dec_fn, sw_fn, c3_fn = kernels
         else:
             pw_fn = qconv1x1_reference if plain else qconv1x1_s8
             dw_fn = qdwconv3x3_reference if plain else qdwconv3x3_s8
             dec_fn = None
             sw_fn = None if plain else int8_sandwich
+            c3_fn = None if plain else qconv3x3_s8
 
         def as_fp(val, sz):
             if sz is None:
@@ -356,9 +370,11 @@ class Int8Inference:
         # node's dequant, f32 op and requant (counting the sandwich nodes
         # that took the kernel and the chain); int8.im2col, int8.kernel and
         # int8.decode around the patches, the int8 kernels and the decode;
-        # int8.conv3x3 around a 3x3's patches and GEMM (counting the patch
-        # bytes, int8.im2col_bytes, and the dense 3x3s wider than the JAX
-        # package stages, int8.im2col_wide)
+        # int8.conv3x3 around a 3x3's patches and GEMM or its qconv3x3_s8
+        # launch (counting the 3x3s that took that kernel,
+        # int8.conv3x3_direct, the patch bytes, int8.im2col_bytes, and the
+        # dense 3x3s wider than the JAX package stages that took patches,
+        # int8.im2col_wide)
         with tracing.span('int8.sandwich'):
             srcs = ([x.contiguous()], ()) if kernel and x.dtype == torch.float32 else None
             xq, cur_sz = sandwich('input', srcs, 'input', 'linear',
@@ -401,6 +417,13 @@ class Int8Inference:
                         with tracing.span('int8.kernel'):
                             y = dw_fn(xq, p['wdw'], p['w_scale'], p['b'], stride=stride,
                                       **common)
+                    elif c3_fn is not None and 'w3' in p and a['groups'] == 1 \
+                            and p['w3'].shape[1] == 9 * c:
+                        with tracing.span('int8.conv3x3'):
+                            tracing.count('int8.conv3x3_direct')
+                            with tracing.span('int8.kernel'):
+                                y = c3_fn(xq, p['w3'], p['w_scale'], p['b'], p['wim_colsum'],
+                                          stride=stride, **common)
                     else:
                         with tracing.span('int8.conv3x3'):
                             with tracing.span('int8.im2col'):

@@ -2,8 +2,10 @@
 //
 //   qconv1x1_s8: pointwise conv, s8 x s8 -> s32 on tensor cores;
 //   qdwconv3x3_s8: depthwise 3x3, pad 1, stride 1 or 2, on CUDA cores;
+//   qconv3x3_s8: dense 3x3, pad 1, stride 1 or 2, an implicit GEMM on
+//     tensor cores (wgmma), with its own note after int8_sandwich's;
 //
-// both with the fused epilogue of the TPU kernels
+// all with the fused epilogue of the TPU kernels
 //
 //   y = act(alpha * acc + (alpha * ((128 - x_zp) * colsum) + b))
 //   alpha = x_scale * w_scale_c
@@ -1098,6 +1100,347 @@ void (*sandwich_of(int v))(SwParams) {
                   : sandwich_kernel<1, FORM>;
 }
 
+// ---------------------------------------------------------------------------
+// qconv3x3_s8: a dense 3x3 conv (groups 1, padding 1, stride 1 or 2) of
+// NHWC s8 as an implicit GEMM on the tensor cores, with qconv1x1's fused
+// epilogue. It replaces, for the dense 3x3s whose Cin is a multiple of 16
+// (compress/quantized.py, Int8Inference in kernel mode), the port's im2col
+// route: 3x3 patches written to device memory (9 x the input's bytes at
+// stride 1) and read back by qconv1x1_s8. The JAX package has no such
+// kernel: it runs its dense 3x3s up to Cin 115 as im2col into
+// pqdet_tpu/ops/pallas_qconv.py::qconv1x1_s8 and wider ones as a bf16
+// dequant conv. Same arithmetic as the route and as the plain version
+// ops/qconv.py::qconv3x3_reference: the s32 sum over (kh, kw, cin) is
+// exact (|sum| <= 9 * Cin * 128 * 127, under 2^31 to Cin 14,678), and the
+// epilogue is qconv1x1's, step for rounded step, so every s8 code and f32
+// output equals the route's bit for bit.
+//
+// What bounds it: operations. YOLOv3's dense 3x3s at 608 do 1,000-4,000
+// operations per byte of input, weights and output, past the ~590 at which
+// the tensor cores and not the memory are the limit; only the Cin-32 convs
+// (K 288) sit near the line.
+//
+// Design (tiles and stages from the host's plan, ops/qconv.py::
+// plan_qconv3x3, as plain ints):
+// - a CTA of two warpgroups takes BM = 128 output pixels (rows in N*Ho*Wo
+//   order, 64 a warpgroup) x BN = 64 or 128 output channels, two CTAs an
+//   SM (BN = 256, one CTA an SM, was slower at every YOLOv3 shape);
+// - K = 9 * Cin in (kh, kw, cin) order is walked in steps of 128 bytes. A
+//   step's A tile is the BM pixels' input at the step's taps: each 16-byte
+//   chunk of a row lies in one tap (Cin is a multiple of 16) and is copied
+//   by cp.async straight from the input at (oy*s + kh - 1, ox*s + kw - 1);
+//   a chunk outside the image gets the pad code rint(x_zp) - 128 (the
+//   recentred zero point, the route's padding) by a shared-memory store,
+//   and one past K gets zeros. No patch is written to device memory. The
+//   B tile is BN rows of the K-major weights (Cout, 9 * Cin), staged once
+//   by Int8Inference.prepare, zero-filled past Cout and K;
+// - both tiles sit in shared memory in the 128-byte swizzle (16-byte chunk
+//   c of row r at chunk c ^ (r % 8)), which wgmma reads conflict-free; a
+//   ring of STAGES slots, loads issued STAGES - 2 steps ahead, one wgmma
+//   group in flight (a slot is refilled two steps after its product was
+//   issued, when both warpgroups have waited for it);
+// - the product is wgmma.mma_async m64nBNk32 s8 x s8 -> s32, four a step a
+//   warpgroup, both operands K-major from swizzled shared memory;
+// - epilogue: affine/epilogue/requant_code's arithmetic on the s32
+//   accumulators in registers; s8 codes staged in shared memory and stored
+//   as 16-byte rows (byte stores where Cout is not a multiple of 16), f32
+//   stored from the registers.
+constexpr int C3_THREADS = 256;          // two warpgroups
+constexpr int C3_BM = 128;               // output pixels a CTA
+constexpr int C3_BK = 128;               // K bytes a step: one swizzled row
+constexpr int C3_ATILE = C3_BM * C3_BK;  // bytes of an A tile
+
+struct C3Params {
+  const int8_t* x;
+  const int8_t* w;
+  const float* wscale;
+  const float* bias;
+  const int* colsum;
+  const float* s;
+  void* out;
+  int H, W, C, Ho, Wo, stride, N, K, M, act, requant, stages;
+  // derived by c3layout from the plan
+  int ksteps, slot, off_ab, pitch, vec_out;
+};
+
+// Shared-memory layout of qconv3x3_kernel: 1024 bytes of slack to align the
+// ring to the swizzle's 1024-byte period, the ring of `stages` slots (A
+// tile [128][128], B tile [bn][128]), then f32 alpha and beta [bn]; the
+// staged s8 codes [128][bn + 16] reuse the ring after the K loop. Returns
+// its bytes, -1 for a plan the kernel does not take.
+// ops/qconv.py::qconv3x3_smem_bytes is the same formula, and the launch
+// refuses a mismatch.
+int c3layout(C3Params& p, int bn) {
+  if ((bn != 64 && bn != 128) || p.stages < 3 || p.stages > 6) return -1;
+  p.ksteps = (p.K + C3_BK - 1) / C3_BK;
+  p.slot = C3_ATILE + bn * C3_BK;
+  p.off_ab = p.stages * p.slot;
+  p.pitch = bn + 16;
+  return 1024 + p.off_ab + 8 * bn;
+}
+
+__device__ __forceinline__ void st_shared16(uint32_t dst, uint32_t v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %1, %1, %1};\n" ::"r"(dst), "r"(v) : "memory");
+}
+
+// wait until at most n (0-3) cp.async groups of this thread are pending
+__device__ __forceinline__ void cp_wait_upto(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+  }
+}
+
+// wgmma's shared-memory matrix descriptor of a K-major operand in the
+// 128-byte swizzle: start address, leading offset 1 (unused by this
+// layout), 1024 bytes from one 8-row group to the next
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// D (64 x N s32, in the warpgroup's registers) += A (64 x 32 s8) B^T (N x
+// 32 s8), both K-major in swizzled shared memory
+__device__ __forceinline__ void wgmma_n64(int (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n128(int (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_s8(int (&d)[BN / 2], uint64_t a, uint64_t b) {
+  if constexpr (BN == 64)
+    wgmma_n64(d, a, b);
+  else
+    wgmma_n128(d, a, b);
+}
+
+// One BM x BN output tile of a dense 3x3 conv (see the note above).
+template <int BN>
+__global__ void __launch_bounds__(C3_THREADS, 2) qconv3x3_kernel(const C3Params p) {
+  extern __shared__ __align__(1024) unsigned char c3smem[];
+  const uint32_t raw = smem_u32(c3smem);
+  const uint32_t sbase = (raw + 1023u) & ~1023u;
+  unsigned char* base = c3smem + (sbase - raw);
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5, wg = warp >> 2;
+  const int n_tiles = (p.N + BN - 1) / BN;
+  const int tile_m = static_cast<int>(blockIdx.x) / n_tiles;
+  const int m0 = tile_m * C3_BM, n0 = (static_cast<int>(blockIdx.x) - tile_m * n_tiles) * BN;
+  float* alpha_s = reinterpret_cast<float*>(base + p.off_ab);
+  float* beta_s = alpha_s + BN;
+
+  // the loader: this thread copies 16-byte chunk j of rows r0 + 32 i of
+  // the A tile (i < 4) and of the B tile (i < BN / 32); all its rows share
+  // r0 % 8, so one swizzled column
+  const int j = t & 7, r0 = t >> 3;
+  const uint32_t swz = static_cast<uint32_t>((j ^ (r0 & 7)) << 4);
+  int pix[4], iy0[4], ix0[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + r0 + 32 * i;
+    if (m < p.M) {
+      const int hw = p.Ho * p.Wo;
+      const int img = m / hw, rem = m - img * hw, oy = rem / p.Wo, ox = rem - oy * p.Wo;
+      iy0[i] = oy * p.stride - 1;
+      ix0[i] = ox * p.stride - 1;
+      pix[i] = (img * p.H + iy0[i]) * p.W + ix0[i];   // the tap (0, 0)'s pixel
+    } else {
+      iy0[i] = -4;   // a row past M: every tap outside the image
+      ix0[i] = 0;
+      pix[i] = 0;
+    }
+  }
+  const uint32_t padw = static_cast<uint32_t>((static_cast<int>(rintf(p.s[1])) - 128) & 0xFF) *
+                        0x01010101u;
+
+  auto issue = [&](int step, int slot) {
+    const uint32_t a_s = sbase + slot * p.slot, b_s = a_s + C3_ATILE;
+    const int k = step * C3_BK + 16 * j;
+    const bool kin = k < p.K;
+    const int tap = kin ? k / p.C : 0, ci = k - tap * p.C;
+    const int kh = tap / 3, kw = tap - 3 * kh;
+    const int doff = kh * p.W + kw;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t dst = a_s + (r0 + 32 * i) * C3_BK + swz;
+      const int iy = iy0[i] + kh, ix = ix0[i] + kw;
+      if (kin && static_cast<unsigned>(iy) < static_cast<unsigned>(p.H) &&
+          static_cast<unsigned>(ix) < static_cast<unsigned>(p.W))
+        cp_async(dst, p.x + static_cast<size_t>(pix[i] + doff) * p.C + ci, true, 16);
+      else
+        st_shared16(dst, kin ? padw : 0u);
+    }
+#pragma unroll
+    for (int i = 0; i < BN / 32; ++i) {
+      const int rb = r0 + 32 * i;
+      const bool ok = kin && n0 + rb < p.N;
+      cp_async(b_s + rb * C3_BK + swz, ok ? p.w + static_cast<size_t>(n0 + rb) * p.K + k : p.w,
+               ok, 16);
+    }
+  };
+
+  const int pf = p.stages - 2;   // steps loaded ahead
+  for (int s = 0; s < pf; ++s) {
+    if (s < p.ksteps) issue(s, s);
+    cp_commit();
+  }
+  // per-channel affine terms, read by the epilogue; the scalars stay in
+  // registers
+  const float s0 = p.s[0], s1 = p.s[1], s2 = p.s[2], s3 = p.s[3];
+  if (t < BN) {
+    const int gn = n0 + t;
+    float a = 0.f, b = 0.f;
+    if (gn < p.N) {
+      const float sv[2] = {s0, s1};
+      affine(sv, p.wscale[gn], p.bias[gn], __int2float_rn(p.colsum[gn]), a, b);
+    }
+    alpha_s[t] = a;
+    beta_s[t] = b;
+  }
+
+  int acc[BN / 2];
+#pragma unroll
+  for (int q = 0; q < BN / 2; ++q) acc[q] = 0;
+  const uint32_t a_rows = static_cast<uint32_t>(wg * 64 * C3_BK);   // this warpgroup's rows
+  for (int step = 0; step < p.ksteps; ++step) {
+    cp_wait_upto(pf - 1);   // this thread's copies of the step landed
+    // its shared-memory writes (the copies and the pad stores) visible to
+    // wgmma's async proxy, then everyone's; after the barrier every
+    // warpgroup has waited for the product of step - 2, so its slot is free
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    const int nxt = step + pf;
+    if (nxt < p.ksteps) issue(nxt, nxt % p.stages);
+    cp_commit();
+    const uint32_t a_s = sbase + (step % p.stages) * p.slot, b_s = a_s + C3_ATILE;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < C3_BK / 32; ++kk)
+      wgmma_s8<BN>(acc, sw128_desc(a_s + a_rows + 32 * kk), sw128_desc(b_s + 32 * kk));
+    wg_commit();
+    wg_wait<1>();
+  }
+  wg_wait<0>();
+#pragma unroll
+  for (int q = 0; q < BN / 2; ++q) asm volatile("" : "+r"(acc[q])::"memory");
+  cp_wait_all();
+  __syncthreads();   // every product is done and every copy landed: the ring is free
+
+  // the accumulator layout of wgmma m64nN: register 4 jn + 2 h + q holds
+  // row 16 (warp % 4) + lane / 4 + 8 h, column 8 jn + 2 (lane % 4) + q
+  const bool clamp = p.act == ACT_RELU || p.act == ACT_RELU6, leaky = p.act == ACT_LEAKY;
+  const float hi = p.act == ACT_RELU6 ? 6.f : __int_as_float(0x7f800000);
+  const int wrow = wg * 64 + (warp & 3) * 16 + (lane >> 2);
+  auto finish = [&](int v, float al, float bt) {
+    float u = __fadd_rn(__fmul_rn(__int2float_rn(v), al), bt);
+    u = clamp ? fminf(fmaxf(u, 0.f), hi) : u;
+    u = leaky && !(u > 0.f) ? __fmul_rn(0.1f, u) : u;
+    if (p.act == ACT_LOGISTIC) u = 1.f / (1.f + expf(-u));
+    return u;
+  };
+  if (p.requant) {
+    unsigned char* codes = base;   // [128][pitch]
+#pragma unroll
+    for (int jn = 0; jn < BN / 8; ++jn) {
+      const int c = jn * 8 + (lane & 3) * 2;
+      const float2 al = *reinterpret_cast<const float2*>(alpha_s + c);
+      const float2 bt = *reinterpret_cast<const float2*>(beta_s + c);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float u0 = finish(acc[4 * jn + 2 * h], al.x, bt.x);
+        const float u1 = finish(acc[4 * jn + 2 * h + 1], al.y, bt.y);
+        *reinterpret_cast<uint16_t*>(codes + (wrow + 8 * h) * p.pitch + c) =
+            static_cast<uint16_t>(static_cast<uint8_t>(requant_code(u0, s2, s3)) |
+                                  static_cast<uint16_t>(static_cast<uint8_t>(
+                                      requant_code(u1, s2, s3))) << 8);
+      }
+    }
+    __syncthreads();
+    const int cols = min(BN, p.N - n0);
+    int8_t* out = static_cast<int8_t*>(p.out);
+    if (p.vec_out) {
+      for (int idx = t; idx < C3_BM * (BN / 16); idx += C3_THREADS) {
+        const int r = idx / (BN / 16), c = (idx - r * (BN / 16)) * 16;
+        if (m0 + r < p.M && c < cols)
+          *reinterpret_cast<uint4*>(out + static_cast<size_t>(m0 + r) * p.N + n0 + c) =
+              *reinterpret_cast<const uint4*>(codes + r * p.pitch + c);
+      }
+    } else {   // rows not 16-byte aligned: consecutive threads, consecutive bytes
+      for (int idx = t; idx < C3_BM * cols; idx += C3_THREADS) {
+        const int r = idx / cols, c = idx - r * cols;
+        if (m0 + r < p.M)
+          out[static_cast<size_t>(m0 + r) * p.N + n0 + c] =
+              static_cast<int8_t>(codes[r * p.pitch + c]);
+      }
+    }
+    return;
+  }
+  float* out = static_cast<float*>(p.out);
+#pragma unroll
+  for (int jn = 0; jn < BN / 8; ++jn) {
+    const int c = jn * 8 + (lane & 3) * 2, gn = n0 + c;
+    const float2 al = *reinterpret_cast<const float2*>(alpha_s + c);
+    const float2 bt = *reinterpret_cast<const float2*>(beta_s + c);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gm = m0 + wrow + 8 * h;
+      if (gm >= p.M || gn >= p.N) continue;
+      const float u0 = finish(acc[4 * jn + 2 * h], al.x, bt.x);
+      const float u1 = finish(acc[4 * jn + 2 * h + 1], al.y, bt.y);
+      float* o = out + static_cast<size_t>(gm) * p.N + gn;
+      if (p.N % 2 == 0) {
+        *reinterpret_cast<float2*>(o) = make_float2(u0, u1);
+      } else {
+        o[0] = u0;
+        if (gn + 1 < p.N) o[1] = u1;
+      }
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" int qconv1x1_launch(const void* x, const void* w, const void* wscale,
@@ -1267,5 +1610,53 @@ extern "C" int sandwich_launch(int form, int nsrc, const void* const* src, const
                            : form == SW_SHORTCUT ? sandwich_of<SW_SHORTCUT>(v)
                                                  : sandwich_of<SW_ROUTE>(v);
   kern<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(prm);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x (n, h, wd, c) s8 with c a multiple of 16, w (cout, 9 c) s8 in (kh, kw,
+// cin) order, both 16-byte aligned; out (n, h / stride, wd / stride, cout)
+// s8 (requant) or f32. The plan (bn, stages, smem) from ops/qconv.py::
+// plan_qconv3x3; the grid is one CTA an output tile, the column tiles of a
+// row tile neighbours.
+extern "C" int qconv3x3_launch(const void* x, const void* w, const void* wscale,
+                               const void* bias, const void* colsum, const void* scalars,
+                               void* out, int n, int h, int wd, int c, int stride, int cout,
+                               int act, int requant, int bn, int stages, int smem,
+                               void* stream) {
+  C3Params prm{};
+  prm.x = static_cast<const int8_t*>(x);
+  prm.w = static_cast<const int8_t*>(w);
+  prm.wscale = static_cast<const float*>(wscale);
+  prm.bias = static_cast<const float*>(bias);
+  prm.colsum = static_cast<const int*>(colsum);
+  prm.s = static_cast<const float*>(scalars);
+  prm.out = out;
+  prm.H = h; prm.W = wd; prm.C = c; prm.stride = stride; prm.N = cout;
+  prm.act = act; prm.requant = requant; prm.stages = stages;
+  if (c < 16 || c % 16 || (stride != 1 && stride != 2) ||
+      (stride == 2 && (h % 2 || wd % 2)) || !aligned16(x) || !aligned16(w))
+    return static_cast<int>(cudaErrorInvalidValue);
+  prm.Ho = h / stride;
+  prm.Wo = wd / stride;
+  prm.K = 9 * c;
+  const long long m = static_cast<long long>(n) * prm.Ho * prm.Wo;
+  const long long ctas = (m + C3_BM - 1) / C3_BM * ((cout + bn - 1) / bn);
+  if (m > 2147483648LL - C3_BM || ctas > 2147483647LL ||
+      static_cast<long long>(n) * h * wd * c > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  prm.M = static_cast<int>(m);
+  if (c3layout(prm, bn) != smem || smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
+  prm.vec_out = aligned16(out) && cout % 16 == 0;
+  void (*kern)(C3Params) = bn == 64 ? qconv3x3_kernel<64> : qconv3x3_kernel<128>;
+  static int given[2] = {0, 0};
+  int& g = given[bn == 64 ? 0 : 1];
+  cudaError_t err = cudaSuccess;
+  if (smem > g) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    g = smem;
+  }
+  kern<<<static_cast<unsigned>(ctas), C3_THREADS, static_cast<size_t>(smem),
+         static_cast<cudaStream_t>(stream)>>>(prm);
   return static_cast<int>(cudaGetLastError());
 }

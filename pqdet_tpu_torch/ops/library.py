@@ -2,16 +2,18 @@
 ``torch.export`` program can carry them (the counterpart of the Pallas
 calls that ``jax.export`` embeds as custom calls).
 
-``decode_heads``, ``qconv1x1_s8``, ``qdwconv3x3_s8`` and ``int8_sandwich``
-are registered in the ``pqdet`` namespace with ``torch.library.custom_op``.
-Each op is opaque to the tracer: its implementation is the kernel's wrapper, looked
-up in its module at call time, which launches the kernel for a CUDA tensor
-(counting the launch) or raises, and runs the plain version for a CPU
-tensor. Nothing falls back: an artifact whose kernels cannot build raises
-where the wrapper raises. Each op has a fake (shape) function that mirrors
-the wrapper's output: int8 when ``requant``, f32 otherwise; H/2 x W/2 at
-stride 2; the (B, sum HWA, 5+C) f32 preds of the decode; the sandwich's
-int8 (N, H, W, C), C summed over a route's sources. The decode is a
+``decode_heads``, ``qconv1x1_s8``, ``qdwconv3x3_s8``, ``qconv3x3_s8`` and
+``int8_sandwich`` are registered in the ``pqdet`` namespace with
+``torch.library.custom_op``. Each op is opaque to the tracer: its
+implementation is the kernel's wrapper, looked up in its module at call
+time, which launches the kernel for a CUDA tensor (counting the launch) or
+raises, and runs the plain version for a CPU tensor. Nothing falls back:
+an artifact whose kernels cannot build raises where the wrapper raises.
+Each op has a fake (shape) function that mirrors the wrapper's output:
+int8 when ``requant``, f32 otherwise; H/2 x W/2 at stride 2; the dense
+3x3's Cout from its (Cout, 9 * Cin) weights; the (B, sum HWA, 5+C) f32
+preds of the decode; the sandwich's int8 (N, H, W, C), C summed over a
+route's sources. The decode is a
 ``custom_op`` too, not a ``triton_op``, so the Triton kernel stays out of
 the traced graph.
 
@@ -30,7 +32,7 @@ import torch
 from pqdet_tpu_torch.ops import decode_kernel, qconv
 
 NAMESPACE = 'pqdet'
-OP_NAMES = ('decode_heads', 'qconv1x1_s8', 'qdwconv3x3_s8', 'int8_sandwich')
+OP_NAMES = ('decode_heads', 'qconv1x1_s8', 'qdwconv3x3_s8', 'int8_sandwich', 'qconv3x3_s8')
 
 
 @torch.library.custom_op(f'{NAMESPACE}::qconv1x1_s8', mutates_args=())
@@ -60,6 +62,21 @@ def _qdwconv3x3_op(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
 def _(x, w, w_scale, b, scalars, act, stride, requant):
     n, h, wd, c = x.shape
     return x.new_empty((n, h // stride, wd // stride, c),
+                       dtype=torch.int8 if requant else torch.float32)
+
+
+@torch.library.custom_op(f'{NAMESPACE}::qconv3x3_s8', mutates_args=())
+def _qconv3x3_op(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
+                 b: torch.Tensor, colsum: torch.Tensor, scalars: torch.Tensor, act: str,
+                 stride: int, requant: bool) -> torch.Tensor:
+    return qconv.qconv3x3_s8(x, w, w_scale, b, colsum, act=act, stride=stride,
+                             scalars=scalars, requant=requant)
+
+
+@_qconv3x3_op.register_fake
+def _(x, w, w_scale, b, colsum, scalars, act, stride, requant):
+    n, h, wd, _ = x.shape
+    return x.new_empty((n, h // stride, wd // stride, w.shape[0]),
                        dtype=torch.int8 if requant else torch.float32)
 
 
@@ -100,6 +117,13 @@ def qdwconv3x3_s8(x, w, w_scale, b, *, act: str, stride: int, scalars, requant: 
     return torch.ops.pqdet.qdwconv3x3_s8(x, w, w_scale, b, scalars, act, stride, requant)
 
 
+def qconv3x3_s8(x, w, w_scale, b, colsum, *, act: str, stride: int, scalars,
+                requant: bool):
+    """``ops.qconv.qconv3x3_s8`` through ``torch.ops.pqdet``."""
+    return torch.ops.pqdet.qconv3x3_s8(x, w, w_scale, b, colsum, scalars, act, stride,
+                                       requant)
+
+
 def decode_heads(raws: Sequence[torch.Tensor], num_classes: int, strides: Sequence[int],
                  exp_caps: Sequence[float]) -> torch.Tensor:
     """``ops.decode_kernel.decode_heads`` through ``torch.ops.pqdet``."""
@@ -113,15 +137,17 @@ def int8_sandwich(srcs: Sequence[torch.Tensor], scalars, *, form: str, act: str 
 
 
 class Kernels(NamedTuple):
-    """The int8 walk's four kernel entries (``Int8Inference.apply``); a
-    ``sandwich`` of None keeps the walk's PyTorch chain."""
+    """The int8 walk's kernel entries (``Int8Inference.apply``); a
+    ``sandwich`` of None keeps the walk's PyTorch chain, a ``qconv3x3`` of
+    None the dense 3x3s' im2col route into ``qconv1x1``."""
     qconv1x1: object
     qdwconv3x3: object
     decode: object
     sandwich: object
+    qconv3x3: object = None
 
 
-OPS = Kernels(qconv1x1_s8, qdwconv3x3_s8, decode_heads, int8_sandwich)
+OPS = Kernels(qconv1x1_s8, qdwconv3x3_s8, decode_heads, int8_sandwich, qconv3x3_s8)
 
 
 def graph_ops(graph_module) -> List[str]:

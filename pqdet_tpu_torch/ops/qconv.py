@@ -19,6 +19,11 @@ The scalars ride in one (1, 4) f32 tensor from ``make_scalars``.
   stride 1 or 2 (``csrc/qconv.cu``, CUDA cores: one CTA per output tile
   with its input window in shared memory; ``plan_qdwconv3x3`` picks the
   tiles from the shapes);
+- ``qconv3x3_s8``: dense 3x3, pad 1 with the recentred zero point, stride
+  1 or 2, Cin a multiple of 16 (``csrc/qconv.cu``, an implicit GEMM on
+  wgmma int8 tensor-core tiles that reads its input window straight from
+  device memory, no im2col patches; ``plan_qconv3x3`` picks the tiles from
+  the shapes);
 - ``int8_sandwich``: the f32 work between a dequant and a requant of the
   int8 walk (the input's quantisation, a shortcut, a route), one launch
   from s8 to s8 (``csrc/qconv.cu``, an elementwise pass bound by bytes).
@@ -88,8 +93,7 @@ def _check_stride(name, h, w, stride):
     if stride not in (1, 2):
         raise ValueError(f'{name}: stride must be 1 or 2, got {stride}')
     if stride == 2 and (h % 2 or w % 2):
-        raise ValueError(f'{name}: the stride-2 depthwise kernel needs even H/W, '
-                         f'got {(h, w)}')
+        raise ValueError(f'{name}: the stride-2 3x3 kernels need even H/W, got {(h, w)}')
 
 
 def qdwconv3x3_reference(x, w, w_scale, b, *, act: str, stride: int, scalars,
@@ -110,6 +114,25 @@ def qdwconv3x3_reference(x, w, w_scale, b, *, act: str, stride: int, scalars,
     acc = acc.permute(0, 2, 3, 1).float()
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     return _epilogue(acc, s, w_scale.float(), b.float(), zero, act, requant)
+
+
+def qconv3x3_reference(x, w, w_scale, b, colsum, *, act: str, stride: int, scalars,
+                       requant: bool):
+    """Plain version of ``qconv3x3_s8``: pad with round(x_zp) - 128, the s8 x
+    s8 conv in float64 (exact), rounded to f32, then the epilogue with
+    ``colsum``. Same arguments; returns (N, H/stride, W/stride, Cout) int8
+    or f32."""
+    n, h, wd, cin = x.shape
+    _check_stride('qconv3x3_reference', h, wd, stride)
+    cout = w.shape[0]
+    s = scalars.reshape(-1).float()
+    pad = (torch.round(s[1]).to(torch.int32) - 128).to(torch.int8)
+    xp = pad.expand(n, h + 2, wd + 2, cin).clone()
+    xp[:, 1:-1, 1:-1] = x
+    k = w.double().reshape(cout, 3, 3, cin).permute(0, 3, 1, 2)
+    acc = F.conv2d(xp.double().permute(0, 3, 1, 2), k, None, stride)
+    acc = acc.permute(0, 2, 3, 1).contiguous().float()
+    return _epilogue(acc, s, w_scale.float(), b.float(), colsum.float(), act, requant)
 
 
 def _check(fn, name, t, dtype, shape, device):
@@ -287,6 +310,62 @@ def plan_qdwconv3x3(n: int, h: int, w: int, c: int, stride: int) -> DwPlan:
                   n * tiles_y * tiles_x * slices, tiles_x, tiles_y, slices)
 
 
+C3_BM = 128          # output pixels a dense 3x3 CTA takes
+C3_BK = 128          # K bytes of its steps
+C3_CIN_STEP = 16     # its input copies: Cin must be a multiple of this
+
+
+class Conv3x3Plan(NamedTuple):
+    """Launch plan of one dense int8 3x3 conv, plain ints for the C entry
+    point: C3_BM output pixels x ``bn`` output channels a CTA; ``stages``
+    shared-memory slots of the K walk; ``smem`` dynamic shared-memory bytes.
+    The grid is one axis of m_blocks * n_blocks CTAs, the column tiles of a
+    row tile neighbours."""
+    bn: int
+    stages: int
+    smem: int
+    m_blocks: int
+    n_blocks: int
+
+    @property
+    def c_args(self):
+        return (self.bn, self.stages, self.smem)
+
+
+def qconv3x3_smem_bytes(bn, stages) -> int:
+    """Dynamic shared memory of the dense 3x3 kernel: 1024 bytes to align
+    the ring to the 128-byte swizzle's period, ``stages`` slots of an A
+    tile [C3_BM][C3_BK] and a B tile [bn][C3_BK] (bytes), then f32 alpha
+    and beta for bn channels. The C layout (csrc/qconv.cu, ``c3layout``) is
+    the same formula, and the launch refuses a mismatch."""
+    return 1024 + stages * (C3_BM + bn) * C3_BK + 8 * bn
+
+
+@functools.lru_cache(maxsize=None)
+def plan_qconv3x3(n: int, h: int, w: int, cin: int, cout: int, stride: int) -> Conv3x3Plan:
+    """Tiles and stages of ``qconv3x3_s8`` for an (N, H, W, Cin) input, Cout
+    output channels, at ``stride`` (rules read off plan_sweep.py's sweep of
+    every plan at YOLOv3's 10 dense 3x3 shapes at 608, B=32, PERF.md):
+
+    - bn 64 where Cout <= 64, with 4 stages; else bn 128 with 3 stages;
+      both fit two CTAs on an SM.
+    Plans are cached: a forward asks for the same ones every time."""
+    _check_stride('plan_qconv3x3', h, w, stride)
+    if min(n, h, w, cin, cout) < 1:
+        raise ValueError(f'plan_qconv3x3: empty shape {(n, h, w, cin, cout)}')
+    if cin % C3_CIN_STEP:
+        raise ValueError(f'plan_qconv3x3: Cin={cin} is not a multiple of {C3_CIN_STEP}')
+    m = n * (h // stride) * (w // stride)
+    if m > MAX_M or n * h * w * cin >= 2 ** 31:
+        raise ValueError(f'plan_qconv3x3: {(n, h, w, cin)} is over the kernel\'s 32-bit indices')
+    bn, stages = (64, 4) if cout <= 64 else (128, 3)
+    m_blocks, n_blocks = -(-m // C3_BM), -(-cout // bn)
+    if m_blocks * n_blocks > MAX_GRID_X:
+        raise ValueError(f'plan_qconv3x3: {(n, h, w, cin, cout)} needs {m_blocks * n_blocks} '
+                         f'CTAs, over the grid\'s {MAX_GRID_X}')
+    return Conv3x3Plan(bn, stages, qconv3x3_smem_bytes(bn, stages), m_blocks, n_blocks)
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     from pqdet_tpu_torch.ops._build import load_library
@@ -296,6 +375,9 @@ def _library():
         + [ctypes.c_void_p]
     lib.qdw3x3_launch.restype = ctypes.c_int
     lib.qdw3x3_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 \
+        + [ctypes.c_void_p]
+    lib.qconv3x3_launch.restype = ctypes.c_int
+    lib.qconv3x3_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 \
         + [ctypes.c_void_p]
     lib.sandwich_launch.restype = ctypes.c_int
     lib.sandwich_launch.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 \
@@ -383,6 +465,55 @@ def qdwconv3x3_s8(x, w, w_scale, b, *, act: str, stride: int, scalars,
 
 
 qdwconv3x3_s8.launches = 0
+
+
+def qconv3x3_s8(x, w, w_scale, b, colsum, *, act: str, stride: int, scalars,
+                requant: bool):
+    """Fused quantized dense 3x3 conv (padding 1, groups 1), NHWC s8 -> NHWC
+    s8/f32, with no im2col patches.
+
+    x: (N, H, W, Cin) int8 recentred, Cin a multiple of C3_CIN_STEP; w:
+    (Cout, 9 * Cin) int8 in (kh, kw, cin) order; w_scale, b: (Cout,) f32;
+    colsum: (Cout,) int32, the per-channel sum of w; scalars: (1, 4) f32
+    from ``make_scalars``. Output (N, H, W, Cout) at stride 1 and (N, H/2,
+    W/2, Cout) at stride 2, where H and W must be even (ValueError
+    otherwise). Launches the CUDA kernel for a CUDA tensor (RuntimeError
+    when grad mode is on and an input requires grad), runs
+    ``qconv3x3_reference`` for a CPU tensor."""
+    n, h, wd, cin = x.shape
+    _check_stride('qconv3x3_s8', h, wd, stride)
+    if x.device.type == 'cpu':
+        return qconv3x3_reference(x, w, w_scale, b, colsum, act=act, stride=stride,
+                                  scalars=scalars, requant=requant)
+    refuse_autograd('qconv3x3_s8', x, w, w_scale, b, colsum, scalars)
+    if x.device.type != 'cuda':
+        raise ValueError(f'qconv3x3_s8: no kernel for device {x.device}')
+    if cin % C3_CIN_STEP:
+        raise ValueError(f'qconv3x3_s8: Cin={cin} is not a multiple of {C3_CIN_STEP}')
+    cout = w.shape[0]
+    dev = x.device
+    _check('qconv3x3_s8', 'x', x, torch.int8, (n, h, wd, cin), dev)
+    _check('qconv3x3_s8', 'w', w, torch.int8, (cout, 9 * cin), dev)
+    _check('qconv3x3_s8', 'colsum', colsum, torch.int32, (cout,), dev)
+    _check_common('qconv3x3_s8', x, w_scale, b, scalars, act, cout)
+    out = torch.empty((n, h // stride, wd // stride, cout),
+                      dtype=torch.int8 if requant else torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    # the copies want 16-byte boundaries: a view off one is copied first
+    x, w = (t.clone() if t.data_ptr() % 16 else t for t in (x, w))
+    rc = _library().qconv3x3_launch(
+        x.data_ptr(), w.data_ptr(), w_scale.data_ptr(), b.data_ptr(), colsum.data_ptr(),
+        scalars.data_ptr(), out.data_ptr(), n, h, wd, cin, stride, cout, ACT_CODES[act],
+        int(requant), *plan_qconv3x3(n, h, wd, cin, cout, stride).c_args,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f'qconv3x3_s8: kernel launch failed with CUDA error {rc}')
+    qconv3x3_s8.launches += 1
+    return out
+
+
+qconv3x3_s8.launches = 0
 
 
 # the int8 sandwich: forms (codes of csrc/qconv.cu's SwForm), the

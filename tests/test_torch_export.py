@@ -198,16 +198,17 @@ def test_int8_artifacts_equal_int8_inference(int8_model, int8_artifacts, counted
 
 def test_artifact_graph_ops(fp_artifacts, int8_artifacts):
     """The fp and ``'int'`` programs hold no operator of the port's
-    namespace; ``'kernel'`` holds the four: eight convs through the 1x1
-    kernel (the stem and the two dense 3x3s as im2col patches, the five
-    1x1s with the head), the depthwise conv, one decode, and three
-    sandwiches (the input's quantisation, the shortcut, the route; the SE's
-    scale keeps its chain)."""
+    namespace; ``'kernel'`` holds the five: six convs through the 1x1
+    kernel (the stem as im2col patches, the five 1x1s with the head), the
+    two dense 3x3s of Cin 48 through the dense 3x3 kernel, the depthwise
+    conv, one decode, and three sandwiches (the input's quantisation, the
+    shortcut, the route; the SE's scale keeps its chain)."""
     for _, fn in (*fp_artifacts.values(), int8_artifacts['int']):
         assert library.graph_ops(fn) == []
     ops = collections.Counter(library.graph_ops(int8_artifacts['kernel'][1]))
-    assert ops == {'pqdet.qconv1x1_s8.default': 8, 'pqdet.qdwconv3x3_s8.default': 1,
-                   'pqdet.decode_heads.default': 1, 'pqdet.int8_sandwich.default': 3}
+    assert ops == {'pqdet.qconv1x1_s8.default': 6, 'pqdet.qconv3x3_s8.default': 2,
+                   'pqdet.qdwconv3x3_s8.default': 1, 'pqdet.decode_heads.default': 1,
+                   'pqdet.int8_sandwich.default': 3}
 
 
 def test_kernel_artifact_loads_in_a_fresh_process(int8_model, int8_artifacts, tmp_path):

@@ -1,4 +1,4 @@
-"""The launch plans of the port's two redesigned CUDA kernels, checked on the
+"""The launch plans of the port's redesigned CUDA kernels, checked on the
 CPU (the kernels themselves run only on the card, in chip_smoke.py):
 
 - ``plan_fused_ir`` at the 21 fused chains of mobilenetv2-fpn at 512x512
@@ -19,6 +19,10 @@ CPU (the kernels themselves run only on the card, in chip_smoke.py):
   outputs, the threads' units cover the tile once, the copies divide C,
   and the shared memory is the C side's layout (``dwlayout`` in
   csrc/qconv.cu) and fits;
+- ``plan_qconv3x3`` at YOLOv3's 10 dense 3x3 shapes at 608 (the 37 convs
+  it takes), B=1 and 32: the tiles cover the output, the shared memory is
+  the C side's layout (``c3layout`` in csrc/qconv.cu) and fits two CTAs
+  an SM;
 - all three at every shape of mobilenetv2-fpn pruned at ratio 0.3
   (``test_torch_prune.pruned_mobilenetv2_cfg``), B=1, 4 and 16, at input
   sizes 320-608: widths of a multiple of 8 and not of 16 (a half-filled
@@ -34,8 +38,10 @@ from pqdet_tpu_torch.compress.quantized import im2col_depth
 from pqdet_tpu_torch.model.network import DetectionNetwork
 from pqdet_tpu_torch.ops.fused_ir import (FusedIrPlan, find_fused_triples,
                                           fused_ir_smem_bytes, plan_fused_ir)
-from pqdet_tpu_torch.ops.qconv import (DW_PX, DW_THREADS, plan_qconv1x1, plan_qdwconv3x3,
-                                       qconv1x1_smem_bytes, qdwconv3x3_smem_bytes)
+from pqdet_tpu_torch.ops.fused_ir import SMEM_TWO
+from pqdet_tpu_torch.ops.qconv import (C3_BM, C3_CIN_STEP, DW_PX, DW_THREADS, plan_qconv1x1,
+                                       plan_qconv3x3, plan_qdwconv3x3, qconv1x1_smem_bytes,
+                                       qconv3x3_smem_bytes, qdwconv3x3_smem_bytes)
 from pqdet_tpu_torch.zoo import get_cfg
 
 SMEM_MAX = 232448
@@ -464,3 +470,59 @@ def test_plan_qconv1x1_at_visdrone_sizes(hw):
     assert any(h != w for _, h, w, *_ in shapes)
     with pytest.raises(ValueError, match='rows, over the kernel'):
         plan_qconv1x1(MAX_M + 1, 32, 32)
+
+
+def c3layout(bn, stages):
+    """csrc/qconv.cu ``c3layout``, line for line: 1024 bytes of alignment
+    slack, ``stages`` slots of an A tile [128][128] and a B tile [bn][128],
+    then f32 alpha and beta [bn]; None for a plan the kernel refuses."""
+    if bn not in (64, 128) or not 3 <= stages <= 6:
+        return None
+    return 1024 + stages * (128 * 128 + bn * 128) + 8 * bn
+
+
+@functools.lru_cache(maxsize=None)
+def dense_3x3_shapes(cfg_text, size):
+    """Sorted (side_in, cin, cout, stride) of the dense 3x3s that
+    qconv3x3_s8 takes in the int8 graph of ``cfg_text`` at ``size``."""
+    net = DetectionNetwork.from_cfg(cfg_text, quant=True)
+    return sorted({(size * n.attrs['stride'] // n.stride, n.in_channels, n.attrs['filters'],
+                    n.attrs['stride']) for n in net.graph.nodes
+                   if n.kind == 'convolutional' and n.attrs['size'] == 3
+                   and n.attrs['groups'] == 1 and n.in_channels % C3_CIN_STEP == 0})
+
+
+def test_yolov3_dense_3x3_shapes_are_the_10():
+    shapes = dense_3x3_shapes(get_cfg('yolov3', num_classes=80), 608)
+    assert len(shapes) == 10
+    assert {s[1] for s in shapes} == {32, 64, 128, 256, 512}
+    assert (608, 32, 64, 2) in shapes and (19, 512, 1024, 1) in shapes
+
+
+@pytest.mark.parametrize('b', [1, 32])
+@pytest.mark.parametrize('i', range(10))
+def test_plan_qconv3x3_at_yolov3(i, b):
+    """Each of YOLOv3's 10 admitted shapes at 608, B=1 and the cell's 32: the
+    tiles cover the output pixels and channels, the shared memory is the C
+    side's layout and fits two CTAs on an SM, the rule's tile width."""
+    side, cin, cout, stride = dense_3x3_shapes(get_cfg('yolov3', num_classes=80), 608)[i]
+    plan = plan_qconv3x3(b, side, side, cin, cout, stride)
+    m = b * (side // stride) ** 2
+    assert plan.m_blocks == -(-m // C3_BM) and plan.n_blocks == -(-cout // plan.bn)
+    assert (plan.m_blocks - 1) * C3_BM < m and (plan.n_blocks - 1) * plan.bn < cout
+    assert plan.smem == qconv3x3_smem_bytes(plan.bn, plan.stages) == c3layout(plan.bn,
+                                                                               plan.stages)
+    assert plan.smem <= SMEM_TWO
+    assert plan.bn == (64 if cout <= 64 else 128)
+    assert plan.c_args == (plan.bn, plan.stages, plan.smem)
+
+
+def test_plan_qconv3x3_refuses():
+    with pytest.raises(ValueError, match='multiple of 16'):
+        plan_qconv3x3(1, 8, 8, 40, 32, 1)
+    with pytest.raises(ValueError, match='even'):
+        plan_qconv3x3(1, 7, 8, 32, 32, 2)
+    with pytest.raises(ValueError, match='empty'):
+        plan_qconv3x3(0, 8, 8, 32, 32, 1)
+    with pytest.raises(ValueError, match='32-bit'):
+        plan_qconv3x3(64, 1024, 1024, 32, 32, 1)

@@ -267,9 +267,10 @@ classes=1
 
 def test_kernel_mode_takes_dense_3x3s_past_cin_115_exactly():
     """The port's departure from the JAX package, on a small graph: kernel
-    mode (its kernels' plain versions on the CPU) stages ``wim`` for the
-    dense 3x3s of Cin 128 and 144 and takes them through im2col, and conv
-    by conv it agrees with the exact integer mode (``int8_modes_agree``).
+    mode (its kernels' plain versions on the CPU) stages ``wim`` and ``w3``
+    for the dense 3x3s of Cin 128 and 144 and takes them through
+    ``qconv3x3_s8`` (``plain`` through im2col), and conv by conv it agrees
+    with the exact integer mode (``int8_modes_agree``).
     That gate is a share of codes (the epilogues' roundings part on a few
     in a million), so the input is 64x64, B=2: 606,208 codes."""
     import chip_smoke
@@ -284,21 +285,28 @@ def test_kernel_mode_takes_dense_3x3s_past_cin_115_exactly():
         staged = Int8Inference.prepare(qparams, network=net)
         assert [staged['layers'][k]['wim'].shape for k in '012'] == [
             (32, 128), (9 * 128, 144), (9 * 144, 96)]
-        tracing.clear()
-        with profile(activities=[ProfilerActivity.CPU]):
-            with tracing.span('root'):
-                Int8Inference(net).apply(staged, x)
-    r = tracing.records()
-    assert sum(1 for s in r['spans'] if s[0] == 'int8.conv3x3') == 3
-    assert r['counters']['int8.im2col_wide'] == 2
+        assert [staged['layers'][k]['w3'].shape for k in '12'] == [(144, 9 * 128),
+                                                                  (96, 9 * 144)]
+        counted = []
+        for plain in (False, True):
+            tracing.clear()
+            with profile(activities=[ProfilerActivity.CPU]):
+                with tracing.span('root'):
+                    Int8Inference(net).apply(staged, x, plain=plain)
+            r = tracing.records()
+            assert sum(1 for s in r['spans'] if s[0] == 'int8.conv3x3') == 3
+            counted.append((r['counters'].get('int8.conv3x3_direct', 0),
+                            r['counters'].get('int8.im2col_wide', 0)))
+    assert counted == [(2, 0), (0, 2)]
     n_conv, worst, n_diff, n_all, bad_heads = chip_smoke.int8_modes_conv_parity(net, qparams, x)
     assert n_conv == 4 and n_all == 606_208
     assert chip_smoke.int8_modes_agree(worst, n_diff, n_all, bad_heads)
 
 
-def conv3x3_counters(cfg_text, size=SIZE):
+def conv3x3_counters(cfg_text, size=SIZE, plain=False):
     """The walk's 3x3 counters over one kernel-mode forward of seeded int8
-    qparams: (int8.im2col_wide, int8.im2col_bytes, conv3x3 spans)."""
+    qparams: (int8.im2col_wide, int8.im2col_bytes, conv3x3 spans,
+    int8.conv3x3_direct)."""
     net = DetectionNetwork.from_cfg(cfg_text, quant=True)
     params, state = net.init(torch.Generator().manual_seed(0), device='cpu')
     params, state = prepare_qat_state(net, params, state)
@@ -311,26 +319,31 @@ def conv3x3_counters(cfg_text, size=SIZE):
         tracing.clear()
         with profile(activities=[ProfilerActivity.CPU]):
             with tracing.span('root'):
-                Int8Inference(net).apply(staged, x, plain=True)
+                Int8Inference(net).apply(staged, x, plain=plain)
     r = tracing.records()
     spans = sum(1 for s in r['spans'] if s[0] == 'int8.conv3x3')
     return (r['counters'].get('int8.im2col_wide', 0), r['counters'].get('int8.im2col_bytes', 0),
-            spans)
+            spans, r['counters'].get('int8.conv3x3_direct', 0))
 
 
-@pytest.mark.parametrize('name,wide,spans', [('yolov3', 32, 38), ('regnetx-600m-fpn', 0, 26)])
-def test_the_walk_counts_its_3x3_patches(name, wide, spans):
-    """``int8.im2col_wide`` counts the dense 3x3s past Cin 115 (32 in
-    YOLOv3; regnetx-600m-fpn's grouped 3x3s are densified, not dense);
-    ``int8.im2col_bytes`` is the patches' bytes from the shapes; one
-    ``int8.conv3x3`` span a non-depthwise 3x3."""
+@pytest.mark.parametrize('name,plain,wide,direct,spans', [
+    ('yolov3', False, 0, 37, 38), ('regnetx-600m-fpn', False, 0, 0, 26),
+    ('yolov3', True, 32, 0, 38), ('regnetx-600m-fpn', True, 0, 0, 26)])
+def test_the_walk_counts_its_3x3_patches(name, plain, wide, direct, spans):
+    """``int8.conv3x3_direct`` counts the dense 3x3s that took
+    ``qconv3x3_s8`` (YOLOv3's 37 past its stem; none in regnetx-600m-fpn,
+    whose grouped 3x3s are densified, not dense, or with ``plain``);
+    ``int8.im2col_wide`` the dense 3x3s past Cin 115 that took patches (32
+    in YOLOv3 with ``plain``); ``int8.im2col_bytes`` is the patches' bytes
+    from the shapes; one ``int8.conv3x3`` span a non-depthwise 3x3."""
     text = get_cfg(name, num_classes=80 if name == 'yolov3' else 20)
     lays = C.layers(text)
     sides = C.out_sides(lays, SIZE)
     want = sum(sides[l['index']] ** 2 * im2col_depth(l['cin'])
                for l in lays if l['kind'] == 'convolutional' and l['size'] == 3
-               and l['cin'] // l['groups'] > 1)
-    assert conv3x3_counters(text) == (wide, want, spans)
+               and l['cin'] // l['groups'] > 1
+               and (plain or l['groups'] > 1 or l['cin'] % 16))
+    assert conv3x3_counters(text, plain=plain) == (wide, want, spans, direct)
 
 
 # (M, K, N) -> (bm, bn, bk, split, kpr, stages): the plan of every 1x1 and
