@@ -825,39 +825,35 @@ def out_sides(graph, size):
 
 
 def int8_conv_shapes(net, size):
-    """{(kind, n_h, n_w, cin, cout, stride, act, requant): count} over the
-    convs of the int8 graph at input ``size`` (a side, or (h, w)), as each
-    kernel sees them:
-    'pw', 'dw' and 'c3' take the conv's input (H, W, C), a strided 'pw' its
-    every stride-th pixel; 'c3' is a dense 3x3 that ``qconv3x3_s8`` takes
-    (groups 1, Cin a multiple of 16); 'stem' is any other dense or
-    densified 3x3 as its im2col patches (H/stride, W/stride,
-    im2col_depth(Cin)) into the 1x1 kernel (9*Cin taps and zero columns up
-    to a multiple of 16).
-    ``requant``: the output edge is quantised (it feeds no yolo head)."""
-    from pqdet_tpu_torch.compress.quantized import im2col_depth
-    from pqdet_tpu_torch.ops.qconv import C3_CIN_STEP
+    """{(route, n_h, n_w, cin, cout, stride, act, requant): count} over the
+    convs of the int8 graph at input ``size`` (a side, or (h, w)), each
+    under the route ``compress.quantized.conv_route`` gives it, as its
+    kernel sees them: 'pw', 'dw' and 'c3' take the conv's input (H, W, C),
+    a strided 'pw' its every stride-th pixel; 'im2col' takes its patches
+    (H/stride, W/stride, im2col_depth(Cin)) into the 1x1 kernel (9*Cin
+    taps and zero columns up to a multiple of 16). A conv of no route is
+    left out. ``requant``: the output edge is quantised (it feeds no yolo
+    head)."""
+    from pqdet_tpu_torch.compress.quantized import conv_route, im2col_depth
     feeders = {n.index - 1 for n in net.graph.nodes if n.kind == 'yolo'}
     size_h, size_w = (size, size) if isinstance(size, int) else size
     sides_h, sides_w = out_sides(net.graph, size_h), out_sides(net.graph, size_w)
     shapes = {}
     for n in net.graph.nodes:
-        if n.kind != 'convolutional':
+        route = conv_route(n.attrs, n.in_channels) if n.kind == 'convolutional' else None
+        if route is None:
             continue
         a = n.attrs
         h, w = (sides_h[n.index - 1], sides_w[n.index - 1]) if n.index else (size_h, size_w)
-        rq = n.index not in feeders
+        tail = (a['activation'], n.index not in feeders)
         st = a['stride']
-        if a['size'] == 1:       # strided: the kernel takes every stride-th pixel
-            key = ('pw', -(-h // st), -(-w // st), n.in_channels, a['filters'], 1,
-                   a['activation'], rq)
-        elif a['groups'] == n.in_channels == a['filters']:
-            key = ('dw', h, w, n.in_channels, n.in_channels, st, a['activation'], rq)
-        elif a['groups'] == 1 and n.in_channels % C3_CIN_STEP == 0:
-            key = ('c3', h, w, n.in_channels, a['filters'], st, a['activation'], rq)
+        if route == 'pw':        # strided: the kernel takes every stride-th pixel
+            key = ('pw', -(-h // st), -(-w // st), n.in_channels, a['filters'], 1, *tail)
+        elif route == 'im2col':
+            key = ('im2col', h // st, w // st, im2col_depth(n.in_channels), a['filters'], 1,
+                   *tail)
         else:
-            key = ('stem', h // st, w // st, im2col_depth(n.in_channels), a['filters'], 1,
-                   a['activation'], rq)
+            key = (route, h, w, n.in_channels, a['filters'], st, *tail)
         shapes[key] = shapes.get(key, 0) + 1
     return shapes
 
@@ -954,14 +950,14 @@ def sandwich_chain(srcs, edges, out, form, act):
     """The walk's PyTorch chain of one sandwich node (``Int8Inference.apply``),
     the edges as Python floats: no host read, so a CUDA graph can hold it."""
     import torch
-    from pqdet_tpu_torch.compress.quantized import _dequant_s8, _quant_s8
     from pqdet_tpu_torch.model import layers as L
+    from pqdet_tpu_torch.ops.qconv import dequant_s8, quant_s8
     if form == 'input':
-        return _quant_s8(srcs[0], out)
-    ys = [_dequant_s8(t, e) for t, e in zip(srcs, edges)]
-    if form == 'shortcut':
-        return _quant_s8(L.apply_activation(act, ys[0] + ys[1]), out)
-    return _quant_s8(ys[0] if len(ys) == 1 else torch.cat(ys, dim=-1), out)
+        return quant_s8(srcs[0], out[0], out[1] - 128.0)
+    ys = [dequant_s8(t, e[0], e[1] - 128.0) for t, e in zip(srcs, edges)]
+    y = L.apply_activation(act, ys[0] + ys[1]) if form == 'shortcut' else \
+        ys[0] if len(ys) == 1 else torch.cat(ys, dim=-1)
+    return quant_s8(y, out[0], out[1] - 128.0)
 
 
 def sandwich_parity(gen, dev, shapes, batches, label):
@@ -1041,7 +1037,7 @@ DW_FRACTIONAL_ZP = [(('dw', 64, 64, 96, 96, 2, 'relu', True), 0.37),
 QCONV_EDGE_SHAPES = [
     ('pw', 3, 5, 64, 96, 1, 'relu', True),
     ('pw', 9, 9, 160, 75, 1, 'linear', False),
-    ('stem', 64, 64, 27, 32, 1, 'relu', True),
+    ('im2col', 64, 64, 27, 32, 1, 'relu', True),
     ('pw', 16, 16, 24, 144, 1, 'relu6', True),
     ('pw', 7, 11, 1280, 512, 1, 'leaky', True),
 ]
@@ -1171,7 +1167,7 @@ def phase7_int8_path(gen, dev, cfg, batch, tag, qnet, shapes):
     from pqdet_tpu_torch.ops.preprocess import device_normalize
     from pqdet_tpu_torch.ops.qconv import int8_sandwich, qconv1x1_s8, qdwconv3x3_s8
 
-    n_pw = sum(c for k, c in shapes.items() if k[0] in ('pw', 'stem'))
+    n_pw = sum(c for k, c in shapes.items() if k[0] in ('pw', 'im2col'))
     n_dw = sum(c for k, c in shapes.items() if k[0] == 'dw')
     n_sw = sandwich_launches(qnet)
     params, state = qnet.init(gen, device=dev)
@@ -1405,12 +1401,11 @@ def train_batch(gen, b, size, dev, max_gt, classes=20):
 
 
 def counted_kernels():
-    """The wrappers of the hand-written kernels, each counting its launches."""
-    from pqdet_tpu_torch.ops.decode_kernel import decode_heads
+    """The wrappers of the hand-written kernels, each counting its launches:
+    the int8 walk's table of wrappers and the fused-IR kernel."""
     from pqdet_tpu_torch.ops.fused_ir import fused_ir_conv
-    from pqdet_tpu_torch.ops.qconv import (int8_sandwich, qconv1x1_s8, qconv3x3_s8,
-                                           qdwconv3x3_s8)
-    return (decode_heads, fused_ir_conv, qconv1x1_s8, qdwconv3x3_s8, int8_sandwich, qconv3x3_s8)
+    from pqdet_tpu_torch.ops.library import WRAPPERS
+    return (fused_ir_conv, *WRAPPERS)
 
 
 def kernel_launches():
@@ -2086,7 +2081,7 @@ QAT_NODE_GRAD_L2 = 1e-4        # relative L2 of each grad (an input's, a param's
 # least 1e-6
 QAT_WALK_PARTS_RTOL = 1e-4
 QAT_DRIFT_FACTOR = 2.0
-# per int8 eval forward (phase 7's count)
+# per int8 eval forward of mobilenetv2-fpn (phases 7, 12 and 15)
 INT8_FORWARD_LAUNCHES = {'qconv1x1_s8': 58, 'qdwconv3x3_s8': 26, 'decode_heads': 1,
                          'int8_sandwich': 15}
 INT8_EVAL_SAME_IMAGES = 30     # of the 32 eval images, identical to the plain versions'
@@ -3521,7 +3516,7 @@ def phase14_arc(dev, tag, tmp, corpus, gate):
     # 3. QAT on the pruned cfg, resumed from the fine-tuned checkpoint
     qnet = DetectionNetwork.from_cfg(res.cfg_text, quant=True)
     qshapes = int8_conv_shapes(qnet, PRUNE_SIZE)
-    per_forward = {'qconv1x1_s8': sum(c for k, c in qshapes.items() if k[0] in ('pw', 'stem')),
+    per_forward = {'qconv1x1_s8': sum(c for k, c in qshapes.items() if k[0] in ('pw', 'im2col')),
                    'qdwconv3x3_s8': sum(c for k, c in qshapes.items() if k[0] == 'dw'),
                    'decode_heads': 1, 'int8_sandwich': sandwich_launches(qnet)}
     recs['qat'] = {}
@@ -3727,8 +3722,6 @@ NMS_ARGS = (0.1, 0.45, 256)     # export_stablehlo's defaults
 ONNX_FP_TOL = 1e-4              # tests/test_onnx.py:73, rtol = atol
 ONNX_BOX_MEDIAN = 1.0           # tests/test_onnx.py:112-113: px ...
 ONNX_SCORE_MEDIAN = 0.05        # ... and scores
-INT8_PER_FORWARD = {'qconv1x1_s8': 58, 'qdwconv3x3_s8': 26, 'decode_heads': 1,
-                    'int8_sandwich': 15}
 
 
 def load_artifacts(manifest_path):
@@ -3812,8 +3805,8 @@ def phase15_artifacts(dev, tag, out_dir, gen, net, fused, qnet, qparams):
         'kernel': lambda b: export_stablehlo_quant(qnet, qparams, (SIZE, SIZE), b, 'kernel',
                                                    device=dev),
     }
-    want_ops = {f'{library.NAMESPACE}.{k}.default': v for k, v in INT8_PER_FORWARD.items()}
-    launches = dict.fromkeys(INT8_PER_FORWARD, 0)
+    want_ops = {f'{library.NAMESPACE}.{k}.default': v for k, v in INT8_FORWARD_LAUNCHES.items()}
+    launches = dict.fromkeys(INT8_FORWARD_LAUNCHES, 0)
     refs, items, rows = {}, {}, {}
     for b in EXPORT_BATCHES:
         x = torch.rand(b, SIZE, SIZE, 3, generator=gen).to(dev)     # normalized images
@@ -3836,7 +3829,7 @@ def phase15_artifacts(dev, tag, out_dir, gen, net, fused, qnet, qparams):
                 got = fn(x)
                 torch.cuda.synchronize()
                 counts = kernel_launches()
-            want = INT8_PER_FORWARD if kind == 'kernel' else {}
+            want = INT8_FORWARD_LAUNCHES if kind == 'kernel' else {}
             ran = {k: v for k, v in counts.items() if v}
             ok = ops == (want_ops if kind == 'kernel' else {}) and ran == want \
                 and same_outputs(got, ref)
@@ -3876,7 +3869,7 @@ def phase15_artifacts(dev, tag, out_dir, gen, net, fused, qnet, qparams):
     bad = list(report['foreign'])
     for name, r in report['artifacts'].items():
         ran = {k: v for k, v in r['launches'].items() if v}
-        want = INT8_PER_FORWARD if rows[name]['kind'] == 'kernel' else {}
+        want = INT8_FORWARD_LAUNCHES if rows[name]['kind'] == 'kernel' else {}
         equal = same_outputs(torch.load(items[name]['output'], map_location=dev), refs[name])
         rows[name]['fresh_load_s'] = r['load_s']
         print(f'phase 15: {tag} fresh process {name}: loaded in {r["load_s"]:.2f} s, first '
@@ -4117,7 +4110,7 @@ def phase16_kernels(dev, tag, qnets):
     shapes = {}
     for name in REGNET_FPN:
         s = int8_conv_shapes(qnets[name], SIZE)
-        ks = sorted(k[3] for k in s if k[0] == 'stem')
+        ks = sorted(k[3] for k in s if k[0] == 'im2col')
         se = sorted((k[3], k[4]) for k in s if k[1] == 1)
         print(f'phase 16 (a): {name} int8 graph: {sum(s.values())} convs in {len(s)} shapes; '
               f'dense and densified 3x3s through im2col at K {ks}; SE 1x1s at M = B: {se}')
@@ -4149,14 +4142,14 @@ def yolov3_int8_parity(gen, dev, qnet):
     Returns the largest error of each kernel."""
     from pqdet_tpu_torch.ops.qconv import plan_qconv1x1
     shapes = int8_conv_shapes(qnet, YOLOV3_SIZE)
-    ks = sorted({k[3] for k in shapes if k[0] == 'stem'})
+    ks = sorted({k[3] for k in shapes if k[0] == 'im2col'})
     c3 = sorted((k[1], k[3], k[4], k[5]) for k in shapes if k[0] == 'c3')
     print(f'phase 16 (a): {YOLOV3} int8 graph at {YOLOV3_SIZE}: {sum(shapes.values())} convs in '
           f'{len(shapes)} shapes; the stem through im2col at K {ks}; dense 3x3s through '
           f'qconv3x3_s8 at {len(c3)} shapes (side, Cin, Cout, stride) {c3}')
     err = phase6_int8_parity(gen, dev, shapes, batches=(1,), edges=False,
                              label=f'phase 16 (a) {YOLOV3}')
-    stem = {k: c for k, c in shapes.items() if k[0] == 'stem' and k[1] == YOLOV3_SIZE}
+    stem = {k: c for k, c in shapes.items() if k[0] == 'im2col' and k[1] == YOLOV3_SIZE}
     (_, h, w, k, n, *_), = stem
     m_blocks = plan_qconv1x1(YOLOV3_STEM_BATCH * h * w, k, n).m_blocks
     if m_blocks <= 65535:
@@ -4192,7 +4185,7 @@ def phase16_serving(dev, tag, gate):
         seed_bn(params, state, gen, dev, gain=REGNET_GAIN)
         models[name] = (net, params, state, qnet)
         qs = int8_conv_shapes(qnet, SIZE)
-        n_pw = sum(c for k, c in qs.items() if k[0] in ('pw', 'stem'))
+        n_pw = sum(c for k, c in qs.items() if k[0] in ('pw', 'im2col'))
         n_dw = sum(c for k, c in qs.items() if k[0] == 'dw')
         bf = bf16_server(net, params, state, dev)
         q8 = int8_server(cfg_text, params, state, batch, dev)
@@ -4267,7 +4260,7 @@ def phase16_yolov3(dev, gate):
                                                  size=YOLOV3_SIZE)
     qs = int8_conv_shapes(qnet, YOLOV3_SIZE)
     per = {'decode_heads': 1,
-           'qconv1x1_s8': sum(c for k, c in qs.items() if k[0] in ('pw', 'stem')),
+           'qconv1x1_s8': sum(c for k, c in qs.items() if k[0] in ('pw', 'im2col')),
            'qconv3x3_s8': sum(c for k, c in qs.items() if k[0] == 'c3'),
            'qdwconv3x3_s8': sum(c for k, c in qs.items() if k[0] == 'dw'),
            'int8_sandwich': sandwich_launches(qnet)}

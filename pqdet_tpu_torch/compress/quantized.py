@@ -8,20 +8,21 @@ between a dequant and a requant, as in the JAX package.
 ``Int8Inference`` walks the quant graph in one of three modes:
 
 - ``'kernel'`` (the JAX package's ``'pallas'``): activations in the
-  recentred s8 form, every pointwise conv through ``qconv1x1_s8`` (a
-  strided one on the input's every stride-th pixel), every depthwise 3x3
-  through ``qdwconv3x3_s8`` (both CUDA kernels on the card,
-  ``csrc/qconv.cu``), every dense 3x3 whose Cin is a multiple of 16
-  through ``qconv3x3_s8`` (an implicit GEMM that reads its input window
-  directly: YOLOv3's 37 dense 3x3s past its stem), and every other dense
-  3x3 and densified grouped 3x3 (``prepare(network=)``) as im2col patches
-  into ``qconv1x1_s8`` (K = 9 * Cin up to 4752 in the zoo: regnetx-600m's
-  densified Cin 528); the raw yolo heads are decoded after the walk by
-  one launch of the Triton decode kernel into the preds. This is the
-  serving path. It departs from the JAX package in two places, on the CPU
-  and in the plain walk too: a strided 1x1 and a dense 3x3 wider than Cin
-  115 run exactly through those routes, where the JAX package runs its
-  bf16 dequant conv;
+  recentred s8 form. One rule, ``conv_route``, gives each conv its
+  kernel: a pointwise conv ``qconv1x1_s8`` (a strided one on the input's
+  every stride-th pixel), a depthwise 3x3 ``qdwconv3x3_s8`` (both CUDA
+  kernels on the card, ``csrc/qconv.cu``), a dense 3x3 whose Cin is a
+  multiple of 16 ``qconv3x3_s8`` (an implicit GEMM: YOLOv3's 37 past its
+  stem), and any other dense 3x3 and densified grouped 3x3 im2col patches
+  into ``qconv1x1_s8`` (K up to 4752 in the zoo). The input's
+  quantisation, each shortcut and each route run as one ``int8_sandwich``
+  launch from s8 to s8, and one Triton decode launch decodes the raw yolo
+  heads into the preds. ``Int8Inference.routes`` is the walk's table of
+  these choices. This is the serving path; ``apply(plain=True)`` takes
+  the same routes through the plain versions (``ops.library.PLAIN``). It
+  departs from the JAX package in two places, on the CPU and in the plain
+  walk too: a strided 1x1 and a dense 3x3 wider than Cin 115 run exactly
+  through those routes, where the JAX package runs its bf16 dequant conv;
 - ``'int'``: uint8 activations and ``int8_conv``, the exact integer
   reference, plain PyTorch (the sum in float64: torch has no integer
   conv);
@@ -37,7 +38,7 @@ both ways.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,24 +50,13 @@ from pqdet_tpu_torch.model import layers as L
 from pqdet_tpu_torch.model.graph import solve_padding
 from pqdet_tpu_torch.model.network import (DetectionNetwork, decode_all_heads,
                                            decode_consumed_head, fuse_params)
+from pqdet_tpu_torch.ops import library
 from pqdet_tpu_torch.ops.decode_kernel import head_views
 from pqdet_tpu_torch.ops.qconv import (C3_CIN_STEP, SANDWICH_ACTS, SANDWICH_MAX_SOURCES,
-                                       dequant_s8, int8_sandwich, make_scalars,
-                                       qconv1x1_reference, qconv1x1_s8, qconv3x3_s8,
-                                       qdwconv3x3_reference, qdwconv3x3_s8, quant_s8,
-                                       sandwich_scalars)
+                                       dequant_s8, make_scalars, quant_s8, sandwich_scalars)
 from pqdet_tpu_torch.utils import tracing
 from pqdet_tpu_torch.utils.codec import load_checkpoint, save_pytrees
 
-# widest dense 3x3 input the JAX package stages for its integer-exact
-# paths (its Int8Inference.prepare); it gates nothing here: the port takes
-# every dense 3x3 through qconv3x3_s8 or im2col, and only counts those
-# wider that take im2col (``int8.im2col_wide``), where it departs from the
-# JAX package.
-# The s32 sum of a patch row stays exact at any zoo width: |s8 code| <= 128
-# and |weight code| <= 127, so |sum| <= K * 128 * 127, under 2^31 up to
-# K = 132,104 (Cin 14,678); YOLOv3's widest, K = 9 * 512, sums below 7.5e7
-MAX_DENSE_CIN = 115
 # group widths (input channels per group) that ``prepare(network=)``
 # densifies, the JAX package's range
 DENSE_GROUP_WIDTHS = (2, 115)
@@ -78,6 +68,42 @@ def im2col_depth(cin: int) -> int:
     for the 1x1 kernel. The zero columns meet zero weight rows: the
     integer sum and colsum are unchanged."""
     return -(-9 * cin // 16) * 16
+
+
+def conv_route(attrs: Dict, cin: int) -> Optional[str]:
+    """The kernel-mode route of a conv of cfg ``attrs`` (size, stride,
+    padding, groups, filters) on ``cin`` input channels: ``'pw'`` a 1x1
+    (padding 0, any stride), ``'dw'`` a depthwise 3x3, ``'c3'`` a dense 3x3
+    (groups 1) whose Cin is a multiple of C3_CIN_STEP, ``'im2col'`` any
+    other dense 3x3 and a densified grouped 3x3 (patches into the 1x1
+    kernel); None a grouped conv not densified, another size or padding,
+    a 3x3 at a stride past 2. A grouped conv is densified where its group
+    width lies in DENSE_GROUP_WIDTHS and its Cout is a multiple of its
+    groups. A patch row's s32 sum stays exact up to K = 132,104 (|sum| <=
+    K * 128 * 127 < 2^31), far past the zoo's widest 4752."""
+    size, groups, filters = attrs['size'], attrs['groups'], attrs['filters']
+    padding = solve_padding(size, attrs['padding'], attrs['pad'])
+    dense = groups == 1 or (DENSE_GROUP_WIDTHS[0] <= cin // groups <= DENSE_GROUP_WIDTHS[1]
+                            and filters % groups == 0)
+    if size == 1:
+        return 'pw' if padding == 0 and dense else None
+    if size != 3 or padding != 1 or attrs['stride'] not in (1, 2):
+        return None
+    if groups == cin == filters:
+        return 'dw'
+    if groups == 1 and cin % C3_CIN_STEP == 0:
+        return 'c3'
+    return 'im2col' if dense else None
+
+
+def _fits(route: str, p: Dict, shape, stride: int) -> bool:
+    """Whether ``route``'s view in the staged ``p`` takes an NHWC input of
+    ``shape``: its input channels; even H and W for a 3x3 at stride 2."""
+    _, h, w, c = shape
+    view, axis, k = {'pw': ('w2d', 0, c), 'dw': ('wdw', 2, c), 'c3': ('w3', 1, 9 * c),
+                     'im2col': ('wim', 0, im2col_depth(c))}[route]
+    return view in p and p[view].shape[axis] == k and (
+        route == 'pw' or (h % stride == 0 and w % stride == 0))
 
 
 def quantize_weights(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -153,18 +179,6 @@ def _dequant(q, scale_zp):
     return (q.float() - zp) * scale
 
 
-def _quant_s8(x, scale_zp):
-    """Affine-quantise to the RECENTRED signed form s = q_u8 - 128, which the
-    int8 kernels take and give, so no layer needs a recentre op."""
-    scale, zp = scale_zp
-    return quant_s8(x, scale, zp - 128.0)
-
-
-def _dequant_s8(s, scale_zp):
-    scale, zp = scale_zp
-    return dequant_s8(s, scale, zp - 128.0)
-
-
 def _fake_quant_edge(x, scale_zp):
     """Quantise-dequantise in f32 without materialising uint8."""
     scale, zp = scale_zp
@@ -232,58 +246,88 @@ class Int8Inference:
         self.graph = network.graph
         self.mode = mode
         self._scalars: Dict[tuple, torch.Tensor] = {}
+        self._routes: Dict[tuple, Dict[str, Optional[str]]] = {}
 
     @staticmethod
     def prepare(qparams: Dict, mode: str = 'kernel', network: DetectionNetwork = None) -> Dict:
-        """Derive the kernel weight views (``'kernel'`` mode), contiguous on
-        the weights' device:
-        - 1x1 conv: ``w2d`` (Cin, Cout) int8 and ``colsum`` (Cout,) int32;
-        - depthwise 3x3 (one input channel per group): ``wdw`` (3, 3, C);
-        - any other 3x3: ``wim`` (im2col_depth(Cin), Cout) in (kh, kw,
-          cin) order with zero rows after the 9*Cin taps, and
-          ``wim_colsum``, for the im2col route into the 1x1 kernel; a
-          dense one (groups 1) whose Cin is a multiple of C3_CIN_STEP also
-          ``w3`` (Cout, 9*Cin), the same weights K-major for
-          ``qconv3x3_s8`` (whose colsum is ``wim_colsum``).
-        With ``network`` given, a GROUPED conv of group width 2-115 (the
-        RegNet pattern) whose Cout is a multiple of its groups is first
-        densified to block-diagonal int8 weights
-        (``layers.densify_grouped_weight``, the JAX package's
-        ``_densify_int8_weight``), as its ``prepare(network=)`` does: a
-        grouped 1x1 becomes ``w2d`` and ``colsum``, a grouped 3x3 a dense
-        3x3 (K up to 9 * 528 = 4752 in the RegNets). Without it the views
-        are of the compact weights, which the walk admits for no input:
-        such a conv runs the bf16 dequant conv on the CPU, as in JAX, and
-        kernel mode raises on the card.
-        ``wq`` stays grouped. Other modes stage the qparams as they are."""
-        groups_of = {} if network is None else {
-            str(n.index): n.attrs['groups'] for n in network.graph.nodes
-            if n.kind == 'convolutional'}
+        """Derive the weight views of each conv's route (``conv_route``) in
+        ``'kernel'`` mode, contiguous on the weights' device:
+        - ``'pw'``: ``w2d`` (Cin, Cout) int8 and ``colsum`` (Cout,) int32;
+        - ``'dw'``: ``wdw`` (3, 3, C);
+        - ``'c3'``: ``w3`` (Cout, 9*Cin) in (kh, kw, cin) order and
+          ``colsum``;
+        - ``'im2col'``: ``wim`` (im2col_depth(Cin), Cout) in (kh, kw, cin)
+          order with zero rows after the 9*Cin taps, and ``wim_colsum``.
+        With ``network`` given, a grouped conv that its route densifies
+        (the RegNet pattern) first becomes block-diagonal int8 weights
+        (``layers.densify_grouped_weight``), as the JAX package's
+        ``prepare(network=)`` does (K up to 9 * 528 = 4752 in the RegNets).
+        Without it each conv takes the route of its weights' own shape
+        (groups 1, but a depthwise 3x3 of one input channel a group), so a
+        grouped conv's views are of its compact weights, which the walk
+        admits for no input: such a conv runs the bf16 dequant conv on the
+        CPU, as in JAX, and kernel mode raises on the card. ``wq`` stays
+        grouped. Other modes stage the qparams as they are."""
+        nodes = {} if network is None else {str(n.index): n for n in network.graph.nodes}
         layers = {}
         for key, p in qparams['layers'].items():
             p = dict(p)
             wq = p.get('wq') if mode == 'kernel' else None
             if wq is not None:
-                g = groups_of.get(key, 1)
-                densified = (g > 1 and DENSE_GROUP_WIDTHS[0] <= wq.shape[1]
-                             <= DENSE_GROUP_WIDTHS[1] and wq.shape[0] % g == 0)
-                if densified:
+                cout, cin_g, k, _ = wq.shape
+                node = nodes.get(key)
+                g = node.attrs['groups'] if node else cout if (cin_g, k) == (1, 3) else 1
+                route = conv_route(node.attrs if node else dict(
+                    size=k, stride=1, padding=k // 2, pad=0, groups=g, filters=cout), cin_g * g)
+                if route in ('pw', 'im2col') and g > 1:
                     wq = L.densify_grouped_weight(wq, g)
-                cout, cin, kh, kw = wq.shape
-                if (kh, kw) == (1, 1):
-                    p['w2d'] = wq.reshape(cout, cin).t().contiguous()
+                cout, cin = wq.shape[:2]
+                if route == 'pw':
+                    p['w2d'] = wq.reshape(cout, cin).t()
                     p['colsum'] = p['w2d'].to(torch.int32).sum(0).to(torch.int32)
-                elif (cin, kh, kw) == (1, 3, 3):
-                    p['wdw'] = wq.reshape(cout, 9).t().reshape(3, 3, cout).contiguous()
-                elif (kh, kw) == (3, 3):
+                elif route == 'dw':
+                    p['wdw'] = wq.reshape(cout, 9).t().reshape(3, 3, cout)
+                elif route == 'c3':
+                    p['w3'] = wq.permute(0, 2, 3, 1).reshape(cout, 9 * cin)
+                    p['colsum'] = p['w3'].to(torch.int32).sum(1).to(torch.int32)
+                elif route == 'im2col':
                     wim = wq.permute(2, 3, 1, 0).reshape(9 * cin, cout)
-                    p['wim'] = F.pad(wim, (0, 0, 0, im2col_depth(cin) - 9 * cin)).contiguous()
+                    p['wim'] = F.pad(wim, (0, 0, 0, im2col_depth(cin) - 9 * cin))
                     p['wim_colsum'] = p['wim'].to(torch.int32).sum(0).to(torch.int32)
-                    if g == 1 and cin % C3_CIN_STEP == 0:
-                        p['w3'] = wq.permute(0, 2, 3, 1).reshape(cout, 9 * cin).contiguous()
             layers[key] = {k: v.contiguous() if isinstance(v, torch.Tensor) else v
                            for k, v in p.items()}
         return {'layers': layers, 'act': qparams['act']}
+
+    def routes(self, act) -> Dict[str, Optional[str]]:
+        """The walk's route table for the quantised edges ``act`` (its
+        keys), on which ``apply`` dispatches, made once: in kernel mode each
+        conv's ``conv_route`` where its input edge is quantised, and
+        ``'sandwich'`` for the input and each shortcut (of an activation in
+        SANDWICH_ACTS) or route (of at most SANDWICH_MAX_SOURCES sources)
+        whose edges in and out are all quantised; None for every other
+        conv and node between a dequant and a requant (the PyTorch chain)."""
+        table = self._routes.get(tuple(act))
+        if table is not None:
+            return table
+        kernel = self.mode == 'kernel'
+        quantised = {-1: 'input' in act}           # each node's output edge
+        table = {'input': 'sandwich' if kernel else None}
+        for n in self.graph.nodes:
+            i, key, kind, a = n.index, str(n.index), n.kind, n.attrs
+            if kind in ('dropout', 'upsample'):
+                quantised[i] = quantised[i - 1]
+                continue
+            quantised[i] = kind != 'yolo' and key in act
+            if kind == 'convolutional':
+                table[key] = conv_route(a, n.in_channels) if kernel and quantised[i - 1] else None
+            elif kind != 'yolo':
+                srcs = ((i - 1, n.refs[0]) if kind == 'shortcut'
+                        and a['activation'] in SANDWICH_ACTS else n.refs
+                        if kind == 'route' and len(n.refs) <= SANDWICH_MAX_SOURCES else None)
+                fused = kernel and srcs is not None and all(quantised[j] for j in (i, *srcs))
+                table[key] = 'sandwich' if fused else None
+        self._routes[tuple(act)] = table
+        return table
 
     def _scalar_vector(self, key, x_sz, out_edge, device):
         """The kernels' (1, 4) scalar vector of conv ``key``, made once per
@@ -304,81 +348,53 @@ class Int8Inference:
         (B, sum HWA, 5+C) f32 preds. With ``intermediates`` the return value
         is ``(preds, {node_key: f32 node output})``, the per-layer view the
         kernel path is held to; a yolo node's entry is its (B, H, W, A, 5+C)
-        view of the preds. ``plain`` runs the kernels' plain versions
-        on any device. ``kernels`` (``ops.library.Kernels``: the 1x1, the
-        depthwise, the decode, the sandwich and the dense 3x3 entry, with
-        the wrappers' signatures) replaces the wrappers: an exported
-        program walks with ``ops.library.OPS``, the registered operators.
-
-        In kernel mode a dense 3x3 (groups 1, padding 1, stride 1 or 2,
-        even H and W at stride 2) whose Cin is a multiple of C3_CIN_STEP
-        runs as one ``qconv3x3_s8`` launch; ``plain`` and a ``kernels``
-        without a qconv3x3 entry take it through im2col patches into the
-        1x1 entry, as every other 3x3 that is not depthwise.
-
-        In kernel mode the input's quantisation, each shortcut (of an
-        activation in SANDWICH_ACTS) and each route whose sources are all
-        s8 and whose output edge is quantised run as one ``int8_sandwich``
-        launch from s8 to s8; ``plain`` and a ``kernels`` without a
-        sandwich entry keep their PyTorch chain, as do every other node
-        between a dequant and a requant (pool, scale, fc) and the other
-        modes."""
+        view of the preds. Each node takes its entry of ``routes``, a conv
+        where its input fits the staged view (``_fits``). ``kernels`` (an
+        ``ops.library.Kernels`` table) says how the kernels run, never
+        which: ``library.WRAPPERS`` by default, ``library.PLAIN`` (on any
+        device) with ``plain``; an exported program walks with
+        ``library.OPS``, the registered operators."""
         act = qparams['act']
         layers = qparams['layers']
+        routes = self.routes(act)
         cache: Dict[int, tuple] = {}
         inter: Dict[str, torch.Tensor] = {}
         heads = []                       # (raw f32 head, yolo node)
         kernel = self.mode == 'kernel'
-        if kernels is not None:
-            pw_fn, dw_fn, dec_fn, sw_fn, c3_fn = kernels
-        else:
-            pw_fn = qconv1x1_reference if plain else qconv1x1_s8
-            dw_fn = qdwconv3x3_reference if plain else qdwconv3x3_s8
-            dec_fn = None
-            sw_fn = None if plain else int8_sandwich
-            c3_fn = None if plain else qconv3x3_s8
+        if kernels is None:
+            kernels = library.PLAIN if plain else library.WRAPPERS
+        pw_fn, dw_fn, dec_fn, sw_fn, c3_fn = kernels
 
         def as_fp(val, sz):
             if sz is None:
                 return val
-            return _dequant_s8(val, sz) if kernel else _dequant(val, sz)
+            return dequant_s8(val, sz[0], sz[1] - 128.0) if kernel else _dequant(val, sz)
 
         def requant(y, sz):
             if self.mode == 'dequant':
                 return _fake_quant_edge(y, sz), None
-            return (_quant_s8(y, sz), sz) if kernel else (_quant(y, sz), sz)
+            return (quant_s8(y, sz[0], sz[1] - 128.0), sz) if kernel else (_quant(y, sz), sz)
 
         def edge(key, y):
             if key in act:  # requantise this edge
                 return requant(y, act[key])
             return y, None  # f32 edge (feeds a yolo head)
 
-        def sandwich(key, srcs, form, act_name, chain):
-            """Sandwich node ``key`` as one ``int8_sandwich`` of ``srcs``
-            ((values, their edges); None where the kernel does not take the
-            node), or as ``chain()`` where it does not or ``plain``."""
-            if srcs is not None:
-                vals, edges = srcs
-                sc = self._sandwich_vector(key, edges, act[key], vals[0].device)
-                if sw_fn is not None:
-                    tracing.count('int8.sandwich_fused')
-                    return sw_fn(vals, sc, form=form, act=act_name), act[key]
-            tracing.count('int8.sandwich_plain')
-            return chain()
+        def sandwich(key, vals, edges, form, act_name='linear'):
+            """Node ``key`` (or 'input') as one ``int8_sandwich`` of ``vals``
+            on ``edges``."""
+            sc = self._sandwich_vector(key, edges, act[key], vals[0].device)
+            return sw_fn(vals, sc, form=form, act=act_name), act[key]
 
         # spans (utils/tracing.py): int8.sandwich around a quantisation or a
-        # node's dequant, f32 op and requant (counting the sandwich nodes
-        # that took the kernel and the chain); int8.im2col, int8.kernel and
-        # int8.decode around the patches, the int8 kernels and the decode;
-        # int8.conv3x3 around a 3x3's patches and GEMM or its qconv3x3_s8
-        # launch (counting the 3x3s that took that kernel,
-        # int8.conv3x3_direct, the patch bytes, int8.im2col_bytes, and the
-        # dense 3x3s wider than the JAX package stages that took patches,
-        # int8.im2col_wide)
+        # node's sandwich or chain; int8.im2col, int8.kernel and int8.decode
+        # around the patches, the int8 kernels and the decode; int8.conv3x3
+        # around a 3x3's patches (int8.im2col_bytes) and GEMM or its launch
         with tracing.span('int8.sandwich'):
-            srcs = ([x.contiguous()], ()) if kernel and x.dtype == torch.float32 else None
-            xq, cur_sz = sandwich('input', srcs, 'input', 'linear',
-                                  lambda: requant(x, act['input']))
+            if routes['input'] == 'sandwich' and x.dtype == torch.float32:
+                xq, cur_sz = sandwich('input', [x.contiguous()], (), 'input')
+            else:
+                xq, cur_sz = requant(x, act['input'])
 
         for node in self.graph.nodes:
             i, kind = node.index, node.kind
@@ -390,22 +406,15 @@ class Int8Inference:
                 p = layers[key]
                 padding = solve_padding(a['size'], a['padding'], a['pad'])
                 stride = a['stride']
-                _, h, w, c = xq.shape
-                even = h % stride == 0 and w % stride == 0
-                dw_ok = ('wdw' in p and a['size'] == 3 and padding == 1
-                         and a['groups'] == c and a['groups'] == a['filters'] and even)
-                # a strided 1x1 (the RegNets' projections) is the 1x1 of
-                # the input's every stride-th row and column
-                pw_ok = 'w2d' in p and padding == 0 and p['w2d'].shape[0] == c
-                im2col_ok = ('wim' in p and a['size'] == 3 and padding == 1
-                             and stride in (1, 2) and p['wim'].shape[0] == im2col_depth(c)
-                             and even)
-                if kernel and cur_sz is not None and (pw_ok or dw_ok or im2col_ok):
+                route = routes[key]
+                if route is not None and _fits(route, p, xq.shape, stride):
                     out_edge = act.get(key)
                     common = dict(act=a['activation'], requant=out_edge is not None,
                                   scalars=self._scalar_vector(key, cur_sz, out_edge,
                                                               xq.device))
-                    if pw_ok:
+                    if route == 'pw':
+                        # a strided 1x1 (the RegNets' projections) is the 1x1
+                        # of the input's every stride-th row and column
                         xs = xq
                         if stride != 1:
                             with tracing.span('int8.im2col'):
@@ -413,24 +422,20 @@ class Int8Inference:
                         with tracing.span('int8.kernel'):
                             y = pw_fn(xs, p['w2d'], p['w_scale'], p['b'], p['colsum'],
                                       **common)
-                    elif dw_ok:
+                    elif route == 'dw':
                         with tracing.span('int8.kernel'):
                             y = dw_fn(xq, p['wdw'], p['w_scale'], p['b'], stride=stride,
                                       **common)
-                    elif c3_fn is not None and 'w3' in p and a['groups'] == 1 \
-                            and p['w3'].shape[1] == 9 * c:
+                    elif route == 'c3':
                         with tracing.span('int8.conv3x3'):
-                            tracing.count('int8.conv3x3_direct')
                             with tracing.span('int8.kernel'):
-                                y = c3_fn(xq, p['w3'], p['w_scale'], p['b'], p['wim_colsum'],
+                                y = c3_fn(xq, p['w3'], p['w_scale'], p['b'], p['colsum'],
                                           stride=stride, **common)
                     else:
                         with tracing.span('int8.conv3x3'):
                             with tracing.span('int8.im2col'):
                                 patches = _stem_im2col(xq, stride, round(cur_sz[1]) - 128)
                             tracing.count('int8.im2col_bytes', patches.numel())
-                            if a['groups'] == 1 and c > MAX_DENSE_CIN:
-                                tracing.count('int8.im2col_wide')
                             with tracing.span('int8.kernel'):
                                 y = pw_fn(patches, p['wim'], p['w_scale'], p['b'],
                                           p['wim_colsum'], **common)
@@ -439,14 +444,15 @@ class Int8Inference:
                     continue
                 if kernel and not plain and xq.device.type != 'cpu':
                     # off the CPU the kernel path runs its kernels or raises;
-                    # on the CPU and in the plain walk a conv that no route
-                    # admits (a compact grouped conv, a stride-2 3x3 on odd
+                    # on the CPU and in the plain walk a conv that takes no
+                    # route (a compact grouped conv, a stride-2 3x3 on odd
                     # H or W, a kernel size other than 1 and 3) runs the JAX
                     # package's bf16 dequant conv
                     raise ValueError(
                         f'Int8Inference kernel mode: conv {key} (size {a["size"]}, '
                         f'stride {stride}, groups {a["groups"]}, input {tuple(xq.shape)}, '
-                        f'quantised input {cur_sz is not None}) fits neither int8 kernel')
+                        f'quantised input {cur_sz is not None}, route {route}) fits neither '
+                        'int8 kernel')
                 if self.mode == 'int':
                     y = int8_conv(xq, cur_sz, p['wq'], p['w_scale'], p['b'],
                                   stride, padding, a['groups'])
@@ -469,12 +475,15 @@ class Int8Inference:
                         xq = decode_consumed_head(xq, node, plain, capped=False)
             else:
                 with tracing.span('int8.sandwich'):
-                    srcs = self._sandwich_sources(node, xq, cur_sz, cache) \
-                        if kernel and key in act else None
-                    xq, cur_sz = sandwich(
-                        key, srcs, kind, a['activation'] if kind == 'shortcut' else 'linear',
-                        lambda: edge(key, self._f32_node(node, xq, cur_sz, cache, layers,
-                                                         as_fp)))
+                    if routes[key] == 'sandwich':
+                        srcs = [(xq, cur_sz), cache[node.refs[0]]] if kind == 'shortcut' \
+                            else [cache[r] for r in node.refs]
+                        xq, cur_sz = sandwich(key, [v for v, _ in srcs], tuple(e for _, e in srcs),
+                                              kind, a['activation'] if kind == 'shortcut'
+                                              else 'linear')
+                    else:
+                        xq, cur_sz = edge(key, self._f32_node(node, xq, cur_sz, cache,
+                                                              layers, as_fp))
             self._keep(i, xq, cur_sz, cache, inter, intermediates, as_fp)
 
         raws = [r for r, _ in heads]
@@ -496,22 +505,6 @@ class Int8Inference:
         if sc is None:
             sc = self._scalars[k] = sandwich_scalars(src_edges, out_edge, device)
         return sc
-
-    @staticmethod
-    def _sandwich_sources(node, xq, cur_sz, cache):
-        """([s8 values], (their edges)) of a node that ``int8_sandwich``
-        takes: a shortcut of an activation in SANDWICH_ACTS, or a route of
-        at most SANDWICH_MAX_SOURCES sources; None for any other node and
-        where a source is f32."""
-        if node.kind == 'shortcut' and node.attrs['activation'] in SANDWICH_ACTS:
-            srcs = [(xq, cur_sz), cache[node.refs[0]]]
-        elif node.kind == 'route' and len(node.refs) <= SANDWICH_MAX_SOURCES:
-            srcs = [cache[r] for r in node.refs]
-        else:
-            return None
-        if any(sz is None for _, sz in srcs):
-            return None
-        return [v for v, _ in srcs], tuple(sz for _, sz in srcs)
 
     @staticmethod
     def _f32_node(node, xq, cur_sz, cache, layers, as_fp):

@@ -18,9 +18,11 @@ route's sources. The decode is a
 the traced graph.
 
 The functions below have the wrappers' signatures and call through
-``torch.ops``: ``compress.quantized.Int8Inference.apply(kernels=OPS)``
-walks with them when a program is exported. The eager serving path calls
-the wrappers directly and never pays the operator dispatch.
+``torch.ops``. ``compress.quantized.Int8Inference.apply`` takes one of
+three ``Kernels`` tables: ``OPS``, these functions, in an exported
+program; ``WRAPPERS`` on the eager serving path, with no operator
+dispatch; ``PLAIN``, their plain versions. A table sets how each kernel
+runs, never which route a node takes.
 """
 
 from __future__ import annotations
@@ -137,17 +139,21 @@ def int8_sandwich(srcs: Sequence[torch.Tensor], scalars, *, form: str, act: str 
 
 
 class Kernels(NamedTuple):
-    """The int8 walk's kernel entries (``Int8Inference.apply``); a
-    ``sandwich`` of None keeps the walk's PyTorch chain, a ``qconv3x3`` of
-    None the dense 3x3s' im2col route into ``qconv1x1``."""
+    """The int8 walk's kernel entries (``Int8Inference.apply``), each with
+    the wrappers' signature."""
     qconv1x1: object
     qdwconv3x3: object
     decode: object
     sandwich: object
-    qconv3x3: object = None
+    qconv3x3: object
 
 
 OPS = Kernels(qconv1x1_s8, qdwconv3x3_s8, decode_heads, int8_sandwich, qconv3x3_s8)
+WRAPPERS = Kernels(qconv.qconv1x1_s8, qconv.qdwconv3x3_s8, decode_kernel.decode_heads,
+                   qconv.int8_sandwich, qconv.qconv3x3_s8)
+PLAIN = Kernels(qconv.qconv1x1_reference, qconv.qdwconv3x3_reference,
+                decode_kernel.decode_heads_reference, qconv.int8_sandwich_reference,
+                qconv.qconv3x3_reference)
 
 
 def graph_ops(graph_module) -> List[str]:

@@ -97,17 +97,21 @@ def int8_artifacts(int8_model):
 @pytest.fixture
 def counted(monkeypatch):
     """The four kernel wrappers replaced by counting ones in their modules
-    (and where the eager walk imported them): {name: calls}."""
-    from pqdet_tpu_torch.compress import quantized
+    (and where the eager walks take them: ``model.network`` and the int8
+    walk's ``library.WRAPPERS``): {name: calls}."""
     from pqdet_tpu_torch.model import network
     calls = {name: 0 for _, name in KERNELS}
+    entries = {f.__name__: e for e, f in zip(library.Kernels._fields, library.WRAPPERS)}
+    table = library.WRAPPERS
     for mod, name in KERNELS:
         def wrapper(*args, _f=getattr(mod, name), _name=name, **kw):
             calls[_name] += 1
             return _f(*args, **kw)
-        for m in (mod, quantized, network):
+        for m in (mod, network):
             if hasattr(m, name):
                 monkeypatch.setattr(m, name, wrapper)
+        table = table._replace(**{entries[name]: wrapper})
+    monkeypatch.setattr(library, 'WRAPPERS', table)
     return calls
 
 

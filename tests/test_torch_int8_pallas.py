@@ -18,8 +18,8 @@ import torch
 
 from pqdet_tpu.compress.quantized import Int8Inference as JaxInt8Inference
 from pqdet_tpu.ops.preprocess import device_normalize as jax_normalize
-from pqdet_tpu_torch.compress.quantized import Int8Inference, _quant_s8, _stem_im2col
-from pqdet_tpu_torch.ops.qconv import make_scalars, qconv1x1_s8, qdwconv3x3_s8
+from pqdet_tpu_torch.compress.quantized import Int8Inference, _stem_im2col
+from pqdet_tpu_torch.ops.qconv import make_scalars, qconv1x1_s8, qdwconv3x3_s8, quant_s8
 from test_torch_int8 import _assert_preds_close, _calibrate, _images, _port_run
 
 
@@ -83,8 +83,8 @@ def test_each_conv_matches_jax_on_jax_inputs(calibrated, jax_kernel_run):
         key, a = str(node.index), node.attrs
         p = layers[key]
         x_sz = act['input'] if node.index == 0 else act[str(node.index - 1)]
-        x = (_quant_s8(torch.from_numpy(calibrated['x']), x_sz) if node.index == 0
-             else _codes(jinter[str(node.index - 1)], x_sz))
+        x = (quant_s8(torch.from_numpy(calibrated['x']), x_sz[0], x_sz[1] - 128.0)
+             if node.index == 0 else _codes(jinter[str(node.index - 1)], x_sz))
         out_edge = act.get(key)
         kw = dict(act=a['activation'], requant=out_edge is not None,
                   scalars=make_scalars(*x_sz, *(out_edge or (None, None)), device='cpu'))

@@ -3,39 +3,37 @@ the input's quantisation, each shortcut and each route of the int8 walk as
 one launch from s8 to s8.
 
 On the CPU: the wrapper runs the walk's PyTorch chain exactly; the
-registered operator's fake function; the walk's choice of nodes, counted
-by ``int8.sandwich_fused`` and ``int8.sandwich_plain``; an exported kernel
-program calls the operator. On the card (marker ``cuda``, skipped
-elsewhere; run there with ``python -m pytest -m cuda
-tests/test_torch_int8_sandwich.py``): the kernel equals the same chain on
-the same CUDA tensors byte for byte, at every form and the walk's shapes,
-on .5 ties, saturation and unequal scales, and a whole regnetx-600m-fpn
-walk with the kernel equals the walk with the chain node by node.
+registered operator's fake function; the walk's choice of nodes, its
+route table (``Int8Inference.routes``); an exported kernel program calls
+the operator. On the card (marker ``cuda``, skipped elsewhere; run there
+with ``python -m pytest -m cuda tests/test_torch_int8_sandwich.py``): the
+kernel equals the same chain on the same CUDA tensors byte for byte, at
+every form and the walk's shapes, on .5 ties, saturation and unequal
+scales, and a whole regnetx-600m-fpn walk with the kernel equals the walk
+with the chain node by node.
 
-The chain is ``compress/quantized.py``'s: dequant ``(s - (zp - 128)) *
-scale`` of each source, the op and the activation, then ``y / scale + (zp
-- 128)``, round half to even, clamp. Its division of an f32 tensor by a
-Python scalar runs on the card as a multiply by the f32 reciprocal of the
-f32 scalar: ``test_card_divides_by_a_scalar_through_its_reciprocal`` pins
-that, since the kernel repeats it.
+The chain is ``compress/quantized.py``'s (``ops/qconv.py::dequant_s8`` and
+``quant_s8``): dequant ``(s - (zp - 128)) * scale`` of each source, the op
+and the activation, then ``y / scale + (zp - 128)``, round half to even,
+clamp. Its division of an f32 tensor by a Python scalar runs on the card
+as a multiply by the f32 reciprocal of the f32 scalar:
+``test_card_divides_by_a_scalar_through_its_reciprocal`` pins that, since
+the kernel repeats it.
 """
 
 import numpy as np
 import pytest
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
-from torch.profiler import ProfilerActivity, profile
 
 from pqdet_tpu_torch.compress.qat import QuantCtx, prepare_qat_state
-from pqdet_tpu_torch.compress.quantized import (Int8Inference, _dequant_s8, _quant_s8,
-                                                convert_to_int8)
+from pqdet_tpu_torch.compress.quantized import Int8Inference, convert_to_int8
 from pqdet_tpu_torch.exporters.export import export_stablehlo_quant, load_stablehlo
 from pqdet_tpu_torch.model import layers as L
 from pqdet_tpu_torch.model.network import DetectionNetwork
 from pqdet_tpu_torch.ops import library, qconv
-from pqdet_tpu_torch.ops.qconv import (int8_sandwich, int8_sandwich_reference,
-                                       qconv1x1_s8, qdwconv3x3_s8, sandwich_scalars)
-from pqdet_tpu_torch.utils import tracing
+from pqdet_tpu_torch.ops.qconv import (dequant_s8, int8_sandwich, int8_sandwich_reference,
+                                       quant_s8, sandwich_scalars)
 from pqdet_tpu_torch.zoo import get_cfg
 from pqdet_tpu_torch.zoo.builder import CfgBuilder
 
@@ -59,17 +57,17 @@ def card():
 
 
 def chain(srcs, edges, out_edge, form, act='linear'):
-    """The walk's PyTorch chain (``Int8Inference.apply``: ``_dequant_s8``,
-    ``_f32_node``'s op and activation, ``_quant_s8``), the edges as Python
+    """The walk's PyTorch chain (``Int8Inference.apply``: ``dequant_s8``,
+    ``_f32_node``'s op and activation, ``quant_s8``), the edges as Python
     floats."""
     if form == 'input':
-        return _quant_s8(srcs[0], out_edge)
-    ys = [_dequant_s8(t, e) for t, e in zip(srcs, edges)]
+        return quant_s8(srcs[0], out_edge[0], out_edge[1] - 128.0)
+    ys = [dequant_s8(t, e[0], e[1] - 128.0) for t, e in zip(srcs, edges)]
     if form == 'shortcut':
         y = L.apply_activation(act, ys[0] + ys[1])
     else:
         y = ys[0] if len(ys) == 1 else torch.cat(ys, dim=-1)
-    return _quant_s8(y, out_edge)
+    return quant_s8(y, out_edge[0], out_edge[1] - 128.0)
 
 
 def f32(v):
@@ -210,23 +208,35 @@ def calibrated(cfg_text, size, batch=2, dev='cpu'):
     return net, qparams, x
 
 
-def sandwich_counts(net, qparams, x, **kw):
-    inf = Int8Inference(net, mode=kw.pop('mode', 'kernel'))
-    staged = Int8Inference.prepare(qparams, inf.mode, network=net)
-    tracing.clear()
-    with profile(activities=[ProfilerActivity.CPU]), torch.inference_mode():
-        with tracing.span('root'):
-            preds = inf.apply(staged, x, **kw)
-    c = tracing.records()['counters']
-    return preds, (c.get('int8.sandwich_fused', 0), c.get('int8.sandwich_plain', 0))
+def sandwich_counts(net, qparams, x, mode='kernel', plain=False):
+    """(preds, (nodes the route table gives ``int8_sandwich``, nodes it
+    leaves to the chain)) of one walk through the wrappers or (``plain``)
+    their plain versions, the input and every node between a dequant and
+    a requant counted; the walk calls the sandwich entry once a node the
+    table gives it."""
+    inf = Int8Inference(net, mode=mode)
+    staged = Int8Inference.prepare(qparams, mode, network=net)
+    table, calls = library.PLAIN if plain else library.WRAPPERS, []
+
+    def sandwich(*args, **kw):
+        calls.append(kw['form'])
+        return table.sandwich(*args, **kw)
+    with torch.inference_mode():
+        preds = inf.apply(staged, x, kernels=table._replace(sandwich=sandwich))
+    convs = {str(n.index) for n in net.graph.nodes if n.kind == 'convolutional'}
+    routes = [r for k, r in inf.routes(qparams['act']).items() if k not in convs]
+    assert len(calls) == routes.count('sandwich')
+    return preds, (routes.count('sandwich'), routes.count(None))
 
 
-@pytest.mark.parametrize('mode,plain,want', [('kernel', False, (3, 3)), ('kernel', True, (0, 6)),
+@pytest.mark.parametrize('mode,plain,want', [('kernel', False, (3, 3)), ('kernel', True, (3, 3)),
                                              ('int', True, (0, 6))])
 def test_counters_on_a_small_graph(mode, plain, want):
-    """Kernel mode takes the input, the shortcut and the route; the max
-    pool, the SE's avgpool and scale keep the chain, as do ``plain`` and
-    the other modes. The kernel path's preds equal the chain's."""
+    """Kernel mode takes the input, the shortcut and the route, with the
+    kernel or (``plain``) its plain version; the max pool, the SE's
+    avgpool and scale keep the chain, as do all six in the other modes.
+    The kernel path's preds equal the plain walk's, whose
+    ``int8_sandwich_reference`` is the chain."""
     net, qparams, x = calibrated(small_cfg(), 32)
     preds, counts = sandwich_counts(net, qparams, x, mode=mode, plain=plain)
     assert counts == want
@@ -329,8 +339,8 @@ def test_card_walk_with_the_kernel_equals_the_walk_with_the_chain(card):
         before = int8_sandwich.launches
         kern, ik = inf.apply(staged, x, intermediates=True)
         launches = int8_sandwich.launches - before
-        plain, ip = inf.apply(staged, x, intermediates=True,
-                              kernels=library.Kernels(qconv1x1_s8, qdwconv3x3_s8, None, None))
+        plain, ip = inf.apply(staged, x, intermediates=True, kernels=library.WRAPPERS._replace(
+            sandwich=int8_sandwich_reference))
     torch.cuda.synchronize()
     assert launches == 37
     assert sorted(ik) == sorted(ip)

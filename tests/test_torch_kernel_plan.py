@@ -34,12 +34,12 @@ import functools
 import numpy as np
 import pytest
 
-from pqdet_tpu_torch.compress.quantized import im2col_depth
+from pqdet_tpu_torch.compress.quantized import conv_route, im2col_depth
 from pqdet_tpu_torch.model.network import DetectionNetwork
 from pqdet_tpu_torch.ops.fused_ir import (FusedIrPlan, find_fused_triples,
                                           fused_ir_smem_bytes, plan_fused_ir)
 from pqdet_tpu_torch.ops.fused_ir import SMEM_TWO
-from pqdet_tpu_torch.ops.qconv import (C3_BM, C3_CIN_STEP, DW_PX, DW_THREADS, plan_qconv1x1,
+from pqdet_tpu_torch.ops.qconv import (C3_BM, DW_PX, DW_THREADS, plan_qconv1x1,
                                        plan_qconv3x3, plan_qdwconv3x3, qconv1x1_smem_bytes,
                                        qconv3x3_smem_bytes, qdwconv3x3_smem_bytes)
 from pqdet_tpu_torch.zoo import get_cfg
@@ -73,9 +73,10 @@ def pointwise_shapes(cfg=None, size=SIZE):
             continue
         a = n.attrs
         h = size * a['stride'] // n.stride
-        if a['size'] == 1:
+        route = conv_route(a, n.in_channels)
+        if route == 'pw':
             shapes.add((h, n.in_channels, a['filters']))
-        elif a['groups'] == 1:                       # the stem, as im2col patches
+        elif route == 'im2col':                      # the stem, as im2col patches
             shapes.add((h // a['stride'], im2col_depth(n.in_channels), a['filters']))
     return sorted(shapes)
 
@@ -488,8 +489,7 @@ def dense_3x3_shapes(cfg_text, size):
     net = DetectionNetwork.from_cfg(cfg_text, quant=True)
     return sorted({(size * n.attrs['stride'] // n.stride, n.in_channels, n.attrs['filters'],
                     n.attrs['stride']) for n in net.graph.nodes
-                   if n.kind == 'convolutional' and n.attrs['size'] == 3
-                   and n.attrs['groups'] == 1 and n.in_channels % C3_CIN_STEP == 0})
+                   if n.kind == 'convolutional' and conv_route(n.attrs, n.in_channels) == 'c3'})
 
 
 def test_yolov3_dense_3x3_shapes_are_the_10():

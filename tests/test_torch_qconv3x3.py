@@ -4,16 +4,16 @@ in place of the im2col route (patches into ``qconv1x1_s8``).
 
 On the CPU: the plain version equals the route's plain versions byte for
 byte (borders, stride 2, zero points 0 and 255, s8 and f32 out); the
-walk's routing and its counters on a small graph (dense Cin 32 and 48 at
-stride 1 and 2 take the kernel; a Cin-3 stem, a grouped 3x3 and Cin 40
-keep the patches; ``plain`` and a ``Kernels`` without the entry keep them
-all), with equal outputs either way; the registered operator's fake
+walk's route table on a small graph (dense Cin 32 and 48 at stride 1 and
+2 take the kernel; a Cin-3 stem, a grouped 3x3 and Cin 40 keep the
+patches; ``plain`` and the registered operators take the same routes),
+with equal outputs whichever kernels run; the registered operator's fake
 function and an exported kernel program. On the card (marker ``cuda``,
 skipped elsewhere; run there with ``python -m pytest -m cuda
 tests/test_torch_qconv3x3.py``): the kernel equals the route on the card
 byte for byte at every YOLOv3 dense 3x3 shape at 608 (B=1 and 2, one at
 B=32) and at edge shapes, and a YOLOv3 walk with the kernel equals the
-walk through the route node by node.
+walk with its plain version node by node.
 """
 
 import collections
@@ -25,14 +25,13 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.profiler import ProfilerActivity, profile
 
 from pqdet_tpu_torch.compress.qat import QuantCtx, prepare_qat_state
-from pqdet_tpu_torch.compress.quantized import (Int8Inference, _stem_im2col, convert_to_int8,
-                                                im2col_depth)
+from pqdet_tpu_torch.compress.quantized import (Int8Inference, _stem_im2col, conv_route,
+                                                convert_to_int8, im2col_depth)
 from pqdet_tpu_torch.exporters.export import export_stablehlo_quant, load_stablehlo
 from pqdet_tpu_torch.model.network import DetectionNetwork
 from pqdet_tpu_torch.ops import library
-from pqdet_tpu_torch.ops.qconv import (C3_CIN_STEP, int8_sandwich, make_scalars,
-                                       qconv1x1_reference, qconv1x1_s8, qconv3x3_reference,
-                                       qconv3x3_s8, qdwconv3x3_s8)
+from pqdet_tpu_torch.ops.qconv import (make_scalars, qconv1x1_reference, qconv1x1_s8,
+                                       qconv3x3_reference, qconv3x3_s8)
 from pqdet_tpu_torch.utils import tracing
 from pqdet_tpu_torch.zoo import get_cfg
 
@@ -205,43 +204,41 @@ def walk_records(net, staged, x, **kw):
 
 
 def test_prepare_stages_the_k_major_view_for_dense_cin_multiples_of_16(routing_model):
-    """``w3`` (Cout, 9 * Cin) in (kh, kw, cin) order for the dense 3x3s of
-    Cin 32, 48 and 48; none for the stem, the grouped conv (densified) and
-    Cin 40; ``wim`` for every 3x3 as before."""
+    """``w3`` (Cout, 9 * Cin) in (kh, kw, cin) order and its ``colsum`` for
+    the dense 3x3s of Cin 32, 48 and 48; ``wim`` only for the stem, the
+    grouped conv (densified) and Cin 40, the 3x3s whose route is im2col."""
     net, qparams, _ = routing_model
     layers = Int8Inference.prepare(qparams, network=net)['layers']
     assert sorted(k for k, p in layers.items() if 'w3' in p) == list(DIRECT)
-    assert sorted(k for k, p in layers.items() if 'wim' in p) == list('0123456')
+    assert sorted(k for k, p in layers.items() if 'wim' in p) == ['0', '5', '6']
     for k in DIRECT:
         p, wq = layers[k], qparams['layers'][k]['wq']
-        assert p['w3'].shape == (wq.shape[0], 9 * wq.shape[1]) and p['w3'].is_contiguous()
-        assert torch.equal(p['w3'].t(), p['wim'][:9 * wq.shape[1]])
+        cout, cin = wq.shape[:2]
+        assert p['w3'].shape == (cout, 9 * cin) and p['w3'].is_contiguous()
+        assert torch.equal(p['w3'].reshape(cout, 3, 3, cin).permute(0, 3, 1, 2), wq)
+        assert torch.equal(p['colsum'], wq.to(torch.int32).sum((1, 2, 3)).to(torch.int32))
 
 
-@pytest.mark.parametrize('how,direct', [('wrappers', 4), ('plain', 0), ('no_entry', 0),
-                                        ('ops', 4)])
+@pytest.mark.parametrize('how,direct', [('wrappers', 4), ('plain', 4), ('ops', 4)])
 def test_routing_and_counters_on_a_small_graph(routing_model, how, direct):
-    """The kernel walk takes the four dense 3x3s of Cin 32 and 48 through
-    ``qconv3x3_s8`` (``int8.conv3x3_direct``) and the other three 3x3s
-    through patches (``int8.im2col_bytes`` their bytes alone); ``plain``
-    and a ``Kernels`` without the entry take all seven through patches;
-    the registered operators (``OPS``) as the wrappers. One
-    ``int8.conv3x3`` span a 3x3, no ``int8.im2col_wide`` (no Cin past 115);
-    every node equals the plain walk's byte for byte."""
+    """The route table takes the four dense 3x3s of Cin 32 and 48 through
+    ``qconv3x3_s8`` and the other three 3x3s through patches, and the walk
+    follows it whichever kernels run (the wrappers, their plain versions,
+    the registered operators): ``int8.im2col_bytes`` counts the three
+    3x3s' patches alone, one ``int8.conv3x3`` span a 3x3; every node
+    equals the plain walk's byte for byte."""
     net, qparams, x = routing_model
     staged = Int8Inference.prepare(qparams, network=net)
-    kw = {'wrappers': {}, 'plain': {'plain': True}, 'ops': {'kernels': library.OPS},
-          'no_entry': {'kernels': library.Kernels(qconv1x1_s8, qdwconv3x3_s8, None,
-                                                  int8_sandwich)}}[how]
+    kw = {'wrappers': {}, 'plain': {'plain': True}, 'ops': {'kernels': library.OPS}}[how]
+    routes = Int8Inference(net).routes(qparams['act'])
+    c3 = sorted(k for k, r in routes.items() if r == 'c3')
+    assert len(c3) == direct and c3 == list(DIRECT)
+    assert sorted(k for k, r in routes.items() if r == 'im2col') == ['0', '5', '6']
     preds, inter, counters, spans = walk_records(net, staged, x, **kw)
     n = x.shape[0]
     s = ROUTING_SIZE
     patched = {'0': (s, 3), '5': (s // 4, 40), '6': (s // 4, 40)}
-    if not direct:
-        patched.update({'1': (s, 32), '2': (s // 2, 32), '3': (s // 2, 48), '4': (s // 4, 48)})
     assert spans == 7
-    assert counters.get('int8.conv3x3_direct', 0) == direct
-    assert counters.get('int8.im2col_wide', 0) == 0
     assert counters['int8.im2col_bytes'] == sum(n * side ** 2 * im2col_depth(cin)
                                                 for side, cin in patched.values())
     ref_preds, ref_inter = Int8Inference(net).apply(staged, x, intermediates=True, plain=True)
@@ -262,7 +259,8 @@ def test_operator_fake_gives_shape_and_dtype():
     assert tuple(s8.shape) == (2, 4, 3, 48) and s8.dtype == torch.int8
     assert tuple(f32.shape) == (2, 8, 6, 48) and f32.dtype == torch.float32
     assert 'qconv3x3_s8' in library.OP_NAMES and library.OPS.qconv3x3 is library.qconv3x3_s8
-    assert library.Kernels(*library.OPS[:4]).qconv3x3 is None
+    assert library.WRAPPERS.qconv3x3 is qconv3x3_s8
+    assert library.PLAIN.qconv3x3 is qconv3x3_reference
 
 
 def test_exported_kernel_program_calls_the_operator(routing_model):
@@ -288,10 +286,40 @@ def test_every_zoo_3x3_the_kernel_takes_is_yolov3s():
     for name in sorted(MODEL_ZOO):
         net = DetectionNetwork.from_cfg(get_cfg(name), quant=True)
         takes[name] = [n.in_channels for n in net.graph.nodes if n.kind == 'convolutional'
-                       and n.attrs['size'] == 3 and n.attrs['groups'] == 1
-                       and n.in_channels % C3_CIN_STEP == 0]
+                       and conv_route(n.attrs, n.in_channels) == 'c3']
     assert {k: len(v) for k, v in takes.items() if v} == {'yolov3': 37}
     assert len(yolov3_shapes()) == 10
+
+
+@pytest.mark.parametrize('name,want', [
+    ('mobilenetv2-fpn', {'pw': 57, 'dw': 26, 'im2col': 1, 'sandwich': 15}),
+    ('regnetx-600m-fpn', {'pw': 62, 'im2col': 26, 'sandwich': 37}),
+    ('yolov3', {'pw': 37, 'c3': 37, 'im2col': 1, 'sandwich': 28})])
+def test_route_table_of_the_zoo_graphs(name, want):
+    """Each zoo graph's route counts, pinned: YOLOv3's 37 dense 3x3s past
+    its stem take ``'c3'`` and its stem ``'im2col'``, regnetx-600m-fpn's
+    26 densified grouped 3x3s ``'im2col'``; every conv and sandwich node
+    takes a route. A walk at 64 px through the plain versions calls each
+    kernel entry once a route (the 1x1 entry for ``'pw'`` and
+    ``'im2col'``) and the decode once."""
+    net, qparams, x = calibrated(get_cfg(name), 64, batch=1)
+    inf = Int8Inference(net)
+    routes = collections.Counter(inf.routes(qparams['act']).values())
+    assert routes == want
+    calls = collections.Counter()
+
+    def spy(entry, fn):
+        def call(*args, **kw):
+            calls[entry] += 1
+            return fn(*args, **kw)
+        return call
+    table = library.Kernels(*(spy(e, fn) for e, fn in zip(library.Kernels._fields,
+                                                           library.PLAIN)))
+    with torch.inference_mode():
+        inf.apply(Int8Inference.prepare(qparams, network=net), x, kernels=table)
+    assert calls == collections.Counter(
+        qconv1x1=routes['pw'] + routes['im2col'], qdwconv3x3=routes['dw'],
+        qconv3x3=routes['c3'], sandwich=routes['sandwich'], decode=1)
 
 
 def yolov3_shapes():
@@ -300,8 +328,7 @@ def yolov3_shapes():
     net = DetectionNetwork.from_cfg(get_cfg('yolov3', num_classes=80), quant=True)
     return sorted({(608 * n.attrs['stride'] // n.stride, n.in_channels, n.attrs['filters'],
                     n.attrs['stride']) for n in net.graph.nodes
-                   if n.kind == 'convolutional' and n.attrs['size'] == 3
-                   and n.attrs['groups'] == 1 and n.in_channels % C3_CIN_STEP == 0})
+                   if n.kind == 'convolutional' and conv_route(n.attrs, n.in_channels) == 'c3'})
 
 
 # ------------------------------------------------------------------ card
@@ -362,8 +389,9 @@ def test_card_edge_shapes_equal_the_plain_version(card, n, h, w, cin, cout, stri
 @pytest.mark.cuda
 def test_card_yolov3_walk_with_the_kernel_equals_the_walk_through_patches(card):
     """YOLOv3 in kernel mode at 320 px, B=2: every node's output and the
-    preds with ``qconv3x3_s8`` equal those through the im2col route (the
-    other kernels the same in both), byte for byte; 37 launches."""
+    preds with ``qconv3x3_s8`` equal those with its plain version on the
+    same routes (the other kernels the same in both), byte for byte; 37
+    launches."""
     net, qparams, x = calibrated(get_cfg('yolov3', num_classes=80), 320, dev=card)
     inf = Int8Inference(net)
     staged = Int8Inference.prepare(qparams, network=net)
@@ -371,11 +399,11 @@ def test_card_yolov3_walk_with_the_kernel_equals_the_walk_through_patches(card):
         before = qconv3x3_s8.launches
         kern, ik = inf.apply(staged, x, intermediates=True)
         launches = qconv3x3_s8.launches - before
-        patched, ip = inf.apply(staged, x, intermediates=True, kernels=library.Kernels(
-            qconv1x1_s8, qdwconv3x3_s8, None, int8_sandwich))
+        plain, ip = inf.apply(staged, x, intermediates=True,
+                              kernels=library.WRAPPERS._replace(qconv3x3=qconv3x3_reference))
     torch.cuda.synchronize()
     assert launches == 37
     assert sorted(ik) == sorted(ip)
     assert [k for k in ik if not torch.equal(ik[k], ip[k])] == []
-    assert torch.equal(kern, patched)
+    assert torch.equal(kern, plain)
 

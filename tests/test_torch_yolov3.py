@@ -6,8 +6,8 @@ On the CPU, at the published widths and a 64x64 input: the graph's counts
 and work, its text against the frozen benchmark cfg and the paper's table
 (``benchmark/reference/yolov3.py``), the f32 walk and the int8 ``'int'``
 mode against the benchmark's plain reference, the kernel mode's route
-against a direct conv and against ``'int'`` mode, the walk's 3x3 counters,
-and the 1x1 kernel's plans. On the card (marker ``cuda``, skipped
+against a direct conv and against ``'int'`` mode, the walk's 3x3 routes,
+span and patch bytes, and the 1x1 kernel's plans. On the card (marker ``cuda``, skipped
 elsewhere; run there with ``python -m pytest --noconftest -m cuda
 tests/test_torch_yolov3.py``): ``qconv1x1_s8`` past 65,535 row tiles and
 every YOLOv3 dense 3x3 through the route, byte for byte against their
@@ -29,12 +29,12 @@ from benchmark.reference import int8 as RQ
 from benchmark.reference import net as RN
 from benchmark.reference import yolov3 as RY
 from pqdet_tpu_torch.compress.qat import QuantCtx, prepare_qat_state
-from pqdet_tpu_torch.compress.quantized import (MAX_DENSE_CIN, Int8Inference, _stem_im2col,
-                                                convert_to_int8, im2col_depth)
+from pqdet_tpu_torch.compress.quantized import (Int8Inference, _stem_im2col, convert_to_int8,
+                                                im2col_depth)
 from pqdet_tpu_torch.model.network import DetectionNetwork
 from pqdet_tpu_torch.ops.preprocess import device_normalize
 from pqdet_tpu_torch.ops.qconv import (_epilogue, make_scalars, plan_qconv1x1,
-                                       qconv1x1_reference, qconv1x1_s8)
+                                       qconv1x1_reference, qconv1x1_s8, qconv3x3_reference)
 from pqdet_tpu_torch.utils import tracing
 from pqdet_tpu_torch.utils.profiling import count_macs_params
 from pqdet_tpu_torch.zoo import MODEL_ZOO, get_cfg
@@ -102,7 +102,8 @@ def test_the_zoo_builds_the_published_graph():
     ops = counts.forward_ops(lays, 608)
     assert round(ops / 1e9, 2) == 140.69
     dense = dense_3x3(lays)
-    wide = [l for l in dense if l['cin'] > MAX_DENSE_CIN]
+    # wider than the JAX package's integer-exact dense 3x3s (Cin 115)
+    wide = [l for l in dense if l['cin'] > 115]
     assert len(dense) == 38 and len(wide) == 32
     share = sum(counts.conv_ops(l, 608 // l['stride_total']) for l in wide) / ops
     assert round(100 * share, 1) == 77.5
@@ -177,10 +178,11 @@ def test_int_mode_equals_the_reference_integer_forward(int8_model):
 
 
 def test_kernel_mode_takes_every_dense_3x3_through_the_route(int8_model):
-    """Kernel mode stages ``wim`` for all 38 dense 3x3s, at K up to 4608
-    (Cin 512: every 3x3 of width 1024 takes a 1x1's 512);
-    at the plain walk's own input codes, each conv's patches into the 1x1
-    kernel's plain version equal a direct float64 conv with the same
+    """Kernel mode stages ``wim`` for the stem and ``w3`` for the 37 dense
+    3x3s past it, at K up to 4608 (Cin 512: every 3x3 of width 1024 takes
+    a 1x1's 512); at the plain walk's own input codes, each conv's route
+    (the stem's patches into the 1x1 kernel's plain version, the others'
+    ``qconv3x3_reference``) equals a direct float64 conv with the same
     epilogue byte for byte."""
     lays, qnet, qparams, x, _ = int8_model
     staged = Int8Inference.prepare(qparams, network=qnet)
@@ -190,8 +192,10 @@ def test_kernel_mode_takes_every_dense_3x3_through_the_route(int8_model):
         ks = []
         for l in dense_3x3(lays):
             key, p = str(l['index']), layers[str(l['index'])]
-            assert p['wim'].shape == (im2col_depth(l['cin']), l['cout'])
-            ks.append(p['wim'].shape[0])
+            stem = l['index'] == 0
+            view, colsum = (p['wim'], p['wim_colsum']) if stem else (p['w3'].t(), p['colsum'])
+            assert view.shape == ((im2col_depth(3) if stem else 9 * l['cin']), l['cout'])
+            ks.append(view.shape[0])
             src = 'input' if l['index'] == 0 else str(l['index'] - 1)
             sz = act[src]
             xq = (torch.round(device_normalize(x) / sz[0] + sz[1]) if l['index'] == 0
@@ -199,13 +203,15 @@ def test_kernel_mode_takes_every_dense_3x3_through_the_route(int8_model):
             xq = xq.to(torch.int8)
             sc = make_scalars(sz[0], sz[1], *act[key], device='cpu')
             pad = round(sz[1]) - 128
+            kw = dict(act='relu', scalars=sc, requant=True)
             route = qconv1x1_reference(_stem_im2col(xq, l['stride'], pad), p['wim'],
-                                       p['w_scale'], p['b'], p['wim_colsum'], act='relu',
-                                       scalars=sc, requant=True)
+                                       p['w_scale'], p['b'], colsum, **kw) if stem else \
+                qconv3x3_reference(xq, p['w3'], p['w_scale'], p['b'], colsum,
+                                   stride=l['stride'], **kw)
             xp = F.pad(xq.double().permute(0, 3, 1, 2), (1,) * 4, value=float(pad))
             acc = F.conv2d(xp, p['wq'].double(), None, l['stride']).permute(0, 2, 3, 1).float()
-            direct = _epilogue(acc, sc.reshape(-1), p['w_scale'], p['b'],
-                               p['wim_colsum'].float(), 'relu', True)
+            direct = _epilogue(acc, sc.reshape(-1), p['w_scale'], p['b'], colsum.float(),
+                               'relu', True)
             assert torch.equal(route, direct), key
     assert max(ks) == 9 * 512 == 4608
 
@@ -267,10 +273,10 @@ classes=1
 
 def test_kernel_mode_takes_dense_3x3s_past_cin_115_exactly():
     """The port's departure from the JAX package, on a small graph: kernel
-    mode (its kernels' plain versions on the CPU) stages ``wim`` and ``w3``
-    for the dense 3x3s of Cin 128 and 144 and takes them through
-    ``qconv3x3_s8`` (``plain`` through im2col), and conv by conv it agrees
-    with the exact integer mode (``int8_modes_agree``).
+    mode (its kernels' plain versions on the CPU) stages ``w3`` for the
+    dense 3x3s of Cin 128 and 144 and takes them through ``qconv3x3_s8``,
+    with ``plain`` too (the stem's patches alone counted), and conv by conv
+    it agrees with the exact integer mode (``int8_modes_agree``).
     That gate is a share of codes (the epilogues' roundings part on a few
     in a million), so the input is 64x64, B=2: 606,208 codes."""
     import chip_smoke
@@ -283,10 +289,11 @@ def test_kernel_mode_takes_dense_3x3s_past_cin_115_exactly():
         net(params, state, x, quant_ctx=ctx)
         qparams = convert_to_int8(net, params, {**state, 'quant': ctx.new_obs})
         staged = Int8Inference.prepare(qparams, network=net)
-        assert [staged['layers'][k]['wim'].shape for k in '012'] == [
-            (32, 128), (9 * 128, 144), (9 * 144, 96)]
+        assert staged['layers']['0']['wim'].shape == (32, 128)
         assert [staged['layers'][k]['w3'].shape for k in '12'] == [(144, 9 * 128),
                                                                   (96, 9 * 144)]
+        routes = Int8Inference(net).routes(qparams['act'])
+        assert [routes[k] for k in '0123'] == ['im2col', 'c3', 'c3', 'pw']
         counted = []
         for plain in (False, True):
             tracing.clear()
@@ -294,19 +301,18 @@ def test_kernel_mode_takes_dense_3x3s_past_cin_115_exactly():
                 with tracing.span('root'):
                     Int8Inference(net).apply(staged, x, plain=plain)
             r = tracing.records()
-            assert sum(1 for s in r['spans'] if s[0] == 'int8.conv3x3') == 3
-            counted.append((r['counters'].get('int8.conv3x3_direct', 0),
-                            r['counters'].get('int8.im2col_wide', 0)))
-    assert counted == [(2, 0), (0, 2)]
+            counted.append((sum(1 for s in r['spans'] if s[0] == 'int8.conv3x3'),
+                            r['counters']['int8.im2col_bytes']))
+    assert counted == [(3, 2 * SIZE ** 2 // 4 * 32)] * 2
     n_conv, worst, n_diff, n_all, bad_heads = chip_smoke.int8_modes_conv_parity(net, qparams, x)
     assert n_conv == 4 and n_all == 606_208
     assert chip_smoke.int8_modes_agree(worst, n_diff, n_all, bad_heads)
 
 
 def conv3x3_counters(cfg_text, size=SIZE, plain=False):
-    """The walk's 3x3 counters over one kernel-mode forward of seeded int8
-    qparams: (int8.im2col_wide, int8.im2col_bytes, conv3x3 spans,
-    int8.conv3x3_direct)."""
+    """The walk's 3x3 counts over one kernel-mode forward of seeded int8
+    qparams: (int8.im2col_bytes, conv3x3 spans, 'c3' routes of the route
+    table)."""
     net = DetectionNetwork.from_cfg(cfg_text, quant=True)
     params, state = net.init(torch.Generator().manual_seed(0), device='cpu')
     params, state = prepare_qat_state(net, params, state)
@@ -322,28 +328,26 @@ def conv3x3_counters(cfg_text, size=SIZE, plain=False):
                 Int8Inference(net).apply(staged, x, plain=plain)
     r = tracing.records()
     spans = sum(1 for s in r['spans'] if s[0] == 'int8.conv3x3')
-    return (r['counters'].get('int8.im2col_wide', 0), r['counters'].get('int8.im2col_bytes', 0),
-            spans, r['counters'].get('int8.conv3x3_direct', 0))
+    direct = list(Int8Inference(net).routes(qparams['act']).values()).count('c3')
+    return r['counters'].get('int8.im2col_bytes', 0), spans, direct
 
 
-@pytest.mark.parametrize('name,plain,wide,direct,spans', [
-    ('yolov3', False, 0, 37, 38), ('regnetx-600m-fpn', False, 0, 0, 26),
-    ('yolov3', True, 32, 0, 38), ('regnetx-600m-fpn', True, 0, 0, 26)])
-def test_the_walk_counts_its_3x3_patches(name, plain, wide, direct, spans):
-    """``int8.conv3x3_direct`` counts the dense 3x3s that took
-    ``qconv3x3_s8`` (YOLOv3's 37 past its stem; none in regnetx-600m-fpn,
-    whose grouped 3x3s are densified, not dense, or with ``plain``);
-    ``int8.im2col_wide`` the dense 3x3s past Cin 115 that took patches (32
-    in YOLOv3 with ``plain``); ``int8.im2col_bytes`` is the patches' bytes
-    from the shapes; one ``int8.conv3x3`` span a non-depthwise 3x3."""
+@pytest.mark.parametrize('name,plain,direct,spans', [
+    ('yolov3', False, 37, 38), ('regnetx-600m-fpn', False, 0, 26),
+    ('yolov3', True, 37, 38), ('regnetx-600m-fpn', True, 0, 26)])
+def test_the_walk_counts_its_3x3_patches(name, plain, direct, spans):
+    """The route table takes the dense 3x3s through ``qconv3x3_s8``
+    (YOLOv3's 37 past its stem, with ``plain`` too; none in
+    regnetx-600m-fpn, whose grouped 3x3s are densified, not dense);
+    ``int8.im2col_bytes`` is the bytes of the other 3x3s' patches from the
+    shapes; one ``int8.conv3x3`` span a non-depthwise 3x3."""
     text = get_cfg(name, num_classes=80 if name == 'yolov3' else 20)
     lays = C.layers(text)
     sides = C.out_sides(lays, SIZE)
     want = sum(sides[l['index']] ** 2 * im2col_depth(l['cin'])
                for l in lays if l['kind'] == 'convolutional' and l['size'] == 3
-               and l['cin'] // l['groups'] > 1
-               and (plain or l['groups'] > 1 or l['cin'] % 16))
-    assert conv3x3_counters(text, plain=plain) == (wide, want, spans, direct)
+               and l['cin'] // l['groups'] > 1 and (l['groups'] > 1 or l['cin'] % 16))
+    assert conv3x3_counters(text, plain=plain) == (want, spans, direct)
 
 
 # (M, K, N) -> (bm, bn, bk, split, kpr, stages): the plan of every 1x1 and
