@@ -225,9 +225,9 @@ Builds the CUDA kernels from pqdet_tpu_torch/csrc with nvcc (sm_90a), then:
    CUDA-event timer);
 16. the RegNet zoo and grouped convs (``phase16_regnet``, in the same
    temporary directory), at 512x512, B=4: (a) every int8 conv shape of the
-   int8 graphs of regnetx-600m-fpn and regnety-400m-fpn (the densified
-   grouped 3x3s as im2col patches into qconv1x1_s8 at K = 9 * Cin up to
-   4752, the SE squeeze and excite 1x1s at M = B) and the depthwise shapes
+   int8 graphs of regnetx-600m-fpn and regnety-400m-fpn (the grouped 3x3s
+   through qgconv3x3_s8 at group widths 8, 16 and 24, Cin to 528, the SE
+   squeeze and excite 1x1s at M = B) and the depthwise shapes
    of regnetx-600m-yolo against the plain versions bit for bit (phase 6's
    check), and its 9 fused chains (Cin to 1024, E 512) at B=1 and 4 with
    phase 3's tolerance; YOLOv3's int8 conv shapes at 608 (its 37 dense
@@ -240,8 +240,10 @@ Builds the CUDA kernels from pqdet_tpu_torch/csrc with nvcc (sm_90a), then:
    kernel mode with ``prepare(network=)``), 8 requests of B=4 each, and
    YOLOv3 (80 classes) so in int8 at 608: launches per forward equal to
    the graph's count (int8: one qconv3x3_s8 per dense 3x3 of Cin a
-   multiple of 16, one qconv1x1_s8 per other conv that is not depthwise,
-   one qdwconv3x3_s8 per depthwise conv, one int8_sandwich for
+   multiple of 16, one qgconv3x3_s8 per grouped 3x3 of group width 8, 16
+   or 24, one qconv1x1_s8 per other conv that is not depthwise (x-fpn 63
+   and 25 qgconv3x3_s8), one qdwconv3x3_s8 per depthwise conv, one
+   int8_sandwich for
    the input and each shortcut and route, 1 decode; bf16: the chains and 1
    decode), node by node against ``plain=True`` (bf16: every node before
    the first chain bit for bit, preds within phase 4's bounds; int8: phase
@@ -658,7 +660,7 @@ def ptxas_report(log: str) -> dict:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = m.group(1)
-            for k in ('fused_ir_kernel', 'qconv1x1_kernel', 'qdw3x3_kernel'):
+            for k in ('fused_ir_kernel', 'qconv1x1_kernel', 'qdw3x3_kernel', 'qgconv3x3_kernel'):
                 if k in name:
                     t = re.findall(r'Li(\d+)E', name[name.index(k):])
                     name = f'{k}<{",".join(t)}>' if t else k
@@ -828,12 +830,13 @@ def int8_conv_shapes(net, size):
     """{(route, n_h, n_w, cin, cout, stride, act, requant): count} over the
     convs of the int8 graph at input ``size`` (a side, or (h, w)), each
     under the route ``compress.quantized.conv_route`` gives it, as its
-    kernel sees them: 'pw', 'dw' and 'c3' take the conv's input (H, W, C),
-    a strided 'pw' its every stride-th pixel; 'im2col' takes its patches
-    (H/stride, W/stride, im2col_depth(Cin)) into the 1x1 kernel (9*Cin
-    taps and zero columns up to a multiple of 16). A conv of no route is
-    left out. ``requant``: the output edge is quantised (it feeds no yolo
-    head)."""
+    kernel sees them: 'pw', 'dw', 'c3' and 'g3' take the conv's input (H,
+    W, C), a strided 'pw' its every stride-th pixel; 'im2col' takes its
+    patches (H/stride, W/stride, im2col_depth(Cin)) into the 1x1 kernel
+    (9*Cin taps and zero columns up to a multiple of 16). A 'g3' key holds
+    the group width in Cout's place (its Cout is its Cin). A conv of no
+    route is left out. ``requant``: the output edge is quantised (it feeds
+    no yolo head)."""
     from pqdet_tpu_torch.compress.quantized import conv_route, im2col_depth
     feeders = {n.index - 1 for n in net.graph.nodes if n.kind == 'yolo'}
     size_h, size_w = (size, size) if isinstance(size, int) else size
@@ -852,6 +855,8 @@ def int8_conv_shapes(net, size):
         elif route == 'im2col':
             key = ('im2col', h // st, w // st, im2col_depth(n.in_channels), a['filters'], 1,
                    *tail)
+        elif route == 'g3':
+            key = ('g3', h, w, n.in_channels, n.in_channels // a['groups'], st, *tail)
         else:
             key = (route, h, w, n.in_channels, a['filters'], st, *tail)
         shapes[key] = shapes.get(key, 0) + 1
@@ -860,16 +865,19 @@ def int8_conv_shapes(net, size):
 
 def int8_inputs(gen, kind, n, h, w, cin, cout, dev):
     """Seeded recentred s8 input, int8 weights ((3, 3, C) for 'dw', (Cout, 9 *
-    Cin) for 'c3', else (Cin, Cout)), per-channel scale and bias, and an
-    integer zero point in [1, 254]."""
+    Cin) for 'c3', (Cin, 9 * gw) for 'g3', whose ``cout`` is its group width
+    gw, else (Cin, Cout)), per-channel scale and bias, and an integer zero
+    point in [1, 254]."""
     import torch
     x = torch.randint(-128, 128, (n, h, w, cin), generator=gen, dtype=torch.int8)
-    wshape = {'dw': (3, 3, cin), 'c3': (cout, 9 * cin)}.get(kind, (cin, cout))
+    wshape = {'dw': (3, 3, cin), 'c3': (cout, 9 * cin), 'g3': (cin, 9 * cout)}.get(
+        kind, (cin, cout))
+    cout = cin if kind == 'g3' else cout
     wq = torch.randint(-127, 128, wshape, generator=gen, dtype=torch.int8)
     w_scale = torch.rand(cout, generator=gen) * 0.01 + 0.001
     b = torch.randn(cout, generator=gen) * 0.5
     colsum = None if kind == 'dw' else \
-        wq.to(torch.int32).sum(1 if kind == 'c3' else 0).to(torch.int32)
+        wq.to(torch.int32).sum(1 if kind in ('c3', 'g3') else 0).to(torch.int32)
     x_zp = float(torch.randint(1, 255, (), generator=gen))
     to = lambda t: None if t is None else t.to(dev).contiguous()  # noqa: E731
     return to(x), to(wq), to(w_scale), to(b), to(colsum), 0.02, x_zp
@@ -886,10 +894,11 @@ def int8_bound_ms(kind, n, h, w, cin, cout, stride, requant):
     """(bytes ms, operations ms): each input read once, each output written
     once, over 3.35 TB/s; int8 operations over 1979 TOP/s."""
     out_b = 1 if requant else 4
-    if kind == 'dw':
+    if kind in ('dw', 'g3'):          # a 'g3' key's cout is its group width
         ho, wo = h // stride, w // stride
-        nbytes = n * h * w * cin + 9 * cin + 8 * cin + 16 + n * ho * wo * cin * out_b
-        ops = 18 * n * ho * wo * cin
+        k, aff = (9 * cout, 12) if kind == 'g3' else (9, 8)   # weights, affine bytes a channel
+        nbytes = n * h * w * cin + k * cin + aff * cin + 16 + n * ho * wo * cin * out_b
+        ops = 2 * k * n * ho * wo * cin
     else:
         m = n * h * w
         nbytes = m * cin + cin * cout + 12 * cout + 16 + m * cout * out_b
@@ -1052,24 +1061,37 @@ C3_EDGE_SHAPES = [
     ('c3', 2, 2, 64, 128, 2, 'relu6', True),
 ]
 
+# grouped 3x3 shapes for qgconv3x3_s8 beyond the RegNets' (the fifth entry
+# the group width): three groups of 24 (a last slice of one, 8-byte copies),
+# Cin 40 of width 8 at stride 2 with f32 out, 22 groups of 16 on odd sides,
+# one output pixel
+G3_EDGE_SHAPES = [
+    ('g3', 20, 36, 72, 24, 1, 'leaky', True),
+    ('g3', 10, 14, 40, 8, 2, 'linear', False),
+    ('g3', 7, 9, 352, 16, 1, 'relu6', True),
+    ('g3', 2, 2, 48, 24, 2, 'relu', True),
+]
+
 
 def phase6_int8_parity(gen, dev, shapes, batches=(1, BATCH), edges=True, label='phase 6'):
     """Each int8 kernel against its plain version at every shape of
     ``shapes``, and with ``edges`` at ``QCONV_EDGE_SHAPES``,
-    ``DW_EDGE_SHAPES`` and ``C3_EDGE_SHAPES``, at each of ``batches``, f32 then requantised output,
+    ``DW_EDGE_SHAPES``, ``C3_EDGE_SHAPES`` and ``G3_EDGE_SHAPES``, at each of
+    ``batches``, f32 then requantised output,
     every output bit for bit; then (``edges``) the depthwise kernel at
     ``DW_FRACTIONAL_ZP``, to the s8/f32 bound. Widths of 8 (mod 16), the
     8-byte copy paths, are flagged. Returns the largest error of each
     kernel: |f32 err| or s8 code difference."""
     import torch
     from pqdet_tpu_torch.ops.qconv import (make_scalars, plan_qconv1x1, plan_qconv3x3,
-                                           plan_qdwconv3x3, qconv1x1_reference, qconv1x1_s8,
-                                           qconv3x3_reference, qconv3x3_s8,
-                                           qdwconv3x3_reference, qdwconv3x3_s8)
-    worst = {'qconv1x1_s8': 0.0, 'qdwconv3x3_s8': 0.0, 'qconv3x3_s8': 0.0}
+                                           plan_qdwconv3x3, plan_qgconv3x3, qconv1x1_reference,
+                                           qconv1x1_s8, qconv3x3_reference, qconv3x3_s8,
+                                           qdwconv3x3_reference, qdwconv3x3_s8,
+                                           qgconv3x3_reference, qgconv3x3_s8)
+    worst = {'qconv1x1_s8': 0.0, 'qdwconv3x3_s8': 0.0, 'qconv3x3_s8': 0.0, 'qgconv3x3_s8': 0.0}
     failures = []
     n_exact = n_checks = 0
-    extra = QCONV_EDGE_SHAPES + DW_EDGE_SHAPES + C3_EDGE_SHAPES if edges else []
+    extra = QCONV_EDGE_SHAPES + DW_EDGE_SHAPES + C3_EDGE_SHAPES + G3_EDGE_SHAPES if edges else []
     cases = [(k, n, 0.0) for k in sorted(shapes) + extra for n in batches]
     cases += [(k, BATCH, f) for k, f in DW_FRACTIONAL_ZP] if edges else []
     for (kind, h, w, cin, cout, stride, act, _), n, frac in cases:
@@ -1081,11 +1103,12 @@ def phase6_int8_parity(gen, dev, shapes, batches=(1, BATCH), edges=True, label='
                 x, wq, ws, b, act=act, stride=stride, scalars=sc, requant=rq)
             ref = lambda sc, rq: qdwconv3x3_reference(  # noqa: E731
                 x, wq, ws, b, act=act, stride=stride, scalars=sc, requant=rq)
-        elif kind == 'c3':
-            name = 'qconv3x3_s8'
-            kern = lambda sc, rq: qconv3x3_s8(  # noqa: E731
+        elif kind in ('c3', 'g3'):
+            name, kfn, rfn = (('qconv3x3_s8', qconv3x3_s8, qconv3x3_reference) if kind == 'c3'
+                              else ('qgconv3x3_s8', qgconv3x3_s8, qgconv3x3_reference))
+            kern = lambda sc, rq: kfn(  # noqa: E731
                 x, wq, ws, b, cs, act=act, stride=stride, scalars=sc, requant=rq)
-            ref = lambda sc, rq: qconv3x3_reference(  # noqa: E731
+            ref = lambda sc, rq: rfn(  # noqa: E731
                 x, wq, ws, b, cs, act=act, stride=stride, scalars=sc, requant=rq)
         else:
             name = 'qconv1x1_s8'
@@ -1118,10 +1141,13 @@ def phase6_int8_parity(gen, dev, shapes, batches=(1, BATCH), edges=True, label='
             plan = f' plan th={pl.th} tw={pl.tw} cs={pl.cs} cw={pl.cw} grid={pl.grid}'
         elif kind == 'c3':
             plan = f' plan {tuple(plan_qconv3x3(n, h, w, cin, cout, stride))[:2]}'
+        elif kind == 'g3':
+            plan = f' plan {plan_qgconv3x3(n, h, w, cin, cout, stride).c_args[:4]}'
         else:
             plan = f' plan {tuple(plan_qconv1x1(n * h * w, cin, cout))[:6]}'
         odd = ' (8 mod 16)' if cin % 16 == 8 or cout % 16 == 8 else ''
-        print(f'{label}: {name} {kind} N={n} H={h} W={w} Cin={cin} Cout={cout}{odd} '
+        co = f'gw={cout}' if kind == 'g3' else f'Cout={cout}'
+        print(f'{label}: {name} {kind} N={n} H={h} W={w} Cin={cin} {co}{odd} '
               f's={stride} {act} x_zp={x_zp:.2f}{plan}: f32 max |err| '
               f'{err.max().item():.3g}, s8 {n_diff} of {d.numel()} codes differ (max '
               f'{d.max().item()}) {"ok" if ok else "FAIL"}')
@@ -1273,16 +1299,18 @@ def int8_kernel_times(gen, dev, shapes, ptx, tag, label, batch=BATCH):
     """Per forward of ``batch`` images at ``shapes`` (``int8_conv_shapes``), each int8
     kernel's device time from CUDA graphs, its plain version's, a library
     yardstick (torch._int_mm + the epilogue as torch ops; cuDNN's f32
-    depthwise conv + the epilogue) and its bound, with the plan and ptxas
-    report. Returns {kernel name: {'ms', 'plain_ms', 'library_ms',
+    depthwise or grouped conv + the epilogue) and its bound, with the plan
+    and ptxas report. Returns {kernel name: {'ms', 'plain_ms', 'library_ms',
     'bound_ms', 'bound_by'}}."""
     import torch
     import torch.nn.functional as F
     from pqdet_tpu_torch.ops.qconv import (_epilogue, make_scalars, plan_qconv1x1,
-                                           plan_qdwconv3x3, qconv1x1_reference, qconv1x1_s8,
-                                           qdwconv3x3_reference, qdwconv3x3_s8)
+                                           plan_qdwconv3x3, plan_qgconv3x3, qconv1x1_reference,
+                                           qconv1x1_s8, qdwconv3x3_reference, qdwconv3x3_s8,
+                                           qgconv3x3_reference, qgconv3x3_s8)
     tot = {k: dict.fromkeys(('ms', 'plain_ms', 'library_ms', 'bound_ms', 'bytes_ms',
-                             'ops_ms'), 0.0) for k in ('qconv1x1_s8', 'qdwconv3x3_s8')}
+                             'ops_ms'), 0.0)
+           for k in ('qconv1x1_s8', 'qdwconv3x3_s8', 'qgconv3x3_s8')}
     for (kind, h, w, cin, cout, stride, act, rq), count in sorted(shapes.items()):
         x, wq, ws, b, cs, x_scale, x_zp = int8_inputs(gen, kind, batch, h, w, cin, cout, dev)
         sc = make_scalars(x_scale, x_zp, 0.05 if rq else None, 3.0 if rq else None, dev)
@@ -1301,6 +1329,22 @@ def int8_kernel_times(gen, dev, shapes, ptx, tag, label, batch=BATCH):
                 xf = (x.float() - x_off).permute(0, 3, 1, 2)      # channels_last view
                 acc = F.conv2d(xf, wk, None, stride, 1, 1, cin).permute(0, 2, 3, 1)
                 return _epilogue(acc, s, ws, b, zero, act, rq)
+        elif kind == 'g3':                # the key's cout is the group width
+            name = 'qgconv3x3_s8'
+            kern = lambda: qgconv3x3_s8(x, wq, ws, b, cs, act=act,  # noqa: E731
+                                        stride=stride, scalars=sc, requant=rq)
+            plain = lambda: qgconv3x3_reference(x, wq, ws, b, cs, act=act,  # noqa: E731
+                                                stride=stride, scalars=sc, requant=rq)
+            wk = wq.float().reshape(cin, 3, 3, cout).permute(0, 3, 1, 2).contiguous()
+            pad = float(round(x_zp) - 128)      # on the host: the call is captured in a graph
+            csf = cs.float()
+
+            def library():
+                # cuDNN's f32 grouped conv of the recentred codes, padded with
+                # the pad code (sums of integers below 2^24: exact)
+                xf = F.pad(x.float().permute(0, 3, 1, 2), (1, 1, 1, 1), value=pad)
+                acc = F.conv2d(xf, wk, None, stride, 0, 1, cin // cout).permute(0, 2, 3, 1)
+                return _epilogue(acc, s, ws, b, csf, act, rq)
         else:
             name = 'qconv1x1_s8'
             kern = lambda: qconv1x1_s8(x, wq, ws, b, cs, act=act, scalars=sc,  # noqa: E731
@@ -1335,13 +1379,19 @@ def int8_kernel_times(gen, dev, shapes, ptx, tag, label, batch=BATCH):
             how = (f'plan th={pl.th} tw={pl.tw} cs={pl.cs} cw={pl.cw} smem={pl.smem} B, '
                    f'{pl.grid} CTAs, one a tile; ptxas '
                    f'{ptx.get(f"qdw3x3_kernel<4,{stride}>", "not reported")}')
+        elif kind == 'g3':
+            pl = plan_qgconv3x3(batch, h, w, cin, cout, stride)
+            how = (f'plan th={pl.th} tw={pl.tw} g={pl.g} stages={pl.stages} smem={pl.smem} B, '
+                   f'{pl.tiles} tiles; ptxas '
+                   f'{ptx.get(f"qgconv3x3_kernel<{cout},{stride}>", "not reported")}')
         else:
             pl = plan_qconv1x1(batch * h * w, cin, cout)
             how = (f'plan bm={pl.bm} bn={pl.bn} bk={pl.bk} split={pl.split} kpr={pl.kpr} '
                    f'stages={pl.stages} smem={pl.smem} B; ptxas '
                    f'{ptx.get(f"qconv1x1_kernel<{pl.bk}>", "not reported")}')
+        co = 'gw' if kind == 'g3' else 'Cout'
         print(f'{label}: {tag} {name} {kind} x{count} B={batch} H={h} W={w} Cin={cin} '
-              f'Cout={cout} s={stride} {"s8" if rq else "f32"} out: kernel {k_ms:.4f} ms, '
+              f'{co}={cout} s={stride} {"s8" if rq else "f32"} out: kernel {k_ms:.4f} ms, '
               f'plain {p_ms:.4f} ms, library {l_ms:.4f} ms, bound '
               f'{max(by_ms, op_ms):.5f} ms ({"operations" if op_ms > by_ms else "bytes"}); '
               f'{how}')
@@ -3692,6 +3742,8 @@ def phase14_prune(dev, tag, tmp, corpus, ptx, base):
     pruned = {'fused_ir_conv': fir, **q}
     for name, t in pruned.items():
         b = base[name]
+        if not t['ms'] and not b['ms']:
+            continue                    # a kernel neither graph runs
         print(f'phase 14 (d): {tag} {name} per B={BATCH} forward, pruned (unpruned, phases 5 '
               f'and 8): kernel {t["ms"]:.4f} ({b["ms"]:.4f}) ms, plain {t["plain_ms"]:.4f} '
               f'({b["plain_ms"]:.4f}), library {t["library_ms"]:.4f} ({b["library_ms"]:.4f}), '
@@ -4013,6 +4065,9 @@ REGNET_GAIN = 1.5              # seed_bn's weight gain: scores 0.24-0.76 at 512,
 REGNET_REQUESTS = 8            # (b): requests of each model and mode, launches counted
 REGNET_TIMED_REQUESTS = 20     # (e): requests of each model and mode, p50 and p90
 SANDWICH_CELL_BATCH = 80       # (e): int8_sandwich also at the rx600-serve-int8-b80 cell's batch
+# (b): the graphs' qconv1x1_s8 and qgconv3x3_s8 launches an int8 forward
+REGNET_INT8_LAUNCHES = {'regnetx-600m-fpn': (63, 25), 'regnety-400m-fpn': (95, 25),
+                        'regnetx-600m-yolo': (60, 16)}
 REGNET_TRAIN_STEPS = 10        # (c): bf16 steps at B=12, 512x512 on one batch ...
 REGNET_TRAIN_WARMUP = 3        # ... the first ones out of the step's p50
 # YOLOv3 (Darknet-53) in int8 at the yolov3-serve-int8-b32-608 cell's side:
@@ -4111,9 +4166,11 @@ def phase16_kernels(dev, tag, qnets):
     for name in REGNET_FPN:
         s = int8_conv_shapes(qnets[name], SIZE)
         ks = sorted(k[3] for k in s if k[0] == 'im2col')
+        g3 = sorted((k[1], k[3], k[4], k[5]) for k in s if k[0] == 'g3')
         se = sorted((k[3], k[4]) for k in s if k[1] == 1)
         print(f'phase 16 (a): {name} int8 graph: {sum(s.values())} convs in {len(s)} shapes; '
-              f'dense and densified 3x3s through im2col at K {ks}; SE 1x1s at M = B: {se}')
+              f'the stem through im2col at K {ks}; grouped 3x3s through qgconv3x3_s8 at '
+              f'{len(g3)} shapes (side, Cin, group width, stride) {g3}; SE 1x1s at M = B: {se}')
         for k, c in s.items():
             shapes[k] = shapes.get(k, 0) + c
     ydw = {k: c for k, c in int8_conv_shapes(qnets[REGNET_YOLO], SIZE).items() if k[0] == 'dw'}
@@ -4187,12 +4244,13 @@ def phase16_serving(dev, tag, gate):
         qs = int8_conv_shapes(qnet, SIZE)
         n_pw = sum(c for k, c in qs.items() if k[0] in ('pw', 'im2col'))
         n_dw = sum(c for k, c in qs.items() if k[0] == 'dw')
+        n_g3 = sum(c for k, c in qs.items() if k[0] == 'g3')
         bf = bf16_server(net, params, state, dev)
         q8 = int8_server(cfg_text, params, state, batch, dev)
         servers[name] = {'bf16': bf, 'int8': q8}
         per = {'bf16': {'decode_heads': 1, 'fused_ir_conv': len(bf[2])},
                'int8': {'decode_heads': 1, 'qconv1x1_s8': n_pw, 'qdwconv3x3_s8': n_dw,
-                        'int8_sandwich': sandwich_launches(qnet)}}
+                        'qgconv3x3_s8': n_g3, 'int8_sandwich': sandwich_launches(qnet)}}
         requests = [batch(BATCH) for _ in range(REGNET_REQUESTS)]
         for mode, (predict, *_) in (('bf16', bf), ('int8', q8)):
             predict(requests[0])                       # warm-up
@@ -4208,8 +4266,10 @@ def phase16_serving(dev, tag, gate):
             n_det = sum(len(d) for r in dets for d in r)
             finite = all(d.shape[1] == 6 and bool(torch.isfinite(torch.from_numpy(d)).all())
                          for r in dets for d in r)
-            gate(got == want, f'(b) {name} {mode}: {REGNET_REQUESTS} requests of B={BATCH}, '
-                 f'launches {got} (want {want}: per forward {per[mode]})')
+            pinned = mode == 'bf16' or (n_pw, n_g3) == REGNET_INT8_LAUNCHES[name]
+            gate(got == want and pinned, f'(b) {name} {mode}: {REGNET_REQUESTS} requests of '
+                 f'B={BATCH}, launches {got} (want {want}: per forward {per[mode]}; the graph\'s '
+                 f'qconv1x1_s8 and qgconv3x3_s8 {REGNET_INT8_LAUNCHES[name]})')
             gate(finite and n_det > 0, f'(b) {name} {mode}: {n_det} detections, all finite')
         with torch.inference_mode():
             x = device_normalize(requests[0]['image'])
@@ -5391,7 +5451,7 @@ def phase18_visdrone(dev, tag, tmp, gate, ptx, host_ips):
     plain=True; the decode against its plain version at each eval shape;
     the decode's and qconv1x1_s8's device ms at those shapes."""
     import torch
-    from pqdet_tpu_torch.compress.quantized import Int8Inference
+    from pqdet_tpu_torch.compress.quantized import Int8Inference, conv_route
     from pqdet_tpu_torch.config import load_config
     from pqdet_tpu_torch.data.eval_data import EvalData
     from pqdet_tpu_torch.data.scripts import visdrone_txt
@@ -5479,8 +5539,9 @@ def phase18_visdrone(dev, tag, tmp, gate, ptx, host_ips):
     predict = make_batch_predict(build_predict_pipeline(qnet, qcfg, apply_fn=inf.apply,
                                                         device=dev), prep)
     eval_data = EvalData(qcfg)
-    n_pw = sum(1 for n in qnet.graph.nodes if n.kind == 'convolutional'
-               and not n.attrs['groups'] == n.in_channels == n.attrs['filters'])
+    routes = [conv_route(n.attrs, n.in_channels) for n in qnet.graph.nodes
+              if n.kind == 'convolutional']
+    n_pw = sum(r in ('pw', 'im2col') for r in routes)
     launches = dict.fromkeys(kernel_launches(), 0)
     first = {}
     for i in range(len(eval_data)):
@@ -5500,7 +5561,7 @@ def phase18_visdrone(dev, tag, tmp, gate, ptx, host_ips):
         torch.cuda.synchronize()
         again = time.perf_counter() - t1
         want = {**dict.fromkeys(got, 0), 'qconv1x1_s8': n_pw, 'decode_heads': 1,
-                'int8_sandwich': sandwich_launches(qnet)}
+                'qgconv3x3_s8': routes.count('g3'), 'int8_sandwich': sandwich_launches(qnet)}
         gate(got == want and all(bool(torch.isfinite(torch.from_numpy(d)).all()) for d in dets),
              f'(c) int8 request at {hw[0]}x{hw[1]} (B=1): launches {got} (want {want}), '
              f'{sum(len(d) for d in dets)} finite detections; first call {first[hw]:.3f} s, the '

@@ -1,14 +1,13 @@
 #!/usr/bin/env python3
 """Sweep the launch plans of the port's three CUDA kernels on one NVIDIA GPU.
 
-    python3 plan_sweep.py [fused|qconv|dw|conv3x3|all] [zoo model ...]
+    python3 plan_sweep.py [fused|qconv|dw|conv3x3|gconv3x3|all] [zoo model ...]
 
 - fused: each of the 21 fused-IR chains of mobilenetv2-fpn at 512x512, B=4,
   under the plans ``plan_fused_ir`` makes with the cluster capped at 2, 4
   and 8 ranks (its MAX_CLUSTER), device ms from CUDA graphs;
 - qconv: each pointwise shape of the int8 graph at 512x512, B=4 (of
-  mobilenetv2-fpn, or of the zoo models named after the mode: the
-  RegNets' densified grouped 3x3s as their im2col shapes, K up to 4752),
+  mobilenetv2-fpn, or of the zoo models named after the mode),
   under every plan the qconv1x1 kernel takes (bm, bn, bk, split, stages),
   each checked bit for bit against the plain version, device ms from CUDA
   graphs; prints the current plan's time and the best three;
@@ -22,7 +21,14 @@
   every plan the kernel takes (bn, stages), each checked bit for bit
   against the im2col route (qconv1x1_s8 on the patches), device ms from
   CUDA graphs; prints the route's time, the current plan's and the best
-  three, and the operations bound.
+  three, and the operations bound;
+- gconv3x3: each grouped 3x3 shape that qgconv3x3_s8 takes in
+  regnetx-600m-fpn's int8 graph at 512x512, B=80 (the rx600-serve-int8-b80
+  cell's), under every plan of 4-16 output rows, 16-64 columns, 1-6 groups
+  a slice and 1 or 2 stages that fits, each checked bit for bit against
+  the densified im2col route (qconv1x1_s8 on the patches), device ms from
+  CUDA graphs; prints the route's time, the current plan's and the best
+  three, and the bytes bound.
 
 The plans' rules (ops/fused_ir.py, ops/qconv.py) were read off these
 sweeps; PERF.md keeps the numbers. Needs a card; prints the card's name and
@@ -77,7 +83,7 @@ def sweep_qconv(dev, gen, models=('mobilenetv2-fpn',)):
     for name in models:
         net = DetectionNetwork.from_cfg(get_cfg(name), quant=True)
         for (kind, h, _, k, n, _, _, rq), count in cs.int8_conv_shapes(net, 512).items():
-            if kind != 'dw':
+            if kind in ('pw', 'im2col'):
                 shapes[(h, k, n, rq)] = shapes.get((h, k, n, rq), 0) + count
     cur_total = best_total = 0.0
     for (h, k, n, rq), count in sorted(shapes.items()):
@@ -237,6 +243,79 @@ def sweep_conv3x3(dev, gen, batch=32, size=608):
           f'bound {tot["bound"]:.4f} ms')
 
 
+def sweep_gconv3x3(dev, gen, batch=80, size=512):
+    import torch
+
+    import chip_smoke as cs
+    from pqdet_tpu_torch.compress.quantized import _stem_im2col, conv_route, im2col_depth
+    from pqdet_tpu_torch.model import layers as L
+    from pqdet_tpu_torch.model.network import DetectionNetwork
+    from pqdet_tpu_torch.ops import qconv as qc
+    from pqdet_tpu_torch.zoo import get_cfg
+    lib = qc._library()
+    net = DetectionNetwork.from_cfg(get_cfg('regnetx-600m-fpn'), quant=True)
+    shapes = {}
+    for n in net.graph.nodes:
+        if n.kind == 'convolutional' and conv_route(n.attrs, n.in_channels) == 'g3':
+            key = (size * n.attrs['stride'] // n.stride, n.in_channels,
+                   n.in_channels // n.attrs['groups'], n.attrs['stride'])
+            shapes[key] = shapes.get(key, 0) + 1
+    tot = dict.fromkeys(('route', 'cur', 'best', 'bound'), 0.0)
+    for (h, cin, gw, s), count in sorted(shapes.items()):
+        x = torch.randint(-128, 128, (batch, h, h, cin), generator=gen, dtype=torch.int8).to(dev)
+        wq = torch.randint(-127, 128, (cin, gw, 3, 3), generator=gen, dtype=torch.int8)
+        wg = wq.permute(0, 2, 3, 1).reshape(cin, 9 * gw).contiguous().to(dev)
+        dense = L.densify_grouped_weight(wq, cin // gw).permute(2, 3, 1, 0).reshape(9 * cin, cin)
+        wim = torch.nn.functional.pad(dense, (0, 0, 0, im2col_depth(cin) - 9 * cin)).to(dev)
+        ws = (torch.rand(cin, generator=gen) * 0.01 + 0.001).to(dev)
+        b = torch.randn(cin, generator=gen).to(dev)
+        cs_ = wg.to(torch.int32).sum(1).to(torch.int32)
+        sc = qc.make_scalars(0.02, 37.0, 0.05, 3.0, dev)
+        kw = dict(act='relu', scalars=sc, requant=True)
+        route = lambda: qc.qconv1x1_s8(_stem_im2col(x, s, 37 - 128), wim, ws, b, cs_, **kw)  # noqa
+        ref = route()
+        out = torch.empty_like(ref)
+        ho, wo = h // s, h // s
+        results = []
+        for th, tw, g, stages in itertools.product((4, 8, 16), (16, 32, 64), (1, 2, 3, 4, 6),
+                                                   (1, 2)):
+            smem = qc.qgconv3x3_smem_bytes(th, tw, g, gw, s, stages)
+            if smem > 232448 or g * gw > cin or th > 2 * ho or tw > 2 * max(16, wo):
+                continue
+
+            def run():
+                rc = lib.qgconv3x3_launch(
+                    x.data_ptr(), wg.data_ptr(), ws.data_ptr(), b.data_ptr(), cs_.data_ptr(),
+                    sc.data_ptr(), out.data_ptr(), batch, h, h, cin, gw, s,
+                    qc.ACT_CODES['relu'], 1, th, tw, g, stages, smem,
+                    torch.cuda.current_stream().cuda_stream)
+                if rc != 0:
+                    raise RuntimeError(f'qgconv3x3 plan {(th, tw, g, stages)} failed with CUDA '
+                                       f'error {rc}')
+            out.fill_(0)
+            run()
+            torch.cuda.synchronize()
+            if not torch.equal(out, ref):
+                raise AssertionError(f'qgconv3x3 {h}x{h} {cin} gw {gw} s={s} plan '
+                                     f'{(th, tw, g, stages)} disagrees with the im2col route')
+            results.append((cs.device_ms(run, iters=5, replays=3), (th, tw, g, stages)))
+        results.sort()
+        r_ms = cs.device_ms(route, iters=5, replays=3)
+        cur = qc.plan_qgconv3x3(batch, h, h, cin, gw, s).c_args[:4]
+        cur_ms = next((ms for ms, pl in results if pl == cur), float('nan'))
+        nbytes = batch * (h * h + ho * wo) * cin + cin * (9 * gw + 12) + 16
+        bound = nbytes / cs.HBM_BYTES_PER_S * 1e3
+        for k, v in (('route', r_ms), ('cur', cur_ms), ('best', results[0][0]), ('bound', bound)):
+            tot[k] += count * v
+        print(f'gconv3x3 {h}x{h} Cin {cin} gw {gw} s={s} x{count}: route {r_ms:.4f} ms; current '
+              f'{cur_ms:.4f} ms {cur}; best ' + '; '.join(f'{ms:.4f} ms {pl}' for ms, pl in
+                                                       results[:3])
+              + f'; bytes bound {bound:.4f} ms ({100 * bound / cur_ms:.1f} % of current)')
+    print(f'gconv3x3 per B={batch} forward of regnetx-600m-fpn at {size}: route '
+          f'{tot["route"]:.4f} ms, current plans {tot["cur"]:.4f} ms, best plans '
+          f'{tot["best"]:.4f} ms, bytes bound {tot["bound"]:.4f} ms')
+
+
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
@@ -260,6 +339,8 @@ def main() -> int:
         sweep_dw(dev, gen)
     if which in ('conv3x3', 'all'):
         sweep_conv3x3(dev, gen)
+    if which in ('gconv3x3', 'all'):
+        sweep_gconv3x3(dev, gen)
     return 0
 
 

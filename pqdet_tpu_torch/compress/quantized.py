@@ -13,8 +13,10 @@ between a dequant and a requant, as in the JAX package.
   every stride-th pixel), a depthwise 3x3 ``qdwconv3x3_s8`` (both CUDA
   kernels on the card, ``csrc/qconv.cu``), a dense 3x3 whose Cin is a
   multiple of 16 ``qconv3x3_s8`` (an implicit GEMM: YOLOv3's 37 past its
-  stem), and any other dense 3x3 and densified grouped 3x3 im2col patches
-  into ``qconv1x1_s8`` (K up to 4752 in the zoo). The input's
+  stem), a grouped 3x3 of Cout = Cin and group width 8, 16 or 24
+  ``qgconv3x3_s8`` (each group's product from the input window: the
+  RegNets' grouped 3x3s), and any other dense 3x3 and densified grouped
+  3x3 im2col patches into ``qconv1x1_s8``. The input's
   quantisation, each shortcut and each route run as one ``int8_sandwich``
   launch from s8 to s8, and one Triton decode launch decodes the raw yolo
   heads into the preds. ``Int8Inference.routes`` is the walk's table of
@@ -52,8 +54,9 @@ from pqdet_tpu_torch.model.network import (DetectionNetwork, decode_all_heads,
                                            decode_consumed_head, fuse_params)
 from pqdet_tpu_torch.ops import library
 from pqdet_tpu_torch.ops.decode_kernel import head_views
-from pqdet_tpu_torch.ops.qconv import (C3_CIN_STEP, SANDWICH_ACTS, SANDWICH_MAX_SOURCES,
-                                       dequant_s8, make_scalars, quant_s8, sandwich_scalars)
+from pqdet_tpu_torch.ops.qconv import (C3_CIN_STEP, G3_GROUP_WIDTHS, SANDWICH_ACTS,
+                                       SANDWICH_MAX_SOURCES, dequant_s8, make_scalars, quant_s8,
+                                       sandwich_scalars)
 from pqdet_tpu_torch.utils import tracing
 from pqdet_tpu_torch.utils.codec import load_checkpoint, save_pytrees
 
@@ -74,13 +77,15 @@ def conv_route(attrs: Dict, cin: int) -> Optional[str]:
     """The kernel-mode route of a conv of cfg ``attrs`` (size, stride,
     padding, groups, filters) on ``cin`` input channels: ``'pw'`` a 1x1
     (padding 0, any stride), ``'dw'`` a depthwise 3x3, ``'c3'`` a dense 3x3
-    (groups 1) whose Cin is a multiple of C3_CIN_STEP, ``'im2col'`` any
-    other dense 3x3 and a densified grouped 3x3 (patches into the 1x1
-    kernel); None a grouped conv not densified, another size or padding,
-    a 3x3 at a stride past 2. A grouped conv is densified where its group
-    width lies in DENSE_GROUP_WIDTHS and its Cout is a multiple of its
-    groups. A patch row's s32 sum stays exact up to K = 132,104 (|sum| <=
-    K * 128 * 127 < 2^31), far past the zoo's widest 4752."""
+    (groups 1) whose Cin is a multiple of C3_CIN_STEP, ``'g3'`` a grouped
+    3x3 whose Cout is its Cin and whose group width is one of
+    G3_GROUP_WIDTHS, ``'im2col'`` any other dense 3x3 and a densified
+    grouped 3x3 (patches into the 1x1 kernel); None a grouped conv not
+    densified, another size or padding, a 3x3 at a stride past 2. A grouped
+    conv is densified where its group width lies in DENSE_GROUP_WIDTHS and
+    its Cout is a multiple of its groups. A patch row's s32 sum stays exact
+    up to K = 132,104 (|sum| <= K * 128 * 127 < 2^31), far past any im2col
+    depth a Cin of DENSE_GROUP_WIDTHS' range gives."""
     size, groups, filters = attrs['size'], attrs['groups'], attrs['filters']
     padding = solve_padding(size, attrs['padding'], attrs['pad'])
     dense = groups == 1 or (DENSE_GROUP_WIDTHS[0] <= cin // groups <= DENSE_GROUP_WIDTHS[1]
@@ -93,15 +98,18 @@ def conv_route(attrs: Dict, cin: int) -> Optional[str]:
         return 'dw'
     if groups == 1 and cin % C3_CIN_STEP == 0:
         return 'c3'
+    if groups > 1 and filters == cin and cin % groups == 0 and cin // groups in G3_GROUP_WIDTHS:
+        return 'g3'
     return 'im2col' if dense else None
 
 
 def _fits(route: str, p: Dict, shape, stride: int) -> bool:
     """Whether ``route``'s view in the staged ``p`` takes an NHWC input of
-    ``shape``: its input channels; even H and W for a 3x3 at stride 2."""
+    ``shape``: its input channels (a grouped 3x3's Cout, which is its Cin);
+    even H and W for a 3x3 at stride 2."""
     _, h, w, c = shape
     view, axis, k = {'pw': ('w2d', 0, c), 'dw': ('wdw', 2, c), 'c3': ('w3', 1, 9 * c),
-                     'im2col': ('wim', 0, im2col_depth(c))}[route]
+                     'g3': ('wg', 0, c), 'im2col': ('wim', 0, im2col_depth(c))}[route]
     return view in p and p[view].shape[axis] == k and (
         route == 'pw' or (h % stride == 0 and w % stride == 0))
 
@@ -256,12 +264,15 @@ class Int8Inference:
         - ``'dw'``: ``wdw`` (3, 3, C);
         - ``'c3'``: ``w3`` (Cout, 9*Cin) in (kh, kw, cin) order and
           ``colsum``;
+        - ``'g3'``: ``wg`` (Cout, 9*gw) of the compact grouped weights in
+          (kh, kw, cin-in-group) order and ``colsum``;
         - ``'im2col'``: ``wim`` (im2col_depth(Cin), Cout) in (kh, kw, cin)
           order with zero rows after the 9*Cin taps, and ``wim_colsum``.
         With ``network`` given, a grouped conv that its route densifies
-        (the RegNet pattern) first becomes block-diagonal int8 weights
+        (a grouped 1x1, or a grouped 3x3 that ``qgconv3x3_s8`` does not
+        take) first becomes block-diagonal int8 weights
         (``layers.densify_grouped_weight``), as the JAX package's
-        ``prepare(network=)`` does (K up to 9 * 528 = 4752 in the RegNets).
+        ``prepare(network=)`` does.
         Without it each conv takes the route of its weights' own shape
         (groups 1, but a depthwise 3x3 of one input channel a group), so a
         grouped conv's views are of its compact weights, which the walk
@@ -287,9 +298,10 @@ class Int8Inference:
                     p['colsum'] = p['w2d'].to(torch.int32).sum(0).to(torch.int32)
                 elif route == 'dw':
                     p['wdw'] = wq.reshape(cout, 9).t().reshape(3, 3, cout)
-                elif route == 'c3':
-                    p['w3'] = wq.permute(0, 2, 3, 1).reshape(cout, 9 * cin)
-                    p['colsum'] = p['w3'].to(torch.int32).sum(1).to(torch.int32)
+                elif route in ('c3', 'g3'):
+                    view = 'w3' if route == 'c3' else 'wg'
+                    p[view] = wq.permute(0, 2, 3, 1).reshape(cout, 9 * cin)
+                    p['colsum'] = p[view].to(torch.int32).sum(1).to(torch.int32)
                 elif route == 'im2col':
                     wim = wq.permute(2, 3, 1, 0).reshape(9 * cin, cout)
                     p['wim'] = F.pad(wim, (0, 0, 0, im2col_depth(cin) - 9 * cin))
@@ -363,7 +375,7 @@ class Int8Inference:
         kernel = self.mode == 'kernel'
         if kernels is None:
             kernels = library.PLAIN if plain else library.WRAPPERS
-        pw_fn, dw_fn, dec_fn, sw_fn, c3_fn = kernels
+        pw_fn, dw_fn, dec_fn, sw_fn, c3_fn, g3_fn = kernels
 
         def as_fp(val, sz):
             if sz is None:
@@ -426,11 +438,12 @@ class Int8Inference:
                         with tracing.span('int8.kernel'):
                             y = dw_fn(xq, p['wdw'], p['w_scale'], p['b'], stride=stride,
                                       **common)
-                    elif route == 'c3':
+                    elif route in ('c3', 'g3'):
+                        fn, view = (c3_fn, 'w3') if route == 'c3' else (g3_fn, 'wg')
                         with tracing.span('int8.conv3x3'):
                             with tracing.span('int8.kernel'):
-                                y = c3_fn(xq, p['w3'], p['w_scale'], p['b'], p['colsum'],
-                                          stride=stride, **common)
+                                y = fn(xq, p[view], p['w_scale'], p['b'], p['colsum'],
+                                       stride=stride, **common)
                     else:
                         with tracing.span('int8.conv3x3'):
                             with tracing.span('int8.im2col'):

@@ -4,6 +4,8 @@
 //   qdwconv3x3_s8: depthwise 3x3, pad 1, stride 1 or 2, on CUDA cores;
 //   qconv3x3_s8: dense 3x3, pad 1, stride 1 or 2, an implicit GEMM on
 //     tensor cores (wgmma), with its own note after int8_sandwich's;
+//   qgconv3x3_s8: grouped 3x3, pad 1, stride 1 or 2, group width 8, 16 or
+//     24, on tensor cores (mma.sync), with its own note after qconv3x3's;
 //
 // all with the fused epilogue of the TPU kernels
 //
@@ -1441,6 +1443,286 @@ __global__ void __launch_bounds__(C3_THREADS, 2) qconv3x3_kernel(const C3Params 
   }
 }
 
+// ---------------------------------------------------------------------------
+// qgconv3x3_s8: a grouped 3x3 conv (padding 1, stride 1 or 2, Cout = Cin,
+// group width GW of 8, 16 or 24) of NHWC s8 on the tensor cores, with
+// qconv1x1's fused epilogue. It replaces no TPU kernel: the JAX package
+// densifies these convs into block-diagonal weights and runs them as im2col
+// patches into pqdet_tpu/ops/pallas_qconv.py::qconv1x1_s8, as the port's
+// 'im2col' route does (9 x the input's bytes written as patches at stride 1
+// and read back, and a GEMM of Cin / GW times the real work, mostly zeros).
+// Same arithmetic as that route and as the plain version
+// ops/qconv.py::qgconv3x3_reference: a group's s32 sum over (kh, kw, cin)
+// is the densified sum term by term without its zero terms, colsum is the
+// same integer, and the epilogue is qconv1x1's step for rounded step, so
+// every s8 code and f32 output equals the route's bit for bit.
+//
+// What bounds it: bytes. A group's product is 9 * GW deep and GW wide, 2 *
+// 9 * GW operations per output byte (432 at GW 24), and the input is read
+// once (four times the output at stride 2): about 140 operations per byte
+// over the RegNets' convs, against the ~590 at which the tensor cores and
+// not the memory are the limit.
+//
+// Design (tiles, groups a slice and stages from the host's plan,
+// ops/qconv.py::plan_qgconv3x3, as plain ints), so that each input byte is
+// read from device memory once per CTA and each output written once:
+// - a CTA of 8 warps takes tiles of (image, TH x TW output pixels, a slice
+//   of G whole groups), slices innermost; with one stage a CTA a tile, with
+//   two the CTAs stay resident and load the next tile's window while they
+//   compute this one's;
+// - the tile's input window with its halo, ((TH-1)S+3) x ((TW-1)S+3) pixels
+//   x G*GW channels, comes into shared memory by cp.async (16-byte copies,
+//   8 where Cin or the slice is not a multiple of 16); a pixel outside the
+//   image gets the pad code rint(x_zp) - 128 (the recentred zero point, the
+//   route's padding) by a shared-memory store. At stride 2 the even and odd
+//   window columns are stored apart, so consecutive output pixels of a tap
+//   are one pitch apart at either stride; the pitch is 16 mod 32 bytes, so
+//   the 8 pixels x 4 words of a fragment load fall on 32 banks;
+// - a warp takes units of 16 consecutive output pixels of a row x one group:
+//   D (16 x GW) = A (16 x 9GW) B^T on mma.sync m16n8k32 s8, K = 9 * GW in
+//   (kh, kw, cin) order padded to a multiple of 32 with zero weights (a
+//   zero weight adds exactly 0). Each A fragment word is 4 channels of one
+//   tap of one pixel, read from the window at an offset the thread computes
+//   once: no patch exists anywhere. The B fragments (the compact weights
+//   (Cout, 9 * GW) that Int8Inference.prepare stages, read through the
+//   cache) and the group's alpha and beta stay in registers while the
+//   warp's units are of one group;
+// - epilogue: affine/epilogue/requant_code's arithmetic on the s32
+//   accumulators in registers; s8 codes staged in shared memory and stored
+//   as 16-byte (or 8-byte) pieces of each pixel's slice, f32 stored from
+//   the registers.
+constexpr int GC_THREADS = 256;
+
+struct GcParams {
+  const int8_t* x;
+  const int8_t* w;
+  const float* wscale;
+  const float* bias;
+  const int* colsum;
+  const float* s;
+  void* out;
+  int H, W, C, Ho, Wo, act, requant;
+  int th, tw, g, stages;   // the plan
+  int tiles_x, tiles_y, slices, ntiles;
+  // derived by gclayout from the plan (cw by the launch from the pointers)
+  int cs, pitch, rowp, phase, wr, wc, win, spitch, cw;
+};
+
+// Shared-memory layout of qgconv3x3_kernel: `stages` windows of wr rows x
+// wc pixels (rowp bytes a row, pitch bytes a pixel: the slice's cs
+// channels, then padding to 16 mod 32; at stride 2 the even columns, then
+// the odd ones from byte `phase` of the row), each rounded up to 128 bytes,
+// then the staged s8 codes [th * tw][spitch]. Returns its bytes, -1 for a
+// plan the kernel does not take. ops/qconv.py::qgconv3x3_smem_bytes is the
+// same formula, and the launch refuses a mismatch.
+int gclayout(GcParams& p, int gw, int stride) {
+  if (p.th < 1 || p.th > 64 || p.tw < 16 || p.tw > 64 || p.tw % 16 || p.g < 1 ||
+      p.stages < 1 || p.stages > 2)
+    return -1;
+  p.cs = p.g * gw;
+  p.pitch = p.cs % 32 <= 16 ? p.cs / 32 * 32 + 16 : p.cs / 32 * 32 + 48;
+  p.wr = (p.th - 1) * stride + 3;
+  p.wc = (p.tw - 1) * stride + 3;
+  p.rowp = p.wc * p.pitch;
+  p.phase = stride == 2 ? (p.tw + 1) * p.pitch : 0;   // even columns 0, 2, ..., 2 tw
+  p.win = (p.wr * p.rowp + 127) / 128 * 128;
+  p.spitch = (p.cs + 15) / 16 * 16;
+  return p.stages * p.win + p.th * p.tw * p.spitch;
+}
+
+// byte offset of window column `col` in a row
+template <int S>
+__device__ __forceinline__ int gc_col(const GcParams& p, int col) {
+  return S == 1 ? col * p.pitch : (col & 1) * p.phase + (col >> 1) * p.pitch;
+}
+
+// Grouped 3x3, pad 1, stride S, group width GW (see the note above).
+template <int GW, int S>
+__global__ void __launch_bounds__(GC_THREADS, 2) qgconv3x3_kernel(const GcParams p) {
+  constexpr int K = 9 * GW;
+  constexpr int KS = (K + 31) / 32;   // k32 steps
+  constexpr int NT8 = GW / 8;          // n8 tiles of a group's outputs
+  extern __shared__ __align__(128) unsigned char gsmem[];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int q = lane & 3, r8 = lane >> 2;
+  const float s0 = p.s[0], s1 = p.s[1], s2 = p.s[2], s3 = p.s[3];
+  const uint32_t padw =
+      static_cast<uint32_t>((static_cast<int>(rintf(s1)) - 128) & 0xFF) * 0x01010101u;
+  unsigned char* stage = gsmem + p.stages * p.win;
+  const int per_img = p.tiles_y * p.tiles_x * p.slices;
+  const int mt_row = p.tw / 16, mt_per = p.th * mt_row;   // 16-pixel units a group
+
+  // window offsets of this thread's A fragment words: k = 32 ks + 16 h + 4 q
+  // is tap k / GW, channel k % GW; a k past 9 GW meets zero weights
+  int off[KS][2];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = 32 * ks + 16 * h + 4 * q;
+      const int tap = k / GW, c = k - tap * GW, kh = tap / 3, kw = tap - 3 * kh;
+      off[ks][h] = k < K ? kh * p.rowp + gc_col<S>(p, kw) + c : 0;
+    }
+
+  auto coords = [&](int tile, int& n, int& oy0, int& ox0, int& sl) {
+    n = tile / per_img;
+    const int rem = tile - n * per_img, txy = rem / p.slices;
+    sl = rem - txy * p.slices;
+    const int ty = txy / p.tiles_x;
+    oy0 = ty * p.th;
+    ox0 = (txy - ty * p.tiles_x) * p.tw;
+  };
+
+  // the tile's window into slot `slot`: warps take window rows, lanes cw-byte
+  // pieces of a row; one cp.async group
+  auto issue = [&](int tile, int slot) {
+    int n, oy0, ox0, sl;
+    coords(tile, n, oy0, ox0, sl);
+    unsigned char* win = gsmem + slot * p.win;
+    const int c0 = sl * p.cs, nch = min(p.cs, p.C - c0) / p.cw;
+    const int iy0 = oy0 * S - 1, ix0 = ox0 * S - 1;
+    const int8_t* ximg = p.x + static_cast<size_t>(n) * p.H * p.W * p.C + c0;
+    for (int row = warp; row < p.wr; row += GC_THREADS / 32) {
+      const int iy = iy0 + row;
+      const bool row_in = static_cast<unsigned>(iy) < static_cast<unsigned>(p.H);
+      for (int j = lane; j < p.wc * nch; j += 32) {
+        const int col = j / nch, ch = (j - col * nch) * p.cw;
+        const int ix = ix0 + col;
+        unsigned char* dst = win + row * p.rowp + gc_col<S>(p, col) + ch;
+        if (row_in && static_cast<unsigned>(ix) < static_cast<unsigned>(p.W))
+          dw_copy(p.cw, dst, ximg + (static_cast<size_t>(iy) * p.W + ix) * p.C + ch);
+        else if (p.cw == 16)
+          *reinterpret_cast<uint4*>(dst) = make_uint4(padw, padw, padw, padw);
+        else
+          *reinterpret_cast<uint2*>(dst) = make_uint2(padw, padw);
+      }
+    }
+    cp_commit();
+  };
+
+  const bool clamp = p.act == ACT_RELU || p.act == ACT_RELU6, leaky = p.act == ACT_LEAKY;
+  const float hi = p.act == ACT_RELU6 ? 6.f : __int_as_float(0x7f800000);
+  auto finish = [&](int v, float al, float bt) {
+    float u = __fadd_rn(__fmul_rn(__int2float_rn(v), al), bt);
+    u = clamp ? fminf(fmaxf(u, 0.f), hi) : u;
+    u = leaky && !(u > 0.f) ? __fmul_rn(0.1f, u) : u;
+    if (p.act == ACT_LOGISTIC) u = 1.f / (1.f + expf(-u));
+    return u;
+  };
+
+  // the group whose weights and affine terms the registers hold; a new
+  // group's are read through the cache
+  int held = -1;
+  uint32_t bf[KS][NT8][2];
+  float al[NT8][2], bt[NT8][2];
+  const float sv[2] = {s0, s1};
+  auto hold = [&](int grp) {
+    held = grp;
+#pragma unroll
+    for (int j = 0; j < NT8; ++j) {
+      const int co = grp * GW + j * 8;
+      const int8_t* wrow = p.w + static_cast<size_t>(co + r8) * K;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int k = 32 * ks + 16 * h + 4 * q;
+          bf[ks][j][h] = k < K ? __ldg(reinterpret_cast<const unsigned int*>(wrow + k)) : 0u;
+        }
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        const int c = co + 2 * q + v;
+        affine(sv, __ldg(p.wscale + c), __ldg(p.bias + c), __int2float_rn(__ldg(p.colsum + c)),
+               al[j][v], bt[j][v]);
+      }
+    }
+  };
+  const int units = p.g * mt_per, warps = GC_THREADS / 32;
+  const int u_lo = warp * units / warps, u_hi = (warp + 1) * units / warps;
+
+  const int step = p.stages == 2 ? static_cast<int>(gridDim.x) : p.ntiles;
+  int slot = 0;
+  if (static_cast<int>(blockIdx.x) < p.ntiles) issue(blockIdx.x, 0);
+  for (int tile = blockIdx.x; tile < p.ntiles; tile += step) {
+    int n, oy0, ox0, sl;
+    coords(tile, n, oy0, ox0, sl);
+    // the first unit's group weights are read while the window lands
+    const int first = sl * p.g + u_lo / mt_per;
+    if (u_lo < u_hi && first * GW < p.C && first != held) hold(first);
+    cp_wait_all();
+    __syncthreads();   // the window landed; the last tile's codes are out
+    const int next = tile + step;
+    if (p.stages == 2 && next < p.ntiles) issue(next, slot ^ 1);
+    const unsigned char* win = gsmem + slot * p.win;
+    for (int u = u_lo; u < u_hi; ++u) {
+      const int gi = u / mt_per, mt = u - gi * mt_per;
+      const int grp = sl * p.g + gi;
+      if (grp * GW >= p.C) break;   // past the last group (units are group-major)
+      if (grp != held) hold(grp);
+      const int r = mt / mt_row, px0 = (mt - r * mt_row) * 16;
+      const unsigned char* a_lo = win + r * S * p.rowp + (px0 + r8) * p.pitch + gi * GW;
+      const unsigned char* a_hi = a_lo + 8 * p.pitch;
+      auto word = [](const unsigned char* at) { return *reinterpret_cast<const uint32_t*>(at); };
+      int acc[NT8][4];
+#pragma unroll
+      for (int j = 0; j < NT8; ++j)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[j][v] = 0;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        const uint32_t a[4] = {word(a_lo + off[ks][0]), word(a_hi + off[ks][0]),
+                               word(a_lo + off[ks][1]), word(a_hi + off[ks][1])};
+#pragma unroll
+        for (int j = 0; j < NT8; ++j) mma_s8(acc[j], a, bf[ks][j][0], bf[ks][j][1]);
+      }
+      // the accumulator layout of m16n8: register 2 h + v holds pixel px0 +
+      // r8 + 8 h, channel 8 j + 2 q + v of the group
+#pragma unroll
+      for (int j = 0; j < NT8; ++j) {
+        const int c = gi * GW + j * 8 + 2 * q;   // in the slice
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float u0 = finish(acc[j][2 * h], al[j][0], bt[j][0]);
+          const float u1v = finish(acc[j][2 * h + 1], al[j][1], bt[j][1]);
+          const int px = px0 + r8 + 8 * h;
+          if (p.requant) {
+            *reinterpret_cast<uint16_t*>(stage + (r * p.tw + px) * p.spitch + c) =
+                static_cast<uint16_t>(static_cast<uint8_t>(requant_code(u0, s2, s3)) |
+                                      static_cast<uint16_t>(static_cast<uint8_t>(
+                                          requant_code(u1v, s2, s3))) << 8);
+          } else if (oy0 + r < p.Ho && ox0 + px < p.Wo) {
+            float* o = static_cast<float*>(p.out) +
+                       (static_cast<size_t>(n) * p.Ho * p.Wo +
+                        static_cast<size_t>(oy0 + r) * p.Wo + ox0 + px) * p.C + sl * p.cs + c;
+            *reinterpret_cast<float2*>(o) = make_float2(u0, u1v);
+          }
+        }
+      }
+    }
+    __syncthreads();   // every unit is done: the window is free, the codes staged
+    if (p.stages == 1 && next < p.ntiles) issue(next, 0);
+    if (p.requant) {
+      // the staged codes out: cw-byte pieces of each pixel's slice
+      const int c0 = sl * p.cs, nch = min(p.cs, p.C - c0) / p.cw;
+      int8_t* oimg = static_cast<int8_t*>(p.out) + static_cast<size_t>(n) * p.Ho * p.Wo * p.C + c0;
+      for (int idx = t; idx < p.th * p.tw * nch; idx += GC_THREADS) {
+        const int pl = idx / nch, ch = (idx - pl * nch) * p.cw;
+        const int r = pl / p.tw, px = pl - r * p.tw;
+        const int oy = oy0 + r, ox = ox0 + px;
+        if (oy >= p.Ho || ox >= p.Wo) continue;
+        int8_t* dst = oimg + (static_cast<size_t>(oy) * p.Wo + ox) * p.C + ch;
+        const unsigned char* src = stage + pl * p.spitch + ch;
+        if (p.cw == 16)
+          *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+        else
+          *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
+      }
+    }
+    if (p.stages == 2) slot ^= 1;
+  }
+  cp_wait_all();
+}
+
 }  // namespace
 
 extern "C" int qconv1x1_launch(const void* x, const void* w, const void* wscale,
@@ -1657,6 +1939,77 @@ extern "C" int qconv3x3_launch(const void* x, const void* w, const void* wscale,
     g = smem;
   }
   kern<<<static_cast<unsigned>(ctas), C3_THREADS, static_cast<size_t>(smem),
+         static_cast<cudaStream_t>(stream)>>>(prm);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x (n, h, wd, c) s8, w (c, 9 gw) s8 in (kh, kw, cin-in-group) order, both
+// 16-byte aligned, gw 8, 16 or 24 dividing c; out (n, h / stride, wd /
+// stride, c) s8 (requant) or f32. The plan (th, tw, g, stages, smem) from
+// ops/qconv.py::plan_qgconv3x3; with one stage the grid is one CTA a tile,
+// with two as many CTAs as stay resident, each walking tiles.
+extern "C" int qgconv3x3_launch(const void* x, const void* w, const void* wscale,
+                                const void* bias, const void* colsum, const void* scalars,
+                                void* out, int n, int h, int wd, int c, int gw, int stride,
+                                int act, int requant, int th, int tw, int g, int stages,
+                                int smem, void* stream) {
+  GcParams prm{};
+  prm.x = static_cast<const int8_t*>(x);
+  prm.w = static_cast<const int8_t*>(w);
+  prm.wscale = static_cast<const float*>(wscale);
+  prm.bias = static_cast<const float*>(bias);
+  prm.colsum = static_cast<const int*>(colsum);
+  prm.s = static_cast<const float*>(scalars);
+  prm.out = out;
+  prm.H = h; prm.W = wd; prm.C = c; prm.act = act; prm.requant = requant;
+  prm.th = th; prm.tw = tw; prm.g = g; prm.stages = stages;
+  if ((gw != 8 && gw != 16 && gw != 24) || c < gw || c % gw || (stride != 1 && stride != 2) ||
+      (stride == 2 && (h % 2 || wd % 2)) || n < 1 || h < 1 || wd < 1 || !aligned16(x) ||
+      !aligned16(w) || !aligned16(out) || static_cast<long long>(n) * h * wd * c >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  prm.Ho = h / stride;
+  prm.Wo = wd / stride;
+  if (gclayout(prm, gw, stride) != smem || smem > 232448)
+    return static_cast<int>(cudaErrorInvalidValue);
+  prm.cw = c % 16 == 0 && prm.cs % 16 == 0 ? 16 : 8;
+  prm.tiles_x = (prm.Wo + tw - 1) / tw;
+  prm.tiles_y = (prm.Ho + th - 1) / th;
+  prm.slices = (c / gw + g - 1) / g;
+  const long long ntiles = static_cast<long long>(n) * prm.tiles_x * prm.tiles_y * prm.slices;
+  if (ntiles > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  prm.ntiles = static_cast<int>(ntiles);
+  void (*kern)(GcParams) =
+      stride == 1 ? (gw == 8 ? qgconv3x3_kernel<8, 1> : gw == 16 ? qgconv3x3_kernel<16, 1>
+                                                                 : qgconv3x3_kernel<24, 1>)
+                  : (gw == 8 ? qgconv3x3_kernel<8, 2> : gw == 16 ? qgconv3x3_kernel<16, 2>
+                                                                 : qgconv3x3_kernel<24, 2>);
+  // raise the shared-memory limit only when a larger one is needed; the
+  // process uses one device
+  static int given[6] = {0, 0, 0, 0, 0, 0};
+  int& gv = given[(gw / 8 - 1) * 2 + stride - 1];
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024 && smem > gv) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    gv = smem;
+  }
+  int grid = prm.ntiles;
+  if (stages == 2) {
+    static int sms = 0;
+    int dev = 0, per_sm = 0;
+    if (sms == 0) {
+      err = cudaGetDevice(&dev);
+      if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, GC_THREADS,
+                                                        static_cast<size_t>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidValue);
+    const long long resident = static_cast<long long>(per_sm) * sms;
+    grid = static_cast<int>(resident < grid ? resident : grid);
+  }
+  kern<<<static_cast<unsigned>(grid), GC_THREADS, static_cast<size_t>(smem),
          static_cast<cudaStream_t>(stream)>>>(prm);
   return static_cast<int>(cudaGetLastError());
 }

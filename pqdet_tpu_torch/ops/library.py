@@ -2,8 +2,8 @@
 ``torch.export`` program can carry them (the counterpart of the Pallas
 calls that ``jax.export`` embeds as custom calls).
 
-``decode_heads``, ``qconv1x1_s8``, ``qdwconv3x3_s8``, ``qconv3x3_s8`` and
-``int8_sandwich`` are registered in the ``pqdet`` namespace with
+``decode_heads``, ``qconv1x1_s8``, ``qdwconv3x3_s8``, ``qconv3x3_s8``,
+``qgconv3x3_s8`` and ``int8_sandwich`` are registered in the ``pqdet`` namespace with
 ``torch.library.custom_op``. Each op is opaque to the tracer: its
 implementation is the kernel's wrapper, looked up in its module at call
 time, which launches the kernel for a CUDA tensor (counting the launch) or
@@ -11,7 +11,8 @@ raises, and runs the plain version for a CPU tensor. Nothing falls back:
 an artifact whose kernels cannot build raises where the wrapper raises.
 Each op has a fake (shape) function that mirrors the wrapper's output:
 int8 when ``requant``, f32 otherwise; H/2 x W/2 at stride 2; the dense
-3x3's Cout from its (Cout, 9 * Cin) weights; the (B, sum HWA, 5+C) f32
+3x3's Cout from its (Cout, 9 * Cin) weights, the grouped 3x3's its
+input's Cin; the (B, sum HWA, 5+C) f32
 preds of the decode; the sandwich's int8 (N, H, W, C), C summed over a
 route's sources. The decode is a
 ``custom_op`` too, not a ``triton_op``, so the Triton kernel stays out of
@@ -34,7 +35,8 @@ import torch
 from pqdet_tpu_torch.ops import decode_kernel, qconv
 
 NAMESPACE = 'pqdet'
-OP_NAMES = ('decode_heads', 'qconv1x1_s8', 'qdwconv3x3_s8', 'int8_sandwich', 'qconv3x3_s8')
+OP_NAMES = ('decode_heads', 'qconv1x1_s8', 'qdwconv3x3_s8', 'int8_sandwich', 'qconv3x3_s8',
+            'qgconv3x3_s8')
 
 
 @torch.library.custom_op(f'{NAMESPACE}::qconv1x1_s8', mutates_args=())
@@ -82,6 +84,21 @@ def _(x, w, w_scale, b, colsum, scalars, act, stride, requant):
                        dtype=torch.int8 if requant else torch.float32)
 
 
+@torch.library.custom_op(f'{NAMESPACE}::qgconv3x3_s8', mutates_args=())
+def _qgconv3x3_op(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
+                  b: torch.Tensor, colsum: torch.Tensor, scalars: torch.Tensor, act: str,
+                  stride: int, requant: bool) -> torch.Tensor:
+    return qconv.qgconv3x3_s8(x, w, w_scale, b, colsum, act=act, stride=stride,
+                              scalars=scalars, requant=requant)
+
+
+@_qgconv3x3_op.register_fake
+def _(x, w, w_scale, b, colsum, scalars, act, stride, requant):
+    n, h, wd, c = x.shape
+    return x.new_empty((n, h // stride, wd // stride, c),
+                       dtype=torch.int8 if requant else torch.float32)
+
+
 @torch.library.custom_op(f'{NAMESPACE}::decode_heads', mutates_args=())
 def _decode_heads_op(raws: List[torch.Tensor], num_classes: int, strides: List[int],
                      exp_caps: List[float]) -> torch.Tensor:
@@ -126,6 +143,13 @@ def qconv3x3_s8(x, w, w_scale, b, colsum, *, act: str, stride: int, scalars,
                                        requant)
 
 
+def qgconv3x3_s8(x, w, w_scale, b, colsum, *, act: str, stride: int, scalars,
+                 requant: bool):
+    """``ops.qconv.qgconv3x3_s8`` through ``torch.ops.pqdet``."""
+    return torch.ops.pqdet.qgconv3x3_s8(x, w, w_scale, b, colsum, scalars, act, stride,
+                                        requant)
+
+
 def decode_heads(raws: Sequence[torch.Tensor], num_classes: int, strides: Sequence[int],
                  exp_caps: Sequence[float]) -> torch.Tensor:
     """``ops.decode_kernel.decode_heads`` through ``torch.ops.pqdet``."""
@@ -146,14 +170,16 @@ class Kernels(NamedTuple):
     decode: object
     sandwich: object
     qconv3x3: object
+    qgconv3x3: object
 
 
-OPS = Kernels(qconv1x1_s8, qdwconv3x3_s8, decode_heads, int8_sandwich, qconv3x3_s8)
+OPS = Kernels(qconv1x1_s8, qdwconv3x3_s8, decode_heads, int8_sandwich, qconv3x3_s8,
+              qgconv3x3_s8)
 WRAPPERS = Kernels(qconv.qconv1x1_s8, qconv.qdwconv3x3_s8, decode_kernel.decode_heads,
-                   qconv.int8_sandwich, qconv.qconv3x3_s8)
+                   qconv.int8_sandwich, qconv.qconv3x3_s8, qconv.qgconv3x3_s8)
 PLAIN = Kernels(qconv.qconv1x1_reference, qconv.qdwconv3x3_reference,
                 decode_kernel.decode_heads_reference, qconv.int8_sandwich_reference,
-                qconv.qconv3x3_reference)
+                qconv.qconv3x3_reference, qconv.qgconv3x3_reference)
 
 
 def graph_ops(graph_module) -> List[str]:

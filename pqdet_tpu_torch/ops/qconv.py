@@ -24,6 +24,11 @@ The scalars ride in one (1, 4) f32 tensor from ``make_scalars``.
   wgmma int8 tensor-core tiles that reads its input window straight from
   device memory, no im2col patches; ``plan_qconv3x3`` picks the tiles from
   the shapes);
+- ``qgconv3x3_s8``: grouped 3x3 (Cout = Cin, group width 8, 16 or 24),
+  pad 1 with the recentred zero point, stride 1 or 2 (``csrc/qconv.cu``,
+  mma.sync int8 tensor-core tiles of each group's product, read straight
+  from the input window in shared memory, no im2col patches and no
+  densified weights; ``plan_qgconv3x3`` picks the tiles from the shapes);
 - ``int8_sandwich``: the f32 work between a dequant and a requant of the
   int8 walk (the input's quantisation, a shortcut, a route), one launch
   from s8 to s8 (``csrc/qconv.cu``, an elementwise pass bound by bytes).
@@ -131,6 +136,27 @@ def qconv3x3_reference(x, w, w_scale, b, colsum, *, act: str, stride: int, scala
     xp[:, 1:-1, 1:-1] = x
     k = w.double().reshape(cout, 3, 3, cin).permute(0, 3, 1, 2)
     acc = F.conv2d(xp.double().permute(0, 3, 1, 2), k, None, stride)
+    acc = acc.permute(0, 2, 3, 1).contiguous().float()
+    return _epilogue(acc, s, w_scale.float(), b.float(), colsum.float(), act, requant)
+
+
+def qgconv3x3_reference(x, w, w_scale, b, colsum, *, act: str, stride: int, scalars,
+                        requant: bool):
+    """Plain version of ``qgconv3x3_s8``: pad with round(x_zp) - 128, the
+    grouped s8 x s8 conv in float64 (exact), rounded to f32, then the
+    epilogue with ``colsum``. ``w`` is (Cout, 9 * gw) in (kh, kw,
+    cin-in-group) order; the groups are Cin / gw. Same arguments as
+    ``qconv3x3_reference``; returns (N, H/stride, W/stride, Cout) int8 or
+    f32."""
+    n, h, wd, cin = x.shape
+    _check_stride('qgconv3x3_reference', h, wd, stride)
+    cout, gw = w.shape[0], w.shape[1] // 9
+    s = scalars.reshape(-1).float()
+    pad = (torch.round(s[1]).to(torch.int32) - 128).to(torch.int8)
+    xp = pad.expand(n, h + 2, wd + 2, cin).clone()
+    xp[:, 1:-1, 1:-1] = x
+    k = w.double().reshape(cout, 3, 3, gw).permute(0, 3, 1, 2)
+    acc = F.conv2d(xp.double().permute(0, 3, 1, 2), k, None, stride, 0, 1, cin // gw)
     acc = acc.permute(0, 2, 3, 1).contiguous().float()
     return _epilogue(acc, s, w_scale.float(), b.float(), colsum.float(), act, requant)
 
@@ -366,6 +392,72 @@ def plan_qconv3x3(n: int, h: int, w: int, cin: int, cout: int, stride: int) -> C
     return Conv3x3Plan(bn, stages, qconv3x3_smem_bytes(bn, stages), m_blocks, n_blocks)
 
 
+G3_GROUP_WIDTHS = (8, 16, 24)   # the grouped 3x3 kernel's group widths
+
+
+class GConv3x3Plan(NamedTuple):
+    """Launch plan of one grouped int8 3x3 conv, plain ints for the C entry
+    point: ``th`` x ``tw`` output pixels and ``g`` whole groups a tile;
+    ``stages`` 1 (a CTA a tile) or 2 (resident CTAs that load the next
+    tile's window while they compute this one's); ``smem`` dynamic
+    shared-memory bytes; ``tiles`` the tile count."""
+    th: int
+    tw: int
+    g: int
+    stages: int
+    smem: int
+    tiles: int
+
+    @property
+    def c_args(self):
+        return (self.th, self.tw, self.g, self.stages, self.smem)
+
+
+def qgconv3x3_smem_bytes(th, tw, g, gw, stride, stages) -> int:
+    """Dynamic shared memory of the grouped 3x3 kernel: ``stages`` input
+    windows of ((th-1)s+3) x ((tw-1)s+3) pixels of g * gw channels (a
+    pixel's pitch 16 mod 32 bytes; each window rounded up to 128 bytes),
+    then the staged s8 codes, th * tw pixels of g * gw rounded up to 16.
+    The C layout (csrc/qconv.cu, ``gclayout``) is the same formula, and
+    the launch refuses a mismatch."""
+    cs = g * gw
+    pitch = cs // 32 * 32 + (16 if cs % 32 <= 16 else 48)
+    win = ((th - 1) * stride + 3) * ((tw - 1) * stride + 3) * pitch
+    return stages * (-(-win // 128) * 128) + th * tw * (-(-cs // 16) * 16)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_qgconv3x3(n: int, h: int, w: int, cin: int, gw: int, stride: int) -> GConv3x3Plan:
+    """Tiles of ``qgconv3x3_s8`` for an (N, H, W, Cin) input of group width
+    ``gw`` at ``stride`` (rules read off plan_sweep.py's sweep of every plan
+    at the RegNet's grouped shapes at 512, B=80, PERF.md): 32 output columns
+    a tile, 16 where the output is at most 16 wide; at stride 1, 8 rows (16
+    where the output is 16 wide: the whole map), slices of up to 4 groups
+    and two stages; at stride 2, 8 rows, slices of up to 48 channels and one
+    stage. The groups are split into slices of sizes as even as they go (5
+    groups: 3 and 2, not 4 and 1), and rows are capped at the output's.
+    Plans are cached: a forward asks for the same ones every time."""
+    _check_stride('plan_qgconv3x3', h, w, stride)
+    if min(n, h, w, cin) < 1:
+        raise ValueError(f'plan_qgconv3x3: empty shape {(n, h, w, cin)}')
+    if gw not in G3_GROUP_WIDTHS or cin % gw:
+        raise ValueError(f'plan_qgconv3x3: group width {gw} of Cin={cin} is not one of '
+                         f'{G3_GROUP_WIDTHS} dividing Cin')
+    if n * h * w * cin >= 2 ** 31:
+        raise ValueError(f'plan_qgconv3x3: {(n, h, w, cin)} is over the kernel\'s 32-bit indices')
+    ho, wo = h // stride, w // stride
+    tw = 16 if wo <= 16 else 32
+    if stride == 1:
+        th, most, stages = 16 if wo <= 16 else 8, 4, 2
+    else:
+        th, most, stages = 8, max(1, 48 // gw), 1
+    groups = cin // gw
+    th, g = min(th, ho), -(-groups // -(-groups // most))
+    tiles = n * -(-ho // th) * -(-wo // tw) * -(-groups // g)
+    return GConv3x3Plan(th, tw, g, stages, qgconv3x3_smem_bytes(th, tw, g, gw, stride, stages),
+                        tiles)
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     from pqdet_tpu_torch.ops._build import load_library
@@ -378,6 +470,9 @@ def _library():
         + [ctypes.c_void_p]
     lib.qconv3x3_launch.restype = ctypes.c_int
     lib.qconv3x3_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 \
+        + [ctypes.c_void_p]
+    lib.qgconv3x3_launch.restype = ctypes.c_int
+    lib.qgconv3x3_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 13 \
         + [ctypes.c_void_p]
     lib.sandwich_launch.restype = ctypes.c_int
     lib.sandwich_launch.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 \
@@ -514,6 +609,54 @@ def qconv3x3_s8(x, w, w_scale, b, colsum, *, act: str, stride: int, scalars,
 
 
 qconv3x3_s8.launches = 0
+
+
+def qgconv3x3_s8(x, w, w_scale, b, colsum, *, act: str, stride: int, scalars,
+                 requant: bool):
+    """Fused quantized grouped 3x3 conv (padding 1, Cout = Cin), NHWC s8 ->
+    NHWC s8/f32, with no im2col patches and no densified weights.
+
+    x: (N, H, W, Cin) int8 recentred; w: (Cin, 9 * gw) int8, each output
+    channel's group weights in (kh, kw, cin-in-group) order, gw one of
+    G3_GROUP_WIDTHS dividing Cin (the groups are Cin / gw); w_scale, b:
+    (Cin,) f32; colsum: (Cin,) int32, the per-channel sum of w; scalars:
+    (1, 4) f32 from ``make_scalars``. Output (N, H, W, Cin) at stride 1 and
+    (N, H/2, W/2, Cin) at stride 2, where H and W must be even (ValueError
+    otherwise). Launches the CUDA kernel for a CUDA tensor (RuntimeError
+    when grad mode is on and an input requires grad), runs
+    ``qgconv3x3_reference`` for a CPU tensor."""
+    n, h, wd, cin = x.shape
+    _check_stride('qgconv3x3_s8', h, wd, stride)
+    if x.device.type == 'cpu':
+        return qgconv3x3_reference(x, w, w_scale, b, colsum, act=act, stride=stride,
+                                   scalars=scalars, requant=requant)
+    refuse_autograd('qgconv3x3_s8', x, w, w_scale, b, colsum, scalars)
+    if x.device.type != 'cuda':
+        raise ValueError(f'qgconv3x3_s8: no kernel for device {x.device}')
+    gw = w.shape[1] // 9
+    dev = x.device
+    _check('qgconv3x3_s8', 'x', x, torch.int8, (n, h, wd, cin), dev)
+    _check('qgconv3x3_s8', 'w', w, torch.int8, (cin, 9 * gw), dev)
+    _check('qgconv3x3_s8', 'colsum', colsum, torch.int32, (cin,), dev)
+    _check_common('qgconv3x3_s8', x, w_scale, b, scalars, act, cin)
+    plan = plan_qgconv3x3(n, h, wd, cin, gw, stride)
+    out = torch.empty((n, h // stride, wd // stride, cin),
+                      dtype=torch.int8 if requant else torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    # the copies want 16-byte boundaries: a view off one is copied first
+    x, w = (t.clone() if t.data_ptr() % 16 else t for t in (x, w))
+    rc = _library().qgconv3x3_launch(
+        x.data_ptr(), w.data_ptr(), w_scale.data_ptr(), b.data_ptr(), colsum.data_ptr(),
+        scalars.data_ptr(), out.data_ptr(), n, h, wd, cin, gw, stride, ACT_CODES[act],
+        int(requant), *plan.c_args, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f'qgconv3x3_s8: kernel launch failed with CUDA error {rc}')
+    qgconv3x3_s8.launches += 1
+    return out
+
+
+qgconv3x3_s8.launches = 0
 
 
 # the int8 sandwich: forms (codes of csrc/qconv.cu's SwForm), the

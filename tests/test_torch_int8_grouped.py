@@ -7,9 +7,10 @@ original grouped convs; and conv by conv against the port's own integer
 mode.
 
 Two graphs: the grouped net of ``tests/test_qat.py`` at 32 px (grouped 3x3s
-at stride 2, a grouped 1x1) and regnety-400m-fpn at 64 px, B=2 (densified
-3x3s at Cin 48-440, stride 1 and 2, through im2col at K = 9 Cin rounded
-up to 16, up to 3968; squeeze-excite 1x1s at M = B; strided 1x1 projections). Weights:
+of group width 4 at stride 2, densified through im2col; a grouped 1x1) and
+regnety-400m-fpn at 64 px, B=2 (grouped 3x3s at Cin 48-440 of group width
+8 and 16, stride 1 and 2, through ``qgconv3x3_s8`` on the compact weights;
+squeeze-excite 1x1s at M = B; strided 1x1 projections). Weights:
 JAX's init with every conv weight times GAIN and seeded BN statistics, two
 observer passes under ``jax.jit``, JAX's ``convert_to_int8``, carried by
 ``bridge.from_jax_qparams``.
@@ -160,15 +161,20 @@ def _zero_qparams(net):
 
 
 def test_regnety_graph_has_the_shapes_named():
-    """regnety-400m-fpn's 25 densified 3x3s include stride 2 and Cin > 115
-    (the true dense 3x3's limit), and its 32 SE 1x1s run at M = B."""
+    """regnety-400m-fpn's 25 grouped 3x3s (group width 8 and 16) take
+    ``qgconv3x3_s8`` on their compact weights, none densified; they include
+    stride 2 and Cin > 115 (the JAX package's densified range), and its 32
+    SE 1x1s run at M = B."""
     net = DetectionNetwork.from_cfg(get_cfg('regnety-400m-fpn'), quant=True)
     layers = Int8Inference.prepare(_zero_qparams(net), network=net)['layers']
-    dens = [n for n in net.graph.nodes if n.kind == 'convolutional' and n.attrs['groups'] > 1]
-    assert len(dens) == 25 and all(
-        layers[str(n.index)]['wim'].shape[0] == im2col_depth(n.in_channels) for n in dens)
-    assert any(n.attrs['stride'] == 2 for n in dens)
-    assert max(n.in_channels for n in dens) == 440 and im2col_depth(440) == 3968
+    grouped = [n for n in net.graph.nodes
+               if n.kind == 'convolutional' and n.attrs['groups'] > 1]
+    assert len(grouped) == 25 and all(
+        layers[str(n.index)]['wg'].shape == (n.in_channels, 9 * n.in_channels // n.attrs['groups'])
+        and 'wim' not in layers[str(n.index)] for n in grouped)
+    assert {n.in_channels // n.attrs['groups'] for n in grouped} == {8, 16}
+    assert any(n.attrs['stride'] == 2 for n in grouped)
+    assert max(n.in_channels for n in grouped) == 440
     shapes = chip_smoke.int8_conv_shapes(net, 64)
     assert sum(c for k, c in shapes.items() if k[0] == 'pw' and k[1] == 1) == 32
 
@@ -193,8 +199,9 @@ def test_int_mode_matches_jax_int_oracle(calibrated, runs):
 
 
 def test_kernel_mode_conv_by_conv_matches_int_mode(calibrated):
-    """Each conv of the kernel mode (densified 3x3s through im2col, strided
-    and SE 1x1s through the 1x1 kernel, all plain on the CPU) against the
+    """Each conv of the kernel mode (grouped 3x3s through the grouped 3x3
+    kernel or im2col, strided and SE 1x1s through the 1x1 kernel, all plain
+    on the CPU) against the
     exact integer mode's grouped conv from the kernel mode's own input
     codes: chip_smoke's gate between the two modes."""
     net, qp = calibrated['net'], calibrated['qp']
@@ -221,8 +228,8 @@ def test_kernel_mode_serves_every_regnet_conv_off_the_cpu():
     """With ``prepare(network=)`` every conv of the five RegNet detectors has
     the kernel view its walk admits on the card (where a conv without one
     raises): a 1x1 (strided or not) its ``w2d`` at the full Cin, a
-    depthwise 3x3 its ``wdw``, a dense or densified 3x3 its ``wim`` at
-    im2col_depth(Cin)."""
+    depthwise 3x3 its ``wdw``, a grouped 3x3 its compact ``wg`` (Cin, 9 *
+    group width), the dense stem its ``wim`` at im2col_depth(Cin)."""
     for name in ('regnetx-600m-fpn', 'regnetx-600m-pan', 'regnetx-600m-rpan',
                  'regnetx-600m-yolo', 'regnety-400m-fpn'):
         net = DetectionNetwork.from_cfg(get_cfg(name), quant=True)
@@ -235,6 +242,9 @@ def test_kernel_mode_serves_every_regnet_conv_off_the_cpu():
                 assert p['w2d'].shape[0] == node.in_channels, (name, node.index)
             elif a['groups'] == node.in_channels == a['filters']:
                 assert 'wdw' in p, (name, node.index)
+            elif a['groups'] > 1:
+                gw = node.in_channels // a['groups']
+                assert p['wg'].shape == (node.in_channels, 9 * gw), (name, node.index)
             else:
                 assert p['wim'].shape[0] == im2col_depth(node.in_channels), (name, node.index)
 

@@ -40,8 +40,9 @@ from pqdet_tpu_torch.ops.fused_ir import (FusedIrPlan, find_fused_triples,
                                           fused_ir_smem_bytes, plan_fused_ir)
 from pqdet_tpu_torch.ops.fused_ir import SMEM_TWO
 from pqdet_tpu_torch.ops.qconv import (C3_BM, DW_PX, DW_THREADS, plan_qconv1x1,
-                                       plan_qconv3x3, plan_qdwconv3x3, qconv1x1_smem_bytes,
-                                       qconv3x3_smem_bytes, qdwconv3x3_smem_bytes)
+                                       plan_qconv3x3, plan_qdwconv3x3, plan_qgconv3x3,
+                                       qconv1x1_smem_bytes, qconv3x3_smem_bytes,
+                                       qdwconv3x3_smem_bytes, qgconv3x3_smem_bytes)
 from pqdet_tpu_torch.zoo import get_cfg
 
 SMEM_MAX = 232448
@@ -374,8 +375,9 @@ REGNETS = ('regnetx-600m-fpn', 'regnetx-600m-pan', 'regnetx-600m-rpan', 'regnetx
 @functools.lru_cache(maxsize=None)
 def regnet_int8_shapes(name):
     """chip_smoke's int8 conv shapes of the RegNet's int8 graph at SIZE:
-    the densified grouped 3x3s as im2col (K = im2col_depth(Cin)), the SE
-    1x1s at H = W = 1, the strided 1x1 projections on every other pixel."""
+    the grouped 3x3s as the grouped 3x3 kernel's (group width in Cout's
+    place), the SE 1x1s at H = W = 1, the strided 1x1 projections on every
+    other pixel."""
     import chip_smoke
     return chip_smoke.int8_conv_shapes(DetectionNetwork.from_cfg(get_cfg(name), quant=True), SIZE)
 
@@ -384,21 +386,32 @@ def regnet_int8_shapes(name):
 @pytest.mark.parametrize('name', REGNETS)
 def test_plan_regnet_int8_shapes(name, b):
     """Every int8 conv shape of the five RegNet detectors at 512 plans within
-    the kernels' limits: the 1x1 kernel at K up to 4752 and M = B (SE), the
-    depthwise kernel at C 128-512 (regnetx-600m-yolo)."""
-    ks = []
+    the kernels' limits: the 1x1 kernel at K up to 1024 and M = B (SE), the
+    grouped 3x3 kernel at Cin up to 528 (its shared memory the layout's,
+    within a CTA's 232,448 bytes), the depthwise kernel at C 128-512
+    (regnetx-600m-yolo)."""
+    ks, gs = [], []
     for (kind, h, w, k, n, stride, _, _), _ in regnet_int8_shapes(name).items():
         if kind == 'dw':
             check_dw_plan(b, h, w, k, stride)
+        elif kind == 'g3':
+            plan = plan_qgconv3x3(b, h, w, k, n, stride)
+            assert plan.smem == qgconv3x3_smem_bytes(plan.th, plan.tw, plan.g, n, stride,
+                                                     plan.stages) <= SMEM_MAX
+            assert plan.g * n <= k and plan.tiles >= b
+            gs.append(k)
         else:
             check_qconv_plan(b * h * w, k, n)
             ks.append(k)
-    assert max(ks) == (4752 if name.startswith('regnetx') else 3968)
+    wide = {'regnetx-600m-fpn': 528, 'regnetx-600m-yolo': 1024, 'regnety-400m-fpn': 440}
+    assert max(ks) == wide.get(name, 704)
+    assert max(gs) == (440 if name == 'regnety-400m-fpn' else 528)
 
 
 def test_plan_qconv1x1_at_the_widest_densified_conv():
-    """The widest im2col conv (Cin 528 at 16x16, B=4): 128 x 32 tiles, 38 K
-    steps of 128, 136 CTAs without split-K."""
+    """The widest densified conv the zoo's RegNets had before their grouped
+    3x3s took the grouped kernel (Cin 528 at 16x16, B=4): 128 x 32 tiles,
+    38 K steps of 128, 136 CTAs without split-K."""
     plan = check_qconv_plan(4 * 16 * 16, 9 * 528, 528)
     assert (plan.bm, plan.bn, plan.bk, plan.split) == (128, 32, 128, 1)
     assert -(-4752 // plan.bk) == 38 and plan.m_blocks * plan.n_blocks == 136
@@ -455,16 +468,20 @@ VISDRONE_INPUTS = [(1888, 2528), (1376, 2400), (960, 1728), (704, 1216)]
 @pytest.mark.parametrize('hw', VISDRONE_INPUTS)
 def test_plan_qconv1x1_at_visdrone_sizes(hw):
     """Every 1x1 and im2col shape of regnetx-600m-fpn's int8 graph at a
-    VisDrone eval input (B=1, non-square) plans within the kernel's limits;
-    the stem's im2col at 2528x1888 is the largest M, 944 x 1264 rows, well
-    inside the kernel's 32-bit rows, which the plan rule refuses past."""
+    VisDrone eval input (B=1, non-square) plans within the kernel's limits,
+    and every grouped 3x3 within the grouped kernel's; the stem's im2col at
+    2528x1888 is the largest M, 944 x 1264 rows, well inside the kernel's
+    32-bit rows, which the plan rule refuses past."""
     import chip_smoke
     from pqdet_tpu_torch.ops.qconv import MAX_M
     net = DetectionNetwork.from_cfg(get_cfg('regnetx-600m-fpn'), quant=True)
     shapes = chip_smoke.int8_conv_shapes(net, hw)
     ms = []
-    for (kind, h, w, k, n, *_), _ in shapes.items():
-        assert kind != 'dw'
+    for (kind, h, w, k, n, stride, *_), _ in shapes.items():
+        assert kind in ('pw', 'im2col', 'g3')
+        if kind == 'g3':
+            assert plan_qgconv3x3(1, h, w, k, n, stride).smem <= SMEM_MAX
+            continue
         check_qconv_plan(h * w, k, n)
         ms.append(h * w)
     assert max(ms) == (hw[0] // 2) * (hw[1] // 2)

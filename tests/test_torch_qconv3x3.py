@@ -5,8 +5,9 @@ in place of the im2col route (patches into ``qconv1x1_s8``).
 On the CPU: the plain version equals the route's plain versions byte for
 byte (borders, stride 2, zero points 0 and 255, s8 and f32 out); the
 walk's route table on a small graph (dense Cin 32 and 48 at stride 1 and
-2 take the kernel; a Cin-3 stem, a grouped 3x3 and Cin 40 keep the
-patches; ``plain`` and the registered operators take the same routes),
+2 take the kernel; a grouped 3x3 of width 8 takes ``qgconv3x3_s8``; a
+Cin-3 stem and Cin 40 keep the patches; ``plain`` and the registered
+operators take the same routes),
 with equal outputs whichever kernels run; the registered operator's fake
 function and an exported kernel program. On the card (marker ``cuda``,
 skipped elsewhere; run there with ``python -m pytest -m cuda
@@ -95,8 +96,8 @@ def test_stride_2_needs_even_sides():
 
 
 # dense 3x3s at Cin 32 and 48, stride 1 and 2 (the kernel's), then a grouped
-# 3x3 (group width 8, densified) and Cin 40 (not a multiple of 16), after a
-# Cin-3 stem: the last three keep the im2col route
+# 3x3 (group width 8: qgconv3x3_s8's) and Cin 40 (not a multiple of 16),
+# after a Cin-3 stem: the stem and Cin 40 keep the im2col route
 ROUTING_CFG = """[net]
 channels=3
 
@@ -205,12 +206,13 @@ def walk_records(net, staged, x, **kw):
 
 def test_prepare_stages_the_k_major_view_for_dense_cin_multiples_of_16(routing_model):
     """``w3`` (Cout, 9 * Cin) in (kh, kw, cin) order and its ``colsum`` for
-    the dense 3x3s of Cin 32, 48 and 48; ``wim`` only for the stem, the
-    grouped conv (densified) and Cin 40, the 3x3s whose route is im2col."""
+    the dense 3x3s of Cin 32, 48 and 48; ``wim`` only for the stem and Cin
+    40, the 3x3s whose route is im2col (the grouped conv stages ``wg``)."""
     net, qparams, _ = routing_model
     layers = Int8Inference.prepare(qparams, network=net)['layers']
     assert sorted(k for k, p in layers.items() if 'w3' in p) == list(DIRECT)
-    assert sorted(k for k, p in layers.items() if 'wim' in p) == ['0', '5', '6']
+    assert sorted(k for k, p in layers.items() if 'wim' in p) == ['0', '6']
+    assert sorted(k for k, p in layers.items() if 'wg' in p) == ['5']
     for k in DIRECT:
         p, wq = layers[k], qparams['layers'][k]['wq']
         cout, cin = wq.shape[:2]
@@ -222,22 +224,24 @@ def test_prepare_stages_the_k_major_view_for_dense_cin_multiples_of_16(routing_m
 @pytest.mark.parametrize('how,direct', [('wrappers', 4), ('plain', 4), ('ops', 4)])
 def test_routing_and_counters_on_a_small_graph(routing_model, how, direct):
     """The route table takes the four dense 3x3s of Cin 32 and 48 through
-    ``qconv3x3_s8`` and the other three 3x3s through patches, and the walk
-    follows it whichever kernels run (the wrappers, their plain versions,
-    the registered operators): ``int8.im2col_bytes`` counts the three
-    3x3s' patches alone, one ``int8.conv3x3`` span a 3x3; every node
-    equals the plain walk's byte for byte."""
+    ``qconv3x3_s8``, the grouped 3x3 through ``qgconv3x3_s8`` and the other
+    two 3x3s through patches, and the walk follows it whichever kernels run
+    (the wrappers, their plain versions, the registered operators):
+    ``int8.im2col_bytes`` counts the two 3x3s' patches alone, one
+    ``int8.conv3x3`` span a 3x3; every node equals the plain walk's byte for
+    byte."""
     net, qparams, x = routing_model
     staged = Int8Inference.prepare(qparams, network=net)
     kw = {'wrappers': {}, 'plain': {'plain': True}, 'ops': {'kernels': library.OPS}}[how]
     routes = Int8Inference(net).routes(qparams['act'])
     c3 = sorted(k for k, r in routes.items() if r == 'c3')
     assert len(c3) == direct and c3 == list(DIRECT)
-    assert sorted(k for k, r in routes.items() if r == 'im2col') == ['0', '5', '6']
+    assert sorted(k for k, r in routes.items() if r == 'im2col') == ['0', '6']
+    assert [k for k, r in routes.items() if r == 'g3'] == ['5']
     preds, inter, counters, spans = walk_records(net, staged, x, **kw)
     n = x.shape[0]
     s = ROUTING_SIZE
-    patched = {'0': (s, 3), '5': (s // 4, 40), '6': (s // 4, 40)}
+    patched = {'0': (s, 3), '6': (s // 4, 40)}
     assert spans == 7
     assert counters['int8.im2col_bytes'] == sum(n * side ** 2 * im2col_depth(cin)
                                                 for side, cin in patched.values())
@@ -265,14 +269,15 @@ def test_operator_fake_gives_shape_and_dtype():
 
 def test_exported_kernel_program_calls_the_operator(routing_model):
     """A kernel-mode program of the small graph holds four ``qconv3x3_s8``
-    calls and three 1x1 calls on patches besides the head's, and gives the
-    eager walk's preds."""
+    calls, one ``qgconv3x3_s8`` call and two 1x1 calls on patches besides
+    the head's, and gives the eager walk's preds."""
     net, qparams, x = routing_model
     blob = export_stablehlo_quant(net, qparams, (ROUTING_SIZE, ROUTING_SIZE), x.shape[0],
                                   'kernel', device='cpu')
     fn = load_stablehlo(blob, device='cpu')
     ops = collections.Counter(library.graph_ops(fn))
-    assert ops['pqdet.qconv3x3_s8.default'] == 4 and ops['pqdet.qconv1x1_s8.default'] == 4
+    assert ops['pqdet.qconv3x3_s8.default'] == 4 and ops['pqdet.qconv1x1_s8.default'] == 3
+    assert ops['pqdet.qgconv3x3_s8.default'] == 1
     staged = Int8Inference.prepare(qparams, network=net)
     with torch.inference_mode():
         assert torch.equal(fn(x), Int8Inference(net).apply(staged, x))
@@ -293,15 +298,18 @@ def test_every_zoo_3x3_the_kernel_takes_is_yolov3s():
 
 @pytest.mark.parametrize('name,want', [
     ('mobilenetv2-fpn', {'pw': 57, 'dw': 26, 'im2col': 1, 'sandwich': 15}),
-    ('regnetx-600m-fpn', {'pw': 62, 'im2col': 26, 'sandwich': 37}),
+    ('regnetx-600m-fpn', {'pw': 62, 'g3': 25, 'im2col': 1, 'sandwich': 37}),
+    ('regnety-400m-fpn', {'pw': 94, 'g3': 25, 'im2col': 1, 'sandwich': 37, None: 32}),
     ('yolov3', {'pw': 37, 'c3': 37, 'im2col': 1, 'sandwich': 28})])
 def test_route_table_of_the_zoo_graphs(name, want):
     """Each zoo graph's route counts, pinned: YOLOv3's 37 dense 3x3s past
-    its stem take ``'c3'`` and its stem ``'im2col'``, regnetx-600m-fpn's
-    26 densified grouped 3x3s ``'im2col'``; every conv and sandwich node
-    takes a route. A walk at 64 px through the plain versions calls each
-    kernel entry once a route (the 1x1 entry for ``'pw'`` and
-    ``'im2col'``) and the decode once."""
+    its stem take ``'c3'`` and its stem ``'im2col'``; the RegNets' 25
+    grouped 3x3s (group width 24 and 16 in regnetx-600m-fpn, 8 and 16 in
+    regnety-400m-fpn) ``'g3'`` and their stems ``'im2col'``; every conv and
+    sandwich node takes a route (regnety-400m-fpn's 32 squeeze-excite
+    scales keep their chain: None). A walk at 64 px through the plain
+    versions calls each kernel entry once a route (the 1x1 entry for
+    ``'pw'`` and ``'im2col'``) and the decode once."""
     net, qparams, x = calibrated(get_cfg(name), 64, batch=1)
     inf = Int8Inference(net)
     routes = collections.Counter(inf.routes(qparams['act']).values())
@@ -319,7 +327,7 @@ def test_route_table_of_the_zoo_graphs(name, want):
         inf.apply(Int8Inference.prepare(qparams, network=net), x, kernels=table)
     assert calls == collections.Counter(
         qconv1x1=routes['pw'] + routes['im2col'], qdwconv3x3=routes['dw'],
-        qconv3x3=routes['c3'], sandwich=routes['sandwich'], decode=1)
+        qconv3x3=routes['c3'], qgconv3x3=routes['g3'], sandwich=routes['sandwich'], decode=1)
 
 
 def yolov3_shapes():

@@ -338,38 +338,35 @@ def conv3x3_counters(cfg_text, size=SIZE, plain=False):
 def test_the_walk_counts_its_3x3_patches(name, plain, direct, spans):
     """The route table takes the dense 3x3s through ``qconv3x3_s8``
     (YOLOv3's 37 past its stem, with ``plain`` too; none in
-    regnetx-600m-fpn, whose grouped 3x3s are densified, not dense);
-    ``int8.im2col_bytes`` is the bytes of the other 3x3s' patches from the
-    shapes; one ``int8.conv3x3`` span a non-depthwise 3x3."""
+    regnetx-600m-fpn, whose 3x3s past its stem are grouped, of group width
+    16 and 24, and take ``qgconv3x3_s8``); ``int8.im2col_bytes`` is the
+    bytes of the other 3x3s' patches from the shapes (each graph's stem
+    alone); one ``int8.conv3x3`` span a non-depthwise 3x3."""
     text = get_cfg(name, num_classes=80 if name == 'yolov3' else 20)
     lays = C.layers(text)
     sides = C.out_sides(lays, SIZE)
     want = sum(sides[l['index']] ** 2 * im2col_depth(l['cin'])
                for l in lays if l['kind'] == 'convolutional' and l['size'] == 3
-               and l['cin'] // l['groups'] > 1 and (l['groups'] > 1 or l['cin'] % 16))
+               and l['groups'] == 1 and l['cin'] % 16)
     assert conv3x3_counters(text, plain=plain) == (want, spans, direct)
 
 
 # (M, K, N) -> (bm, bn, bk, split, kpr, stages): the plan of every 1x1 and
-# im2col GEMM of regnetx-600m-fpn's int8 walk at 512, B=80 (the cell
-# rx600-serve-int8-b80), pinned
+# im2col GEMM (the stem's) of regnetx-600m-fpn's int8 walk at 512, B=80 (the
+# cell rx600-serve-int8-b80), pinned
 RX600_B80_PLANS = {
     (20480, 240, 528): (128, 64, 128, 1, 2, 3), (20480, 352, 75): (128, 64, 128, 1, 3, 3),
     (20480, 352, 176): (128, 64, 128, 1, 3, 3), (20480, 352, 352): (128, 64, 128, 1, 3, 3),
     (20480, 528, 352): (128, 64, 128, 1, 5, 3), (20480, 528, 528): (128, 64, 128, 1, 5, 3),
-    (20480, 3168, 352): (128, 64, 128, 1, 25, 3), (20480, 4752, 528): (128, 64, 128, 1, 38, 3),
     (81920, 96, 240): (128, 64, 128, 1, 1, 3), (81920, 176, 75): (128, 64, 128, 1, 2, 3),
     (81920, 176, 80): (128, 64, 128, 1, 2, 3), (81920, 176, 176): (128, 64, 128, 1, 2, 3),
     (81920, 240, 240): (128, 64, 128, 1, 2, 3), (81920, 240, 528): (128, 64, 128, 1, 2, 3),
-    (81920, 416, 176): (128, 64, 128, 1, 4, 3), (81920, 1584, 176): (128, 64, 128, 1, 13, 3),
-    (81920, 2160, 240): (128, 64, 128, 1, 17, 3), (327680, 48, 96): (128, 64, 64, 1, 1, 3),
+    (81920, 416, 176): (128, 64, 128, 1, 4, 3), (327680, 48, 96): (128, 64, 64, 1, 1, 3),
     (327680, 80, 75): (128, 64, 128, 1, 1, 3), (327680, 80, 80): (128, 64, 128, 1, 1, 3),
     (327680, 96, 96): (128, 64, 128, 1, 1, 3), (327680, 96, 240): (128, 64, 128, 1, 1, 3),
-    (327680, 176, 80): (128, 64, 128, 1, 2, 3), (327680, 720, 80): (128, 64, 128, 1, 6, 3),
-    (327680, 864, 96): (128, 64, 128, 1, 7, 3), (1310720, 32, 48): (128, 64, 32, 1, 1, 3),
+    (327680, 176, 80): (128, 64, 128, 1, 2, 3), (1310720, 32, 48): (128, 64, 32, 1, 1, 3),
     (1310720, 48, 48): (128, 64, 64, 1, 1, 3), (1310720, 48, 96): (128, 64, 64, 1, 1, 3),
-    (1310720, 432, 48): (128, 64, 128, 1, 4, 3), (5242880, 32, 32): (128, 32, 32, 1, 1, 3),
-    (5242880, 32, 48): (128, 64, 32, 1, 1, 3),
+    (5242880, 32, 32): (128, 32, 32, 1, 1, 3), (5242880, 32, 48): (128, 64, 32, 1, 1, 3),
 }
 
 
@@ -382,7 +379,8 @@ def test_plans_past_65535_row_tiles_and_at_the_rx600_cell():
     assert plan_qconv1x1(128 * 256 * 256, 32, 32).m_blocks == 65_536
     net = DetectionNetwork.from_cfg(get_cfg('regnetx-600m-fpn'), quant=True)
     got = {(80 * h * w, k, n): plan_qconv1x1(80 * h * w, k, n).c_args[:6]
-           for (kind, h, w, k, n, *_) in chip_smoke.int8_conv_shapes(net, 512) if kind != 'dw'}
+           for (kind, h, w, k, n, *_) in chip_smoke.int8_conv_shapes(net, 512)
+           if kind in ('pw', 'im2col')}
     assert got == RX600_B80_PLANS
 
 
