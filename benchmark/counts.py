@@ -2,9 +2,12 @@
 
 A conv needs 2 * k^2 * (cin / groups) * cout * Ho * Wo operations a
 image: the work of the cfg's layer, whatever computes it, so a grouped
-conv run densified still counts its grouped work. A roofline counts each
-input byte read once and each output byte written once, and takes the
-larger of bytes / HBM bandwidth and operations / peak as the least time.
+conv run densified still counts its grouped work. Only convs count: the
+few operations an element of a maxpool, an avgpool or a scale_channels
+takes are left out of ``serve.mfu`` and ``train.mfu``, as those of the
+shortcuts, routes and upsamples are. A roofline counts each input byte
+read once and each output byte written once, and takes the larger of
+bytes / HBM bandwidth and operations / peak as the least time.
 
 Peaks: NVIDIA's data sheet for the H100 SXM, dense: 989 TFLOP/s bf16,
 1,979 TOP/s int8, 3.35 TB/s HBM3.
@@ -41,7 +44,15 @@ def forward_ops(lays: List[Dict], size: int) -> int:
     return sum(conv_ops(l, sides[l['index']]) for l in lays if l['kind'] == 'convolutional')
 
 
+def side_in(sides: Dict[int, int], lay: Dict, size: int) -> int:
+    """Side of the map a layer reads: the output of the layer before it."""
+    return sides[lay['index'] - 1] if lay['index'] else size
+
+
 def _consumers(lays) -> Dict[int, List[int]]:
+    """{layer: the layers that read its output}: every layer but a route
+    reads the one before it, and a shortcut, route or scale_channels also
+    reads its refs."""
     out = {l['index']: [] for l in lays}
     for l in lays:
         if l['index'] > 0 and l['kind'] != 'route':
@@ -93,11 +104,11 @@ def fused_chain_bound_s(lays: List[Dict], chain, size: int, batch: int) -> float
     sides = out_sides(lays, size)
     a, b, c = chain
     first = lays[a if a is not None else b]
-    side_in = size // (first['stride_total'] // first['stride'])
+    side = side_in(sides, first, size)
     ops = sum(conv_ops(lays[i], sides[i]) for i in chain if i is not None) * batch
     weights = sum(conv_weights(lays[i]) for i in chain if i is not None)
     biases = sum(lays[i]['cout'] for i in chain if i is not None)
-    nbytes = (batch * side_in ** 2 * first['cin'] * 2 + batch * sides[c] ** 2 * lays[c]['cout'] * 2
+    nbytes = (batch * side ** 2 * first['cin'] * 2 + batch * sides[c] ** 2 * lays[c]['cout'] * 2
               + weights * 2 + biases * 4)
     return max(nbytes / HBM_BYTES_PER_S, ops / BF16_FLOP_PER_S)
 
@@ -120,9 +131,8 @@ def qconv1x1_bound_s(lays: List[Dict], size: int, batch: int) -> float:
     total = 0.0
     for l in qconv1x1_convs(lays):
         i = l['index']
-        side_in = size // (l['stride_total'] // l['stride'])
         out_b = 4 if i in feeders else 1
-        nbytes = (batch * side_in ** 2 * l['cin'] + conv_weights(l) + 12 * l['cout']
-                  + batch * sides[i] ** 2 * l['cout'] * out_b)
+        nbytes = (batch * side_in(sides, l, size) ** 2 * l['cin'] + conv_weights(l)
+                  + 12 * l['cout'] + batch * sides[i] ** 2 * l['cout'] * out_b)
         total += max(nbytes / HBM_BYTES_PER_S, batch * conv_ops(l, sides[i]) / INT8_OP_PER_S)
     return total

@@ -11,7 +11,10 @@ Everything a cell is made of is found by name from ``BENCHMARK.json``:
   ``read(rec)`` that returns a number, or None when it finds nothing to
   read. ``rec`` is the traced run's record (``trace.py``) with the cell
   added (``cell_record``): its ``layers`` as the reference's cfg reader
-  gives them, its ``traffic`` (size, batch, precision ...), its
+  gives them (``reference/cfg.py``: conv, shortcut, route, upsample,
+  yolo, maxpool, the global avgpool and scale_channels, with the
+  activations of ``reference/net.py``'s ``ACTS``; any other kind
+  raises), its ``traffic`` (size, batch, precision ...), its
   ``config``, the ``n`` requests or steps and ``images`` of the window,
   the driver's ``counters``, and the ``untraced`` images and seconds of a
   window of the same length run just before with the profiler off. A

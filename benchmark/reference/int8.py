@@ -3,8 +3,9 @@ integer forward, written from the quantisation scheme.
 
 The scheme (the configuration's ``precision: int8``):
 
-- the quant graph runs plain relu where the float graph has relu6 or
-  leaky; linear stays linear;
+- the quant graph runs plain relu wherever the float graph has a
+  non-linear activation (relu6, leaky, logistic, tanh or mish, a
+  squeeze-excite's sigmoid too); linear stays linear;
 - weights: per-output-channel symmetric, scale absmax / 127, codes in
   [-127, 127], of the BN-folded weights;
 - activations: per-tensor affine uint8 on every edge but the convs that
@@ -18,9 +19,11 @@ The scheme (the configuration's ``precision: int8``):
   conv's weights per output channel;
 - the int8 forward: a conv sums codes minus the zero point times weight
   codes exactly (float64), scales the sum by s_x * s_w, adds the folded
-  bias, applies the activation and requantises to its edge. A shortcut or
-  route dequantises its inputs, adds or concatenates, and requantises;
-  upsampling repeats codes.
+  bias, applies the activation and requantises to its edge. A shortcut, a
+  route, a maxpool, the global avgpool or a scale_channels dequantises its
+  inputs, adds, concatenates, pools or multiplies in float (``net.py``'s
+  definitions), and requantises to its own edge; upsampling repeats codes.
+  Calibration observes the outputs of all of them.
 
 ``levels`` (255, the default) and ``wmax`` (127) set the widths; the
 control of ``benchmark/control.py`` runs the same scheme at int4 (15, 7).
@@ -101,6 +104,19 @@ def calibrate(lays, params, state, batches, levels=255, wmax=127) -> Dict[str, t
     return obs
 
 
+FLOAT_NODES = ('shortcut', 'route') + N.POOL_OR_SCALE
+
+
+def float_node(l, x, outs):
+    """The float output of a shortcut, route, pool or scale_channels ``l``
+    on the map before it, ``x``, and the kept outputs ``outs``."""
+    if l['kind'] == 'shortcut':
+        return N.ACTS[quant_act(l)](x + outs[l['refs'][0]])
+    if l['kind'] == 'route':
+        return torch.cat([outs[r] for r in l['refs']], 1)
+    return N.pool_or_scale(l, x, outs)
+
+
 def walk(lays, x, conv, seen):
     """``net.walk`` with every non-conv output handed to ``seen``."""
     keep = {r for l in lays for r in l.get('refs', ())}
@@ -109,10 +125,8 @@ def walk(lays, x, conv, seen):
         k, key = l['kind'], str(l['index'])
         if k == 'convolutional':
             x = conv(l, x)
-        elif k == 'shortcut':
-            x = seen(key, N.ACTS[quant_act(l)](x + outs[l['refs'][0]]))
-        elif k == 'route':
-            x = seen(key, torch.cat([outs[r] for r in l['refs']], 1))
+        elif k in FLOAT_NODES:
+            x = seen(key, float_node(l, x, outs))
         elif k == 'upsample':
             x = seen(key, F.interpolate(x, scale_factor=l['stride'], mode='nearest'))
         if l['index'] in keep:
@@ -160,17 +174,15 @@ def infer(lays, model, x_nhwc, levels=255) -> torch.Tensor:
                 acc = F.conv2d(xs, codes, None, l['stride'], l['pad'], 1, l['groups'])
                 y = acc * (sz[0] * wscale)[None, :, None, None] + b[None, :, None, None]
                 y = N.ACTS[quant_act(l)](y)
-            elif k == 'shortcut':
-                y = N.ACTS[quant_act(l)](dq(cur) + dq(outs[l['refs'][0]]))
-            elif k == 'route':
-                y = torch.cat([dq(outs[r]) for r in l['refs']], 1)
+            elif k in FLOAT_NODES:
+                y = float_node(l, dq(cur), {r: dq(outs[r]) for r in l.get('refs', ())})
             elif k == 'upsample':
                 t, sz = cur
                 y = F.interpolate(t, scale_factor=l['stride'], mode='nearest')
                 cur = (y, sz)
             elif k == 'yolo':
                 raws.append((dq(cur).float(), l))
-            if k in ('convolutional', 'shortcut', 'route'):
+            if k == 'convolutional' or k in FLOAT_NODES:
                 cur = (q(y, act[key]), act[key]) if key in act else (y, None)
             if l['index'] in keep:
                 outs[l['index']] = cur

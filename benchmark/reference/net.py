@@ -1,6 +1,15 @@
 """The plain float32 reference of the detectors: the cfg's layers, in order,
 as ``torch.nn.functional`` calls on NCHW tensors.
 
+The layers are those ``cfg.layers`` reads: a conv (its activation one of
+``ACTS``: linear, relu, relu6, leaky 0.1, logistic, tanh, or mish, x *
+tanh(softplus(x)) with softplus x itself above 20), a shortcut (the sum,
+then its activation), a route (the concatenation), a nearest upsample, a
+maxpool (padded with -inf, so that a padded cell never wins), the global
+avgpool (the mean over H and W, kept (B, C, 1, 1)), a scale_channels (the
+referenced map times the (B, C, 1, 1) vector before it) and a yolo head.
+Any other activation raises ``KeyError``.
+
 Parameters come as the benchmark makes them (``benchmark/weights.py``):
 ``params[str(i)]`` holds a conv's OIHW ``w`` and either its bias ``b`` or
 its BN's ``bn`` = {gamma, beta}; ``state[str(i)]`` the BN's running mean
@@ -45,6 +54,8 @@ ACTS = {
     'relu6': lambda x: torch.clamp(x, 0.0, 6.0),
     'leaky': lambda x: F.leaky_relu(x, 0.1),
     'logistic': torch.sigmoid,
+    'tanh': torch.tanh,
+    'mish': lambda x: x * torch.tanh(F.softplus(x)),      # softplus is x above 20
 }
 
 
@@ -119,6 +130,22 @@ def decode(raw: torch.Tensor, classes: int, stride: int) -> torch.Tensor:
     return out.reshape(b, h * w * a, 5 + classes)
 
 
+POOL_OR_SCALE = ('maxpool', 'avgpool', 'scale_channels')
+
+
+def pool_or_scale(lay: Dict, x: torch.Tensor, outs: Dict) -> torch.Tensor:
+    """The output of a maxpool, global avgpool or scale_channels ``lay`` on
+    the map before it, ``x``, and the kept outputs ``outs``."""
+    k = lay['kind']
+    if k == 'maxpool':
+        p = lay['pad']
+        return F.max_pool2d(F.pad(x, (p, p, p, p), value=float('-inf')), lay['size'],
+                            lay['stride'])
+    if k == 'avgpool':
+        return x.mean(dim=(2, 3), keepdim=True)
+    return outs[lay['refs'][0]] * x
+
+
 def walk(lays: List[Dict], x: torch.Tensor, conv, on_head=None) -> List[torch.Tensor]:
     """Run the layers on NCHW ``x``: ``conv(layer, x)`` computes a conv
     layer, activation included. Returns the raw heads, each also handed to
@@ -136,6 +163,8 @@ def walk(lays: List[Dict], x: torch.Tensor, conv, on_head=None) -> List[torch.Te
             x = torch.cat([outs[r] for r in l['refs']], 1)
         elif k == 'upsample':
             x = F.interpolate(x, scale_factor=l['stride'], mode='nearest')
+        elif k in POOL_OR_SCALE:
+            x = pool_or_scale(l, x, outs)
         elif k == 'yolo':
             heads.append(x)
             if on_head is not None:

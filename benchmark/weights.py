@@ -1,5 +1,9 @@
 """Seeded weights, made on the device in two large draws.
 
+Only convs have weights: a pool, a scale_channels, a shortcut, a route or
+an upsample draws nothing, so a cfg draws the same numbers in the same
+order whatever other layers it holds.
+
 Both the program and the reference take these same tensors; each derives
 from them what it needs (BN folds, casts, quantised codes) on its own.
 
